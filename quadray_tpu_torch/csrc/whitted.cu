@@ -1,10 +1,12 @@
 // Whitted megakernel for NVIDIA Hopper (sm_90a): one thread traces one
 // ray to completion.
 //
-// Replaces the TPU kernel quadray_tpu/ops/pallas_kernel.py
-// _trace_tiled/_make_kernel in Whitted mode (no path tracing, no state
-// emission) with culling off. It computes what that kernel computes, and
-// its plain twin is quadray_tpu_torch/ops/trace.py trace_rays:
+// Replaces the TPU kernels quadray_tpu/ops/pallas_kernel.py
+// _trace_tiled (_make_kernel in Whitted mode) and _trace_tiled_paths
+// (_make_kernel with emit_paths, the path records of trace-replay
+// training), with culling off and no path tracing or state emission. It
+// computes what those kernels compute; its plain twins are
+// quadray_tpu_torch/ops/trace.py trace_rays and trace_paths:
 //   * surface solvers: plane root with the division-free t-window, quadric
 //     and two-plane roots with stable b-mixed Vieta roots and the nan-root
 //     rule, near-zero determinant root sorting (D_EPS/T_EPS), the conic
@@ -21,6 +23,17 @@
 //     max_segments cap.
 // Surface classes are a run-time switch on sp_i (kind, singularity, clip
 // count) where the TPU kernel recompiled per scene structure.
+//
+// EMIT_PATHS (entry point whitted_paths_launch): segments are capped at k
+// and each thread writes its own i32 record of every segment it runs to
+// paths[it * n + i] (bits 0-11 hit surface original id, 12 side > 0, 13-14
+// continuation 0 stop / 1 reflect / 2 transmit, 15 hit, 16+l light l not
+// unoccluded-lit), then zeroes the rows after the segment it retired in,
+// so the output needs no zeroing. The TPU kernel stages the records in
+// VMEM scratch because a dynamic-index store costs it scalar traffic
+// (pallas_kernel.py:1880-1882); here the store is direct and coalesced
+// (neighbouring threads, neighbouring words). Single-branch scenes only
+// (no branch stack) and at most 16 active lights, as on the TPU.
 //
 // What bounds it on the H100: it reads 28 bytes and writes 12 per ray, so
 // it is not bandwidth-bound; it is latency- and divergence-bound on FP32
@@ -359,10 +372,10 @@ __device__ bool occluded(const Tables& T, const Ray& r) {
   return false;
 }
 
-template <bool CAN_PUSH>
+template <bool CAN_PUSH, bool EMIT_PATHS>
 __global__ void __launch_bounds__(128)
 whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
-               int n, Tables T, Cfg cfg) {
+               int* __restrict__ paths, int n, Tables T, Cfg cfg) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray r;
@@ -393,16 +406,23 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   // false, the stack is neither pushed nor popped, and active stays 0.
   // A lane still active at block iteration `it` has run exactly `it`
   // segments, so stopping each thread at max_segments is exact.
-  for (int it = 0; it < cfg.max_segments; ++it) {
+  int it = 0;
+  for (; it < cfg.max_segments; ++it) {
     Hit hb;
     nearest(T, r, hb);
     const bool hit = hb.t < BIG;
     bool cont = false;
+    // path record (record_path, pallas_kernel.py:1871-1886): a miss keeps
+    // side +1 and sets the bit of every active light (lit needs a hit)
+    unsigned rec =
+        EMIT_PATHS ? (1u << 12) | (((1u << T.nl) - 1u) << 16) : 0u;
     if (hit) {
       // normalize the normal
       const float nn = __frsqrt_rn(
           maxn(hb.nx * hb.nx + hb.ny * hb.ny + hb.nz * hb.nz, 1e-30f));
       const float nx = hb.nx * nn, ny = hb.ny * nn, nz = hb.nz * nn;
+      rec = (unsigned)(hb.srf & 0xFFF) | (hb.side > 0 ? 1u << 12 : 0u) |
+            (1u << 15);
       const float* M = T.mat_f + (size_t)hb.mat * MF;
       const int* Mi = T.mat_i + (size_t)hb.mat * MI;
       const int props = ldi(Mi, 0);
@@ -438,7 +458,11 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
         const float lvx = ldf(L, 0) - hb.wx, lvy = ldf(L, 1) - hb.wy,
                     lvz = ldf(L, 2) - hb.wz;
         const float r_dot = lvx * nx + lvy * ny + lvz * nz;
-        if (!(r_dot > 0.0f)) continue;
+        const unsigned unlit = EMIT_PATHS ? 1u << (16 + l) : 0u;
+        if (!(r_dot > 0.0f)) {
+          rec |= unlit;
+          continue;
+        }
         Ray sr;
         sr.ox = hb.wx; sr.oy = hb.wy; sr.oz = hb.wz;
         sr.dx = lvx; sr.dy = lvy; sr.dz = lvz;
@@ -448,7 +472,10 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
         sr.oside = hb.side;
         sr.thru = false;
         sr.olx = hb.hx; sr.oly = hb.hy; sr.olz = hb.hz;
-        if (occluded(T, sr)) continue;
+        if (occluded(T, sr)) {
+          rec |= unlit;
+          continue;
+        }
         // lit and unshadowed: attenuated diffuse + specular
         const float r2 = lvx * lvx + lvy * lvy + lvz * lvz;
         const float rr = __fsqrt_rn(maxn(r2, 1e-30f));
@@ -544,6 +571,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
       const bool go_trn =
           deep_ok && maxn(maxn(trn[0], trn[1]), trn[2]) > cfg.cutoff;
       cont = go_rfl || go_trn;
+      if (cont) rec |= (go_rfl ? 1u : 2u) << 13;
       if (CAN_PUSH && go_rfl && go_trn && sp < cfg.stack) {
         // push the refraction branch
         float* slot = stk[sp];
@@ -576,6 +604,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
         r.olx = hb.hx; r.oly = hb.hy; r.olz = hb.hz;
       }
     }
+    if (EMIT_PATHS) paths[(size_t)it * n + i] = (int)rec;
     if (!cont) {
       if (!CAN_PUSH || sp == 0) break;   // retired
       // pop a pending refraction branch
@@ -595,6 +624,11 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   out[i] = acc[0];
   out[n + i] = acc[1];
   out[2 * n + i] = acc[2];
+  if (EMIT_PATHS) {
+    // segments after the one this thread retired in record 0
+    for (int k = it + 1; k < cfg.max_segments; ++k)
+      paths[(size_t)k * n + i] = 0;
+  }
 }
 
 }  // namespace
@@ -617,8 +651,30 @@ extern "C" int whitted_launch(
   const dim3 block(128), grid((unsigned)((n + 127) / 128));
   cudaStream_t s = (cudaStream_t)stream;
   if (can_push)
-    whitted_kernel<true><<<grid, block, 0, s>>>(rays, out, n, T, cfg);
+    whitted_kernel<true, false><<<grid, block, 0, s>>>(rays, out, nullptr,
+                                                       n, T, cfg);
   else
-    whitted_kernel<false><<<grid, block, 0, s>>>(rays, out, n, T, cfg);
+    whitted_kernel<false, false><<<grid, block, 0, s>>>(rays, out, nullptr,
+                                                        n, T, cfg);
+  return (int)cudaGetLastError();
+}
+
+// Path-record entry point: as whitted_launch for a single-branch scene,
+// with segments capped at k, plus paths: (k, n) i32, every element
+// written by the kernel (no zeroing needed).
+extern "C" int whitted_paths_launch(
+    const float* rays, float* out, int* paths, const float* sp_f,
+    const int* sp_i, const float* cl_f, const float* mat_f,
+    const int* mat_i, const float* lg_f, const float* misc,
+    const int* tex_pk, const float* tex_lut, int n, int ns, int nc, int nl,
+    int depth, int k, float cutoff, void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || nl < 0 || nl > 16) return (int)cudaErrorInvalidValue;
+  Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
+           ns, nc, nl};
+  Cfg cfg{depth, k, 1, cutoff};
+  const dim3 block(128), grid((unsigned)((n + 127) / 128));
+  whitted_kernel<false, true><<<grid, block, 0, (cudaStream_t)stream>>>(
+      rays, out, paths, n, T, cfg);
   return (int)cudaGetLastError();
 }

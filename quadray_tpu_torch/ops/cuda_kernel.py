@@ -3,8 +3,11 @@
 The counterpart of the host half of ``quadray_tpu.ops.pallas_kernel``:
 the static scene structure (``KernelStruct``/``scene_struct``, which
 permutes surfaces into contiguous classes with shadow blockers first), the
-packed scene tables the kernel reads (``pack_scene``), and the launch
-wrapper ``trace_rays_cuda`` with ``render_cuda`` around it.
+packed scene tables the kernel reads (``pack_scene``), the launch
+wrapper ``trace_rays_cuda`` with ``render_cuda`` around it, and the
+path-record wrappers ``trace_paths`` / ``trace_paths_with_struct``
+(counterparts of ``pallas_kernel.py:2296, 2475``) that trace-replay
+training calls.
 
 Where the TPU kernel is compiled per scene structure, the CUDA kernel
 takes the structure at run time (surface kind, singularity and clip count
@@ -13,9 +16,9 @@ from ``sp_i``, material property bits and texture addressing from
 bounding-sphere tables ``bsph_t``/``shad_msk``/``cont_msk`` are not
 packed.
 
-``trace_rays_cuda`` on CPU tensors runs the plain tracer
-(``ops.trace.trace_rays``); on CUDA tensors it launches the kernel or
-raises.
+Each wrapper on CPU tensors runs its plain version
+(``ops.trace.trace_rays`` / ``ops.trace.trace_paths``); on CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,13 +33,15 @@ import torch
 from quadray_tpu_torch.scene.compile import (
     FIELDS, SceneArrays, PROP_LIGHT, PROP_OPAQUE, PROP_REFLECT,
     PROP_REFRACT, PROP_TEXTURE, PROP_FRESNEL, PROP_TRANSP, CLIP_NONE)
-from quadray_tpu_torch.ops.trace import TraceConfig, trace_rays
+from quadray_tpu_torch.ops.trace import TraceConfig, trace_paths as \
+    _trace_paths_plain, trace_rays
 
 F32 = torch.float32
 I32 = torch.int32
 BIG = 1e30
 LANES = 128       # texture atlas row width (texels)
 MAX_STACK = 16    # branch-stack slots the kernel holds per thread
+MAX_PATH_LIGHTS = 16   # path records hold one bit per light in bits 16-31
 
 PF = 44           # per-surface floats: pos 0-2, inv 3-11, sci 12-14,
 #                   scjh 15-17, sciw 18, cmin 19-21, cmax 22-24, fwd 25-33,
@@ -221,6 +226,54 @@ class _SceneCache:
 _get_struct = _SceneCache(scene_struct)
 
 
+def check_paths_struct(struct: KernelStruct) -> None:
+    """The path-record kernel's preconditions (pallas_kernel.py:499, 504,
+    2306): one linear chain per lane and one record bit per light."""
+    if struct.can_push:
+        raise ValueError("trace_paths requires a single-branch scene: a "
+                         "material here can spawn both a reflection and a "
+                         "transmission (can_push)")
+    if struct.nl > MAX_PATH_LIGHTS:
+        raise ValueError(f"trace_paths supports at most {MAX_PATH_LIGHTS} "
+                         f"active lights, the scene has {struct.nl}")
+
+
+class _StructTensors(NamedTuple):
+    perm: torch.Tensor     # (NS,) i64
+    blk: torch.Tensor      # (NS,) i32
+    ncl: torch.Tensor      # (NS,) i32
+    mat_i: torch.Tensor    # (NM, MI) i32
+    tex_lut: torch.Tensor  # (2, 128) f32
+
+
+_STRUCT_TENSORS: OrderedDict = OrderedDict()
+
+
+def _struct_tensors(struct: KernelStruct, dev) -> _StructTensors:
+    """The tables that depend on the structure alone, uploaded once per
+    (structure, device): re-packing a scene every training step then
+    makes no host-to-device copy, which would wait for the stream."""
+    key = (struct, str(dev))
+    ent = _STRUCT_TENSORS.get(key)
+    if ent is not None:
+        _STRUCT_TENSORS.move_to_end(key)
+        return ent
+    mat_i = np.zeros((struct.nm, MI), np.int32)
+    mat_i[:, 0] = struct.props
+    mat_i[:, 1] = -1
+    for (m, base, xm, ym, xs) in struct.tex:
+        mat_i[m, 1:] = (base, xm, ym, xs)
+    i32 = lambda v: torch.tensor(v, dtype=I32, device=dev)
+    ent = _StructTensors(
+        torch.tensor(struct.perm, dtype=torch.long, device=dev),
+        i32(struct.blk), i32(struct.ncl), torch.from_numpy(mat_i).to(dev),
+        torch.from_numpy(_TEX_LUT.copy()).to(dev))
+    _STRUCT_TENSORS[key] = ent
+    while len(_STRUCT_TENSORS) > 8:
+        _STRUCT_TENSORS.popitem(last=False)
+    return ent
+
+
 def pack_scene(sc: SceneArrays, struct: KernelStruct) -> PackedScene:
     """The tables the Whitted kernel reads, on the scene's device; rows
     permuted by ``struct.perm`` (bitwise the JAX package's pack_scene for
@@ -228,8 +281,8 @@ def pack_scene(sc: SceneArrays, struct: KernelStruct) -> PackedScene:
     dev = sc.device
     NS = sc.s_pos.shape[0]
     NC = sc.c_op.shape[1]
-    perm = torch.tensor(struct.perm, dtype=torch.long, device=dev)
-    i32 = lambda v: torch.tensor(v, dtype=I32, device=dev)
+    stt = _struct_tensors(struct, dev)
+    perm = stt.perm
     sp_f = torch.cat([
         sc.s_pos, sc.s_inv.reshape(NS, 9), sc.s_sci, sc.s_scjh,
         sc.s_sciw[:, None],
@@ -238,8 +291,8 @@ def pack_scene(sc: SceneArrays, struct: KernelStruct) -> PackedScene:
     ], dim=1).to(F32)[perm]
     sp_i = torch.cat([
         sc.s_kind[perm][:, None], sc.s_mat[perm],
-        i32(struct.blk)[:, None], sc.s_sing[perm][:, None],
-        i32(struct.ncl)[:, None], perm.to(I32)[:, None],
+        stt.blk[:, None], sc.s_sing[perm][:, None],
+        stt.ncl[:, None], perm.to(I32)[:, None],
         sc.s_bnd[perm][:, None]], dim=1).to(I32)
     ref = torch.clamp(sc.c_ref, min=0).long()
     cl_f = torch.cat([
@@ -266,36 +319,36 @@ def pack_scene(sc: SceneArrays, struct: KernelStruct) -> PackedScene:
     pk = (k8[:, 0] << 16) | (k8[:, 1] << 8) | k8[:, 2]
     tex_pk = torch.cat([pk, torch.zeros((G * LANES - pk.shape[0],),
                                         dtype=I32, device=dev)])
-    mat_i = np.zeros((struct.nm, MI), np.int32)
-    mat_i[:, 0] = struct.props
-    mat_i[:, 1] = -1
-    for (m, base, xm, ym, xs) in struct.tex:
-        mat_i[m, 1:] = (base, xm, ym, xs)
     return PackedScene(
         sp_f.contiguous(), sp_i.contiguous(), cl_f.contiguous(),
         mat_f.contiguous(), lg_f.contiguous(), misc.contiguous(),
-        tex_pk.reshape(G, LANES).contiguous(),
-        torch.from_numpy(_TEX_LUT.copy()).to(dev),
-        torch.from_numpy(mat_i).to(dev))
+        tex_pk.reshape(G, LANES).contiguous(), stt.tex_lut, stt.mat_i)
 
 
 _get_packed = _SceneCache(pack_scene)
 
-# kernel launches by trace_rays_cuda; a run that must have gone through
-# the kernel reads it before and after
+# kernel launches by trace_rays_cuda and by the path-record wrappers; a
+# run that must have gone through a kernel reads its count before and
+# after
 launches = 0
+paths_launches = 0
 
 _VOIDP = ctypes.c_void_p
+_SCENE_ARGS = [_VOIDP] * 9            # sp_f ... tex_lut
 
 
 def _lib():
     from quadray_tpu_torch.ops._build import load_library
     lib = load_library("whitted")
-    fn = lib.whitted_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([_VOIDP] * 11 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, _VOIDP])
-        fn.restype = ctypes.c_int
+    if lib.whitted_launch.argtypes is None:
+        lib.whitted_launch.argtypes = (
+            [_VOIDP] * 2 + _SCENE_ARGS + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_int, _VOIDP])
+        lib.whitted_launch.restype = ctypes.c_int
+        lib.whitted_paths_launch.argtypes = (
+            [_VOIDP] * 3 + _SCENE_ARGS + [ctypes.c_int] * 6
+            + [ctypes.c_float, _VOIDP])
+        lib.whitted_paths_launch.restype = ctypes.c_int
     return lib
 
 
@@ -307,18 +360,13 @@ def _check(name, t, dtype, shape, dev):
             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
-                    cfg: TraceConfig = TraceConfig(),
-                    struct: KernelStruct = None) -> torch.Tensor:
-    """Trace N rays to completion through the CUDA kernel; returns (N, 3)
-    linear radiance. org (3,) or (N, 3), dirs (N, 3), t_min (N,), all
-    f32 on the scene's device. CPU tensors take the plain tracer."""
-    global launches
-    if dirs.device.type == "cpu":
-        return trace_rays(sc, org, dirs, t_min, cfg)
+def _launch_inputs(fn: str, sc: SceneArrays, org, dirs, t_min,
+                   cfg: TraceConfig, struct: KernelStruct, ps: PackedScene):
+    """Checks what a CUDA launch takes; returns the (7, N) SoA rays (ox oy
+    oz dx dy dz tmin, caller order) and the scene-table pointers."""
     dev = dirs.device
     if dev.type != "cuda":
-        raise ValueError(f"trace_rays_cuda: unsupported device {dev}")
+        raise ValueError(f"{fn}: unsupported device {dev}")
     if cfg.schlick:
         raise NotImplementedError("the CUDA kernel has no Schlick Fresnel")
     if not 1 <= cfg.stack <= MAX_STACK:
@@ -332,8 +380,6 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
         if t.device != dev or t.dtype != F32 or tuple(t.shape) not in shapes:
             raise ValueError(f"{name}: need f32 of shape {shapes} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    struct = struct or _get_struct(sc)
-    ps = _get_packed(sc, struct)
     NS, NM = struct.ns, struct.nm
     for name, t, dtype, shape in (
             ("sp_f", ps.sp_f, F32, (NS, PF)),
@@ -346,11 +392,31 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
             ("tex_pk", ps.tex_pk, I32, (struct.tex_rows, LANES)),
             ("tex_lut", ps.tex_lut, F32, (2, LANES))):
         _check(name, t, dtype, shape, dev)
-    # flat SoA rays in caller order: ox oy oz dx dy dz tmin
     rays = torch.empty((7, N), dtype=F32, device=dev)
-    rays[0:3] = (org[:, None] if org.dim() == 1 else org.T)
-    rays[3:6] = dirs.T
-    rays[6] = t_min
+    with torch.no_grad():
+        rays[0:3] = (org[:, None] if org.dim() == 1 else org.T)
+        rays[3:6] = dirs.T
+        rays[6] = t_min
+    tables = (ps.sp_f.data_ptr(), ps.sp_i.data_ptr(), ps.cl_f.data_ptr(),
+              ps.mat_f.data_ptr(), ps.mat_i.data_ptr(), ps.lg_f.data_ptr(),
+              ps.misc.data_ptr(), ps.tex_pk.data_ptr(), ps.tex_lut.data_ptr())
+    return rays, tables
+
+
+def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
+                    cfg: TraceConfig = TraceConfig(),
+                    struct: KernelStruct = None) -> torch.Tensor:
+    """Trace N rays to completion through the CUDA kernel; returns (N, 3)
+    linear radiance. org (3,) or (N, 3), dirs (N, 3), t_min (N,), all
+    f32 on the scene's device. CPU tensors take the plain tracer."""
+    global launches
+    if dirs.device.type == "cpu":
+        return trace_rays(sc, org, dirs, t_min, cfg)
+    struct = struct or _get_struct(sc)
+    ps = _get_packed(sc, struct)
+    rays, tables = _launch_inputs("trace_rays_cuda", sc, org, dirs, t_min,
+                                  cfg, struct, ps)
+    N, dev = dirs.shape[0], dirs.device
     out = torch.empty((3, N), dtype=F32, device=dev)
     if N == 0:
         return out.T
@@ -358,10 +424,7 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.whitted_launch(
-            rays.data_ptr(), out.data_ptr(),
-            ps.sp_f.data_ptr(), ps.sp_i.data_ptr(), ps.cl_f.data_ptr(),
-            ps.mat_f.data_ptr(), ps.mat_i.data_ptr(), ps.lg_f.data_ptr(),
-            ps.misc.data_ptr(), ps.tex_pk.data_ptr(), ps.tex_lut.data_ptr(),
+            rays.data_ptr(), out.data_ptr(), *tables,
             N, struct.n_real, struct.nc, struct.nl,
             cfg.depth, cfg.max_segments, cfg.stack,
             cfg.cutoff, int(struct.can_push), stream)
@@ -369,6 +432,59 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
         raise RuntimeError(f"whitted kernel launch failed: CUDA error {err}")
     launches += 1
     return out.T
+
+
+def trace_paths(sc: SceneArrays, org, dirs, t_min,
+                cfg: TraceConfig = TraceConfig(), k_paths: int = 8):
+    """Kernel forward that also returns the per-segment path records:
+    (colors (N, 3) f32, paths (K, N) i32), K = k_paths, segments capped
+    at K (record layout: ``ops.trace.trace_paths``). Single-branch scenes
+    with at most 16 active lights (ValueError otherwise). CPU tensors
+    take the plain version."""
+    return _paths(sc, _get_struct(sc), _get_packed, org, dirs, t_min, cfg,
+                  k_paths)
+
+
+def trace_paths_with_struct(sc: SceneArrays, struct: KernelStruct, org,
+                            dirs, t_min, cfg: TraceConfig = TraceConfig(),
+                            k_paths: int = 8):
+    """trace_paths for a caller holding the scene's KernelStruct, which
+    parameter updates cannot change: the training loop re-packs the scene
+    from its current parameters every step. Nothing here is
+    differentiable: the tables are packed and the kernel runs under
+    ``torch.no_grad()``, the counterpart of the JAX ``stop_gradient`` on
+    the scene (parallel/train.py:82)."""
+    return _paths(sc, struct, pack_scene, org, dirs, t_min, cfg, k_paths)
+
+
+def _paths(sc, struct, pack, org, dirs, t_min, cfg, k_paths):
+    global paths_launches
+    check_paths_struct(struct)
+    if k_paths < 1:
+        raise ValueError(f"k_paths must be >= 1, got {k_paths}")
+    with torch.no_grad():
+        if dirs.device.type == "cpu":
+            return _trace_paths_plain(sc, org, dirs, t_min, cfg, k_paths)
+        ps = pack(sc, struct)
+        rays, tables = _launch_inputs("trace_paths", sc, org, dirs, t_min,
+                                      cfg, struct, ps)
+        N, dev = dirs.shape[0], dirs.device
+        out = torch.empty((3, N), dtype=F32, device=dev)
+        paths = torch.empty((k_paths, N), dtype=I32, device=dev)
+        if N == 0:
+            return out.T, paths
+        lib = _lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.whitted_paths_launch(
+                rays.data_ptr(), out.data_ptr(), paths.data_ptr(), *tables,
+                N, struct.n_real, struct.nc, struct.nl,
+                cfg.depth, k_paths, cfg.cutoff, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"whitted paths kernel launch failed: CUDA error {err}")
+    paths_launches += 1
+    return out.T, paths
 
 
 def render_cuda(sc: SceneArrays, width: int, height: int, fsaa: int = 1,

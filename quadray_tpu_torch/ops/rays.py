@@ -37,7 +37,9 @@ def camera_rays(cam_pos, cam_hor, cam_ver, cam_nrm, cam_pov,
     rounded to f32 first, as JAX's weak types are.
     """
     dev = cam_pos.device
-    c = lambda v: torch.tensor(v, dtype=F32, device=dev)
+    # f32 constants as 0-dim host tensors: a CUDA op reads them as
+    # scalars, where a copy to the card would wait for the stream
+    c = lambda v: torch.tensor(v, dtype=F32)
     xs = torch.arange(width, dtype=F32, device=dev)
     ys = torch.arange(height, dtype=F32, device=dev)
     factor = c(1.0 / width)

@@ -30,8 +30,15 @@ On the CPU, XLA also contracts the jitted JAX tracer's mul/add pairs into
 FMAs, so this tracer and the JAX one agree to within a few f32 ulps, not
 bitwise.
 
-fp64 tracing (``set_element``) and the differentiable scan variant are not
-ported yet.
+``trace_paths`` is the plain version of the path-record kernel (the
+``EMIT_PATHS`` mode of ``csrc/whitted.cu``, the TPU kernel's
+``_trace_tiled_paths``): the same loop, capped at K segments, that also
+writes one i32 record per segment for trace-replay training
+(``ops/replay.py``). ``trace_rays_diff`` runs the loop for a fixed
+``cfg.max_segments`` under autograd: the all-surface differentiable
+reference the replay gradients are held against.
+
+fp64 tracing (``set_element``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -222,7 +229,11 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     k_flip = torch.where(~inner & a_neg, -1.0, 1.0)
     adj_i = _sgn(o3[..., 0]) * ij_flip * inv_r
     adj_j = torch.where(cyl, 0.0, _sgn(o3[..., 1]) * ij_flip * inv_r)
-    adj_k = _sgn(o3[..., 2]) * k_flip * _sqrt(ratio) * inv_r
+    # (sqrt of a where-guarded 0: sqrt'(0) = inf would turn the masked-off
+    # gradient of trace_rays_diff into NaN)
+    sq_ratio = torch.where(ratio > 0.0,
+                           _sqrt(torch.where(ratio > 0.0, ratio, 1.0)), 0.0)
+    adj_k = _sgn(o3[..., 2]) * k_flip * sq_ratio * inv_r
     adj = torch.stack([adj_i, adj_j, adj_k], dim=-1)
     p_r = torch.where(hm[..., None], adj, p_r)
     x_adj = sc.s_pos[None, :, None, :] + _apply3(
@@ -338,12 +349,16 @@ def texture_color(sc: SceneArrays, midx, p_local):
 
 def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit):
     """Local color: ambient + per-light diffuse/specular with hard shadows
-    (LT_reg..LT_end, tracer.cpp:2709-3180)."""
+    (LT_reg..LT_end, tracer.cpp:2709-3180). Returns (col (N, 3), unlit
+    (N,) i32): bit 16+l of ``unlit`` is set where active light l is not
+    unoccluded-lit (the path record's light bits, pallas_kernel.py:1747),
+    for the first 16 light rows."""
     midx = material_index(sc, srf, side)
     props = sc.m_props[midx]
     tex = texture_color(sc, midx, p)
     col = tex * sc.amb_col[None, :]
     zero_t = torch.zeros_like(x[:, 0])
+    unlit = torch.zeros_like(srf)
     for li in range(sc.l_pos.shape[0]):
         lvec = sc.l_pos[li][None, :] - x                # L = pos - hit
         r_dot = _dot3(lvec, n)
@@ -353,6 +368,8 @@ def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit):
                         srf, side, torch.zeros_like(lit), shadow=True,
                         origin_loc=p)
         hm = lit & ~occ
+        if li < 16:
+            unlit = unlit | ((~hm & (sc.l_on[li] > 0)).to(I32) << (16 + li))
         r2 = _dot3(lvec, lvec)
         r = _sqrt(torch.clamp(r2, min=1e-30))
         attn = _rsqrt(torch.clamp(
@@ -374,7 +391,7 @@ def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit):
         contrib_metal = tex * lcol * (dfs + spc)[:, None]
         contrib_plain = tex * lcol * dfs[:, None] + lcol * spc[:, None]
         col = col + torch.where(metal[:, None], contrib_metal, contrib_plain)
-    return torch.where(((props & PROP_LIGHT) != 0)[:, None], tex, col)
+    return torch.where(((props & PROP_LIGHT) != 0)[:, None], tex, col), unlit
 
 
 def fresnel_metal_fast(dot, rcp, ext2):
@@ -459,18 +476,65 @@ CHUNK = 1 << 15
 def trace_rays(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
     """Trace N rays to completion; returns (N, 3) linear radiance.
     Rays are independent, so they are traced CHUNK at a time."""
+    return _chunked(sc, org, dirs, t_min, cfg, 0)[0]
+
+
+def trace_paths(sc: SceneArrays, org, dirs, t_min,
+                cfg: TraceConfig = TraceConfig(), k_paths: int = 8):
+    """Trace N rays for at most K = k_paths segments and record each
+    segment (``pallas_kernel.py`` ``trace_paths`` :2296, max_segments = K
+    as :2260). Returns (colors (N, 3) f32, paths (K, N) i32); the record
+    of segment k of lane i is ``paths[k, i]``:
+      bits 0-11  original id of the hit surface (0 on a miss);
+      bit 12     side > 0 (a miss has side +1);
+      bits 13-14 continuation: 0 stop, 1 reflect, 2 transmit;
+      bit 15     hit;
+      bit 16+l   active light l is NOT unoccluded-lit.
+    A lane that retired before segment k records 0 there. Single-branch
+    scenes with at most 16 active lights only (ValueError otherwise), as
+    the TPU kernel asserts (:499, :504, :2306). As in the kernel, a lane
+    never pushes a branch: where trained parameters let an opaque
+    material transmit, the reflection goes on and the transmission is
+    dropped."""
+    from quadray_tpu_torch.ops.cuda_kernel import check_paths_struct, \
+        _get_struct
+    check_paths_struct(_get_struct(sc))
+    return _chunked(sc, org, dirs, t_min,
+                    cfg._replace(max_segments=k_paths), k_paths, push=False)
+
+
+def _chunked(sc, org, dirs, t_min, cfg, k_paths, push=True):
     N = dirs.shape[0]
     if org.dim() == 1:
         org = org[None, :].expand(N, 3)
     outs = [_trace_chunk(sc, org[i:i + CHUNK].to(F32),
                          dirs[i:i + CHUNK].to(F32),
-                         t_min[i:i + CHUNK].to(F32), cfg)
+                         t_min[i:i + CHUNK].to(F32), cfg, k_paths, push)
             for i in range(0, N, CHUNK)]
-    return torch.cat(outs) if outs else torch.zeros((0, 3), dtype=F32,
-                                                    device=dirs.device)
+    if not outs:
+        return (torch.zeros((0, 3), dtype=F32, device=dirs.device),
+                torch.zeros((k_paths, 0), dtype=I32, device=dirs.device))
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs], dim=1))
 
 
-def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
+def trace_rays_diff(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
+    """Differentiable variant of trace_rays (``quadray_tpu.ops.trace``
+    :725): the same bounce run exactly cfg.max_segments times, unchunked,
+    under autograd; gradients reach every float field of ``sc`` that
+    requires grad. The all-surface reference for the replay gradients."""
+    N = dirs.shape[0]
+    if org.dim() == 1:
+        org = org[None, :].expand(N, 3)
+    return _trace_chunk(sc, org.to(F32), dirs.to(F32), t_min.to(F32), cfg,
+                        0, fixed=True)[0]
+
+
+def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
+                 k_paths: int = 0, push: bool = True, fixed: bool = False):
+    """Returns (acc (N, 3), paths (k_paths, N) i32); ``push`` lets a lane
+    push the transmission where both branches go on; ``fixed`` runs all
+    cfg.max_segments bounces instead of stopping once every lane retired."""
     N = dirs.shape[0]
     D = cfg.stack
     dev = dirs.device
@@ -487,18 +551,23 @@ def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
         st_org=zf(D, 3), st_dir=zf(D, 3), st_thr=zf(D, 3),
         st_depth=zi(D), st_srf=zi(D), st_side=zi(D), st_oloc=zf(D, 3),
     )
+    paths = torch.zeros((k_paths, N), dtype=I32, device=dev)
     it = 0
-    while it < cfg.max_segments and bool(st["active"].any()):
-        st = _bounce(sc, cfg, st)
+    while it < cfg.max_segments and (fixed or bool(st["active"].any())):
+        st, rec = _bounce(sc, cfg, st, push)
+        if it < k_paths:
+            paths[it] = rec
         it += 1
-    return st["acc"]
+    return st["acc"], paths
 
 
-def _bounce(sc: SceneArrays, cfg: TraceConfig, st):
+def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True):
     """One bounce of the iterative Whitted loop (quadray_tpu.ops.trace
     _make_body): shade the nearest hit, continue with the reflection if
     it carries weight, else the refraction, pushing the refraction when
-    both do; lanes that cannot continue pop the branch stack."""
+    both do (unless ``push_ok`` is False); lanes that cannot continue pop
+    the branch stack. Returns the new state and the segment's path record
+    (see trace_paths)."""
     N = st["org"].shape[0]
     D = cfg.stack
     act = st["active"]
@@ -507,8 +576,8 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st):
                   st["osrf"], st["oside"], st["thru"],
                   origin_loc=st["oloc"])
     hit = h["hit"] & act
-    local = shade(sc, cfg, h["x"], h["p"], h["n"], st["dir"],
-                  h["srf"], h["side"], hit)
+    local, unlit = shade(sc, cfg, h["x"], h["p"], h["n"], st["dir"],
+                         h["srf"], h["side"], hit)
     midx = material_index(sc, h["srf"], h["side"])
     c_rfl, c_trn, refr_dir, _ = fresnel_terms(sc, midx, st["dir"], h["n"],
                                               cfg.schlick)
@@ -527,7 +596,7 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st):
     refl_dir = st["dir"] - 2.0 * ddotn[:, None] * h["n"]
 
     # push the refraction branch where both continue
-    push = go_rfl & go_trn & (st["sp"] < D)
+    push = go_rfl & go_trn & (st["sp"] < D) & push_ok
     slot = torch.where(push, st["sp"], D).long()
     oh = torch.nn.functional.one_hot(slot, D + 1)[:, :D].bool()   # (N, D)
 
@@ -547,6 +616,13 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st):
 
     # continue with reflection if live, else refraction, else pop
     cont = go_rfl | go_trn
+    # the segment's path record (record_path, pallas_kernel.py:1871-1886);
+    # a miss keeps the kernel's initial side +1 (pallas_kernel.py:1192)
+    kind = torch.where(cont, torch.where(go_rfl, 1, 2), 0).to(I32)
+    rec = ((torch.where(hit, h["srf"], 0) & 0xFFF)
+           | ((~h["hit"] | (h["side"] > 0)).to(I32) << 12)
+           | (kind << 13) | (hit.to(I32) << 15) | unlit)
+    rec = torch.where(act, rec, 0)
     can_pop = act & ~cont & (sp > 0)
     psp = torch.clamp(sp - 1, min=0).long()
     lanes = torch.arange(N, device=act.device)
@@ -573,7 +649,7 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st):
         sp=torch.where(can_pop, psp.to(I32), sp),
         st_org=st_org, st_dir=st_dir, st_thr=st_thr, st_depth=st_depth,
         st_srf=st_srf, st_side=st_side, st_oloc=st_oloc,
-    )
+    ), rec
 
 
 def render(sc: SceneArrays, width: int, height: int, fsaa: int = 1,

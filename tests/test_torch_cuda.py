@@ -4,6 +4,7 @@ Imports no JAX, so it runs on a GPU machine without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import dataclasses
 import os
 
 import pytest
@@ -13,7 +14,9 @@ from quadray_tpu_torch import Scene
 from quadray_tpu_torch.models.scenes.loader import load_scene
 from quadray_tpu_torch.ops import cuda_kernel as ck
 from quadray_tpu_torch.ops.rays import camera_rays
-from quadray_tpu_torch.ops.trace import TraceConfig, trace_rays
+from quadray_tpu_torch.ops.replay import replay_color
+from quadray_tpu_torch.ops.trace import (TraceConfig, trace_paths,
+                                         trace_rays, trace_rays_diff)
 from quadray_tpu_torch.scene import schema as S
 from quadray_tpu_torch.scene.compile import compile_scene
 from quadray_tpu_torch.utils.image import frame_cmp, load_bmp
@@ -64,6 +67,68 @@ def test_cuda_scene_golden(dev, name):
     frame = Scene(load_scene(name), 800, 480, device=dev).render(0.0)
     nbad, _ = frame_cmp(ref, frame, t_diff=3)
     assert nbad <= BUDGET.get(name, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["test01", "test04", "test11", "test13",
+                                  "test15", "demo01"])
+def test_paths_kernel_matches_plain_on_card(dev, name):
+    """The path-record kernel: records equal to the plain version's on
+    every lane, colors within 1e-5, one launch per call."""
+    sc, org, dirs, tmin = _rays(name, dev, 200, 120)
+    cfg = TraceConfig(max_segments=8, stack=4)
+    before = ck.paths_launches
+    got_c, got_p = ck.trace_paths(sc, org, dirs, tmin, cfg, 8)
+    want_c, want_p = trace_paths(sc, org, dirs, tmin, cfg, 8)
+    torch.cuda.synchronize()
+    assert ck.paths_launches == before + 1
+    assert got_p.dtype == torch.int32 and got_p.shape == (8, dirs.shape[0])
+    assert torch.equal(got_p, want_p)
+    assert (got_c - want_c).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_replay_of_kernel_records_matches_kernel_colors(dev):
+    sc, org, dirs, tmin = _rays("test01", dev, 200, 120)
+    cfg = TraceConfig(max_segments=8, stack=4)
+    cols, paths = ck.trace_paths(sc, org, dirs, tmin, cfg, 8)
+    rep = replay_color(sc, org, dirs, tmin, paths, cfg)
+    assert (rep - cols).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fast_path_grads_match_all_surface_grads_on_card(dev):
+    """d(sum of interior pixels)/d(s_pos, m_col, l_pos) through replay of
+    the kernel's records vs through trace_rays_diff (the methodology of
+    tests/test_replay.py:51-93): interior lanes keep their first-hit
+    surface over their 4-neighbourhood; rel 5e-3 of the largest
+    gradient."""
+    w, h = 64, 40
+    sc, org, dirs, tmin = _rays("test01", dev, w, h)
+    cfg = TraceConfig(max_segments=3, stack=2)
+    _, paths = ck.trace_paths(sc, org, dirs, tmin, cfg, 3)
+    g = (paths[0] & 0xFFF).reshape(h, w)
+    edge = torch.zeros_like(g, dtype=torch.bool)
+    edge[1:, :] |= g[1:, :] != g[:-1, :]
+    edge[:-1, :] |= g[1:, :] != g[:-1, :]
+    edge[:, 1:] |= g[:, 1:] != g[:, :-1]
+    edge[:, :-1] |= g[:, 1:] != g[:, :-1]
+    wmask = (~edge.reshape(-1)).float()[:, None]
+    fields = ("s_pos", "m_col", "l_pos")
+
+    def grads(colors_of):
+        leaves = {k: getattr(sc, k).clone().requires_grad_(True)
+                  for k in fields}
+        cols = colors_of(dataclasses.replace(sc, **leaves))
+        (torch.clamp(cols, 0.0, 1.0) * wmask).sum().backward()
+        return {k: v.grad for k, v in leaves.items()}
+
+    ga = grads(lambda s: replay_color(s, org, dirs, tmin, paths, cfg))
+    gb = grads(lambda s: trace_rays_diff(s, org, dirs, tmin, cfg))
+    for k in fields:
+        scale = max(gb[k].abs().max().item(), 1e-6)
+        rel = (ga[k] - gb[k]).abs().max().item() / scale
+        assert rel < 5e-3, f"{k}: replay grad off by rel {rel:.2e}"
 
 
 @pytest.mark.cuda
