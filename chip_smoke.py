@@ -3,9 +3,10 @@
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --only A   # kernel build + kernel-vs-plain only
     python3 chip_smoke.py --only D   # kernel build + the training path only
+    python3 chip_smoke.py --only E   # kernel build + the path tracer only
 
-Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, both entry
-points) with nvcc, then:
+Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all three
+entry points) with nvcc, then:
   A. kernel vs its plain PyTorch version (ops/trace.py), both on the card,
      at 200x120 on seven scenes chosen for their features and at the main
      path's 800x480 on two; max abs diff of linear colors <= 1e-5;
@@ -28,8 +29,30 @@ points) with nvcc, then:
      ms/step and split (paths kernel, replay fwd+bwd, Adam) beside the
      plain version's step; D4 the paths kernel vs its plain version on test13
      and demo03 at 800x480.
+  E. the path tracer (bench.py bench_pt's configuration: test18 at 800x480,
+     depth 10): E1 the PT kernel vs its plain version (ops/pt.py trace_pt)
+     on the card, one pass at 200x120 on test18 (the Cornell box: Fresnel
+     glass, a metal, an area light), test17 (Fresnel glass: the two-branch
+     pushes; texture), test15 (texture) and test05 (metal mirrors), then
+     test18 at 800x480: seeds equal, radiance within 1e-5, over 5% of the
+     lanes lit.
+     Paths in test17, test15 and test05 seldom reach their small light, so
+     these three get a seeded emission on every surface; E2 the main
+     path, Scene(load_scene("test18"), 800, 480, device="cuda") with
+     set_pton(True) and render_pt_pass(64), against
+     golden/ref_test18_pt64.bmp under the four limits of tests/test_pt.py
+     (global mean per channel < 2.5, 16x16 block mean < 3.5, p95 < 9,
+     max < 18), with exactly 64 PT launches; E3 the engine's state across
+     calls: render_pt_pass(1) then render_pt_pass(3) equal one
+     render_pt_cuda of 4 passes, bitwise (one pass loop serves both; there
+     is no fused path); E4 ms per pass (mean of 20 after 2 warm-up passes,
+     CUDA events), the kernel alone, the plain version's pass, the call's
+     iteration count M and the nodes run.
 Any failure raises (exit code != 0). The last two lines are the kernel
-table and {"ok": true, "device": {...}} as JSON.
+table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
+is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
+surface tests its inputs need (counted by the plain version on the same
+inputs, ops/trace.py count_work, priced by OPS_*) over 67 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -68,6 +91,27 @@ RECOVER_FIELDS = ("s_pos",)
 PHASE_D1 = [(n, 200, 120) for n in ("test01", "test04", "test11", "test13",
                                     "test15", "demo01")] + [
     (n, W, H) for n in ("test01", "test13")]
+# phase E: bench_pt's configuration (bench.py:199-244)
+PT_DEPTH, PT_PASSES, PT_TIMED = 10, 64, 20
+# (scene, width, height, seed of the added emission or None)
+PHASE_E1 = [("test18", 200, 120, None), ("test17", 200, 120, 17),
+            ("test15", 200, 120, 15), ("test05", 200, 120, 5),
+            ("test18", W, H, None)]
+# E1: the least share of lanes that must gather light, so that a wrong
+# branch or pop shows (one test18 pass at 100x60 on the CPU lit 8% of its
+# lanes; test17, test15, test05 with the added emission 48%, 46%, 100%)
+PT_LIT = 0.05
+# golden/ref_test18_pt64.bmp limits (tests/test_pt.py:43-53)
+PT_LIMITS = {"global_mean": 2.5, "block_mean": 3.5, "block_p95": 9.0,
+             "block_max": 18.0}
+# FP32 operations (mul, add, sub, div, sqrt; compares not counted) of one
+# surface test in quadray_tpu_torch/csrc/whitted.cu, counted from its
+# source: a plane's nearest or shadow test; a quadric's (or two-plane's)
+# shadow test and its nearest test, which also forms both roots' gradients
+OPS_PLANE, OPS_QUADRIC_SHADOW, OPS_QUADRIC = 48, 100, 112
+# H100 SXM: HBM bytes/s and FP32 FLOP/s outside the tensor cores (NVIDIA's
+# data sheet)
+HBM_RATE, FP32_RATE = 3.35e12, 67e12
 
 
 def log(*a):
@@ -179,6 +223,20 @@ def phase_b_timing(scenes):
             f"Mray/s={W * H / ms / 1e3:.1f} plain_ms/frame="
             f"{'not timed' if plain is None else f'{plain:.1f}'}")
     return rows
+
+
+def whitted_bound(dev, name):
+    """The Whitted kernel's bound on one 800x480 frame of a scene: 28
+    bytes in and 12 out per ray; the surface tests its rays need."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig, trace_rays
+    sc = compiled(name, dev)
+    stats = {}
+    trace_rays(sc, *primary(sc, W, H), TraceConfig(), stats)
+    torch.cuda.empty_cache()
+    bound, by = bound_ms(W * H * 40, surface_ops(ck.scene_struct(sc), stats))
+    log(f"T {name} work: {work_line(stats)}, bound_ms={bound:.4f} ({by})")
+    return bound, by
 
 
 def phase_c(dev):
@@ -363,6 +421,12 @@ def phase_d3(dev):
         loss_of(s2, p).backward()
         tr.adam_step(lv, state[1], TRAIN_LR)
 
+    stats = {}
+    trace_paths(sc_fixed, *rays, cfg, K_PATHS, stats)
+    # 28 bytes in, 12 out and a K-word record out per ray
+    p_bound = bound_ms(W * H * (40 + 4 * K_PATHS), surface_ops(struct, stats))
+    log(f"D3 paths kernel work: {work_line(stats)}, bound_ms="
+        f"{p_bound[0]:.4f} ({p_bound[1]})")
     plain_step_ms = cuda_ms(plain_step, 2)
     plain_paths_ms = cuda_ms(lambda: trace_paths(
         sc_fixed, *rays, cfg, K_PATHS), 2)
@@ -371,7 +435,7 @@ def phase_d3(dev):
         f"{repack_ms:.3f} of which kernel {kernel_ms:.3f}, replay fwd+bwd "
         f"{replay_ms:.3f}, Adam {adam_ms:.3f}) plain_ms/step="
         f"{plain_step_ms:.1f} (plain trace_paths {plain_paths_ms:.1f})")
-    return launches, kernel_ms, plain_paths_ms
+    return launches, kernel_ms, plain_paths_ms, p_bound
 
 
 def phase_d4(dev):
@@ -391,11 +455,214 @@ def phase_d4(dev):
             f"plain ms={plain:.1f}")
 
 
+def bound_ms(n_bytes: float, ops: float) -> tuple:
+    """The least time the card could take for this work: (ms, what bounds
+    it), the larger of bytes over HBM_RATE and operations over FP32_RATE."""
+    t_bytes, t_ops = n_bytes / HBM_RATE, ops / FP32_RATE
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def surface_ops(struct, stats) -> float:
+    """FP32 operations of the surface tests a call's inputs need, from the
+    plain version's count of its work (ops/trace.py count_work): every
+    nearest-hit walk tests every real surface; a shadow ray that no
+    blocker stops tests every blocker, and one that is stopped needs one
+    test (the cheapest kind among the blockers)."""
+    planes = sum(g.count for g in struct.groups if g.is_plane)
+    others = struct.n_real - planes
+    b_planes = sum(g.n_block for g in struct.groups if g.is_plane)
+    b_others = sum(g.n_block for g in struct.groups) - b_planes
+    one_test = OPS_PLANE if b_planes else OPS_QUADRIC_SHADOW
+    return (stats.get("walks", 0) * (planes * OPS_PLANE + others * OPS_QUADRIC)
+            + stats.get("shadow_open", 0) * (b_planes * OPS_PLANE
+                                             + b_others * OPS_QUADRIC_SHADOW)
+            + stats.get("shadow_blocked", 0) * one_test)
+
+
+def work_line(stats) -> str:
+    return " ".join(f"{k}={stats.get(k, 0)}" for k in (
+        "walks", "shadow_open", "shadow_blocked"))
+
+
+def iterations(seeds_in, seeds_out) -> int:
+    """A PT call's iteration count M: every seed advanced 4*M draws."""
+    from quadray_tpu_torch.ops.pt import lcg_jump
+    for m in range(6 * (PT_DEPTH + 1) + 1):
+        if torch.equal(lcg_jump(seeds_in, 4 * m), seeds_out):
+            return m
+    raise AssertionError("PT seeds are not advanced 4*M draws")
+
+
+def with_emission(sc, seed: int):
+    """sc with a seeded emission in [0, 0.5) added on both sides of every
+    real surface: every path then gathers light at each node, so a wrong
+    branch weight, stack pop or emission row shows in its radiance."""
+    e = np.random.default_rng(seed).uniform(
+        0.0, 0.5, tuple(sc.s_emis.shape)).astype(np.float32)
+    e = torch.from_numpy(e).to(sc.s_emis.device)
+    return dataclasses.replace(
+        sc, s_emis=sc.s_emis + e * (sc.s_kind > 0)[:, None, None])
+
+
+def pt_inputs(sc, w, h, dev):
+    from quadray_tpu_torch.ops.pt import init_seeds, pt_camera_rays
+    org, dirs, seeds = pt_camera_rays(sc, w, h, init_seeds(w * h,
+                                                           device=dev))
+    return org, dirs, sc.cam_pov.expand(w * h), seeds
+
+
+def phase_e1(dev):
+    """The PT kernel vs its plain version on the card."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.pt import trace_pt
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    cfg = TraceConfig(depth=PT_DEPTH)
+    worst = 0.0
+    for name, w, h, seed in PHASE_E1:
+        sc = compiled(name, dev)
+        if seed is not None:
+            sc = with_emission(sc, seed)
+        rays = pt_inputs(sc, w, h, dev)
+        got_r, got_s = ck.trace_pt_cuda(sc, *rays, cfg)
+        m = iterations(rays[3], got_s)
+        want_r, want_s = trace_pt(sc, *rays, cfg)
+        torch.cuda.synchronize()
+        d = (got_r - want_r).abs()
+        nd = int((d.amax(dim=1) > 0).sum())
+        mx = float(d.max())
+        n_seed = int((got_s != want_s).sum())
+        lit = float((got_r.amax(dim=1) > 0).float().mean())
+        worst = max(worst, mx)
+        log(f"E1 {name} {w}x{h}{'' if seed is None else ' +emission'}: "
+            f"rays={w * h} M={m} seeds_differing={n_seed} lanes_differing="
+            f"{nd} max_abs={mx:.3e} mean_radiance={float(got_r.mean()):.6f}"
+            f" lit_lanes={lit:.4f}")
+        if n_seed or not torch.equal(got_s, want_s):
+            raise AssertionError(f"E1 {name}: {n_seed} seeds differ")
+        if not (mx <= ATOL and bool(torch.isfinite(got_r).all())):
+            raise AssertionError(f"E1 {name}: radiance off by {mx}")
+        if not lit > PT_LIT:
+            raise AssertionError(f"E1 {name}: only {lit:.4f} of the lanes "
+                                 "gathered any light")
+        del want_r, want_s
+        torch.cuda.empty_cache()
+    return worst
+
+
+def pt_stats(frame, ref):
+    """tests/test_pt.py's four statistics of a frame against the golden."""
+    frame, ref = frame.astype(np.float32), ref.astype(np.float32)
+    mean_d = np.abs(frame.reshape(-1, 3).mean(0) - ref.reshape(-1, 3)
+                    .mean(0))
+    B = 16
+    fb = frame.reshape(H // B, B, W // B, B, 3).mean((1, 3))
+    rb = ref.reshape(H // B, B, W // B, B, 3).mean((1, 3))
+    d = np.abs(fb - rb)
+    return {"global_mean": float(mean_d.max()), "block_mean":
+            float(d.mean()), "block_p95": float(np.percentile(d, 95)),
+            "block_max": float(d.max())}
+
+
+def phase_e2(dev):
+    """The main path, counted: 64 progressive passes through the engine,
+    held to the reference engine's 64-spp frame."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.utils.image import load_bmp
+    ref = load_bmp(os.path.join(GOLDEN, "ref_test18_pt64.bmp"))
+    scene = Scene(load_scene("test18"), W, H, device=dev)
+    scene.update(0.0)
+    if not scene.set_pton(True):
+        raise AssertionError("E2: set_pton(True) refused")
+    torch.cuda.synchronize()
+    ck.pt_launches = 0
+    t0 = time.perf_counter()
+    frame = scene.render_pt_pass(PT_PASSES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.pt_launches
+    stats = pt_stats(frame, ref)
+    log(f"E2 test18 {W}x{H} {PT_PASSES} passes: pt_launches={launches} "
+        f"wall={wall:.3f} s " + " ".join(
+            f"{k}={v:.4f} (limit {PT_LIMITS[k]})" for k, v in stats.items()))
+    if launches != PT_PASSES:
+        raise AssertionError(f"E2: {launches} PT launches for {PT_PASSES} "
+                             "passes")
+    bad = [k for k, v in stats.items() if not v < PT_LIMITS[k]]
+    if bad or frame.shape != (H, W, 3):
+        raise AssertionError(f"E2: outside the golden's limits: {bad}")
+    return scene, launches
+
+
+def phase_e3(dev, scene):
+    """The engine carries its pass state (sum, seeds, sample count) across
+    calls: 1 then 3 passes through render_pt_pass equal one render_pt_cuda
+    of 4 passes from fresh seeds. Both run ops/cuda_kernel.py pt_passes;
+    the port has no fused path."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.pt import init_seeds
+    from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
+    scene.reset_pt()
+    scene.render_pt_pass(1)
+    frame = scene.render_pt_pass(3)
+    img, seeds = ck.render_pt_cuda(scene.arrays, W, H,
+                                   init_seeds(W * H, device=dev), 4,
+                                   TraceConfig(depth=PT_DEPTH),
+                                   scene._struct)
+    want = (scene._pt_acc / 4.0).reshape(H, W, 3)
+    same_f = np.array_equal(frame, to_frame(
+        img, scene.arrays.use_gamma).cpu().numpy())
+    same_r, same_s = torch.equal(img, want), torch.equal(seeds,
+                                                         scene._pt_seeds)
+    log(f"E3 test18 {W}x{H} 1 + 3 passes vs 4 in one call: radiance="
+        f"{same_r} seeds={same_s} frame={same_f}")
+    if not (same_r and same_s and same_f):
+        raise AssertionError("E3: passes split over calls differ from one "
+                             "call's")
+
+
+def phase_e4(dev):
+    """bench_pt's pass: ms per pass, the kernel alone and the plain pass;
+    M, the nodes run and the bound."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.pt import init_seeds, trace_pt
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    sc = compiled("test18", dev)
+    struct = ck.scene_struct(sc)
+    cfg = TraceConfig(depth=PT_DEPTH)
+    state = [init_seeds(W * H, device=dev)]
+
+    def one_pass():
+        _, state[0] = ck.render_pt_cuda(sc, W, H, state[0], 1, cfg, struct)
+
+    pass_ms = cuda_ms(one_pass, PT_TIMED, warmup=2)
+    rays = pt_inputs(sc, W, H, dev)
+    kernel_ms = cuda_ms(lambda: ck.trace_pt_cuda(sc, *rays, cfg, struct),
+                        PT_TIMED, warmup=2)
+    m = iterations(rays[3], ck.trace_pt_cuda(sc, *rays, cfg, struct)[1])
+    plain_ms = cuda_ms(lambda: trace_pt(sc, *rays, cfg), 1)
+    stats = {}
+    trace_pt(sc, *rays, cfg, stats)
+    nodes = stats["walks"]
+    torch.cuda.empty_cache()
+    # bytes: 7 f32 ray words and an i32 seed in, 3 f32 and a seed out
+    bound, bound_by = bound_ms(W * H * 48, surface_ops(struct, stats))
+    log(f"E4 test18 {W}x{H} depth {PT_DEPTH}: ms/pass={pass_ms:.3f} "
+        f"(ray gen + kernel + sum, mean of {PT_TIMED}) kernel_ms="
+        f"{kernel_ms:.3f} plain_ms/pass={plain_ms:.1f} M={m} nodes={nodes} "
+        f"({nodes / (W * H):.3f} per sample) bound_ms={bound:.4f} "
+        f"({bound_by})")
+    return kernel_ms, plain_ms, bound, bound_by
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["A", "D"], default=None,
-                    help="run only phase A (build + kernel vs plain) or "
-                    "only phase D (training path)")
+    ap.add_argument("--only", choices=["A", "D", "E"], default=None,
+                    help="run only phase A (build + kernel vs plain), "
+                    "only phase D (training path) or only phase E (path "
+                    "tracer)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -417,11 +684,12 @@ def main():
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
             for line in fh:
-                if "registers" in line or "stack frame" in line:
+                if any(k in line for k in ("entry function", "registers",
+                                           "stack frame")):
                     log(f"ptxas: {line.strip()}")
     dev = torch.device("cuda", 0)
 
-    if args.only != "D":
+    if args.only in (None, "A"):
         t0 = time.perf_counter()
         max_err = phase_a(dev, PHASE_A[:2] if args.only else PHASE_A)
         log(f"phase A ok ({time.perf_counter() - t0:.1f} s)")
@@ -431,16 +699,29 @@ def main():
         scenes, launches = phase_b(dev)
         log(f"phase B ok ({time.perf_counter() - t0:.1f} s)")
         rows = phase_b_timing(scenes)
+        w_bound = whitted_bound(dev, "test13")
         t0 = time.perf_counter()
         phase_c(dev)
         log(f"phase C ok ({time.perf_counter() - t0:.1f} s)")
 
+    if args.only in (None, "D"):
+        t0 = time.perf_counter()
+        d_err = phase_d1(dev)
+        phase_d2(dev)
+        d_launches, d_ms, d_plain, d_bound = phase_d3(dev)
+        phase_d4(dev)
+        log(f"phase D ok ({time.perf_counter() - t0:.1f} s)")
+        if args.only:
+            return
+
     t0 = time.perf_counter()
-    d_err = phase_d1(dev)
-    phase_d2(dev)
-    d_launches, d_ms, d_plain = phase_d3(dev)
-    phase_d4(dev)
-    log(f"phase D ok ({time.perf_counter() - t0:.1f} s)")
+    e_err = phase_e1(dev)
+    scene, e_launches = phase_e2(dev)
+    phase_e3(dev, scene)
+    del scene
+    torch.cuda.empty_cache()
+    e_ms, e_plain, e_bound, e_by = phase_e4(dev)
+    log(f"phase E ok ({time.perf_counter() - t0:.1f} s)")
     if args.only:
         return
 
@@ -449,18 +730,31 @@ def main():
         "(render_cuda vs plain render); whitted_paths ms/plain_ms are "
         "test01 800x480 K=8 path-record traces (the training step's), "
         "launches the 10-step training run's, max_abs_err the worst "
-        "color error of D1 (its records equal the plain version's)")
+        "color error of D1 (its records equal the plain version's); "
+        "whitted_pt ms/plain_ms are one test18 800x480 depth-10 pass "
+        "(trace_pt_cuda vs plain trace_pt), launches E2's 64 passes, "
+        "max_abs_err the worst radiance error of E1 (its seeds equal the "
+        "plain version's); bound_ms for the same inputs; no single "
+        "PyTorch call traces rays, so library_ms is null")
     log(json.dumps({"kernels": [{
         "name": "whitted", "route": "cuda",
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2201",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain}, {
+        "ms": ms, "plain_ms": plain, "bound_ms": w_bound[0],
+        "bound_by": w_bound[1], "library_ms": None}, {
         "name": "whitted_paths", "route": "cuda",
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2250",
         "launches": d_launches, "max_abs_err": d_err,
-        "ms": d_ms, "plain_ms": d_plain}]}))
+        "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound[0],
+        "bound_by": d_bound[1], "library_ms": None}, {
+        "name": "whitted_pt", "route": "cuda",
+        "source": "quadray_tpu_torch/csrc/whitted.cu",
+        "replaces": "quadray_tpu/ops/pallas_kernel.py:2313",
+        "launches": e_launches, "max_abs_err": e_err,
+        "ms": e_ms, "plain_ms": e_plain, "bound_ms": e_bound,
+        "bound_by": e_by, "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,14 @@
 // Whitted megakernel for NVIDIA Hopper (sm_90a): one thread traces one
-// ray to completion.
+// ray (or one path-traced sample) to completion.
 //
 // Replaces the TPU kernels quadray_tpu/ops/pallas_kernel.py
-// _trace_tiled (_make_kernel in Whitted mode) and _trace_tiled_paths
+// _trace_tiled (_make_kernel in Whitted mode), _trace_tiled_paths
 // (_make_kernel with emit_paths, the path records of trace-replay
-// training), with culling off and no path tracing or state emission. It
-// computes what those kernels compute; its plain twins are
-// quadray_tpu_torch/ops/trace.py trace_rays and trace_paths:
+// training) and _trace_tiled_pt (_make_kernel with pt, the progressive
+// path tracer), with culling off and no state emission. It computes what
+// those kernels compute; its plain twins are
+// quadray_tpu_torch/ops/trace.py trace_rays and trace_paths and
+// quadray_tpu_torch/ops/pt.py trace_pt:
 //   * surface solvers: plane root with the division-free t-window, quadric
 //     and two-plane roots with stable b-mixed Vieta roots and the nan-root
 //     rule, near-zero determinant root sorting (D_EPS/T_EPS), the conic
@@ -35,17 +37,39 @@
 // (neighbouring threads, neighbouring words). Single-branch scenes only
 // (no branch stack) and at most 16 active lights, as on the TPU.
 //
-// What bounds it on the H100: it reads 28 bytes and writes 12 per ray, so
-// it is not bandwidth-bound; it is latency- and divergence-bound on FP32
-// ALU work and scattered reads of the small scene tables (through __ldg),
-// with every thread walking every surface for every segment and shadow
-// ray. Making it fast (bounding-sphere culling, warp-coherent traversal,
-// tables in shared memory) is later work.
+// PT mode (entry point whitted_pt_launch; pt_kernel, then pt_seed_tail):
+// the split-tree walk of pt_body/pt_cond (pallas_kernel.py:1365-1669),
+// one sample per thread: per node the hit's emission, Fresnel weights
+// (TR section with TIR, RF-section metal and plain Fresnel), both
+// Fresnel branches at depth < PT_SHALLOW and one defensively sampled
+// branch deeper, a cosine-hemisphere diffuse child with Russian roulette
+// from depth-5 on, siblings on a PT_STACK-slot stack (13 values a slot:
+// the Pallas kernel's 16 less the local hit, which PT continuations do
+// not reuse), and the 6*(depth+1) node cap. Each node draws four LCG
+// uniforms; the jnp tracer keeps drawing for every lane while any lane
+// of the call is active, so every output seed is its input seed advanced
+// 4*M draws, M the call's iteration count. Threads do not wait for
+// each other for that: each stops when it retires and atomicMax-es its
+// node count into one int, and a second small kernel jumps every seed
+// ahead 4*M steps (an affine map mod 2^32, by squaring). The Pallas
+// kernel counts M per block of 8192 lanes instead; the port follows the
+// jnp tracer.
+//
+// What bounds it on the H100: it reads 28 bytes and writes 12 per ray
+// (48 per PT sample with the seeds), so it is not bandwidth-bound; it is
+// latency- and divergence-bound on FP32 ALU work and scattered reads of
+// the small scene tables (through __ldg), with every thread walking every
+// surface for every segment, shadow ray and PT node; a PT warp runs as
+// long as its longest path, and the sibling stack lives in local memory.
+// Making it fast (bounding-sphere culling, warp-coherent traversal or
+// path regeneration, tables in shared memory, the stack in registers or
+// shared memory) is later work.
 //
 // f32 rules the golden frames depend on: build with --fmad=false and
 // without fast math; every 3-term contraction is a left-to-right mul/add
 // chain in the twin's order; sqrt is __fsqrt_rn and rsqrt __frsqrt_rn
-// (both correctly rounded), and the specular power is expf(p * logf(c)).
+// (both correctly rounded), and the specular power is expf(p * logf(c));
+// the hemisphere's cos and sin are taken in double and rounded once.
 
 #include <cuda_runtime.h>
 
@@ -177,14 +201,17 @@ struct Ray {
 struct Hit {
   float t;
   int srf, side, mat;
+  int row;           // permuted table row of the hit surface
   float wx, wy, wz;  // world hit
   float nx, ny, nz;  // unnormalized world normal, facing the ray
   float hx, hy, hz;  // local hit (texture UV, continuation local origin)
 };
 
 // One surface against one ray. SHADOW: returns true if it blocks the ray
-// (any-hit); otherwise folds its nearest valid root into `best`.
-template <bool SHADOW>
+// (any-hit); otherwise folds its nearest valid root into `best`. LOCAL:
+// the originating surface takes r.ol* as the ray's local origin (the
+// Whitted modes); else it transforms the world origin like any other.
+template <bool SHADOW, bool LOCAL>
 __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   const float* P = T.sp_f + (size_t)s * PF;
   const int* I = T.sp_i + (size_t)s * SI;
@@ -200,7 +227,7 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   const float ez = ldf(P, 9) * r.dx + ldf(P, 10) * r.dy + ldf(P, 11) * r.dz;
   // secondary-ray local-diff reuse (tracer.cpp:1350-1373)
   const bool same = r.osrf == origid;
-  if (same) {
+  if (LOCAL && same) {
     lx = r.olx;
     ly = r.oly;
     lz = r.olz;
@@ -234,6 +261,7 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
       best.srf = origid;
       best.side = side;
       best.mat = ldi(I, side > 0 ? SI_MO : SI_MI);
+      best.row = s;
       best.wx = wx; best.wy = wy; best.wz = wz;
       best.nx = ldf(P, 9) * sf;
       best.ny = ldf(P, 10) * sf;
@@ -343,6 +371,7 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   best.srf = origid;
   best.side = side;
   best.mat = ldi(I, side > 0 ? SI_MO : SI_MI);
+  best.row = s;
   best.wx = h[k][3]; best.wy = h[k][4]; best.wz = h[k][5];
   best.nx = (ldf(P, 3) * gx + ldf(P, 6) * gy + ldf(P, 9) * gz) * sf;
   best.ny = (ldf(P, 4) * gx + ldf(P, 7) * gy + ldf(P, 10) * gz) * sf;
@@ -351,15 +380,17 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   return false;
 }
 
+template <bool LOCAL>
 __device__ void nearest(const Tables& T, const Ray& r, Hit& best) {
   best.t = BIG;
   best.srf = 0x7FFFFFF;
   best.side = 1;
   best.mat = 0;
+  best.row = 0;
   best.wx = best.wy = best.wz = 0.0f;
   best.nx = best.ny = best.nz = 0.0f;
   best.hx = best.hy = best.hz = 0.0f;
-  for (int s = 0; s < T.ns; ++s) surface<false>(T, s, r, best);
+  for (int s = 0; s < T.ns; ++s) surface<false, LOCAL>(T, s, r, best);
 }
 
 // any blocker between the hit point and the light (t in (0, 1))
@@ -367,9 +398,102 @@ __device__ bool occluded(const Tables& T, const Ray& r) {
   Hit unused;
   for (int s = 0; s < T.ns; ++s) {
     if (ldi(T.sp_i + (size_t)s * SI, SI_BLK) == 0) continue;
-    if (surface<true>(T, s, r, unused)) return true;
+    if (surface<true, true>(T, s, r, unused)) return true;
   }
   return false;
+}
+
+// material at a hit: properties, colour (texture through the packed atlas
+// and the decode LUT, then the gamma decode) and the material row
+__device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
+                                            bool gamma_on, float mc[3],
+                                            const float*& M) {
+  M = T.mat_f + (size_t)hb.mat * MF;
+  const int* Mi = T.mat_i + (size_t)hb.mat * MI;
+  const int props = ldi(Mi, 0);
+  mc[0] = ldf(M, 0); mc[1] = ldf(M, 1); mc[2] = ldf(M, 2);
+  const int base = ldi(Mi, 1);
+  if ((props & PROP_TEXTURE) && base >= 0) {
+    // pow-2 mask/shift addressing (MT_tex, tracer.cpp:2297-2321)
+    const int xm = ldi(Mi, 2), ym = ldi(Mi, 3), xs = ldi(Mi, 4);
+    const float u = hb.hx - ldf(M, 12);
+    const float v = hb.hy - ldf(M, 13);
+    const int ix =
+        __float2int_rz(floorf(u * (float)(xm + 1) / ldf(M, 10))) & xm;
+    const int iy =
+        __float2int_rz(floorf(v * (float)(ym + 1) / ldf(M, 11))) & ym;
+    const int texel = ldi(T.tex_pk, base + (iy << xs) + ix);
+    mc[0] = ldf(T.tex_lut, (texel >> 16) & 255);
+    mc[1] = ldf(T.tex_lut, (texel >> 8) & 255);
+    mc[2] = ldf(T.tex_lut, texel & 255);
+  }
+  if (gamma_on && (props & PROP_GAMMA)) {
+    // gamma decode x^2 (PAINT_COLX, tracer.cpp:664-673)
+    for (int c = 0; c < 3; ++c) mc[c] = mc[c] * mc[c];
+  }
+  return props;
+}
+
+struct Fresnel {
+  float c_rfl, c_trn;     // effective reflect / transmit weights
+  float rfx, rfy, rfz;    // refraction direction (the unit ray if none)
+};
+
+// Fresnel / refraction (tracer.cpp:3182-3424) for ray direction d at unit
+// normal n facing the ray: TR section with TIR, and the RF-section
+// reflectivity Fresnel of opaque reflective materials (tracer.cpp:
+// 3671-3830: the metal fast conductor formula, plain dielectric otherwise)
+__device__ __forceinline__ Fresnel fresnel(int props, const float* M,
+                                           bool fres_scene, float dx,
+                                           float dy, float dz, float nx,
+                                           float ny, float nz) {
+  const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7), m_rfr = ldf(M, 8);
+  const float m_ext = ldf(M, 9);
+  const float dl = __frsqrt_rn(maxn(dx * dx + dy * dy + dz * dz, 1e-30f));
+  const float rhx = dx * dl, rhy = dy * dl, rhz = dz * dl;
+  const float dot = rhx * nx + rhy * ny + rhz * nz;
+  const float eta = m_rfr;
+  const float ed = eta * dot;
+  const float kk = 1.0f - eta * eta + ed * ed;
+  const bool refracts = props & PROP_REFRACT;
+  const bool tir = kk < 0.0f && refracts;
+  const float sq = kk > 0.0f ? __fsqrt_rn(kk) : 0.0f;
+  Fresnel f;
+  f.rfx = rhx; f.rfy = rhy; f.rfz = rhz;
+  if (refracts) {
+    f.rfx = eta * rhx - nx * (ed + sq);
+    f.rfy = eta * rhy - ny * (ed + sq);
+    f.rfz = eta * rhz - nz * (ed + sq);
+  }
+  const bool fres_prop = fres_scene && (props & PROP_FRESNEL);
+  const bool opaque = props & PROP_OPAQUE;
+  const bool fres_on = fres_prop && !opaque;
+  const float rs = sdiv(ed + sq, ed - sq, 1.0f);
+  const float rp = sdiv(dot + eta * sq, dot - eta * sq, 1.0f);
+  float F = fres_on ? clampn(0.5f * (rs * rs + rp * rp), 0.0f, 1.0f)
+                    : 0.0f;
+  // TIR folds transparency into reflectivity only under Fresnel
+  if (tir && fres_on) F = 1.0f;
+  f.c_trn = tir ? 0.0f : m_trn * (1.0f - F);
+  f.c_rfl = m_rfl + m_trn * F;
+  if (fres_prop && opaque && (props & PROP_REFLECT)) {
+    float f_rf;
+    if (props & PROP_METAL) {
+      const float rcp = sdiv(1.0f, eta, 0.0f);
+      const float ext2 = m_ext * m_ext;
+      const float t2 = 2.0f * dot * rcp;
+      const float c2 = dot * dot;
+      const float gg = rcp * rcp + ext2;
+      const float x0 = c2 + gg;
+      const float x1 = c2 * gg + 1.0f;
+      f_rf = fabsf(-0.5f * (sdiv(x0 + t2, x0 - t2, 1.0f) +
+                            sdiv(x1 + t2, x1 - t2, 1.0f)));
+    } else {
+      f_rf = fabsf(-0.5f * (rs * rs + rp * rp));
+    }
+    f.c_rfl = m_rfl * f_rf;
+  }
+  return f;
 }
 
 template <bool CAN_PUSH, bool EMIT_PATHS>
@@ -409,7 +533,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   int it = 0;
   for (; it < cfg.max_segments; ++it) {
     Hit hb;
-    nearest(T, r, hb);
+    nearest<true>(T, r, hb);
     const bool hit = hb.t < BIG;
     bool cont = false;
     // path record (record_path, pallas_kernel.py:1871-1886): a miss keeps
@@ -423,32 +547,11 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
       const float nx = hb.nx * nn, ny = hb.ny * nn, nz = hb.nz * nn;
       rec = (unsigned)(hb.srf & 0xFFF) | (hb.side > 0 ? 1u << 12 : 0u) |
             (1u << 15);
-      const float* M = T.mat_f + (size_t)hb.mat * MF;
-      const int* Mi = T.mat_i + (size_t)hb.mat * MI;
-      const int props = ldi(Mi, 0);
-      float mc[3] = {ldf(M, 0), ldf(M, 1), ldf(M, 2)};
+      const float* M;
+      float mc[3];
+      const int props = hit_material(T, hb, gamma_on, mc, M);
       const float m_dff = ldf(M, 3), m_spc = ldf(M, 4), m_pow = ldf(M, 5);
-      const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7), m_rfr = ldf(M, 8);
-      const float m_ext = ldf(M, 9);
-      const int base = ldi(Mi, 1);
-      if ((props & PROP_TEXTURE) && base >= 0) {
-        // pow-2 mask/shift addressing (MT_tex, tracer.cpp:2297-2321)
-        const int xm = ldi(Mi, 2), ym = ldi(Mi, 3), xs = ldi(Mi, 4);
-        const float u = hb.hx - ldf(M, 12);
-        const float v = hb.hy - ldf(M, 13);
-        const int ix =
-            __float2int_rz(floorf(u * (float)(xm + 1) / ldf(M, 10))) & xm;
-        const int iy =
-            __float2int_rz(floorf(v * (float)(ym + 1) / ldf(M, 11))) & ym;
-        const int texel = ldi(T.tex_pk, base + (iy << xs) + ix);
-        mc[0] = ldf(T.tex_lut, (texel >> 16) & 255);
-        mc[1] = ldf(T.tex_lut, (texel >> 8) & 255);
-        mc[2] = ldf(T.tex_lut, texel & 255);
-      }
-      if (gamma_on && (props & PROP_GAMMA)) {
-        // gamma decode x^2 (PAINT_COLX, tracer.cpp:664-673)
-        for (int c = 0; c < 3; ++c) mc[c] = mc[c] * mc[c];
-      }
+      const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7);
       float col[3];
       for (int c = 0; c < 3; ++c) col[c] = mc[c] * amb[c];
 
@@ -507,52 +610,8 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
         for (int c = 0; c < 3; ++c) col[c] = mc[c];
       }
 
-      // Fresnel / refraction (tracer.cpp:3182-3424)
-      const float dl = __frsqrt_rn(maxn(dx * dx + dy * dy + dz * dz, 1e-30f));
-      const float rhx = dx * dl, rhy = dy * dl, rhz = dz * dl;
-      const float dot = rhx * nx + rhy * ny + rhz * nz;
-      const float eta = m_rfr;
-      const float ed = eta * dot;
-      const float kk = 1.0f - eta * eta + ed * ed;
-      const bool refracts = props & PROP_REFRACT;
-      const bool tir = kk < 0.0f && refracts;
-      const float sq = kk > 0.0f ? __fsqrt_rn(kk) : 0.0f;
-      float rfx = rhx, rfy = rhy, rfz = rhz;
-      if (refracts) {
-        rfx = eta * rhx - nx * (ed + sq);
-        rfy = eta * rhy - ny * (ed + sq);
-        rfz = eta * rhz - nz * (ed + sq);
-      }
-      const bool fres_prop = fres_scene && (props & PROP_FRESNEL);
-      const bool opaque = props & PROP_OPAQUE;
-      const bool fres_on = fres_prop && !opaque;
-      const float rs = sdiv(ed + sq, ed - sq, 1.0f);
-      const float rp = sdiv(dot + eta * sq, dot - eta * sq, 1.0f);
-      float F = fres_on ? clampn(0.5f * (rs * rs + rp * rp), 0.0f, 1.0f)
-                        : 0.0f;
-      // TIR folds transparency into reflectivity only under Fresnel
-      if (tir && fres_on) F = 1.0f;
-      const float c_trn = tir ? 0.0f : m_trn * (1.0f - F);
-      float c_rfl = m_rfl + m_trn * F;
-      if (fres_prop && opaque && (props & PROP_REFLECT)) {
-        // RF-section Fresnel (tracer.cpp:3671-3830): metal fast
-        // conductor formula for metals, plain dielectric otherwise
-        float f_rf;
-        if (props & PROP_METAL) {
-          const float rcp = sdiv(1.0f, eta, 0.0f);
-          const float ext2 = m_ext * m_ext;
-          const float t2 = 2.0f * dot * rcp;
-          const float c2 = dot * dot;
-          const float gg = rcp * rcp + ext2;
-          const float x0 = c2 + gg;
-          const float x1 = c2 * gg + 1.0f;
-          f_rf = fabsf(-0.5f * (sdiv(x0 + t2, x0 - t2, 1.0f) +
-                                sdiv(x1 + t2, x1 - t2, 1.0f)));
-        } else {
-          f_rf = fabsf(-0.5f * (rs * rs + rp * rp));
-        }
-        c_rfl = m_rfl * f_rf;
-      }
+      const Fresnel fr = fresnel(props, M, fres_scene, dx, dy, dz, nx, ny,
+                                 nz);
 
       // local weight from the ORIGINAL material rfl/trn (TR_mix,
       // tracer.cpp:3566-3571), not the Fresnel-modulated values
@@ -563,8 +622,8 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
       const bool deep_ok = depth < cfg.depth;
       float trl[3], trn[3];
       for (int c = 0; c < 3; ++c) {
-        trl[c] = thr[c] * c_rfl;
-        trn[c] = thr[c] * c_trn;
+        trl[c] = thr[c] * fr.c_rfl;
+        trn[c] = thr[c] * fr.c_trn;
       }
       const bool go_rfl =
           deep_ok && maxn(maxn(trl[0], trl[1]), trl[2]) > cfg.cutoff;
@@ -576,7 +635,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
         // push the refraction branch
         float* slot = stk[sp];
         slot[0] = hb.wx; slot[1] = hb.wy; slot[2] = hb.wz;
-        slot[3] = rfx; slot[4] = rfy; slot[5] = rfz;
+        slot[3] = fr.rfx; slot[4] = fr.rfy; slot[5] = fr.rfz;
         slot[6] = trn[0]; slot[7] = trn[1]; slot[8] = trn[2];
         slot[9] = __int_as_float(depth + 1);
         slot[10] = __int_as_float(hb.srf);
@@ -592,7 +651,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
           r.dy = dy - 2.0f * ddn * ny;
           r.dz = dz - 2.0f * ddn * nz;
         } else {
-          r.dx = rfx; r.dy = rfy; r.dz = rfz;
+          r.dx = fr.rfx; r.dy = fr.rfy; r.dz = fr.rfz;
         }
         for (int c = 0; c < 3; ++c) thr[c] = go_rfl ? trl[c] : trn[c];
         r.ox = hb.wx; r.oy = hb.wy; r.oz = hb.wz;
@@ -629,6 +688,225 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
     for (int k = it + 1; k < cfg.max_segments; ++k)
       paths[(size_t)k * n + i] = 0;
   }
+}
+
+// ---- path tracing (PT mode) -------------------------------------------
+
+constexpr int PT_SHALLOW = 2;   // levels where both Fresnel branches go on
+constexpr int PT_STACK = 6;     // pending-sibling slots per thread
+constexpr int PT_SLOT = 13;     // values per slot: origin 3, direction 3,
+//                                 throughput 3, depth, surface, side, thru
+constexpr unsigned LCG_A = 214013u, LCG_C = 2531011u;
+
+// one LCG draw (tracer.h:48-53): the top 24 bits over 2^24, exact in f32
+__device__ __forceinline__ float lcg_uniform(unsigned& s) {
+  s = s * LCG_A + LCG_C;
+  return (float)(s >> 8) * (1.0f / 16777216.0f);
+}
+
+// One path-traced sample per thread: the split-tree walk of ops/pt.py
+// trace_pt (pt_body/pt_cond, pallas_kernel.py:1365-1669). Each node draws
+// u1 u2 (hemisphere), u_rr (roulette), u_split (Fresnel choice) in that
+// order, gathers the hit's emission, and continues with the diffuse child,
+// else the transmission, else the reflection, pushing the siblings it does
+// not take (reflection first, so the transmission pops first). A thread
+// stops when it retires or after 6*(depth+1) nodes; its node count goes
+// into *iters with atomicMax, the call's iteration count M that the seed
+// tail needs. Continuations take their origin from the world hit point
+// (nearest<false>), as the jnp tracer does.
+__global__ void __launch_bounds__(128)
+pt_kernel(const float* __restrict__ rays, const int* __restrict__ seeds,
+          float* __restrict__ out, int n, Tables T, int depth,
+          int* __restrict__ iters) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int it = 0;
+  Ray r;
+  r.ox = rays[i];
+  r.oy = rays[n + i];
+  r.oz = rays[2 * n + i];
+  r.dx = rays[3 * n + i];
+  r.dy = rays[4 * n + i];
+  r.dz = rays[5 * n + i];
+  r.tmn = rays[6 * n + i];
+  r.tmx = BIG;
+  r.osrf = -1;
+  r.oside = 1;
+  r.thru = false;
+  r.olx = r.oly = r.olz = 0.0f;
+  unsigned seed = (unsigned)seeds[i];
+  float thr[3] = {1.0f, 1.0f, 1.0f};
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  int dep = 0, sp = 0;
+  float stk[PT_STACK][PT_SLOT];
+  const bool gamma_on = ldf(T.misc, 3) > 0.0f;
+  const bool fres_scene = ldf(T.misc, 4) > 0.0f;
+  const int cap = 6 * (depth + 1);
+  while (it < cap) {
+    ++it;
+    Hit hb;
+    nearest<false>(T, r, hb);
+    const float u1 = lcg_uniform(seed);
+    const float u2 = lcg_uniform(seed);
+    const float urr = lcg_uniform(seed);
+    const float usplit = lcg_uniform(seed);
+    bool cont = false;
+    if (hb.t < BIG) {
+      const float nn = __frsqrt_rn(
+          maxn(hb.nx * hb.nx + hb.ny * hb.ny + hb.nz * hb.nz, 1e-30f));
+      const float nx = hb.nx * nn, ny = hb.ny * nn, nz = hb.nz * nn;
+      const float* M;
+      float mc[3];
+      const int props = hit_material(T, hb, gamma_on, mc, M);
+
+      // emission of the hit side (s_emis, packed in sp_f 38-43)
+      const float* E =
+          T.sp_f + (size_t)hb.row * PF + (hb.side > 0 ? 38 : 41);
+      for (int c = 0; c < 3; ++c) acc[c] = acc[c] + thr[c] * ldf(E, c);
+
+      const float dx = r.dx, dy = r.dy, dz = r.dz;
+      const Fresnel fr = fresnel(props, M, fres_scene, dx, dy, dz, nx, ny,
+                                 nz);
+      if (!(props & PROP_LIGHT) && dep < depth) {
+        // Fresnel branch weights: both at the top PT_SHALLOW levels, a
+        // defensively sampled one below (tracer.cpp:3428-3466); opaque
+        // mirrors (RF section) are deterministic, never split
+        float w_rfl = fr.c_rfl, w_trn = fr.c_trn;
+        if (props & PROP_OPAQUE) {
+          w_trn = 0.0f;
+        } else if (dep >= PT_SHALLOW) {
+          const float s_rt = maxn(fr.c_rfl + fr.c_trn, 1e-30f);
+          const float qd = 0.25f + 0.5f * fr.c_rfl / s_rt;
+          if (usplit < qd) {
+            w_rfl = fr.c_rfl / qd;
+            w_trn = 0.0f;
+          } else {
+            w_rfl = 0.0f;
+            w_trn = fr.c_trn / maxn(1.0f - qd, 1e-30f);
+          }
+        }
+        // diffuse child: Russian roulette below depth-5
+        const bool deep = dep >= depth - 5;
+        const float q =
+            clampn(maxn(maxn(mc[0], mc[1]), mc[2]), 1e-4f, 1.0f);
+        const bool have_dif =
+            (props & PROP_DIFFUSE) && !(deep && urr >= q);
+        const bool have_trn = w_trn > 0.0f;
+        const bool have_rfl = w_rfl > 0.0f;
+        const bool cont_trn = !have_dif && have_trn;
+        const bool cont_rfl = !have_dif && !have_trn && have_rfl;
+        cont = have_dif || have_trn || have_rfl;
+
+        const float ddn = dx * nx + dy * ny + dz * nz;
+        const float mrx = dx - 2.0f * ddn * nx;
+        const float mry = dy - 2.0f * ddn * ny;
+        const float mrz = dz - 2.0f * ddn * nz;
+        for (int b = 0; b < 2; ++b) {
+          const bool rfl = b == 0;
+          if (!(rfl ? have_rfl && !cont_rfl : have_trn && !cont_trn) ||
+              sp >= PT_STACK)
+            continue;
+          const float w = rfl ? w_rfl : w_trn;
+          float* slot = stk[sp];
+          slot[0] = hb.wx; slot[1] = hb.wy; slot[2] = hb.wz;
+          slot[3] = rfl ? mrx : fr.rfx;
+          slot[4] = rfl ? mry : fr.rfy;
+          slot[5] = rfl ? mrz : fr.rfz;
+          for (int c = 0; c < 3; ++c) slot[6 + c] = thr[c] * w;
+          slot[9] = __int_as_float(dep + 1);
+          slot[10] = __int_as_float(hb.srf);
+          slot[11] = __int_as_float(hb.side);
+          slot[12] = __int_as_float(rfl ? 0 : 1);
+          ++sp;
+        }
+        if (have_dif) {
+          // cosine-weighted hemisphere about n (ops/pt.py basis); cos
+          // and sin in double, rounded once
+          const bool near_z = fabsf(nz) < 0.9f;
+          const float ax = near_z ? 0.0f : 1.0f;
+          const float az = near_z ? 1.0f : 0.0f;
+          float t1x = -az * ny;
+          float t1y = az * nx - ax * nz;
+          float t1z = ax * ny;
+          const float t1n = __frsqrt_rn(
+              maxn(t1x * t1x + t1y * t1y + t1z * t1z, 1e-20f));
+          t1x = t1x * t1n; t1y = t1y * t1n; t1z = t1z * t1n;
+          const float t2x = ny * t1z - nz * t1y;
+          const float t2y = nz * t1x - nx * t1z;
+          const float t2z = nx * t1y - ny * t1x;
+          const float rr = __fsqrt_rn(maxn(u1, 0.0f));
+          const float phi = 6.28318530717958647692f * u2;
+          const float xx = rr * __double2float_rn(cos((double)phi));
+          const float yy = rr * __double2float_rn(sin((double)phi));
+          const float zz = __fsqrt_rn(maxn(1.0f - u1, 0.0f));
+          r.dx = t1x * xx + t2x * yy + nx * zz;
+          r.dy = t1y * xx + t2y * yy + ny * zz;
+          r.dz = t1z * xx + t2z * yy + nz * zz;
+          const float dq = deep ? 1.0f / q : 1.0f;
+          const float m_dff = ldf(M, 3);
+          for (int c = 0; c < 3; ++c) thr[c] = thr[c] * (mc[c] * m_dff * dq);
+        } else if (cont_trn) {
+          r.dx = fr.rfx; r.dy = fr.rfy; r.dz = fr.rfz;
+          for (int c = 0; c < 3; ++c) thr[c] = thr[c] * w_trn;
+        } else if (cont_rfl) {
+          r.dx = mrx; r.dy = mry; r.dz = mrz;
+          for (int c = 0; c < 3; ++c) thr[c] = thr[c] * w_rfl;
+        }
+        if (cont) {
+          r.ox = hb.wx; r.oy = hb.wy; r.oz = hb.wz;
+          dep = dep + 1;
+          r.osrf = hb.srf;
+          r.oside = hb.side;
+          r.thru = cont_trn;
+          r.tmn = 0.0f;
+        }
+      }
+    }
+    if (!cont) {
+      if (sp == 0) break;   // retired
+      // pop a pending sibling
+      --sp;
+      const float* slot = stk[sp];
+      r.ox = slot[0]; r.oy = slot[1]; r.oz = slot[2];
+      r.dx = slot[3]; r.dy = slot[4]; r.dz = slot[5];
+      thr[0] = slot[6]; thr[1] = slot[7]; thr[2] = slot[8];
+      dep = __float_as_int(slot[9]);
+      r.osrf = __float_as_int(slot[10]);
+      r.oside = __float_as_int(slot[11]);
+      r.thru = __float_as_int(slot[12]) != 0;
+      r.tmn = 0.0f;
+    }
+  }
+  out[i] = acc[0];
+  out[n + i] = acc[1];
+  out[2 * n + i] = acc[2];
+  // the call's iteration count M: once per warp
+  const unsigned m = __activemask();
+  const int mx = __reduce_max_sync(m, it);
+  if ((threadIdx.x & 31) == (unsigned)(__ffs(m) - 1)) atomicMax(iters, mx);
+}
+
+// Every seed advanced 4*M draws, M = *iters (written by pt_kernel, which
+// runs before this on the same stream): the jnp tracer draws four
+// uniforms per lane per iteration while any lane of the call is active.
+// x -> A x + C mod 2^32 with (A, C) the 4M-fold LCG step, by squaring.
+__global__ void __launch_bounds__(256)
+pt_seed_tail(const int* __restrict__ seeds, int* __restrict__ seeds_out,
+             int n, const int* __restrict__ iters) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  unsigned k = 4u * (unsigned)*iters;
+  unsigned a = 1u, c = 0u, ap = LCG_A, cp = LCG_C;
+  while (k) {
+    if (k & 1u) {
+      c = ap * c + cp;
+      a = ap * a;
+    }
+    cp = ap * cp + cp;
+    ap = ap * ap;
+    k >>= 1;
+  }
+  seeds_out[i] = (int)(a * (unsigned)seeds[i] + c);
 }
 
 }  // namespace
@@ -676,5 +954,30 @@ extern "C" int whitted_paths_launch(
   const dim3 block(128), grid((unsigned)((n + 127) / 128));
   whitted_kernel<false, true><<<grid, block, 0, (cudaStream_t)stream>>>(
       rays, out, paths, n, T, cfg);
+  return (int)cudaGetLastError();
+}
+
+// Path-tracing entry point: one sample per ray. seeds: (n,) i32 LCG
+// states in, seeds_out: (n,) i32 out (each advanced 4*M draws); iters: one
+// i32 of scratch, zeroed here, that ends holding M. Launches pt_kernel,
+// then pt_seed_tail, on `stream`.
+extern "C" int whitted_pt_launch(
+    const float* rays, const int* seeds, float* out, int* seeds_out,
+    int* iters, const float* sp_f, const int* sp_i, const float* cl_f,
+    const float* mat_f, const int* mat_i, const float* lg_f,
+    const float* misc, const int* tex_pk, const float* tex_lut, int n,
+    int ns, int nc, int nl, int depth, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(iters, 0, sizeof(int), s);
+  if (err != cudaSuccess || n <= 0) return (int)err;
+  if (depth < 0) return (int)cudaErrorInvalidValue;
+  Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
+           ns, nc, nl};
+  pt_kernel<<<(unsigned)((n + 127) / 128), 128, 0, s>>>(
+      rays, seeds, out, n, T, depth, iters);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pt_seed_tail<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(seeds, seeds_out,
+                                                          n, iters);
   return (int)cudaGetLastError();
 }

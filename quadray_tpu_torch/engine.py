@@ -2,14 +2,14 @@
 
 The PyTorch counterpart of ``quadray_tpu.engine`` (rt_Platform,
 engine.h:79-156, and rt_Scene, engine.h:229-362): scene management,
-per-frame update (animators -> scene recompile), render, fsaa/depth
-options, frame save and state dump. A Scene renders on its ``device``:
-on a CUDA device through the hand-written Whitted kernel
-(``ops.cuda_kernel``), on the CPU through the plain tracer
-(``ops.trace``). There is no fallback between the two.
+per-frame update (animators -> scene recompile), render, progressive
+path tracing, fsaa/depth options, frame save and state dump. A Scene
+renders on its ``device`` (the card unless the caller names the CPU): on
+a CUDA device through the hand-written kernels (``ops.cuda_kernel``), on
+the CPU through their plain versions (``ops.trace``, ``ops.pt``). There
+is no fallback between the two.
 
-Not ported yet: the progressive path tracer (``set_pton``,
-``render_pt_pass``) and interactive camera actions.
+Not ported yet: interactive camera actions.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ class Scene:
 
     def __init__(self, sdef: S.SceneDef, width: int, height: int,
                  pfm: Optional[Platform] = None, cam_index: int = 0,
-                 device="cpu"):
+                 device="cuda"):
         self.sdef = sdef
         self.width = width
         self.height = height
@@ -63,7 +63,12 @@ class Scene:
         self._struct = None
         self._time = 0.0
         self.frame = np.zeros((height, width, 3), np.uint8)
-        self.pt_on = False   # progressive path tracing: not ported yet
+        # progressive path-tracer state (pseed/ptr planes analog,
+        # engine.cpp:2875-2899, 3670-3700)
+        self.pt_on = False
+        self._pt_acc = None
+        self._pt_samples = 0
+        self._pt_seeds = None
 
     def update(self, t: float = 0.0) -> SceneArrays:
         """Compile the scene at time t (animators re-run the numeric pass;
@@ -94,13 +99,50 @@ class Scene:
             self.update(self._time)
         return self._arrays
 
+    def set_pton(self, on: bool) -> bool:
+        """Toggle progressive path tracing (set_pton analog,
+        engine.cpp:3729-3742); resets accumulation on enable."""
+        if on and (self.opts & S.OPTS_PT):
+            on = False
+        if on and not self.pt_on:
+            self.reset_pt()
+        self.pt_on = on
+        return self.pt_on
+
+    def reset_pt(self):
+        from quadray_tpu_torch.ops.pt import init_seeds
+        n = self.width * self.height
+        self._pt_acc = torch.zeros((n, 3), dtype=torch.float32,
+                                   device=self.device)
+        self._pt_samples = 0
+        self._pt_seeds = init_seeds(n, device=self.device)
+
+    def render_pt_pass(self, passes: int = 1) -> np.ndarray:
+        """Accumulate `passes` path-traced samples/pixel; return the frame
+        of the running mean. One PT kernel launch per pass on a CUDA
+        device, the plain ``trace_pt`` on the CPU."""
+        from quadray_tpu_torch.ops.cuda_kernel import pt_passes
+        sc = self.arrays
+        if self._pt_acc is None:
+            self.reset_pt()
+        self._pt_acc, self._pt_seeds = pt_passes(
+            sc, self.width, self.height, self._pt_acc, self._pt_seeds,
+            passes, TraceConfig(depth=self.pfm.depth), self._struct)
+        self._pt_samples += max(passes, 0)
+        img = torch.clamp(self._pt_acc / max(self._pt_samples, 1), 0.0, 1.0)
+        img = img.reshape(self.height, self.width, 3)
+        self.frame = to_frame(img, sc.use_gamma).cpu().numpy()
+        return self.frame
+
     def render(self, t: Optional[float] = None) -> np.ndarray:
-        """Render a frame at time t; returns (H, W, 3) uint8. Uses the
-        CUDA kernel on a CUDA device, the plain tracer on the CPU."""
-        if self.pt_on:
-            raise NotImplementedError("path tracing is not ported yet")
+        """Render a frame at time t; returns (H, W, 3) uint8: one
+        path-traced pass while path tracing is on, else the Whitted frame.
+        Uses the CUDA kernels on a CUDA device, the plain tracers on the
+        CPU."""
         if t is not None or self._arrays is None:
             self.update(t if t is not None else self._time)
+        if self.pt_on:
+            return self.render_pt_pass()
         sc = self.arrays
         cfg = TraceConfig(depth=self.pfm.depth)
         if self.device.type == "cuda":

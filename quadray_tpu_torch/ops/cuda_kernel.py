@@ -4,10 +4,12 @@ The counterpart of the host half of ``quadray_tpu.ops.pallas_kernel``:
 the static scene structure (``KernelStruct``/``scene_struct``, which
 permutes surfaces into contiguous classes with shadow blockers first), the
 packed scene tables the kernel reads (``pack_scene``), the launch
-wrapper ``trace_rays_cuda`` with ``render_cuda`` around it, and the
+wrapper ``trace_rays_cuda`` with ``render_cuda`` around it, the
 path-record wrappers ``trace_paths`` / ``trace_paths_with_struct``
 (counterparts of ``pallas_kernel.py:2296, 2475``) that trace-replay
-training calls.
+training calls, and the path-tracing wrappers ``trace_pt_cuda`` /
+``render_pt_cuda`` (counterparts of ``trace_pt_pallas`` and
+``render_pt_pallas``, ``pallas_kernel.py:2349, 2450``).
 
 Where the TPU kernel is compiled per scene structure, the CUDA kernel
 takes the structure at run time (surface kind, singularity and clip count
@@ -17,8 +19,8 @@ bounding-sphere tables ``bsph_t``/``shad_msk``/``cont_msk`` are not
 packed.
 
 Each wrapper on CPU tensors runs its plain version
-(``ops.trace.trace_rays`` / ``ops.trace.trace_paths``); on CUDA tensors it
-launches the kernel or raises.
+(``ops.trace.trace_rays`` / ``ops.trace.trace_paths`` / ``ops.pt.trace_pt``);
+on CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from quadray_tpu_torch.scene.compile import (
     PROP_REFRACT, PROP_TEXTURE, PROP_FRESNEL, PROP_TRANSP, CLIP_NONE)
 from quadray_tpu_torch.ops.trace import TraceConfig, trace_paths as \
     _trace_paths_plain, trace_rays
+from quadray_tpu_torch.ops.pt import pt_camera_rays, trace_pt
 
 F32 = torch.float32
 I32 = torch.int32
@@ -327,11 +330,12 @@ def pack_scene(sc: SceneArrays, struct: KernelStruct) -> PackedScene:
 
 _get_packed = _SceneCache(pack_scene)
 
-# kernel launches by trace_rays_cuda and by the path-record wrappers; a
-# run that must have gone through a kernel reads its count before and
-# after
+# kernel launches by trace_rays_cuda, by the path-record wrappers and by
+# trace_pt_cuda; a run that must have gone through a kernel reads its
+# count before and after
 launches = 0
 paths_launches = 0
+pt_launches = 0
 
 _VOIDP = ctypes.c_void_p
 _SCENE_ARGS = [_VOIDP] * 9            # sp_f ... tex_lut
@@ -349,6 +353,9 @@ def _lib():
             [_VOIDP] * 3 + _SCENE_ARGS + [ctypes.c_int] * 6
             + [ctypes.c_float, _VOIDP])
         lib.whitted_paths_launch.restype = ctypes.c_int
+        lib.whitted_pt_launch.argtypes = (
+            [_VOIDP] * 5 + _SCENE_ARGS + [ctypes.c_int] * 5 + [_VOIDP])
+        lib.whitted_pt_launch.restype = ctypes.c_int
     return lib
 
 
@@ -360,17 +367,21 @@ def _check(name, t, dtype, shape, dev):
             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _check_whitted_cfg(cfg: TraceConfig):
+    """What the Whitted modes read of cfg beyond depth (PT reads depth)."""
+    if cfg.schlick:
+        raise NotImplementedError("the CUDA kernel has no Schlick Fresnel")
+    if not 1 <= cfg.stack <= MAX_STACK:
+        raise ValueError(f"cfg.stack must be in 1..{MAX_STACK}")
+
+
 def _launch_inputs(fn: str, sc: SceneArrays, org, dirs, t_min,
-                   cfg: TraceConfig, struct: KernelStruct, ps: PackedScene):
+                   struct: KernelStruct, ps: PackedScene):
     """Checks what a CUDA launch takes; returns the (7, N) SoA rays (ox oy
     oz dx dy dz tmin, caller order) and the scene-table pointers."""
     dev = dirs.device
     if dev.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {dev}")
-    if cfg.schlick:
-        raise NotImplementedError("the CUDA kernel has no Schlick Fresnel")
-    if not 1 <= cfg.stack <= MAX_STACK:
-        raise ValueError(f"cfg.stack must be in 1..{MAX_STACK}")
     if sc.device != dev:
         raise ValueError(f"scene on {sc.device}, rays on {dev}")
     N = dirs.shape[0]
@@ -412,10 +423,11 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
     global launches
     if dirs.device.type == "cpu":
         return trace_rays(sc, org, dirs, t_min, cfg)
+    _check_whitted_cfg(cfg)
     struct = struct or _get_struct(sc)
     ps = _get_packed(sc, struct)
     rays, tables = _launch_inputs("trace_rays_cuda", sc, org, dirs, t_min,
-                                  cfg, struct, ps)
+                                  struct, ps)
     N, dev = dirs.shape[0], dirs.device
     out = torch.empty((3, N), dtype=F32, device=dev)
     if N == 0:
@@ -465,9 +477,10 @@ def _paths(sc, struct, pack, org, dirs, t_min, cfg, k_paths):
     with torch.no_grad():
         if dirs.device.type == "cpu":
             return _trace_paths_plain(sc, org, dirs, t_min, cfg, k_paths)
+        _check_whitted_cfg(cfg)
         ps = pack(sc, struct)
         rays, tables = _launch_inputs("trace_paths", sc, org, dirs, t_min,
-                                      cfg, struct, ps)
+                                      struct, ps)
         N, dev = dirs.shape[0], dirs.device
         out = torch.empty((3, N), dtype=F32, device=dev)
         paths = torch.empty((k_paths, N), dtype=I32, device=dev)
@@ -498,3 +511,69 @@ def render_cuda(sc: SceneArrays, width: int, height: int, fsaa: int = 1,
     t_min = sc.cam_pov.expand(dirs.shape[0])
     cols = trace_rays_cuda(sc, org, dirs, t_min, cfg, struct)
     return resolve_aa(torch.clamp(cols, 0.0, 1.0), width, height, fsaa)
+
+
+def trace_pt_cuda(sc: SceneArrays, org, dirs, t_min, seeds,
+                  cfg: TraceConfig = TraceConfig(),
+                  struct: KernelStruct = None):
+    """One path-traced sample per ray through the CUDA kernel (the
+    signature and returns of ``ops.pt.trace_pt``): (radiance (N, 3) f32,
+    seeds (N,) int32, each advanced four draws per iteration of the call).
+    org (3,) or (N, 3), dirs (N, 3), t_min (N,) f32 and seeds (N,) int32,
+    all on the scene's device; reads cfg.depth. CPU tensors take the plain
+    ``trace_pt``. Launches the PT kernel and its seed tail on the current
+    stream without waiting for the card."""
+    global pt_launches
+    if dirs.device.type == "cpu":
+        return trace_pt(sc, org, dirs, t_min, seeds, cfg)
+    struct = struct or _get_struct(sc)
+    ps = _get_packed(sc, struct)
+    rays, tables = _launch_inputs("trace_pt_cuda", sc, org, dirs, t_min,
+                                  struct, ps)
+    N, dev = dirs.shape[0], dirs.device
+    _check("seeds", seeds, I32, (N,), dev)
+    out = torch.empty((3, N), dtype=F32, device=dev)
+    seeds_out = torch.empty((N,), dtype=I32, device=dev)
+    iters = torch.empty((1,), dtype=I32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.whitted_pt_launch(
+            rays.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+            seeds_out.data_ptr(), iters.data_ptr(), *tables,
+            N, struct.n_real, struct.nc, struct.nl, cfg.depth, stream)
+    if err != 0:
+        raise RuntimeError(f"whitted PT kernel launch failed: CUDA error "
+                           f"{err}")
+    pt_launches += 1
+    return out.T, seeds_out
+
+
+def pt_passes(sc: SceneArrays, width: int, height: int, acc, seeds,
+              passes: int, cfg: TraceConfig = TraceConfig(),
+              struct: KernelStruct = None):
+    """``passes`` path-traced passes added into a running sum: per pass,
+    jittered primary rays on the seeds' device (``pt_camera_rays``), one
+    ``trace_pt_cuda`` call and the sum, with no wait for the card. acc
+    (W*H, 3) f32 and seeds (W*H,) int32; returns the new (acc, seeds).
+    The pass loop of both ``render_pt_cuda`` and ``Scene.render_pt_pass``.
+    CPU seeds take the plain tracer."""
+    t_min = sc.cam_pov.expand(width * height)
+    for _ in range(passes):
+        org, dirs, seeds = pt_camera_rays(sc, width, height, seeds)
+        rad, seeds = trace_pt_cuda(sc, org, dirs, t_min, seeds, cfg, struct)
+        acc = acc + rad
+    return acc, seeds
+
+
+def render_pt_cuda(sc: SceneArrays, width: int, height: int, seeds,
+                   spp: int, cfg: TraceConfig = TraceConfig(),
+                   struct: KernelStruct = None):
+    """spp passes from a zero sum (the counterpart of ``render_pt_pallas``;
+    there is no fused path: the passes are ``pt_passes``, one PT launch
+    each). Returns ((H, W, 3) mean radiance, the advanced (W*H,) int32
+    seeds)."""
+    acc = torch.zeros((width * height, 3), dtype=F32, device=seeds.device)
+    acc, seeds = pt_passes(sc, width, height, acc, seeds, spp, cfg, struct)
+    return (acc / float(max(spp, 1))).reshape(height, width, 3), seeds
+

@@ -347,12 +347,24 @@ def texture_color(sc: SceneArrays, midx, p_local):
     return torch.where(gamma[..., None], col * col, col)
 
 
-def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit):
+def count_work(stats, key: str, mask) -> None:
+    """Adds the lanes set in ``mask`` into ``stats[key]``; a no-op when
+    ``stats`` is None. The plain tracers count the work their kernels must
+    do for a call (for its bound): "walks", nearest-hit walks over every
+    surface (Whitted segments, PT nodes); "shadow_open" and
+    "shadow_blocked", shadow rays that no blocker stops (every blocker is
+    tested) and that one does (at least one test)."""
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + int(mask.sum())
+
+
+def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
+          stats=None):
     """Local color: ambient + per-light diffuse/specular with hard shadows
     (LT_reg..LT_end, tracer.cpp:2709-3180). Returns (col (N, 3), unlit
     (N,) i32): bit 16+l of ``unlit`` is set where active light l is not
     unoccluded-lit (the path record's light bits, pallas_kernel.py:1747),
-    for the first 16 light rows."""
+    for the first 16 light rows. ``stats``: see ``count_work``."""
     midx = material_index(sc, srf, side)
     props = sc.m_props[midx]
     tex = texture_color(sc, midx, p)
@@ -368,6 +380,8 @@ def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit):
                         srf, side, torch.zeros_like(lit), shadow=True,
                         origin_loc=p)
         hm = lit & ~occ
+        count_work(stats, "shadow_open", hm)
+        count_work(stats, "shadow_blocked", lit & occ)
         if li < 16:
             unlit = unlit | ((~hm & (sc.l_on[li] > 0)).to(I32) << (16 + li))
         r2 = _dot3(lvec, lvec)
@@ -473,14 +487,17 @@ def fresnel_terms(sc: SceneArrays, midx, d, n, schlick: bool = False):
 CHUNK = 1 << 15
 
 
-def trace_rays(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
+def trace_rays(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
+               stats=None):
     """Trace N rays to completion; returns (N, 3) linear radiance.
-    Rays are independent, so they are traced CHUNK at a time."""
-    return _chunked(sc, org, dirs, t_min, cfg, 0)[0]
+    Rays are independent, so they are traced CHUNK at a time. ``stats``,
+    a dict or None, gets the call's work added in (``count_work``)."""
+    return _chunked(sc, org, dirs, t_min, cfg, 0, stats=stats)[0]
 
 
 def trace_paths(sc: SceneArrays, org, dirs, t_min,
-                cfg: TraceConfig = TraceConfig(), k_paths: int = 8):
+                cfg: TraceConfig = TraceConfig(), k_paths: int = 8,
+                stats=None):
     """Trace N rays for at most K = k_paths segments and record each
     segment (``pallas_kernel.py`` ``trace_paths`` :2296, max_segments = K
     as :2260). Returns (colors (N, 3) f32, paths (K, N) i32); the record
@@ -495,21 +512,23 @@ def trace_paths(sc: SceneArrays, org, dirs, t_min,
     the TPU kernel asserts (:499, :504, :2306). As in the kernel, a lane
     never pushes a branch: where trained parameters let an opaque
     material transmit, the reflection goes on and the transmission is
-    dropped."""
+    dropped. ``stats``: as for ``trace_rays``."""
     from quadray_tpu_torch.ops.cuda_kernel import check_paths_struct, \
         _get_struct
     check_paths_struct(_get_struct(sc))
     return _chunked(sc, org, dirs, t_min,
-                    cfg._replace(max_segments=k_paths), k_paths, push=False)
+                    cfg._replace(max_segments=k_paths), k_paths, push=False,
+                    stats=stats)
 
 
-def _chunked(sc, org, dirs, t_min, cfg, k_paths, push=True):
+def _chunked(sc, org, dirs, t_min, cfg, k_paths, push=True, stats=None):
     N = dirs.shape[0]
     if org.dim() == 1:
         org = org[None, :].expand(N, 3)
     outs = [_trace_chunk(sc, org[i:i + CHUNK].to(F32),
                          dirs[i:i + CHUNK].to(F32),
-                         t_min[i:i + CHUNK].to(F32), cfg, k_paths, push)
+                         t_min[i:i + CHUNK].to(F32), cfg, k_paths, push,
+                         stats=stats)
             for i in range(0, N, CHUNK)]
     if not outs:
         return (torch.zeros((0, 3), dtype=F32, device=dirs.device),
@@ -531,7 +550,8 @@ def trace_rays_diff(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
 
 
 def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
-                 k_paths: int = 0, push: bool = True, fixed: bool = False):
+                 k_paths: int = 0, push: bool = True, fixed: bool = False,
+                 stats=None):
     """Returns (acc (N, 3), paths (k_paths, N) i32); ``push`` lets a lane
     push the transmission where both branches go on; ``fixed`` runs all
     cfg.max_segments bounces instead of stopping once every lane retired."""
@@ -554,14 +574,15 @@ def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
     paths = torch.zeros((k_paths, N), dtype=I32, device=dev)
     it = 0
     while it < cfg.max_segments and (fixed or bool(st["active"].any())):
-        st, rec = _bounce(sc, cfg, st, push)
+        st, rec = _bounce(sc, cfg, st, push, stats)
         if it < k_paths:
             paths[it] = rec
         it += 1
     return st["acc"], paths
 
 
-def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True):
+def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
+            stats=None):
     """One bounce of the iterative Whitted loop (quadray_tpu.ops.trace
     _make_body): shade the nearest hit, continue with the reflection if
     it carries weight, else the refraction, pushing the refraction when
@@ -571,13 +592,14 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True):
     N = st["org"].shape[0]
     D = cfg.stack
     act = st["active"]
+    count_work(stats, "walks", act)
     h = intersect(sc, st["org"], st["dir"], st["tmin"],
                   torch.full((N,), BIG, dtype=F32, device=act.device),
                   st["osrf"], st["oside"], st["thru"],
                   origin_loc=st["oloc"])
     hit = h["hit"] & act
     local, unlit = shade(sc, cfg, h["x"], h["p"], h["n"], st["dir"],
-                         h["srf"], h["side"], hit)
+                         h["srf"], h["side"], hit, stats)
     midx = material_index(sc, h["srf"], h["side"])
     c_rfl, c_trn, refr_dir, _ = fresnel_terms(sc, midx, st["dir"], h["n"],
                                               cfg.schlick)

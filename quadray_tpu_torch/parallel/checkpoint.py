@@ -44,7 +44,7 @@ def latest_checkpoint(directory: str) -> str:
     return os.path.join(directory, files[-1])
 
 
-def load_checkpoint(path: str, device="cpu") -> Tuple[int, Params,
+def load_checkpoint(path: str, device="cuda") -> Tuple[int, Params,
                                                       AdamState]:
     """Restore (step, params, opt_state) onto ``device``; ``path`` may be
     a checkpoint directory (its latest file is read)."""

@@ -221,7 +221,7 @@ def make_train_step(width: int, height: int,
 # state to and from numpy
 # ---------------------------------------------------------------------------
 
-def params_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> Params:
+def params_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> Params:
     return {k: torch.tensor(np.asarray(v), device=device)
             for k, v in d.items()}
 
@@ -230,7 +230,7 @@ def params_to_numpy(params: Params) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
-def opt_state_from_numpy(state, device="cpu") -> AdamState:
+def opt_state_from_numpy(state, device="cuda") -> AdamState:
     """AdamState from optax's (count, mu, nu) as numpy (for example the
     ``ScaleByAdamState`` of an ``optax.adam`` state)."""
     count, mu, nu = state

@@ -128,7 +128,7 @@ FIELDS = tuple(f.name for f in dataclasses.fields(SceneArrays))
 
 
 def scene_arrays_from_numpy(d: Dict[str, np.ndarray],
-                            device="cpu") -> SceneArrays:
+                            device="cuda") -> SceneArrays:
     """A SceneArrays from a dict of numpy arrays keyed by field name (for
     example ``np.asarray`` of each field of the JAX package's compiled
     scene), so both tracers can run on identical tables."""
@@ -556,7 +556,7 @@ def compile_scene(scene: S.SceneDef, time: float = 0.0,
                   ns: Optional[int] = None, nc: Optional[int] = None,
                   nl: Optional[int] = None,
                   cam_trm: Optional[S.Transform3D] = None,
-                  device="cpu") -> SceneArrays:
+                  device="cuda") -> SceneArrays:
     """Compile a SceneDef at a given time into SceneArrays on ``device``.
 
     NS surfaces / NC clip entries / NL lights are padded to powers of two

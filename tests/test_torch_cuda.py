@@ -7,6 +7,7 @@ Imports no JAX, so it runs on a GPU machine without it:
 import dataclasses
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -144,3 +145,74 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         ck.trace_rays_cuda(sc, org, dirs, tmin, TraceConfig(stack=17))
     with pytest.raises(NotImplementedError):
         ck.trace_rays_cuda(sc, org, dirs, tmin, TraceConfig(schlick=True))
+
+
+def _pt_rays(name, dev, w, h, emis_seed=None):
+    """Jittered primary rays and seeds; with emis_seed, every real surface
+    gets a seeded emission in [0, 0.5) on both sides (as chip_smoke.py
+    phase E1), so that paths that seldom reach the light gather some."""
+    from quadray_tpu_torch.ops.pt import init_seeds, pt_camera_rays
+    sc, _, _, tmin = _rays(name, dev, w, h)
+    if emis_seed is not None:
+        e = np.random.default_rng(emis_seed).uniform(
+            0.0, 0.5, tuple(sc.s_emis.shape)).astype(np.float32)
+        sc = dataclasses.replace(sc, s_emis=sc.s_emis + torch.from_numpy(
+            e).to(dev) * (sc.s_kind > 0)[:, None, None])
+    org, dirs, seeds = pt_camera_rays(sc, w, h, init_seeds(w * h,
+                                                           device=dev))
+    return sc, org, dirs, tmin, seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,emis_seed", [
+    ("test18", None), ("test17", 17), ("test15", 15), ("test05", 5)])
+def test_pt_kernel_matches_plain_on_card(dev, name, emis_seed):
+    """The PT kernel against the plain trace_pt on the card: seeds equal,
+    radiance within 1e-5, one launch per call, over 5% of the lanes lit."""
+    from quadray_tpu_torch.ops.pt import trace_pt
+    sc, org, dirs, tmin, seeds = _pt_rays(name, dev, 200, 120, emis_seed)
+    cfg = TraceConfig(depth=10)
+    before = ck.pt_launches
+    got_r, got_s = ck.trace_pt_cuda(sc, org, dirs, tmin, seeds, cfg)
+    want_r, want_s = trace_pt(sc, org, dirs, tmin, seeds, cfg)
+    torch.cuda.synchronize()
+    assert ck.pt_launches == before + 1
+    assert got_r.shape == (dirs.shape[0], 3) and got_s.dtype == torch.int32
+    assert torch.equal(got_s, want_s)
+    assert (got_r - want_r).abs().max().item() <= 1e-5
+    assert (got_r.amax(dim=1) > 0).float().mean().item() > 0.05
+
+
+@pytest.mark.cuda
+def test_pt_fused_equals_chained(dev):
+    """The engine carries its pass state across calls: 1 then 3
+    Scene.render_pt_pass passes against one render_pt_cuda of 4 from the
+    same seeds, radiance and seeds bitwise (both run pt_passes; the port
+    has no fused path)."""
+    from quadray_tpu_torch.ops.pt import init_seeds
+    w, h = 200, 120
+    scene = Scene(load_scene("test18"), w, h, device=dev)
+    assert scene.set_pton(True)
+    scene.render_pt_pass(1)
+    scene.render_pt_pass(3)
+    img, seeds = ck.render_pt_cuda(scene.arrays, w, h,
+                                   init_seeds(w * h, device=dev), 4,
+                                   TraceConfig(depth=10), scene._struct)
+    assert torch.equal(seeds, scene._pt_seeds)
+    assert torch.equal(img, (scene._pt_acc / 4.0).reshape(h, w, 3))
+
+
+@pytest.mark.cuda
+def test_pt_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    sc, org, dirs, tmin, seeds = _pt_rays("test18", dev, 8, 4)
+    cfg = TraceConfig()
+    with pytest.raises(ValueError):
+        ck.trace_pt_cuda(sc, org, dirs, tmin, seeds.cpu(), cfg)
+    with pytest.raises(ValueError):
+        ck.trace_pt_cuda(sc, org, dirs, tmin, seeds.long(), cfg)
+    with pytest.raises(ValueError):
+        ck.trace_pt_cuda(sc, org, dirs, tmin, seeds[:-1], cfg)
+    with pytest.raises(ValueError):
+        ck.trace_pt_cuda(sc, org, dirs[:, :2], tmin, seeds, cfg)
+    with pytest.raises(ValueError):
+        ck.trace_pt_cuda(sc.to("cpu"), org, dirs, tmin, seeds, cfg)

@@ -25,7 +25,7 @@ for m in pkgutil.walk_packages(quadray_tpu_torch.__path__,
 bad = [m for m in sys.modules if m.startswith(("jax", "quadray_tpu."))
        and sys.modules[m] is not None]
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -34,8 +34,11 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # package, 5 subpackages and every module below them
-    assert int(res.stdout.strip()) >= 17, res.stdout
+    # package, 5 subpackages and every module below them, the path tracer
+    # among them
+    names = res.stdout.split()
+    assert len(names) >= 18, names
+    assert "quadray_tpu_torch.ops.pt" in names, names
 
 
 def test_sources_name_no_jax():

@@ -24,7 +24,7 @@ def _both(name):
     sd = load_scene(name)
     j = compile_scene(S.SceneDef(root=sd.root, opts=S.OPTS_FULL & ~sd.opts))
     t = scene_arrays_from_numpy({k: np.asarray(getattr(j, k))
-                                 for k in FIELDS})
+                                 for k in FIELDS}, device="cpu")
     return j, t
 
 

@@ -39,7 +39,7 @@ def _setup(name, w=W, h=H):
     sd = load_scene(name)
     j = compile_scene(S.SceneDef(root=sd.root, opts=S.OPTS_FULL & ~sd.opts))
     t = scene_arrays_from_numpy({k: np.asarray(getattr(j, k))
-                                 for k in FIELDS})
+                                 for k in FIELDS}, device="cpu")
     org1, dirs = jrays(j.cam_pos, j.cam_hor, j.cam_ver, j.cam_nrm,
                        j.cam_pov, w, h, 1)
     n = dirs.shape[0]
@@ -97,7 +97,7 @@ def test_plain_paths_never_push_like_the_kernel():
     j, t, jr, tr = _setup("test01")
     j = j.replace(m_trn=j.m_trn + 5e-3)
     t = scene_arrays_from_numpy({k: np.asarray(getattr(j, k))
-                                 for k in FIELDS})
+                                 for k in FIELDS}, device="cpu")
     _, want_p = jpaths(j, *jr, JConfig(), k_paths=K, interpret=True)
     _, got_p = trace_paths(t, *tr, TraceConfig(), K)
     assert np.array_equal(got_p.numpy(), np.asarray(want_p))

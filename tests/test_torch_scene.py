@@ -72,7 +72,7 @@ def _compile_both(name, t):
     j = jcompile(JS.SceneDef(root=jd.root, opts=JS.OPTS_FULL & ~jd.opts),
                  time=t)
     p = tcompile(TS.SceneDef(root=td.root, opts=TS.OPTS_FULL & ~td.opts),
-                 time=t)
+                 time=t, device="cpu")
     return j, p
 
 
@@ -100,6 +100,6 @@ def test_compile_scene_matches_jax(name, t):
 def test_scene_arrays_numpy_round_trip():
     j, _ = _compile_both("test03", 0.0)
     d = {k: np.asarray(getattr(j, k)) for k in FIELDS}
-    back = scene_arrays_to_numpy(scene_arrays_from_numpy(d))
+    back = scene_arrays_to_numpy(scene_arrays_from_numpy(d, device="cpu"))
     for k in FIELDS:
         assert np.array_equal(d[k], back[k]) and d[k].dtype == back[k].dtype

@@ -43,7 +43,7 @@ def _scene(name):
     sd = load_scene(name)
     j = compile_scene(S.SceneDef(root=sd.root, opts=S.OPTS_FULL & ~sd.opts))
     t = scene_arrays_from_numpy({k: np.asarray(getattr(j, k))
-                                 for k in FIELDS})
+                                 for k in FIELDS}, device="cpu")
     return j, t
 
 
@@ -111,3 +111,29 @@ def test_trace_rays_chunks_are_independent(monkeypatch):
     whole = trace_rays(t, org, dirs, tmin, TraceConfig())
     monkeypatch.setattr(tr, "CHUNK", 37)
     assert torch.equal(whole, trace_rays(t, org, dirs, tmin, TraceConfig()))
+
+
+def test_work_counts_match_the_path_records():
+    """The plain tracers' work counts (the kernels' bounds read them): on
+    a single-branch scene every segment run writes a non-zero path record,
+    and every hit's clear light bit is a shadow ray no blocker stopped.
+    Counting changes no output, and trace_rays counts what trace_paths
+    does."""
+    from quadray_tpu_torch.ops.trace import trace_paths
+    _, t = _scene("test01")
+    org, dirs = camera_rays(t.cam_pos, t.cam_hor, t.cam_ver, t.cam_nrm,
+                            t.cam_pov, 40, 24, 1)
+    tmin = t.cam_pov.expand(dirs.shape[0])
+    cfg = TraceConfig(max_segments=8, stack=4)
+    stats, stats_r = {}, {}
+    cols, paths = trace_paths(t, org, dirs, tmin, cfg, 8, stats)
+    want = trace_paths(t, org, dirs, tmin, cfg, 8)
+    assert torch.equal(cols, want[0]) and torch.equal(paths, want[1])
+    assert stats["walks"] == int((paths != 0).sum()) > dirs.shape[0]
+    nl = int(t.l_on.sum())
+    hits = paths[((paths >> 15) & 1) == 1]
+    lit = sum(int((((hits >> (16 + l)) & 1) == 0).sum()) for l in range(nl))
+    assert stats["shadow_open"] == lit > 0
+    assert 0 < stats["shadow_blocked"] <= hits.numel() * nl - lit
+    assert torch.equal(trace_rays(t, org, dirs, tmin, cfg, stats_r), cols)
+    assert stats_r == stats

@@ -59,7 +59,7 @@ def task():
         losses.append(float(loss))
     states.append((_np(params), None))
     tsc = scene_arrays_from_numpy({k: np.asarray(getattr(sc_p, k))
-                                   for k in FIELDS})
+                                   for k in FIELDS}, device="cpu")
     return dict(sc=tsc, target=torch.from_numpy(target), states=states,
                 losses=losses)
 
@@ -77,7 +77,7 @@ def _assert_params_close(got, want):
 
 def test_train_step_fast_matches_jax(task):
     step_fn, opt_init = _port_step(task["sc"])
-    p0 = ttrain.params_from_numpy(task["states"][0][0])
+    p0 = ttrain.params_from_numpy(task["states"][0][0], device="cpu")
     params, opt_state = p0, opt_init(p0)
     losses = []
     for _ in range(STEPS):
@@ -100,7 +100,7 @@ def test_train_scan_equals_steps(task):
     step_fn, opt_init = _port_step(task["sc"])
     run_fn, _ = ttrain.make_train_scan_fast(
         task["sc"], W, H, cfg=TraceConfig(max_segments=4, stack=4), **KW)
-    p0 = ttrain.params_from_numpy(task["states"][0][0])
+    p0 = ttrain.params_from_numpy(task["states"][0][0], device="cpu")
     p1, o1 = p0, opt_init(p0)
     losses = []
     for _ in range(STEPS):
@@ -124,8 +124,8 @@ def test_adam_state_from_optax_reproduces_the_next_step(task):
     steps; its 4th step matches the JAX 4th step."""
     step_fn, _ = _port_step(task["sc"])
     params_np, state_np = task["states"][STEPS]
-    params = ttrain.params_from_numpy(params_np)
-    opt_state = ttrain.opt_state_from_numpy(state_np)
+    params = ttrain.params_from_numpy(params_np, device="cpu")
+    opt_state = ttrain.opt_state_from_numpy(state_np, device="cpu")
     assert opt_state.count == STEPS
     params, opt_state, loss = step_fn(params, opt_state, task["sc"],
                                       task["target"])
@@ -139,14 +139,14 @@ def test_adam_state_from_optax_reproduces_the_next_step(task):
 
 def test_checkpoint_round_trip(task, tmp_path):
     step_fn, opt_init = _port_step(task["sc"])
-    p0 = ttrain.params_from_numpy(task["states"][0][0])
+    p0 = ttrain.params_from_numpy(task["states"][0][0], device="cpu")
     params, opt_state, _ = step_fn(p0, opt_init(p0), task["sc"],
                                    task["target"])
     path = save_checkpoint(str(tmp_path), 1, params, opt_state)
     save_checkpoint(str(tmp_path / "ckpt_00000007.npz"), 7, params,
                     opt_state)
     assert latest_checkpoint(str(tmp_path)).endswith("ckpt_00000007.npz")
-    step, params2, opt_state2 = load_checkpoint(path)
+    step, params2, opt_state2 = load_checkpoint(path, device="cpu")
     assert step == 1 and opt_state2.count == opt_state.count
     for k in params:
         assert torch.equal(params[k], params2[k])
@@ -158,7 +158,7 @@ def test_checkpoint_round_trip(task, tmp_path):
     assert torch.equal(a[2], b[2])
     for k in params:
         assert torch.equal(a[0][k], b[0][k])
-    assert load_checkpoint(str(tmp_path))[0] == 7
+    assert load_checkpoint(str(tmp_path), device="cpu")[0] == 7
 
 
 def test_all_surface_train_step_matches_fast_step_loss(task):
@@ -167,7 +167,7 @@ def test_all_surface_train_step_matches_fast_step_loss(task):
     the traced color (test01 has no texture), and it lowers the loss."""
     step_fn, opt_init = ttrain.make_train_step(
         W, H, cfg=TraceConfig(max_segments=4, stack=4), lr=LR)
-    p0 = ttrain.params_from_numpy(task["states"][0][0])
+    p0 = ttrain.params_from_numpy(task["states"][0][0], device="cpu")
     params, opt_state = p0, opt_init(p0)
     losses = []
     for _ in range(2):
