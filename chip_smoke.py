@@ -61,6 +61,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -104,6 +105,18 @@ PT_LIT = 0.05
 # golden/ref_test18_pt64.bmp limits (tests/test_pt.py:43-53)
 PT_LIMITS = {"global_mean": 2.5, "block_mean": 3.5, "block_p95": 9.0,
              "block_max": 18.0}
+# phase F: (scene, width, height, k1) of the emit/resume kernels against
+# their plain versions; test14 (152 surfaces) keeps 56% of its rays alive
+# at segment 2 and 16% at segment 3, test08 50% at 2, test16 (93
+# surfaces, clip programs) a few percent at 2
+PHASE_F1 = [("test08", 200, 120, 2), ("test14", 200, 120, 2),
+            ("test16", 200, 120, 2), ("test14", W, H, 3)]
+# F3: the monolithic kernel against the two rounds, heavy scenes
+PHASE_F3 = ["test13", "test14", "demo02", "demo03"]
+F3_ROUNDS, F3_REPS = 4, 10
+# phase G: the conformance kernels' timing size (384,000 elements, one
+# 800x480 frame's rays) and launches per timing
+G_ROWS, G_REPS = W * H // 128, 50
 # FP32 operations (mul, add, sub, div, sqrt; compares not counted) of one
 # surface test in quadray_tpu_torch/csrc/whitted.cu, counted from its
 # source: a plane's nearest or shadow test; a quadric's (or two-plane's)
@@ -116,6 +129,30 @@ HBM_RATE, FP32_RATE = 3.35e12, 67e12
 
 def log(*a):
     print(*a, flush=True)
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms of fn() over reps calls captured in one CUDA graph
+    and replayed (CUDA events around a replay, after a warm-up replay):
+    the time of the launches without the host's time between them, which
+    is most of a small kernel's wall time."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / reps
+    del g
+    return ms
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -657,12 +694,422 @@ def phase_e4(dev):
     return kernel_ms, plain_ms, bound, bound_by
 
 
+# ---- phase F: two-round retirement ------------------------------------------
+
+def phase_f1(dev):
+    """The emit and resume kernels against their plain versions on the
+    card: emit's colors and all 21 state rows, then resume from the
+    kernel's state, bitwise; the two rounds equal the monolithic kernel."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import (
+        ACTIVE_ROW, STATE_I32, STATE_ROWS, TraceConfig, trace_rays_emit,
+        trace_rays_resume)
+    cfg = TraceConfig()
+    worst = 0.0
+    bits = lambda t: t.contiguous().view(torch.int32)
+    for name, w, h, k1 in PHASE_F1:
+        sc = compiled(name, dev)
+        rays = primary(sc, w, h)
+        cols_k, state_k = ck.trace_rays_emit_cuda(sc, *rays, cfg, k1)
+        cols_p, state_p = trace_rays_emit(sc, *rays, cfg, k1)
+        torch.cuda.synchronize()
+        rows = [STATE_ROWS[k] for k in range(len(STATE_ROWS))
+                if not torch.equal(bits(state_k[k]), bits(state_p[k]))]
+        floats = [k for k in range(len(STATE_ROWS)) if k not in STATE_I32]
+        emit_err = max(float((cols_k - cols_p).abs().max()),
+                       float((state_k[floats] - state_p[floats]).abs()
+                             .max()))
+        alive = float((bits(state_k[ACTIVE_ROW]) != 0).float().mean())
+        same_cols = torch.equal(bits(cols_k), bits(cols_p))
+        emitted = cols_k.clone()     # resume writes into cols_k
+        idx, count = ck.compact_active(state_k)
+        res_k = ck.trace_rays_resume_cuda(sc, state_k, cols_k, idx, count,
+                                          cfg, k1)
+        res_p = trace_rays_resume(sc, state_k, emitted, cfg, k1)
+        mono = ck.trace_rays_cuda(sc, *rays, cfg)
+        torch.cuda.synchronize()
+        nd = int((bits(res_k) != bits(res_p)).any(dim=1).sum())
+        res_err = float((res_k - res_p).abs().max())
+        worst = max(worst, emit_err, res_err)
+        same_mono = torch.equal(bits(res_k), bits(mono))
+        log(f"F1 {name} {w}x{h} k1={k1}: rays={w * h} alive_after_round1="
+            f"{alive:.4f} survivors={int(count)} emit colors bitwise="
+            f"{same_cols} state rows "
+            f"differing={rows or 'none'} resume lanes_differing={nd} "
+            f"max_abs={max(emit_err, res_err):.3e} rounds==monolithic="
+            f"{same_mono}")
+        if rows or not same_cols:
+            raise AssertionError(f"F1 {name}: emit differs from its plain "
+                                 f"version (rows {rows})")
+        if nd or not same_mono:
+            raise AssertionError(f"F1 {name}: resume differs ({nd} lanes) "
+                                 f"or rounds != monolithic ({same_mono})")
+        if not 0 < alive < 1:
+            raise AssertionError(f"F1 {name}: no lane on one side of the cut")
+        del state_p, res_p
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_f2(dev):
+    """The counted run: every golden scene at 800x480 through
+    trace_rays_rounds at k1 = ROUNDS_K1 and WAVE_K1, each frame bitwise
+    equal to render_cuda's and inside its golden budget; single-branch
+    scenes launch emit and resume once a call (and the monolithic kernel
+    never), test17 and test18 the monolithic kernel only; no host sync
+    inside a call."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.rays import camera_rays, resolve_aa
+    from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
+    from quadray_tpu_torch.utils.image import load_bmp, frame_cmp
+    cfg = TraceConfig()
+    cases = []
+    for n in SCENES:
+        scene = Scene(load_scene(n), W, H, device=dev)
+        sc = scene.arrays
+        org, dirs = camera_rays(sc.cam_pos, sc.cam_hor, sc.cam_ver,
+                                sc.cam_nrm, sc.cam_pov, W, H, 1)
+        rays = (org, dirs, sc.cam_pov.expand(dirs.shape[0]))
+        struct = ck.scene_struct(sc)
+        mono = ck.render_cuda(sc, W, H, 1, cfg, struct)
+        cases.append((n, sc, struct, rays, mono))
+    torch.cuda.synchronize()
+    single = [n for n, _, st, _, _ in cases if not st.can_push]
+    counters = ("emit_launches", "resume_launches", "launches")
+    # main path, counted: every count zeroed right before, read right after
+    for c in counters:
+        setattr(ck, c, 0)
+    runs, syncs = [], []
+    for n, sc, struct, rays, mono in cases:
+        # the packed tables (set-up, cached per scene: 8 scenes at a
+        # time) are uploaded before the calls, which must not wait
+        ck._get_packed(sc, struct)
+        for k1 in (ck.ROUNDS_K1, ck.WAVE_K1):
+            before = [getattr(ck, c) for c in counters]
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    cols = ck.trace_rays_rounds(sc, *rays, cfg, k1, struct)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs += [f"{n}: {w.message}" for w in caught
+                      if "called a synchronizing" in str(w.message)]
+            runs.append((n, k1, [getattr(ck, c) - b for c, b in
+                                 zip(counters, before)], cols))
+    torch.cuda.synchronize()
+    totals = {c: getattr(ck, c) for c in counters}
+    refs = {n: load_bmp(os.path.join(GOLDEN, f"ref_{n}.bmp")) for n in SCENES}
+    byname = {c[0]: c for c in cases}
+    fails = []
+    for n, k1, (ne, nr, nm), cols in runs:
+        _, sc, struct, _, mono = byname[n]
+        img = resolve_aa(torch.clamp(cols, 0.0, 1.0), W, H, 1)
+        same = torch.equal(img.contiguous().view(torch.int32),
+                           mono.contiguous().view(torch.int32))
+        nbad, _ = frame_cmp(refs[n], to_frame(img, sc.use_gamma).cpu()
+                            .numpy(), t_diff=3)
+        want = (0, 0, 1) if struct.can_push else (1, 1, 0)
+        ok = same and nbad <= BUDGET.get(n, 0) and (ne, nr, nm) == want
+        log(f"F2 {n} k1={k1}: bitwise_vs_render_cuda={same} bad_px={nbad} "
+            f"budget={BUDGET.get(n, 0)} launches emit={ne} resume={nr} "
+            f"monolithic={nm}{'' if ok else '  FAIL'}")
+        if not ok:
+            fails.append(f"{n} k1={k1}")
+    log(f"F2 launches over {len(runs)} calls: {totals}; single-branch "
+        f"scenes {len(single)}; host syncs inside the calls: {len(syncs)}")
+    if fails or syncs or len(single) != 19:
+        raise AssertionError(f"F2: failed {fails}; syncs {sorted(set(syncs))};"
+                             f" single-branch scenes {len(single)}")
+    return totals
+
+
+def rounds_bounds(sc, struct, rays, k1):
+    """Bounds of the emit and resume kernels on these rays, from the work
+    the plain versions count: emit reads 28 bytes and writes 12 + 84 per
+    ray; resume reads 84 (20 state rows and its index) and writes 12 per
+    surviving ray."""
+    from quadray_tpu_torch.ops.trace import (ACTIVE_ROW, TraceConfig,
+                                             trace_rays_emit,
+                                             trace_rays_resume)
+    cfg = TraceConfig()
+    se, sr = {}, {}
+    cols, state = trace_rays_emit(sc, *rays, cfg, k1, se)
+    alive = int((state[ACTIVE_ROW].view(torch.int32) != 0).sum())
+    trace_rays_resume(sc, state, cols, cfg, k1, sr)
+    del cols, state
+    torch.cuda.empty_cache()
+    n = rays[1].shape[0]
+    return (bound_ms(n * (28 + 12 + 84), surface_ops(struct, se)),
+            bound_ms(alive * (84 + 12), surface_ops(struct, sr)), se, sr)
+
+
+def phase_f3(dev):
+    """The monolithic kernel against the two rounds at k1 = 1 and 4, part
+    by part, in alternating turns in one process (CUDA events); the share
+    of rays alive after round 1; each kernel's bound."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import (TraceConfig, trace_rays_emit,
+                                             trace_rays_resume)
+    cfg = TraceConfig()
+    result = {}
+    for name in PHASE_F3:
+        sc = compiled(name, dev)
+        struct = ck.scene_struct(sc)
+        rays = primary(sc, W, H)
+        fns = {"monolithic": lambda: ck.trace_rays_cuda(sc, *rays, cfg,
+                                                        struct)}
+        alive = {}
+        for k1 in (ck.WAVE_K1, ck.ROUNDS_K1):
+            cols, state = ck.trace_rays_emit_cuda(sc, *rays, cfg, k1, struct)
+            idx, count = ck.compact_active(state)
+            alive[k1] = int(count)
+            fns[f"k1={k1} emit"] = (lambda k1=k1: ck.trace_rays_emit_cuda(
+                sc, *rays, cfg, k1, struct))
+            fns[f"k1={k1} compact"] = (lambda state=state:
+                                       ck.compact_active(state))
+            fns[f"k1={k1} resume"] = (
+                lambda k1=k1, s=state, c=cols, i=idx, n=count:
+                ck.trace_rays_resume_cuda(sc, s, c, i, n, cfg, k1, struct))
+            fns[f"k1={k1} rounds"] = (lambda k1=k1: ck.trace_rays_rounds(
+                sc, *rays, cfg, k1, struct))
+        times = {k: [] for k in fns}
+        order = list(fns)
+        for r in range(F3_ROUNDS):
+            for k in (order if r % 2 == 0 else order[::-1]):
+                times[k].append(graph_ms(fns[k], F3_REPS))
+        n = W * H
+        line = " ".join(f"{k}={np.mean(v):.4f} ({min(v):.4f}-{max(v):.4f})"
+                        for k, v in times.items())
+        log(f"F3 {name} {W}x{H} device ms (CUDA graphs of {F3_REPS} "
+            f"calls, mean of {F3_ROUNDS} turns): {line}; alive after round "
+            "1: " + ", ".join(
+                f"k1={k} {v / n:.4f}" for k, v in alive.items()))
+        bounds = {}
+        for k1 in (ck.WAVE_K1, ck.ROUNDS_K1):
+            be, br, se, sr = rounds_bounds(sc, struct, rays, k1)
+            bounds[k1] = (be, br)
+            log(f"F3 {name} k1={k1} bounds: emit {be[0]:.4f} ({be[1]}; "
+                f"{work_line(se)}), resume {br[0]:.4f} ({br[1]}; "
+                f"{work_line(sr)})")
+        result[name] = (times, alive, bounds)
+        if name == "test13":
+            # the plain versions' times (one run each, k1 = ROUNDS_K1)
+            k1 = ck.ROUNDS_K1
+            cols, state = trace_rays_emit(sc, *rays, cfg, k1)
+            pe = cuda_ms(lambda: trace_rays_emit(sc, *rays, cfg, k1), 1, 0)
+            pr = cuda_ms(lambda: trace_rays_resume(sc, state, cols, cfg, k1),
+                         1, 0)
+            log(f"F3 test13 k1={k1} plain ms: emit {pe:.1f} resume {pr:.1f}")
+            result["plain"] = (pe, pr)
+            del cols, state
+        torch.cuda.empty_cache()
+    return result
+
+
+# ---- phase G: the kernel-op conformance tier ---------------------------------
+
+def _np_roots(a, b, c):
+    f = np.float32
+    disc = b * b - a * c
+    quad_ok = disc >= 0
+    sq = np.sqrt(np.maximum(disc, f(0)))
+    q = -(b + np.where(b >= 0, f(1), f(-1)) * sq)
+    b_pos = b > 0
+
+    def root(num, den):
+        den = np.where(num == 0, f(1), den)
+        ok = den != 0
+        return np.where(ok, num / np.where(ok, den, f(1)), f(1e30)), ok
+
+    t1, ok1 = root(np.where(b_pos, q, c), np.where(b_pos, a, q))
+    t2, ok2 = root(np.where(b_pos, c, q), np.where(b_pos, q, a))
+    sgn_a = np.where(a >= 0, f(1), f(-1))
+    u = (t1 - t2) * sgn_a
+    tdff = np.where(u >= 0, f(-0.5) * u - np.abs(f(1e-7) * t1), f(0)) * sgn_a
+    tdff = np.where(quad_ok & (disc < f(1e-11)) & ok1 & ok2, tdff, f(0))
+    return (np.where(quad_ok & ok1, t1 + tdff, f(1e30))
+            + f(1e-3) * np.where(quad_ok & ok2, t2 - tdff, f(1e30)))
+
+
+def _np_sdiv(num, den, fb):
+    bad = np.abs(den) < np.float32(1e-30)
+    return np.where(bad, np.float32(fb), num / np.where(bad, np.float32(1),
+                                                        den))
+
+
+def _np_fresnel(eta, dot):
+    f = np.float32
+    ed = eta * dot
+    k = f(1) - eta * eta + ed * ed
+    sq = np.sqrt(np.maximum(k, f(0)))
+    rs = _np_sdiv(ed + sq, ed - sq, 1.0)
+    rp = _np_sdiv(dot + eta * sq, dot - eta * sq, 1.0)
+    F = np.clip(f(0.5) * (rs * rs + rp * rp), f(0), f(1))
+    return np.where(k < 0, f(1), F)
+
+
+def _np_root_sdiv(num, den):
+    f = np.float32
+    d = np.where(num == 0, f(1), den)
+    ok = d != 0
+    r = np.where(ok, num / np.where(ok, d, f(1)), f(1e30))
+    return r + f(1e3) * ok.astype(f) + f(1e-3) * _np_sdiv(num, den, 1e30)
+
+
+# numpy f32 on the host: what each conformance kernel must give
+NUMPY_REF = {
+    "add": lambda x, y: x + y,
+    "mul": lambda x, y: x * y,
+    "div": lambda x, y: x / y,
+    "sqrt": np.sqrt,
+    "rsqrt": lambda x: (1.0 / np.sqrt(x.astype(np.float64))).astype(
+        np.float32),
+    "exp": np.exp,
+    "log": np.log,
+    "fma": lambda x, y: x * y + y,
+    "min_max": lambda x, y: np.maximum(x, y) - np.minimum(x, y),
+    "abs_neg": lambda x: np.abs(-x),
+    "roots": _np_roots,
+    "fresnel": _np_fresnel,
+    "spec_pow": lambda x, p: np.exp(p * np.log(x)),
+    "gather": lambda t, i: np.take_along_axis(t, i, axis=1),
+    "root_sdiv": _np_root_sdiv,
+}
+# the bars: None bitwise (correctly rounded ops; rsqrt against 1/sqrt in
+# f64 rounded once), else tests/test_conformance.py's FEQ scale
+FEQ_SCALE = {"exp": 4.0, "log": 4.0, "spec_pow": 64.0, "roots": 8.0,
+             "fresnel": 8.0, "root_sdiv": 8.0}
+# one PyTorch call computing each case's function, where there is one
+LIBRARY = {
+    "add": torch.add, "mul": torch.mul, "div": torch.div, "sqrt": torch.sqrt,
+    "rsqrt": torch.rsqrt, "exp": torch.exp, "log": torch.log,
+    "fma": lambda x, y: torch.addcmul(y, x, y),
+    "abs_neg": lambda x: torch.abs(x), "spec_pow": torch.pow,
+    "gather": lambda t, i: torch.gather(t, 1, i.long()),
+}
+# FP32 operations per element of each case (for its bound; all are
+# bytes-bound by far)
+CASE_OPS = {"roots": 30, "fresnel": 20, "spec_pow": 3, "root_sdiv": 6}
+
+
+def feq_bad(a, b, scale) -> int:
+    """Lanes outside tests/test_conformance.py's FEQ (_feq :37-44)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    tol = scale * np.finfo(np.float32).eps * np.maximum(
+        np.maximum(np.abs(a), np.abs(b)), 1e-20)
+    return int((np.abs(a - b) > tol).sum())
+
+
+def conf_check(name, got, want) -> int:
+    """Lanes of got (a kernel's output) off want under the case's bar."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    if name in FEQ_SCALE:
+        return feq_bad(got, want, FEQ_SCALE[name])
+    return int((got.view(np.int32) != want.view(np.int32)).sum())
+
+
+def phase_g1(dev):
+    """Every conformance kernel on the tier's (8, 128) inputs (counted),
+    against numpy f32 on the host and against its plain version on the
+    card (the torch CUDA ops), then the same on 384,000 elements against
+    the plain version."""
+    from quadray_tpu_torch.ops import conformance as cf
+    cf.launches = 0
+    runs = {}
+    for name in cf.CASES:
+        host = cf.case_inputs(name)
+        args = [torch.from_numpy(a).to(dev) for a in host]
+        runs[name] = (host, args, cf.conformance(name, *args))
+    torch.cuda.synchronize()
+    launches = cf.launches
+    worst, fails = 0.0, []
+    for name, (host, args, got) in runs.items():
+        with np.errstate(all="ignore"):
+            ref = NUMPY_REF[name](*host)
+        card = cf.plain(name, *args)
+        big = [torch.from_numpy(a).to(dev)
+               for a in cf.case_inputs(name, rows=G_ROWS)]
+        got_big, card_big = cf.conformance(name, *big), cf.plain(name, *big)
+        g = got.cpu().numpy()
+        bad = (conf_check(name, g, ref), conf_check(name, g, card.cpu()),
+               conf_check(name, got_big.cpu(), card_big.cpu()))
+        bits = int((got.view(torch.int32) != card.view(torch.int32)).sum())
+        err = float((got - card).abs().max())
+        worst = max(worst, err, float((got_big - card_big).abs().max()))
+        bar = (f"FEQ {FEQ_SCALE[name]:g}" if name in FEQ_SCALE
+               else "bitwise")
+        log(f"G1 {name}: bar={bar} off_vs_numpy={bad[0]} "
+            f"off_vs_plain_on_card={bad[1]} off_vs_plain_at_{G_ROWS}x128="
+            f"{bad[2]} lanes_not_bitwise_vs_plain={bits} max_abs={err:.3e}")
+        if any(bad):
+            fails.append(name)
+    log(f"G1 conformance launches (the 15 cases at 8x128): {launches}")
+    if fails or launches != len(cf.CASES):
+        raise AssertionError(f"G1: cases off their bar: {fails}; launches "
+                             f"{launches}")
+    return launches, worst
+
+
+def phase_g2(dev):
+    """The Whitted kernel against the plain tracer on 2048 random
+    non-camera rays (tests/test_conformance.py:215-246), bitwise."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.conformance import random_rays
+    from quadray_tpu_torch.ops.trace import TraceConfig, trace_rays
+    cfg = TraceConfig(stack=4, max_segments=12)
+    for name, seed in (("test01", 1), ("test10", 10), ("test17", 17)):
+        sc = compiled(name, dev)
+        org, dirs = (torch.from_numpy(a).to(dev)
+                     for a in random_rays(2048, seed))
+        tmin = torch.zeros((2048,), dtype=torch.float32, device=dev)
+        got = ck.trace_rays_cuda(sc, org, dirs, tmin, cfg)
+        want = trace_rays(sc, org, dirs, tmin, cfg)
+        torch.cuda.synchronize()
+        nd = int((got.view(torch.int32) != want.view(torch.int32))
+                 .any(dim=1).sum())
+        lit = float((got.amax(dim=1) > 0).float().mean())
+        log(f"G2 {name} 2048 random rays: lanes_differing={nd} max_abs="
+            f"{float((got - want).abs().max()):.3e} lit_lanes={lit:.4f}")
+        if nd:
+            raise AssertionError(f"G2 {name}: {nd} lanes differ")
+
+
+def phase_g3(dev):
+    """Each conformance kernel at 384,000 elements against its plain
+    version and the one PyTorch call that computes its function; the
+    bounds (bytes: each input read once, the output written once)."""
+    from quadray_tpu_torch.ops import conformance as cf
+    rows = {}
+    for name in cf.CASES:
+        args = [torch.from_numpy(a).to(dev)
+                for a in cf.case_inputs(name, rows=G_ROWS)]
+        n = args[0].numel()
+        wall = cuda_ms(lambda: cf.conformance(name, *args), G_REPS)
+        ms = graph_ms(lambda: cf.conformance(name, *args), G_REPS)
+        plain = graph_ms(lambda: cf.plain(name, *args), G_REPS)
+        lib = (graph_ms(lambda: LIBRARY[name](*args), G_REPS)
+               if name in LIBRARY else None)
+        bound = bound_ms(n * 4 * (len(args) + 1), n * CASE_OPS.get(name, 1))
+        rows[name] = (ms, plain, lib, bound)
+        log(f"G3 {name} {n} elements, device ms (CUDA graphs): kernel="
+            f"{ms:.4f} plain={plain:.4f} library="
+            f"{'none' if lib is None else f'{lib:.4f}'} bound="
+            f"{bound[0]:.4f} ({bound[1]}); kernel through the wrapper, "
+            f"launch to launch: {wall:.4f}")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["A", "D", "E"], default=None,
-                    help="run only phase A (build + kernel vs plain), "
-                    "only phase D (training path) or only phase E (path "
-                    "tracer)")
+    ap.add_argument("--only", choices=["A", "D", "E", "F", "G"], default=None,
+                    help="run only phase A (build + kernel vs plain), D "
+                    "(training path), E (path tracer), F (two-round "
+                    "retirement) or G (conformance tier)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -678,8 +1125,9 @@ def main():
         f"python {sys.version.split()[0]}")
     from quadray_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.load_library("whitted")
-    log(f"kernel build and load: {time.perf_counter() - t0:.1f} s")
+    _build.load_libraries("whitted", "conformance")
+    log(f"kernel build (parallel nvcc) and load: "
+        f"{time.perf_counter() - t0:.1f} s")
     ptxas = os.path.join(_build.BUILD_DIR, "whitted.ptxas.txt")
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
@@ -687,45 +1135,75 @@ def main():
                 if any(k in line for k in ("entry function", "registers",
                                            "stack frame")):
                     log(f"ptxas: {line.strip()}")
+    ptxas = os.path.join(_build.BUILD_DIR, "conformance.ptxas.txt")
+    if os.path.exists(ptxas):
+        with open(ptxas) as fh:
+            text = fh.read()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        stack = sorted(set(re.findall(r"(\d+) bytes stack frame", text)))
+        spill = sorted(set(re.findall(r"(\d+) bytes spill stores", text)))
+        log(f"ptxas conformance: {len(regs)} kernels, {min(regs)}-"
+            f"{max(regs)} registers, stack frames {stack}, spill stores "
+            f"{spill}")
     dev = torch.device("cuda", 0)
+    only = args.only
 
-    if args.only in (None, "A"):
+    def phase(name, fn, *a):
         t0 = time.perf_counter()
-        max_err = phase_a(dev, PHASE_A[:2] if args.only else PHASE_A)
-        log(f"phase A ok ({time.perf_counter() - t0:.1f} s)")
-        if args.only:
+        out = fn(*a)
+        log(f"phase {name} ok ({time.perf_counter() - t0:.1f} s)")
+        return out
+
+    if only in (None, "A"):
+        max_err = phase("A", phase_a, dev, PHASE_A[:2] if only else PHASE_A)
+        if only:
             return
-        t0 = time.perf_counter()
-        scenes, launches = phase_b(dev)
-        log(f"phase B ok ({time.perf_counter() - t0:.1f} s)")
+        scenes, launches = phase("B", phase_b, dev)
         rows = phase_b_timing(scenes)
+        del scenes
         w_bound = whitted_bound(dev, "test13")
-        t0 = time.perf_counter()
-        phase_c(dev)
-        log(f"phase C ok ({time.perf_counter() - t0:.1f} s)")
+        phase("C", phase_c, dev)
 
-    if args.only in (None, "D"):
+    if only in (None, "D"):
         t0 = time.perf_counter()
         d_err = phase_d1(dev)
         phase_d2(dev)
         d_launches, d_ms, d_plain, d_bound = phase_d3(dev)
         phase_d4(dev)
         log(f"phase D ok ({time.perf_counter() - t0:.1f} s)")
-        if args.only:
-            return
 
-    t0 = time.perf_counter()
-    e_err = phase_e1(dev)
-    scene, e_launches = phase_e2(dev)
-    phase_e3(dev, scene)
-    del scene
-    torch.cuda.empty_cache()
-    e_ms, e_plain, e_bound, e_by = phase_e4(dev)
-    log(f"phase E ok ({time.perf_counter() - t0:.1f} s)")
-    if args.only:
+    if only in (None, "E"):
+        t0 = time.perf_counter()
+        e_err = phase_e1(dev)
+        scene, e_launches = phase_e2(dev)
+        phase_e3(dev, scene)
+        del scene
+        torch.cuda.empty_cache()
+        e_ms, e_plain, e_bound, e_by = phase_e4(dev)
+        log(f"phase E ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "F"):
+        t0 = time.perf_counter()
+        f_err = phase_f1(dev)
+        f_launches = phase_f2(dev)
+        f3 = phase_f3(dev)
+        log(f"phase F ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "G"):
+        t0 = time.perf_counter()
+        g_launches, g_err = phase_g1(dev)
+        phase_g2(dev)
+        g3 = phase_g3(dev)
+        log(f"phase G ok ({time.perf_counter() - t0:.1f} s)")
+    if only:
         return
 
+    from quadray_tpu_torch.ops.cuda_kernel import ROUNDS_K1 as k1
     ms, plain = rows["test13"]
+    times, _, bounds = f3["test13"]
+    lib_cases = [n for n in g3 if n in LIBRARY]
+    g_sum = [sum(g3[n][i] for n in lib_cases) for i in range(3)]
+    g_bound = sum(g3[n][3][0] for n in lib_cases)
     log("kernel table: whitted ms/plain_ms are test13 800x480 frames "
         "(render_cuda vs plain render); whitted_paths ms/plain_ms are "
         "test01 800x480 K=8 path-record traces (the training step's), "
@@ -734,8 +1212,16 @@ def main():
         "whitted_pt ms/plain_ms are one test18 800x480 depth-10 pass "
         "(trace_pt_cuda vs plain trace_pt), launches E2's 64 passes, "
         "max_abs_err the worst radiance error of E1 (its seeds equal the "
-        "plain version's); bound_ms for the same inputs; no single "
-        "PyTorch call traces rays, so library_ms is null")
+        "plain version's); whitted_emit and whitted_resume ms/plain_ms "
+        "are test13 800x480 at k1=4 (trace_rays_emit_cuda / "
+        "trace_rays_resume_cuda vs the plain versions), launches F2's "
+        "counted run, max_abs_err the worst of F1; bound_ms for the same "
+        "inputs; no single PyTorch call traces rays, so library_ms is "
+        "null for those five; conformance ms/plain_ms/bound_ms/library_ms "
+        "are sums over the " + str(len(lib_cases)) + " cases that have one "
+        "PyTorch call (" + ",".join(lib_cases) + ") at 384,000 elements, "
+        "launches G1's 15 cases, max_abs_err G1's worst against the plain "
+        "versions")
     log(json.dumps({"kernels": [{
         "name": "whitted", "route": "cuda",
         "source": "quadray_tpu_torch/csrc/whitted.cu",
@@ -754,7 +1240,27 @@ def main():
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2313",
         "launches": e_launches, "max_abs_err": e_err,
         "ms": e_ms, "plain_ms": e_plain, "bound_ms": e_bound,
-        "bound_by": e_by, "library_ms": None}]}))
+        "bound_by": e_by, "library_ms": None}, {
+        "name": "whitted_emit", "route": "cuda",
+        "source": "quadray_tpu_torch/csrc/whitted.cu",
+        "replaces": "quadray_tpu/ops/pallas_kernel.py:2525",
+        "launches": f_launches["emit_launches"], "max_abs_err": f_err,
+        "ms": float(np.mean(times[f"k1={k1} emit"])),
+        "plain_ms": f3["plain"][0], "bound_ms": bounds[k1][0][0],
+        "bound_by": bounds[k1][0][1], "library_ms": None}, {
+        "name": "whitted_resume", "route": "cuda",
+        "source": "quadray_tpu_torch/csrc/whitted.cu",
+        "replaces": "quadray_tpu/ops/pallas_kernel.py:2572",
+        "launches": f_launches["resume_launches"], "max_abs_err": f_err,
+        "ms": float(np.mean(times[f"k1={k1} resume"])),
+        "plain_ms": f3["plain"][1], "bound_ms": bounds[k1][1][0],
+        "bound_by": bounds[k1][1][1], "library_ms": None}, {
+        "name": "conformance", "route": "cuda",
+        "source": "quadray_tpu_torch/csrc/conformance.cu",
+        "replaces": "tests/test_conformance.py:18",
+        "launches": g_launches, "max_abs_err": g_err,
+        "ms": g_sum[0], "plain_ms": g_sum[1], "bound_ms": g_bound,
+        "bound_by": "bytes", "library_ms": g_sum[2]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

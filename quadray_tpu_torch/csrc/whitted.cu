@@ -4,11 +4,13 @@
 // Replaces the TPU kernels quadray_tpu/ops/pallas_kernel.py
 // _trace_tiled (_make_kernel in Whitted mode), _trace_tiled_paths
 // (_make_kernel with emit_paths, the path records of trace-replay
-// training) and _trace_tiled_pt (_make_kernel with pt, the progressive
-// path tracer), with culling off and no state emission. It computes what
-// those kernels compute; its plain twins are
-// quadray_tpu_torch/ops/trace.py trace_rays and trace_paths and
-// quadray_tpu_torch/ops/pt.py trace_pt:
+// training), _trace_tiled_emit and _trace_tiled_resume (_make_kernel with
+// emit_state / resume, the two rounds of two-round retirement) and
+// _trace_tiled_pt (_make_kernel with pt, the progressive path tracer),
+// with culling off. It computes what those kernels compute; its plain
+// twins are quadray_tpu_torch/ops/trace.py trace_rays, trace_paths,
+// trace_rays_emit and trace_rays_resume and quadray_tpu_torch/ops/pt.py
+// trace_pt:
 //   * surface solvers: plane root with the division-free t-window, quadric
 //     and two-plane roots with stable b-mixed Vieta roots and the nan-root
 //     rule, near-zero determinant root sorting (D_EPS/T_EPS), the conic
@@ -37,6 +39,28 @@
 // (neighbouring threads, neighbouring words). Single-branch scenes only
 // (no branch stack) and at most 16 active lights, as on the TPU.
 //
+// Two-round retirement (entry points whitted_emit_launch and
+// whitted_resume_launch), single-branch scenes only (no branch stack), as
+// on the TPU (pallas_kernel.py:498). EMIT runs at most k1 segments, then
+// writes the 3 colours and the 21 values of the resumable ray state of
+// every ray to state[row * n + i], in the TPU kernel's row order
+// (pallas_kernel.py:2518-2520, 2560-2563): ox oy oz dx dy dz tmn, thr
+// r g b, depth osrf oside thru (i32 bits), oloc x y z, active (i32 bits),
+// acc r g b. A thread that retired writes what the TPU kernel's
+// single-branch update leaves in a stopped lane (pallas_kernel.py:
+// 1923-1946): its ray as it was, thru 0 and active 0. A retired lane is a
+// fixed point, so that is also the state at segment k1. RESUME takes that
+// state and the ascending list idx[0..*count) of the rays still active
+// (made on the device, read on the device: no host wait between the
+// rounds); thread j < *count loads ray idx[j], starts its colour sums from
+// the emitted acc (pallas_kernel.py:1999-2008), runs at most the
+// remaining max_segments - k1 segments and overwrites its colours at
+// idx[j] in the buffer EMIT wrote. The f32 chain of every ray is the
+// monolithic kernel's, so the frame is bitwise equal to whitted_launch's.
+// The TPU resumes 1024-ray blocks that hold an active lane and merges by
+// block (pallas_kernel.py:2624-2642); here the unit is the thread, so
+// round 2 runs only the surviving rays, packed into full warps.
+//
 // PT mode (entry point whitted_pt_launch; pt_kernel, then pt_seed_tail):
 // the split-tree walk of pt_body/pt_cond (pallas_kernel.py:1365-1669),
 // one sample per thread: per node the hit's emission, Fresnel weights
@@ -56,7 +80,8 @@
 // jnp tracer.
 //
 // What bounds it on the H100: it reads 28 bytes and writes 12 per ray
-// (48 per PT sample with the seeds), so it is not bandwidth-bound; it is
+// (48 per PT sample with the seeds; EMIT writes 84 more, RESUME reads 84
+// and writes 12 per surviving ray), so it is not bandwidth-bound; it is
 // latency- and divergence-bound on FP32 ALU work and scattered reads of
 // the small scene tables (through __ldg), with every thread walking every
 // surface for every segment, shadow ray and PT node; a PT warp runs as
@@ -73,11 +98,10 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr float BIG = 1e30f;
-constexpr float D_EPS = 1e-11f;
-constexpr float T_EPS = 1e-7f;
 constexpr int PF = 44, SI = 8, CF = 22, MF = 14, LF = 10, MI = 5;
 constexpr int MAX_STACK = 16;
 constexpr int SLOT = 15;   // values per branch-stack slot
@@ -85,13 +109,6 @@ constexpr int SLOT = 15;   // values per branch-stack slot
 // sp_i columns
 constexpr int SI_KIND = 0, SI_MO = 1, SI_MI = 2, SI_BLK = 3, SI_SING = 4,
               SI_NCL = 5, SI_OID = 6;
-
-// material property bits (scene/compile.py PROP_*)
-constexpr int PROP_LIGHT = 1 << 0, PROP_METAL = 1 << 1,
-              PROP_OPAQUE = 1 << 2, PROP_REFLECT = 1 << 3,
-              PROP_REFRACT = 1 << 4, PROP_DIFFUSE = 1 << 5,
-              PROP_SPECULAR = 1 << 6, PROP_TEXTURE = 1 << 7,
-              PROP_GAMMA = 1 << 8, PROP_FRESNEL = 1 << 9;
 
 // clip program opcodes
 constexpr int CLIP_SURF = 1, CLIP_ENTER = 2, CLIP_LEAVE = 3;
@@ -115,36 +132,6 @@ struct Cfg {
   int depth, max_segments, stack;
   float cutoff;
 };
-
-__device__ __forceinline__ float ldf(const float* p, int i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ int ldi(const int* p, int i) {
-  return __ldg(p + i);
-}
-
-// NaN-propagating max/clamp (jnp.maximum / jnp.clip semantics)
-__device__ __forceinline__ float maxn(float x, float lo) {
-  return (x != x || x >= lo) ? x : lo;
-}
-__device__ __forceinline__ float clampn(float x, float lo, float hi) {
-  x = maxn(x, lo);
-  return (x != x || x <= hi) ? x : hi;
-}
-__device__ __forceinline__ float sgnf(float x) {
-  return x >= 0.0f ? 1.0f : -1.0f;
-}
-// _safe_div: |den| < 1e-30 -> fallback
-__device__ __forceinline__ float sdiv(float num, float den, float fb) {
-  return fabsf(den) < 1e-30f ? fb : num / den;
-}
-// nan-root rule (tracer.cpp:4585-4600): zero numerator -> root 0; zero
-// denominator with a nonzero numerator -> invalid
-__device__ __forceinline__ float root(float num, float den, bool& ok) {
-  if (num == 0.0f) den = 1.0f;
-  ok = den != 0.0f;
-  return ok ? num / den : BIG;
-}
 
 // x - p, then m . (x - p): world -> canonical for the 12 floats at t
 __device__ __forceinline__ void to_local(const float* t, float x, float y,
@@ -434,90 +421,61 @@ __device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
   return props;
 }
 
-struct Fresnel {
-  float c_rfl, c_trn;     // effective reflect / transmit weights
-  float rfx, rfy, rfz;    // refraction direction (the unit ray if none)
-};
+// ROUND: whole traces (0), round 1 of two-round retirement that also
+// writes the ray state (EMIT), or round 2 that resumes it (RESUME)
+constexpr int WHOLE = 0, EMIT = 1, RESUME = 2;
+constexpr int STATE_ROWS = 21;
 
-// Fresnel / refraction (tracer.cpp:3182-3424) for ray direction d at unit
-// normal n facing the ray: TR section with TIR, and the RF-section
-// reflectivity Fresnel of opaque reflective materials (tracer.cpp:
-// 3671-3830: the metal fast conductor formula, plain dielectric otherwise)
-__device__ __forceinline__ Fresnel fresnel(int props, const float* M,
-                                           bool fres_scene, float dx,
-                                           float dy, float dz, float nx,
-                                           float ny, float nz) {
-  const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7), m_rfr = ldf(M, 8);
-  const float m_ext = ldf(M, 9);
-  const float dl = __frsqrt_rn(maxn(dx * dx + dy * dy + dz * dz, 1e-30f));
-  const float rhx = dx * dl, rhy = dy * dl, rhz = dz * dl;
-  const float dot = rhx * nx + rhy * ny + rhz * nz;
-  const float eta = m_rfr;
-  const float ed = eta * dot;
-  const float kk = 1.0f - eta * eta + ed * ed;
-  const bool refracts = props & PROP_REFRACT;
-  const bool tir = kk < 0.0f && refracts;
-  const float sq = kk > 0.0f ? __fsqrt_rn(kk) : 0.0f;
-  Fresnel f;
-  f.rfx = rhx; f.rfy = rhy; f.rfz = rhz;
-  if (refracts) {
-    f.rfx = eta * rhx - nx * (ed + sq);
-    f.rfy = eta * rhy - ny * (ed + sq);
-    f.rfz = eta * rhz - nz * (ed + sq);
-  }
-  const bool fres_prop = fres_scene && (props & PROP_FRESNEL);
-  const bool opaque = props & PROP_OPAQUE;
-  const bool fres_on = fres_prop && !opaque;
-  const float rs = sdiv(ed + sq, ed - sq, 1.0f);
-  const float rp = sdiv(dot + eta * sq, dot - eta * sq, 1.0f);
-  float F = fres_on ? clampn(0.5f * (rs * rs + rp * rp), 0.0f, 1.0f)
-                    : 0.0f;
-  // TIR folds transparency into reflectivity only under Fresnel
-  if (tir && fres_on) F = 1.0f;
-  f.c_trn = tir ? 0.0f : m_trn * (1.0f - F);
-  f.c_rfl = m_rfl + m_trn * F;
-  if (fres_prop && opaque && (props & PROP_REFLECT)) {
-    float f_rf;
-    if (props & PROP_METAL) {
-      const float rcp = sdiv(1.0f, eta, 0.0f);
-      const float ext2 = m_ext * m_ext;
-      const float t2 = 2.0f * dot * rcp;
-      const float c2 = dot * dot;
-      const float gg = rcp * rcp + ext2;
-      const float x0 = c2 + gg;
-      const float x1 = c2 * gg + 1.0f;
-      f_rf = fabsf(-0.5f * (sdiv(x0 + t2, x0 - t2, 1.0f) +
-                            sdiv(x1 + t2, x1 - t2, 1.0f)));
-    } else {
-      f_rf = fabsf(-0.5f * (rs * rs + rp * rp));
-    }
-    f.c_rfl = m_rfl * f_rf;
-  }
-  return f;
-}
-
-template <bool CAN_PUSH, bool EMIT_PATHS>
+template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND>
 __global__ void __launch_bounds__(128)
 whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
-               int* __restrict__ paths, int n, Tables T, Cfg cfg) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+               int* __restrict__ paths, float* __restrict__ state,
+               const int* __restrict__ idx, const int* __restrict__ count,
+               int n, Tables T, Cfg cfg) {
+  static_assert(ROUND == WHOLE || !(CAN_PUSH || EMIT_PATHS),
+                "two-round retirement is for single-branch scenes");
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ROUND == RESUME) {
+    if (i >= n || i >= *count) return;
+    i = idx[i];
+  }
   if (i >= n) return;
   Ray r;
-  r.ox = rays[i];
-  r.oy = rays[n + i];
-  r.oz = rays[2 * n + i];
-  r.dx = rays[3 * n + i];
-  r.dy = rays[4 * n + i];
-  r.dz = rays[5 * n + i];
-  r.tmn = rays[6 * n + i];
-  r.tmx = BIG;
-  r.osrf = -1;
-  r.oside = 1;
-  r.thru = false;
-  r.olx = r.oly = r.olz = 0.0f;
   float thr[3] = {1.0f, 1.0f, 1.0f};
   float acc[3] = {0.0f, 0.0f, 0.0f};
   int depth = 0, sp = 0;
+  if (ROUND == RESUME) {
+    const float* s = state + i;
+    r.ox = s[0];
+    r.oy = s[(size_t)n];
+    r.oz = s[2 * (size_t)n];
+    r.dx = s[3 * (size_t)n];
+    r.dy = s[4 * (size_t)n];
+    r.dz = s[5 * (size_t)n];
+    r.tmn = s[6 * (size_t)n];
+    for (int c = 0; c < 3; ++c) thr[c] = s[(7 + c) * (size_t)n];
+    depth = __float_as_int(s[10 * (size_t)n]);
+    r.osrf = __float_as_int(s[11 * (size_t)n]);
+    r.oside = __float_as_int(s[12 * (size_t)n]);
+    r.thru = __float_as_int(s[13 * (size_t)n]) != 0;
+    r.olx = s[14 * (size_t)n];
+    r.oly = s[15 * (size_t)n];
+    r.olz = s[16 * (size_t)n];
+    for (int c = 0; c < 3; ++c) acc[c] = s[(18 + c) * (size_t)n];
+  } else {
+    r.ox = rays[i];
+    r.oy = rays[n + i];
+    r.oz = rays[2 * n + i];
+    r.dx = rays[3 * n + i];
+    r.dy = rays[4 * n + i];
+    r.dz = rays[5 * n + i];
+    r.tmn = rays[6 * n + i];
+    r.osrf = -1;
+    r.oside = 1;
+    r.thru = false;
+    r.olx = r.oly = r.olz = 0.0f;
+  }
+  r.tmx = BIG;
   float stk[CAN_PUSH ? MAX_STACK : 1][SLOT];
   const float amb[3] = {ldf(T.misc, 0), ldf(T.misc, 1), ldf(T.misc, 2)};
   const bool gamma_on = ldf(T.misc, 3) > 0.0f;
@@ -687,6 +645,18 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
     // segments after the one this thread retired in record 0
     for (int k = it + 1; k < cfg.max_segments; ++k)
       paths[(size_t)k * n + i] = 0;
+  }
+  if (ROUND == EMIT) {
+    // a thread that retired broke out of the loop before the cap: its ray
+    // is as it was, with thru and active 0 (pallas_kernel.py:1935, 1937)
+    const bool alive = it == cfg.max_segments;
+    const float vals[STATE_ROWS] = {
+        r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmn, thr[0], thr[1], thr[2],
+        __int_as_float(depth), __int_as_float(r.osrf),
+        __int_as_float(r.oside), __int_as_float(alive && r.thru ? 1 : 0),
+        r.olx, r.oly, r.olz, __int_as_float(alive ? 1 : 0),
+        acc[0], acc[1], acc[2]};
+    for (int k = 0; k < STATE_ROWS; ++k) state[(size_t)k * n + i] = vals[k];
   }
 }
 
@@ -929,11 +899,11 @@ extern "C" int whitted_launch(
   const dim3 block(128), grid((unsigned)((n + 127) / 128));
   cudaStream_t s = (cudaStream_t)stream;
   if (can_push)
-    whitted_kernel<true, false><<<grid, block, 0, s>>>(rays, out, nullptr,
-                                                       n, T, cfg);
+    whitted_kernel<true, false, WHOLE><<<grid, block, 0, s>>>(
+        rays, out, nullptr, nullptr, nullptr, nullptr, n, T, cfg);
   else
-    whitted_kernel<false, false><<<grid, block, 0, s>>>(rays, out, nullptr,
-                                                        n, T, cfg);
+    whitted_kernel<false, false, WHOLE><<<grid, block, 0, s>>>(
+        rays, out, nullptr, nullptr, nullptr, nullptr, n, T, cfg);
   return (int)cudaGetLastError();
 }
 
@@ -952,8 +922,56 @@ extern "C" int whitted_paths_launch(
            ns, nc, nl};
   Cfg cfg{depth, k, 1, cutoff};
   const dim3 block(128), grid((unsigned)((n + 127) / 128));
-  whitted_kernel<false, true><<<grid, block, 0, (cudaStream_t)stream>>>(
-      rays, out, paths, n, T, cfg);
+  whitted_kernel<false, true, WHOLE>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(
+          rays, out, paths, nullptr, nullptr, nullptr, n, T, cfg);
+  return (int)cudaGetLastError();
+}
+
+// Round 1 of two-round retirement, for a single-branch scene: as
+// whitted_launch with segments capped at k1, plus state: (21, n) f32, the
+// resumable ray state of every ray (rows as in the file header), every
+// element written by the kernel.
+extern "C" int whitted_emit_launch(
+    const float* rays, float* out, float* state, const float* sp_f,
+    const int* sp_i, const float* cl_f, const float* mat_f,
+    const int* mat_i, const float* lg_f, const float* misc,
+    const int* tex_pk, const float* tex_lut, int n, int ns, int nc, int nl,
+    int depth, int k1, float cutoff, void* stream) {
+  if (n <= 0) return 0;
+  if (k1 < 1) return (int)cudaErrorInvalidValue;
+  Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
+           ns, nc, nl};
+  Cfg cfg{depth, k1, 1, cutoff};
+  const dim3 block(128), grid((unsigned)((n + 127) / 128));
+  whitted_kernel<false, false, EMIT>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(
+          rays, out, nullptr, state, nullptr, nullptr, n, T, cfg);
+  return (int)cudaGetLastError();
+}
+
+// Round 2: resumes the rays idx[0..*count) of state (written by
+// whitted_emit_launch; idx and count live on the device, count <= n) for
+// at most `segments` more segments and overwrites their colours in out,
+// the (3, n) buffer round 1 wrote. The grid covers n threads; those at
+// or past *count return at once.
+extern "C" int whitted_resume_launch(
+    const float* state, const int* idx, const int* count, float* out,
+    const float* sp_f, const int* sp_i, const float* cl_f,
+    const float* mat_f, const int* mat_i, const float* lg_f,
+    const float* misc, const int* tex_pk, const float* tex_lut, int n,
+    int ns, int nc, int nl, int depth, int segments, float cutoff,
+    void* stream) {
+  if (n <= 0) return 0;
+  if (segments < 1) return (int)cudaErrorInvalidValue;
+  Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
+           ns, nc, nl};
+  Cfg cfg{depth, segments, 1, cutoff};
+  const dim3 block(128), grid((unsigned)((n + 127) / 128));
+  whitted_kernel<false, false, RESUME>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(
+          nullptr, out, nullptr, const_cast<float*>(state), idx, count, n,
+          T, cfg);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,12 @@ path-record wrappers ``trace_paths`` / ``trace_paths_with_struct``
 (counterparts of ``pallas_kernel.py:2296, 2475``) that trace-replay
 training calls, and the path-tracing wrappers ``trace_pt_cuda`` /
 ``render_pt_cuda`` (counterparts of ``trace_pt_pallas`` and
-``render_pt_pallas``, ``pallas_kernel.py:2349, 2450``).
+``render_pt_pallas``, ``pallas_kernel.py:2349, 2450``), and two-round
+retirement: ``trace_rays_emit_cuda`` / ``trace_rays_resume_cuda`` around
+the kernel's EMIT and RESUME modes, ``compact_active`` between them and
+the driver ``trace_rays_rounds`` (the counterpart of
+``trace_rays_pallas_rounds``, ``_trace_rounds_impl`` and
+``_trace_wavefront_impl``, ``pallas_kernel.py:2756, 2614, 2647``).
 
 Where the TPU kernel is compiled per scene structure, the CUDA kernel
 takes the structure at run time (surface kind, singularity and clip count
@@ -19,8 +24,9 @@ bounding-sphere tables ``bsph_t``/``shad_msk``/``cont_msk`` are not
 packed.
 
 Each wrapper on CPU tensors runs its plain version
-(``ops.trace.trace_rays`` / ``ops.trace.trace_paths`` / ``ops.pt.trace_pt``);
-on CUDA tensors it launches the kernel or raises.
+(``ops.trace.trace_rays`` / ``trace_paths`` / ``trace_rays_emit`` /
+``trace_rays_resume``, ``ops.pt.trace_pt``); on CUDA tensors it launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -35,8 +41,9 @@ import torch
 from quadray_tpu_torch.scene.compile import (
     FIELDS, SceneArrays, PROP_LIGHT, PROP_OPAQUE, PROP_REFLECT,
     PROP_REFRACT, PROP_TEXTURE, PROP_FRESNEL, PROP_TRANSP, CLIP_NONE)
-from quadray_tpu_torch.ops.trace import TraceConfig, trace_paths as \
-    _trace_paths_plain, trace_rays
+from quadray_tpu_torch.ops.trace import (
+    ACTIVE_ROW, STATE_I32, STATE_ROWS, TraceConfig, trace_paths as
+    _trace_paths_plain, trace_rays, trace_rays_emit, trace_rays_resume)
 from quadray_tpu_torch.ops.pt import pt_camera_rays, trace_pt
 
 F32 = torch.float32
@@ -45,6 +52,11 @@ BIG = 1e30
 LANES = 128       # texture atlas row width (texels)
 MAX_STACK = 16    # branch-stack slots the kernel holds per thread
 MAX_PATH_LIGHTS = 16   # path records hold one bit per light in bits 16-31
+# round-1 segment budgets of the TPU package's two-round drivers: the
+# rounds driver (pallas_kernel.py:2803) and the wavefront driver (:2806).
+# At ray granularity the two drivers are one, trace_rays_rounds.
+ROUNDS_K1 = 4
+WAVE_K1 = 1
 
 PF = 44           # per-surface floats: pos 0-2, inv 3-11, sci 12-14,
 #                   scjh 15-17, sciw 18, cmin 19-21, cmax 22-24, fwd 25-33,
@@ -330,12 +342,14 @@ def pack_scene(sc: SceneArrays, struct: KernelStruct) -> PackedScene:
 
 _get_packed = _SceneCache(pack_scene)
 
-# kernel launches by trace_rays_cuda, by the path-record wrappers and by
-# trace_pt_cuda; a run that must have gone through a kernel reads its
-# count before and after
+# kernel launches by trace_rays_cuda, by the path-record wrappers, by
+# trace_pt_cuda and by the two rounds; a run that must have gone through a
+# kernel reads its count before and after
 launches = 0
 paths_launches = 0
 pt_launches = 0
+emit_launches = 0
+resume_launches = 0
 
 _VOIDP = ctypes.c_void_p
 _SCENE_ARGS = [_VOIDP] * 9            # sp_f ... tex_lut
@@ -356,6 +370,12 @@ def _lib():
         lib.whitted_pt_launch.argtypes = (
             [_VOIDP] * 5 + _SCENE_ARGS + [ctypes.c_int] * 5 + [_VOIDP])
         lib.whitted_pt_launch.restype = ctypes.c_int
+        lib.whitted_emit_launch.argtypes = lib.whitted_paths_launch.argtypes
+        lib.whitted_emit_launch.restype = ctypes.c_int
+        lib.whitted_resume_launch.argtypes = (
+            [_VOIDP] * 4 + _SCENE_ARGS + [ctypes.c_int] * 6
+            + [ctypes.c_float, _VOIDP])
+        lib.whitted_resume_launch.restype = ctypes.c_int
     return lib
 
 
@@ -380,10 +400,7 @@ def _launch_inputs(fn: str, sc: SceneArrays, org, dirs, t_min,
     """Checks what a CUDA launch takes; returns the (7, N) SoA rays (ox oy
     oz dx dy dz tmin, caller order) and the scene-table pointers."""
     dev = dirs.device
-    if dev.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {dev}")
-    if sc.device != dev:
-        raise ValueError(f"scene on {sc.device}, rays on {dev}")
+    _check_device(fn, sc, dev)
     N = dirs.shape[0]
     for name, t, shapes in (("org", org, ((3,), (N, 3))),
                             ("dirs", dirs, ((N, 3),)),
@@ -391,6 +408,25 @@ def _launch_inputs(fn: str, sc: SceneArrays, org, dirs, t_min,
         if t.device != dev or t.dtype != F32 or tuple(t.shape) not in shapes:
             raise ValueError(f"{name}: need f32 of shape {shapes} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    tables = _scene_tables(sc, struct, ps, dev)
+    rays = torch.empty((7, N), dtype=F32, device=dev)
+    with torch.no_grad():
+        rays[0:3] = (org[:, None] if org.dim() == 1 else org.T)
+        rays[3:6] = dirs.T
+        rays[6] = t_min
+    return rays, tables
+
+
+def _check_device(fn: str, sc: SceneArrays, dev):
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dev}")
+    if sc.device != dev:
+        raise ValueError(f"scene on {sc.device}, rays on {dev}")
+
+
+def _scene_tables(sc: SceneArrays, struct: KernelStruct, ps: PackedScene,
+                  dev) -> tuple:
+    """Checks the packed tables; returns their pointers in launch order."""
     NS, NM = struct.ns, struct.nm
     for name, t, dtype, shape in (
             ("sp_f", ps.sp_f, F32, (NS, PF)),
@@ -403,15 +439,9 @@ def _launch_inputs(fn: str, sc: SceneArrays, org, dirs, t_min,
             ("tex_pk", ps.tex_pk, I32, (struct.tex_rows, LANES)),
             ("tex_lut", ps.tex_lut, F32, (2, LANES))):
         _check(name, t, dtype, shape, dev)
-    rays = torch.empty((7, N), dtype=F32, device=dev)
-    with torch.no_grad():
-        rays[0:3] = (org[:, None] if org.dim() == 1 else org.T)
-        rays[3:6] = dirs.T
-        rays[6] = t_min
-    tables = (ps.sp_f.data_ptr(), ps.sp_i.data_ptr(), ps.cl_f.data_ptr(),
-              ps.mat_f.data_ptr(), ps.mat_i.data_ptr(), ps.lg_f.data_ptr(),
-              ps.misc.data_ptr(), ps.tex_pk.data_ptr(), ps.tex_lut.data_ptr())
-    return rays, tables
+    return (ps.sp_f.data_ptr(), ps.sp_i.data_ptr(), ps.cl_f.data_ptr(),
+            ps.mat_f.data_ptr(), ps.mat_i.data_ptr(), ps.lg_f.data_ptr(),
+            ps.misc.data_ptr(), ps.tex_pk.data_ptr(), ps.tex_lut.data_ptr())
 
 
 def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
@@ -577,3 +607,170 @@ def render_pt_cuda(sc: SceneArrays, width: int, height: int, seeds,
     acc, seeds = pt_passes(sc, width, height, acc, seeds, spp, cfg, struct)
     return (acc / float(max(spp, 1))).reshape(height, width, 3), seeds
 
+
+
+# ---- two-round retirement ---------------------------------------------------
+
+def check_rounds_struct(struct: KernelStruct) -> None:
+    """The emit and resume modes' precondition (pallas_kernel.py:498): no
+    branch stack, so the state of a ray is one ray."""
+    if struct.can_push:
+        raise ValueError("two-round retirement requires a single-branch "
+                         "scene: a material here can spawn both a "
+                         "reflection and a transmission (can_push)")
+
+
+def trace_rays_emit_cuda(sc: SceneArrays, org, dirs, t_min,
+                         cfg: TraceConfig, k1: int,
+                         struct: KernelStruct = None):
+    """Round 1 through the kernel's EMIT mode (``ops.trace.trace_rays_emit``
+    on CPU tensors): at most k1 segments per ray; returns (colors (N, 3),
+    a transposed view of a (3, N) buffer, and the (21, N) f32 ray state,
+    rows ``ops.trace.STATE_ROWS``). Single-branch scenes only."""
+    global emit_launches
+    if dirs.device.type == "cpu":
+        return trace_rays_emit(sc, org, dirs, t_min, cfg, k1)
+    _check_whitted_cfg(cfg)
+    struct = struct or _get_struct(sc)
+    check_rounds_struct(struct)
+    if k1 < 1:
+        raise ValueError(f"k1 must be >= 1, got {k1}")
+    ps = _get_packed(sc, struct)
+    rays, tables = _launch_inputs("trace_rays_emit_cuda", sc, org, dirs,
+                                  t_min, struct, ps)
+    N, dev = dirs.shape[0], dirs.device
+    out = torch.empty((3, N), dtype=F32, device=dev)
+    state = torch.empty((len(STATE_ROWS), N), dtype=F32, device=dev)
+    if N == 0:
+        return out.T, state
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.whitted_emit_launch(
+            rays.data_ptr(), out.data_ptr(), state.data_ptr(), *tables,
+            N, struct.n_real, struct.nc, struct.nl, cfg.depth, k1,
+            cfg.cutoff, stream)
+    if err != 0:
+        raise RuntimeError(f"whitted emit kernel launch failed: CUDA error "
+                           f"{err}")
+    emit_launches += 1
+    return out.T, state
+
+
+def compact_active(state):
+    """The rays still active in a (21, N) state, in ascending order, with
+    plain torch ops on the state's device and no wait for it: (idx (N,)
+    int32, count (1,) int32), idx[:count] the active rays. idx is the
+    stable partition of 0..N-1, active rays first, so it is deterministic
+    and holds every ray once."""
+    N, dev = state.shape[1], state.device
+    act = state[ACTIVE_ROW].view(I32) != 0
+    pos = torch.cumsum(act, 0, dtype=I32)       # active rays up to i
+    count = pos[-1:] if N else torch.zeros((1,), dtype=I32, device=dev)
+    ar = torch.arange(N, dtype=I32, device=dev)
+    # active ray i goes to pos[i] - 1, inactive ray i after every active
+    # one, at count + (inactive rays before it)
+    dest = torch.where(act, pos - 1, count + ar - pos)
+    idx = torch.empty((N,), dtype=I32, device=dev)
+    idx.scatter_(0, dest.long(), ar)
+    return idx, count
+
+
+def trace_rays_resume_cuda(sc: SceneArrays, state, cols, idx, count,
+                           cfg: TraceConfig, k1: int,
+                           struct: KernelStruct = None):
+    """Round 2 through the kernel's RESUME mode: the rays idx[:count]
+    (``compact_active``) of ``state`` (from ``trace_rays_emit_cuda`` with
+    the same k1) run at most cfg.max_segments - k1 more segments, and
+    their colors are written in place into ``cols``, the color buffer
+    round 1 returned, which is returned. CPU tensors take the plain
+    ``ops.trace.trace_rays_resume``, which resumes every active ray (the
+    same rays) and returns new colors. Single-branch scenes only."""
+    global resume_launches
+    if state.device.type == "cpu":
+        return trace_rays_resume(sc, state, cols, cfg, k1)
+    _check_whitted_cfg(cfg)
+    struct = struct or _get_struct(sc)
+    check_rounds_struct(struct)
+    segments = cfg.max_segments - k1
+    if segments <= 0:
+        return cols
+    dev = state.device
+    _check_device("trace_rays_resume_cuda", sc, dev)
+    tables = _scene_tables(sc, struct, _get_packed(sc, struct), dev)
+    N = state.shape[1]
+    _check("state", state, F32, (len(STATE_ROWS), N), dev)
+    _check("cols.T", cols.T, F32, (3, N), dev)
+    _check("idx", idx, I32, (N,), dev)
+    _check("count", count, I32, (1,), dev)
+    if N == 0:
+        return cols
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.whitted_resume_launch(
+            state.data_ptr(), idx.data_ptr(), count.data_ptr(),
+            cols.data_ptr(), *tables, N, struct.n_real, struct.nc,
+            struct.nl, cfg.depth, segments, cfg.cutoff, stream)
+    if err != 0:
+        raise RuntimeError(f"whitted resume kernel launch failed: CUDA "
+                           f"error {err}")
+    resume_launches += 1
+    return cols
+
+
+def trace_rays_rounds(sc: SceneArrays, org, dirs, t_min,
+                      cfg: TraceConfig = TraceConfig(), k1: int = ROUNDS_K1,
+                      struct: KernelStruct = None) -> torch.Tensor:
+    """Two-round retirement (``trace_rays_pallas_rounds``, pallas_kernel.py
+    :2756, and the wavefront driver :2647): round 1 traces every ray for
+    k1 segments and emits its state, the rays still active are compacted
+    in ascending order, and round 2 finishes only them. Returns (N, 3)
+    colors, bitwise those of ``trace_rays_cuda``. k1 = ROUNDS_K1 is the
+    rounds driver's budget, WAVE_K1 the wavefront's. Nothing waits for the
+    card between the rounds: the survivor count stays on the device, and
+    round 2's grid covers every ray. A ``can_push`` scene takes the
+    monolithic kernel (:2767); k1 >= cfg.max_segments returns round 1's
+    colors. CPU tensors take the plain versions."""
+    struct = struct or _get_struct(sc)
+    if struct.can_push:
+        return trace_rays_cuda(sc, org, dirs, t_min, cfg, struct)
+    k1 = min(k1, cfg.max_segments)
+    if k1 < 1:
+        raise ValueError(f"k1 and cfg.max_segments must be >= 1, got k1="
+                         f"{k1}, max_segments={cfg.max_segments}")
+    cols, state = trace_rays_emit_cuda(sc, org, dirs, t_min, cfg, k1, struct)
+    if cfg.max_segments - k1 <= 0:
+        return cols
+    idx, count = compact_active(state)
+    return trace_rays_resume_cuda(sc, state, cols, idx, count, cfg, k1,
+                                  struct)
+
+
+def rounds_state_from_numpy(tiles, n: int, device="cuda") -> torch.Tensor:
+    """The JAX package's 21 (R, 128) state tiles (``_trace_tiled_emit``'s
+    outputs after the 3 color tiles; f32, and i32 in rows STATE_I32) as
+    the port's (21, n) f32 state of their first n lanes."""
+    if len(tiles) != len(STATE_ROWS):
+        raise ValueError(f"need {len(STATE_ROWS)} state tiles, got "
+                         f"{len(tiles)}")
+    rows = [np.asarray(a, np.int32 if k in STATE_I32 else np.float32)
+            .reshape(-1)[:n] for k, a in enumerate(tiles)]
+    rows = [r.view(np.float32) for r in rows]
+    return torch.from_numpy(np.stack(rows)).to(device)
+
+
+def rounds_state_to_numpy(state, rows: int = None) -> list:
+    """The port's (21, N) state as 21 (rows, 128) numpy tiles in the JAX
+    package's dtypes (i32 rows STATE_I32); lanes past N are zero (retired).
+    rows defaults to ceil(N / 128)."""
+    s = state.detach().cpu().numpy()
+    N = s.shape[1]
+    rows = -(-N // LANES) if rows is None else rows
+    out = []
+    for k in range(len(STATE_ROWS)):
+        v = s[k].view(np.int32) if k in STATE_I32 else s[k]
+        t = np.zeros((rows * LANES,), v.dtype)
+        t[:N] = v
+        out.append(t.reshape(rows, LANES))
+    return out

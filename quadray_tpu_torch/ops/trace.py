@@ -36,7 +36,12 @@ bitwise.
 writes one i32 record per segment for trace-replay training
 (``ops/replay.py``). ``trace_rays_diff`` runs the loop for a fixed
 ``cfg.max_segments`` under autograd: the all-surface differentiable
-reference the replay gradients are held against.
+reference the replay gradients are held against. ``trace_rays_emit`` and
+``trace_rays_resume`` are the plain versions of the two rounds of
+two-round retirement (the kernel's EMIT and RESUME modes, the TPU
+kernel's ``_trace_tiled_emit`` / ``_trace_tiled_resume``): the same loop
+stopped after k1 segments with its state packed into 21 rows, and
+started again from such rows.
 
 fp64 tracing (``set_element``) is not ported yet.
 """
@@ -555,12 +560,19 @@ def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
     """Returns (acc (N, 3), paths (k_paths, N) i32); ``push`` lets a lane
     push the transmission where both branches go on; ``fixed`` runs all
     cfg.max_segments bounces instead of stopping once every lane retired."""
+    st, paths = _run(sc, cfg, _fresh_state(org, dirs, t_min, cfg.stack),
+                     k_paths, push, fixed, stats)
+    return st["acc"], paths
+
+
+def _fresh_state(org, dirs, t_min, D: int):
+    """The loop state of new rays: unit throughput, no origin surface,
+    active, nothing accumulated, an empty D-slot branch stack."""
     N = dirs.shape[0]
-    D = cfg.stack
     dev = dirs.device
     zi = lambda *s: torch.zeros((N,) + s, dtype=I32, device=dev)
     zf = lambda *s: torch.zeros((N,) + s, dtype=F32, device=dev)
-    st = dict(
+    return dict(
         org=org.clone(), dir=dirs.clone(),
         thr=torch.ones((N, 3), dtype=F32, device=dev),
         depth=zi(), osrf=zi() - 1, oside=zi() + 1,
@@ -571,14 +583,113 @@ def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
         st_org=zf(D, 3), st_dir=zf(D, 3), st_thr=zf(D, 3),
         st_depth=zi(D), st_srf=zi(D), st_side=zi(D), st_oloc=zf(D, 3),
     )
-    paths = torch.zeros((k_paths, N), dtype=I32, device=dev)
+
+
+def _run(sc: SceneArrays, cfg: TraceConfig, st, k_paths: int = 0,
+         push: bool = True, fixed: bool = False, stats=None):
+    """At most cfg.max_segments bounces from the loop state ``st``;
+    returns (the state after them, paths (k_paths, N) i32)."""
+    paths = torch.zeros((k_paths, st["org"].shape[0]), dtype=I32,
+                        device=st["org"].device)
     it = 0
     while it < cfg.max_segments and (fixed or bool(st["active"].any())):
         st, rec = _bounce(sc, cfg, st, push, stats)
         if it < k_paths:
             paths[it] = rec
         it += 1
-    return st["acc"], paths
+    return st, paths
+
+
+# ---------------------------------------------------------------------------
+# two-round retirement (the plain versions of the EMIT and RESUME modes of
+# csrc/whitted.cu, the TPU kernel's _trace_tiled_emit / _trace_tiled_resume)
+# ---------------------------------------------------------------------------
+
+# rows of the (21, N) resumable ray state, in the TPU kernel's tile order
+# (pallas_kernel.py:2518-2520, 2560-2563); the i32 rows hold int32 bits
+STATE_ROWS = ("ox", "oy", "oz", "dx", "dy", "dz", "tmn", "thr_r", "thr_g",
+              "thr_b", "depth", "osrf", "oside", "thru", "olx", "oly", "olz",
+              "active", "acc_r", "acc_g", "acc_b")
+STATE_I32 = (10, 11, 12, 13, 17)   # depth, osrf, oside, thru, active
+ACTIVE_ROW = 17
+
+
+def _check_single_branch(sc: SceneArrays):
+    from quadray_tpu_torch.ops.cuda_kernel import _get_struct, \
+        check_rounds_struct
+    check_rounds_struct(_get_struct(sc))
+
+
+def _pack_state(st) -> torch.Tensor:
+    """The loop state as the (21, N) f32 rows of STATE_ROWS."""
+    bits = lambda v: v.to(I32).view(F32)
+    rows = ([st["org"][:, c] for c in range(3)]
+            + [st["dir"][:, c] for c in range(3)] + [st["tmin"]]
+            + [st["thr"][:, c] for c in range(3)]
+            + [bits(st[k]) for k in ("depth", "osrf", "oside", "thru")]
+            + [st["oloc"][:, c] for c in range(3)] + [bits(st["active"])]
+            + [st["acc"][:, c] for c in range(3)])
+    return torch.stack(rows)
+
+
+def _unpack_state(state, D: int):
+    """The loop state of the rays of a (21, N) state, branch stack empty."""
+    st = _fresh_state(state[0:3].T, state[3:6].T, state[6], D)
+    ints = lambda r: state[r].contiguous().view(I32)
+    st.update(thr=state[7:10].T.clone(), depth=ints(10).clone(),
+              osrf=ints(11).clone(), oside=ints(12).clone(),
+              thru=ints(13) != 0, oloc=state[14:17].T.clone(),
+              active=ints(ACTIVE_ROW) != 0, acc=state[18:21].T.clone())
+    return st
+
+
+def trace_rays_emit(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
+                    k1: int, stats=None):
+    """Round 1 of two-round retirement (``pallas_kernel.py``
+    ``_trace_tiled_emit`` :2525): at most k1 segments per ray. Returns
+    (colors (N, 3) f32 after them, state (21, N) f32: the resumable ray
+    state, rows STATE_ROWS). A ray that retired keeps its last ray with
+    thru 0 and active 0, as the TPU kernel's single-branch update leaves
+    it. Single-branch scenes only (ValueError otherwise): no lane pushes a
+    branch. ``stats``: as for ``trace_rays``."""
+    _check_single_branch(sc)
+    if k1 < 1:
+        raise ValueError(f"k1 must be >= 1, got {k1}")
+    N = dirs.shape[0]
+    if org.dim() == 1:
+        org = org[None, :].expand(N, 3)
+    cfg1 = cfg._replace(max_segments=k1)
+    cols = torch.zeros((N, 3), dtype=F32, device=dirs.device)
+    state = torch.zeros((len(STATE_ROWS), N), dtype=F32, device=dirs.device)
+    for i in range(0, N, CHUNK):
+        st = _fresh_state(org[i:i + CHUNK].to(F32), dirs[i:i + CHUNK].to(F32),
+                          t_min[i:i + CHUNK].to(F32), cfg.stack)
+        st, _ = _run(sc, cfg1, st, push=False, stats=stats)
+        cols[i:i + CHUNK] = st["acc"]
+        state[:, i:i + CHUNK] = _pack_state(st)
+    return cols, state
+
+
+def trace_rays_resume(sc: SceneArrays, state, cols, cfg: TraceConfig,
+                      k1: int, stats=None):
+    """Round 2 (``pallas_kernel.py`` ``_trace_tiled_resume`` :2572): every
+    active ray of ``state`` (from ``trace_rays_emit`` with the same k1)
+    runs at most cfg.max_segments - k1 more segments, its color sums
+    starting from the emitted acc, so the result is the f32 chain of
+    ``trace_rays``. Returns new (N, 3) colors: ``cols`` where a ray had
+    retired. Single-branch scenes only. ``stats``: as for
+    ``trace_rays``."""
+    _check_single_branch(sc)
+    out = cols.clone()
+    cfg2 = cfg._replace(max_segments=cfg.max_segments - k1)
+    if cfg2.max_segments <= 0:
+        return out
+    for i in range(0, state.shape[1], CHUNK):
+        st = _unpack_state(state[:, i:i + CHUNK], cfg.stack)
+        resumed = st["active"][:, None]
+        st, _ = _run(sc, cfg2, st, push=False, stats=stats)
+        out[i:i + CHUNK] = torch.where(resumed, st["acc"], out[i:i + CHUNK])
+    return out
 
 
 def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,

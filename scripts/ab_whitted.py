@@ -3,17 +3,20 @@
     python3 scripts/ab_whitted.py OTHER.cu [--rounds 8] [--reps 20]
 
 OTHER.cu is another version of quadray_tpu_torch/csrc/whitted.cu with the
-same C entry points (whitted_launch, whitted_paths_launch) and table
-layout, for example the parent commit's, unpacked with git archive into a
-directory that .gitignore lists. Both are built with the port's nvcc flags
-and loaded into one process. For each case (a scene at 800x480, the
-Whitted mode or the path-record mode of the training step) the scene is
-packed once, both versions must give the same output bitwise, and then
-the kernel launch alone is timed in turns, this checkout's version (b) and
-OTHER (a) in the order a b b a, a b b a, ...: CUDA events around --reps
-launches after a warm-up. Prints each round's ms per launch, then one
-JSON line with every case's times, means and the b/a ratio of the means.
-Needs a CUDA card; exits with code 2 without one.
+same C entry points (whitted_launch, whitted_paths_launch,
+whitted_pt_launch) and table layout, for example the parent commit's,
+unpacked with git archive into a directory that .gitignore lists (with
+the headers it includes beside it). Both are built with the port's nvcc
+flags and loaded into one process; the ptxas lines (registers, stack
+frame, spills) of both builds are printed. For each case (a scene at
+800x480, the Whitted mode, the path-record mode of the training step or
+one path-traced pass) the scene is packed once, both versions must give
+the same output bitwise, and then the kernel launch alone is timed in
+turns, this checkout's version (b) and OTHER (a) in the order a b b a,
+a b b a, ...: CUDA events around --reps launches after a warm-up. Prints
+each round's ms per launch, then one JSON line with every case's times,
+means and the b/a ratio of the means. Needs a CUDA card; exits with code
+2 without one.
 """
 
 from __future__ import annotations
@@ -33,10 +36,11 @@ sys.path.insert(0, REPO)
 
 W, H = 800, 480
 # (scene, mode): test13 and demo03 are the kernel table's heavy Whitted
-# scenes (demo02 pushes branches), test01 and test13 the training step's
-# path-record mode
+# scenes (demo02 has three lights), test01 and test13 the training step's
+# path-record mode, test18 the path tracer's pass (depth 10)
 CASES = [("test13", "whitted"), ("demo02", "whitted"), ("demo03", "whitted"),
-         ("test01", "whitted"), ("test01", "paths"), ("test13", "paths")]
+         ("test01", "whitted"), ("test01", "paths"), ("test13", "paths"),
+         ("test18", "pt")]
 K_PATHS = 8
 
 
@@ -47,9 +51,18 @@ def build_other(src: str) -> ctypes.CDLL:
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     out = os.path.join(_build.BUILD_DIR, f"libwhitted_other_{digest}.so")
     if not os.path.exists(out):
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
-                       check=True)
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
+                              "-v", "-o", out, src], check=True,
+                             capture_output=True, text=True)
+        print_ptxas("a", res.stderr)
     return ctypes.CDLL(out)
+
+
+def print_ptxas(which: str, text: str):
+    for line in text.splitlines():
+        if any(k in line for k in ("entry function", "registers",
+                                   "stack frame")):
+            print(f"ptxas {which}: {line.strip()}", flush=True)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -57,7 +70,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     .py _lib), which OTHER must share."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     ref = ck._lib()
-    for fn in ("whitted_launch", "whitted_paths_launch"):
+    for fn in ("whitted_launch", "whitted_paths_launch",
+               "whitted_pt_launch"):
         getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -83,7 +97,21 @@ def launcher(lib, name: str, mode: str, dev):
     rays, tables = ck._launch_inputs("ab", sc, org, dirs, tmin, struct, ps)
     n = dirs.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if mode == "whitted":
+    if mode == "pt":
+        from quadray_tpu_torch.ops.pt import init_seeds
+        seeds = init_seeds(n, device=dev)
+        out = torch.empty((3, n), dtype=torch.float32, device=dev)
+        seeds_out = torch.empty((n,), dtype=torch.int32, device=dev)
+        iters = torch.empty((1,), dtype=torch.int32, device=dev)
+
+        def run():
+            err = lib.whitted_pt_launch(
+                rays.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+                seeds_out.data_ptr(), iters.data_ptr(), *tables, n,
+                struct.n_real, struct.nc, struct.nl, 10, stream)
+            assert err == 0, err
+            return torch.cat([out.view(torch.int32), seeds_out[None]])
+    elif mode == "whitted":
         cfg = TraceConfig()
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
 
@@ -143,6 +171,11 @@ def main():
     dev = torch.device("cuda", 0)
     libs = {"a": bind(build_other(args.other)),
             "b": bind(load_library("whitted"))}
+    ptxas = os.path.join(os.path.dirname(libs["b"]._name),
+                         "whitted.ptxas.txt")
+    if os.path.exists(ptxas):
+        with open(ptxas) as fh:
+            print_ptxas("b", fh.read())
     result = {"device": smi, "other": args.other, "rounds": args.rounds,
               "reps": args.reps, "cases": {}}
     for name, mode in CASES:

@@ -216,3 +216,106 @@ def test_pt_wrapper_rejects_what_the_kernel_does_not_take(dev):
         ck.trace_pt_cuda(sc, org, dirs[:, :2], tmin, seeds, cfg)
     with pytest.raises(ValueError):
         ck.trace_pt_cuda(sc.to("cpu"), org, dirs, tmin, seeds, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k1", [("test08", 2), ("test14", 2),
+                                     ("demo03", 3)])
+def test_emit_resume_kernels_match_plain_on_card(dev, name, k1):
+    """Round 1: colors and all 21 state rows bitwise against the plain
+    trace_rays_emit; round 2 from the kernel's state: colors bitwise
+    against the plain trace_rays_resume; one launch each."""
+    from quadray_tpu_torch.ops.trace import trace_rays_emit, trace_rays_resume
+    sc, org, dirs, tmin = _rays(name, dev, 200, 120)
+    cfg = TraceConfig()
+    before = (ck.emit_launches, ck.resume_launches)
+    cols, state = ck.trace_rays_emit_cuda(sc, org, dirs, tmin, cfg, k1)
+    want_c, want_s = trace_rays_emit(sc, org, dirs, tmin, cfg, k1)
+    torch.cuda.synchronize()
+    assert state.shape == (21, dirs.shape[0])
+    assert torch.equal(cols.view(torch.int32), want_c.view(torch.int32))
+    assert torch.equal(state.view(torch.int32), want_s.view(torch.int32))
+    emitted = cols.clone()
+    idx, count = ck.compact_active(state)
+    got = ck.trace_rays_resume_cuda(sc, state, cols, idx, count, cfg, k1)
+    want = trace_rays_resume(sc, state, emitted, cfg, k1)
+    torch.cuda.synchronize()
+    assert (ck.emit_launches, ck.resume_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert 0 < int(count) < dirs.shape[0]
+    assert torch.equal(got.contiguous().view(torch.int32),
+                       want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_rounds_match_monolithic_on_card(dev):
+    """tests/test_conformance.py:249-274 on the card, bitwise: test14 at
+    400x240, TraceConfig(stack=6), k1 = 3; and both presets."""
+    sc, org, dirs, tmin = _rays("test14", dev, 400, 240)
+    cfg = TraceConfig(stack=6)
+    mono = ck.trace_rays_cuda(sc, org, dirs, tmin, cfg)
+    for k1 in (3, ck.ROUNDS_K1, ck.WAVE_K1):
+        got = ck.trace_rays_rounds(sc, org, dirs, tmin, cfg, k1)
+        assert torch.equal(got.contiguous().view(torch.int32),
+                           mono.contiguous().view(torch.int32)), k1
+
+
+@pytest.mark.cuda
+def test_rounds_take_the_monolithic_kernel_on_can_push_scenes(dev):
+    sc, org, dirs, tmin = _rays("test17", dev, 64, 40)
+    before = (ck.launches, ck.emit_launches, ck.resume_launches)
+    got = ck.trace_rays_rounds(sc, org, dirs, tmin, TraceConfig())
+    assert (ck.launches, ck.emit_launches, ck.resume_launches) == (
+        before[0] + 1, before[1], before[2])
+    assert torch.equal(got, ck.trace_rays_cuda(sc, org, dirs, tmin,
+                                               TraceConfig()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["add", "mul", "div", "sqrt", "rsqrt", "exp",
+                                  "log", "fma", "min_max", "abs_neg", "roots",
+                                  "fresnel", "spec_pow", "gather",
+                                  "root_sdiv"])
+def test_conformance_kernel_matches_plain_on_card(dev, name):
+    """Each conformance kernel against its plain version on the same card
+    tensors: bitwise for the correctly rounded ops (rsqrt: 1/sqrt in f64
+    rounded once), FEQ at tests/test_conformance.py's scale where a math
+    library function is in the chain (exp 4, log 4, the power 64), 8 for
+    the blocks."""
+    from quadray_tpu_torch.ops import conformance as cf
+    feq = {"exp": 4.0, "log": 4.0, "spec_pow": 64.0, "roots": 8.0,
+           "fresnel": 8.0, "root_sdiv": 8.0}
+    for rows in (8, 3000):
+        args = [torch.from_numpy(a).to(dev)
+                for a in cf.case_inputs(name, rows)]
+        before = cf.launches
+        got = cf.conformance(name, *args)
+        want = cf.plain(name, *args)
+        torch.cuda.synchronize()
+        assert cf.launches == before + 1
+        assert got.shape == (rows, 128) and got.dtype == torch.float32
+        if name in feq:
+            a = got.double().cpu().numpy()
+            b = want.double().cpu().numpy()
+            tol = feq[name] * np.finfo(np.float32).eps * np.maximum(
+                np.maximum(np.abs(a), np.abs(b)), 1e-20)
+            assert not (np.abs(a - b) > tol).any()
+        else:
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,seed", [("test01", 1), ("test10", 10),
+                                       ("test17", 17)])
+def test_kernel_matches_plain_on_random_rays(dev, name, seed):
+    """tests/test_conformance.py:215-246 on the card, bitwise: 2048
+    random non-camera rays, TraceConfig(stack=4, max_segments=12)."""
+    from quadray_tpu_torch.ops.conformance import random_rays
+    sc, _, _, _ = _rays(name, dev, 8, 4)
+    org, dirs = (torch.from_numpy(a).to(dev) for a in random_rays(2048, seed))
+    tmin = torch.zeros((2048,), dtype=torch.float32, device=dev)
+    cfg = TraceConfig(stack=4, max_segments=12)
+    got = ck.trace_rays_cuda(sc, org, dirs, tmin, cfg)
+    want = trace_rays(sc, org, dirs, tmin, cfg)
+    assert torch.equal(got.contiguous().view(torch.int32),
+                       want.view(torch.int32))

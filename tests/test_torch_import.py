@@ -35,10 +35,11 @@ def test_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # package, 5 subpackages and every module below them, the path tracer
-    # among them
+    # and the conformance tier among them
     names = res.stdout.split()
-    assert len(names) >= 18, names
-    assert "quadray_tpu_torch.ops.pt" in names, names
+    assert len(names) >= 19, names
+    for m in ("ops.pt", "ops.conformance", "ops.cuda_kernel", "ops.trace"):
+        assert f"quadray_tpu_torch.{m}" in names, names
 
 
 def test_sources_name_no_jax():
