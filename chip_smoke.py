@@ -34,8 +34,9 @@ entry points) with nvcc, then:
      on the card, one pass at 200x120 on test18 (the Cornell box: Fresnel
      glass, a metal, an area light), test17 (Fresnel glass: the two-branch
      pushes; texture), test15 (texture) and test05 (metal mirrors), then
-     test18 at 800x480: seeds equal, radiance within 1e-5, over 5% of the
-     lanes lit.
+     test18 at 800x480 and its first 1, 31, 33 and 24,007 samples: seeds
+     equal, radiance within 1e-5, over 5% of the lanes lit (not asked of
+     the prefixes); two launches on test18 at 800x480 bitwise equal.
      Paths in test17, test15 and test05 seldom reach their small light, so
      these three get a seeded emission on every surface; E2 the main
      path, Scene(load_scene("test18"), 800, 480, device="cuda") with
@@ -47,7 +48,9 @@ entry points) with nvcc, then:
      render_pt_cuda of 4 passes, bitwise (one pass loop serves both; there
      is no fused path); E4 ms per pass (mean of 20 after 2 warm-up passes,
      CUDA events), the kernel alone, the plain version's pass, the call's
-     iteration count M and the nodes run.
+     iteration count M, the nodes run and the share of issue slots a
+     one-sample-per-thread layout would fill (warps of 32 consecutive
+     samples, each as long as its longest).
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -98,6 +101,11 @@ PT_DEPTH, PT_PASSES, PT_TIMED = 10, 64, 20
 PHASE_E1 = [("test18", 200, 120, None), ("test17", 200, 120, 17),
             ("test15", 200, 120, 15), ("test05", 200, 120, 5),
             ("test18", W, H, None)]
+# E1: prefixes of test18's 800x480 samples for the edges of the PT
+# kernel's work queue: one sample, a warp less or more one lane, and a
+# count that is not a whole number of blocks, each under the thread count
+# of the persistent grid (132 SMs x 5 blocks x 128 threads)
+PT_PREFIXES = (1, 31, 33, 24007)
 # E1: the least share of lanes that must gather light, so that a wrong
 # branch or pop shows (one test18 pass at 100x60 on the CPU lit 8% of its
 # lanes; test17, test15, test05 with the added emission 48%, 46%, 100%)
@@ -549,41 +557,75 @@ def pt_inputs(sc, w, h, dev):
     return org, dirs, sc.cam_pov.expand(w * h), seeds
 
 
+def lane_utilisation(nodes) -> float:
+    """The share of issue slots that run a node when each thread owns one
+    sample: a warp of 32 consecutive samples runs as long as its longest
+    one. nodes: (N,) nodes per sample (trace_pt's "sample_nodes")."""
+    n = nodes.shape[0]
+    warps = torch.zeros((n + 31) // 32 * 32, dtype=torch.float64,
+                        device=nodes.device)
+    warps[:n] = nodes
+    warps = warps.view(-1, 32)
+    return float(warps.sum() / (32 * warps.amax(dim=1).sum()))
+
+
 def phase_e1(dev):
-    """The PT kernel vs its plain version on the card."""
+    """The PT kernel vs its plain version on the card: seeds and radiance,
+    on every case and on prefixes of the last; two launches equal."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.pt import trace_pt
     from quadray_tpu_torch.ops.trace import TraceConfig
     cfg = TraceConfig(depth=PT_DEPTH)
     worst = 0.0
-    for name, w, h, seed in PHASE_E1:
-        sc = compiled(name, dev)
-        if seed is not None:
-            sc = with_emission(sc, seed)
-        rays = pt_inputs(sc, w, h, dev)
+
+    def compare(label, sc, rays, lit_min):
         got_r, got_s = ck.trace_pt_cuda(sc, *rays, cfg)
         m = iterations(rays[3], got_s)
-        want_r, want_s = trace_pt(sc, *rays, cfg)
+        stats = {"sample_nodes": None}
+        want_r, want_s = trace_pt(sc, *rays, cfg, stats)
         torch.cuda.synchronize()
         d = (got_r - want_r).abs()
         nd = int((d.amax(dim=1) > 0).sum())
         mx = float(d.max())
         n_seed = int((got_s != want_s).sum())
         lit = float((got_r.amax(dim=1) > 0).float().mean())
-        worst = max(worst, mx)
-        log(f"E1 {name} {w}x{h}{'' if seed is None else ' +emission'}: "
-            f"rays={w * h} M={m} seeds_differing={n_seed} lanes_differing="
-            f"{nd} max_abs={mx:.3e} mean_radiance={float(got_r.mean()):.6f}"
-            f" lit_lanes={lit:.4f}")
+        log(f"E1 {label}: rays={rays[1].shape[0]} M={m} seeds_differing="
+            f"{n_seed} lanes_differing={nd} max_abs={mx:.3e} mean_radiance="
+            f"{float(got_r.mean()):.6f} lit_lanes={lit:.4f} "
+            f"one_sample_per_thread_lane_utilisation="
+            f"{lane_utilisation(stats['sample_nodes']):.4f}")
         if n_seed or not torch.equal(got_s, want_s):
-            raise AssertionError(f"E1 {name}: {n_seed} seeds differ")
+            raise AssertionError(f"E1 {label}: {n_seed} seeds differ")
         if not (mx <= ATOL and bool(torch.isfinite(got_r).all())):
-            raise AssertionError(f"E1 {name}: radiance off by {mx}")
-        if not lit > PT_LIT:
-            raise AssertionError(f"E1 {name}: only {lit:.4f} of the lanes "
+            raise AssertionError(f"E1 {label}: radiance off by {mx}")
+        if not lit > lit_min:
+            raise AssertionError(f"E1 {label}: only {lit:.4f} of the lanes "
                                  "gathered any light")
-        del want_r, want_s
+        return got_r, got_s, mx
+
+    for name, w, h, seed in PHASE_E1:
+        sc = compiled(name, dev)
+        if seed is not None:
+            sc = with_emission(sc, seed)
+        rays = pt_inputs(sc, w, h, dev)
+        label = f"{name} {w}x{h}{'' if seed is None else ' +emission'}"
+        got_r, got_s, mx = compare(label, sc, rays, PT_LIT)
+        worst = max(worst, mx)
         torch.cuda.empty_cache()
+    # the samples of the last case (test18 at 800x480): a second launch
+    # gives the same bits (the queue hands samples to lanes in another
+    # order), and prefixes that end inside a warp or a block
+    again_r, again_s = ck.trace_pt_cuda(sc, *rays, cfg)
+    same = torch.equal(got_r.view(torch.int32), again_r.view(torch.int32)) \
+        and torch.equal(got_s, again_s)
+    log(f"E1 {label}: two launches bitwise equal={same}")
+    if not same:
+        raise AssertionError(f"E1 {label}: two launches differ")
+    for n in PT_PREFIXES:
+        _, _, mx = compare(f"{label} prefix", sc, (rays[0], rays[1][:n],
+                                                   rays[2][:n], rays[3][:n]),
+                           -1.0)
+        worst = max(worst, mx)
     return worst
 
 
@@ -680,17 +722,18 @@ def phase_e4(dev):
                         PT_TIMED, warmup=2)
     m = iterations(rays[3], ck.trace_pt_cuda(sc, *rays, cfg, struct)[1])
     plain_ms = cuda_ms(lambda: trace_pt(sc, *rays, cfg), 1)
-    stats = {}
+    stats = {"sample_nodes": None}
     trace_pt(sc, *rays, cfg, stats)
     nodes = stats["walks"]
+    util = lane_utilisation(stats.pop("sample_nodes"))
     torch.cuda.empty_cache()
     # bytes: 7 f32 ray words and an i32 seed in, 3 f32 and a seed out
     bound, bound_by = bound_ms(W * H * 48, surface_ops(struct, stats))
     log(f"E4 test18 {W}x{H} depth {PT_DEPTH}: ms/pass={pass_ms:.3f} "
         f"(ray gen + kernel + sum, mean of {PT_TIMED}) kernel_ms="
         f"{kernel_ms:.3f} plain_ms/pass={plain_ms:.1f} M={m} nodes={nodes} "
-        f"({nodes / (W * H):.3f} per sample) bound_ms={bound:.4f} "
-        f"({bound_by})")
+        f"({nodes / (W * H):.3f} per sample) lane utilisation of one sample "
+        f"per thread={util:.4f} bound_ms={bound:.4f} ({bound_by})")
     return kernel_ms, plain_ms, bound, bound_by
 
 

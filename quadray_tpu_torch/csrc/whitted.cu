@@ -1,5 +1,6 @@
 // Whitted megakernel for NVIDIA Hopper (sm_90a): one thread traces one
-// ray (or one path-traced sample) to completion.
+// ray to completion; in PT mode each thread traces path-traced samples
+// from a work queue, one after another.
 //
 // Replaces the TPU kernels quadray_tpu/ops/pallas_kernel.py
 // _trace_tiled (_make_kernel in Whitted mode), _trace_tiled_paths
@@ -62,19 +63,29 @@
 // round 2 runs only the surviving rays, packed into full warps.
 //
 // PT mode (entry point whitted_pt_launch; pt_kernel, then pt_seed_tail):
-// the split-tree walk of pt_body/pt_cond (pallas_kernel.py:1365-1669),
-// one sample per thread: per node the hit's emission, Fresnel weights
-// (TR section with TIR, RF-section metal and plain Fresnel), both
-// Fresnel branches at depth < PT_SHALLOW and one defensively sampled
-// branch deeper, a cosine-hemisphere diffuse child with Russian roulette
-// from depth-5 on, siblings on a PT_STACK-slot stack (13 values a slot:
-// the Pallas kernel's 16 less the local hit, which PT continuations do
-// not reuse), and the 6*(depth+1) node cap. Each node draws four LCG
-// uniforms; the jnp tracer keeps drawing for every lane while any lane
-// of the call is active, so every output seed is its input seed advanced
-// 4*M draws, M the call's iteration count. Threads do not wait for
-// each other for that: each stops when it retires and atomicMax-es its
-// node count into one int, and a second small kernel jumps every seed
+// the split-tree walk of pt_body/pt_cond (pallas_kernel.py:1365-1669):
+// per node the hit's emission, Fresnel weights (TR section with TIR,
+// RF-section metal and plain Fresnel), both Fresnel branches at depth <
+// PT_SHALLOW and one defensively sampled branch deeper, a cosine-
+// hemisphere diffuse child with Russian roulette from depth-5 on,
+// siblings on a PT_STACK-slot stack (the Pallas kernel's 16 values a slot
+// less the local hit, which PT continuations do not reuse, with depth,
+// side, thru and surface packed into one word: 10 words), and the
+// 6*(depth+1) node cap. Sample lengths vary widely (on test18 at
+// depth 10, 7.5 nodes a sample on average and 30 for the longest), so a
+// thread that owned one sample would leave its warp's lanes idle while
+// the warp's longest path ran on. pt_kernel is instead a persistent grid
+// (as many blocks as fit on the card at once) whose lanes pull samples
+// from a work queue, one atomicAdd a warp for all its empty lanes at the
+// top of each node iteration, so a lane whose sample retires starts the
+// next one at once. The stacks live in shared memory (30 KB a block),
+// one column per thread, not in local memory. Each node draws four LCG
+// uniforms; the jnp tracer keeps drawing for every lane while any lane of
+// the call is active, so every output seed is its input seed advanced
+// 4*M draws, M the call's largest node count. A sample's f32 chain does
+// not depend on its lane or its neighbours, so regeneration changes no
+// output bit: each lane keeps the largest node count of its samples, one
+// atomicMax a warp gathers M, and a second small kernel jumps every seed
 // ahead 4*M steps (an affine map mod 2^32, by squaring). The Pallas
 // kernel counts M per block of 8192 lanes instead; the port follows the
 // jnp tracer.
@@ -84,11 +95,10 @@
 // and writes 12 per surviving ray), so it is not bandwidth-bound; it is
 // latency- and divergence-bound on FP32 ALU work and scattered reads of
 // the small scene tables (through __ldg), with every thread walking every
-// surface for every segment, shadow ray and PT node; a PT warp runs as
-// long as its longest path, and the sibling stack lives in local memory.
-// Making it fast (bounding-sphere culling, warp-coherent traversal or
-// path regeneration, tables in shared memory, the stack in registers or
-// shared memory) is later work.
+// surface for every segment, shadow ray and PT node. The Whitted modes
+// run one ray per thread, a warp as long as its longest ray, with the
+// branch stack in local memory; bounding-sphere culling and tables in
+// shared memory are later work.
 //
 // f32 rules the golden frames depend on: build with --fmad=false and
 // without fast math; every 3-term contraction is a left-to-right mul/add
@@ -664,8 +674,17 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
 
 constexpr int PT_SHALLOW = 2;   // levels where both Fresnel branches go on
 constexpr int PT_STACK = 6;     // pending-sibling slots per thread
-constexpr int PT_SLOT = 13;     // values per slot: origin 3, direction 3,
-//                                 throughput 3, depth, surface, side, thru
+// words per slot: origin 3, direction 3, throughput 3, and one word that
+// packs the depth (bits 0-9), side > 0 (bit 10), thru (bit 11) and the
+// surface's original id (bits 12-31)
+constexpr int PT_SLOT = 10;
+constexpr int PT_MAX_DEPTH = (1 << 10) - 1;
+constexpr int PT_BLOCK = 128;   // threads a block
+// every thread's stack in dynamic shared memory: under the 48 KB a launch
+// may ask for without cudaFuncSetAttribute
+constexpr size_t PT_SMEM = sizeof(float) * PT_STACK * PT_SLOT * PT_BLOCK;
+static_assert(PT_SMEM <= 48 * 1024, "PT stack above 48 KB a block");
+constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
 constexpr unsigned LCG_A = 214013u, LCG_C = 2531011u;
 
 // one LCG draw (tracer.h:48-53): the top 24 bits over 2^24, exact in f32
@@ -674,45 +693,78 @@ __device__ __forceinline__ float lcg_uniform(unsigned& s) {
   return (float)(s >> 8) * (1.0f / 16777216.0f);
 }
 
-// One path-traced sample per thread: the split-tree walk of ops/pt.py
-// trace_pt (pt_body/pt_cond, pallas_kernel.py:1365-1669). Each node draws
-// u1 u2 (hemisphere), u_rr (roulette), u_split (Fresnel choice) in that
-// order, gathers the hit's emission, and continues with the diffuse child,
-// else the transmission, else the reflection, pushing the siblings it does
-// not take (reflection first, so the transmission pops first). A thread
-// stops when it retires or after 6*(depth+1) nodes; its node count goes
-// into *iters with atomicMax, the call's iteration count M that the seed
-// tail needs. Continuations take their origin from the world hit point
+// Path-traced samples 0..n-1: the split-tree walk of ops/pt.py trace_pt
+// (pt_body/pt_cond, pallas_kernel.py:1365-1669), pulled from the work
+// queue *queue by a persistent grid. Each node draws u1 u2 (hemisphere),
+// u_rr (roulette), u_split (Fresnel choice) in that order, gathers the
+// hit's emission, and continues with the diffuse child, else the
+// transmission, else the reflection, pushing the siblings it does not
+// take (reflection first, so the transmission pops first). A sample
+// retires when it has no node left or after 6*(depth+1) nodes, and writes
+// its radiance. At the top of every iteration the lanes without a sample
+// take the next ones with one atomicAdd for the warp, ranked by lane, so
+// a warp's first fetch is 32 consecutive samples; a lane that finds the
+// queue empty is done, and the warp leaves when none of its lanes has a
+// sample. The largest node count of the warp's samples goes into *iters
+// with one atomicMax, the call's count M that the seed tail needs.
+// Continuations take their origin from the world hit point
 // (nearest<false>), as the jnp tracer does.
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(PT_BLOCK)
 pt_kernel(const float* __restrict__ rays, const int* __restrict__ seeds,
           float* __restrict__ out, int n, Tables T, int depth,
-          int* __restrict__ iters) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int it = 0;
-  Ray r;
-  r.ox = rays[i];
-  r.oy = rays[n + i];
-  r.oz = rays[2 * n + i];
-  r.dx = rays[3 * n + i];
-  r.dy = rays[4 * n + i];
-  r.dz = rays[5 * n + i];
-  r.tmn = rays[6 * n + i];
-  r.tmx = BIG;
-  r.osrf = -1;
-  r.oside = 1;
-  r.thru = false;
-  r.olx = r.oly = r.olz = 0.0f;
-  unsigned seed = (unsigned)seeds[i];
-  float thr[3] = {1.0f, 1.0f, 1.0f};
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  int dep = 0, sp = 0;
-  float stk[PT_STACK][PT_SLOT];
+          int* __restrict__ iters, int* __restrict__ queue) {
+  // word v of slot s of this thread's stack is stk[(s * PT_SLOT + v) *
+  // PT_BLOCK]: a warp's 32 lanes hit 32 banks whatever their slots
+  extern __shared__ float pt_stacks[];
+  float* const stk = pt_stacks + threadIdx.x;
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned lanes_below = (1u << lane) - 1u;
   const bool gamma_on = ldf(T.misc, 3) > 0.0f;
   const bool fres_scene = ldf(T.misc, 4) > 0.0f;
   const int cap = 6 * (depth + 1);
-  while (it < cap) {
+  int i = -1;            // this lane's sample; -1 between samples
+  bool drained = false;  // the queue had no sample left for this lane
+  int most = 0;          // the most nodes any sample of this lane ran
+  int it = 0, dep = 0, sp = 0;
+  unsigned seed = 0u;
+  Ray r;
+  float thr[3], acc[3];
+  for (;;) {
+    const unsigned want = __ballot_sync(FULL_WARP, i < 0 && !drained);
+    if (want) {
+      const int leader = __ffs(want) - 1;
+      int base = 0;
+      if ((int)lane == leader) base = atomicAdd(queue, __popc(want));
+      base = __shfl_sync(FULL_WARP, base, leader);
+      if (i < 0 && !drained) {
+        const int k = base + __popc(want & lanes_below);
+        if (k < n) {
+          i = k;
+          r.ox = rays[i];
+          r.oy = rays[n + i];
+          r.oz = rays[2 * n + i];
+          r.dx = rays[3 * n + i];
+          r.dy = rays[4 * n + i];
+          r.dz = rays[5 * n + i];
+          r.tmn = rays[6 * n + i];
+          r.tmx = BIG;
+          r.osrf = -1;
+          r.oside = 1;
+          r.thru = false;
+          r.olx = r.oly = r.olz = 0.0f;
+          seed = (unsigned)seeds[i];
+          for (int c = 0; c < 3; ++c) {
+            thr[c] = 1.0f;
+            acc[c] = 0.0f;
+          }
+          it = dep = sp = 0;
+        } else {
+          drained = true;
+        }
+      }
+    }
+    if (!__any_sync(FULL_WARP, i >= 0)) break;
+    if (i < 0) continue;   // drained: wait at the top for the warp
     ++it;
     Hit hb;
     nearest<false>(T, r, hb);
@@ -777,16 +829,19 @@ pt_kernel(const float* __restrict__ rays, const int* __restrict__ seeds,
               sp >= PT_STACK)
             continue;
           const float w = rfl ? w_rfl : w_trn;
-          float* slot = stk[sp];
-          slot[0] = hb.wx; slot[1] = hb.wy; slot[2] = hb.wz;
-          slot[3] = rfl ? mrx : fr.rfx;
-          slot[4] = rfl ? mry : fr.rfy;
-          slot[5] = rfl ? mrz : fr.rfz;
-          for (int c = 0; c < 3; ++c) slot[6 + c] = thr[c] * w;
-          slot[9] = __int_as_float(dep + 1);
-          slot[10] = __int_as_float(hb.srf);
-          slot[11] = __int_as_float(hb.side);
-          slot[12] = __int_as_float(rfl ? 0 : 1);
+          float* slot = stk + sp * PT_SLOT * PT_BLOCK;
+          slot[0 * PT_BLOCK] = hb.wx;
+          slot[1 * PT_BLOCK] = hb.wy;
+          slot[2 * PT_BLOCK] = hb.wz;
+          slot[3 * PT_BLOCK] = rfl ? mrx : fr.rfx;
+          slot[4 * PT_BLOCK] = rfl ? mry : fr.rfy;
+          slot[5 * PT_BLOCK] = rfl ? mrz : fr.rfz;
+          for (int c = 0; c < 3; ++c) slot[(6 + c) * PT_BLOCK] = thr[c] * w;
+          const unsigned word = (unsigned)(dep + 1) |
+                                (hb.side > 0 ? 1u << 10 : 0u) |
+                                (rfl ? 0u : 1u << 11) |
+                                ((unsigned)hb.srf << 12);
+          slot[9 * PT_BLOCK] = __int_as_float((int)word);
           ++sp;
         }
         if (have_dif) {
@@ -832,28 +887,37 @@ pt_kernel(const float* __restrict__ rays, const int* __restrict__ seeds,
         }
       }
     }
-    if (!cont) {
-      if (sp == 0) break;   // retired
+    bool live = cont;
+    if (!cont && sp > 0) {
       // pop a pending sibling
       --sp;
-      const float* slot = stk[sp];
-      r.ox = slot[0]; r.oy = slot[1]; r.oz = slot[2];
-      r.dx = slot[3]; r.dy = slot[4]; r.dz = slot[5];
-      thr[0] = slot[6]; thr[1] = slot[7]; thr[2] = slot[8];
-      dep = __float_as_int(slot[9]);
-      r.osrf = __float_as_int(slot[10]);
-      r.oside = __float_as_int(slot[11]);
-      r.thru = __float_as_int(slot[12]) != 0;
+      const float* slot = stk + sp * PT_SLOT * PT_BLOCK;
+      r.ox = slot[0 * PT_BLOCK];
+      r.oy = slot[1 * PT_BLOCK];
+      r.oz = slot[2 * PT_BLOCK];
+      r.dx = slot[3 * PT_BLOCK];
+      r.dy = slot[4 * PT_BLOCK];
+      r.dz = slot[5 * PT_BLOCK];
+      for (int c = 0; c < 3; ++c) thr[c] = slot[(6 + c) * PT_BLOCK];
+      const unsigned word = (unsigned)__float_as_int(slot[9 * PT_BLOCK]);
+      dep = (int)(word & PT_MAX_DEPTH);
+      r.oside = (word >> 10) & 1u ? 1 : -1;
+      r.thru = (word >> 11) & 1u;
+      r.osrf = (int)(word >> 12);
       r.tmn = 0.0f;
+      live = true;
+    }
+    if (!live || it == cap) {   // retired
+      out[i] = acc[0];
+      out[n + i] = acc[1];
+      out[2 * n + i] = acc[2];
+      most = max(most, it);
+      i = -1;
     }
   }
-  out[i] = acc[0];
-  out[n + i] = acc[1];
-  out[2 * n + i] = acc[2];
-  // the call's iteration count M: once per warp
-  const unsigned m = __activemask();
-  const int mx = __reduce_max_sync(m, it);
-  if ((threadIdx.x & 31) == (unsigned)(__ffs(m) - 1)) atomicMax(iters, mx);
+  // every lane of the warp is here: the call's node count M, once a warp
+  const int mx = __reduce_max_sync(FULL_WARP, most);
+  if (lane == 0) atomicMax(iters, mx);
 }
 
 // Every seed advanced 4*M draws, M = *iters (written by pt_kernel, which
@@ -976,23 +1040,42 @@ extern "C" int whitted_resume_launch(
 }
 
 // Path-tracing entry point: one sample per ray. seeds: (n,) i32 LCG
-// states in, seeds_out: (n,) i32 out (each advanced 4*M draws); iters: one
-// i32 of scratch, zeroed here, that ends holding M. Launches pt_kernel,
-// then pt_seed_tail, on `stream`.
+// states in, seeds_out: (n,) i32 out (each advanced 4*M draws); iters: two
+// i32 of scratch, zeroed here: iters[0] ends holding M, iters[1] is the
+// work queue's next sample. Launches pt_kernel on the persistent grid (the
+// blocks that fit on the card at once, queried once per device, or fewer
+// when n needs fewer), then pt_seed_tail, on `stream`.
 extern "C" int whitted_pt_launch(
     const float* rays, const int* seeds, float* out, int* seeds_out,
     int* iters, const float* sp_f, const int* sp_i, const float* cl_f,
     const float* mat_f, const int* mat_i, const float* lg_f,
     const float* misc, const int* tex_pk, const float* tex_lut, int n,
     int ns, int nc, int nl, int depth, void* stream) {
+  constexpr int MAX_DEVICES = 64;
+  static int resident[MAX_DEVICES];   // blocks of pt_kernel a card holds
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(iters, 0, sizeof(int), s);
+  cudaError_t err = cudaMemsetAsync(iters, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess || n <= 0) return (int)err;
-  if (depth < 0) return (int)cudaErrorInvalidValue;
+  if (depth < 0 || depth > PT_MAX_DEPTH) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pt_kernel,
+                                                        PT_BLOCK, PT_SMEM);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident[dev] = per_sm * sms;
+  }
   Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
            ns, nc, nl};
-  pt_kernel<<<(unsigned)((n + 127) / 128), 128, 0, s>>>(
-      rays, seeds, out, n, T, depth, iters);
+  const int need = (n + PT_BLOCK - 1) / PT_BLOCK;
+  const int blocks = need < resident[dev] ? need : resident[dev];
+  pt_kernel<<<(unsigned)blocks, PT_BLOCK, PT_SMEM, s>>>(
+      rays, seeds, out, n, T, depth, iters, iters + 1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pt_seed_tail<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(seeds, seeds_out,

@@ -52,6 +52,10 @@ BIG = 1e30
 LANES = 128       # texture atlas row width (texels)
 MAX_STACK = 16    # branch-stack slots the kernel holds per thread
 MAX_PATH_LIGHTS = 16   # path records hold one bit per light in bits 16-31
+# the PT kernel packs a stack slot's depth into 10 bits and its surface's
+# original id into 20
+PT_MAX_DEPTH = (1 << 10) - 1
+PT_MAX_SURFACES = 1 << 20
 # round-1 segment budgets of the TPU package's two-round drivers: the
 # rounds driver (pallas_kernel.py:2803) and the wavefront driver (:2806).
 # At ray granularity the two drivers are one, trace_rays_rounds.
@@ -551,12 +555,18 @@ def trace_pt_cuda(sc: SceneArrays, org, dirs, t_min, seeds,
     seeds (N,) int32, each advanced four draws per iteration of the call).
     org (3,) or (N, 3), dirs (N, 3), t_min (N,) f32 and seeds (N,) int32,
     all on the scene's device; reads cfg.depth. CPU tensors take the plain
-    ``trace_pt``. Launches the PT kernel and its seed tail on the current
+    ``trace_pt``. Launches the PT kernel (a persistent grid that pulls
+    the samples from a work queue) and its seed tail on the current
     stream without waiting for the card."""
     global pt_launches
     if dirs.device.type == "cpu":
         return trace_pt(sc, org, dirs, t_min, seeds, cfg)
     struct = struct or _get_struct(sc)
+    if not 0 <= cfg.depth <= PT_MAX_DEPTH:
+        raise ValueError(f"cfg.depth must be in 0..{PT_MAX_DEPTH}")
+    if struct.ns > PT_MAX_SURFACES:
+        raise ValueError(f"the PT kernel takes at most {PT_MAX_SURFACES} "
+                         f"surfaces, got {struct.ns}")
     ps = _get_packed(sc, struct)
     rays, tables = _launch_inputs("trace_pt_cuda", sc, org, dirs, t_min,
                                   struct, ps)
@@ -564,7 +574,7 @@ def trace_pt_cuda(sc: SceneArrays, org, dirs, t_min, seeds,
     _check("seeds", seeds, I32, (N,), dev)
     out = torch.empty((3, N), dtype=F32, device=dev)
     seeds_out = torch.empty((N,), dtype=I32, device=dev)
-    iters = torch.empty((1,), dtype=I32, device=dev)
+    iters = torch.empty((2,), dtype=I32, device=dev)   # M, work queue
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -162,7 +162,9 @@ def trace_pt(sc: SceneArrays, org, dirs, t_min, seeds,
     PT_STACK-slot stack; a lane still active after 6*(depth+1) nodes is
     cut. org (3,) or (N,3), dirs (N,3), t_min (N,) f32; seeds (N,) int32.
     Returns (radiance (N,3) f32, seeds (N,) int32). ``stats``, a dict or
-    None, gets the nodes run added in as "walks" (``count_work``)."""
+    None, gets the nodes run added in as "walks" (``count_work``); where
+    it holds the key "sample_nodes", that becomes the (N,) int32 count of
+    the nodes each sample ran."""
     N = dirs.shape[0]
     dev = dirs.device
     SD = PT_STACK
@@ -183,12 +185,15 @@ def trace_pt(sc: SceneArrays, org, dirs, t_min, seeds,
     slot_ids = torch.arange(SD, dtype=I32, device=dev)[None, :]
     lanes = torch.arange(N, device=dev)
     big = torch.full((N,), BIG, dtype=F32, device=dev)
+    nodes = zi() if stats is not None and "sample_nodes" in stats else None
 
     # tree-node cap: a depth-D path sees D+1 hits; the split tree
     # multiplies node count by < 4 in practice
     it = 0
     while it < 6 * (cfg.depth + 1) and bool(active.any()):
         count_work(stats, "walks", active)
+        if nodes is not None:
+            nodes += active.to(I32)
         h = intersect(sc, org, dirs, tmin, big, osrf, oside, thru)
         hit = h["hit"] & active
         midx = material_index(sc, h["srf"], h["side"])
@@ -294,6 +299,8 @@ def trace_pt(sc: SceneArrays, org, dirs, t_min, seeds,
         active = cont | can_pop
         sp = torch.where(can_pop, psp.to(I32), sp)
         it += 1
+    if nodes is not None:
+        stats["sample_nodes"] = nodes
     return acc, seed
 
 

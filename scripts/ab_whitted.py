@@ -1,22 +1,25 @@
-"""Time the Whitted kernels of two versions of csrc/whitted.cu on one card.
+"""Time the Whitted kernels of versions of csrc/whitted.cu on one card.
 
-    python3 scripts/ab_whitted.py OTHER.cu [--rounds 8] [--reps 20]
+    python3 scripts/ab_whitted.py OTHER.cu [MORE.cu ...] [--rounds 8]
+        [--reps 20] [--modes whitted paths emit resume pt]
 
 OTHER.cu is another version of quadray_tpu_torch/csrc/whitted.cu with the
 same C entry points (whitted_launch, whitted_paths_launch,
-whitted_pt_launch) and table layout, for example the parent commit's,
-unpacked with git archive into a directory that .gitignore lists (with
-the headers it includes beside it). Both are built with the port's nvcc
-flags and loaded into one process; the ptxas lines (registers, stack
-frame, spills) of both builds are printed. For each case (a scene at
-800x480, the Whitted mode, the path-record mode of the training step or
-one path-traced pass) the scene is packed once, both versions must give
-the same output bitwise, and then the kernel launch alone is timed in
-turns, this checkout's version (b) and OTHER (a) in the order a b b a,
-a b b a, ...: CUDA events around --reps launches after a warm-up. Prints
-each round's ms per launch, then one JSON line with every case's times,
-means and the b/a ratio of the means. Needs a CUDA card; exits with code
-2 without one.
+whitted_emit_launch, whitted_resume_launch, whitted_pt_launch) and table
+layout, for example the parent commit's, unpacked with git archive into a
+directory that .gitignore lists (with the headers it includes beside it).
+All are built with the port's nvcc flags and loaded into one process; the
+ptxas lines (registers, stack frame, spills) of every build are printed.
+For each case (a scene at 800x480, the Whitted mode, the path-record mode
+of the training step, round 1 or round 2 of two-round retirement, or one
+path-traced pass at depth 10) the scene is packed once, every version
+must give the same output bitwise, and then the kernel launch alone is
+timed in turns, this checkout's version (b) and OTHER (a) in the order a
+b b a, a b b a, ...: CUDA events around --reps launches after a warm-up.
+With more versions (a1, a2, ... in the order given) a round is a1 a2 ...
+b b ... a2 a1. Prints each case's range and mean per version, then one
+JSON line with every case's times, means and the b/a ratio of the means
+for each other version. Needs a CUDA card; exits with code 2 without one.
 """
 
 from __future__ import annotations
@@ -37,25 +40,49 @@ sys.path.insert(0, REPO)
 W, H = 800, 480
 # (scene, mode): test13 and demo03 are the kernel table's heavy Whitted
 # scenes (demo02 has three lights), test01 and test13 the training step's
-# path-record mode, test18 the path tracer's pass (depth 10)
+# path-record mode, test13 the two rounds of two-round retirement at k1 =
+# ROUNDS_K1 (resume from the state this checkout's emit leaves), test18
+# the path tracer's pass (bench_pt's scene) and the three other scenes of
+# chip_smoke.py phase E1, whose samples reach the node cap
 CASES = [("test13", "whitted"), ("demo02", "whitted"), ("demo03", "whitted"),
          ("test01", "whitted"), ("test01", "paths"), ("test13", "paths"),
-         ("test18", "pt")]
+         ("test13", "emit"), ("test13", "resume"), ("test18", "pt"),
+         ("test17", "pt"), ("test15", "pt"), ("test05", "pt")]
 K_PATHS = 8
+MODES = ("whitted", "paths", "emit", "resume", "pt")
+PT_DEPTH = 10
+# PT scenes whose paths seldom reach their light get chip_smoke.py's seeded
+# emission on every surface, so that the bitwise check compares radiance,
+# not zeros; emission changes no path, so the time is the scene's own
+PT_EMISSION = {"test17": 17, "test15": 15, "test05": 5}
 
 
-def build_other(src: str) -> ctypes.CDLL:
+def build_others(srcs: list) -> list:
+    """Builds every OTHER source with parallel nvcc processes; returns the
+    loaded libraries in the order given."""
     from quadray_tpu_torch.ops import _build
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_build.BUILD_DIR, f"libwhitted_other_{digest}.so")
-    if not os.path.exists(out):
-        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
-                              "-v", "-o", out, src], check=True,
-                             capture_output=True, text=True)
-        print_ptxas("a", res.stderr)
-    return ctypes.CDLL(out)
+    builds = []
+    for src in srcs:
+        with open(src, "rb") as fh:
+            digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+        out = os.path.join(_build.BUILD_DIR, f"libwhitted_other_{digest}.so")
+        proc = None
+        if not os.path.exists(out):
+            proc = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                 out, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+        builds.append((src, out, proc))
+    libs = []
+    for src, out, proc in builds:
+        if proc is not None:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed building {src}:\n{err}")
+            print_ptxas(src, err)
+        libs.append(ctypes.CDLL(out))
+    return libs
 
 
 def print_ptxas(which: str, text: str):
@@ -71,6 +98,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     from quadray_tpu_torch.ops import cuda_kernel as ck
     ref = ck._lib()
     for fn in ("whitted_launch", "whitted_paths_launch",
+               "whitted_emit_launch", "whitted_resume_launch",
                "whitted_pt_launch"):
         getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -86,9 +114,12 @@ def launcher(lib, name: str, mode: str, dev):
     from quadray_tpu_torch.ops.trace import TraceConfig
     from quadray_tpu_torch.scene import schema as S
     from quadray_tpu_torch.scene.compile import compile_scene
+    from chip_smoke import with_emission
     sd = load_scene(name)
     sc = compile_scene(S.SceneDef(root=sd.root, opts=S.OPTS_FULL & ~sd.opts),
                        device=dev)
+    if mode == "pt" and name in PT_EMISSION:
+        sc = with_emission(sc, PT_EMISSION[name])
     org, dirs = camera_rays(sc.cam_pos, sc.cam_hor, sc.cam_ver, sc.cam_nrm,
                             sc.cam_pov, W, H, 1)
     tmin = sc.cam_pov.expand(dirs.shape[0])
@@ -102,13 +133,13 @@ def launcher(lib, name: str, mode: str, dev):
         seeds = init_seeds(n, device=dev)
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
         seeds_out = torch.empty((n,), dtype=torch.int32, device=dev)
-        iters = torch.empty((1,), dtype=torch.int32, device=dev)
+        iters = torch.empty((2,), dtype=torch.int32, device=dev)
 
         def run():
             err = lib.whitted_pt_launch(
                 rays.data_ptr(), seeds.data_ptr(), out.data_ptr(),
                 seeds_out.data_ptr(), iters.data_ptr(), *tables, n,
-                struct.n_real, struct.nc, struct.nl, 10, stream)
+                struct.n_real, struct.nc, struct.nl, PT_DEPTH, stream)
             assert err == 0, err
             return torch.cat([out.view(torch.int32), seeds_out[None]])
     elif mode == "whitted":
@@ -122,6 +153,34 @@ def launcher(lib, name: str, mode: str, dev):
                 cfg.stack, cfg.cutoff, int(struct.can_push), stream)
             assert err == 0, err
             return out
+    elif mode in ("emit", "resume"):
+        from quadray_tpu_torch.ops.trace import STATE_ROWS
+        cfg, k1 = TraceConfig(), ck.ROUNDS_K1
+        out = torch.empty((3, n), dtype=torch.float32, device=dev)
+        state = torch.empty((len(STATE_ROWS), n), dtype=torch.float32,
+                            device=dev)
+
+        def run():
+            err = lib.whitted_emit_launch(
+                rays.data_ptr(), out.data_ptr(), state.data_ptr(), *tables,
+                n, struct.n_real, struct.nc, struct.nl, cfg.depth, k1,
+                cfg.cutoff, stream)
+            assert err == 0, err
+            return torch.cat([out.view(torch.int32), state.view(torch.int32)])
+        if mode == "resume":
+            # round 2 over round 1's survivors, colours written in place
+            # (the same values every launch)
+            run()
+            idx, count = ck.compact_active(state)
+
+            def run():
+                err = lib.whitted_resume_launch(
+                    state.data_ptr(), idx.data_ptr(), count.data_ptr(),
+                    out.data_ptr(), *tables, n, struct.n_real, struct.nc,
+                    struct.nl, cfg.depth, cfg.max_segments - k1, cfg.cutoff,
+                    stream)
+                assert err == 0, err
+                return out
     else:
         cfg = TraceConfig(max_segments=K_PATHS, stack=4)
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
@@ -153,11 +212,15 @@ def ms_per_launch(run, reps: int) -> float:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("other", help="the other version of whitted.cu")
+    ap.add_argument("other", nargs="+",
+                    help="the other versions of whitted.cu")
     ap.add_argument("--rounds", type=int, default=8,
                     help="rounds of a b b a per case")
     ap.add_argument("--reps", type=int, default=20,
                     help="launches per timing")
+    ap.add_argument("--modes", nargs="+", default=list(MODES),
+                    choices=MODES,
+                    help="the cases' modes to run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False")
@@ -169,39 +232,45 @@ def main():
     print(smi, flush=True)
     from quadray_tpu_torch.ops._build import load_library
     dev = torch.device("cuda", 0)
-    libs = {"a": bind(build_other(args.other)),
-            "b": bind(load_library("whitted"))}
+    labels = ["a"] if len(args.other) == 1 else [
+        f"a{j + 1}" for j in range(len(args.other))]
+    for k, src in zip(labels, args.other):
+        print(f"{k}: {src}", flush=True)
+    libs = dict(zip(labels, (bind(lib) for lib in build_others(args.other))))
+    libs["b"] = bind(load_library("whitted"))
     ptxas = os.path.join(os.path.dirname(libs["b"]._name),
                          "whitted.ptxas.txt")
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
             print_ptxas("b", fh.read())
-    result = {"device": smi, "other": args.other, "rounds": args.rounds,
-              "reps": args.reps, "cases": {}}
+    result = {"device": smi, "other": dict(zip(labels, args.other)),
+              "rounds": args.rounds, "reps": args.reps, "cases": {}}
+    order = labels + ["b", "b"] + labels[::-1]
     for name, mode in CASES:
-        runs = {}
-        for k, lib in libs.items():
-            runs[k] = launcher(lib, name, mode, dev)
+        if mode not in args.modes:
+            continue
+        runs = {k: launcher(lib, name, mode, dev) for k, lib in libs.items()}
         outs = {k: runs[k][0]().clone() for k in runs}
         torch.cuda.synchronize()
-        if not torch.equal(outs["a"].view(torch.int32),
-                           outs["b"].view(torch.int32)):
-            raise AssertionError(f"{name} {mode}: the two versions differ")
-        times = {"a": [], "b": []}
+        for k in labels:
+            if not torch.equal(outs[k].view(torch.int32),
+                               outs["b"].view(torch.int32)):
+                raise AssertionError(f"{name} {mode}: {k} and b differ")
+        times = {k: [] for k in libs}
         for _ in range(args.rounds):
-            for k in ("a", "b", "b", "a"):
+            for k in order:
                 times[k].append(ms_per_launch(runs[k][0], args.reps))
         mean = {k: sum(v) / len(v) for k, v in times.items()}
         case = f"{name} {mode}"
-        result["cases"][case] = {"a_ms": times["a"], "b_ms": times["b"],
-                                 "a_mean": mean["a"], "b_mean": mean["b"],
-                                 "b_over_a": mean["b"] / mean["a"]}
-        print(f"{case}: a {min(times['a']):.4f}-{max(times['a']):.4f} "
-              f"mean {mean['a']:.4f} ms; b {min(times['b']):.4f}-"
-              f"{max(times['b']):.4f} mean {mean['b']:.4f} ms; b/a "
-              f"{mean['b'] / mean['a']:.4f}", flush=True)
+        result["cases"][case] = {
+            **{f"{k}_ms": v for k, v in times.items()},
+            **{f"{k}_mean": v for k, v in mean.items()},
+            **{f"b_over_{k}": mean["b"] / mean[k] for k in labels}}
+        print(f"{case}: " + "; ".join(
+            f"{k} {min(times[k]):.4f}-{max(times[k]):.4f} mean "
+            f"{mean[k]:.4f} ms" for k in labels + ["b"]) + "; " + " ".join(
+            f"b/{k} {mean['b'] / mean[k]:.4f}" for k in labels), flush=True)
     print(json.dumps(result))
-
 
 if __name__ == "__main__":
     main()

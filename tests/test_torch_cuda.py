@@ -164,13 +164,22 @@ def _pt_rays(name, dev, w, h, emis_seed=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,emis_seed", [
-    ("test18", None), ("test17", 17), ("test15", 15), ("test05", 5)])
-def test_pt_kernel_matches_plain_on_card(dev, name, emis_seed):
+@pytest.mark.parametrize("name,emis_seed,w,h,n", [
+    ("test18", None, 200, 120, None), ("test17", 17, 200, 120, None),
+    ("test15", 15, 200, 120, None), ("test05", 5, 200, 120, None),
+    ("test18", None, 800, 480, None)] + [
+    ("test18", None, 800, 480, k) for k in (1, 31, 33, 24007)])
+def test_pt_kernel_matches_plain_on_card(dev, name, emis_seed, w, h, n):
     """The PT kernel against the plain trace_pt on the card: seeds equal,
-    radiance within 1e-5, one launch per call, over 5% of the lanes lit."""
+    radiance within 1e-5, one launch per call, over 5% of the lanes lit.
+    n: the first n samples only, the edges of the kernel's work queue (one
+    sample, a warp less or more one lane, not a whole number of blocks;
+    all under the persistent grid's thread count, while the whole 800x480
+    frame is over it); too few to ask that any be lit."""
     from quadray_tpu_torch.ops.pt import trace_pt
-    sc, org, dirs, tmin, seeds = _pt_rays(name, dev, 200, 120, emis_seed)
+    sc, org, dirs, tmin, seeds = _pt_rays(name, dev, w, h, emis_seed)
+    if n is not None:
+        dirs, tmin, seeds = dirs[:n], tmin[:n], seeds[:n]
     cfg = TraceConfig(depth=10)
     before = ck.pt_launches
     got_r, got_s = ck.trace_pt_cuda(sc, org, dirs, tmin, seeds, cfg)
@@ -180,7 +189,22 @@ def test_pt_kernel_matches_plain_on_card(dev, name, emis_seed):
     assert got_r.shape == (dirs.shape[0], 3) and got_s.dtype == torch.int32
     assert torch.equal(got_s, want_s)
     assert (got_r - want_r).abs().max().item() <= 1e-5
-    assert (got_r.amax(dim=1) > 0).float().mean().item() > 0.05
+    if n is None:
+        assert (got_r.amax(dim=1) > 0).float().mean().item() > 0.05
+
+
+@pytest.mark.cuda
+def test_pt_kernel_two_launches_bitwise_equal(dev):
+    """The work queue hands samples to lanes in an order that changes from
+    launch to launch; the radiance and seeds do not."""
+    sc, org, dirs, tmin, seeds = _pt_rays("test18", dev, 800, 480)
+    cfg = TraceConfig(depth=10)
+    r1, s1 = ck.trace_pt_cuda(sc, org, dirs, tmin, seeds, cfg)
+    r2, s2 = ck.trace_pt_cuda(sc, org, dirs, tmin, seeds, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(r1.contiguous().view(torch.int32),
+                       r2.contiguous().view(torch.int32))
+    assert torch.equal(s1, s2)
 
 
 @pytest.mark.cuda
@@ -216,6 +240,9 @@ def test_pt_wrapper_rejects_what_the_kernel_does_not_take(dev):
         ck.trace_pt_cuda(sc, org, dirs[:, :2], tmin, seeds, cfg)
     with pytest.raises(ValueError):
         ck.trace_pt_cuda(sc.to("cpu"), org, dirs, tmin, seeds, cfg)
+    with pytest.raises(ValueError):
+        ck.trace_pt_cuda(sc, org, dirs, tmin, seeds,
+                         TraceConfig(depth=ck.PT_MAX_DEPTH + 1))
 
 
 @pytest.mark.cuda

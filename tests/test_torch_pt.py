@@ -146,6 +146,14 @@ def test_trace_pt_matches_pallas_interpret_test18(test18):
     assert np.abs(np.asarray(pr) - d["rad"])[keep].max() <= ATOL
 
 
+def _emission(t, seed):
+    """chip_smoke.py phase E1's seeded emission in [0, 0.5) on both sides
+    of every real surface of the port's scene t, as numpy f32."""
+    e = np.random.default_rng(seed).uniform(
+        0.0, 0.5, tuple(t.s_emis.shape)).astype(np.float32)
+    return e * (t.s_kind.numpy() > 0)[:, None, None]
+
+
 def test_trace_pt_matches_jnp_refractive_textured():
     """test17: Fresnel glass (the shallow two-branch pushes) and a
     texture; lanes run into the 66-node cap. Its paths seldom reach its
@@ -153,9 +161,7 @@ def test_trace_pt_matches_jnp_refractive_textured():
     packages: each node's branch weights, pops and emission row then show
     in the radiance of most lanes."""
     j, t = _scene("test17")
-    e = np.random.default_rng(17).uniform(
-        0.0, 0.5, tuple(t.s_emis.shape)).astype(np.float32)
-    e *= (t.s_kind.numpy() > 0)[:, None, None]
+    e = _emission(t, 17)
     j = j.replace(s_emis=j.s_emis + jnp.asarray(e))
     t = dataclasses.replace(t, s_emis=t.s_emis + torch.from_numpy(e))
     jin, tin = _primary(j, t, 48, 32)
@@ -195,6 +201,67 @@ def test_seeds_advance_by_the_call_iteration_count(test18):
         assert stats == {"walks": alone[-1]}
     assert len(set(alone)) > 3 and max(alone) <= m
     assert min(alone) < m
+
+
+def _pt_case(name, emis_seed):
+    """The port's scene (with chip_smoke.py phase E1's seeded emission on
+    every real surface when emis_seed is given), its jittered primary rays
+    and seeds at 48x32, and the plain pass over all of them."""
+    sd = tload(name)
+    t = tcompile(TS.SceneDef(root=sd.root, opts=TS.OPTS_FULL & ~sd.opts),
+                 device="cpu")
+    if emis_seed is not None:
+        t = dataclasses.replace(t, s_emis=t.s_emis + torch.from_numpy(
+            _emission(t, emis_seed)))
+    n = 48 * 32
+    org, dirs, seeds = tpt.pt_camera_rays(t, 48, 32,
+                                          tpt.init_seeds(n, device="cpu"))
+    tmin = t.cam_pov.expand(n)
+    rad, out = tpt.trace_pt(t, org, dirs, tmin, seeds,
+                            TraceConfig(depth=DEPTH))
+    return t, (org, dirs, tmin, seeds), rad, out
+
+
+@pytest.fixture(scope="module", params=[("test18", None), ("test17", 17)],
+                ids=["test18", "test17+emission"])
+def pt_case(request):
+    return _pt_case(*request.param)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def test_trace_pt_permuted_samples_permute_outputs(pt_case):
+    """What the PT kernel's path regeneration relies on: a sample's result
+    does not depend on its lane or its neighbours. Tracing the samples in
+    another order permutes the radiance and the output seeds, bitwise."""
+    t, (org, dirs, tmin, seeds), rad, out = pt_case
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(
+        dirs.shape[0]))
+    prad, pout = tpt.trace_pt(t, org, dirs[perm], tmin[perm], seeds[perm],
+                              TraceConfig(depth=DEPTH))
+    assert torch.equal(_bits(prad), _bits(rad[perm]))
+    assert torch.equal(pout, out[perm])
+
+
+def test_trace_pt_prefix_alone_equals_whole_call(pt_case):
+    """The first 301 samples traced alone: radiance bitwise as in the whole
+    call, and their seeds equal the whole call's after 4*(M_whole -
+    M_prefix) more draws, M each call's largest node count, which the
+    plain version also reports per sample ("sample_nodes")."""
+    t, (org, dirs, tmin, seeds), rad, out = pt_case
+    k = 301
+    stats = {"sample_nodes": None}
+    crad, cout = tpt.trace_pt(t, org, dirs[:k], tmin[:k], seeds[:k],
+                              TraceConfig(depth=DEPTH), stats)
+    assert torch.equal(_bits(crad), _bits(rad[:k]))
+    m_whole, m_prefix = _iterations(seeds, out), _iterations(seeds[:k], cout)
+    assert m_prefix == int(stats["sample_nodes"].max())
+    assert stats["walks"] == int(stats["sample_nodes"].sum())
+    assert m_prefix < m_whole
+    assert torch.equal(tpt.lcg_jump(cout, 4 * (m_whole - m_prefix)),
+                       out[:k])
 
 
 def test_emission_rows_are_light_rows():
