@@ -4,9 +4,11 @@
     python3 chip_smoke.py --only A   # kernel build + kernel-vs-plain only
     python3 chip_smoke.py --only D   # kernel build + the training path only
     python3 chip_smoke.py --only E   # kernel build + the path tracer only
+    python3 chip_smoke.py --only H   # kernel build + bounding-sphere culling
 
-Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all three
-entry points) with nvcc, then:
+Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
+entry points) and the conformance kernels with parallel nvcc processes,
+then:
   A. kernel vs its plain PyTorch version (ops/trace.py), both on the card,
      at 200x120 on seven scenes chosen for their features and at the main
      path's 800x480 on two; max abs diff of linear colors <= 1e-5;
@@ -51,6 +53,26 @@ entry points) with nvcc, then:
      iteration count M, the nodes run and the share of issue slots a
      one-sample-per-thread layout would fill (warps of 32 consecutive
      samples, each as long as its longest).
+  F. two-round retirement (trace_rays_rounds): F1 the emit and resume
+     kernels vs their plain versions, F2 every golden scene through the
+     rounds bitwise equal to render_cuda, F3 their device times;
+  G. the conformance tier: G1 the conformance kernels vs numpy and their
+     plain versions, G2 the Whitted kernel on random rays, G3 device ms;
+  H. bounding-sphere culling (on by default: every phase above runs the
+     default TraceConfig, whose gates, ops/cuda_kernel.py cull_gates, cull
+     every scene of CULL_MIN_SURFACES surfaces or more with bounding
+     spheres; the training step's path records are traced unculled). H1,
+     H2 and H3 lower that floor to 1, so that every golden scene culls: H1
+     every golden scene at 800x480, culled against unculled kernel output,
+     bitwise, in the four Whitted modes (colours; path records; emit's
+     colours and state and resume's colours), and the culled frames' bad
+     pixels equal to the unculled kernel's counts (test11 6, test14 2,
+     test16 38, demo03 2, else 0); H2 the culled kernel against the culled
+     plain version on phase A's and F1's cases; H3 the kernel's device ms
+     culled and unculled on every golden scene (CUDA graphs), beside what
+     the default gate picks, and the plain version's count of the surface
+     tests that culling keeps and skips on test13, test14, demo02, demo03
+     and test01.
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -61,6 +83,7 @@ inputs, ops/trace.py count_work, priced by OPS_*) over 67 TFLOP/s.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -122,6 +145,10 @@ PHASE_F1 = [("test08", 200, 120, 2), ("test14", 200, 120, 2),
 # F3: the monolithic kernel against the two rounds, heavy scenes
 PHASE_F3 = ["test13", "test14", "demo02", "demo03"]
 F3_ROUNDS, F3_REPS = 4, 10
+# phase H: the exact bad-pixel counts of the unculled kernel's frames
+# (and of the JAX package on the CPU), which the culled frames must keep
+GOLDEN_BAD = {"test11": 6, "test14": 2, "test16": 38, "demo03": 2}
+PHASE_H3 = ["test13", "test14", "demo02", "demo03", "test01"]
 # phase G: the conformance kernels' timing size (384,000 elements, one
 # 800x480 frame's rays) and launches per timing
 G_ROWS, G_REPS = W * H // 128, 50
@@ -194,7 +221,7 @@ def primary(sc, w, h):
     return org, dirs, sc.cam_pov.expand(dirs.shape[0])
 
 
-def phase_a(dev, cases):
+def phase_a(dev, cases, label="A"):
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.trace import TraceConfig, trace_rays
     cfg = TraceConfig()
@@ -211,10 +238,10 @@ def phase_a(dev, cases):
         nd = int((d.amax(dim=1) > 0).sum())
         mx = float(d.max())
         worst = max(worst, mx)
-        log(f"A {name} {w}x{h}: rays={dirs.shape[0]} differing={nd} "
+        log(f"{label} {name} {w}x{h}: rays={dirs.shape[0]} differing={nd} "
             f"max_abs={mx:.3e} bitwise={nd == 0}")
         if not mx <= ATOL:
-            raise AssertionError(f"A {name}: max abs {mx} > {ATOL}")
+            raise AssertionError(f"{label} {name}: max abs {mx} > {ATOL}")
         del want
         torch.cuda.empty_cache()
     return worst
@@ -739,7 +766,7 @@ def phase_e4(dev):
 
 # ---- phase F: two-round retirement ------------------------------------------
 
-def phase_f1(dev):
+def phase_f1(dev, label="F1"):
     """The emit and resume kernels against their plain versions on the
     card: emit's colors and all 21 state rows, then resume from the
     kernel's state, bitwise; the two rounds equal the monolithic kernel."""
@@ -775,20 +802,22 @@ def phase_f1(dev):
         res_err = float((res_k - res_p).abs().max())
         worst = max(worst, emit_err, res_err)
         same_mono = torch.equal(bits(res_k), bits(mono))
-        log(f"F1 {name} {w}x{h} k1={k1}: rays={w * h} alive_after_round1="
+        log(f"{label} {name} {w}x{h} k1={k1}: rays={w * h} alive_after_round1="
             f"{alive:.4f} survivors={int(count)} emit colors bitwise="
             f"{same_cols} state rows "
             f"differing={rows or 'none'} resume lanes_differing={nd} "
             f"max_abs={max(emit_err, res_err):.3e} rounds==monolithic="
             f"{same_mono}")
         if rows or not same_cols:
-            raise AssertionError(f"F1 {name}: emit differs from its plain "
-                                 f"version (rows {rows})")
+            raise AssertionError(f"{label} {name}: emit differs from its "
+                                 f"plain version (rows {rows})")
         if nd or not same_mono:
-            raise AssertionError(f"F1 {name}: resume differs ({nd} lanes) "
-                                 f"or rounds != monolithic ({same_mono})")
+            raise AssertionError(f"{label} {name}: resume differs ({nd} "
+                                 f"lanes) or rounds != monolithic "
+                                 f"({same_mono})")
         if not 0 < alive < 1:
-            raise AssertionError(f"F1 {name}: no lane on one side of the cut")
+            raise AssertionError(f"{label} {name}: no lane on one side of "
+                                 "the cut")
         del state_p, res_p
         torch.cuda.empty_cache()
     return worst
@@ -1147,12 +1176,141 @@ def phase_g3(dev):
     return rows
 
 
+# ---- phase H: bounding-sphere culling -----------------------------------------
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@contextlib.contextmanager
+def cull_every_scene():
+    """cull_gates' floor of real surfaces lowered to 1 inside the block,
+    so that every scene with bounding spheres culls (kernel and plain
+    version alike: both ask cull_gates); yields the floor it lowered."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    floor = ck.CULL_MIN_SURFACES
+    ck.CULL_MIN_SURFACES = 1
+    try:
+        yield floor
+    finally:
+        ck.CULL_MIN_SURFACES = floor
+
+
+def phase_h1(dev):
+    """Every golden scene at 800x480: the culled kernel against the
+    unculled one, bitwise, in the four Whitted modes; the culled frames'
+    bad pixels."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.rays import resolve_aa
+    from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
+    from quadray_tpu_torch.utils.image import load_bmp, frame_cmp
+    on, off = TraceConfig(), TraceConfig(cull=False)
+    t_on, t_off = train_cfg(), train_cfg()._replace(cull=False)
+    k1 = ck.ROUNDS_K1
+    fails = []
+    for n in SCENES:
+        sc = compiled(n, dev)
+        struct = ck.scene_struct(sc)
+        rays = primary(sc, W, H)
+        gates = ck.cull_gates(struct, on)
+        if not gates.cull:
+            raise AssertionError(f"H1 {n}: the forced gate does not cull")
+        checks = {}
+        cols = ck.trace_rays_cuda(sc, *rays, on, struct)
+        checks["whole"] = torch.equal(
+            _bits(cols), _bits(ck.trace_rays_cuda(sc, *rays, off, struct)))
+        if not struct.can_push:
+            pc, pp = ck.trace_paths(sc, *rays, t_on, K_PATHS)
+            qc, qp = ck.trace_paths(sc, *rays, t_off, K_PATHS)
+            checks["paths"] = torch.equal(pp, qp) and torch.equal(
+                _bits(pc), _bits(qc))
+            rounds = []
+            for cfg in (on, off):
+                ec, es = ck.trace_rays_emit_cuda(sc, *rays, cfg, k1, struct)
+                emitted = ec.clone()
+                idx, count = ck.compact_active(es)
+                rc = ck.trace_rays_resume_cuda(sc, es, ec, idx, count, cfg,
+                                               k1, struct)
+                rounds.append((emitted, es, rc))
+            checks["emit"] = all(torch.equal(_bits(a), _bits(b)) for a, b in
+                                 zip(rounds[0][:2], rounds[1][:2]))
+            checks["resume"] = torch.equal(_bits(rounds[0][2]),
+                                           _bits(rounds[1][2]))
+        torch.cuda.synchronize()
+        img = resolve_aa(torch.clamp(cols, 0.0, 1.0), W, H, 1)
+        nbad, _ = frame_cmp(load_bmp(os.path.join(GOLDEN, f"ref_{n}.bmp")),
+                            to_frame(img, sc.use_gamma).cpu().numpy(),
+                            t_diff=3)
+        ok = all(checks.values()) and nbad == GOLDEN_BAD.get(n, 0)
+        log(f"H1 {n} {W}x{H}: gates cull={gates.cull} lsort={gates.lsort} "
+            f"cont={gates.cont} culled==unculled "
+            + " ".join(f"{k}={v}" for k, v in checks.items())
+            + f" bad_px={nbad}{'' if ok else '  FAIL'}")
+        if not ok:
+            fails.append(n)
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"H1: culled output differs or bad pixels "
+                             f"moved: {fails}")
+
+
+def cull_shares(stats) -> str:
+    """The share of the surface tests that the cull masks skip."""
+    out = []
+    for k in ("nearest_tests", "shadow_tests"):
+        kept, culled = stats.get(k + "_kept", 0), stats.get(k + "_culled", 0)
+        out.append(f"{k}: kept={kept} culled={culled} share_culled="
+                   f"{culled / max(kept + culled, 1):.4f}")
+    kept = stats.get("nearest_tests_kept", 0) + stats.get(
+        "shadow_tests_kept", 0)
+    culled = stats.get("nearest_tests_culled", 0) + stats.get(
+        "shadow_tests_culled", 0)
+    out.append(f"all: share_culled={culled / max(kept + culled, 1):.4f}")
+    return "; ".join(out)
+
+
+def phase_h3(dev, floor: int):
+    """The Whitted kernel's device ms culled (every scene culls: the floor
+    is lowered) and unculled on every golden scene (CUDA graphs, turns on
+    off off on), beside whether the default gate culls it; on PHASE_H3's
+    scenes the plain version's count of the surface tests culling keeps
+    and skips."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig, trace_rays
+    on, off = TraceConfig(), TraceConfig(cull=False)
+    rows = {}
+    for n in SCENES:
+        sc = compiled(n, dev)
+        struct = ck.scene_struct(sc)
+        rays = primary(sc, W, H)
+        with_floor = (struct.n_real >= floor
+                      and ck.cull_gates(struct, on).cull)
+        stats = {}
+        if n in PHASE_H3:
+            trace_rays(sc, *rays, on, stats)
+            torch.cuda.empty_cache()
+        fns = {"on": lambda: ck.trace_rays_cuda(sc, *rays, on, struct),
+               "off": lambda: ck.trace_rays_cuda(sc, *rays, off, struct)}
+        times = {k: [] for k in fns}
+        for k in ("on", "off", "off", "on"):
+            times[k].append(graph_ms(fns[k], F3_REPS))
+        work = (f"{work_line(stats)}; {cull_shares(stats)}; "
+                if stats else "")
+        log(f"H3 {n} {W}x{H} ({struct.n_real} surfaces, culled by "
+            f"default: {with_floor}): {work}whitted "
+            f"device ms culled {np.mean(times['on']):.4f} unculled "
+            f"{np.mean(times['off']):.4f}")
+        rows[n] = (stats, times, with_floor)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["A", "D", "E", "F", "G"], default=None,
+    ap.add_argument("--only", choices=["A", "D", "E", "F", "G", "H"],
+                    default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
-                    "retirement) or G (conformance tier)")
+                    "retirement), G (conformance tier) or H (culling)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -1238,6 +1396,20 @@ def main():
         phase_g2(dev)
         g3 = phase_g3(dev)
         log(f"phase G ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "H"):
+        t0 = time.perf_counter()
+        with cull_every_scene() as floor:
+            phase_h1(dev)
+            phase_a(dev, PHASE_A, "H2")
+            phase_f1(dev, "H2")
+            h3 = phase_h3(dev, floor)
+        # the default floor culls a scene where the forced run said it pays
+        slower = [n for n, (_, t, c) in h3.items()
+                  if c and np.mean(t["on"]) > np.mean(t["off"])]
+        log(f"H3: scenes the default gate culls where culling was slower: "
+            f"{slower or 'none'}")
+        log(f"phase H ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
 
@@ -1264,34 +1436,38 @@ def main():
         "are sums over the " + str(len(lib_cases)) + " cases that have one "
         "PyTorch call (" + ",".join(lib_cases) + ") at 384,000 elements, "
         "launches G1's 15 cases, max_abs_err G1's worst against the plain "
-        "versions")
+        "versions; the four Whitted-mode rows ran culled (the default "
+        "TraceConfig's gates), PT does not cull")
+    culled = ("on: warp reach masks (origin box + direction cone or "
+              "endpoint capsule per warp, __ballot_sync over the bounding "
+              "spheres), lsort and cont masks where cull_gates say so")
     log(json.dumps({"kernels": [{
-        "name": "whitted", "route": "cuda",
+        "name": "whitted", "route": "cuda", "culling": culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2201",
         "launches": launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain, "bound_ms": w_bound[0],
         "bound_by": w_bound[1], "library_ms": None}, {
-        "name": "whitted_paths", "route": "cuda",
+        "name": "whitted_paths", "route": "cuda", "culling": culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2250",
         "launches": d_launches, "max_abs_err": d_err,
         "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound[0],
         "bound_by": d_bound[1], "library_ms": None}, {
-        "name": "whitted_pt", "route": "cuda",
+        "name": "whitted_pt", "route": "cuda", "culling": "off",
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2313",
         "launches": e_launches, "max_abs_err": e_err,
         "ms": e_ms, "plain_ms": e_plain, "bound_ms": e_bound,
         "bound_by": e_by, "library_ms": None}, {
-        "name": "whitted_emit", "route": "cuda",
+        "name": "whitted_emit", "route": "cuda", "culling": culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2525",
         "launches": f_launches["emit_launches"], "max_abs_err": f_err,
         "ms": float(np.mean(times[f"k1={k1} emit"])),
         "plain_ms": f3["plain"][0], "bound_ms": bounds[k1][0][0],
         "bound_by": bounds[k1][0][1], "library_ms": None}, {
-        "name": "whitted_resume", "route": "cuda",
+        "name": "whitted_resume", "route": "cuda", "culling": culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2572",
         "launches": f_launches["resume_launches"], "max_abs_err": f_err,

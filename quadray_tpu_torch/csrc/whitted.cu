@@ -1,6 +1,7 @@
 // Whitted megakernel for NVIDIA Hopper (sm_90a): one thread traces one
-// ray to completion; in PT mode each thread traces path-traced samples
-// from a work queue, one after another.
+// ray to completion, and the warp culls the surfaces its rays cannot
+// reach; in PT mode each thread traces path-traced samples from a work
+// queue, one after another.
 //
 // Replaces the TPU kernels quadray_tpu/ops/pallas_kernel.py
 // _trace_tiled (_make_kernel in Whitted mode), _trace_tiled_paths
@@ -8,10 +9,11 @@
 // training), _trace_tiled_emit and _trace_tiled_resume (_make_kernel with
 // emit_state / resume, the two rounds of two-round retirement) and
 // _trace_tiled_pt (_make_kernel with pt, the progressive path tracer),
-// with culling off. It computes what those kernels compute; its plain
-// twins are quadray_tpu_torch/ops/trace.py trace_rays, trace_paths,
-// trace_rays_emit and trace_rays_resume and quadray_tpu_torch/ops/pt.py
-// trace_pt:
+// with the Whitted modes' bounding-sphere culling (PT does not cull yet).
+// It computes what those kernels compute; its plain twins are
+// quadray_tpu_torch/ops/trace.py trace_rays, trace_paths, trace_rays_emit
+// and trace_rays_resume (whose Cull is the plain version of the masks)
+// and quadray_tpu_torch/ops/pt.py trace_pt:
 //   * surface solvers: plane root with the division-free t-window, quadric
 //     and two-plane roots with stable b-mixed Vieta roots and the nan-root
 //     rule, near-zero determinant root sorting (D_EPS/T_EPS), the conic
@@ -28,6 +30,41 @@
 //     max_segments cap.
 // Surface classes are a run-time switch on sp_i (kind, singularity, clip
 // count) where the TPU kernel recompiled per scene structure.
+//
+// Culling (the Whitted modes; cfg.cull from ops/cuda_kernel.py
+// cull_gates, a run-time flag, so one build serves every scene): the
+// TPU kernel culls per block of 8192 lanes (pallas_kernel.py:1020-1284)
+// because each of its per-surface guards is a scalar SMEM read, which
+// pays only per large block; for the same reason it compacts the primary
+// segment's candidates into a host-built list per block
+// (_build_candidates :2045), so the first segment needs no guard at all.
+// Here a guard is a bit of a word every lane holds, and a mask costs a
+// few shuffles and ballots, so the unit is the warp and the primary
+// segment builds its mask like every other: no host table. Before each
+// nearest pass and each shadow pass, the warp bounds its rays (an origin
+// box, and a direction cone or an endpoint capsule, reduced with
+// __shfl_xor_sync over the lanes that have a ray: warp_bundle); lane j
+// tests the bundle against the bounding spheres j, j+32, ... (at most 32
+// words: 1024 surfaces) and __ballot_sync packs the reach bits, lane w
+// keeping word w. A shadow pass ANDs in the OR of its lanes' shad_msk
+// rows (receiver, light: the lsort analog) and a nearest pass the OR of
+// its lanes' cont_msk rows (previous hit, side: the lst_p analog; single-
+// branch scenes, since a popped branch does not come from the previous
+// hit), both with __reduce_or_sync. The surface loops then walk the set
+// bits in ascending row order (__shfl_sync of the word, __ffs), so a zero
+// word costs one shuffle and the loop bounds are uniform: culling adds
+// no divergence, and the primary segment needs no host-side table. The
+// nearest hit's ties stay broken on the original id, and a shadow pass
+// ends once every lane that needs it is occluded (the reference's
+// full-mask early-out). Culling only skips tests that cannot hit, so
+// every output bit is the unculled kernel's. The collectives need the
+// whole warp, so every lane runs every segment of the loop, with or
+// without a ray (`active`), until no lane of the warp has one. A launch
+// that does not cull (cfg.cull 0: the gate turned it off, or
+// TraceConfig.cull is false) takes the instantiation with CULL false,
+// which has no collective: each lane walks every surface in row order
+// and leaves the loop once its ray retires, so scenes that do not cull
+// pay nothing for the converged loop, and any number of surfaces fits.
 //
 // EMIT_PATHS (entry point whitted_paths_launch): segments are capped at k
 // and each thread writes its own i32 record of every segment it runs to
@@ -94,11 +131,11 @@
 // (48 per PT sample with the seeds; EMIT writes 84 more, RESUME reads 84
 // and writes 12 per surviving ray), so it is not bandwidth-bound; it is
 // latency- and divergence-bound on FP32 ALU work and scattered reads of
-// the small scene tables (through __ldg), with every thread walking every
-// surface for every segment, shadow ray and PT node. The Whitted modes
-// run one ray per thread, a warp as long as its longest ray, with the
-// branch stack in local memory; bounding-sphere culling and tables in
-// shared memory are later work.
+// the small scene tables (through __ldg). The Whitted modes run one ray
+// per thread, a warp as long as its longest ray, with the branch stack in
+// local memory, and walk the surfaces their warp's masks keep; each PT
+// node still walks every surface, and tables in shared memory are later
+// work.
 //
 // f32 rules the golden frames depend on: build with --fmad=false and
 // without fast math; every 3-term contraction is a left-to-right mul/add
@@ -133,15 +170,29 @@ struct Tables {
   const float* misc;
   const int* tex_pk;
   const float* tex_lut;
+  const float* bsph;   // (4, nsl) bounding spheres: cx, cy, cz, radius
+  const int* shad;     // (rows, nl * nw) lsort words
+  const int* cont;     // (rows, 2 * nw) continuation words, side > 0 first
   int ns;   // real surfaces: a prefix of the permuted rows
   int nc;   // clip program width
   int nl;   // active lights: a prefix of the light rows
+  int nw;   // words of a shad/cont row: ceil(rows / 32)
+  int nsl;  // length of a bsph row: rows rounded up to 128
 };
+
+// cfg.cull bits (ops/cuda_kernel.py CullGates.flags)
+constexpr int CULL_REACH = 1, CULL_LSORT = 2, CULL_CONT = 4;
+// the culled Whitted modes' surface masks: one word per lane, so at most
+// 1024 real surfaces (ops/cuda_kernel.py MAX_SURFACES)
+constexpr int MAX_WORDS = 32;
 
 struct Cfg {
   int depth, max_segments, stack;
   float cutoff;
+  int cull;
 };
+
+constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
 
 // x - p, then m . (x - p): world -> canonical for the 12 floats at t
 __device__ __forceinline__ void to_local(const float* t, float x, float y,
@@ -193,6 +244,7 @@ struct Ray {
   int osrf, oside;   // originating surface (original id, -1 none), side
   bool thru;         // refracted continuation (PASS_THRU)
   float olx, oly, olz;  // local hit on the originating surface
+  int orow;          // its permuted row for the cont mask, -1: none
 };
 
 struct Hit {
@@ -377,8 +429,7 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   return false;
 }
 
-template <bool LOCAL>
-__device__ void nearest(const Tables& T, const Ray& r, Hit& best) {
+__device__ __forceinline__ void no_hit(Hit& best) {
   best.t = BIG;
   best.srf = 0x7FFFFFF;
   best.side = 1;
@@ -387,17 +438,189 @@ __device__ void nearest(const Tables& T, const Ray& r, Hit& best) {
   best.wx = best.wy = best.wz = 0.0f;
   best.nx = best.ny = best.nz = 0.0f;
   best.hx = best.hy = best.hz = 0.0f;
+}
+
+// nearest hit over every surface (PT nodes)
+template <bool LOCAL>
+__device__ void nearest_all(const Tables& T, const Ray& r, Hit& best) {
+  no_hit(best);
   for (int s = 0; s < T.ns; ++s) surface<false, LOCAL>(T, s, r, best);
 }
 
-// any blocker between the hit point and the light (t in (0, 1))
-__device__ bool occluded(const Tables& T, const Ray& r) {
+// ---- culling: the warp's masks (file header) ----------------------------
+
+// NaN-propagating min/max (torch.minimum / torch.maximum)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float add_f(float a, float b) { return a + b; }
+
+// v reduced over the warp by the xor butterfly (offsets 16 .. 1); every
+// lane ends with the same bits (ops/trace.py _butterfly)
+template <typename Op>
+__device__ __forceinline__ float warp_reduce(float v, Op op) {
+  for (int k = 16; k > 0; k >>= 1) v = op(v, __shfl_xor_sync(FULL_WARP, v, k));
+  return v;
+}
+
+// a warp's rays: origin ball (c, r) and either a cone (axis a, cosw,
+// sinw) or a capsule to the endpoints' ball (a = c1 - c, uu = |a|^2,
+// brad the capsule radius); ops/trace.py bundle_reach, op for op
+struct Bundle {
+  float cx, cy, cz, r, ax, ay, az, cosw, sinw, uu, brad;
+};
+
+// centre and half diagonal of the box of the points of the lanes that
+// are on (every lane calls it)
+__device__ __forceinline__ void warp_ball(bool on, float x, float y, float z,
+                                          float& cx, float& cy, float& cz,
+                                          float& rad) {
+  const float xm = warp_reduce(on ? x : BIG, min_nan);
+  const float xM = warp_reduce(on ? x : -BIG, max_nan);
+  const float ym = warp_reduce(on ? y : BIG, min_nan);
+  const float yM = warp_reduce(on ? y : -BIG, max_nan);
+  const float zm = warp_reduce(on ? z : BIG, min_nan);
+  const float zM = warp_reduce(on ? z : -BIG, max_nan);
+  cx = 0.5f * (xm + xM);
+  cy = 0.5f * (ym + yM);
+  cz = 0.5f * (zm + zM);
+  const float ex = xM - xm, ey = yM - ym, ez = zM - zm;
+  rad = 0.5f * __fsqrt_rn(ex * ex + ey * ey + ez * ez);
+}
+
+template <bool SHADOW>
+__device__ Bundle warp_bundle(bool on, const Ray& r) {
+  Bundle b;
+  warp_ball(on, r.ox, r.oy, r.oz, b.cx, b.cy, b.cz, b.r);
+  b.r = b.r * 1.0005f + 1e-4f;
+  if (SHADOW) {
+    float c1x, c1y, c1z, r1;
+    warp_ball(on, r.ox + r.dx, r.oy + r.dy, r.oz + r.dz, c1x, c1y, c1z, r1);
+    b.ax = c1x - b.cx;
+    b.ay = c1y - b.cy;
+    b.az = c1z - b.cz;
+    b.uu = b.ax * b.ax + b.ay * b.ay + b.az * b.az;
+    b.brad = maxn(b.r, r1 * 1.0005f + 1e-4f);
+  } else {
+    const float il =
+        __frsqrt_rn(maxn(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-30f));
+    const float hx = r.dx * il, hy = r.dy * il, hz = r.dz * il;
+    const float sx = warp_reduce(on ? hx : 0.0f, add_f);
+    const float sy = warp_reduce(on ? hy : 0.0f, add_f);
+    const float sz = warp_reduce(on ? hz : 0.0f, add_f);
+    const float an = __frsqrt_rn(maxn(sx * sx + sy * sy + sz * sz, 1e-30f));
+    b.ax = sx * an;
+    b.ay = sy * an;
+    b.az = sz * an;
+    const float cosmin = warp_reduce(
+        on ? hx * b.ax + hy * b.ay + hz * b.az : 1.0f, min_nan);
+    b.cosw = clampn(cosmin - 1e-4f, -1.0f, 1.0f);
+    b.sinw = __fsqrt_rn(maxn(1.0f - b.cosw * b.cosw, 0.0f));
+  }
+  return b;
+}
+
+// may a ray of the bundle reach sphere s? NaN and inf come out as "reach"
+template <bool SHADOW>
+__device__ __forceinline__ bool reaches(const Tables& T, const Bundle& b,
+                                        int s) {
+  const float lcx = ldf(T.bsph, s) - b.cx;
+  const float lcy = ldf(T.bsph, T.nsl + s) - b.cy;
+  const float lcz = ldf(T.bsph, 2 * T.nsl + s) - b.cz;
+  const float srs = ldf(T.bsph, 3 * T.nsl + s);
+  if (SHADOW) {
+    const float tp = clampn((lcx * b.ax + lcy * b.ay + lcz * b.az) /
+                                maxn(b.uu, 1e-30f),
+                            0.0f, 1.0f);
+    const float qx = lcx - tp * b.ax, qy = lcy - tp * b.ay,
+                qz = lcz - tp * b.az;
+    const float re = srs + b.brad;
+    return !(qx * qx + qy * qy + qz * qz > re * re);
+  }
+  const float d_ax = lcx * b.ax + lcy * b.ay + lcz * b.az;
+  const float dist2 = lcx * lcx + lcy * lcy + lcz * lcz;
+  const float perp = __fsqrt_rn(maxn(dist2 - d_ax * d_ax, 0.0f));
+  return !(perp * b.cosw - d_ax * b.sinw > srs + b.r);
+}
+
+// The warp's mask of the surfaces to test in a nearest (SHADOW false) or
+// shadow pass of the lanes that are `on`, for the ray r of each: lane w
+// returns word w. row: this lane's static mask words (its cont or shad
+// row), nullptr for all bits; read only when the gate is on. Every lane
+// calls it with the same gates.
+template <bool SHADOW>
+__device__ unsigned warp_mask(const Tables& T, int gates, bool on,
+                              const Ray& r, const int* row) {
+  const unsigned lane = threadIdx.x & 31u;
+  if (!__any_sync(FULL_WARP, on)) return 0u;
+  const bool reach_on = gates & CULL_REACH;
+  const bool rows_on = gates & (SHADOW ? CULL_LSORT : CULL_CONT);
+  Bundle b;
+  if (reach_on) b = warp_bundle<SHADOW>(on, r);
+  unsigned mine = 0u;
+  const int words = (T.ns + 31) >> 5;
+  for (int w = 0; w < words; ++w) {
+    const int s = w * 32 + (int)lane;
+    bool keep = s < T.ns;
+    if (SHADOW && keep) keep = ldi(T.sp_i + (size_t)s * SI, SI_BLK) != 0;
+    if (reach_on && keep) keep = reaches<SHADOW>(T, b, s);
+    unsigned word = __ballot_sync(FULL_WARP, keep);
+    if (rows_on)
+      word &= __reduce_or_sync(
+          FULL_WARP, !on ? 0u : row ? (unsigned)ldi(row, w) : FULL_WARP);
+    if ((int)lane == w) mine = word;
+  }
+  return mine;
+}
+
+// any blocker between the hit point and the light (t in (0, 1)), every
+// blocker in row order (the unculled walk)
+__device__ bool occluded_all(const Tables& T, const Ray& r) {
   Hit unused;
   for (int s = 0; s < T.ns; ++s) {
     if (ldi(T.sp_i + (size_t)s * SI, SI_BLK) == 0) continue;
     if (surface<true, true>(T, s, r, unused)) return true;
   }
   return false;
+}
+
+// nearest hit over the surfaces of the warp's mask (lane w holds word w);
+// a lane that is not `on` walks with the warp and tests nothing
+__device__ void nearest_masked(const Tables& T, const Ray& r, bool on,
+                               unsigned mine, Hit& best) {
+  no_hit(best);
+  const int words = (T.ns + 31) >> 5;
+  for (int w = 0; w < words; ++w) {
+    unsigned word = __shfl_sync(FULL_WARP, mine, w);
+    while (word) {
+      const int s = w * 32 + __ffs(word) - 1;
+      word &= word - 1u;
+      if (on) surface<false, true>(T, s, r, best);
+    }
+  }
+}
+
+// any blocker of the warp's shadow mask between the hit point and the
+// light (t in (0, 1)), for the lanes that `need` it; the warp stops once
+// every such lane is occluded
+__device__ bool occluded_masked(const Tables& T, const Ray& r, bool need,
+                                unsigned mine) {
+  bool occ = false;
+  const int words = (T.ns + 31) >> 5;
+  for (int w = 0; w < words; ++w) {
+    unsigned word = __shfl_sync(FULL_WARP, mine, w);
+    while (word) {
+      const int s = w * 32 + __ffs(word) - 1;
+      word &= word - 1u;
+      Hit unused;
+      if (need && !occ) occ = surface<true, true>(T, s, r, unused);
+      if (!__any_sync(FULL_WARP, need && !occ)) return occ;
+    }
+  }
+  return occ;
 }
 
 // material at a hit: properties, colour (texture through the packed atlas
@@ -432,11 +655,12 @@ __device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
 }
 
 // ROUND: whole traces (0), round 1 of two-round retirement that also
-// writes the ray state (EMIT), or round 2 that resumes it (RESUME)
+// writes the ray state (EMIT), or round 2 that resumes it (RESUME). CULL:
+// the warp's masks (cfg.cull non-zero) or every surface for every ray.
 constexpr int WHOLE = 0, EMIT = 1, RESUME = 2;
 constexpr int STATE_ROWS = 21;
 
-template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND>
+template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND, bool CULL>
 __global__ void __launch_bounds__(128)
 whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
                int* __restrict__ paths, float* __restrict__ state,
@@ -444,17 +668,27 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
                int n, Tables T, Cfg cfg) {
   static_assert(ROUND == WHOLE || !(CAN_PUSH || EMIT_PATHS),
                 "two-round retirement is for single-branch scenes");
+  // culled, every lane of a warp runs the segment loop, with a ray or
+  // without one (active false): the warp collectives need the whole warp
   int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool active = i < n;
   if (ROUND == RESUME) {
-    if (i >= n || i >= *count) return;
-    i = idx[i];
+    active = active && i < *count;
+    if (active) i = idx[i];
   }
-  if (i >= n) return;
+  if (!CULL && !active) return;   // unculled, a lane is on its own
+  const bool has_ray = active;
   Ray r;
+  r.ox = r.oy = r.oz = r.dx = r.dy = r.dz = r.tmn = 0.0f;
+  r.osrf = -1;
+  r.oside = 1;
+  r.thru = false;
+  r.olx = r.oly = r.olz = 0.0f;
+  r.orow = -1;   // also after a resume: the state holds no table row
   float thr[3] = {1.0f, 1.0f, 1.0f};
   float acc[3] = {0.0f, 0.0f, 0.0f};
   int depth = 0, sp = 0;
-  if (ROUND == RESUME) {
+  if (has_ray && ROUND == RESUME) {
     const float* s = state + i;
     r.ox = s[0];
     r.oy = s[(size_t)n];
@@ -472,7 +706,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
     r.oly = s[15 * (size_t)n];
     r.olz = s[16 * (size_t)n];
     for (int c = 0; c < 3; ++c) acc[c] = s[(18 + c) * (size_t)n];
-  } else {
+  } else if (has_ray) {
     r.ox = rays[i];
     r.oy = rays[n + i];
     r.oz = rays[2 * n + i];
@@ -480,10 +714,6 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
     r.dy = rays[4 * n + i];
     r.dz = rays[5 * n + i];
     r.tmn = rays[6 * n + i];
-    r.osrf = -1;
-    r.oside = 1;
-    r.thru = false;
-    r.olx = r.oly = r.olz = 0.0f;
   }
   r.tmx = BIG;
   float stk[CAN_PUSH ? MAX_STACK : 1][SLOT];
@@ -498,82 +728,117 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   // false, the stack is neither pushed nor popped, and active stays 0.
   // A lane still active at block iteration `it` has run exactly `it`
   // segments, so stopping each thread at max_segments is exact.
-  int it = 0;
-  for (; it < cfg.max_segments; ++it) {
+  int seg = cfg.max_segments;   // the segment this thread retired in
+  for (int it = 0; it < cfg.max_segments; ++it) {
+    if (CULL ? !__any_sync(FULL_WARP, active) : !active) break;
     Hit hb;
-    nearest<true>(T, r, hb);
-    const bool hit = hb.t < BIG;
+    if (CULL) {
+      const int* crow = nullptr;   // the cont row of this ray's last hit
+      if ((cfg.cull & CULL_CONT) && active && r.orow >= 0)
+        crow = T.cont + (size_t)r.orow * 2 * T.nw + (r.oside > 0 ? 0 : T.nw);
+      nearest_masked(T, r, active,
+                     warp_mask<false>(T, cfg.cull, active, r, crow), hb);
+    } else {
+      nearest_all<true>(T, r, hb);
+    }
+    // unculled, a lane in the loop has a ray
+    const bool hit = (!CULL || active) && hb.t < BIG;
     bool cont = false;
     // path record (record_path, pallas_kernel.py:1871-1886): a miss keeps
     // side +1 and sets the bit of every active light (lit needs a hit)
     unsigned rec =
         EMIT_PATHS ? (1u << 12) | (((1u << T.nl) - 1u) << 16) : 0u;
+    float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+    const float* M = T.mat_f;
+    float mc[3] = {0.0f, 0.0f, 0.0f};
+    float col[3] = {0.0f, 0.0f, 0.0f};
+    int props = 0;
+    float m_dff = 0.0f, m_spc = 0.0f, m_pow = 0.0f;
+    const float dx = r.dx, dy = r.dy, dz = r.dz;
     if (hit) {
       // normalize the normal
       const float nn = __frsqrt_rn(
           maxn(hb.nx * hb.nx + hb.ny * hb.ny + hb.nz * hb.nz, 1e-30f));
-      const float nx = hb.nx * nn, ny = hb.ny * nn, nz = hb.nz * nn;
+      nx = hb.nx * nn;
+      ny = hb.ny * nn;
+      nz = hb.nz * nn;
       rec = (unsigned)(hb.srf & 0xFFF) | (hb.side > 0 ? 1u << 12 : 0u) |
             (1u << 15);
-      const float* M;
-      float mc[3];
-      const int props = hit_material(T, hb, gamma_on, mc, M);
-      const float m_dff = ldf(M, 3), m_spc = ldf(M, 4), m_pow = ldf(M, 5);
-      const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7);
-      float col[3];
+      props = hit_material(T, hb, gamma_on, mc, M);
+      m_dff = ldf(M, 3);
+      m_spc = ldf(M, 4);
+      m_pow = ldf(M, 5);
       for (int c = 0; c < 3; ++c) col[c] = mc[c] * amb[c];
-
-      const float dx = r.dx, dy = r.dy, dz = r.dz;
-      for (int l = 0; l < T.nl; ++l) {
-        const float* L = T.lg_f + (size_t)l * LF;
-        const float lvx = ldf(L, 0) - hb.wx, lvy = ldf(L, 1) - hb.wy,
-                    lvz = ldf(L, 2) - hb.wz;
-        const float r_dot = lvx * nx + lvy * ny + lvz * nz;
-        const unsigned unlit = EMIT_PATHS ? 1u << (16 + l) : 0u;
-        if (!(r_dot > 0.0f)) {
-          rec |= unlit;
-          continue;
-        }
-        Ray sr;
-        sr.ox = hb.wx; sr.oy = hb.wy; sr.oz = hb.wz;
-        sr.dx = lvx; sr.dy = lvy; sr.dz = lvz;
-        sr.tmn = 0.0f;
-        sr.tmx = 1.0f;
-        sr.osrf = hb.srf;
-        sr.oside = hb.side;
-        sr.thru = false;
-        sr.olx = hb.hx; sr.oly = hb.hy; sr.olz = hb.hz;
-        if (occluded(T, sr)) {
-          rec |= unlit;
-          continue;
-        }
-        // lit and unshadowed: attenuated diffuse + specular
-        const float r2 = lvx * lvx + lvy * lvy + lvz * lvz;
-        const float rr = __fsqrt_rn(maxn(r2, 1e-30f));
-        const float attn = __frsqrt_rn(
-            maxn(ldf(L, 6) + ldf(L, 7) * rr + ldf(L, 8) * r2, 1e-30f));
-        const float dfs =
-            (props & PROP_DIFFUSE) ? r_dot / rr * attn * m_dff : 0.0f;
-        float spc = 0.0f;
-        if (props & PROP_SPECULAR) {
-          const float rlx = lvx - 2.0f * r_dot * nx;
-          const float rly = lvy - 2.0f * r_dot * ny;
-          const float rlz = lvz - 2.0f * r_dot * nz;
-          const float sdot = rlx * dx + rly * dy + rlz * dz;
-          if (sdot > 0.0f) {
-            const float d2 = dx * dx + dy * dy + dz * dz;
-            float cosr = sdot * __frsqrt_rn(maxn(d2 * r2, 1e-30f));
-            cosr = clampn(cosr, 1e-6f, 1.0f);
-            spc = expf(m_pow * logf(cosr)) * m_spc;
-          }
-        }
-        for (int c = 0; c < 3; ++c) {
-          const float lc = ldf(L, 3 + c);
-          col[c] = col[c] + ((props & PROP_METAL)
-                                 ? mc[c] * lc * (dfs + spc)
-                                 : mc[c] * lc * dfs + lc * spc);
+    }
+    // culled, every lane takes part in every light's shadow pass
+    const int nl = CULL || hit ? T.nl : 0;
+    for (int l = 0; l < nl; ++l) {
+      const float* L = T.lg_f + (size_t)l * LF;
+      const unsigned unlit = EMIT_PATHS ? 1u << (16 + l) : 0u;
+      Ray sr;
+      sr.ox = hb.wx; sr.oy = hb.wy; sr.oz = hb.wz;
+      sr.dx = sr.dy = sr.dz = 0.0f;
+      sr.tmn = 0.0f;
+      sr.tmx = 1.0f;
+      sr.osrf = hb.srf;
+      sr.oside = hb.side;
+      sr.thru = false;
+      sr.olx = hb.hx; sr.oly = hb.hy; sr.olz = hb.hz;
+      sr.orow = -1;
+      float r_dot = 0.0f;
+      bool need = false;
+      if (hit) {
+        sr.dx = ldf(L, 0) - hb.wx;
+        sr.dy = ldf(L, 1) - hb.wy;
+        sr.dz = ldf(L, 2) - hb.wz;
+        r_dot = sr.dx * nx + sr.dy * ny + sr.dz * nz;
+        need = r_dot > 0.0f;
+        if (!need) rec |= unlit;
+      }
+      bool occ;
+      if (CULL) {
+        const int* srow = nullptr;   // the receiver's lsort row for light l
+        if ((cfg.cull & CULL_LSORT) && need)
+          srow = T.shad + (size_t)hb.row * T.nl * T.nw + (size_t)l * T.nw;
+        occ = occluded_masked(T, sr, need,
+                              warp_mask<true>(T, cfg.cull, need, sr, srow));
+      } else {
+        occ = need && occluded_all(T, sr);
+      }
+      if (!need) continue;
+      if (occ) {
+        rec |= unlit;
+        continue;
+      }
+      // lit and unshadowed: attenuated diffuse + specular
+      const float lvx = sr.dx, lvy = sr.dy, lvz = sr.dz;
+      const float r2 = lvx * lvx + lvy * lvy + lvz * lvz;
+      const float rr = __fsqrt_rn(maxn(r2, 1e-30f));
+      const float attn = __frsqrt_rn(
+          maxn(ldf(L, 6) + ldf(L, 7) * rr + ldf(L, 8) * r2, 1e-30f));
+      const float dfs =
+          (props & PROP_DIFFUSE) ? r_dot / rr * attn * m_dff : 0.0f;
+      float spc = 0.0f;
+      if (props & PROP_SPECULAR) {
+        const float rlx = lvx - 2.0f * r_dot * nx;
+        const float rly = lvy - 2.0f * r_dot * ny;
+        const float rlz = lvz - 2.0f * r_dot * nz;
+        const float sdot = rlx * dx + rly * dy + rlz * dz;
+        if (sdot > 0.0f) {
+          const float d2 = dx * dx + dy * dy + dz * dz;
+          float cosr = sdot * __frsqrt_rn(maxn(d2 * r2, 1e-30f));
+          cosr = clampn(cosr, 1e-6f, 1.0f);
+          spc = expf(m_pow * logf(cosr)) * m_spc;
         }
       }
+      for (int c = 0; c < 3; ++c) {
+        const float lc = ldf(L, 3 + c);
+        col[c] = col[c] + ((props & PROP_METAL)
+                               ? mc[c] * lc * (dfs + spc)
+                               : mc[c] * lc * dfs + lc * spc);
+      }
+    }
+    if (hit) {
       if (props & PROP_LIGHT) {
         for (int c = 0; c < 3; ++c) col[c] = mc[c];
       }
@@ -583,6 +848,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
 
       // local weight from the ORIGINAL material rfl/trn (TR_mix,
       // tracer.cpp:3566-3571), not the Fresnel-modulated values
+      const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7);
       const float lw = maxn(1.0f - m_trn - m_rfl, 0.0f);
       for (int c = 0; c < 3; ++c) acc[c] = acc[c] + thr[c] * col[c] * lw;
 
@@ -629,11 +895,17 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
         r.thru = !go_rfl;
         r.tmn = 0.0f;
         r.olx = hb.hx; r.oly = hb.hy; r.olz = hb.hz;
+        if (CULL) r.orow = hb.row;
       }
     }
+    if (CULL && !active) continue;
     if (EMIT_PATHS) paths[(size_t)it * n + i] = (int)rec;
     if (!cont) {
-      if (!CAN_PUSH || sp == 0) break;   // retired
+      if (!CAN_PUSH || sp == 0) {   // retired
+        active = false;
+        seg = it;
+        continue;
+      }
       // pop a pending refraction branch
       --sp;
       const float* slot = stk[sp];
@@ -646,20 +918,22 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
       r.olx = slot[12]; r.oly = slot[13]; r.olz = slot[14];
       r.thru = true;
       r.tmn = 0.0f;
+      r.orow = -1;
     }
   }
+  if (!has_ray) return;
   out[i] = acc[0];
   out[n + i] = acc[1];
   out[2 * n + i] = acc[2];
   if (EMIT_PATHS) {
     // segments after the one this thread retired in record 0
-    for (int k = it + 1; k < cfg.max_segments; ++k)
+    for (int k = seg + 1; k < cfg.max_segments; ++k)
       paths[(size_t)k * n + i] = 0;
   }
   if (ROUND == EMIT) {
-    // a thread that retired broke out of the loop before the cap: its ray
-    // is as it was, with thru and active 0 (pallas_kernel.py:1935, 1937)
-    const bool alive = it == cfg.max_segments;
+    // a thread that retired left the loop before the cap: its ray is as
+    // it was, with thru and active 0 (pallas_kernel.py:1935, 1937)
+    const bool alive = seg == cfg.max_segments;
     const float vals[STATE_ROWS] = {
         r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmn, thr[0], thr[1], thr[2],
         __int_as_float(depth), __int_as_float(r.osrf),
@@ -684,7 +958,6 @@ constexpr int PT_BLOCK = 128;   // threads a block
 // may ask for without cudaFuncSetAttribute
 constexpr size_t PT_SMEM = sizeof(float) * PT_STACK * PT_SLOT * PT_BLOCK;
 static_assert(PT_SMEM <= 48 * 1024, "PT stack above 48 KB a block");
-constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
 constexpr unsigned LCG_A = 214013u, LCG_C = 2531011u;
 
 // one LCG draw (tracer.h:48-53): the top 24 bits over 2^24, exact in f32
@@ -708,7 +981,7 @@ __device__ __forceinline__ float lcg_uniform(unsigned& s) {
 // sample. The largest node count of the warp's samples goes into *iters
 // with one atomicMax, the call's count M that the seed tail needs.
 // Continuations take their origin from the world hit point
-// (nearest<false>), as the jnp tracer does.
+// (nearest_all<false>), as the jnp tracer does.
 __global__ void __launch_bounds__(PT_BLOCK)
 pt_kernel(const float* __restrict__ rays, const int* __restrict__ seeds,
           float* __restrict__ out, int n, Tables T, int depth,
@@ -767,7 +1040,7 @@ pt_kernel(const float* __restrict__ rays, const int* __restrict__ seeds,
     if (i < 0) continue;   // drained: wait at the top for the warp
     ++it;
     Hit hb;
-    nearest<false>(T, r, hb);
+    nearest_all<false>(T, r, hb);
     const float u1 = lcg_uniform(seed);
     const float u2 = lcg_uniform(seed);
     const float urr = lcg_uniform(seed);
@@ -945,51 +1218,75 @@ pt_seed_tail(const int* __restrict__ seeds, int* __restrict__ seeds_out,
 
 }  // namespace
 
-// C entry point (bound with ctypes): launches on `stream` and returns the
-// cudaError_t of the launch; allocates nothing and does not synchronise.
-// rays: (7, n) f32 SoA (ox oy oz dx dy dz tmin); out: (3, n) f32 SoA.
-extern "C" int whitted_launch(
-    const float* rays, float* out, const float* sp_f, const int* sp_i,
-    const float* cl_f, const float* mat_f, const int* mat_i,
-    const float* lg_f, const float* misc, const int* tex_pk,
-    const float* tex_lut, int n, int ns, int nc, int nl, int depth,
-    int max_segments, int stack, float cutoff, int can_push,
-    void* stream) {
-  if (n <= 0) return 0;
-  if (stack < 1 || stack > MAX_STACK) return (int)cudaErrorInvalidValue;
-  Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
-           ns, nc, nl};
-  Cfg cfg{depth, max_segments, stack, cutoff};
+// The scene tables of every entry point, in ops/cuda_kernel.py
+// _scene_tables order; rows is the height of the permuted tables
+#define SCENE_PARAMS                                                      \
+  const float *sp_f, const int *sp_i, const float *cl_f,                 \
+      const float *mat_f, const int *mat_i, const float *lg_f,           \
+      const float *misc, const int *tex_pk, const float *tex_lut,        \
+      const float *bsph, const int *shad, const int *cont, int rows
+#define SCENE_TABLES(ns, nc, nl)                                          \
+  Tables {                                                                \
+    sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut, bsph,    \
+        shad, cont, ns, nc, nl, (rows + 31) / 32, (rows + 127) / 128 * 128 \
+  }
+
+// a culled launch needs its real surfaces in the warp's mask words
+static bool fits(int ns, int cull) {
+  return ns >= 0 && (cull == 0 || ns <= 32 * MAX_WORDS);
+}
+
+// whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, cull != 0> over n threads
+template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND>
+static int launch(const float* rays, float* out, int* paths, float* state,
+                  const int* idx, const int* count, int n, const Tables& T,
+                  const Cfg& cfg, void* stream) {
   const dim3 block(128), grid((unsigned)((n + 127) / 128));
   cudaStream_t s = (cudaStream_t)stream;
-  if (can_push)
-    whitted_kernel<true, false, WHOLE><<<grid, block, 0, s>>>(
-        rays, out, nullptr, nullptr, nullptr, nullptr, n, T, cfg);
+  if (cfg.cull)
+    whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, true><<<grid, block, 0, s>>>(
+        rays, out, paths, state, idx, count, n, T, cfg);
   else
-    whitted_kernel<false, false, WHOLE><<<grid, block, 0, s>>>(
-        rays, out, nullptr, nullptr, nullptr, nullptr, n, T, cfg);
+    whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, false><<<grid, block, 0, s>>>(
+        rays, out, paths, state, idx, count, n, T, cfg);
   return (int)cudaGetLastError();
+}
+
+// C entry point (bound with ctypes): launches on `stream` and returns the
+// cudaError_t of the launch; allocates nothing and does not synchronise.
+// rays: (7, n) f32 SoA (ox oy oz dx dy dz tmin); out: (3, n) f32 SoA;
+// cull: the culling gates (Cfg.cull bits).
+extern "C" int whitted_launch(
+    const float* rays, float* out, SCENE_PARAMS, int n, int ns, int nc,
+    int nl, int depth, int max_segments, int stack, float cutoff,
+    int can_push, int cull, void* stream) {
+  if (n <= 0) return 0;
+  if (stack < 1 || stack > MAX_STACK || !fits(ns, cull))
+    return (int)cudaErrorInvalidValue;
+  const Tables T = SCENE_TABLES(ns, nc, nl);
+  const Cfg cfg{depth, max_segments, stack, cutoff, cull};
+  return can_push ? launch<true, false, WHOLE>(rays, out, nullptr, nullptr,
+                                               nullptr, nullptr, n, T, cfg,
+                                               stream)
+                  : launch<false, false, WHOLE>(rays, out, nullptr, nullptr,
+                                                nullptr, nullptr, n, T, cfg,
+                                                stream);
 }
 
 // Path-record entry point: as whitted_launch for a single-branch scene,
 // with segments capped at k, plus paths: (k, n) i32, every element
 // written by the kernel (no zeroing needed).
 extern "C" int whitted_paths_launch(
-    const float* rays, float* out, int* paths, const float* sp_f,
-    const int* sp_i, const float* cl_f, const float* mat_f,
-    const int* mat_i, const float* lg_f, const float* misc,
-    const int* tex_pk, const float* tex_lut, int n, int ns, int nc, int nl,
-    int depth, int k, float cutoff, void* stream) {
+    const float* rays, float* out, int* paths, SCENE_PARAMS, int n, int ns,
+    int nc, int nl, int depth, int k, float cutoff, int cull,
+    void* stream) {
   if (n <= 0) return 0;
-  if (k < 1 || nl < 0 || nl > 16) return (int)cudaErrorInvalidValue;
-  Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
-           ns, nc, nl};
-  Cfg cfg{depth, k, 1, cutoff};
-  const dim3 block(128), grid((unsigned)((n + 127) / 128));
-  whitted_kernel<false, true, WHOLE>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(
-          rays, out, paths, nullptr, nullptr, nullptr, n, T, cfg);
-  return (int)cudaGetLastError();
+  if (k < 1 || nl < 0 || nl > 16 || !fits(ns, cull))
+    return (int)cudaErrorInvalidValue;
+  const Tables T = SCENE_TABLES(ns, nc, nl);
+  const Cfg cfg{depth, k, 1, cutoff, cull};
+  return launch<false, true, WHOLE>(rays, out, paths, nullptr, nullptr,
+                                    nullptr, n, T, cfg, stream);
 }
 
 // Round 1 of two-round retirement, for a single-branch scene: as
@@ -997,46 +1294,33 @@ extern "C" int whitted_paths_launch(
 // resumable ray state of every ray (rows as in the file header), every
 // element written by the kernel.
 extern "C" int whitted_emit_launch(
-    const float* rays, float* out, float* state, const float* sp_f,
-    const int* sp_i, const float* cl_f, const float* mat_f,
-    const int* mat_i, const float* lg_f, const float* misc,
-    const int* tex_pk, const float* tex_lut, int n, int ns, int nc, int nl,
-    int depth, int k1, float cutoff, void* stream) {
+    const float* rays, float* out, float* state, SCENE_PARAMS, int n,
+    int ns, int nc, int nl, int depth, int k1, float cutoff, int cull,
+    void* stream) {
   if (n <= 0) return 0;
-  if (k1 < 1) return (int)cudaErrorInvalidValue;
-  Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
-           ns, nc, nl};
-  Cfg cfg{depth, k1, 1, cutoff};
-  const dim3 block(128), grid((unsigned)((n + 127) / 128));
-  whitted_kernel<false, false, EMIT>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(
-          rays, out, nullptr, state, nullptr, nullptr, n, T, cfg);
-  return (int)cudaGetLastError();
+  if (k1 < 1 || !fits(ns, cull)) return (int)cudaErrorInvalidValue;
+  const Tables T = SCENE_TABLES(ns, nc, nl);
+  const Cfg cfg{depth, k1, 1, cutoff, cull};
+  return launch<false, false, EMIT>(rays, out, nullptr, state, nullptr,
+                                    nullptr, n, T, cfg, stream);
 }
 
 // Round 2: resumes the rays idx[0..*count) of state (written by
 // whitted_emit_launch; idx and count live on the device, count <= n) for
 // at most `segments` more segments and overwrites their colours in out,
 // the (3, n) buffer round 1 wrote. The grid covers n threads; those at
-// or past *count return at once.
+// or past *count have no ray.
 extern "C" int whitted_resume_launch(
     const float* state, const int* idx, const int* count, float* out,
-    const float* sp_f, const int* sp_i, const float* cl_f,
-    const float* mat_f, const int* mat_i, const float* lg_f,
-    const float* misc, const int* tex_pk, const float* tex_lut, int n,
-    int ns, int nc, int nl, int depth, int segments, float cutoff,
-    void* stream) {
+    SCENE_PARAMS, int n, int ns, int nc, int nl, int depth, int segments,
+    float cutoff, int cull, void* stream) {
   if (n <= 0) return 0;
-  if (segments < 1) return (int)cudaErrorInvalidValue;
-  Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
-           ns, nc, nl};
-  Cfg cfg{depth, segments, 1, cutoff};
-  const dim3 block(128), grid((unsigned)((n + 127) / 128));
-  whitted_kernel<false, false, RESUME>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(
-          nullptr, out, nullptr, const_cast<float*>(state), idx, count, n,
-          T, cfg);
-  return (int)cudaGetLastError();
+  if (segments < 1 || !fits(ns, cull)) return (int)cudaErrorInvalidValue;
+  const Tables T = SCENE_TABLES(ns, nc, nl);
+  const Cfg cfg{depth, segments, 1, cutoff, cull};
+  return launch<false, false, RESUME>(nullptr, out, nullptr,
+                                      const_cast<float*>(state), idx, count,
+                                      n, T, cfg, stream);
 }
 
 // Path-tracing entry point: one sample per ray. seeds: (n,) i32 LCG
@@ -1047,10 +1331,8 @@ extern "C" int whitted_resume_launch(
 // when n needs fewer), then pt_seed_tail, on `stream`.
 extern "C" int whitted_pt_launch(
     const float* rays, const int* seeds, float* out, int* seeds_out,
-    int* iters, const float* sp_f, const int* sp_i, const float* cl_f,
-    const float* mat_f, const int* mat_i, const float* lg_f,
-    const float* misc, const int* tex_pk, const float* tex_lut, int n,
-    int ns, int nc, int nl, int depth, void* stream) {
+    int* iters, SCENE_PARAMS, int n, int ns, int nc, int nl, int depth,
+    void* stream) {
   constexpr int MAX_DEVICES = 64;
   static int resident[MAX_DEVICES];   // blocks of pt_kernel a card holds
   cudaStream_t s = (cudaStream_t)stream;
@@ -1070,8 +1352,7 @@ extern "C" int whitted_pt_launch(
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     resident[dev] = per_sm * sms;
   }
-  Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
-           ns, nc, nl};
+  const Tables T = SCENE_TABLES(ns, nc, nl);
   const int need = (n + PT_BLOCK - 1) / PT_BLOCK;
   const int blocks = need < resident[dev] ? need : resident[dev];
   pt_kernel<<<(unsigned)blocks, PT_BLOCK, PT_SMEM, s>>>(

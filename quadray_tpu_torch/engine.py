@@ -117,6 +117,29 @@ class Scene:
         self._pt_samples = 0
         self._pt_seeds = init_seeds(n, device=self.device)
 
+    def pt_state(self) -> Optional[dict]:
+        """The progressive render's state, for ``save_checkpoint``: the
+        running sum (W*H, 3) f32, the per-pixel seeds (W*H,) int32 and the
+        sample count; None before the first pass."""
+        if self._pt_acc is None:
+            return None
+        return dict(acc=self._pt_acc, seeds=self._pt_seeds,
+                    samples=self._pt_samples)
+
+    def set_pt_state(self, state: dict):
+        """Resume a progressive render from ``pt_state()``'s dict (from
+        ``load_checkpoint(..., with_pt=True)``): the next pass continues
+        the sum, seeds and sample count bit for bit."""
+        n = self.width * self.height
+        acc = state["acc"].to(self.device, torch.float32)
+        seeds = state["seeds"].to(self.device, torch.int32)
+        if tuple(acc.shape) != (n, 3) or tuple(seeds.shape) != (n,):
+            raise ValueError(f"PT state of shapes {tuple(acc.shape)}, "
+                             f"{tuple(seeds.shape)} for a {self.width}x"
+                             f"{self.height} scene")
+        self._pt_acc, self._pt_seeds = acc.clone(), seeds.clone()
+        self._pt_samples = int(state["samples"])
+
     def render_pt_pass(self, passes: int = 1) -> np.ndarray:
         """Accumulate `passes` path-traced samples/pixel; return the frame
         of the running mean. One PT kernel launch per pass on a CUDA

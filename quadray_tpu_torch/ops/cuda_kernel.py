@@ -19,9 +19,10 @@ the driver ``trace_rays_rounds`` (the counterpart of
 Where the TPU kernel is compiled per scene structure, the CUDA kernel
 takes the structure at run time (surface kind, singularity and clip count
 from ``sp_i``, material property bits and texture addressing from
-``mat_i``), so one build serves every scene. It does not cull yet: the
-bounding-sphere tables ``bsph_t``/``shad_msk``/``cont_msk`` are not
-packed.
+``mat_i``), so one build serves every scene. Bounding-sphere culling
+reads the tables ``bsph_t``/``shad_msk``/``cont_msk`` (bitwise the JAX
+package's) and is switched per launch by ``cull_gates``, the one
+predicate that the wrappers and the plain tracer both call.
 
 Each wrapper on CPU tensors runs its plain version
 (``ops.trace.trace_rays`` / ``trace_paths`` / ``trace_rays_emit`` /
@@ -42,8 +43,9 @@ from quadray_tpu_torch.scene.compile import (
     FIELDS, SceneArrays, PROP_LIGHT, PROP_OPAQUE, PROP_REFLECT,
     PROP_REFRACT, PROP_TEXTURE, PROP_FRESNEL, PROP_TRANSP, CLIP_NONE)
 from quadray_tpu_torch.ops.trace import (
-    ACTIVE_ROW, STATE_I32, STATE_ROWS, TraceConfig, trace_paths as
-    _trace_paths_plain, trace_rays, trace_rays_emit, trace_rays_resume)
+    ACTIVE_ROW, STATE_I32, STATE_ROWS, TraceConfig, _rsqrt, _sqrt,
+    trace_paths as _trace_paths_plain, trace_rays, trace_rays_emit,
+    trace_rays_resume)
 from quadray_tpu_torch.ops.pt import pt_camera_rays, trace_pt
 
 F32 = torch.float32
@@ -88,6 +90,14 @@ class PackedScene(NamedTuple):
     tex_lut: torch.Tensor  # (2, 128) f32 u8 -> f32 texel decode LUT
     mat_i: torch.Tensor    # (NM, MI) i32: the per-material structure the
     #                        TPU kernel compiles in (KernelStruct.props/tex)
+    bsph_t: torch.Tensor   # (4, 1, NSR*128) f32 bounding spheres of the
+    #                        permuted rows, transposed: cx, cy, cz, radius
+    #                        (+inf where unbounded)
+    shad_msk: torch.Tensor  # (NS, max(1, NL*NW)) i32: bit b of word
+    #                        (r, l*NW + w) says blocker 32w+b may shadow
+    #                        receiver r from light l
+    cont_msk: torch.Tensor  # (NS, 2*NW) i32: the surfaces a continuation
+    #                        from row r may hit, words of side > 0 first
 
 
 class Group(NamedTuple):
@@ -125,6 +135,45 @@ class KernelStruct(NamedTuple):
     def n_real(self) -> int:
         """Real (non-padding) surfaces: a prefix of the permuted rows."""
         return sum(g.count for g in self.groups)
+
+
+# a culled launch walks the surfaces of warp masks in which lane w of a
+# warp holds word w: at most 32 words of 32 surfaces; larger scenes run
+# unculled
+MAX_SURFACES = 32 * 32
+# the fewest real surfaces a culled launch has: building a warp's masks
+# costs about what a few surface tests do, and on the H100 culling lost
+# on 9 of the 11 golden scenes of 3 to 8 surfaces and won on every one of
+# 9 or more (chip_smoke.py H3, culling forced on every scene)
+CULL_MIN_SURFACES = 9
+
+
+class CullGates(NamedTuple):
+    """Which parts of bounding-sphere culling run (``cull_gates``)."""
+    cull: bool    # reach masks of ray bundles against the bounding spheres
+    lsort: bool   # shadow passes AND the receivers' shad_msk rows
+    cont: bool    # nearest passes AND the previous hits' cont_msk rows
+
+    @property
+    def flags(self) -> int:
+        """The kernel's Cfg.cull bits: 1 reach, 2 lsort, 4 cont."""
+        return int(self.cull) | int(self.lsort) << 1 | int(self.cont) << 2
+
+
+def cull_gates(struct: KernelStruct, cfg) -> CullGates:
+    """The one gate of culling, for the CUDA kernel's Whitted modes and
+    their plain versions (the TPU kernel's ``cull_on``/``lsort_on``/
+    ``cont_on``, pallas_kernel.py:524-539, and ``_static_gates`` :2182,
+    without its chunk and candidate tiers). Culling needs bounding
+    spheres and CULL_MIN_SURFACES to MAX_SURFACES real surfaces; the
+    static masks only prune scenes of more than cfg.unroll surfaces, lsort
+    needs lights, and cont needs a single-branch scene: a popped
+    branch-stack ray does not come from the previous segment's hit."""
+    cull = bool(cfg.cull and any(struct.bnd)
+                and CULL_MIN_SURFACES <= struct.n_real <= MAX_SURFACES)
+    big = cull and cfg.lsort and struct.n_real > cfg.unroll
+    return CullGates(cull, big and struct.nl > 0,
+                     big and not struct.can_push)
 
 
 def _mat_blocks(props: np.ndarray) -> np.ndarray:
@@ -263,6 +312,8 @@ class _StructTensors(NamedTuple):
     ncl: torch.Tensor      # (NS,) i32
     mat_i: torch.Tensor    # (NM, MI) i32
     tex_lut: torch.Tensor  # (2, 128) f32
+    no_cull: tuple         # zeros in the shapes of bsph_t, shad_msk and
+    #                        cont_msk, for launches that do not cull
 
 
 _STRUCT_TENSORS: OrderedDict = OrderedDict()
@@ -283,20 +334,26 @@ def _struct_tensors(struct: KernelStruct, dev) -> _StructTensors:
     for (m, base, xm, ym, xs) in struct.tex:
         mat_i[m, 1:] = (base, xm, ym, xs)
     i32 = lambda v: torch.tensor(v, dtype=I32, device=dev)
+    NS, NW = struct.ns, -(-struct.ns // 32)
     ent = _StructTensors(
         torch.tensor(struct.perm, dtype=torch.long, device=dev),
         i32(struct.blk), i32(struct.ncl), torch.from_numpy(mat_i).to(dev),
-        torch.from_numpy(_TEX_LUT.copy()).to(dev))
+        torch.from_numpy(_TEX_LUT.copy()).to(dev),
+        (torch.zeros((4, 1, -(-NS // LANES) * LANES), dtype=F32, device=dev),
+         torch.zeros((NS, max(1, struct.nl * NW)), dtype=I32, device=dev),
+         torch.zeros((NS, 2 * NW), dtype=I32, device=dev)))
     _STRUCT_TENSORS[key] = ent
     while len(_STRUCT_TENSORS) > 8:
         _STRUCT_TENSORS.popitem(last=False)
     return ent
 
 
-def pack_scene(sc: SceneArrays, struct: KernelStruct) -> PackedScene:
+def pack_scene(sc: SceneArrays, struct: KernelStruct,
+               cull: bool = True) -> PackedScene:
     """The tables the Whitted kernel reads, on the scene's device; rows
     permuted by ``struct.perm`` (bitwise the JAX package's pack_scene for
-    the tables both have)."""
+    the tables both have). ``cull`` False leaves the culling tables zero,
+    for launches that do not cull (``cull_gates``)."""
     dev = sc.device
     NS = sc.s_pos.shape[0]
     NC = sc.c_op.shape[1]
@@ -341,7 +398,79 @@ def pack_scene(sc: SceneArrays, struct: KernelStruct) -> PackedScene:
     return PackedScene(
         sp_f.contiguous(), sp_i.contiguous(), cl_f.contiguous(),
         mat_f.contiguous(), lg_f.contiguous(), misc.contiguous(),
-        tex_pk.reshape(G, LANES).contiguous(), stt.tex_lut, stt.mat_i)
+        tex_pk.reshape(G, LANES).contiguous(), stt.tex_lut, stt.mat_i,
+        *(_cull_tables(sc, struct, perm) if cull else stt.no_cull))
+
+
+def _pack_bits(bits) -> torch.Tensor:
+    """(R, C) bool -> (R, ceil(C/32)) i32 words, bit b of word w = column
+    32w + b (the JAX package's shift-and-sum packing)."""
+    R, C = bits.shape
+    nw = -(-C // 32)
+    b = torch.zeros((R, nw * 32), dtype=torch.int64, device=bits.device)
+    b[:, :C] = bits.to(torch.int64)
+    shift = torch.arange(nw * 32, device=bits.device) % 32
+    w = (b << shift).reshape(R, nw, 32).sum(2)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(I32)
+
+
+def _cull_tables(sc: SceneArrays, struct: KernelStruct, perm):
+    """bsph_t, shad_msk and cont_msk (pallas_kernel.py:346-435) on the
+    permuted rows, in the JAX package's f32 operations and order."""
+    dev = sc.device
+    NS = sc.s_pos.shape[0]
+    bperm = sc.s_bsph[perm]
+    bounded = sc.s_bnd[perm] > 0
+    rs = torch.where(bounded, _sqrt(bperm[:, 3]), float("inf"))
+    cb = bperm[:, :3]
+    nsl = -(-NS // LANES) * LANES
+    bsph_t = torch.zeros((4, 1, nsl), dtype=F32, device=dev)
+    bsph_t[:, 0, :NS] = torch.stack([cb[:, 0], cb[:, 1], cb[:, 2], rs])
+    sum3 = lambda v: v[..., 0] + v[..., 1] + v[..., 2]
+    # lsort analog (engine.cpp:2456-2757): blocker b can shadow receiver r
+    # from light l only if b's sphere meets the capsule from l to r's
+    # sphere; unbounded receivers and blockers keep every bit
+    words = []
+    for l in range(struct.nl):
+        p = sc.l_pos[l]
+        u = cb - p[None, :]                              # (NS, 3) receiver
+        uu = torch.clamp(sum3(u * u), min=1e-30)
+        lc = cb[None, :, :] - p[None, None, :]           # (1, NS, 3)
+        tp = torch.clamp(sum3(lc * u[:, None, :]) / uu[:, None], 0.0, 1.0)
+        q = lc - tp[..., None] * u[:, None, :]
+        re = rs[:, None] + rs[None, :] + 1e-3
+        occ = ~(sum3(q * q) > re * re) | ~bounded[None, :]
+        words.append(_pack_bits(occ))
+    shad_msk = (torch.cat(words, dim=1) if words
+                else torch.zeros((NS, 1), dtype=I32, device=dev))
+    # lst_p analog (tracer.h:955-968): a ray reflected off a plane stays in
+    # the closed halfspace of its hit side and a transmitted one crosses
+    # it, so plane rows keep the surfaces whose sphere meets the
+    # halfspaces their materials send rays into; curved rows and unbounded
+    # targets keep everything, and materials that cannot continue nothing
+    nrm = sc.s_inv[perm][:, 2, :]
+    nrm = nrm * _rsqrt(torch.clamp(sum3(nrm * nrm), min=1e-30))[:, None]
+    dvec = cb[None, :, :] - sc.s_pos[perm][:, None, :]
+    signed = sum3(dvec * nrm[:, None, :])
+    distb = _sqrt(torch.clamp(sum3(dvec * dvec), min=0.0))
+    slack = rs[None, :] + 1e-3 + 1e-3 * distb
+    h_pos = ~(signed < -slack)
+    h_neg = ~(signed > slack)
+    fres_s = sc.use_fresnel > 0
+    plane = (sc.s_kind[perm] == 1)[:, None]
+    sides = []
+    for si in range(2):
+        pm = sc.m_props[sc.s_mat[perm][:, si].long()]
+        can_rfl = ((pm & PROP_REFLECT) != 0) | (fres_s & ((pm & PROP_OPAQUE)
+                                                          == 0))
+        can_trn = (pm & PROP_OPAQUE) == 0
+        same, opp = (h_pos, h_neg) if si == 0 else (h_neg, h_pos)
+        mk = (can_rfl[:, None] & same) | (can_trn[:, None] & opp)
+        anyc = (can_rfl | can_trn)[:, None]
+        mk = torch.where(plane, mk, anyc) | ~bounded[None, :]
+        sides.append(_pack_bits(mk & anyc))
+    return (bsph_t, shad_msk.contiguous(),
+            torch.cat(sides, dim=1).contiguous())
 
 
 _get_packed = _SceneCache(pack_scene)
@@ -356,7 +485,7 @@ emit_launches = 0
 resume_launches = 0
 
 _VOIDP = ctypes.c_void_p
-_SCENE_ARGS = [_VOIDP] * 9            # sp_f ... tex_lut
+_SCENE_ARGS = [_VOIDP] * 12 + [ctypes.c_int]   # sp_f ... cont_msk, rows
 
 
 def _lib():
@@ -365,11 +494,11 @@ def _lib():
     if lib.whitted_launch.argtypes is None:
         lib.whitted_launch.argtypes = (
             [_VOIDP] * 2 + _SCENE_ARGS + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_int, _VOIDP])
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _VOIDP])
         lib.whitted_launch.restype = ctypes.c_int
         lib.whitted_paths_launch.argtypes = (
             [_VOIDP] * 3 + _SCENE_ARGS + [ctypes.c_int] * 6
-            + [ctypes.c_float, _VOIDP])
+            + [ctypes.c_float, ctypes.c_int, _VOIDP])
         lib.whitted_paths_launch.restype = ctypes.c_int
         lib.whitted_pt_launch.argtypes = (
             [_VOIDP] * 5 + _SCENE_ARGS + [ctypes.c_int] * 5 + [_VOIDP])
@@ -378,7 +507,7 @@ def _lib():
         lib.whitted_emit_launch.restype = ctypes.c_int
         lib.whitted_resume_launch.argtypes = (
             [_VOIDP] * 4 + _SCENE_ARGS + [ctypes.c_int] * 6
-            + [ctypes.c_float, _VOIDP])
+            + [ctypes.c_float, ctypes.c_int, _VOIDP])
         lib.whitted_resume_launch.restype = ctypes.c_int
     return lib
 
@@ -430,8 +559,10 @@ def _check_device(fn: str, sc: SceneArrays, dev):
 
 def _scene_tables(sc: SceneArrays, struct: KernelStruct, ps: PackedScene,
                   dev) -> tuple:
-    """Checks the packed tables; returns their pointers in launch order."""
+    """Checks the packed tables; returns their pointers in launch order
+    and the table height."""
     NS, NM = struct.ns, struct.nm
+    NW = -(-NS // 32)
     for name, t, dtype, shape in (
             ("sp_f", ps.sp_f, F32, (NS, PF)),
             ("sp_i", ps.sp_i, I32, (NS, 8)),
@@ -441,11 +572,16 @@ def _scene_tables(sc: SceneArrays, struct: KernelStruct, ps: PackedScene,
             ("lg_f", ps.lg_f, F32, (sc.l_pos.shape[0], LF)),
             ("misc", ps.misc, F32, (8,)),
             ("tex_pk", ps.tex_pk, I32, (struct.tex_rows, LANES)),
-            ("tex_lut", ps.tex_lut, F32, (2, LANES))):
+            ("tex_lut", ps.tex_lut, F32, (2, LANES)),
+            ("bsph_t", ps.bsph_t, F32, (4, 1, -(-NS // LANES) * LANES)),
+            ("shad_msk", ps.shad_msk, I32, (NS, max(1, struct.nl * NW))),
+            ("cont_msk", ps.cont_msk, I32, (NS, 2 * NW))):
         _check(name, t, dtype, shape, dev)
     return (ps.sp_f.data_ptr(), ps.sp_i.data_ptr(), ps.cl_f.data_ptr(),
             ps.mat_f.data_ptr(), ps.mat_i.data_ptr(), ps.lg_f.data_ptr(),
-            ps.misc.data_ptr(), ps.tex_pk.data_ptr(), ps.tex_lut.data_ptr())
+            ps.misc.data_ptr(), ps.tex_pk.data_ptr(), ps.tex_lut.data_ptr(),
+            ps.bsph_t.data_ptr(), ps.shad_msk.data_ptr(),
+            ps.cont_msk.data_ptr(), NS)
 
 
 def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
@@ -457,8 +593,8 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
     global launches
     if dirs.device.type == "cpu":
         return trace_rays(sc, org, dirs, t_min, cfg)
-    _check_whitted_cfg(cfg)
     struct = struct or _get_struct(sc)
+    _check_whitted_cfg(cfg)
     ps = _get_packed(sc, struct)
     rays, tables = _launch_inputs("trace_rays_cuda", sc, org, dirs, t_min,
                                   struct, ps)
@@ -473,7 +609,8 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
             rays.data_ptr(), out.data_ptr(), *tables,
             N, struct.n_real, struct.nc, struct.nl,
             cfg.depth, cfg.max_segments, cfg.stack,
-            cfg.cutoff, int(struct.can_push), stream)
+            cfg.cutoff, int(struct.can_push),
+            cull_gates(struct, cfg).flags, stream)
     if err != 0:
         raise RuntimeError(f"whitted kernel launch failed: CUDA error {err}")
     launches += 1
@@ -496,11 +633,15 @@ def trace_paths_with_struct(sc: SceneArrays, struct: KernelStruct, org,
                             k_paths: int = 8):
     """trace_paths for a caller holding the scene's KernelStruct, which
     parameter updates cannot change: the training loop re-packs the scene
-    from its current parameters every step. Nothing here is
-    differentiable: the tables are packed and the kernel runs under
-    ``torch.no_grad()``, the counterpart of the JAX ``stop_gradient`` on
-    the scene (parallel/train.py:82)."""
-    return _paths(sc, struct, pack_scene, org, dirs, t_min, cfg, k_paths)
+    from its current parameters every step. It traces unculled, whatever
+    cfg.cull says: ``compile_scene`` made the bounding spheres (s_bsph)
+    from the compiled surfaces, and a parameter update moves a surface
+    without moving its sphere, so a culled walk could skip its hits.
+    Nothing here is differentiable: the tables are packed and the kernel
+    runs under ``torch.no_grad()``, the counterpart of the JAX
+    ``stop_gradient`` on the scene (parallel/train.py:82)."""
+    return _paths(sc, struct, lambda s, st: pack_scene(s, st, cull=False),
+                  org, dirs, t_min, cfg._replace(cull=False), k_paths)
 
 
 def _paths(sc, struct, pack, org, dirs, t_min, cfg, k_paths):
@@ -526,7 +667,8 @@ def _paths(sc, struct, pack, org, dirs, t_min, cfg, k_paths):
             err = lib.whitted_paths_launch(
                 rays.data_ptr(), out.data_ptr(), paths.data_ptr(), *tables,
                 N, struct.n_real, struct.nc, struct.nl,
-                cfg.depth, k_paths, cfg.cutoff, stream)
+                cfg.depth, k_paths, cfg.cutoff,
+                cull_gates(struct, cfg).flags, stream)
     if err != 0:
         raise RuntimeError(
             f"whitted paths kernel launch failed: CUDA error {err}")
@@ -640,8 +782,8 @@ def trace_rays_emit_cuda(sc: SceneArrays, org, dirs, t_min,
     global emit_launches
     if dirs.device.type == "cpu":
         return trace_rays_emit(sc, org, dirs, t_min, cfg, k1)
-    _check_whitted_cfg(cfg)
     struct = struct or _get_struct(sc)
+    _check_whitted_cfg(cfg)
     check_rounds_struct(struct)
     if k1 < 1:
         raise ValueError(f"k1 must be >= 1, got {k1}")
@@ -659,7 +801,7 @@ def trace_rays_emit_cuda(sc: SceneArrays, org, dirs, t_min,
         err = lib.whitted_emit_launch(
             rays.data_ptr(), out.data_ptr(), state.data_ptr(), *tables,
             N, struct.n_real, struct.nc, struct.nl, cfg.depth, k1,
-            cfg.cutoff, stream)
+            cfg.cutoff, cull_gates(struct, cfg).flags, stream)
     if err != 0:
         raise RuntimeError(f"whitted emit kernel launch failed: CUDA error "
                            f"{err}")
@@ -699,8 +841,8 @@ def trace_rays_resume_cuda(sc: SceneArrays, state, cols, idx, count,
     global resume_launches
     if state.device.type == "cpu":
         return trace_rays_resume(sc, state, cols, cfg, k1)
-    _check_whitted_cfg(cfg)
     struct = struct or _get_struct(sc)
+    _check_whitted_cfg(cfg)
     check_rounds_struct(struct)
     segments = cfg.max_segments - k1
     if segments <= 0:
@@ -721,7 +863,8 @@ def trace_rays_resume_cuda(sc: SceneArrays, state, cols, idx, count,
         err = lib.whitted_resume_launch(
             state.data_ptr(), idx.data_ptr(), count.data_ptr(),
             cols.data_ptr(), *tables, N, struct.n_real, struct.nc,
-            struct.nl, cfg.depth, segments, cfg.cutoff, stream)
+            struct.nl, cfg.depth, segments, cfg.cutoff,
+            cull_gates(struct, cfg).flags, stream)
     if err != 0:
         raise RuntimeError(f"whitted resume kernel launch failed: CUDA "
                            f"error {err}")

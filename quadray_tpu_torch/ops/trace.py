@@ -67,8 +67,10 @@ T_EPS = 1e-7    # RT_TEPS_THRESHOLD (object.h:42): root sorting / apex nudge
 class TraceConfig(NamedTuple):
     """Same fields and defaults as ``quadray_tpu.ops.trace.TraceConfig``.
     unroll/cull/cand/lsort/sub/chunk tune the TPU kernel's culling and
-    tiling; the CUDA kernel of this package does not cull yet and reads
-    only depth, max_segments, stack and cutoff."""
+    tiling. The CUDA kernel of this package reads depth, max_segments,
+    stack and cutoff, and cull, lsort and unroll through
+    ``ops.cuda_kernel.cull_gates``; cand, sub and chunk are the TPU's
+    candidate lists and block heights, which it has no use for."""
     depth: int = 10          # RT_STACK_DEPTH (tracer.h:46)
     max_segments: int = 48   # iteration cap for the branch-stack loop
     stack: int = 10          # branch-stack capacity per lane
@@ -139,12 +141,14 @@ def _root(num, den):
 
 def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
               origin_srf, origin_side, pass_thru,
-              shadow: bool = False, origin_loc=None):
+              shadow: bool = False, origin_loc=None, reach=None):
     """Nearest valid hit over all surfaces (see quadray_tpu.ops.trace).
 
     org/dirs (N,3); t_min/t_max (N,); origin_srf (N,) i32 (-1 none);
     origin_side (N,) i32; pass_thru (N,) bool; origin_loc (N,3) local hit
-    on the originating surface, reused as that surface's local origin.
+    on the originating surface, reused as that surface's local origin;
+    reach (N, NS) bool or None: the surfaces each ray tests (a cull mask,
+    ``Cull``), the others give no hit.
     Returns dict t, srf (-1 miss), side, x, p, n, hit; with ``shadow``,
     the (N,) bool any-hit over surfaces that block light.
     """
@@ -292,6 +296,8 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
                           side_r != origin_side[:, None, None],
                           side_r == origin_side[:, None, None])
     valid &= ~same | allowed
+    if reach is not None:
+        valid &= reach[:, :, None]
 
     if shadow:
         # blocker rule (CHECK_SHAD): emissive and unbent fully-transparent
@@ -319,6 +325,186 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     n_w = n_w * _rsqrt(torch.clamp(_dot3(n_w, n_w), min=1e-30))[:, None]
     return dict(t=t, srf=torch.where(hit, bs.to(I32), -1), side=side,
                 x=take(x_r), p=take(p_r), n=n_w, hit=hit)
+
+
+# ---------------------------------------------------------------------------
+# bounding-sphere culling: the plain version of the kernel's warp masks
+# ---------------------------------------------------------------------------
+
+WARP = 32   # rays per bundle: the lanes of a warp
+
+
+def _butterfly(v, op):
+    """op-reduce the last axis (a power of two) as the kernel's
+    __shfl_xor_sync butterfly does (offsets 16, 8, 4, 2, 1); every lane
+    ends with the same value, (G, L) -> (G, 1)."""
+    lanes = torch.arange(v.shape[-1], device=v.device)
+    k = v.shape[-1] // 2
+    while k:
+        v = op(v, v[..., lanes ^ k])
+        k //= 2
+    return v[..., :1]
+
+
+def bundle_reach(org, dirs, on, spheres, shadow: bool):
+    """Which bounding spheres a bundle of rays may reach: the reach test
+    of the CUDA kernel's warp masks (pallas_kernel.py:1020-1133 per
+    bundle), with the kernel's f32 operations in its order.
+
+    org, dirs (G, L, 3) f32: G bundles of L rays (L = WARP, the lanes of
+    a warp); on (G, L) bool, the rays in the bundle; spheres (4, S) f32
+    rows cx, cy, cz, radius (+inf: unbounded). A nearest-hit ray is the
+    half-line org + t dirs, t >= 0; a shadow ray the segment t in [0, 1].
+    Bound: an origin box (centre c0, radius r0) and either a direction
+    cone (axis the mean of the unit directions, half-angle the widest
+    ray's) or, for shadow rays, a capsule from c0 to the endpoints' box.
+    Slack 1.0005 and 1e-4 on the radii, 1e-4 on the cone's cosine; a
+    comparison that gives NaN or inf comes out as "reach". Returns (G, S)
+    bool; a bundle with no ray reaches nothing."""
+    f = lambda v, fill: torch.where(on, v, fill)
+    mn = lambda v: _butterfly(f(v, BIG), torch.minimum)
+    mx = lambda v: _butterfly(f(v, -BIG), torch.maximum)
+
+    def ball(px, py, pz):
+        lo = [mn(p) for p in (px, py, pz)]
+        hi = [mx(p) for p in (px, py, pz)]
+        ex, ey, ez = (h - l for h, l in zip(hi, lo))
+        return ([0.5 * (l + h) for l, h in zip(lo, hi)],
+                0.5 * _sqrt(ex * ex + ey * ey + ez * ez))
+
+    ox, oy, oz = org.unbind(-1)
+    dx, dy, dz = dirs.unbind(-1)
+    (c0x, c0y, c0z), r0 = ball(ox, oy, oz)
+    r0 = r0 * 1.0005 + 1e-4
+    scx, scy, scz, srs = (s[None, :] for s in spheres)
+    lcx, lcy, lcz = scx - c0x, scy - c0y, scz - c0z       # (G, S)
+    if shadow:
+        (c1x, c1y, c1z), r1 = ball(ox + dx, oy + dy, oz + dz)
+        ux, uy, uz = c1x - c0x, c1y - c0y, c1z - c0z
+        uu = ux * ux + uy * uy + uz * uz
+        brad = torch.maximum(r0, r1 * 1.0005 + 1e-4)
+        tp = torch.clamp((lcx * ux + lcy * uy + lcz * uz)
+                         / torch.clamp(uu, min=1e-30), 0.0, 1.0)
+        qx, qy, qz = lcx - tp * ux, lcy - tp * uy, lcz - tp * uz
+        re = srs + brad
+        reach = ~(qx * qx + qy * qy + qz * qz > re * re)
+    else:
+        ilen = _rsqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-30))
+        dhx, dhy, dhz = dx * ilen, dy * ilen, dz * ilen
+        sx, sy, sz = (_butterfly(f(v, 0.0), torch.add)
+                      for v in (dhx, dhy, dhz))
+        an = _rsqrt(torch.clamp(sx * sx + sy * sy + sz * sz, min=1e-30))
+        bax, bay, baz = sx * an, sy * an, sz * an
+        cosmin = _butterfly(f(dhx * bax + dhy * bay + dhz * baz, 1.0),
+                            torch.minimum)
+        cosw = torch.clamp(cosmin - 1e-4, -1.0, 1.0)
+        sinw = _sqrt(torch.clamp(1.0 - cosw * cosw, min=0.0))
+        d_ax = lcx * bax + lcy * bay + lcz * baz
+        dist2 = lcx * lcx + lcy * lcy + lcz * lcz
+        perp = _sqrt(torch.clamp(dist2 - d_ax * d_ax, min=0.0))
+        # signed distance to the cone's boundary; negative inside it
+        reach = ~(perp * cosw - d_ax * sinw > srs + r0)
+    return reach & on.any(dim=1, keepdim=True)
+
+
+def _unpack_bits(words, n: int):
+    """(..., NW) i32 words -> (..., n) bool, bit b of word w = column
+    32w + b (the packing of ``cuda_kernel._pack_bits``)."""
+    shift = torch.arange(32, device=words.device)
+    bits = (words[..., None].to(torch.int64) >> shift) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :n] != 0
+
+
+class Cull:
+    """The CUDA kernel's cull masks for the plain tracer's rays: lanes in
+    bundles of WARP consecutive rays per segment (a call's rays in launch
+    order), reach bits (``bundle_reach``) ANDed, in a shadow pass, with
+    the OR of the bundle's receivers' ``shad_msk`` rows and, in a nearest
+    pass, with the OR of its previous hits' ``cont_msk`` rows, as
+    ``cuda_kernel.cull_gates`` switches them. The masks come back on the
+    original surface order, for ``intersect``'s ``reach``. ``stats`` get
+    the surface tests the masks keep and skip (``count_work``)."""
+
+    def __init__(self, sc: SceneArrays, cfg: TraceConfig):
+        from quadray_tpu_torch.ops.cuda_kernel import (
+            _get_packed, _get_struct, cull_gates)
+        struct = _get_struct(sc)
+        self.gates = cull_gates(struct, cfg)
+        n = self.n = struct.n_real
+        dev = sc.device
+        self.ns = sc.s_pos.shape[0]
+        self.perm = torch.tensor(struct.perm[:n], dtype=torch.long,
+                                 device=dev)
+        self.row_of = torch.zeros((self.ns,), dtype=torch.long, device=dev)
+        self.row_of[self.perm] = torch.arange(n, device=dev)
+        self.blk = torch.tensor(struct.blk[:n], device=dev) != 0
+        self.nl = struct.nl
+        if not self.gates.cull:
+            return
+        ps = _get_packed(sc, struct)
+        self.spheres = ps.bsph_t[:, 0, :n]
+        nw = -(-self.ns // 32)
+        if self.gates.lsort:
+            self.shad = _unpack_bits(
+                ps.shad_msk.reshape(self.ns, struct.nl, nw), n)
+        if self.gates.cont:
+            self.cont = _unpack_bits(ps.cont_msk.reshape(self.ns, 2, nw), n)
+
+    def _bundles(self, v, fill):
+        """(N, ...) per ray -> (G, WARP, ...) in bundles, padded with fill."""
+        N = v.shape[0]
+        G = -(-N // WARP)
+        out = torch.full((G * WARP,) + v.shape[1:], fill, dtype=v.dtype,
+                         device=v.device)
+        out[:N] = v
+        return out.reshape((G, WARP) + v.shape[1:])
+
+    def _mask(self, org, dirs, on, shadow, rows_bits, total, key, stats):
+        """(N, NS) bool on the original order: the bundle's mask of each
+        ray; rows_bits (N, n) bool, each ray's static-mask row or None."""
+        N = on.shape[0]
+        if self.gates.cull:
+            m = bundle_reach(self._bundles(org, 0.0),
+                             self._bundles(dirs, 0.0),
+                             self._bundles(on, False), self.spheres, shadow)
+        else:
+            m = self._bundles(on, False).any(dim=1, keepdim=True) \
+                .expand(-1, self.n)
+        if shadow:
+            m = m & self.blk
+        if rows_bits is not None:
+            m = m & self._bundles(rows_bits & on[:, None], False).any(dim=1)
+        per_ray = m.repeat_interleave(WARP, dim=0)[:N]
+        if stats is not None:
+            kept = int((per_ray & on[:, None]).sum())
+            count_work(stats, key + "_kept", kept)
+            count_work(stats, key + "_culled", int(on.sum()) * total - kept)
+        out = torch.zeros((N, self.ns), dtype=torch.bool, device=on.device)
+        out[:, self.perm] = per_ray
+        return out
+
+    def nearest(self, st, act, stats=None):
+        """The mask of a segment's nearest pass over the state ``st``:
+        the cont rows are those of each ray's previous hit (``orow``, -1
+        where the ray has none: a primary ray, a popped branch, the first
+        resumed segment), all bits where it has none."""
+        rows = None
+        if self.gates.cont:
+            orow = st["orow"]
+            side = (st["oside"] <= 0).long()
+            rows = torch.where((orow >= 0)[:, None],
+                               self.cont[orow.clamp(min=0), side], True)
+        return self._mask(st["org"], st["dir"], act, False, rows, self.n,
+                          "nearest_tests", stats)
+
+    def shadow(self, org, dirs, need, srf, light: int, stats=None):
+        """The mask of the shadow pass toward active light ``light`` from
+        the hits ``srf`` (original ids) of the rays that ``need`` it."""
+        rows = None
+        if self.gates.lsort:
+            rows = self.shad[self.row_of[srf.clamp(min=0).long()], light]
+        return self._mask(org, dirs, need, True, rows,
+                          int(self.blk.sum()), "shadow_tests", stats)
 
 
 # ---------------------------------------------------------------------------
@@ -353,23 +539,29 @@ def texture_color(sc: SceneArrays, midx, p_local):
 
 
 def count_work(stats, key: str, mask) -> None:
-    """Adds the lanes set in ``mask`` into ``stats[key]``; a no-op when
-    ``stats`` is None. The plain tracers count the work their kernels must
-    do for a call (for its bound): "walks", nearest-hit walks over every
-    surface (Whitted segments, PT nodes); "shadow_open" and
-    "shadow_blocked", shadow rays that no blocker stops (every blocker is
-    tested) and that one does (at least one test)."""
+    """Adds the lanes set in ``mask`` (or ``mask`` itself, an int) into
+    ``stats[key]``; a no-op when ``stats`` is None. The plain tracers
+    count the work their kernels must do for a call (for its bound):
+    "walks", nearest-hit walks over every surface (Whitted segments, PT
+    nodes); "shadow_open" and "shadow_blocked", shadow rays that no
+    blocker stops (every blocker is tested) and that one does (at least
+    one test). With a ``Cull``, the Whitted tracers also count the surface
+    tests its masks keep and skip: "nearest_tests_kept"/"_culled" over
+    the real surfaces of each walk, "shadow_tests_kept"/"_culled" over
+    the blockers of each shadow ray (before any early-out)."""
     if stats is not None:
-        stats[key] = stats.get(key, 0) + int(mask.sum())
+        stats[key] = stats.get(key, 0) + (
+            mask if isinstance(mask, int) else int(mask.sum()))
 
 
 def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
-          stats=None):
+          stats=None, cull=None):
     """Local color: ambient + per-light diffuse/specular with hard shadows
     (LT_reg..LT_end, tracer.cpp:2709-3180). Returns (col (N, 3), unlit
     (N,) i32): bit 16+l of ``unlit`` is set where active light l is not
     unoccluded-lit (the path record's light bits, pallas_kernel.py:1747),
-    for the first 16 light rows. ``stats``: see ``count_work``."""
+    for the first 16 light rows. ``stats``: see ``count_work``; ``cull``,
+    a ``Cull`` or None, masks each shadow pass."""
     midx = material_index(sc, srf, side)
     props = sc.m_props[midx]
     tex = texture_color(sc, midx, p)
@@ -380,10 +572,12 @@ def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
         lvec = sc.l_pos[li][None, :] - x                # L = pos - hit
         r_dot = _dot3(lvec, n)
         lit = (r_dot > 0.0) & (sc.l_on[li] > 0) & hit
+        reach = (cull.shadow(x, lvec, lit, srf, li, stats)
+                 if cull is not None and li < cull.nl else None)
         # shadow any-hit along hit -> light, t in (0, 1)
         occ = intersect(sc, x, lvec, zero_t, torch.ones_like(zero_t),
                         srf, side, torch.zeros_like(lit), shadow=True,
-                        origin_loc=p)
+                        origin_loc=p, reach=reach)
         hm = lit & ~occ
         count_work(stats, "shadow_open", hm)
         count_work(stats, "shadow_blocked", lit & occ)
@@ -530,10 +724,11 @@ def _chunked(sc, org, dirs, t_min, cfg, k_paths, push=True, stats=None):
     N = dirs.shape[0]
     if org.dim() == 1:
         org = org[None, :].expand(N, 3)
+    cull = Cull(sc, cfg)
     outs = [_trace_chunk(sc, org[i:i + CHUNK].to(F32),
                          dirs[i:i + CHUNK].to(F32),
                          t_min[i:i + CHUNK].to(F32), cfg, k_paths, push,
-                         stats=stats)
+                         stats=stats, cull=cull)
             for i in range(0, N, CHUNK)]
     if not outs:
         return (torch.zeros((0, 3), dtype=F32, device=dirs.device),
@@ -556,18 +751,21 @@ def trace_rays_diff(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
 
 def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
                  k_paths: int = 0, push: bool = True, fixed: bool = False,
-                 stats=None):
+                 stats=None, cull=None):
     """Returns (acc (N, 3), paths (k_paths, N) i32); ``push`` lets a lane
     push the transmission where both branches go on; ``fixed`` runs all
-    cfg.max_segments bounces instead of stopping once every lane retired."""
+    cfg.max_segments bounces instead of stopping once every lane retired;
+    ``cull``: see ``_run``."""
     st, paths = _run(sc, cfg, _fresh_state(org, dirs, t_min, cfg.stack),
-                     k_paths, push, fixed, stats)
+                     k_paths, push, fixed, stats, cull)
     return st["acc"], paths
 
 
 def _fresh_state(org, dirs, t_min, D: int):
     """The loop state of new rays: unit throughput, no origin surface,
-    active, nothing accumulated, an empty D-slot branch stack."""
+    active, nothing accumulated, an empty D-slot branch stack. ``orow``,
+    the permuted table row of the hit a ray continues from (-1: none, as
+    after a pop), only picks the cull's cont rows."""
     N = dirs.shape[0]
     dev = dirs.device
     zi = lambda *s: torch.zeros((N,) + s, dtype=I32, device=dev)
@@ -575,7 +773,7 @@ def _fresh_state(org, dirs, t_min, D: int):
     return dict(
         org=org.clone(), dir=dirs.clone(),
         thr=torch.ones((N, 3), dtype=F32, device=dev),
-        depth=zi(), osrf=zi() - 1, oside=zi() + 1,
+        depth=zi(), osrf=zi() - 1, oside=zi() + 1, orow=zi() - 1,
         thru=torch.zeros((N,), dtype=torch.bool, device=dev),
         oloc=zf(3), tmin=t_min.clone(),
         active=torch.ones((N,), dtype=torch.bool, device=dev),
@@ -586,14 +784,16 @@ def _fresh_state(org, dirs, t_min, D: int):
 
 
 def _run(sc: SceneArrays, cfg: TraceConfig, st, k_paths: int = 0,
-         push: bool = True, fixed: bool = False, stats=None):
-    """At most cfg.max_segments bounces from the loop state ``st``;
-    returns (the state after them, paths (k_paths, N) i32)."""
+         push: bool = True, fixed: bool = False, stats=None, cull=None):
+    """At most cfg.max_segments bounces from the loop state ``st``, whose
+    rays are in the kernel's launch order (``cull``, a ``Cull`` or None,
+    bundles them by it); returns (the state after them, paths (k_paths, N)
+    i32)."""
     paths = torch.zeros((k_paths, st["org"].shape[0]), dtype=I32,
                         device=st["org"].device)
     it = 0
     while it < cfg.max_segments and (fixed or bool(st["active"].any())):
-        st, rec = _bounce(sc, cfg, st, push, stats)
+        st, rec = _bounce(sc, cfg, st, push, stats, cull)
         if it < k_paths:
             paths[it] = rec
         it += 1
@@ -659,12 +859,13 @@ def trace_rays_emit(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
     if org.dim() == 1:
         org = org[None, :].expand(N, 3)
     cfg1 = cfg._replace(max_segments=k1)
+    cull = Cull(sc, cfg)
     cols = torch.zeros((N, 3), dtype=F32, device=dirs.device)
     state = torch.zeros((len(STATE_ROWS), N), dtype=F32, device=dirs.device)
     for i in range(0, N, CHUNK):
         st = _fresh_state(org[i:i + CHUNK].to(F32), dirs[i:i + CHUNK].to(F32),
                           t_min[i:i + CHUNK].to(F32), cfg.stack)
-        st, _ = _run(sc, cfg1, st, push=False, stats=stats)
+        st, _ = _run(sc, cfg1, st, push=False, stats=stats, cull=cull)
         cols[i:i + CHUNK] = st["acc"]
         state[:, i:i + CHUNK] = _pack_state(st)
     return cols, state
@@ -677,23 +878,26 @@ def trace_rays_resume(sc: SceneArrays, state, cols, cfg: TraceConfig,
     runs at most cfg.max_segments - k1 more segments, its color sums
     starting from the emitted acc, so the result is the f32 chain of
     ``trace_rays``. Returns new (N, 3) colors: ``cols`` where a ray had
-    retired. Single-branch scenes only. ``stats``: as for
-    ``trace_rays``."""
+    retired. The active rays run in ascending order, packed as the
+    kernel's RESUME threads take them (``cuda_kernel.compact_active``).
+    Single-branch scenes only. ``stats``: as for ``trace_rays``."""
     _check_single_branch(sc)
     out = cols.clone()
     cfg2 = cfg._replace(max_segments=cfg.max_segments - k1)
     if cfg2.max_segments <= 0:
         return out
-    for i in range(0, state.shape[1], CHUNK):
-        st = _unpack_state(state[:, i:i + CHUNK], cfg.stack)
-        resumed = st["active"][:, None]
-        st, _ = _run(sc, cfg2, st, push=False, stats=stats)
-        out[i:i + CHUNK] = torch.where(resumed, st["acc"], out[i:i + CHUNK])
+    alive = torch.nonzero(state[ACTIVE_ROW].contiguous().view(I32) != 0)[:, 0]
+    cull = Cull(sc, cfg)
+    for i in range(0, alive.shape[0], CHUNK):
+        ids = alive[i:i + CHUNK]
+        st = _unpack_state(state[:, ids], cfg.stack)
+        st, _ = _run(sc, cfg2, st, push=False, stats=stats, cull=cull)
+        out[ids] = st["acc"]
     return out
 
 
 def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
-            stats=None):
+            stats=None, cull=None):
     """One bounce of the iterative Whitted loop (quadray_tpu.ops.trace
     _make_body): shade the nearest hit, continue with the reflection if
     it carries weight, else the refraction, pushing the refraction when
@@ -707,10 +911,12 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
     h = intersect(sc, st["org"], st["dir"], st["tmin"],
                   torch.full((N,), BIG, dtype=F32, device=act.device),
                   st["osrf"], st["oside"], st["thru"],
-                  origin_loc=st["oloc"])
+                  origin_loc=st["oloc"],
+                  reach=None if cull is None else cull.nearest(st, act,
+                                                               stats))
     hit = h["hit"] & act
     local, unlit = shade(sc, cfg, h["x"], h["p"], h["n"], st["dir"],
-                         h["srf"], h["side"], hit, stats)
+                         h["srf"], h["side"], hit, stats, cull)
     midx = material_index(sc, h["srf"], h["side"])
     c_rfl, c_trn, refr_dir, _ = fresnel_terms(sc, midx, st["dir"], h["n"],
                                               cfg.schlick)
@@ -774,6 +980,8 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
         depth=upd(st["depth"] + 1, grab(st_depth), st["depth"]),
         osrf=upd(h["srf"], grab(st_srf), st["osrf"]),
         oside=upd(h["side"], grab(st_side), st["oside"]),
+        orow=(torch.where(cont, cull.row_of[h["srf"].clamp(min=0).long()],
+                          -1) if cull is not None else st["orow"]),
         oloc=upd(h["p"], grab(st_oloc), st["oloc"]),
         thru=torch.where(cont, ~go_rfl, can_pop),   # popped = refraction
         tmin=torch.where(cont | can_pop, 0.0, st["tmin"]),

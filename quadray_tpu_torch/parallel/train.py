@@ -90,8 +90,8 @@ def _loss_fast(params: Params, sc: SceneArrays, struct, org, dirs, t_min,
                target, w, cfg: TraceConfig, k_paths: int):
     """The trace-replay loss: path records from the kernel on the scene
     with the current parameters (detached: the discrete path structure is
-    piecewise constant in them), colors replayed along them under
-    autograd."""
+    piecewise constant in them; unculled, as the scene's bounding spheres
+    are those of ``sc``), colors replayed along them under autograd."""
     sc2 = dataclasses.replace(sc, **params)
     _, paths = ck.trace_paths_with_struct(sc2, struct, org, dirs, t_min,
                                           cfg, k_paths)

@@ -2,24 +2,30 @@
 
     python3 scripts/ab_whitted.py OTHER.cu [MORE.cu ...] [--rounds 8]
         [--reps 20] [--modes whitted paths emit resume pt]
+        [--cull on off] [--k1 4]
 
 OTHER.cu is another version of quadray_tpu_torch/csrc/whitted.cu with the
 same C entry points (whitted_launch, whitted_paths_launch,
-whitted_emit_launch, whitted_resume_launch, whitted_pt_launch) and table
-layout, for example the parent commit's, unpacked with git archive into a
-directory that .gitignore lists (with the headers it includes beside it).
-All are built with the port's nvcc flags and loaded into one process; the
-ptxas lines (registers, stack frame, spills) of every build are printed.
-For each case (a scene at 800x480, the Whitted mode, the path-record mode
-of the training step, round 1 or round 2 of two-round retirement, or one
-path-traced pass at depth 10) the scene is packed once, every version
-must give the same output bitwise, and then the kernel launch alone is
-timed in turns, this checkout's version (b) and OTHER (a) in the order a
-b b a, a b b a, ...: CUDA events around --reps launches after a warm-up.
-With more versions (a1, a2, ... in the order given) a round is a1 a2 ...
-b b ... a2 a1. Prints each case's range and mean per version, then one
-JSON line with every case's times, means and the b/a ratio of the means
-for each other version. Needs a CUDA card; exits with code 2 without one.
+whitted_emit_launch, whitted_resume_launch, whitted_pt_launch) and
+arguments, for example the parent commit's, unpacked with git archive
+into a directory that .gitignore lists (with the headers it includes
+beside it), or a variant of this checkout's (another culling design).
+All are built with the port's nvcc flags and loaded into one process;
+the ptxas lines (registers, stack frame, spills) of every build are
+printed, one line each for every template instantiation. For each
+case (a scene at 800x480, the Whitted mode, the path-record mode of the
+training step, round 1 or round 2 of two-round retirement, or one
+path-traced pass at depth 10) and each --cull setting (on: the default
+TraceConfig's gates, ops/cuda_kernel.py cull_gates; off: cull=False; the
+PT pass does not cull and runs once) the scene is packed once, every
+version must give the same output bitwise, and then the kernel launch
+alone is timed in turns, this checkout's version (b) and OTHER (a) in the
+order a b b a, a b b a, ...: CUDA events around --reps launches after a
+warm-up. With more versions (a1, a2, ... in the order given) a round is
+a1 a2 ... b b ... a2 a1. Prints each case's range and mean per version,
+then one JSON line with every case's times, means and the b/a ratio of
+the means for each other version. Needs a CUDA card; exits with code 2
+without one.
 """
 
 from __future__ import annotations
@@ -38,14 +44,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 W, H = 800, 480
-# (scene, mode): test13 and demo03 are the kernel table's heavy Whitted
-# scenes (demo02 has three lights), test01 and test13 the training step's
-# path-record mode, test13 the two rounds of two-round retirement at k1 =
-# ROUNDS_K1 (resume from the state this checkout's emit leaves), test18
-# the path tracer's pass (bench_pt's scene) and the three other scenes of
-# chip_smoke.py phase E1, whose samples reach the node cap
-CASES = [("test13", "whitted"), ("demo02", "whitted"), ("demo03", "whitted"),
-         ("test01", "whitted"), ("test01", "paths"), ("test13", "paths"),
+# (scene, mode): test13, test14 and demo03 are the kernel table's heavy
+# Whitted scenes (demo02 has three lights), test01 and test13 the training
+# step's path-record mode, test13 the two rounds of two-round retirement
+# after --k1 segments (resume from the state this checkout's emit leaves),
+# test18 the path tracer's pass (bench_pt's scene) and the three other
+# scenes of chip_smoke.py phase E1, whose samples reach the node cap
+CASES = [("test13", "whitted"), ("test14", "whitted"), ("demo02", "whitted"),
+         ("demo03", "whitted"), ("test01", "whitted"), ("test01", "paths"),
+         ("test13", "paths"),
          ("test13", "emit"), ("test13", "resume"), ("test18", "pt"),
          ("test17", "pt"), ("test15", "pt"), ("test05", "pt")]
 K_PATHS = 8
@@ -105,9 +112,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def launcher(lib, name: str, mode: str, dev):
+def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int):
     """(run, tensors to keep alive): run() launches lib's kernel on the
-    case's inputs and returns its output buffer."""
+    case's inputs, culled as the default TraceConfig's gates say or not
+    at all, and returns its output buffer; the rounds split after k1
+    segments."""
     from quadray_tpu_torch.models.scenes.loader import load_scene
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.rays import camera_rays
@@ -128,6 +137,13 @@ def launcher(lib, name: str, mode: str, dev):
     rays, tables = ck._launch_inputs("ab", sc, org, dirs, tmin, struct, ps)
     n = dirs.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # the cull flags of this case's TraceConfig, then the stream
+    last = [stream]
+    if mode != "pt":
+        gates = ck.cull_gates(struct, TraceConfig(
+            **({} if mode != "paths" else dict(max_segments=K_PATHS,
+                                                stack=4)), cull=cull))
+        last = [gates.flags, stream]
     if mode == "pt":
         from quadray_tpu_torch.ops.pt import init_seeds
         seeds = init_seeds(n, device=dev)
@@ -139,7 +155,7 @@ def launcher(lib, name: str, mode: str, dev):
             err = lib.whitted_pt_launch(
                 rays.data_ptr(), seeds.data_ptr(), out.data_ptr(),
                 seeds_out.data_ptr(), iters.data_ptr(), *tables, n,
-                struct.n_real, struct.nc, struct.nl, PT_DEPTH, stream)
+                struct.n_real, struct.nc, struct.nl, PT_DEPTH, *last)
             assert err == 0, err
             return torch.cat([out.view(torch.int32), seeds_out[None]])
     elif mode == "whitted":
@@ -150,12 +166,12 @@ def launcher(lib, name: str, mode: str, dev):
             err = lib.whitted_launch(
                 rays.data_ptr(), out.data_ptr(), *tables, n, struct.n_real,
                 struct.nc, struct.nl, cfg.depth, cfg.max_segments,
-                cfg.stack, cfg.cutoff, int(struct.can_push), stream)
+                cfg.stack, cfg.cutoff, int(struct.can_push), *last)
             assert err == 0, err
             return out
     elif mode in ("emit", "resume"):
         from quadray_tpu_torch.ops.trace import STATE_ROWS
-        cfg, k1 = TraceConfig(), ck.ROUNDS_K1
+        cfg = TraceConfig()
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
         state = torch.empty((len(STATE_ROWS), n), dtype=torch.float32,
                             device=dev)
@@ -164,7 +180,7 @@ def launcher(lib, name: str, mode: str, dev):
             err = lib.whitted_emit_launch(
                 rays.data_ptr(), out.data_ptr(), state.data_ptr(), *tables,
                 n, struct.n_real, struct.nc, struct.nl, cfg.depth, k1,
-                cfg.cutoff, stream)
+                cfg.cutoff, *last)
             assert err == 0, err
             return torch.cat([out.view(torch.int32), state.view(torch.int32)])
         if mode == "resume":
@@ -178,7 +194,7 @@ def launcher(lib, name: str, mode: str, dev):
                     state.data_ptr(), idx.data_ptr(), count.data_ptr(),
                     out.data_ptr(), *tables, n, struct.n_real, struct.nc,
                     struct.nl, cfg.depth, cfg.max_segments - k1, cfg.cutoff,
-                    stream)
+                    *last)
                 assert err == 0, err
                 return out
     else:
@@ -190,7 +206,7 @@ def launcher(lib, name: str, mode: str, dev):
             err = lib.whitted_paths_launch(
                 rays.data_ptr(), out.data_ptr(), paths.data_ptr(), *tables,
                 n, struct.n_real, struct.nc, struct.nl, cfg.depth, K_PATHS,
-                cfg.cutoff, stream)
+                cfg.cutoff, *last)
             assert err == 0, err
             return torch.cat([out.view(torch.int32), paths])
     # the tables are passed as raw pointers: keep their tensors alive
@@ -221,6 +237,12 @@ def main():
     ap.add_argument("--modes", nargs="+", default=list(MODES),
                     choices=MODES,
                     help="the cases' modes to run")
+    ap.add_argument("--cull", nargs="+", default=["on", "off"],
+                    choices=["on", "off"],
+                    help="the cull settings to run each Whitted case at")
+    ap.add_argument("--k1", type=int, default=None,
+                    help="segments of round 1 in the emit and resume cases "
+                    "(default ROUNDS_K1; 1 times the primary segment)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False")
@@ -236,7 +258,7 @@ def main():
         f"a{j + 1}" for j in range(len(args.other))]
     for k, src in zip(labels, args.other):
         print(f"{k}: {src}", flush=True)
-    libs = dict(zip(labels, (bind(lib) for lib in build_others(args.other))))
+    libs = dict(zip(labels, map(bind, build_others(args.other))))
     libs["b"] = bind(load_library("whitted"))
     ptxas = os.path.join(os.path.dirname(libs["b"]._name),
                          "whitted.ptxas.txt")
@@ -246,10 +268,14 @@ def main():
     result = {"device": smi, "other": dict(zip(labels, args.other)),
               "rounds": args.rounds, "reps": args.reps, "cases": {}}
     order = labels + ["b", "b"] + labels[::-1]
-    for name, mode in CASES:
-        if mode not in args.modes:
-            continue
-        runs = {k: launcher(lib, name, mode, dev) for k, lib in libs.items()}
+    from quadray_tpu_torch.ops.cuda_kernel import ROUNDS_K1
+    k1 = args.k1 or ROUNDS_K1
+    cases = [(name, mode, cull) for name, mode in CASES
+             if mode in args.modes
+             for cull in (["on"] if mode == "pt" else args.cull)]
+    for name, mode, cull in cases:
+        runs = {k: launcher(lib, name, mode, dev, cull == "on", k1)
+                for k, lib in libs.items()}
         outs = {k: runs[k][0]().clone() for k in runs}
         torch.cuda.synchronize()
         for k in labels:
@@ -261,7 +287,8 @@ def main():
             for k in order:
                 times[k].append(ms_per_launch(runs[k][0], args.reps))
         mean = {k: sum(v) / len(v) for k, v in times.items()}
-        case = f"{name} {mode}"
+        case = f"{name} {mode}" + ("" if mode == "pt" else f" cull {cull}") \
+            + (f" k1={k1}" if mode in ("emit", "resume") else "")
         result["cases"][case] = {
             **{f"{k}_ms": v for k, v in times.items()},
             **{f"{k}_mean": v for k, v in mean.items()},
