@@ -35,12 +35,13 @@ then:
      depth 10): E1 the PT kernel vs its plain version (ops/pt.py trace_pt)
      on the card, one pass at 200x120 on test18 (the Cornell box: Fresnel
      glass, a metal, an area light), test17 (Fresnel glass: the two-branch
-     pushes; texture), test15 (texture) and test05 (metal mirrors), then
+     pushes; texture), test15 (texture), test05 (metal mirrors), test13
+     and demo03 (104 and 152 surfaces: the PT gate culls them), then
      test18 at 800x480 and its first 1, 31, 33 and 24,007 samples: seeds
      equal, radiance within 1e-5, over 5% of the lanes lit (not asked of
      the prefixes); two launches on test18 at 800x480 bitwise equal.
-     Paths in test17, test15 and test05 seldom reach their small light, so
-     these three get a seeded emission on every surface; E2 the main
+     Paths in test17, test15, test05, test13 and demo03 seldom reach their
+     lights, so these get a seeded emission on every surface; E2 the main
      path, Scene(load_scene("test18"), 800, 480, device="cuda") with
      set_pton(True) and render_pt_pass(64), against
      golden/ref_test18_pt64.bmp under the four limits of tests/test_pt.py
@@ -52,7 +53,15 @@ then:
      CUDA events), the kernel alone, the plain version's pass, the call's
      iteration count M, the nodes run and the share of issue slots a
      one-sample-per-thread layout would fill (warps of 32 consecutive
-     samples, each as long as its longest).
+     samples, each as long as its longest); then on test13 and demo03 the
+     kernel alone and ms per pass, culled and unculled, the plain count's
+     share of nearest tests culled and the bound; E5 the main path on
+     test13 and demo03 (the PT gate culls them): Scene(..., device="cuda")
+     with set_pton(True) and render_pt_pass(64), exactly 64 PT launches,
+     the sum and seeds bitwise equal to render_pt_cuda's 64 unculled
+     passes; E6 the sweep that sets PT's floor: every golden scene at
+     800x480, one pass culled (floor lowered to 1) against unculled,
+     bitwise, and the kernel's device ms of each.
   F. two-round retirement (trace_rays_rounds): F1 the emit and resume
      kernels vs their plain versions, F2 every golden scene through the
      rounds bitwise equal to render_cuda, F3 their device times;
@@ -123,7 +132,13 @@ PT_DEPTH, PT_PASSES, PT_TIMED = 10, 64, 20
 # (scene, width, height, seed of the added emission or None)
 PHASE_E1 = [("test18", 200, 120, None), ("test17", 200, 120, 17),
             ("test15", 200, 120, 15), ("test05", 200, 120, 5),
+            ("test13", 200, 120, 13), ("demo03", 200, 120, 3),
             ("test18", W, H, None)]
+# E4-E5: the heavy scenes the PT gate culls (104 and 152 surfaces), whose
+# paths seldom reach their lights (a pass at 64x40 on the CPU lit 0.08%
+# of the lanes of each; E1 adds emission to them)
+PT_HEAVY = ("test13", "demo03")
+PT_HEAVY_REPS = 10
 # E1: prefixes of test18's 800x480 samples for the edges of the PT
 # kernel's work queue: one sample, a warp less or more one lane, and a
 # count that is not a whole number of blocks, each under the thread count
@@ -764,6 +779,155 @@ def phase_e4(dev):
     return kernel_ms, plain_ms, bound, bound_by
 
 
+def phase_e4_heavy(dev):
+    """The heavy PT scenes at 800x480, depth 10: the kernel alone and ms
+    per pass (ray gen + kernel + sum), culled (the default gate) and
+    unculled, CUDA events in turns on off off on; the plain version's
+    count of the nearest tests the masks keep and skip, and the bound
+    (every node testing every real surface, as for test18). Returns per
+    scene (culled ms, unculled ms, bound ms, what bounds it, share of the
+    nearest tests culled)."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.pt import init_seeds, trace_pt
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    on = TraceConfig(depth=PT_DEPTH)
+    cfgs = {"on": on, "off": on._replace(cull=False)}
+    rows = {}
+    for name in PT_HEAVY:
+        sc = compiled(name, dev)
+        struct = ck.scene_struct(sc)
+        if not ck.cull_gates(struct, on, pt=True).cull:
+            raise AssertionError(f"E4 {name}: the PT gate does not cull")
+        rays = pt_inputs(sc, W, H, dev)
+        state = [init_seeds(W * H, device=dev)]
+
+        def one_pass(cfg):
+            _, state[0] = ck.render_pt_cuda(sc, W, H, state[0], 1, cfg, struct)
+
+        kern = {k: [] for k in cfgs}
+        passes = {k: [] for k in cfgs}
+        for k in ("on", "off", "off", "on"):
+            kern[k].append(cuda_ms(lambda: ck.trace_pt_cuda(
+                sc, *rays, cfgs[k], struct), PT_HEAVY_REPS, warmup=2))
+            passes[k].append(cuda_ms(lambda: one_pass(cfgs[k]),
+                                     PT_HEAVY_REPS, warmup=2))
+        stats = {}
+        trace_pt(sc, *rays, on, stats)
+        torch.cuda.empty_cache()
+        kept, culled = stats["nearest_tests_kept"], stats["nearest_tests_culled"]
+        share = culled / (kept + culled)
+        bound, bound_by = bound_ms(W * H * 48, surface_ops(struct, stats))
+        ms = {k: float(np.mean(v)) for k, v in kern.items()}
+        log(f"E4 {name} {W}x{H} depth {PT_DEPTH} ({struct.n_real} surfaces): "
+            f"kernel_ms culled={ms['on']:.4f} unculled={ms['off']:.4f} "
+            f"(culled/unculled {ms['on'] / ms['off']:.4f}); ms/pass culled="
+            f"{np.mean(passes['on']):.3f} unculled={np.mean(passes['off']):.3f}"
+            f"; nodes={stats['walks']} ({stats['walks'] / (W * H):.3f} per "
+            f"sample) nearest tests kept={kept} culled={culled} share_culled="
+            f"{share:.4f}; bound_ms={bound:.4f} ({bound_by})")
+        rows[name] = (ms["on"], ms["off"], bound, bound_by, share)
+    return rows
+
+
+def phase_e5(dev):
+    """The main path at full width on the heavy scenes the PT gate culls:
+    64 passes through the engine, the PT launches counted (zeroed right
+    before, read right after), held bitwise (the running sum and the
+    seeds) against render_pt_cuda's 64 unculled passes from the same
+    seeds. Returns the launches of the counted runs."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.pt import init_seeds
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    launches = {}
+    for name in PT_HEAVY:
+        scene = Scene(load_scene(name), W, H, device=dev)
+        scene.update(0.0)
+        if not scene.set_pton(True):
+            raise AssertionError(f"E5 {name}: set_pton(True) refused")
+        gates = ck.cull_gates(scene._struct, TraceConfig(depth=PT_DEPTH),
+                              pt=True)
+        torch.cuda.synchronize()
+        ck.pt_launches = 0
+        t0 = time.perf_counter()
+        frame = scene.render_pt_pass(PT_PASSES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = ck.pt_launches
+        img, seeds = ck.render_pt_cuda(
+            scene.arrays, W, H, init_seeds(W * H, device=dev), PT_PASSES,
+            TraceConfig(depth=PT_DEPTH, cull=False), scene._struct)
+        want = (scene._pt_acc / float(PT_PASSES)).reshape(H, W, 3)
+        same_r = torch.equal(img.view(torch.int32), want.view(torch.int32))
+        same_s = torch.equal(seeds, scene._pt_seeds)
+        lit = float((scene._pt_acc.amax(dim=1) > 0).float().mean())
+        log(f"E5 {name} {W}x{H} {PT_PASSES} passes: gate cull={gates.cull} "
+            f"pt_launches={launches[name]} wall={wall:.3f} s culled == "
+            f"unculled: sum={same_r} seeds={same_s}; lit_pixels={lit:.4f} "
+            f"frame {frame.shape}")
+        if not gates.cull:
+            raise AssertionError(f"E5 {name}: the PT gate does not cull")
+        if launches[name] != PT_PASSES:
+            raise AssertionError(f"E5 {name}: {launches[name]} PT launches "
+                                 f"for {PT_PASSES} passes")
+        if not (same_r and same_s and frame.shape == (H, W, 3)
+                and bool(torch.isfinite(scene._pt_acc).all())):
+            raise AssertionError(f"E5 {name}: the culled passes differ from "
+                                 "the unculled ones")
+        del scene
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_e6(dev):
+    """The sweep that sets PT's floor: every golden scene at 800x480,
+    one PT pass at depth 10 with culling forced (the floor lowered to 1)
+    against unculled, radiance and seeds bitwise, and the kernel's device
+    ms of each (CUDA events, turns on off off on), beside whether the
+    default gate culls it."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    on = TraceConfig(depth=PT_DEPTH)
+    cfgs = {"on": on, "off": on._replace(cull=False)}
+    rows, fails = {}, []
+    with cull_every_scene("PT_CULL_MIN_SURFACES") as floor:
+        for n in SCENES:
+            sc = compiled(n, dev)
+            struct = ck.scene_struct(sc)
+            if not ck.cull_gates(struct, on, pt=True).cull:
+                raise AssertionError(f"E6 {n}: the forced gate does not cull")
+            rays = pt_inputs(sc, W, H, dev)
+            a = ck.trace_pt_cuda(sc, *rays, on, struct)
+            b = ck.trace_pt_cuda(sc, *rays, cfgs["off"], struct)
+            same = torch.equal(_bits(a[0]), _bits(b[0])) and torch.equal(
+                a[1], b[1])
+            times = {k: [] for k in cfgs}
+            for k in ("on", "off", "off", "on"):
+                times[k].append(cuda_ms(lambda: ck.trace_pt_cuda(
+                    sc, *rays, cfgs[k], struct), 10, warmup=2))
+            ms = {k: float(np.mean(v)) for k, v in times.items()}
+            default = struct.n_real >= floor
+            log(f"E6 {n} {W}x{H} ({struct.n_real} surfaces, culled by "
+                f"default: {default}): culled==unculled {same}; pt kernel "
+                f"ms culled {ms['on']:.4f} unculled {ms['off']:.4f} ratio "
+                f"{ms['on'] / ms['off']:.4f}")
+            rows[n] = (struct.n_real, ms, default)
+            if not same:
+                fails.append(n)
+            torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"E6: culled PT output differs: {fails}")
+    slower = [n for n, (_, ms, c) in rows.items()
+              if c and ms["on"] > ms["off"]]
+    faster_below = [n for n, (_, ms, c) in rows.items()
+                    if not c and ms["on"] < ms["off"]]
+    log(f"E6: scenes the default PT gate culls where culling was slower: "
+        f"{slower or 'none'}; below the floor of {floor} where it was "
+        f"faster: {faster_below or 'none'}")
+    return rows
+
+
 # ---- phase F: two-round retirement ------------------------------------------
 
 def phase_f1(dev, label="F1"):
@@ -1183,17 +1347,18 @@ def _bits(t):
 
 
 @contextlib.contextmanager
-def cull_every_scene():
-    """cull_gates' floor of real surfaces lowered to 1 inside the block,
-    so that every scene with bounding spheres culls (kernel and plain
-    version alike: both ask cull_gates); yields the floor it lowered."""
+def cull_every_scene(name: str = "CULL_MIN_SURFACES"):
+    """cull_gates' floor of real surfaces (``name``: the Whitted modes',
+    or PT's PT_CULL_MIN_SURFACES) lowered to 1 inside the block, so that
+    every scene with bounding spheres culls (kernel and plain version
+    alike: both ask cull_gates); yields the floor it lowered."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
-    floor = ck.CULL_MIN_SURFACES
-    ck.CULL_MIN_SURFACES = 1
+    floor = getattr(ck, name)
+    setattr(ck, name, 1)
     try:
         yield floor
     finally:
-        ck.CULL_MIN_SURFACES = floor
+        setattr(ck, name, floor)
 
 
 def phase_h1(dev):
@@ -1381,6 +1546,9 @@ def main():
         del scene
         torch.cuda.empty_cache()
         e_ms, e_plain, e_bound, e_by = phase_e4(dev)
+        e_heavy = phase_e4_heavy(dev)
+        phase_e5(dev)
+        phase_e6(dev)
         log(f"phase E ok ({time.perf_counter() - t0:.1f} s)")
 
     if only in (None, "F"):
@@ -1436,11 +1604,18 @@ def main():
         "are sums over the " + str(len(lib_cases)) + " cases that have one "
         "PyTorch call (" + ",".join(lib_cases) + ") at 384,000 elements, "
         "launches G1's 15 cases, max_abs_err G1's worst against the plain "
-        "versions; the four Whitted-mode rows ran culled (the default "
-        "TraceConfig's gates), PT does not cull")
+        "versions; every row ran culled where the default TraceConfig's "
+        "gates cull (test18 does not: 8 surfaces, under PT's floor); "
+        "whitted_pt's heavy entry is one test13 800x480 depth-10 pass, "
+        "culled (ms) and unculled (unculled_ms), kernel alone, with its "
+        "bound and the plain version's share of nearest tests culled")
     culled = ("on: warp reach masks (origin box + direction cone or "
               "endpoint capsule per warp, __ballot_sync over the bounding "
               "spheres), lsort and cont masks where cull_gates say so")
+    pt_culled = ("on from PT_CULL_MIN_SURFACES surfaces: per-ray reach "
+                 "masks (each lane tests its own ray against the bounding "
+                 "spheres of a word and walks its own bits), reach only")
+    heavy = e_heavy["test13"]
     log(json.dumps({"kernels": [{
         "name": "whitted", "route": "cuda", "culling": culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
@@ -1454,12 +1629,15 @@ def main():
         "launches": d_launches, "max_abs_err": d_err,
         "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound[0],
         "bound_by": d_bound[1], "library_ms": None}, {
-        "name": "whitted_pt", "route": "cuda", "culling": "off",
+        "name": "whitted_pt", "route": "cuda", "culling": pt_culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2313",
         "launches": e_launches, "max_abs_err": e_err,
         "ms": e_ms, "plain_ms": e_plain, "bound_ms": e_bound,
-        "bound_by": e_by, "library_ms": None}, {
+        "bound_by": e_by, "library_ms": None,
+        "heavy": {"scene": "test13", "ms": heavy[0],
+                  "unculled_ms": heavy[1], "bound_ms": heavy[2],
+                  "bound_by": heavy[3], "share_culled": heavy[4]}}, {
         "name": "whitted_emit", "route": "cuda", "culling": culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2525",

@@ -9,7 +9,7 @@
 // training), _trace_tiled_emit and _trace_tiled_resume (_make_kernel with
 // emit_state / resume, the two rounds of two-round retirement) and
 // _trace_tiled_pt (_make_kernel with pt, the progressive path tracer),
-// with the Whitted modes' bounding-sphere culling (PT does not cull yet).
+// with the TPU kernel's bounding-sphere culling in every mode.
 // It computes what those kernels compute; its plain twins are
 // quadray_tpu_torch/ops/trace.py trace_rays, trace_paths, trace_rays_emit
 // and trace_rays_resume (whose Cull is the plain version of the masks)
@@ -133,9 +133,9 @@
 // latency- and divergence-bound on FP32 ALU work and scattered reads of
 // the small scene tables (through __ldg). The Whitted modes run one ray
 // per thread, a warp as long as its longest ray, with the branch stack in
-// local memory, and walk the surfaces their warp's masks keep; each PT
-// node still walks every surface, and tables in shared memory are later
-// work.
+// local memory, and walk the surfaces their warp's masks keep; a culled
+// PT node walks the surfaces its own ray may reach (culling in PT mode,
+// below), and tables in shared memory are later work.
 //
 // f32 rules the golden frames depend on: build with --fmad=false and
 // without fast math; every 3-term contraction is a left-to-right mul/add
@@ -966,6 +966,70 @@ __device__ __forceinline__ float lcg_uniform(unsigned& s) {
   return (float)(s >> 8) * (1.0f / 16777216.0f);
 }
 
+// ---- culling in PT mode ----------------------------------------------------
+//
+// The TPU kernel keeps its reach bounds in PT mode (cull_on without the
+// lsort and cont masks, pallas_kernel.py:524-539: PT has no shadow pass,
+// and a sibling popped from the stack does not come from the previous
+// hit). Here a persistent warp holds nodes of unrelated samples at
+// different depths, most of them cosine-hemisphere bounces, so a bundle
+// of the warp's rays spans nearly every direction, and the union of its
+// lanes' masks keeps several times what each lane needs (PERF.md §6). So
+// each lane culls for its own ray alone: per word of 32 surfaces it tests
+// its ray against their bounding spheres (ray_reaches: about 20 FP32
+// operations a sphere, against a surface test's 48-112) and walks the
+// bits it kept, apart from the other lanes. No collective, so the loop's
+// structure is the unculled kernel's.
+
+// may the ray from o along the unit direction dh (the half-line o + t dh,
+// t >= 0) reach bounding sphere s? Its centre c is within the radius of
+// the line (|c - o|^2 - ((c - o).dh)^2) and not behind o by more than
+// the radius, with the radius widened by 1e-4 and the squares by 1e-5
+// |c - o|^2 for f32 rounding; NaN and inf come out as "reach". The plain
+// version is ops/trace.py ray_reach, op for op.
+__device__ __forceinline__ bool ray_reaches(const Tables& T, const Ray& r,
+                                            float dhx, float dhy, float dhz,
+                                            int s) {
+  const float lcx = ldf(T.bsph, s) - r.ox;
+  const float lcy = ldf(T.bsph, T.nsl + s) - r.oy;
+  const float lcz = ldf(T.bsph, 2 * T.nsl + s) - r.oz;
+  const float re = ldf(T.bsph, 3 * T.nsl + s) + 1e-4f;
+  const float d_ax = lcx * dhx + lcy * dhy + lcz * dhz;
+  const float dist2 = lcx * lcx + lcy * lcy + lcz * lcz;
+  const float lim = re * re + 1e-5f * dist2;
+  return !(dist2 - d_ax * d_ax > lim || (d_ax < 0.0f && d_ax * d_ax > lim));
+}
+
+// this lane's reach bits of the spheres 32w .. 32w+31
+__device__ __forceinline__ unsigned ray_word(const Tables& T, const Ray& r,
+                                             float dhx, float dhy, float dhz,
+                                             int w) {
+  const int end = min(32, T.ns - 32 * w);
+  unsigned m = 0u;
+  for (int b = 0; b < end; ++b)
+    if (ray_reaches(T, r, dhx, dhy, dhz, 32 * w + b)) m |= 1u << b;
+  return m;
+}
+
+// the nearest hit of a culled PT node over the surfaces its own ray may
+// reach, in ascending row order word by word (continuations from the
+// world hit point: LOCAL false)
+__device__ void nearest_reach(const Tables& T, const Ray& r, Hit& best) {
+  no_hit(best);
+  const float il =
+      __frsqrt_rn(maxn(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-30f));
+  const float dhx = r.dx * il, dhy = r.dy * il, dhz = r.dz * il;
+  const int words = (T.ns + 31) >> 5;
+  for (int w = 0; w < words; ++w) {
+    unsigned word = ray_word(T, r, dhx, dhy, dhz, w);
+    while (word) {
+      const int s = w * 32 + __ffs(word) - 1;
+      word &= word - 1u;
+      surface<false, false>(T, s, r, best);
+    }
+  }
+}
+
 // Path-traced samples 0..n-1: the split-tree walk of ops/pt.py trace_pt
 // (pt_body/pt_cond, pallas_kernel.py:1365-1669), pulled from the work
 // queue *queue by a persistent grid. Each node draws u1 u2 (hemisphere),
@@ -980,8 +1044,10 @@ __device__ __forceinline__ float lcg_uniform(unsigned& s) {
 // queue empty is done, and the warp leaves when none of its lanes has a
 // sample. The largest node count of the warp's samples goes into *iters
 // with one atomicMax, the call's count M that the seed tail needs.
-// Continuations take their origin from the world hit point
-// (nearest_all<false>), as the jnp tracer does.
+// Continuations take their origin from the world hit point (LOCAL
+// false), as the jnp tracer does. CULL: each node walks the surfaces its
+// ray may reach (nearest_reach); else every surface (nearest_all).
+template <bool CULL>
 __global__ void __launch_bounds__(PT_BLOCK)
 pt_kernel(const float* __restrict__ rays, const int* __restrict__ seeds,
           float* __restrict__ out, int n, Tables T, int depth,
@@ -1040,7 +1106,10 @@ pt_kernel(const float* __restrict__ rays, const int* __restrict__ seeds,
     if (i < 0) continue;   // drained: wait at the top for the warp
     ++it;
     Hit hb;
-    nearest_all<false>(T, r, hb);
+    if (CULL)
+      nearest_reach(T, r, hb);
+    else
+      nearest_all<false>(T, r, hb);
     const float u1 = lcg_uniform(seed);
     const float u2 = lcg_uniform(seed);
     const float urr = lcg_uniform(seed);
@@ -1326,15 +1395,20 @@ extern "C" int whitted_resume_launch(
 // Path-tracing entry point: one sample per ray. seeds: (n,) i32 LCG
 // states in, seeds_out: (n,) i32 out (each advanced 4*M draws); iters: two
 // i32 of scratch, zeroed here: iters[0] ends holding M, iters[1] is the
-// work queue's next sample. Launches pt_kernel on the persistent grid (the
-// blocks that fit on the card at once, queried once per device, or fewer
-// when n needs fewer), then pt_seed_tail, on `stream`.
+// work queue's next sample; cull: the culling gates (Cfg.cull bits:
+// reach only in PT mode), after the stream, so that a caller of an entry
+// point from before PT culling passes the arguments it reads. Launches
+// pt_kernel (culled when cull is non-zero) on the persistent grid (the
+// blocks of that instantiation that fit on the card at once, queried once
+// per device, or fewer when n needs fewer), then pt_seed_tail, on
+// `stream`.
 extern "C" int whitted_pt_launch(
     const float* rays, const int* seeds, float* out, int* seeds_out,
     int* iters, SCENE_PARAMS, int n, int ns, int nc, int nl, int depth,
-    void* stream) {
+    void* stream, int cull) {
   constexpr int MAX_DEVICES = 64;
-  static int resident[MAX_DEVICES];   // blocks of pt_kernel a card holds
+  // blocks of pt_kernel<false> and pt_kernel<true> a card holds
+  static int resident[2][MAX_DEVICES];
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(iters, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess || n <= 0) return (int)err;
@@ -1342,21 +1416,26 @@ extern "C" int whitted_pt_launch(
   int dev = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
+  const int c = cull ? 1 : 0;
+  if (resident[c][dev] == 0) {
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pt_kernel,
-                                                        PT_BLOCK, PT_SMEM);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, c ? pt_kernel<true> : pt_kernel<false>, PT_BLOCK, PT_SMEM);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident[dev] = per_sm * sms;
+    resident[c][dev] = per_sm * sms;
   }
   const Tables T = SCENE_TABLES(ns, nc, nl);
   const int need = (n + PT_BLOCK - 1) / PT_BLOCK;
-  const int blocks = need < resident[dev] ? need : resident[dev];
-  pt_kernel<<<(unsigned)blocks, PT_BLOCK, PT_SMEM, s>>>(
-      rays, seeds, out, n, T, depth, iters, iters + 1);
+  const int blocks = need < resident[c][dev] ? need : resident[c][dev];
+  if (c)
+    pt_kernel<true><<<(unsigned)blocks, PT_BLOCK, PT_SMEM, s>>>(
+        rays, seeds, out, n, T, depth, iters, iters + 1);
+  else
+    pt_kernel<false><<<(unsigned)blocks, PT_BLOCK, PT_SMEM, s>>>(
+        rays, seeds, out, n, T, depth, iters, iters + 1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pt_seed_tail<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(seeds, seeds_out,

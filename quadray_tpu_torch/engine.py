@@ -143,7 +143,9 @@ class Scene:
     def render_pt_pass(self, passes: int = 1) -> np.ndarray:
         """Accumulate `passes` path-traced samples/pixel; return the frame
         of the running mean. One PT kernel launch per pass on a CUDA
-        device, the plain ``trace_pt`` on the CPU."""
+        device, the plain ``trace_pt`` on the CPU; both cull where PT's
+        gate says so (``ops.cuda_kernel.cull_gates``), which changes no
+        bit of the frame."""
         from quadray_tpu_torch.ops.cuda_kernel import pt_passes
         sc = self.arrays
         if self._pt_acc is None:

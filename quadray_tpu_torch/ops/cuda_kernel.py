@@ -146,6 +146,14 @@ MAX_SURFACES = 32 * 32
 # on 9 of the 11 golden scenes of 3 to 8 surfaces and won on every one of
 # 9 or more (chip_smoke.py H3, culling forced on every scene)
 CULL_MIN_SURFACES = 9
+# the same for the PT kernel, whose lanes test their own rays against the
+# spheres and walk the surfaces they keep apart from each other: with
+# culling forced on every golden scene (chip_smoke.py E6, one 800x480 pass
+# at depth 10 on an H100, three runs), culled / unculled kernel ms was
+# 1.04-1.44 on test03 (9 surfaces), 0.95-1.04 on test10 (11), 0.71-0.93
+# on test11 (12), 0.58-0.65 on test12 (21) and 0.25-0.49 from 43 surfaces
+# up; below 9 it ran from 0.70 (test02) to 1.29 (test01)
+PT_CULL_MIN_SURFACES = 12
 
 
 class CullGates(NamedTuple):
@@ -160,18 +168,22 @@ class CullGates(NamedTuple):
         return int(self.cull) | int(self.lsort) << 1 | int(self.cont) << 2
 
 
-def cull_gates(struct: KernelStruct, cfg) -> CullGates:
-    """The one gate of culling, for the CUDA kernel's Whitted modes and
-    their plain versions (the TPU kernel's ``cull_on``/``lsort_on``/
-    ``cont_on``, pallas_kernel.py:524-539, and ``_static_gates`` :2182,
-    without its chunk and candidate tiers). Culling needs bounding
-    spheres and CULL_MIN_SURFACES to MAX_SURFACES real surfaces; the
-    static masks only prune scenes of more than cfg.unroll surfaces, lsort
-    needs lights, and cont needs a single-branch scene: a popped
-    branch-stack ray does not come from the previous segment's hit."""
+def cull_gates(struct: KernelStruct, cfg, pt: bool = False) -> CullGates:
+    """The one gate of culling, for the CUDA kernel's modes and their
+    plain versions (the TPU kernel's ``cull_on``/``lsort_on``/``cont_on``,
+    pallas_kernel.py:524-539, and ``_static_gates`` :2182, without its
+    chunk and candidate tiers). Culling needs bounding spheres and
+    CULL_MIN_SURFACES (PT_CULL_MIN_SURFACES for the path tracer, ``pt``)
+    to MAX_SURFACES real surfaces; the static masks only prune scenes of
+    more than cfg.unroll surfaces, lsort needs lights, and cont needs a
+    single-branch scene: a popped branch-stack ray does not come from the
+    previous segment's hit. PT culls by reach alone, as the TPU kernel
+    does (:532-539): it has no shadow pass, and a popped sibling does not
+    come from the previous node's hit."""
+    floor = PT_CULL_MIN_SURFACES if pt else CULL_MIN_SURFACES
     cull = bool(cfg.cull and any(struct.bnd)
-                and CULL_MIN_SURFACES <= struct.n_real <= MAX_SURFACES)
-    big = cull and cfg.lsort and struct.n_real > cfg.unroll
+                and floor <= struct.n_real <= MAX_SURFACES)
+    big = cull and cfg.lsort and not pt and struct.n_real > cfg.unroll
     return CullGates(cull, big and struct.nl > 0,
                      big and not struct.can_push)
 
@@ -501,7 +513,8 @@ def _lib():
             + [ctypes.c_float, ctypes.c_int, _VOIDP])
         lib.whitted_paths_launch.restype = ctypes.c_int
         lib.whitted_pt_launch.argtypes = (
-            [_VOIDP] * 5 + _SCENE_ARGS + [ctypes.c_int] * 5 + [_VOIDP])
+            [_VOIDP] * 5 + _SCENE_ARGS + [ctypes.c_int] * 5
+            + [_VOIDP, ctypes.c_int])
         lib.whitted_pt_launch.restype = ctypes.c_int
         lib.whitted_emit_launch.argtypes = lib.whitted_paths_launch.argtypes
         lib.whitted_emit_launch.restype = ctypes.c_int
@@ -696,10 +709,11 @@ def trace_pt_cuda(sc: SceneArrays, org, dirs, t_min, seeds,
     signature and returns of ``ops.pt.trace_pt``): (radiance (N, 3) f32,
     seeds (N,) int32, each advanced four draws per iteration of the call).
     org (3,) or (N, 3), dirs (N, 3), t_min (N,) f32 and seeds (N,) int32,
-    all on the scene's device; reads cfg.depth. CPU tensors take the plain
-    ``trace_pt``. Launches the PT kernel (a persistent grid that pulls
-    the samples from a work queue) and its seed tail on the current
-    stream without waiting for the card."""
+    all on the scene's device; reads cfg.depth, and cfg.cull through
+    ``cull_gates`` (each node walks the surfaces its ray may reach). CPU
+    tensors take the plain ``trace_pt``. Launches the PT kernel (a
+    persistent grid that pulls the samples from a work queue) and its seed
+    tail on the current stream without waiting for the card."""
     global pt_launches
     if dirs.device.type == "cpu":
         return trace_pt(sc, org, dirs, t_min, seeds, cfg)
@@ -709,7 +723,10 @@ def trace_pt_cuda(sc: SceneArrays, org, dirs, t_min, seeds,
     if struct.ns > PT_MAX_SURFACES:
         raise ValueError(f"the PT kernel takes at most {PT_MAX_SURFACES} "
                          f"surfaces, got {struct.ns}")
-    ps = _get_packed(sc, struct)
+    gates = cull_gates(struct, cfg, pt=True)
+    # the culling tables only where the gate culls
+    ps = (_get_packed(sc, struct) if gates.cull
+          else _get_packed(sc, struct, False))
     rays, tables = _launch_inputs("trace_pt_cuda", sc, org, dirs, t_min,
                                   struct, ps)
     N, dev = dirs.shape[0], dirs.device
@@ -723,7 +740,8 @@ def trace_pt_cuda(sc: SceneArrays, org, dirs, t_min, seeds,
         err = lib.whitted_pt_launch(
             rays.data_ptr(), seeds.data_ptr(), out.data_ptr(),
             seeds_out.data_ptr(), iters.data_ptr(), *tables,
-            N, struct.n_real, struct.nc, struct.nl, cfg.depth, stream)
+            N, struct.n_real, struct.nc, struct.nl, cfg.depth, stream,
+            gates.flags)
     if err != 0:
         raise RuntimeError(f"whitted PT kernel launch failed: CUDA error "
                            f"{err}")

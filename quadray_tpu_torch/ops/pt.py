@@ -43,7 +43,7 @@ import torch
 from quadray_tpu_torch.scene.compile import (
     SceneArrays, PROP_LIGHT, PROP_DIFFUSE, PROP_OPAQUE)
 from quadray_tpu_torch.ops.trace import (
-    TraceConfig, count_work, intersect, material_index, texture_color,
+    Cull, TraceConfig, count_work, intersect, material_index, texture_color,
     fresnel_terms, _dot3, _rsqrt, _sqrt, BIG)
 
 F32 = torch.float32
@@ -161,10 +161,21 @@ def trace_pt(sc: SceneArrays, org, dirs, t_min, seeds,
     surfaces follow the mirror branch. Pending siblings wait on a
     PT_STACK-slot stack; a lane still active after 6*(depth+1) nodes is
     cut. org (3,) or (N,3), dirs (N,3), t_min (N,) f32; seeds (N,) int32.
-    Returns (radiance (N,3) f32, seeds (N,) int32). ``stats``, a dict or
-    None, gets the nodes run added in as "walks" (``count_work``); where
-    it holds the key "sample_nodes", that becomes the (N,) int32 count of
-    the nodes each sample ran."""
+    Returns (radiance (N,3) f32, seeds (N,) int32).
+
+    Culling (``cfg.cull`` through ``cuda_kernel.cull_gates``, PT's gate:
+    reach only): each node tests only the surfaces whose bounding spheres
+    its own ray may reach (``Cull.rays``, ``ray_reach``), which changes no
+    output bit. The kernel's lanes pull samples from a work queue, so its
+    warps hold nodes of unrelated samples in an order this version cannot
+    repeat; each lane there tests the same per-ray mask as here, so the
+    counts below are the kernel's surface tests.
+
+    ``stats``, a dict or None, gets the nodes run added in as "walks"
+    (``count_work``) and the surface tests of those nodes that the masks
+    keep and skip, "nearest_tests_kept"/"_culled" (where the gate
+    culls); where it holds the key "sample_nodes", that
+    becomes the (N,) int32 count of the nodes each sample ran."""
     N = dirs.shape[0]
     dev = dirs.device
     SD = PT_STACK
@@ -186,6 +197,7 @@ def trace_pt(sc: SceneArrays, org, dirs, t_min, seeds,
     lanes = torch.arange(N, device=dev)
     big = torch.full((N,), BIG, dtype=F32, device=dev)
     nodes = zi() if stats is not None and "sample_nodes" in stats else None
+    cull = Cull(sc, cfg, pt=True)
 
     # tree-node cap: a depth-D path sees D+1 hits; the split tree
     # multiplies node count by < 4 in practice
@@ -194,7 +206,8 @@ def trace_pt(sc: SceneArrays, org, dirs, t_min, seeds,
         count_work(stats, "walks", active)
         if nodes is not None:
             nodes += active.to(I32)
-        h = intersect(sc, org, dirs, tmin, big, osrf, oside, thru)
+        h = intersect(sc, org, dirs, tmin, big, osrf, oside, thru,
+                      reach=cull.rays(org, dirs, active, stats))
         hit = h["hit"] & active
         midx = material_index(sc, h["srf"], h["side"])
         props = sc.m_props[midx]

@@ -407,6 +407,30 @@ def bundle_reach(org, dirs, on, spheres, shadow: bool):
     return reach & on.any(dim=1, keepdim=True)
 
 
+def ray_reach(org, dirs, spheres):
+    """Which bounding spheres each ray may reach: the per-ray test of the
+    CUDA PT kernel's masks (whitted.cu ``ray_reaches``), with its f32
+    operations in its order. org, dirs (N, 3) f32, a ray being the
+    half-line org + t dirs, t >= 0; spheres (4, S) f32 rows cx, cy, cz,
+    radius (+inf: unbounded). A sphere is kept unless its centre c lies
+    farther than its radius from the ray's line (|c - o|^2 - ((c - o).dh)^2
+    with dh the unit direction) or behind o by more than its radius, the
+    radius widened by 1e-4 and the squares by 1e-5 |c - o|^2 for f32
+    rounding; a comparison that gives NaN or inf comes out as "reach".
+    Returns (N, S) bool."""
+    dx, dy, dz = (v[:, None] for v in dirs.unbind(-1))
+    il = _rsqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-30))
+    dhx, dhy, dhz = dx * il, dy * il, dz * il
+    ox, oy, oz = (v[:, None] for v in org.unbind(-1))
+    scx, scy, scz, srs = (s[None, :] for s in spheres)
+    lcx, lcy, lcz = scx - ox, scy - oy, scz - oz              # (N, S)
+    d_ax = lcx * dhx + lcy * dhy + lcz * dhz
+    dist2 = lcx * lcx + lcy * lcy + lcz * lcz
+    re = srs + 1e-4
+    lim = re * re + 1e-5 * dist2
+    return ~((dist2 - d_ax * d_ax > lim) | ((d_ax < 0.0) & (d_ax * d_ax > lim)))
+
+
 def _unpack_bits(words, n: int):
     """(..., NW) i32 words -> (..., n) bool, bit b of word w = column
     32w + b (the packing of ``cuda_kernel._pack_bits``)."""
@@ -423,13 +447,14 @@ class Cull:
     pass, with the OR of its previous hits' ``cont_msk`` rows, as
     ``cuda_kernel.cull_gates`` switches them. The masks come back on the
     original surface order, for ``intersect``'s ``reach``. ``stats`` get
-    the surface tests the masks keep and skip (``count_work``)."""
+    the surface tests the masks keep and skip (``count_work``). With
+    ``pt``, the path tracer's gate and its per-ray masks (``rays``)."""
 
-    def __init__(self, sc: SceneArrays, cfg: TraceConfig):
+    def __init__(self, sc: SceneArrays, cfg: TraceConfig, pt: bool = False):
         from quadray_tpu_torch.ops.cuda_kernel import (
             _get_packed, _get_struct, cull_gates)
         struct = _get_struct(sc)
-        self.gates = cull_gates(struct, cfg)
+        self.gates = cull_gates(struct, cfg, pt)
         n = self.n = struct.n_real
         dev = sc.device
         self.ns = sc.s_pos.shape[0]
@@ -481,6 +506,23 @@ class Cull:
             count_work(stats, key + "_culled", int(on.sum()) * total - kept)
         out = torch.zeros((N, self.ns), dtype=torch.bool, device=on.device)
         out[:, self.perm] = per_ray
+        return out
+
+    def rays(self, org, dirs, on, stats=None):
+        """The mask of a PT node's nearest pass: each ray that is ``on``
+        keeps the surfaces its own ray may reach (``ray_reach``), as the
+        kernel's lanes do, counted in ``stats``; None, and no count,
+        where the gate does not cull (every surface)."""
+        if not self.gates.cull:
+            return None
+        m = ray_reach(org, dirs, self.spheres) & on[:, None]
+        kept = int(m.sum())
+        count_work(stats, "nearest_tests_kept", kept)
+        count_work(stats, "nearest_tests_culled",
+                   int(on.sum()) * self.n - kept)
+        out = torch.zeros((on.shape[0], self.ns), dtype=torch.bool,
+                          device=on.device)
+        out[:, self.perm] = m
         return out
 
     def nearest(self, st, act, stats=None):

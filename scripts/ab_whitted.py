@@ -10,18 +10,21 @@ whitted_emit_launch, whitted_resume_launch, whitted_pt_launch) and
 arguments, for example the parent commit's, unpacked with git archive
 into a directory that .gitignore lists (with the headers it includes
 beside it), or a variant of this checkout's (another culling design).
-All are built with the port's nvcc flags and loaded into one process;
-the ptxas lines (registers, stack frame, spills) of every build are
-printed, one line each for every template instantiation. For each
+A version whose whitted_pt_launch ends at the stream (before PT culling)
+is called with this checkout's arguments too: the cull flags come after
+the stream, and it ignores them. All are built with the port's nvcc flags
+and loaded into one process; the ptxas lines (registers, stack frame,
+spills) of every build are printed, one line each for every template
+instantiation. For each
 case (a scene at 800x480, the Whitted mode, the path-record mode of the
 training step, round 1 or round 2 of two-round retirement, or one
 path-traced pass at depth 10) and each --cull setting (on: the default
-TraceConfig's gates, ops/cuda_kernel.py cull_gates; off: cull=False; the
-PT pass does not cull and runs once) the scene is packed once, every
-version must give the same output bitwise, and then the kernel launch
-alone is timed in turns, this checkout's version (b) and OTHER (a) in the
-order a b b a, a b b a, ...: CUDA events around --reps launches after a
-warm-up. With more versions (a1, a2, ... in the order given) a round is
+TraceConfig's gates, ops/cuda_kernel.py cull_gates, PT's for the PT
+pass; off: cull=False) the scene is packed once, every version must give
+the same output bitwise, and then the kernel launch alone is timed in
+turns, this checkout's version (b) and OTHER (a) in the order a b b a,
+a b b a, ...: CUDA events around --reps launches after a warm-up. With
+more versions (a1, a2, ... in the order given) a round is
 a1 a2 ... b b ... a2 a1. Prints each case's range and mean per version,
 then one JSON line with every case's times, means and the b/a ratio of
 the means for each other version. Needs a CUDA card; exits with code 2
@@ -49,19 +52,23 @@ W, H = 800, 480
 # step's path-record mode, test13 the two rounds of two-round retirement
 # after --k1 segments (resume from the state this checkout's emit leaves),
 # test18 the path tracer's pass (bench_pt's scene) and the three other
-# scenes of chip_smoke.py phase E1, whose samples reach the node cap
+# scenes of chip_smoke.py phase E1, whose samples reach the node cap (the
+# PT gate culls none of the four), then the heavy PT cases the gate
+# culls, test13 (104 surfaces) and demo03 (152)
 CASES = [("test13", "whitted"), ("test14", "whitted"), ("demo02", "whitted"),
          ("demo03", "whitted"), ("test01", "whitted"), ("test01", "paths"),
          ("test13", "paths"),
          ("test13", "emit"), ("test13", "resume"), ("test18", "pt"),
-         ("test17", "pt"), ("test15", "pt"), ("test05", "pt")]
+         ("test17", "pt"), ("test15", "pt"), ("test05", "pt"),
+         ("test13", "pt"), ("demo03", "pt")]
 K_PATHS = 8
 MODES = ("whitted", "paths", "emit", "resume", "pt")
 PT_DEPTH = 10
 # PT scenes whose paths seldom reach their light get chip_smoke.py's seeded
 # emission on every surface, so that the bitwise check compares radiance,
 # not zeros; emission changes no path, so the time is the scene's own
-PT_EMISSION = {"test17": 17, "test15": 15, "test05": 5}
+PT_EMISSION = {"test17": 17, "test15": 15, "test05": 5, "test13": 13,
+               "demo03": 3}
 
 
 def build_others(srcs: list) -> list:
@@ -137,9 +144,13 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int):
     rays, tables = ck._launch_inputs("ab", sc, org, dirs, tmin, struct, ps)
     n = dirs.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # the cull flags of this case's TraceConfig, then the stream
-    last = [stream]
-    if mode != "pt":
+    # the cull flags of this case's TraceConfig and the stream, in the
+    # entry point's order
+    if mode == "pt":
+        gates = ck.cull_gates(struct, TraceConfig(depth=PT_DEPTH, cull=cull),
+                              pt=True)
+        last = [stream, gates.flags]
+    else:
         gates = ck.cull_gates(struct, TraceConfig(
             **({} if mode != "paths" else dict(max_segments=K_PATHS,
                                                 stack=4)), cull=cull))
@@ -271,8 +282,7 @@ def main():
     from quadray_tpu_torch.ops.cuda_kernel import ROUNDS_K1
     k1 = args.k1 or ROUNDS_K1
     cases = [(name, mode, cull) for name, mode in CASES
-             if mode in args.modes
-             for cull in (["on"] if mode == "pt" else args.cull)]
+             if mode in args.modes for cull in args.cull]
     for name, mode, cull in cases:
         runs = {k: launcher(lib, name, mode, dev, cull == "on", k1)
                 for k, lib in libs.items()}
@@ -287,7 +297,7 @@ def main():
             for k in order:
                 times[k].append(ms_per_launch(runs[k][0], args.reps))
         mean = {k: sum(v) / len(v) for k, v in times.items()}
-        case = f"{name} {mode}" + ("" if mode == "pt" else f" cull {cull}") \
+        case = f"{name} {mode} cull {cull}" \
             + (f" k1={k1}" if mode in ("emit", "resume") else "")
         result["cases"][case] = {
             **{f"{k}_ms": v for k, v in times.items()},
