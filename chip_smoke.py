@@ -81,7 +81,13 @@ then:
      culled and unculled on every golden scene (CUDA graphs), beside what
      the default gate picks, and the plain version's count of the surface
      tests that culling keeps and skips on test13, test14, demo02, demo03
-     and test01.
+     and test01; H4 the cooperative tail of the culled Whitted kernel
+     (ops/cuda_kernel.py COOP_MAX_LIVE): every golden scene at 800x480,
+     culled (the floor lowered), with the tail off (0), at its default
+     and from every warp's first segment (32), in both branch modes
+     (test17 and test18 push branches): the three frames bitwise equal
+     with the exact bad-pixel counts, and each setting's device ms (CUDA
+     graphs).
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -1333,9 +1339,10 @@ def phase_g3(dev):
         bound = bound_ms(n * 4 * (len(args) + 1), n * CASE_OPS.get(name, 1))
         rows[name] = (ms, plain, lib, bound)
         log(f"G3 {name} {n} elements, device ms (CUDA graphs): kernel="
-            f"{ms:.4f} plain={plain:.4f} library="
-            f"{'none' if lib is None else f'{lib:.4f}'} bound="
-            f"{bound[0]:.4f} ({bound[1]}); kernel through the wrapper, "
+            f"{ms:.5f} plain={plain:.5f} library="
+            f"{'none' if lib is None else f'{lib:.5f}'} kernel/library="
+            f"{'none' if lib is None else f'{ms / lib:.3f}'} bound="
+            f"{bound[0]:.5f} ({bound[1]}); kernel through the wrapper, "
             f"launch to launch: {wall:.4f}")
     return rows
 
@@ -1469,6 +1476,73 @@ def phase_h3(dev, floor: int):
     return rows
 
 
+@contextlib.contextmanager
+def coop_max(value: int):
+    """ops/cuda_kernel.py COOP_MAX_LIVE set to value inside the block."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    default = ck.COOP_MAX_LIVE
+    ck.COOP_MAX_LIVE = value
+    try:
+        yield default
+    finally:
+        ck.COOP_MAX_LIVE = default
+
+
+def phase_h4(dev):
+    """Every golden scene at 800x480, culled (called with the floor
+    lowered): the Whitted kernel with the cooperative tail off, at its
+    default and from the first segment, bitwise equal frames with the
+    exact bad-pixel counts; the device ms of each setting (CUDA graphs,
+    turns 0 d 32 32 d 0)."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.rays import resolve_aa
+    from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
+    from quadray_tpu_torch.utils.image import load_bmp, frame_cmp
+    cfg = TraceConfig()
+    settings = (0, ck.COOP_MAX_LIVE, 32)
+    fails, rows, modes = [], {}, set()
+    for n in SCENES:
+        sc = compiled(n, dev)
+        struct = ck.scene_struct(sc)
+        if not ck.cull_gates(struct, cfg).cull:
+            raise AssertionError(f"H4 {n}: the forced gate does not cull")
+        modes.add(struct.can_push)
+        rays = primary(sc, W, H)
+        cols = {}
+        for c in settings:
+            with coop_max(c):
+                cols[c] = ck.trace_rays_cuda(sc, *rays, cfg, struct)
+        torch.cuda.synchronize()
+        same = all(torch.equal(_bits(cols[c]), _bits(cols[0]))
+                   for c in settings)
+        img = resolve_aa(torch.clamp(cols[0], 0.0, 1.0), W, H, 1)
+        nbad, _ = frame_cmp(load_bmp(os.path.join(GOLDEN, f"ref_{n}.bmp")),
+                            to_frame(img, sc.use_gamma).cpu().numpy(),
+                            t_diff=3)
+        times = {c: [] for c in settings}
+        for c in settings + settings[::-1]:
+            with coop_max(c):
+                times[c].append(graph_ms(
+                    lambda: ck.trace_rays_cuda(sc, *rays, cfg, struct),
+                    F3_REPS))
+        ms = {c: float(np.mean(times[c])) for c in settings}
+        ok = same and nbad == GOLDEN_BAD.get(n, 0)
+        log(f"H4 {n} {W}x{H} ({struct.n_real} surfaces, can_push="
+            f"{struct.can_push}): coop 0 == {settings[1]} == 32: {same} "
+            f"bad_px={nbad}; whitted device ms "
+            + " ".join(f"coop{c}={ms[c]:.4f}" for c in settings)
+            + ("" if ok else "  FAIL"))
+        if not ok:
+            fails.append(n)
+        rows[n] = ms
+        del cols
+        torch.cuda.empty_cache()
+    if fails or modes != {False, True}:
+        raise AssertionError(f"H4: frames differ or bad pixels moved: "
+                             f"{fails}; branch modes {sorted(modes)}")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["A", "D", "E", "F", "G", "H"],
@@ -1572,6 +1646,7 @@ def main():
             phase_a(dev, PHASE_A, "H2")
             phase_f1(dev, "H2")
             h3 = phase_h3(dev, floor)
+            phase_h4(dev)
         # the default floor culls a scene where the forced run said it pays
         slower = [n for n, (_, t, c) in h3.items()
                   if c and np.mean(t["on"]) > np.mean(t["off"])]
@@ -1612,13 +1687,25 @@ def main():
     culled = ("on: warp reach masks (origin box + direction cone or "
               "endpoint capsule per warp, __ballot_sync over the bounding "
               "spheres), lsort and cont masks where cull_gates say so")
+    from quadray_tpu_torch.ops.cuda_kernel import COOP_MAX_LIVE
+    coop = (f"cooperative tail: a culled warp with at most {COOP_MAX_LIVE} "
+            "rays left (COOP_MAX_LIVE) runs them one at a time on all 32 "
+            "lanes, the kept surfaces and blockers dealt out by rank and "
+            "the nearest hit reduced by an xor butterfly on (t, original "
+            "id); bitwise the per-lane walk (H4)")
+    conf_design = ("four consecutive elements a thread, one 16-byte load "
+                   "(float4; int4 for the gather's indices) per input and "
+                   "one 16-byte store, blocks of 256 threads; one element "
+                   "at a time for a ragged tail or an unaligned pointer, "
+                   "and one element a thread for the roots, Fresnel and "
+                   "root/sdiv blocks (mostly arithmetic)")
     pt_culled = ("on from PT_CULL_MIN_SURFACES surfaces: per-ray reach "
                  "masks (each lane tests its own ray against the bounding "
                  "spheres of a word and walks its own bits), reach only")
     heavy = e_heavy["test13"]
     log(json.dumps({"kernels": [{
         "name": "whitted", "route": "cuda", "culling": culled,
-        "source": "quadray_tpu_torch/csrc/whitted.cu",
+        "design": coop, "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2201",
         "launches": launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain, "bound_ms": w_bound[0],
@@ -1652,7 +1739,7 @@ def main():
         "ms": float(np.mean(times[f"k1={k1} resume"])),
         "plain_ms": f3["plain"][1], "bound_ms": bounds[k1][1][0],
         "bound_by": bounds[k1][1][1], "library_ms": None}, {
-        "name": "conformance", "route": "cuda",
+        "name": "conformance", "route": "cuda", "design": conf_design,
         "source": "quadray_tpu_torch/csrc/conformance.cu",
         "replaces": "tests/test_conformance.py:18",
         "launches": g_launches, "max_abs_err": g_err,

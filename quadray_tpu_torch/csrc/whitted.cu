@@ -1,7 +1,8 @@
 // Whitted megakernel for NVIDIA Hopper (sm_90a): one thread traces one
-// ray to completion, and the warp culls the surfaces its rays cannot
-// reach; in PT mode each thread traces path-traced samples from a work
-// queue, one after another.
+// ray, and the warp culls the surfaces its rays cannot reach; once few
+// rays of a culled warp are left, the whole warp traces them one at a
+// time (the cooperative tail); in PT mode each thread traces path-traced
+// samples from a work queue, one after another.
 //
 // Replaces the TPU kernels quadray_tpu/ops/pallas_kernel.py
 // _trace_tiled (_make_kernel in Whitted mode), _trace_tiled_paths
@@ -132,11 +133,39 @@
 // and writes 12 per surviving ray), so it is not bandwidth-bound; it is
 // latency- and divergence-bound on FP32 ALU work and scattered reads of
 // the small scene tables (through __ldg). The Whitted modes run one ray
-// per thread, a warp as long as its longest ray, with the branch stack in
-// local memory, and walk the surfaces their warp's masks keep; a culled
-// PT node walks the surfaces its own ray may reach (culling in PT mode,
-// below), and tables in shared memory are later work.
+// per thread, with the branch stack in local memory, and walk the
+// surfaces their warp's masks keep; a culled PT node walks the surfaces
+// its own ray may reach (culling in PT mode, below), and tables in shared
+// memory are later work.
 //
+// The cooperative tail (the culled whole-trace instantiations,
+// whitted_launch's coop_max). A ray is a serial chain of dependent
+// segments, and a warp runs as long as its longest ray: in a frame most
+// warps retire after one or two segments, while a few rays run to ten,
+// and their warps run every one of those segments with one to a few live
+// lanes, each lane walking the warp's kept surfaces one after another
+// (and the bundle of a few scattered rays keeps many). So at the top of
+// each segment the warp ballots its live lanes, and once at most
+// cfg.coop_max are left it leaves the per-lane loop for good: every lane
+// saves its loop state in its column of a shared array, and coop_tail
+// runs the live rays one after another in ascending lane order, each to
+// its end. There every lane loads the owner's state and runs its segments
+// in step, so all 32 hold the same values: the masks are one-ray bundles
+// built without collectives (warp_mask's ONE); the kept surfaces are
+// dealt out by rank (the k-th set bit to lane k mod 32, so a sparse mask
+// still spreads over every lane); each lane folds its share with the
+// unchanged surface(), and an xor butterfly on (t, original id), the
+// fold's own rule, picks the winner, whose Hit is shuffled to every lane;
+// the shadow walk is an __any_sync OR that stops at the first round that
+// finds a blocker; only the owner's branch stack is written, and a pop is
+// shuffled from it. The fold is lexicographic on unique ids, so no output
+// bit depends on the split, and each ray counts its own segments against
+// max_segments as before. coop_tail is not inlined and the state goes
+// through shared memory, so the per-lane loop keeps its 126-128
+// registers. The chain stays serial; what shortens is each tail segment's
+// walk, from K tests one after another to ceil(K / 32) rounds, for the
+// price of running the tail's rays one at a time.
+
 // f32 rules the golden frames depend on: build with --fmad=false and
 // without fast math; every 3-term contraction is a left-to-right mul/add
 // chain in the twin's order; sqrt is __fsqrt_rn and rsqrt __frsqrt_rn
@@ -190,6 +219,7 @@ struct Cfg {
   int depth, max_segments, stack;
   float cutoff;
   int cull;
+  int coop_max;   // the cooperative tail's switch (whitted_launch); 0: never
 };
 
 constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
@@ -459,9 +489,13 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 __device__ __forceinline__ float add_f(float a, float b) { return a + b; }
 
 // v reduced over the warp by the xor butterfly (offsets 16 .. 1); every
-// lane ends with the same bits (ops/trace.py _butterfly)
-template <typename Op>
+// lane ends with the same bits (ops/trace.py _butterfly). ONE: every lane
+// holds the same ray (the cooperative tail), so v is its own reduction (a
+// sum of 32 copies is 32 v, which the bundle's axis normalises away: the
+// power-of-two scale changes no bit of it)
+template <bool ONE, typename Op>
 __device__ __forceinline__ float warp_reduce(float v, Op op) {
+  if (ONE) return v;
   for (int k = 16; k > 0; k >>= 1) v = op(v, __shfl_xor_sync(FULL_WARP, v, k));
   return v;
 }
@@ -475,15 +509,16 @@ struct Bundle {
 
 // centre and half diagonal of the box of the points of the lanes that
 // are on (every lane calls it)
+template <bool ONE>
 __device__ __forceinline__ void warp_ball(bool on, float x, float y, float z,
                                           float& cx, float& cy, float& cz,
                                           float& rad) {
-  const float xm = warp_reduce(on ? x : BIG, min_nan);
-  const float xM = warp_reduce(on ? x : -BIG, max_nan);
-  const float ym = warp_reduce(on ? y : BIG, min_nan);
-  const float yM = warp_reduce(on ? y : -BIG, max_nan);
-  const float zm = warp_reduce(on ? z : BIG, min_nan);
-  const float zM = warp_reduce(on ? z : -BIG, max_nan);
+  const float xm = warp_reduce<ONE>(on ? x : BIG, min_nan);
+  const float xM = warp_reduce<ONE>(on ? x : -BIG, max_nan);
+  const float ym = warp_reduce<ONE>(on ? y : BIG, min_nan);
+  const float yM = warp_reduce<ONE>(on ? y : -BIG, max_nan);
+  const float zm = warp_reduce<ONE>(on ? z : BIG, min_nan);
+  const float zM = warp_reduce<ONE>(on ? z : -BIG, max_nan);
   cx = 0.5f * (xm + xM);
   cy = 0.5f * (ym + yM);
   cz = 0.5f * (zm + zM);
@@ -491,14 +526,15 @@ __device__ __forceinline__ void warp_ball(bool on, float x, float y, float z,
   rad = 0.5f * __fsqrt_rn(ex * ex + ey * ey + ez * ez);
 }
 
-template <bool SHADOW>
+template <bool SHADOW, bool ONE>
 __device__ Bundle warp_bundle(bool on, const Ray& r) {
   Bundle b;
-  warp_ball(on, r.ox, r.oy, r.oz, b.cx, b.cy, b.cz, b.r);
+  warp_ball<ONE>(on, r.ox, r.oy, r.oz, b.cx, b.cy, b.cz, b.r);
   b.r = b.r * 1.0005f + 1e-4f;
   if (SHADOW) {
     float c1x, c1y, c1z, r1;
-    warp_ball(on, r.ox + r.dx, r.oy + r.dy, r.oz + r.dz, c1x, c1y, c1z, r1);
+    warp_ball<ONE>(on, r.ox + r.dx, r.oy + r.dy, r.oz + r.dz, c1x, c1y, c1z,
+                   r1);
     b.ax = c1x - b.cx;
     b.ay = c1y - b.cy;
     b.az = c1z - b.cz;
@@ -508,14 +544,14 @@ __device__ Bundle warp_bundle(bool on, const Ray& r) {
     const float il =
         __frsqrt_rn(maxn(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-30f));
     const float hx = r.dx * il, hy = r.dy * il, hz = r.dz * il;
-    const float sx = warp_reduce(on ? hx : 0.0f, add_f);
-    const float sy = warp_reduce(on ? hy : 0.0f, add_f);
-    const float sz = warp_reduce(on ? hz : 0.0f, add_f);
+    const float sx = warp_reduce<ONE>(on ? hx : 0.0f, add_f);
+    const float sy = warp_reduce<ONE>(on ? hy : 0.0f, add_f);
+    const float sz = warp_reduce<ONE>(on ? hz : 0.0f, add_f);
     const float an = __frsqrt_rn(maxn(sx * sx + sy * sy + sz * sz, 1e-30f));
     b.ax = sx * an;
     b.ay = sy * an;
     b.az = sz * an;
-    const float cosmin = warp_reduce(
+    const float cosmin = warp_reduce<ONE>(
         on ? hx * b.ax + hy * b.ay + hz * b.az : 1.0f, min_nan);
     b.cosw = clampn(cosmin - 1e-4f, -1.0f, 1.0f);
     b.sinw = __fsqrt_rn(maxn(1.0f - b.cosw * b.cosw, 0.0f));
@@ -550,16 +586,17 @@ __device__ __forceinline__ bool reaches(const Tables& T, const Bundle& b,
 // shadow pass of the lanes that are `on`, for the ray r of each: lane w
 // returns word w. row: this lane's static mask words (its cont or shad
 // row), nullptr for all bits; read only when the gate is on. Every lane
-// calls it with the same gates.
-template <bool SHADOW>
+// calls it with the same gates. ONE: every lane holds the same ray and
+// row (the cooperative tail): a one-ray bundle, without the collectives.
+template <bool SHADOW, bool ONE>
 __device__ unsigned warp_mask(const Tables& T, int gates, bool on,
                               const Ray& r, const int* row) {
   const unsigned lane = threadIdx.x & 31u;
-  if (!__any_sync(FULL_WARP, on)) return 0u;
+  if (ONE ? !on : !__any_sync(FULL_WARP, on)) return 0u;
   const bool reach_on = gates & CULL_REACH;
   const bool rows_on = gates & (SHADOW ? CULL_LSORT : CULL_CONT);
   Bundle b;
-  if (reach_on) b = warp_bundle<SHADOW>(on, r);
+  if (reach_on) b = warp_bundle<SHADOW, ONE>(on, r);
   unsigned mine = 0u;
   const int words = (T.ns + 31) >> 5;
   for (int w = 0; w < words; ++w) {
@@ -569,8 +606,11 @@ __device__ unsigned warp_mask(const Tables& T, int gates, bool on,
     if (reach_on && keep) keep = reaches<SHADOW>(T, b, s);
     unsigned word = __ballot_sync(FULL_WARP, keep);
     if (rows_on)
-      word &= __reduce_or_sync(
-          FULL_WARP, !on ? 0u : row ? (unsigned)ldi(row, w) : FULL_WARP);
+      word &= ONE ? (row ? (unsigned)ldi(row, w) : FULL_WARP)
+                  : __reduce_or_sync(FULL_WARP,
+                                     !on    ? 0u
+                                     : row ? (unsigned)ldi(row, w)
+                                           : FULL_WARP);
     if ((int)lane == w) mine = word;
   }
   return mine;
@@ -623,6 +663,109 @@ __device__ bool occluded_masked(const Tables& T, const Ray& r, bool need,
   return occ;
 }
 
+// ---- the cooperative tail: one ray walked by the whole warp (file header)
+
+// bit position of the set bit of rank k (from 0, ascending) of w; k <
+// __popc(w)
+__device__ __forceinline__ int nth_bit(unsigned w, int k) {
+  int pos = 0;
+  for (int sh = 16; sh > 0; sh >>= 1) {
+    const unsigned lo = w & ((1u << sh) - 1u);
+    const int c = __popc(lo);
+    if (k >= c) {
+      k -= c;
+      w >>= sh;
+      pos += sh;
+    } else {
+      w = lo;
+    }
+  }
+  return pos;
+}
+
+// The kept surfaces of a warp mask (lane w holds word w) dealt out by
+// rank: the kept bit of rank g goes to lane g mod 32, so a sparse mask
+// still spreads over every lane. kept_ranks returns, on lane w, the kept
+// bits of words 0..w; kept_row the row of rank g, -1 for g >= the count
+// (every lane calls both: their shuffles need the whole warp).
+__device__ __forceinline__ int kept_ranks(unsigned mine) {
+  const int lane = (int)(threadIdx.x & 31u);
+  int incl = __popc(mine);
+  for (int k = 1; k < 32; k <<= 1) {
+    const int v = __shfl_up_sync(FULL_WARP, incl, k);
+    if (lane >= k) incl += v;
+  }
+  return incl;
+}
+
+__device__ __forceinline__ int kept_row(unsigned mine, int incl, int g) {
+  int w = 0;   // the first word whose count passes g (31 if none does)
+  for (int step = 16; step > 0; step >>= 1)
+    if (__shfl_sync(FULL_WARP, incl, w + step - 1) <= g) w += step;
+  const unsigned word = __shfl_sync(FULL_WARP, mine, w);
+  const int below = __shfl_sync(FULL_WARP, incl, w) - __popc(word);
+  return g - below < __popc(word) ? w * 32 + nth_bit(word, g - below) : -1;
+}
+
+// nearest hit of the ray r, which every lane holds, over the surfaces of
+// its mask: each lane folds its share with surface() (ties on the
+// original id), then the warp reduces (t, original id) lexicographically
+// by the xor butterfly, the fold's own rule, so the winner is the serial
+// walk's, whatever the split; every lane ends with its Hit. A lane with
+// no share keeps no_hit (t BIG, srf 0x7FFFFFF), which loses to any hit.
+__device__ void nearest_coop(const Tables& T, const Ray& r, unsigned mine,
+                             Hit& best) {
+  no_hit(best);
+  const int incl = kept_ranks(mine);
+  const int total = __shfl_sync(FULL_WARP, incl, 31);
+  for (int g0 = 0; g0 < total; g0 += 32) {
+    const int s = kept_row(mine, incl, g0 + (int)(threadIdx.x & 31u));
+    if (s >= 0) surface<false, true>(T, s, r, best);
+  }
+  float t = best.t;
+  int srf = best.srf;
+  for (int k = 16; k > 0; k >>= 1) {
+    const float ot = __shfl_xor_sync(FULL_WARP, t, k);
+    const int os = __shfl_xor_sync(FULL_WARP, srf, k);
+    if (ot < t || (ot == t && os < srf)) {
+      t = ot;
+      srf = os;
+    }
+  }
+  // one lane tested the winner (original ids are unique); with no hit,
+  // every lane holds no_hit and lane 0 gives it
+  const int src = __ffs(__ballot_sync(FULL_WARP, best.srf == srf)) - 1;
+  best.t = t;
+  best.srf = srf;
+  best.side = __shfl_sync(FULL_WARP, best.side, src);
+  best.mat = __shfl_sync(FULL_WARP, best.mat, src);
+  best.row = __shfl_sync(FULL_WARP, best.row, src);
+  best.wx = __shfl_sync(FULL_WARP, best.wx, src);
+  best.wy = __shfl_sync(FULL_WARP, best.wy, src);
+  best.wz = __shfl_sync(FULL_WARP, best.wz, src);
+  best.nx = __shfl_sync(FULL_WARP, best.nx, src);
+  best.ny = __shfl_sync(FULL_WARP, best.ny, src);
+  best.nz = __shfl_sync(FULL_WARP, best.nz, src);
+  best.hx = __shfl_sync(FULL_WARP, best.hx, src);
+  best.hy = __shfl_sync(FULL_WARP, best.hy, src);
+  best.hz = __shfl_sync(FULL_WARP, best.hz, src);
+}
+
+// any blocker of the shadow ray r, which every lane holds, in its mask:
+// the blockers dealt out as in nearest_coop, an OR over the lanes that
+// stops at the first round that finds one; every lane returns it
+__device__ bool occluded_coop(const Tables& T, const Ray& r, unsigned mine) {
+  const int incl = kept_ranks(mine);
+  const int total = __shfl_sync(FULL_WARP, incl, 31);
+  for (int g0 = 0; g0 < total; g0 += 32) {
+    const int s = kept_row(mine, incl, g0 + (int)(threadIdx.x & 31u));
+    Hit unused;
+    const bool occ = s >= 0 && surface<true, true>(T, s, r, unused);
+    if (__any_sync(FULL_WARP, occ)) return true;
+  }
+  return false;
+}
+
 // material at a hit: properties, colour (texture through the packed atlas
 // and the decode LUT, then the gamma decode) and the material row
 __device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
@@ -659,9 +802,296 @@ __device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
 // the warp's masks (cfg.cull non-zero) or every surface for every ray.
 constexpr int WHOLE = 0, EMIT = 1, RESUME = 2;
 constexpr int STATE_ROWS = 21;
+constexpr int W_BLOCK = 128;   // threads a block of the Whitted modes
+
+// The cooperative tail keeps each thread's loop state in shared memory,
+// one column of TAIL_WORDS a thread (word k at col[k * W_BLOCK]): the
+// ray (tmx aside), the throughput, the colour sums, depth and stack top.
+constexpr int TAIL_WORDS = 22;
+
+__device__ __forceinline__ void tail_save(float* col, const Ray& r,
+                                          const float thr[3],
+                                          const float acc[3], int depth,
+                                          int sp) {
+  const float v[TAIL_WORDS] = {
+      r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmn, __int_as_float(r.osrf),
+      __int_as_float(r.oside), __int_as_float(r.thru ? 1 : 0), r.olx, r.oly,
+      r.olz, __int_as_float(r.orow), thr[0], thr[1], thr[2], acc[0], acc[1],
+      acc[2], __int_as_float(depth), __int_as_float(sp)};
+  for (int k = 0; k < TAIL_WORDS; ++k) col[k * W_BLOCK] = v[k];
+}
+
+__device__ __forceinline__ void tail_load(const float* col, Ray& r,
+                                          float thr[3], float acc[3],
+                                          int& depth, int& sp) {
+  r.ox = col[0];
+  r.oy = col[W_BLOCK];
+  r.oz = col[2 * W_BLOCK];
+  r.dx = col[3 * W_BLOCK];
+  r.dy = col[4 * W_BLOCK];
+  r.dz = col[5 * W_BLOCK];
+  r.tmn = col[6 * W_BLOCK];
+  r.osrf = __float_as_int(col[7 * W_BLOCK]);
+  r.oside = __float_as_int(col[8 * W_BLOCK]);
+  r.thru = __float_as_int(col[9 * W_BLOCK]) != 0;
+  r.olx = col[10 * W_BLOCK];
+  r.oly = col[11 * W_BLOCK];
+  r.olz = col[12 * W_BLOCK];
+  r.orow = __float_as_int(col[13 * W_BLOCK]);
+  for (int c = 0; c < 3; ++c) thr[c] = col[(14 + c) * W_BLOCK];
+  for (int c = 0; c < 3; ++c) acc[c] = col[(17 + c) * W_BLOCK];
+  depth = __float_as_int(col[20 * W_BLOCK]);
+  sp = __float_as_int(col[21 * W_BLOCK]);
+}
+
+// One segment of a ray, segment `it` of the thread at index i (the loop
+// state r, thr, acc, depth, sp, stk, active): its nearest hit, its shadow
+// rays, shading and the continuation, else the pop of a pending branch,
+// else retirement (seg := it). TAIL: the cooperative tail, where every
+// lane holds the ray of lane `owner`; the walks are dealt over the warp,
+// and only the owner's branch stack is written (a pop is shuffled from
+// it).
+template <bool CAN_PUSH, bool EMIT_PATHS, bool CULL, bool TAIL>
+__device__ __forceinline__ void segment(
+    const Tables& T, const Cfg& cfg, int it, int i, int n,
+    int* __restrict__ paths, Ray& r, float thr[3], float acc[3], int& depth,
+    int& sp, float (*stk)[SLOT], bool& active, int& seg, int owner) {
+  const float amb[3] = {ldf(T.misc, 0), ldf(T.misc, 1), ldf(T.misc, 2)};
+  const bool gamma_on = ldf(T.misc, 3) > 0.0f;
+  const bool fres_scene = ldf(T.misc, 4) > 0.0f;
+  Hit hb;
+  if (CULL) {
+    const int* crow = nullptr;   // the cont row of this ray's last hit
+    if ((cfg.cull & CULL_CONT) && active && r.orow >= 0)
+      crow = T.cont + (size_t)r.orow * 2 * T.nw + (r.oside > 0 ? 0 : T.nw);
+    const unsigned mine =
+        warp_mask<false, TAIL>(T, cfg.cull, active, r, crow);
+    if (TAIL)   // every lane holds the owner's ray
+      nearest_coop(T, r, mine, hb);
+    else
+      nearest_masked(T, r, active, mine, hb);
+  } else {
+    nearest_all<true>(T, r, hb);
+  }
+  // unculled, a lane in the loop has a ray
+  const bool hit = (!CULL || active) && hb.t < BIG;
+  bool cont = false;
+  // path record (record_path, pallas_kernel.py:1871-1886): a miss keeps
+  // side +1 and sets the bit of every active light (lit needs a hit)
+  unsigned rec =
+      EMIT_PATHS ? (1u << 12) | (((1u << T.nl) - 1u) << 16) : 0u;
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  const float* M = T.mat_f;
+  float mc[3] = {0.0f, 0.0f, 0.0f};
+  float col[3] = {0.0f, 0.0f, 0.0f};
+  int props = 0;
+  float m_dff = 0.0f, m_spc = 0.0f, m_pow = 0.0f;
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
+  if (hit) {
+    // normalize the normal
+    const float nn = __frsqrt_rn(
+        maxn(hb.nx * hb.nx + hb.ny * hb.ny + hb.nz * hb.nz, 1e-30f));
+    nx = hb.nx * nn;
+    ny = hb.ny * nn;
+    nz = hb.nz * nn;
+    rec = (unsigned)(hb.srf & 0xFFF) | (hb.side > 0 ? 1u << 12 : 0u) |
+          (1u << 15);
+    props = hit_material(T, hb, gamma_on, mc, M);
+    m_dff = ldf(M, 3);
+    m_spc = ldf(M, 4);
+    m_pow = ldf(M, 5);
+    for (int c = 0; c < 3; ++c) col[c] = mc[c] * amb[c];
+  }
+  // culled, every lane takes part in every light's shadow pass
+  const int nl = CULL || hit ? T.nl : 0;
+  for (int l = 0; l < nl; ++l) {
+    const float* L = T.lg_f + (size_t)l * LF;
+    const unsigned unlit = EMIT_PATHS ? 1u << (16 + l) : 0u;
+    Ray sr;
+    sr.ox = hb.wx; sr.oy = hb.wy; sr.oz = hb.wz;
+    sr.dx = sr.dy = sr.dz = 0.0f;
+    sr.tmn = 0.0f;
+    sr.tmx = 1.0f;
+    sr.osrf = hb.srf;
+    sr.oside = hb.side;
+    sr.thru = false;
+    sr.olx = hb.hx; sr.oly = hb.hy; sr.olz = hb.hz;
+    sr.orow = -1;
+    float r_dot = 0.0f;
+    bool need = false;
+    if (hit) {
+      sr.dx = ldf(L, 0) - hb.wx;
+      sr.dy = ldf(L, 1) - hb.wy;
+      sr.dz = ldf(L, 2) - hb.wz;
+      r_dot = sr.dx * nx + sr.dy * ny + sr.dz * nz;
+      need = r_dot > 0.0f;
+      if (!need) rec |= unlit;
+    }
+    bool occ;
+    if (CULL) {
+      const int* srow = nullptr;   // the receiver's lsort row for light l
+      if ((cfg.cull & CULL_LSORT) && need)
+        srow = T.shad + (size_t)hb.row * T.nl * T.nw + (size_t)l * T.nw;
+      const unsigned mine =
+          warp_mask<true, TAIL>(T, cfg.cull, need, sr, srow);
+      occ = TAIL ? occluded_coop(T, sr, mine)
+                 : occluded_masked(T, sr, need, mine);
+    } else {
+      occ = need && occluded_all(T, sr);
+    }
+    if (!need) continue;
+    if (occ) {
+      rec |= unlit;
+      continue;
+    }
+    // lit and unshadowed: attenuated diffuse + specular
+    const float lvx = sr.dx, lvy = sr.dy, lvz = sr.dz;
+    const float r2 = lvx * lvx + lvy * lvy + lvz * lvz;
+    const float rr = __fsqrt_rn(maxn(r2, 1e-30f));
+    const float attn = __frsqrt_rn(
+        maxn(ldf(L, 6) + ldf(L, 7) * rr + ldf(L, 8) * r2, 1e-30f));
+    const float dfs =
+        (props & PROP_DIFFUSE) ? r_dot / rr * attn * m_dff : 0.0f;
+    float spc = 0.0f;
+    if (props & PROP_SPECULAR) {
+      const float rlx = lvx - 2.0f * r_dot * nx;
+      const float rly = lvy - 2.0f * r_dot * ny;
+      const float rlz = lvz - 2.0f * r_dot * nz;
+      const float sdot = rlx * dx + rly * dy + rlz * dz;
+      if (sdot > 0.0f) {
+        const float d2 = dx * dx + dy * dy + dz * dz;
+        float cosr = sdot * __frsqrt_rn(maxn(d2 * r2, 1e-30f));
+        cosr = clampn(cosr, 1e-6f, 1.0f);
+        spc = expf(m_pow * logf(cosr)) * m_spc;
+      }
+    }
+    for (int c = 0; c < 3; ++c) {
+      const float lc = ldf(L, 3 + c);
+      col[c] = col[c] + ((props & PROP_METAL)
+                             ? mc[c] * lc * (dfs + spc)
+                             : mc[c] * lc * dfs + lc * spc);
+    }
+  }
+  if (hit) {
+    if (props & PROP_LIGHT) {
+      for (int c = 0; c < 3; ++c) col[c] = mc[c];
+    }
+
+    const Fresnel fr = fresnel(props, M, fres_scene, dx, dy, dz, nx, ny,
+                               nz);
+
+    // local weight from the ORIGINAL material rfl/trn (TR_mix,
+    // tracer.cpp:3566-3571), not the Fresnel-modulated values
+    const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7);
+    const float lw = maxn(1.0f - m_trn - m_rfl, 0.0f);
+    for (int c = 0; c < 3; ++c) acc[c] = acc[c] + thr[c] * col[c] * lw;
+
+    // continuations
+    const bool deep_ok = depth < cfg.depth;
+    float trl[3], trn[3];
+    for (int c = 0; c < 3; ++c) {
+      trl[c] = thr[c] * fr.c_rfl;
+      trn[c] = thr[c] * fr.c_trn;
+    }
+    const bool go_rfl =
+        deep_ok && maxn(maxn(trl[0], trl[1]), trl[2]) > cfg.cutoff;
+    const bool go_trn =
+        deep_ok && maxn(maxn(trn[0], trn[1]), trn[2]) > cfg.cutoff;
+    cont = go_rfl || go_trn;
+    if (cont) rec |= (go_rfl ? 1u : 2u) << 13;
+    if (CAN_PUSH && go_rfl && go_trn && sp < cfg.stack) {
+      // push the refraction branch (the tail: on the owner's stack)
+      if (!TAIL || (int)(threadIdx.x & 31u) == owner) {
+        float* slot = stk[sp];
+        slot[0] = hb.wx; slot[1] = hb.wy; slot[2] = hb.wz;
+        slot[3] = fr.rfx; slot[4] = fr.rfy; slot[5] = fr.rfz;
+        slot[6] = trn[0]; slot[7] = trn[1]; slot[8] = trn[2];
+        slot[9] = __int_as_float(depth + 1);
+        slot[10] = __int_as_float(hb.srf);
+        slot[11] = __int_as_float(hb.side);
+        slot[12] = hb.hx; slot[13] = hb.hy; slot[14] = hb.hz;
+      }
+      ++sp;
+    }
+    if (cont) {
+      // continue with the reflection if live, else the refraction
+      if (go_rfl) {
+        const float ddn = dx * nx + dy * ny + dz * nz;
+        r.dx = dx - 2.0f * ddn * nx;
+        r.dy = dy - 2.0f * ddn * ny;
+        r.dz = dz - 2.0f * ddn * nz;
+      } else {
+        r.dx = fr.rfx; r.dy = fr.rfy; r.dz = fr.rfz;
+      }
+      for (int c = 0; c < 3; ++c) thr[c] = go_rfl ? trl[c] : trn[c];
+      r.ox = hb.wx; r.oy = hb.wy; r.oz = hb.wz;
+      depth = depth + 1;
+      r.osrf = hb.srf;
+      r.oside = hb.side;
+      r.thru = !go_rfl;
+      r.tmn = 0.0f;
+      r.olx = hb.hx; r.oly = hb.hy; r.olz = hb.hz;
+      if (CULL) r.orow = hb.row;
+    }
+  }
+  if (CULL && !active) return;
+  if (EMIT_PATHS) paths[(size_t)it * n + i] = (int)rec;
+  if (!cont) {
+    if (!CAN_PUSH || sp == 0) {   // retired
+      active = false;
+      seg = it;
+      return;
+    }
+    // pop a pending refraction branch (the tail: the owner's, shuffled
+    // to every lane)
+    --sp;
+    float slot[SLOT];
+    for (int k = 0; k < SLOT; ++k)
+      slot[k] = TAIL ? __shfl_sync(FULL_WARP, stk[sp][k], owner)
+                     : stk[sp][k];
+    r.ox = slot[0]; r.oy = slot[1]; r.oz = slot[2];
+    r.dx = slot[3]; r.dy = slot[4]; r.dz = slot[5];
+    thr[0] = slot[6]; thr[1] = slot[7]; thr[2] = slot[8];
+    depth = __float_as_int(slot[9]);
+    r.osrf = __float_as_int(slot[10]);
+    r.oside = __float_as_int(slot[11]);
+    r.olx = slot[12]; r.oly = slot[13]; r.olz = slot[14];
+    r.thru = true;
+    r.tmn = 0.0f;
+    r.orow = -1;
+  }
+}
+
+// The cooperative tail of a culled whole-trace warp (file header), from
+// segment it0: the rays of the lanes of `live`, one after another in
+// ascending lane order, each to its end, every lane running its segments.
+// Each lane's state is in its column of the warp's shared columns `cols`
+// (tail_save); a ray's colour sums go back to its column. Not inlined: the
+// warp calls it once, and the per-lane loop keeps its registers.
+template <bool CAN_PUSH>
+__device__ __noinline__ void coop_tail(Tables T, Cfg cfg, float* cols,
+                                       unsigned live, int it0,
+                                       float (*stk)[SLOT]) {
+  const int lane = (int)(threadIdx.x & 31u);
+  for (; live; live &= live - 1u) {
+    const int owner = __ffs(live) - 1;
+    Ray r;
+    float thr[3], acc[3];
+    int depth, sp, seg;
+    tail_load(cols + owner, r, thr, acc, depth, sp);
+    r.tmx = BIG;
+    bool active = true;
+    for (int it = it0; it < cfg.max_segments && active; ++it)
+      segment<CAN_PUSH, false, true, true>(T, cfg, it, 0, 0, nullptr, r, thr,
+                                           acc, depth, sp, stk, active, seg,
+                                           owner);
+    if (lane == owner)
+      for (int c = 0; c < 3; ++c) cols[owner + (17 + c) * W_BLOCK] = acc[c];
+  }
+}
 
 template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND, bool CULL>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(W_BLOCK)
 whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
                int* __restrict__ paths, float* __restrict__ state,
                const int* __restrict__ idx, const int* __restrict__ count,
@@ -717,9 +1147,6 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   }
   r.tmx = BIG;
   float stk[CAN_PUSH ? MAX_STACK : 1][SLOT];
-  const float amb[3] = {ldf(T.misc, 0), ldf(T.misc, 1), ldf(T.misc, 2)};
-  const bool gamma_on = ldf(T.misc, 3) > 0.0f;
-  const bool fres_scene = ldf(T.misc, 4) > 0.0f;
 
   // The TPU kernel caps segments per block; here the cap is per thread.
   // That is equivalent because a retired lane is a fixed point of
@@ -729,197 +1156,32 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   // A lane still active at block iteration `it` has run exactly `it`
   // segments, so stopping each thread at max_segments is exact.
   int seg = cfg.max_segments;   // the segment this thread retired in
+  // The cooperative tail (file header) of the culled whole-trace modes:
+  // once at most cfg.coop_max of a warp's lanes hold a ray, each lane
+  // saves its state in its column of `tail` and the warp runs those rays
+  // one at a time (coop_tail); then each lane takes back its colour sums.
+  constexpr bool COOP = CULL && ROUND == WHOLE && !EMIT_PATHS;
+  __shared__ float tail[COOP ? TAIL_WORDS * W_BLOCK : 1];
   for (int it = 0; it < cfg.max_segments; ++it) {
-    if (CULL ? !__any_sync(FULL_WARP, active) : !active) break;
-    Hit hb;
     if (CULL) {
-      const int* crow = nullptr;   // the cont row of this ray's last hit
-      if ((cfg.cull & CULL_CONT) && active && r.orow >= 0)
-        crow = T.cont + (size_t)r.orow * 2 * T.nw + (r.oside > 0 ? 0 : T.nw);
-      nearest_masked(T, r, active,
-                     warp_mask<false>(T, cfg.cull, active, r, crow), hb);
-    } else {
-      nearest_all<true>(T, r, hb);
+      const unsigned live = __ballot_sync(FULL_WARP, active);
+      if (!live) break;
+      if (COOP && __popc(live) <= cfg.coop_max) {
+        float* const cols = tail + (threadIdx.x & ~31u);
+        const int lane = (int)(threadIdx.x & 31u);
+        tail_save(cols + lane, r, thr, acc, depth, sp);
+        __syncwarp();
+        coop_tail<CAN_PUSH>(T, cfg, cols, live, it, stk);
+        __syncwarp();
+        for (int c = 0; c < 3; ++c) acc[c] = cols[lane + (17 + c) * W_BLOCK];
+        break;
+      }
+    } else if (!active) {
+      break;
     }
-    // unculled, a lane in the loop has a ray
-    const bool hit = (!CULL || active) && hb.t < BIG;
-    bool cont = false;
-    // path record (record_path, pallas_kernel.py:1871-1886): a miss keeps
-    // side +1 and sets the bit of every active light (lit needs a hit)
-    unsigned rec =
-        EMIT_PATHS ? (1u << 12) | (((1u << T.nl) - 1u) << 16) : 0u;
-    float nx = 0.0f, ny = 0.0f, nz = 0.0f;
-    const float* M = T.mat_f;
-    float mc[3] = {0.0f, 0.0f, 0.0f};
-    float col[3] = {0.0f, 0.0f, 0.0f};
-    int props = 0;
-    float m_dff = 0.0f, m_spc = 0.0f, m_pow = 0.0f;
-    const float dx = r.dx, dy = r.dy, dz = r.dz;
-    if (hit) {
-      // normalize the normal
-      const float nn = __frsqrt_rn(
-          maxn(hb.nx * hb.nx + hb.ny * hb.ny + hb.nz * hb.nz, 1e-30f));
-      nx = hb.nx * nn;
-      ny = hb.ny * nn;
-      nz = hb.nz * nn;
-      rec = (unsigned)(hb.srf & 0xFFF) | (hb.side > 0 ? 1u << 12 : 0u) |
-            (1u << 15);
-      props = hit_material(T, hb, gamma_on, mc, M);
-      m_dff = ldf(M, 3);
-      m_spc = ldf(M, 4);
-      m_pow = ldf(M, 5);
-      for (int c = 0; c < 3; ++c) col[c] = mc[c] * amb[c];
-    }
-    // culled, every lane takes part in every light's shadow pass
-    const int nl = CULL || hit ? T.nl : 0;
-    for (int l = 0; l < nl; ++l) {
-      const float* L = T.lg_f + (size_t)l * LF;
-      const unsigned unlit = EMIT_PATHS ? 1u << (16 + l) : 0u;
-      Ray sr;
-      sr.ox = hb.wx; sr.oy = hb.wy; sr.oz = hb.wz;
-      sr.dx = sr.dy = sr.dz = 0.0f;
-      sr.tmn = 0.0f;
-      sr.tmx = 1.0f;
-      sr.osrf = hb.srf;
-      sr.oside = hb.side;
-      sr.thru = false;
-      sr.olx = hb.hx; sr.oly = hb.hy; sr.olz = hb.hz;
-      sr.orow = -1;
-      float r_dot = 0.0f;
-      bool need = false;
-      if (hit) {
-        sr.dx = ldf(L, 0) - hb.wx;
-        sr.dy = ldf(L, 1) - hb.wy;
-        sr.dz = ldf(L, 2) - hb.wz;
-        r_dot = sr.dx * nx + sr.dy * ny + sr.dz * nz;
-        need = r_dot > 0.0f;
-        if (!need) rec |= unlit;
-      }
-      bool occ;
-      if (CULL) {
-        const int* srow = nullptr;   // the receiver's lsort row for light l
-        if ((cfg.cull & CULL_LSORT) && need)
-          srow = T.shad + (size_t)hb.row * T.nl * T.nw + (size_t)l * T.nw;
-        occ = occluded_masked(T, sr, need,
-                              warp_mask<true>(T, cfg.cull, need, sr, srow));
-      } else {
-        occ = need && occluded_all(T, sr);
-      }
-      if (!need) continue;
-      if (occ) {
-        rec |= unlit;
-        continue;
-      }
-      // lit and unshadowed: attenuated diffuse + specular
-      const float lvx = sr.dx, lvy = sr.dy, lvz = sr.dz;
-      const float r2 = lvx * lvx + lvy * lvy + lvz * lvz;
-      const float rr = __fsqrt_rn(maxn(r2, 1e-30f));
-      const float attn = __frsqrt_rn(
-          maxn(ldf(L, 6) + ldf(L, 7) * rr + ldf(L, 8) * r2, 1e-30f));
-      const float dfs =
-          (props & PROP_DIFFUSE) ? r_dot / rr * attn * m_dff : 0.0f;
-      float spc = 0.0f;
-      if (props & PROP_SPECULAR) {
-        const float rlx = lvx - 2.0f * r_dot * nx;
-        const float rly = lvy - 2.0f * r_dot * ny;
-        const float rlz = lvz - 2.0f * r_dot * nz;
-        const float sdot = rlx * dx + rly * dy + rlz * dz;
-        if (sdot > 0.0f) {
-          const float d2 = dx * dx + dy * dy + dz * dz;
-          float cosr = sdot * __frsqrt_rn(maxn(d2 * r2, 1e-30f));
-          cosr = clampn(cosr, 1e-6f, 1.0f);
-          spc = expf(m_pow * logf(cosr)) * m_spc;
-        }
-      }
-      for (int c = 0; c < 3; ++c) {
-        const float lc = ldf(L, 3 + c);
-        col[c] = col[c] + ((props & PROP_METAL)
-                               ? mc[c] * lc * (dfs + spc)
-                               : mc[c] * lc * dfs + lc * spc);
-      }
-    }
-    if (hit) {
-      if (props & PROP_LIGHT) {
-        for (int c = 0; c < 3; ++c) col[c] = mc[c];
-      }
-
-      const Fresnel fr = fresnel(props, M, fres_scene, dx, dy, dz, nx, ny,
-                                 nz);
-
-      // local weight from the ORIGINAL material rfl/trn (TR_mix,
-      // tracer.cpp:3566-3571), not the Fresnel-modulated values
-      const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7);
-      const float lw = maxn(1.0f - m_trn - m_rfl, 0.0f);
-      for (int c = 0; c < 3; ++c) acc[c] = acc[c] + thr[c] * col[c] * lw;
-
-      // continuations
-      const bool deep_ok = depth < cfg.depth;
-      float trl[3], trn[3];
-      for (int c = 0; c < 3; ++c) {
-        trl[c] = thr[c] * fr.c_rfl;
-        trn[c] = thr[c] * fr.c_trn;
-      }
-      const bool go_rfl =
-          deep_ok && maxn(maxn(trl[0], trl[1]), trl[2]) > cfg.cutoff;
-      const bool go_trn =
-          deep_ok && maxn(maxn(trn[0], trn[1]), trn[2]) > cfg.cutoff;
-      cont = go_rfl || go_trn;
-      if (cont) rec |= (go_rfl ? 1u : 2u) << 13;
-      if (CAN_PUSH && go_rfl && go_trn && sp < cfg.stack) {
-        // push the refraction branch
-        float* slot = stk[sp];
-        slot[0] = hb.wx; slot[1] = hb.wy; slot[2] = hb.wz;
-        slot[3] = fr.rfx; slot[4] = fr.rfy; slot[5] = fr.rfz;
-        slot[6] = trn[0]; slot[7] = trn[1]; slot[8] = trn[2];
-        slot[9] = __int_as_float(depth + 1);
-        slot[10] = __int_as_float(hb.srf);
-        slot[11] = __int_as_float(hb.side);
-        slot[12] = hb.hx; slot[13] = hb.hy; slot[14] = hb.hz;
-        ++sp;
-      }
-      if (cont) {
-        // continue with the reflection if live, else the refraction
-        if (go_rfl) {
-          const float ddn = dx * nx + dy * ny + dz * nz;
-          r.dx = dx - 2.0f * ddn * nx;
-          r.dy = dy - 2.0f * ddn * ny;
-          r.dz = dz - 2.0f * ddn * nz;
-        } else {
-          r.dx = fr.rfx; r.dy = fr.rfy; r.dz = fr.rfz;
-        }
-        for (int c = 0; c < 3; ++c) thr[c] = go_rfl ? trl[c] : trn[c];
-        r.ox = hb.wx; r.oy = hb.wy; r.oz = hb.wz;
-        depth = depth + 1;
-        r.osrf = hb.srf;
-        r.oside = hb.side;
-        r.thru = !go_rfl;
-        r.tmn = 0.0f;
-        r.olx = hb.hx; r.oly = hb.hy; r.olz = hb.hz;
-        if (CULL) r.orow = hb.row;
-      }
-    }
-    if (CULL && !active) continue;
-    if (EMIT_PATHS) paths[(size_t)it * n + i] = (int)rec;
-    if (!cont) {
-      if (!CAN_PUSH || sp == 0) {   // retired
-        active = false;
-        seg = it;
-        continue;
-      }
-      // pop a pending refraction branch
-      --sp;
-      const float* slot = stk[sp];
-      r.ox = slot[0]; r.oy = slot[1]; r.oz = slot[2];
-      r.dx = slot[3]; r.dy = slot[4]; r.dz = slot[5];
-      thr[0] = slot[6]; thr[1] = slot[7]; thr[2] = slot[8];
-      depth = __float_as_int(slot[9]);
-      r.osrf = __float_as_int(slot[10]);
-      r.oside = __float_as_int(slot[11]);
-      r.olx = slot[12]; r.oly = slot[13]; r.olz = slot[14];
-      r.thru = true;
-      r.tmn = 0.0f;
-      r.orow = -1;
-    }
+    segment<CAN_PUSH, EMIT_PATHS, CULL, false>(T, cfg, it, i, n, paths, r,
+                                               thr, acc, depth, sp, stk,
+                                               active, seg, 0);
   }
   if (!has_ray) return;
   out[i] = acc[0];
@@ -1310,7 +1572,7 @@ template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND>
 static int launch(const float* rays, float* out, int* paths, float* state,
                   const int* idx, const int* count, int n, const Tables& T,
                   const Cfg& cfg, void* stream) {
-  const dim3 block(128), grid((unsigned)((n + 127) / 128));
+  const dim3 block(W_BLOCK), grid((unsigned)((n + W_BLOCK - 1) / W_BLOCK));
   cudaStream_t s = (cudaStream_t)stream;
   if (cfg.cull)
     whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, true><<<grid, block, 0, s>>>(
@@ -1324,16 +1586,21 @@ static int launch(const float* rays, float* out, int* paths, float* state,
 // C entry point (bound with ctypes): launches on `stream` and returns the
 // cudaError_t of the launch; allocates nothing and does not synchronise.
 // rays: (7, n) f32 SoA (ox oy oz dx dy dz tmin); out: (3, n) f32 SoA;
-// cull: the culling gates (Cfg.cull bits).
+// cull: the culling gates (Cfg.cull bits); coop_max (0..32): a culled
+// warp with at most this many rays left runs them one at a time on all
+// its lanes (0 never, 32 from the first segment). coop_max comes after
+// the stream, so that a caller of an entry point from before the
+// cooperative tail passes the arguments it reads.
 extern "C" int whitted_launch(
     const float* rays, float* out, SCENE_PARAMS, int n, int ns, int nc,
     int nl, int depth, int max_segments, int stack, float cutoff,
-    int can_push, int cull, void* stream) {
+    int can_push, int cull, void* stream, int coop_max) {
   if (n <= 0) return 0;
-  if (stack < 1 || stack > MAX_STACK || !fits(ns, cull))
+  if (stack < 1 || stack > MAX_STACK || !fits(ns, cull) || coop_max < 0 ||
+      coop_max > 32)
     return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, max_segments, stack, cutoff, cull};
+  const Cfg cfg{depth, max_segments, stack, cutoff, cull, coop_max};
   return can_push ? launch<true, false, WHOLE>(rays, out, nullptr, nullptr,
                                                nullptr, nullptr, n, T, cfg,
                                                stream)
@@ -1353,7 +1620,7 @@ extern "C" int whitted_paths_launch(
   if (k < 1 || nl < 0 || nl > 16 || !fits(ns, cull))
     return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, k, 1, cutoff, cull};
+  const Cfg cfg{depth, k, 1, cutoff, cull, 0};
   return launch<false, true, WHOLE>(rays, out, paths, nullptr, nullptr,
                                     nullptr, n, T, cfg, stream);
 }
@@ -1369,7 +1636,7 @@ extern "C" int whitted_emit_launch(
   if (n <= 0) return 0;
   if (k1 < 1 || !fits(ns, cull)) return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, k1, 1, cutoff, cull};
+  const Cfg cfg{depth, k1, 1, cutoff, cull, 0};
   return launch<false, false, EMIT>(rays, out, nullptr, state, nullptr,
                                     nullptr, n, T, cfg, stream);
 }
@@ -1386,7 +1653,7 @@ extern "C" int whitted_resume_launch(
   if (n <= 0) return 0;
   if (segments < 1 || !fits(ns, cull)) return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, segments, 1, cutoff, cull};
+  const Cfg cfg{depth, segments, 1, cutoff, cull, 0};
   return launch<false, false, RESUME>(nullptr, out, nullptr,
                                       const_cast<float*>(state), idx, count,
                                       n, T, cfg, stream);

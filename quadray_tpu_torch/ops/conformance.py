@@ -15,7 +15,10 @@ rules the golden frames depend on.
 
 ``conformance(name, *args)`` runs case ``name``: on CUDA tensors it
 launches the case's kernel (``launches`` counts them) or raises; on CPU
-tensors it runs the plain version ``plain(name, *args)``. The plain
+tensors it runs the plain version ``plain(name, *args)``. A kernel thread
+takes four consecutive elements with 16-byte loads where every pointer is
+16-byte aligned, and the elements a 16-byte group cannot take one by one
+(``vector_split``). The plain
 versions compute as the kernels do: sqrt and rsqrt correctly rounded
 (through float64, as ``ops/trace.py``), the megakernel's blocks through
 the plain tracer's own helpers.
@@ -161,13 +164,28 @@ def plain(name: str, *args) -> torch.Tensor:
     return _PLAIN[name](*args)
 
 
+VEC = 4   # elements in a kernel thread's 16-byte group (one float4)
+
+
+def vector_split(n: int, *tensors) -> tuple:
+    """How the kernel of a case that reads 16-byte groups (all but the
+    roots, Fresnel and root/sdiv blocks, csrc/conformance.cu ``elems``)
+    splits n elements: (elements in 16-byte groups, elements one by
+    one). The groups need every tensor's data 16-byte aligned; the last
+    n % 4 elements, or all n where a tensor is not aligned, go one by
+    one."""
+    if any(t.data_ptr() % (4 * VEC) for t in tensors):
+        return 0, n
+    return n - n % VEC, n % VEC
+
+
 def _lib():
     from quadray_tpu_torch.ops._build import load_library
     lib = load_library("conformance")
     if lib.conformance_launch.argtypes is None:
         lib.conformance_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 5
-            + [ctypes.c_int, ctypes.c_void_p])
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
         lib.conformance_launch.restype = ctypes.c_int
         lib.conformance_cases.restype = ctypes.c_int
         if lib.conformance_cases() != len(CASES):
@@ -176,10 +194,10 @@ def _lib():
 
 
 def conformance(name: str, *args) -> torch.Tensor:
-    """Case ``name`` on its inputs: (R, 128) f32 tiles (the gather's
-    second input i32 indices in 0..127), all on one device. CUDA tensors
-    launch the case's kernel on the current stream; CPU tensors take the
-    plain version."""
+    """Case ``name`` on its inputs: f32 tensors of one shape (the
+    gather's: (R, 128) tiles, its second input i32 indices in 0..127), all
+    on one device. CUDA tensors launch the case's kernel on the current
+    stream; CPU tensors take the plain version."""
     global launches
     if name not in _PLAIN:
         raise ValueError(f"unknown conformance case {name!r}")
@@ -187,13 +205,13 @@ def conformance(name: str, *args) -> torch.Tensor:
         raise ValueError(f"{name} takes {NARGS[name]} inputs, got "
                          f"{len(args)}")
     dev = args[0].device
+    shape = tuple(args[0].shape)
+    if name == "gather" and (len(shape) != 2 or shape[1] != LANES):
+        raise ValueError(f"{name}: need (R, {LANES}) tiles, got {shape}")
     if dev.type == "cpu":
         return plain(name, *args)
     if dev.type != "cuda":
         raise ValueError(f"conformance: unsupported device {dev}")
-    shape = tuple(args[0].shape)
-    if len(shape) != 2 or shape[1] != LANES:
-        raise ValueError(f"{name}: need (R, {LANES}) tiles, got {shape}")
     for k, a in enumerate(args):
         dtype = I32 if (name == "gather" and k == 1) else F32
         if a.device != dev or a.dtype != dtype or tuple(a.shape) != shape \
@@ -203,15 +221,19 @@ def conformance(name: str, *args) -> torch.Tensor:
                 f"shape {shape} on {dev}, got {a.dtype} {tuple(a.shape)} on "
                 f"{a.device}")
     out = torch.empty(shape, dtype=F32, device=dev)
+    n = out.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"{name}: {n} elements, the kernel takes < 2^31")
     floats = [a for a in args if a.dtype == F32] + [None] * 3
     idx = args[1] if name == "gather" else None
     ptr = lambda t: None if t is None else t.data_ptr()
+    vec = vector_split(n, out, *args)[0] > 0
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.conformance_launch(
             CASES.index(name), ptr(floats[0]), ptr(floats[1]),
-            ptr(floats[2]), ptr(idx), out.data_ptr(), out.numel(), stream)
+            ptr(floats[2]), ptr(idx), out.data_ptr(), n, stream, int(vec))
     if err != 0:
         raise RuntimeError(f"conformance kernel {name} launch failed: CUDA "
                            f"error {err}")

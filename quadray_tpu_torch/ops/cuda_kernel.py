@@ -154,6 +154,16 @@ CULL_MIN_SURFACES = 9
 # on test11 (12), 0.58-0.65 on test12 (21) and 0.25-0.49 from 43 surfaces
 # up; below 9 it ran from 0.70 (test02) to 1.29 (test01)
 PT_CULL_MIN_SURFACES = 12
+# the cooperative tail of the culled Whitted kernel (csrc/whitted.cu, the
+# whitted_launch argument coop_max): a warp with at most this many rays
+# left runs them one at a time on all 32 lanes; 0 never, 32 from the first
+# segment (the same bits either way). On an H100 (scripts/ab_whitted.py
+# --coop, the 10 golden scenes the gate culls, 800x480) the ten kernels
+# took 4.3432 ms at 0, 4.3498 at 1, 4.3022 at 2, 4.3568 at 4 and 4.9409 at
+# 8 (16 and 32 more): 2 gains on test13, demo01 and demo02, whose last
+# rays scatter, and loses 2-3% where they stay together (test14, test16,
+# demo03)
+COOP_MAX_LIVE = 2
 
 
 class CullGates(NamedTuple):
@@ -497,31 +507,30 @@ emit_launches = 0
 resume_launches = 0
 
 _VOIDP = ctypes.c_void_p
-_SCENE_ARGS = [_VOIDP] * 12 + [ctypes.c_int]   # sp_f ... cont_msk, rows
+_INT = ctypes.c_int
+_SCENE_ARGS = [_VOIDP] * 12 + [_INT]   # sp_f ... cont_msk, rows
+# the C entry points' arguments, in csrc/whitted.cu order
+ARGTYPES = {
+    "whitted_launch": ([_VOIDP] * 2 + _SCENE_ARGS + [_INT] * 7
+                       + [ctypes.c_float, _INT, _INT, _VOIDP, _INT]),
+    "whitted_paths_launch": ([_VOIDP] * 3 + _SCENE_ARGS + [_INT] * 6
+                             + [ctypes.c_float, _INT, _VOIDP]),
+    "whitted_pt_launch": ([_VOIDP] * 5 + _SCENE_ARGS + [_INT] * 5
+                          + [_VOIDP, _INT]),
+    "whitted_emit_launch": ([_VOIDP] * 3 + _SCENE_ARGS + [_INT] * 6
+                            + [ctypes.c_float, _INT, _VOIDP]),
+    "whitted_resume_launch": ([_VOIDP] * 4 + _SCENE_ARGS + [_INT] * 6
+                              + [ctypes.c_float, _INT, _VOIDP]),
+}
 
 
 def _lib():
     from quadray_tpu_torch.ops._build import load_library
     lib = load_library("whitted")
     if lib.whitted_launch.argtypes is None:
-        lib.whitted_launch.argtypes = (
-            [_VOIDP] * 2 + _SCENE_ARGS + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _VOIDP])
-        lib.whitted_launch.restype = ctypes.c_int
-        lib.whitted_paths_launch.argtypes = (
-            [_VOIDP] * 3 + _SCENE_ARGS + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, _VOIDP])
-        lib.whitted_paths_launch.restype = ctypes.c_int
-        lib.whitted_pt_launch.argtypes = (
-            [_VOIDP] * 5 + _SCENE_ARGS + [ctypes.c_int] * 5
-            + [_VOIDP, ctypes.c_int])
-        lib.whitted_pt_launch.restype = ctypes.c_int
-        lib.whitted_emit_launch.argtypes = lib.whitted_paths_launch.argtypes
-        lib.whitted_emit_launch.restype = ctypes.c_int
-        lib.whitted_resume_launch.argtypes = (
-            [_VOIDP] * 4 + _SCENE_ARGS + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, _VOIDP])
-        lib.whitted_resume_launch.restype = ctypes.c_int
+        for fn, types in ARGTYPES.items():
+            getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -602,8 +611,12 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
                     struct: KernelStruct = None) -> torch.Tensor:
     """Trace N rays to completion through the CUDA kernel; returns (N, 3)
     linear radiance. org (3,) or (N, 3), dirs (N, 3), t_min (N,), all
-    f32 on the scene's device. CPU tensors take the plain tracer."""
+    f32 on the scene's device. A culled launch runs the cooperative tail
+    from COOP_MAX_LIVE rays a warp. CPU tensors take the plain tracer."""
     global launches
+    if not 0 <= COOP_MAX_LIVE <= 32:
+        raise ValueError(f"COOP_MAX_LIVE must be in 0..32, got "
+                         f"{COOP_MAX_LIVE}")
     if dirs.device.type == "cpu":
         return trace_rays(sc, org, dirs, t_min, cfg)
     struct = struct or _get_struct(sc)
@@ -623,7 +636,7 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
             N, struct.n_real, struct.nc, struct.nl,
             cfg.depth, cfg.max_segments, cfg.stack,
             cfg.cutoff, int(struct.can_push),
-            cull_gates(struct, cfg).flags, stream)
+            cull_gates(struct, cfg).flags, stream, COOP_MAX_LIVE)
     if err != 0:
         raise RuntimeError(f"whitted kernel launch failed: CUDA error {err}")
     launches += 1

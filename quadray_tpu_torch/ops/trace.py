@@ -141,7 +141,8 @@ def _root(num, den):
 
 def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
               origin_srf, origin_side, pass_thru,
-              shadow: bool = False, origin_loc=None, reach=None):
+              shadow: bool = False, origin_loc=None, reach=None,
+              per_surface: bool = False):
     """Nearest valid hit over all surfaces (see quadray_tpu.ops.trace).
 
     org/dirs (N,3); t_min/t_max (N,); origin_srf (N,) i32 (-1 none);
@@ -149,7 +150,9 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     on the originating surface, reused as that surface's local origin;
     reach (N, NS) bool or None: the surfaces each ray tests (a cull mask,
     ``Cull``), the others give no hit.
-    Returns dict t, srf (-1 miss), side, x, p, n, hit; with ``shadow``,
+    Returns dict t, srf (-1 miss), side, x, p, n, hit, and with
+    ``per_surface`` t_srf (N, NS), each surface's nearest valid root (BIG:
+    none), the candidates the nearest fold picks from; with ``shadow``,
     the (N,) bool any-hit over surfaces that block light.
     """
     NS = sc.s_pos.shape[0]
@@ -323,8 +326,11 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     n_w = _apply3t(sc.s_inv[bs], g[:, 0], g[:, 1], g[:, 2])
     n_w = n_w * side[:, None].to(F32)
     n_w = n_w * _rsqrt(torch.clamp(_dot3(n_w, n_w), min=1e-30))[:, None]
-    return dict(t=t, srf=torch.where(hit, bs.to(I32), -1), side=side,
-                x=take(x_r), p=take(p_r), n=n_w, hit=hit)
+    out = dict(t=t, srf=torch.where(hit, bs.to(I32), -1), side=side,
+               x=take(x_r), p=take(p_r), n=n_w, hit=hit)
+    if per_surface:
+        out["t_srf"] = t_cand.reshape(N, NS, 2).amin(dim=2)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +350,52 @@ def _butterfly(v, op):
         v = op(v, v[..., lanes ^ k])
         k //= 2
     return v[..., :1]
+
+
+NO_SRF = 0x7FFFFFF   # the kernel's no_hit surface id
+
+
+def coop_fold(t, ids, kept, lanes: int = WARP):
+    """The nearest pass of the CUDA kernel's cooperative tail (whitted.cu
+    ``nearest_coop``), step for step, for tests: each ray's kept surfaces,
+    in row order, are dealt out by rank (the k-th kept one to lane k mod
+    ``lanes``), each lane folds its share in order with the kernel's rule
+    (a root counts if t < BIG; it wins on a smaller t, or an equal t and a
+    smaller original id), then the lanes are reduced by the xor butterfly
+    on (t, id) with the same rule.
+
+    t (N, S) f32: each surface's nearest root for each ray, the surfaces in
+    table-row order; ids (S,) int: their original ids (unique); kept (N, S)
+    bool: the mask. Returns (t (N,) f32, id (N,) int64): BIG and NO_SRF
+    where no kept root counts. ``lanes`` = 1 is the serial walk."""
+    N, S = t.shape
+    R = -(-max(S, 1) // lanes)
+    # kept surfaces first, in row order: position k is rank k
+    order = torch.argsort((~kept).to(torch.int8), dim=1, stable=True)
+    have = torch.arange(S, device=t.device)[None, :] < kept.sum(1,
+                                                                 keepdim=True)
+    pad = R * lanes - S
+    tt = torch.nn.functional.pad(torch.gather(t, 1, order), (0, pad))
+    ii = torch.nn.functional.pad(ids.to(torch.int64)[order], (0, pad))
+    hv = torch.nn.functional.pad(have, (0, pad))
+    tt, ii, hv = (v.reshape(N, R, lanes) for v in (tt, ii, hv))
+    bt = torch.full((N, lanes), BIG, dtype=F32, device=t.device)
+    bi = torch.full((N, lanes), NO_SRF, dtype=torch.int64, device=t.device)
+    for j in range(R):   # round j: lane l folds the kept surface of rank
+        # j * lanes + l
+        tj, ij = tt[:, j], ii[:, j]
+        take = hv[:, j] & (tj < BIG) & ((tj < bt) | ((tj == bt) & (ij < bi)))
+        bt = torch.where(take, tj, bt)
+        bi = torch.where(take, ij, bi)
+    lane = torch.arange(lanes, device=t.device)
+    k = lanes // 2
+    while k:
+        ot, oi = bt[:, lane ^ k], bi[:, lane ^ k]
+        take = (ot < bt) | ((ot == bt) & (oi < bi))
+        bt = torch.where(take, ot, bt)
+        bi = torch.where(take, oi, bi)
+        k //= 2
+    return bt[:, 0], bi[:, 0]
 
 
 def bundle_reach(org, dirs, on, spheres, shadow: bool):

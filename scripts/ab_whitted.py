@@ -2,7 +2,8 @@
 
     python3 scripts/ab_whitted.py OTHER.cu [MORE.cu ...] [--rounds 8]
         [--reps 20] [--modes whitted paths emit resume pt]
-        [--cull on off] [--k1 4]
+        [--cull on off] [--k1 4] [--coop 0 1 2 4 8 16 32]
+        [--scenes test03 test10 ...] [--sweep-others]
 
 OTHER.cu is another version of quadray_tpu_torch/csrc/whitted.cu with the
 same C entry points (whitted_launch, whitted_paths_launch,
@@ -11,8 +12,9 @@ arguments, for example the parent commit's, unpacked with git archive
 into a directory that .gitignore lists (with the headers it includes
 beside it), or a variant of this checkout's (another culling design).
 A version whose whitted_pt_launch ends at the stream (before PT culling)
-is called with this checkout's arguments too: the cull flags come after
-the stream, and it ignores them. All are built with the port's nvcc flags
+or whose whitted_launch does (before the cooperative tail) is called with
+this checkout's arguments too: the cull flags and coop_max come after the
+stream, and it ignores them. All are built with the port's nvcc flags
 and loaded into one process; the ptxas lines (registers, stack frame,
 spills) of every build are printed, one line each for every template
 instantiation. For each
@@ -25,10 +27,17 @@ the same output bitwise, and then the kernel launch alone is timed in
 turns, this checkout's version (b) and OTHER (a) in the order a b b a,
 a b b a, ...: CUDA events around --reps launches after a warm-up. With
 more versions (a1, a2, ... in the order given) a round is
-a1 a2 ... b b ... a2 a1. Prints each case's range and mean per version,
-then one JSON line with every case's times, means and the b/a ratio of
-the means for each other version. Needs a CUDA card; exits with code 2
-without one.
+a1 a2 ... b b ... a2 a1. --coop sweeps this checkout's coop_max (the
+cooperative tail's switch, ops/cuda_kernel.py COOP_MAX_LIVE, the default)
+in the Whitted cases: each value is a version of its own (b0, b4, ...),
+timed in the same rounds (a b0 b4 b4 b0 a); --sweep-others sweeps the
+OTHER versions too (a0, a4, ...: variants of this checkout's design).
+Prints each case's range and
+mean per version, then one JSON line with every case's times, means and
+the ratio of the means of each version of this checkout to each other
+version. --scenes replaces the Whitted cases' scenes (for example the
+golden scenes the default gate culls). Needs a CUDA card; exits with
+code 2 without one.
 """
 
 from __future__ import annotations
@@ -108,22 +117,20 @@ def print_ptxas(which: str, text: str):
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The argument types of this checkout's entry points (ops/cuda_kernel
-    .py _lib), which OTHER must share."""
-    from quadray_tpu_torch.ops import cuda_kernel as ck
-    ref = ck._lib()
-    for fn in ("whitted_launch", "whitted_paths_launch",
-               "whitted_emit_launch", "whitted_resume_launch",
-               "whitted_pt_launch"):
-        getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
+    .py ARGTYPES), which OTHER must share."""
+    from quadray_tpu_torch.ops.cuda_kernel import ARGTYPES
+    for fn, types in ARGTYPES.items():
+        getattr(lib, fn).argtypes = types
         getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
-def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int):
+def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
+             coop: int):
     """(run, tensors to keep alive): run() launches lib's kernel on the
     case's inputs, culled as the default TraceConfig's gates say or not
     at all, and returns its output buffer; the rounds split after k1
-    segments."""
+    segments; the Whitted mode's cooperative tail from coop rays a warp."""
     from quadray_tpu_torch.models.scenes.loader import load_scene
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.rays import camera_rays
@@ -144,8 +151,8 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int):
     rays, tables = ck._launch_inputs("ab", sc, org, dirs, tmin, struct, ps)
     n = dirs.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # the cull flags of this case's TraceConfig and the stream, in the
-    # entry point's order
+    # the cull flags of this case's TraceConfig, the stream and coop_max,
+    # in the entry point's order
     if mode == "pt":
         gates = ck.cull_gates(struct, TraceConfig(depth=PT_DEPTH, cull=cull),
                               pt=True)
@@ -154,7 +161,7 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int):
         gates = ck.cull_gates(struct, TraceConfig(
             **({} if mode != "paths" else dict(max_segments=K_PATHS,
                                                 stack=4)), cull=cull))
-        last = [gates.flags, stream]
+        last = [gates.flags, stream] + ([coop] if mode == "whitted" else [])
     if mode == "pt":
         from quadray_tpu_torch.ops.pt import init_seeds
         seeds = init_seeds(n, device=dev)
@@ -254,6 +261,13 @@ def main():
     ap.add_argument("--k1", type=int, default=None,
                     help="segments of round 1 in the emit and resume cases "
                     "(default ROUNDS_K1; 1 times the primary segment)")
+    ap.add_argument("--scenes", nargs="+", default=None,
+                    help="the Whitted cases' scenes (default: CASES')")
+    ap.add_argument("--coop", type=int, nargs="+", default=None,
+                    help="coop_max values of this checkout's Whitted cases "
+                    "(default COOP_MAX_LIVE alone)")
+    ap.add_argument("--sweep-others", action="store_true",
+                    help="sweep --coop on the OTHER versions too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False")
@@ -276,23 +290,38 @@ def main():
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
             print_ptxas("b", fh.read())
+    from quadray_tpu_torch.ops.cuda_kernel import COOP_MAX_LIVE, ROUNDS_K1
     result = {"device": smi, "other": dict(zip(labels, args.other)),
-              "rounds": args.rounds, "reps": args.reps, "cases": {}}
-    order = labels + ["b", "b"] + labels[::-1]
-    from quadray_tpu_torch.ops.cuda_kernel import ROUNDS_K1
+              "rounds": args.rounds, "reps": args.reps,
+              "coop_max_live": COOP_MAX_LIVE, "cases": {}}
     k1 = args.k1 or ROUNDS_K1
-    cases = [(name, mode, cull) for name, mode in CASES
+    table = CASES if args.scenes is None else (
+        [(n, "whitted") for n in args.scenes]
+        + [c for c in CASES if c[1] != "whitted"])
+    cases = [(name, mode, cull) for name, mode in table
              if mode in args.modes for cull in args.cull]
     for name, mode, cull in cases:
-        runs = {k: launcher(lib, name, mode, dev, cull == "on", k1)
-                for k, lib in libs.items()}
+        # this checkout's versions: one per coop_max in the Whitted mode
+        sweep = mode == "whitted" and args.coop
+        mine = {f"b{c}": c for c in args.coop} if sweep else {
+            "b": COOP_MAX_LIVE}
+        others = ({f"{k}@{c}": (k, c) for k in labels for c in args.coop}
+                  if sweep and args.sweep_others
+                  else {k: (k, COOP_MAX_LIVE) for k in labels})
+        runs = {v: launcher(libs[k], name, mode, dev, cull == "on", k1, c)
+                for v, (k, c) in others.items()}
+        runs.update({k: launcher(libs["b"], name, mode, dev, cull == "on",
+                                 k1, c) for k, c in mine.items()})
         outs = {k: runs[k][0]().clone() for k in runs}
         torch.cuda.synchronize()
-        for k in labels:
+        ref = next(iter(mine))
+        for k in runs:
             if not torch.equal(outs[k].view(torch.int32),
-                               outs["b"].view(torch.int32)):
-                raise AssertionError(f"{name} {mode}: {k} and b differ")
-        times = {k: [] for k in libs}
+                               outs[ref].view(torch.int32)):
+                raise AssertionError(f"{name} {mode}: {k} and {ref} differ")
+        order = list(others) + list(mine) + list(mine)[::-1] \
+            + list(others)[::-1]
+        times = {k: [] for k in runs}
         for _ in range(args.rounds):
             for k in order:
                 times[k].append(ms_per_launch(runs[k][0], args.reps))
@@ -302,11 +331,13 @@ def main():
         result["cases"][case] = {
             **{f"{k}_ms": v for k, v in times.items()},
             **{f"{k}_mean": v for k, v in mean.items()},
-            **{f"b_over_{k}": mean["b"] / mean[k] for k in labels}}
+            **{f"{b}_over_{k}": mean[b] / mean[k] for b in mine
+               for k in others}}
         print(f"{case}: " + "; ".join(
             f"{k} {min(times[k]):.4f}-{max(times[k]):.4f} mean "
-            f"{mean[k]:.4f} ms" for k in labels + ["b"]) + "; " + " ".join(
-            f"b/{k} {mean['b'] / mean[k]:.4f}" for k in labels), flush=True)
+            f"{mean[k]:.4f} ms" for k in list(others) + list(mine)) + "; "
+            + " ".join(f"{b}/{k} {mean[b] / mean[k]:.4f}" for b in mine
+                       for k in others), flush=True)
     print(json.dumps(result))
 
 if __name__ == "__main__":
