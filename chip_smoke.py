@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only D   # kernel build + the training path only
     python3 chip_smoke.py --only E   # kernel build + the path tracer only
     python3 chip_smoke.py --only H   # kernel build + bounding-sphere culling
+    python3 chip_smoke.py --only I   # kernel build + RESUME's two modes
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points) and the conformance kernels with parallel nvcc processes,
@@ -63,8 +64,12 @@ then:
      800x480, one pass culled (floor lowered to 1) against unculled,
      bitwise, and the kernel's device ms of each.
   F. two-round retirement (trace_rays_rounds): F1 the emit and resume
-     kernels vs their plain versions, F2 every golden scene through the
-     rounds bitwise equal to render_cuda, F3 their device times;
+     kernels vs their plain versions, bitwise, at 200x120 and at 800x480
+     (test14 k1=3, test13 k1=4 and 1), resume at RESUME_WARP_MAX (test13
+     takes a warp per survivor at k1=4 and a thread each at k1=1) and
+     forced into either mode; F2 every golden scene through the
+     rounds bitwise equal to render_cuda, F3 their device times (emit,
+     compaction, resume, one rounds call, against the monolithic kernel);
   G. the conformance tier: G1 the conformance kernels vs numpy and their
      plain versions, G2 the Whitted kernel on random rays, G3 device ms;
   H. bounding-sphere culling (on by default: every phase above runs the
@@ -88,6 +93,14 @@ then:
      (test17 and test18 push branches): the three frames bitwise equal
      with the exact bad-pixel counts, and each setting's device ms (CUDA
      graphs).
+  I. RESUME's two modes (a warp per survivor, or a thread each with
+     per-ray masks) and EMIT's per-ray masks after the camera segment: I1
+     the counted run, the 19 single-branch golden scenes at 800x480
+     through trace_rays_rounds at k1 = 4 and 1 with RESUME forced sparse,
+     forced dense and at RESUME_WARP_MAX, every frame bitwise
+     render_cuda's with the exact bad-pixel counts, one emit and one
+     resume launch a call; I2 the sweep of RESUME's switch (warp_max) on
+     the same 38 cases, resume device ms (CUDA graphs) and their sums.
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -160,9 +173,17 @@ PT_LIMITS = {"global_mean": 2.5, "block_mean": 3.5, "block_p95": 9.0,
 # phase F: (scene, width, height, k1) of the emit/resume kernels against
 # their plain versions; test14 (152 surfaces) keeps 56% of its rays alive
 # at segment 2 and 16% at segment 3, test08 50% at 2, test16 (93
-# surfaces, clip programs) a few percent at 2
+# surfaces, clip programs) a few percent at 2; test13 (104 surfaces) at
+# the main path's 800x480 keeps 1,002 rays after 4 segments (fewer than
+# RESUME_WARP_MAX: a warp per survivor) and 132,480 after 1 (a thread
+# each). Resume runs each case at RESUME_WARP_MAX and forced into either
+# mode (F1_RESUME_MODES)
 PHASE_F1 = [("test08", 200, 120, 2), ("test14", 200, 120, 2),
-            ("test16", 200, 120, 2), ("test14", W, H, 3)]
+            ("test16", 200, 120, 2), ("test14", W, H, 3),
+            ("test13", W, H, 4), ("test13", W, H, 1)]
+# (name, RESUME_WARP_MAX: None the default, "n" every ray, so always a
+# warp per survivor)
+F1_RESUME_MODES = (("default", None), ("sparse", "n"), ("dense", 0))
 # F3: the monolithic kernel against the two rounds, heavy scenes
 PHASE_F3 = ["test13", "test14", "demo02", "demo03"]
 F3_ROUNDS, F3_REPS = 4, 10
@@ -532,7 +553,8 @@ def phase_d3(dev):
 
 
 def phase_d4(dev):
-    """The paths kernel alone vs its plain version on heavy scenes."""
+    """The paths kernel alone vs its plain version on heavy scenes, with
+    the bound of the work the plain version counts (as D3's)."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.trace import trace_paths
     cfg = train_cfg()
@@ -541,11 +563,15 @@ def phase_d4(dev):
         org, dirs, tmin = primary(sc, W, H)
         ms = cuda_ms(lambda: ck.trace_paths(sc, org, dirs, tmin, cfg,
                                             K_PATHS), 5)
+        stats = {}
         plain = cuda_ms(lambda: trace_paths(sc, org, dirs, tmin, cfg,
-                                            K_PATHS), 1)
+                                            K_PATHS, stats), 1, 0)
+        bound = bound_ms(W * H * (40 + 4 * K_PATHS),
+                         surface_ops(ck.scene_struct(sc), stats))
         torch.cuda.empty_cache()
         log(f"D4 {name} {W}x{H} K={K_PATHS}: paths kernel ms={ms:.3f} "
-            f"plain ms={plain:.1f}")
+            f"plain ms={plain:.1f} bound_ms={bound[0]:.4f} ({bound[1]}; "
+            f"{work_line(stats)})")
 
 
 def bound_ms(n_bytes: float, ops: float) -> tuple:
@@ -939,7 +965,8 @@ def phase_e6(dev):
 def phase_f1(dev, label="F1"):
     """The emit and resume kernels against their plain versions on the
     card: emit's colors and all 21 state rows, then resume from the
-    kernel's state, bitwise; the two rounds equal the monolithic kernel."""
+    kernel's state in each of F1_RESUME_MODES, bitwise; the two rounds
+    equal the monolithic kernel."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.trace import (
         ACTIVE_ROW, STATE_I32, STATE_ROWS, TraceConfig, trace_rays_emit,
@@ -947,6 +974,7 @@ def phase_f1(dev, label="F1"):
     cfg = TraceConfig()
     worst = 0.0
     bits = lambda t: t.contiguous().view(torch.int32)
+    main_modes = set()   # the modes RESUME_WARP_MAX picks at 800x480
     for name, w, h, k1 in PHASE_F1:
         sc = compiled(name, dev)
         rays = primary(sc, w, h)
@@ -961,35 +989,51 @@ def phase_f1(dev, label="F1"):
                              .max()))
         alive = float((bits(state_k[ACTIVE_ROW]) != 0).float().mean())
         same_cols = torch.equal(bits(cols_k), bits(cols_p))
-        emitted = cols_k.clone()     # resume writes into cols_k
         idx, count = ck.compact_active(state_k)
-        res_k = ck.trace_rays_resume_cuda(sc, state_k, cols_k, idx, count,
-                                          cfg, k1)
-        res_p = trace_rays_resume(sc, state_k, emitted, cfg, k1)
+        res_p = trace_rays_resume(sc, state_k, cols_k.clone(), cfg, k1)
         mono = ck.trace_rays_cuda(sc, *rays, cfg)
-        torch.cuda.synchronize()
-        nd = int((bits(res_k) != bits(res_p)).any(dim=1).sum())
-        res_err = float((res_k - res_p).abs().max())
-        worst = max(worst, emit_err, res_err)
-        same_mono = torch.equal(bits(res_k), bits(mono))
+        struct = ck.scene_struct(sc)
+        survivors = int(count)
         log(f"{label} {name} {w}x{h} k1={k1}: rays={w * h} alive_after_round1="
-            f"{alive:.4f} survivors={int(count)} emit colors bitwise="
-            f"{same_cols} state rows "
-            f"differing={rows or 'none'} resume lanes_differing={nd} "
-            f"max_abs={max(emit_err, res_err):.3e} rounds==monolithic="
-            f"{same_mono}")
+            f"{alive:.4f} survivors={survivors} emit colors bitwise="
+            f"{same_cols} state rows differing={rows or 'none'} "
+            f"max_abs={emit_err:.3e}")
         if rows or not same_cols:
             raise AssertionError(f"{label} {name}: emit differs from its "
                                  f"plain version (rows {rows})")
-        if nd or not same_mono:
-            raise AssertionError(f"{label} {name}: resume differs ({nd} "
-                                 f"lanes) or rounds != monolithic "
-                                 f"({same_mono})")
         if not 0 < alive < 1:
             raise AssertionError(f"{label} {name}: no lane on one side of "
                                  "the cut")
+        for mode, value in F1_RESUME_MODES:
+            with ck_value("RESUME_WARP_MAX", ck.RESUME_WARP_MAX
+                          if value is None else w * h if value == "n"
+                          else value):
+                warp_max = ck.resume_warp_max(struct, w * h)
+                # resume writes into the colours it is given
+                res_k = ck.trace_rays_resume_cuda(
+                    sc, state_k, cols_k.clone(), idx, count, cfg, k1)
+            torch.cuda.synchronize()
+            ran = "sparse" if survivors <= warp_max else "dense"
+            nd = int((bits(res_k) != bits(res_p)).any(dim=1).sum())
+            res_err = float((res_k - res_p).abs().max())
+            worst = max(worst, emit_err, res_err)
+            same_mono = torch.equal(bits(res_k), bits(mono))
+            log(f"{label} {name} {w}x{h} k1={k1} resume {mode} (warp_max="
+                f"{warp_max}: ran {ran}): lanes_differing={nd} max_abs="
+                f"{res_err:.3e} rounds==monolithic={same_mono}")
+            if nd or not same_mono or mode not in (ran, "default"):
+                raise AssertionError(f"{label} {name}: resume {mode} "
+                                     f"differs ({nd} lanes), rounds != "
+                                     f"monolithic ({same_mono}) or ran "
+                                     f"{ran}")
+            if mode == "default" and (w, h) == (W, H):
+                main_modes.add(ran)
+            del res_k
         del state_p, res_p
         torch.cuda.empty_cache()
+    if main_modes != {"sparse", "dense"}:
+        raise AssertionError(f"{label}: at {W}x{H} RESUME_WARP_MAX picked "
+                             f"only {sorted(main_modes)}")
     return worst
 
 
@@ -1068,7 +1112,7 @@ def phase_f2(dev):
     return totals
 
 
-def rounds_bounds(sc, struct, rays, k1):
+def rounds_bounds(name, sc, struct, rays, k1):
     """Bounds of the emit and resume kernels on these rays, from the work
     the plain versions count: emit reads 28 bytes and writes 12 + 84 per
     ray; resume reads 84 (20 state rows and its index) and writes 12 per
@@ -1077,10 +1121,19 @@ def rounds_bounds(sc, struct, rays, k1):
                                              trace_rays_emit,
                                              trace_rays_resume)
     cfg = TraceConfig()
-    se, sr = {}, {}
+    se, sr, sw = {}, {}, {}
     cols, state = trace_rays_emit(sc, *rays, cfg, k1, se)
     alive = int((state[ACTIVE_ROW].view(torch.int32) != 0).sum())
     trace_rays_resume(sc, state, cols, cfg, k1, sr)
+    if k1 > 1:
+        # the tests the warp masks alone would keep after segment 0
+        with ck_value("EMIT_OWN_MIN_KEPT", struct.n_real):
+            trace_rays_emit(sc, *rays, cfg, k1, sw)
+        log(f"F3 {name} emit k1={k1} surface tests kept, per-ray masks after the "
+            f"camera segment: {cull_shares(se)}; the warp's masks alone: "
+            f"{cull_shares(sw)}")
+    log(f"F3 {name} resume k1={k1} surface tests kept, per-ray masks: "
+        f"{cull_shares(sr)}")
     del cols, state
     torch.cuda.empty_cache()
     n = rays[1].shape[0]
@@ -1129,9 +1182,19 @@ def phase_f3(dev):
             f"calls, mean of {F3_ROUNDS} turns): {line}; alive after round "
             "1: " + ", ".join(
                 f"k1={k} {v / n:.4f}" for k, v in alive.items()))
+        mono = np.mean(times["monolithic"])
+        for k1 in (ck.WAVE_K1, ck.ROUNDS_K1):
+            parts = [np.mean(times[f"k1={k1} {p}"])
+                     for p in ("emit", "compact", "resume")]
+            call = np.mean(times[f"k1={k1} rounds"])
+            log(f"F3 {name} k1={k1} rounds total: emit {parts[0]:.4f} + "
+                f"compaction {parts[1]:.4f} + resume {parts[2]:.4f} = "
+                f"{sum(parts):.4f} ms; one trace_rays_rounds call "
+                f"{call:.4f} ms; monolithic {mono:.4f} ms; rounds / "
+                f"monolithic {call / mono:.4f}")
         bounds = {}
         for k1 in (ck.WAVE_K1, ck.ROUNDS_K1):
-            be, br, se, sr = rounds_bounds(sc, struct, rays, k1)
+            be, br, se, sr = rounds_bounds(name, sc, struct, rays, k1)
             bounds[k1] = (be, br)
             log(f"F3 {name} k1={k1} bounds: emit {be[0]:.4f} ({be[1]}; "
                 f"{work_line(se)}), resume {br[0]:.4f} ({br[1]}; "
@@ -1477,15 +1540,16 @@ def phase_h3(dev, floor: int):
 
 
 @contextlib.contextmanager
-def coop_max(value: int):
-    """ops/cuda_kernel.py COOP_MAX_LIVE set to value inside the block."""
+def ck_value(name: str, value: int):
+    """ops/cuda_kernel.py's constant `name` (COOP_MAX_LIVE,
+    RESUME_WARP_MAX, EMIT_OWN_MIN_KEPT) set to value inside the block."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
-    default = ck.COOP_MAX_LIVE
-    ck.COOP_MAX_LIVE = value
+    default = getattr(ck, name)
+    setattr(ck, name, value)
     try:
         yield default
     finally:
-        ck.COOP_MAX_LIVE = default
+        setattr(ck, name, default)
 
 
 def phase_h4(dev):
@@ -1510,7 +1574,7 @@ def phase_h4(dev):
         rays = primary(sc, W, H)
         cols = {}
         for c in settings:
-            with coop_max(c):
+            with ck_value("COOP_MAX_LIVE", c):
                 cols[c] = ck.trace_rays_cuda(sc, *rays, cfg, struct)
         torch.cuda.synchronize()
         same = all(torch.equal(_bits(cols[c]), _bits(cols[0]))
@@ -1521,7 +1585,7 @@ def phase_h4(dev):
                             t_diff=3)
         times = {c: [] for c in settings}
         for c in settings + settings[::-1]:
-            with coop_max(c):
+            with ck_value("COOP_MAX_LIVE", c):
                 times[c].append(graph_ms(
                     lambda: ck.trace_rays_cuda(sc, *rays, cfg, struct),
                     F3_REPS))
@@ -1543,13 +1607,131 @@ def phase_h4(dev):
     return rows
 
 
+# ---- phase I: RESUME's two modes and EMIT's per-ray masks -------------------
+
+# I2: RESUME's switch (warp_max) swept; "n" is every ray (always sparse)
+PHASE_I2 = [0, 512, 1024, 2048, 4096, 8192, 16384, 32768, "n"]
+
+
+def single_branch_cases(dev):
+    """The golden scenes without a branch stack at 800x480: (name, scene,
+    struct, camera rays, render_cuda's frame)."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    cases = []
+    for n in SCENES:
+        sc = compiled(n, dev)
+        struct = ck.scene_struct(sc)
+        if struct.can_push:
+            continue
+        cases.append((n, sc, struct, primary(sc, W, H),
+                      ck.render_cuda(sc, W, H, 1, TraceConfig(), struct)))
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_i1(dev, cases):
+    """The counted run of RESUME's modes: the 19 single-branch golden
+    scenes at 800x480 through trace_rays_rounds at k1 = ROUNDS_K1 and
+    WAVE_K1, EMIT with per-ray masks after the camera segment (its
+    default), RESUME forced sparse (warp_max = n: a warp per survivor),
+    forced dense (0: a thread each, per-ray masks) and at RESUME_WARP_MAX:
+    every frame bitwise render_cuda's, inside its budget, with the exact
+    bad-pixel counts of phase H; one emit and one resume launch a call,
+    the monolithic kernel none (the counts zeroed right before, read right
+    after)."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.rays import resolve_aa
+    from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
+    from quadray_tpu_torch.utils.image import load_bmp, frame_cmp
+    cfg = TraceConfig()
+    counters = ("emit_launches", "resume_launches", "launches")
+    for c in counters:
+        setattr(ck, c, 0)
+    runs = []
+    for n, sc, struct, rays, mono in cases:
+        for k1 in (ck.ROUNDS_K1, ck.WAVE_K1):
+            for mode, wm in (("sparse", rays[1].shape[0]), ("dense", 0),
+                             ("default", ck.RESUME_WARP_MAX)):
+                with ck_value("RESUME_WARP_MAX", wm):
+                    runs.append((n, k1, mode, ck.trace_rays_rounds(
+                        sc, *rays, cfg, k1, struct)))
+    torch.cuda.synchronize()
+    totals = {c: getattr(ck, c) for c in counters}
+    byname = {c[0]: c for c in cases}
+    fails = []
+    for n, k1, mode, cols in runs:
+        _, sc, _, _, mono = byname[n]
+        img = resolve_aa(torch.clamp(cols, 0.0, 1.0), W, H, 1)
+        same = torch.equal(_bits(img), _bits(mono))
+        nbad, _ = frame_cmp(load_bmp(os.path.join(GOLDEN, f"ref_{n}.bmp")),
+                            to_frame(img, sc.use_gamma).cpu().numpy(),
+                            t_diff=3)
+        ok = (same and nbad == GOLDEN_BAD.get(n, 0)
+              and nbad <= BUDGET.get(n, 0))
+        if not ok or mode == "default":
+            log(f"I1 {n} k1={k1} resume {mode}: bitwise_vs_render_cuda="
+                f"{same} bad_px={nbad}{'' if ok else '  FAIL'}")
+        if not ok:
+            fails.append(f"{n} k1={k1} {mode}")
+    want = len(runs)
+    log(f"I1 {len(cases)} single-branch scenes x 2 k1 x 3 RESUME modes: "
+        f"launches {totals} (want emit = resume = {want}, monolithic 0); "
+        f"frames off: {fails or 'none'}")
+    if (fails or len(cases) != 19 or totals["emit_launches"] != want
+            or totals["resume_launches"] != want or totals["launches"]):
+        raise AssertionError(f"I1: failed {fails}; launches {totals}; "
+                             f"scenes {len(cases)}")
+    return totals
+
+
+def phase_i2(dev, cases):
+    """The sweep behind RESUME_WARP_MAX: on each single-branch golden scene
+    at 800x480 and k1 = ROUNDS_K1 and WAVE_K1, the resume kernel's device
+    ms (CUDA graphs, the values in turns forward and back) at every
+    PHASE_I2 warp_max, from one emitted state; the sums over the 38 cases
+    and the value with the smallest."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    cfg = TraceConfig()
+    sums = {v: 0.0 for v in PHASE_I2}
+    rows = {}
+    for n, sc, struct, rays, _ in cases:
+        for k1 in (ck.ROUNDS_K1, ck.WAVE_K1):
+            cols, state = ck.trace_rays_emit_cuda(sc, *rays, cfg, k1, struct)
+            idx, count = ck.compact_active(state)
+            N = rays[1].shape[0]
+            times = {v: [] for v in PHASE_I2}
+            for v in PHASE_I2 + PHASE_I2[::-1]:
+                with ck_value("RESUME_WARP_MAX", N if v == "n" else v):
+                    times[v].append(graph_ms(
+                        lambda: ck.trace_rays_resume_cuda(
+                            sc, state, cols, idx, count, cfg, k1, struct),
+                        F3_REPS))
+            ms = {v: float(np.mean(t)) for v, t in times.items()}
+            for v in PHASE_I2:
+                sums[v] += ms[v]
+            rows[(n, k1)] = (int(count), ms)
+            log(f"I2 {n} k1={k1} survivors={int(count)}: resume device ms "
+                + " ".join(f"{v}={ms[v]:.4f}" for v in PHASE_I2))
+            del cols, state, idx, count
+        torch.cuda.empty_cache()
+    best = min(PHASE_I2, key=lambda v: sums[v])
+    log("I2 sums over the 38 cases: " + " ".join(
+        f"{v}={sums[v]:.4f}" for v in PHASE_I2) + f"; smallest at {best}; "
+        f"RESUME_WARP_MAX = {ck.RESUME_WARP_MAX} sums "
+        f"{sums.get(ck.RESUME_WARP_MAX, float('nan')):.4f}")
+    return rows, sums, best
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["A", "D", "E", "F", "G", "H"],
+    ap.add_argument("--only", choices=["A", "D", "E", "F", "G", "H", "I"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
-                    "retirement), G (conformance tier) or H (culling)")
+                    "retirement), G (conformance tier), H (culling) or I "
+                    "(RESUME's two modes and its switch's sweep)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -1653,6 +1835,15 @@ def main():
         log(f"H3: scenes the default gate culls where culling was slower: "
             f"{slower or 'none'}")
         log(f"phase H ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "I"):
+        t0 = time.perf_counter()
+        cases = single_branch_cases(dev)
+        phase_i1(dev, cases)
+        phase_i2(dev, cases)
+        del cases
+        torch.cuda.empty_cache()
+        log(f"phase I ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
 
@@ -1687,7 +1878,9 @@ def main():
     culled = ("on: warp reach masks (origin box + direction cone or "
               "endpoint capsule per warp, __ballot_sync over the bounding "
               "spheres), lsort and cont masks where cull_gates say so")
-    from quadray_tpu_torch.ops.cuda_kernel import COOP_MAX_LIVE
+    from quadray_tpu_torch.ops.cuda_kernel import (COOP_MAX_LIVE,
+                                                   EMIT_OWN_MIN_KEPT,
+                                                   RESUME_WARP_MAX)
     coop = (f"cooperative tail: a culled warp with at most {COOP_MAX_LIVE} "
             "rays left (COOP_MAX_LIVE) runs them one at a time on all 32 "
             "lanes, the kept surfaces and blockers dealt out by rank and "
@@ -1699,6 +1892,20 @@ def main():
                    "at a time for a ragged tail or an unaligned pointer, "
                    "and one element a thread for the roots, Fresnel and "
                    "root/sdiv blocks (mostly arithmetic)")
+    own = ("per-ray masks: the warp's mask refined by each lane's own "
+           "sphere tests (half-line for a nearest pass, segment for a "
+           "shadow pass) and its own cont or lsort row, each lane walking "
+           "its own bits")
+    emit_design = ("culled: the warp's masks for the camera segment; after "
+                   f"it, where the warp's mask keeps more than "
+                   f"{EMIT_OWN_MIN_KEPT} (EMIT_OWN_MIN_KEPT) surfaces, "
+                   + own)
+    resume_design = (f"two modes, both launched, chosen on the device by "
+                     f"the survivor count: up to {RESUME_WARP_MAX} "
+                     "(RESUME_WARP_MAX) a warp per survivor (resume_sparse: "
+                     "one-ray masks, kept surfaces dealt out by rank, "
+                     "butterfly on (t, original id)); more, a thread each "
+                     "with " + own)
     pt_culled = ("on from PT_CULL_MIN_SURFACES surfaces: per-ray reach "
                  "masks (each lane tests its own ray against the bounding "
                  "spheres of a word and walks its own bits), reach only")
@@ -1726,6 +1933,7 @@ def main():
                   "unculled_ms": heavy[1], "bound_ms": heavy[2],
                   "bound_by": heavy[3], "share_culled": heavy[4]}}, {
         "name": "whitted_emit", "route": "cuda", "culling": culled,
+        "design": emit_design,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2525",
         "launches": f_launches["emit_launches"], "max_abs_err": f_err,
@@ -1733,6 +1941,7 @@ def main():
         "plain_ms": f3["plain"][0], "bound_ms": bounds[k1][0][0],
         "bound_by": bounds[k1][0][1], "library_ms": None}, {
         "name": "whitted_resume", "route": "cuda", "culling": culled,
+        "design": resume_design,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2572",
         "launches": f_launches["resume_launches"], "max_abs_err": f_err,

@@ -91,14 +91,44 @@
 // fixed point, so that is also the state at segment k1. RESUME takes that
 // state and the ascending list idx[0..*count) of the rays still active
 // (made on the device, read on the device: no host wait between the
-// rounds); thread j < *count loads ray idx[j], starts its colour sums from
-// the emitted acc (pallas_kernel.py:1999-2008), runs at most the
-// remaining max_segments - k1 segments and overwrites its colours at
-// idx[j] in the buffer EMIT wrote. The f32 chain of every ray is the
-// monolithic kernel's, so the frame is bitwise equal to whitted_launch's.
-// The TPU resumes 1024-ray blocks that hold an active lane and merges by
-// block (pallas_kernel.py:2624-2642); here the unit is the thread, so
-// round 2 runs only the surviving rays, packed into full warps.
+// rounds); ray idx[j] starts its colour sums from the emitted acc
+// (pallas_kernel.py:1999-2008), runs at most the remaining max_segments -
+// k1 segments and overwrites its colours at idx[j] in the buffer EMIT
+// wrote. The f32 chain of every ray is the monolithic kernel's, so the
+// frame is bitwise equal to whitted_launch's. The TPU resumes 1024-ray
+// blocks that hold an active lane and merges by block (pallas_kernel.py:
+// 2624-2642); here round 2 runs only the surviving rays, in one of two
+// modes, each its own __global__, both launched, chosen on the device by
+// *count against warp_max (the host never reads the count):
+//   * sparse (resume_sparse, *count <= warp_max): a warp per surviving
+//     ray. Compaction keeps the survivors in frame order, so a warp of 32
+//     of them holds rays from all over the frame, whose bundle keeps
+//     nearly every surface, and a few hundred such warps leave the card
+//     idle. Instead all 32 lanes run one ray's segments in step, as the
+//     cooperative tail does (one-ray masks without collectives, the kept
+//     surfaces dealt out by rank, the butterfly on (t, original id)), and
+//     each ray is a warp of its own on the card.
+//   * dense (whitted_kernel RESUME, *count > warp_max): thread j runs ray
+//     idx[j], as round 1 runs its rays, with per-ray masks (below) in
+//     every segment, so a warp walks the longest of its lanes' own masks,
+//     not the union of their rays' surfaces.
+// EMIT keeps the warp's masks for segment 0, whose camera rays are
+// coherent; its OWN instantiation takes per-ray masks after it, where the
+// rays of a warp leave different surfaces in different directions and
+// their bundle keeps much of the scene.
+//
+// Per-ray masks (nearest_own, occluded_own): the warp builds its mask as
+// before, and where it keeps more than cfg.own_min surfaces (a launch
+// argument: ops/cuda_kernel.py EMIT_OWN_MIN_KEPT, RESUME_OWN_MIN_KEPT)
+// each lane refines it, word by word in step, by its own cont row (a
+// nearest pass) or the receiver's own lsort row (a shadow pass) and by
+// its own ray's sphere tests (ray_reaches, the half-line;
+// seg_reaches, the segment to the light), then walks the bits it kept in
+// ascending row order: the nearest hit keeps its ties on the original id,
+// and a lane's shadow walk stops at its first blocker. A lane's tests of
+// its own (about 20 FP32 operations a sphere) replace the union's surface
+// tests (48-112). A mask built by each lane alone, without the warp's,
+// tested every sphere of its row, and lost (PERF.md, section 6).
 //
 // PT mode (entry point whitted_pt_launch; pt_kernel, then pt_seed_tail):
 // the split-tree walk of pt_body/pt_cond (pallas_kernel.py:1365-1669):
@@ -146,7 +176,7 @@
 // lanes, each lane walking the warp's kept surfaces one after another
 // (and the bundle of a few scattered rays keeps many). So at the top of
 // each segment the warp ballots its live lanes, and once at most
-// cfg.coop_max are left it leaves the per-lane loop for good: every lane
+// cfg.sw (coop_max) are left it leaves the per-lane loop for good: every lane
 // saves its loop state in its column of a shared array, and coop_tail
 // runs the live rays one after another in ascending lane order, each to
 // its end. There every lane loads the owner's state and runs its segments
@@ -219,7 +249,12 @@ struct Cfg {
   int depth, max_segments, stack;
   float cutoff;
   int cull;
-  int coop_max;   // the cooperative tail's switch (whitted_launch); 0: never
+  // the mode's switch: WHOLE, coop_max (the cooperative tail, 0 never);
+  // RESUME, warp_max (the most survivors that run a warp per ray)
+  int sw;
+  // the rounds' per-ray masks refine a warp's mask that keeps more than
+  // this many surfaces (nearest_own, occluded_own)
+  int own_min;
 };
 
 constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
@@ -766,6 +801,131 @@ __device__ bool occluded_coop(const Tables& T, const Ray& r, unsigned mine) {
   return false;
 }
 
+// ---- per-ray masks (file header): EMIT after segment 0, RESUME dense ---
+
+// may the ray from o along the unit direction dh (the half-line o + t dh,
+// t >= 0) reach bounding sphere s? Its centre c is within the radius of
+// the line (|c - o|^2 - ((c - o).dh)^2) and not behind o by more than
+// the radius, with the radius widened by 1e-4 and the squares by 1e-5
+// |c - o|^2 for f32 rounding; NaN and inf come out as "reach". The plain
+// version is ops/trace.py ray_reach, op for op.
+__device__ __forceinline__ bool ray_reaches(const Tables& T, const Ray& r,
+                                            float dhx, float dhy, float dhz,
+                                            int s) {
+  const float lcx = ldf(T.bsph, s) - r.ox;
+  const float lcy = ldf(T.bsph, T.nsl + s) - r.oy;
+  const float lcz = ldf(T.bsph, 2 * T.nsl + s) - r.oz;
+  const float re = ldf(T.bsph, 3 * T.nsl + s) + 1e-4f;
+  const float d_ax = lcx * dhx + lcy * dhy + lcz * dhz;
+  const float dist2 = lcx * lcx + lcy * lcy + lcz * lcz;
+  const float lim = re * re + 1e-5f * dist2;
+  return !(dist2 - d_ax * d_ax > lim || (d_ax < 0.0f && d_ax * d_ax > lim));
+}
+
+// may the shadow segment from o to o + d (t in [0, 1], d unnormalised: the
+// hit point to the light) reach bounding sphere s? The point of the
+// segment nearest its centre c (t clamped to [0, 1]) lies within the
+// radius, widened by 1e-4 and the squares by 1e-5 (|c - o|^2 + |d|^2) for
+// f32 rounding; NaN and inf come out as "reach". The plain version is
+// ops/trace.py seg_reach, op for op.
+__device__ __forceinline__ bool seg_reaches(const Tables& T, const Ray& r,
+                                            int s) {
+  const float lcx = ldf(T.bsph, s) - r.ox;
+  const float lcy = ldf(T.bsph, T.nsl + s) - r.oy;
+  const float lcz = ldf(T.bsph, 2 * T.nsl + s) - r.oz;
+  const float re = ldf(T.bsph, 3 * T.nsl + s) + 1e-4f;
+  const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  const float tp = clampn(
+      (lcx * r.dx + lcy * r.dy + lcz * r.dz) / maxn(dd, 1e-30f), 0.0f, 1.0f);
+  const float qx = lcx - tp * r.dx, qy = lcy - tp * r.dy,
+              qz = lcz - tp * r.dz;
+  const float dist2 = lcx * lcx + lcy * lcy + lcz * lcz;
+  const float lim = re * re + 1e-5f * (dist2 + dd);
+  return !(qx * qx + qy * qy + qz * qz > lim);
+}
+
+// the surfaces a warp's mask keeps, on every lane (lane w holds word w)
+__device__ __forceinline__ int warp_kept(unsigned mine) {
+  return (int)__reduce_add_sync(FULL_WARP, (unsigned)__popc(mine));
+}
+
+// this lane's own bits of the warp's mask word w (wword): those its own
+// static row (cont or lsort; nullptr for all bits) keeps and, where the
+// reach gate is on, whose spheres its own ray may reach (SHADOW: the
+// segment; else the half-line along dh). The loop runs over the warp's
+// bits, the same for every lane.
+template <bool SHADOW>
+__device__ __forceinline__ unsigned own_bits(const Tables& T, int gates,
+                                             const Ray& r, float dhx,
+                                             float dhy, float dhz,
+                                             const int* row, int w,
+                                             unsigned wword) {
+  unsigned m = row ? wword & (unsigned)ldi(row, w) : wword;
+  if (gates & CULL_REACH) {
+    for (unsigned c = wword; c; c &= c - 1u) {
+      const int b = __ffs(c) - 1;
+      const int s = 32 * w + b;
+      if (((m >> b) & 1u) && !(SHADOW ? seg_reaches(T, r, s)
+                                       : ray_reaches(T, r, dhx, dhy, dhz, s)))
+        m &= ~(1u << b);
+    }
+  }
+  return m;
+}
+
+// nearest hit over this lane's own mask (crow: its cont row, nullptr for
+// all bits) within the warp's (lane w holds word w): word by word, the
+// lanes refine each word in step, then each walks its own kept bits; a
+// lane that is not `on` tests nothing
+__device__ void nearest_own(const Tables& T, int gates, const Ray& r,
+                            bool on, unsigned mine, const int* crow,
+                            Hit& best) {
+  no_hit(best);
+  const float il =
+      __frsqrt_rn(maxn(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-30f));
+  const float dhx = r.dx * il, dhy = r.dy * il, dhz = r.dz * il;
+  const int words = (T.ns + 31) >> 5;
+  for (int w = 0; w < words; ++w) {
+    const unsigned wword = __shfl_sync(FULL_WARP, mine, w);
+    if (!on) continue;
+    unsigned word = own_bits<false>(T, gates, r, dhx, dhy, dhz, crow, w,
+                                    wword);
+    while (word) {
+      const int s = w * 32 + __ffs(word) - 1;
+      word &= word - 1u;
+      surface<false, true>(T, s, r, best);
+    }
+  }
+}
+
+// any blocker of this lane's own shadow mask (srow: the receiver's lsort
+// row for the light) within the warp's, for the lanes that `need` it: a
+// lane's walk stops at its first blocker, the warp once every such lane
+// is occluded
+__device__ bool occluded_own(const Tables& T, int gates, const Ray& r,
+                             bool need, unsigned mine, const int* srow) {
+  bool occ = false;
+  const int words = (T.ns + 31) >> 5;
+  for (int w = 0; w < words; ++w) {
+    const unsigned wword = __shfl_sync(FULL_WARP, mine, w);
+    if (need && !occ) {
+      unsigned word = own_bits<true>(T, gates, r, 0.0f, 0.0f, 0.0f, srow, w,
+                                     wword);
+      while (word) {
+        const int s = w * 32 + __ffs(word) - 1;
+        word &= word - 1u;
+        Hit unused;
+        if (surface<true, true>(T, s, r, unused)) {
+          occ = true;
+          break;
+        }
+      }
+    }
+    if (!__any_sync(FULL_WARP, need && !occ)) return occ;
+  }
+  return occ;
+}
+
 // material at a hit: properties, colour (texture through the packed atlas
 // and the decode LUT, then the gamma decode) and the material row
 __device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
@@ -850,12 +1010,17 @@ __device__ __forceinline__ void tail_load(const float* col, Ray& r,
 // else retirement (seg := it). TAIL: the cooperative tail, where every
 // lane holds the ray of lane `owner`; the walks are dealt over the warp,
 // and only the owner's branch stack is written (a pop is shuffled from
-// it).
-template <bool CAN_PUSH, bool EMIT_PATHS, bool CULL, bool TAIL>
+// it). RAY: the two-round modes, whose segments take each lane's own
+// masks within the warp's where `per_ray`, if the warp's keeps more than
+// cfg.own_min surfaces.
+template <bool CAN_PUSH, bool EMIT_PATHS, bool CULL, bool TAIL,
+          bool RAY = false>
 __device__ __forceinline__ void segment(
     const Tables& T, const Cfg& cfg, int it, int i, int n,
     int* __restrict__ paths, Ray& r, float thr[3], float acc[3], int& depth,
-    int& sp, float (*stk)[SLOT], bool& active, int& seg, int owner) {
+    int& sp, float (*stk)[SLOT], bool& active, int& seg, int owner,
+    bool per_ray = false) {
+  const bool own = RAY && per_ray;
   const float amb[3] = {ldf(T.misc, 0), ldf(T.misc, 1), ldf(T.misc, 2)};
   const bool gamma_on = ldf(T.misc, 3) > 0.0f;
   const bool fres_scene = ldf(T.misc, 4) > 0.0f;
@@ -868,6 +1033,8 @@ __device__ __forceinline__ void segment(
         warp_mask<false, TAIL>(T, cfg.cull, active, r, crow);
     if (TAIL)   // every lane holds the owner's ray
       nearest_coop(T, r, mine, hb);
+    else if (own && warp_kept(mine) > cfg.own_min)
+      nearest_own(T, cfg.cull, r, active, mine, crow, hb);
     else
       nearest_masked(T, r, active, mine, hb);
   } else {
@@ -935,7 +1102,9 @@ __device__ __forceinline__ void segment(
       const unsigned mine =
           warp_mask<true, TAIL>(T, cfg.cull, need, sr, srow);
       occ = TAIL ? occluded_coop(T, sr, mine)
-                 : occluded_masked(T, sr, need, mine);
+            : own && warp_kept(mine) > cfg.own_min
+                ? occluded_own(T, cfg.cull, sr, need, mine, srow)
+                : occluded_masked(T, sr, need, mine);
     } else {
       occ = need && occluded_all(T, sr);
     }
@@ -1090,7 +1259,8 @@ __device__ __noinline__ void coop_tail(Tables T, Cfg cfg, float* cols,
   }
 }
 
-template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND, bool CULL>
+template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND, bool CULL,
+          bool OWN = false>
 __global__ void __launch_bounds__(W_BLOCK)
 whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
                int* __restrict__ paths, float* __restrict__ state,
@@ -1098,12 +1268,21 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
                int n, Tables T, Cfg cfg) {
   static_assert(ROUND == WHOLE || !(CAN_PUSH || EMIT_PATHS),
                 "two-round retirement is for single-branch scenes");
+  // OWN, per-ray masks (culled): EMIT's segments after the camera
+  // segment, every segment of RESUME's dense mode
+  static_assert(!OWN || ROUND != WHOLE, "per-ray masks are the rounds'");
+  static_assert(!CULL || ROUND != RESUME || OWN, "RESUME's dense mode");
+  constexpr bool RAY = CULL && OWN;
   // culled, every lane of a warp runs the segment loop, with a ray or
   // without one (active false): the warp collectives need the whole warp
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool active = i < n;
   if (ROUND == RESUME) {
-    active = active && i < *count;
+    // the dense mode: more than cfg.sw (warp_max) survivors, else
+    // resume_sparse runs them
+    const int cnt = *count;
+    if (cnt <= cfg.sw) return;
+    active = active && i < cnt;
     if (active) i = idx[i];
   }
   if (!CULL && !active) return;   // unculled, a lane is on its own
@@ -1157,16 +1336,17 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   // segments, so stopping each thread at max_segments is exact.
   int seg = cfg.max_segments;   // the segment this thread retired in
   // The cooperative tail (file header) of the culled whole-trace modes:
-  // once at most cfg.coop_max of a warp's lanes hold a ray, each lane
+  // once at most cfg.sw (coop_max) of a warp's lanes hold a ray, each lane
   // saves its state in its column of `tail` and the warp runs those rays
   // one at a time (coop_tail); then each lane takes back its colour sums.
   constexpr bool COOP = CULL && ROUND == WHOLE && !EMIT_PATHS;
   __shared__ float tail[COOP ? TAIL_WORDS * W_BLOCK : 1];
   for (int it = 0; it < cfg.max_segments; ++it) {
+    const bool per_ray = RAY && (ROUND == RESUME || it > 0);
     if (CULL) {
       const unsigned live = __ballot_sync(FULL_WARP, active);
       if (!live) break;
-      if (COOP && __popc(live) <= cfg.coop_max) {
+      if (COOP && __popc(live) <= cfg.sw) {
         float* const cols = tail + (threadIdx.x & ~31u);
         const int lane = (int)(threadIdx.x & 31u);
         tail_save(cols + lane, r, thr, acc, depth, sp);
@@ -1179,9 +1359,9 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
     } else if (!active) {
       break;
     }
-    segment<CAN_PUSH, EMIT_PATHS, CULL, false>(T, cfg, it, i, n, paths, r,
-                                               thr, acc, depth, sp, stk,
-                                               active, seg, 0);
+    segment<CAN_PUSH, EMIT_PATHS, CULL, false, RAY>(
+        T, cfg, it, i, n, paths, r, thr, acc, depth, sp, stk, active, seg,
+        0, per_ray);
   }
   if (!has_ray) return;
   out[i] = acc[0];
@@ -1203,6 +1383,63 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
         r.olx, r.oly, r.olz, __int_as_float(alive ? 1 : 0),
         acc[0], acc[1], acc[2]};
     for (int k = 0; k < STATE_ROWS; ++k) state[(size_t)k * n + i] = vals[k];
+  }
+}
+
+// RESUME's sparse mode (file header): when at most cfg.sw (warp_max) rays
+// survive round 1, warp g (grid-stride over warps) runs ray idx[g] for g <
+// *count on all 32 lanes, segment by segment in step, as coop_tail runs a
+// ray: every lane loads the ray's state (the same addresses, one
+// transaction), the masks are one-ray bundles without collectives, the
+// kept surfaces and blockers are dealt out by rank and the nearest hit is
+// reduced by the butterfly on (t, original id), so the chain is the
+// per-lane walk's bit for bit. The ray has no continuation row for its
+// first resumed segment (orow -1), as in the dense mode. Lane 0 writes its
+// colours. With cfg.cull 0 the masks keep every real surface (and every
+// blocker), dealt out the same way. Single-branch scenes: no stack.
+__global__ void __launch_bounds__(W_BLOCK)
+resume_sparse(const float* __restrict__ state, const int* __restrict__ idx,
+              const int* __restrict__ count, float* __restrict__ out, int n,
+              Tables T, Cfg cfg) {
+  const int cnt = *count;
+  if (cnt > cfg.sw) return;   // the dense mode runs them
+  const int lane = (int)(threadIdx.x & 31u);
+  const int warps = (int)(gridDim.x * (blockDim.x >> 5));
+  float stk[1][SLOT];
+  for (int g = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5); g < cnt;
+       g += warps) {
+    const int i = idx[g];
+    const float* st = state + i;
+    Ray r;
+    r.ox = st[0];
+    r.oy = st[(size_t)n];
+    r.oz = st[2 * (size_t)n];
+    r.dx = st[3 * (size_t)n];
+    r.dy = st[4 * (size_t)n];
+    r.dz = st[5 * (size_t)n];
+    r.tmn = st[6 * (size_t)n];
+    r.tmx = BIG;
+    float thr[3], acc[3];
+    for (int c = 0; c < 3; ++c) thr[c] = st[(7 + c) * (size_t)n];
+    int depth = __float_as_int(st[10 * (size_t)n]);
+    r.osrf = __float_as_int(st[11 * (size_t)n]);
+    r.oside = __float_as_int(st[12 * (size_t)n]);
+    r.thru = __float_as_int(st[13 * (size_t)n]) != 0;
+    r.olx = st[14 * (size_t)n];
+    r.oly = st[15 * (size_t)n];
+    r.olz = st[16 * (size_t)n];
+    r.orow = -1;
+    for (int c = 0; c < 3; ++c) acc[c] = st[(18 + c) * (size_t)n];
+    int sp = 0, seg;
+    bool active = true;
+    for (int it = 0; it < cfg.max_segments && active; ++it)
+      segment<false, false, true, true>(T, cfg, it, 0, 0, nullptr, r, thr,
+                                        acc, depth, sp, stk, active, seg, 0);
+    if (lane == 0) {
+      out[i] = acc[0];
+      out[n + i] = acc[1];
+      out[2 * n + i] = acc[2];
+    }
   }
 }
 
@@ -1242,25 +1479,6 @@ __device__ __forceinline__ float lcg_uniform(unsigned& s) {
 // operations a sphere, against a surface test's 48-112) and walks the
 // bits it kept, apart from the other lanes. No collective, so the loop's
 // structure is the unculled kernel's.
-
-// may the ray from o along the unit direction dh (the half-line o + t dh,
-// t >= 0) reach bounding sphere s? Its centre c is within the radius of
-// the line (|c - o|^2 - ((c - o).dh)^2) and not behind o by more than
-// the radius, with the radius widened by 1e-4 and the squares by 1e-5
-// |c - o|^2 for f32 rounding; NaN and inf come out as "reach". The plain
-// version is ops/trace.py ray_reach, op for op.
-__device__ __forceinline__ bool ray_reaches(const Tables& T, const Ray& r,
-                                            float dhx, float dhy, float dhz,
-                                            int s) {
-  const float lcx = ldf(T.bsph, s) - r.ox;
-  const float lcy = ldf(T.bsph, T.nsl + s) - r.oy;
-  const float lcz = ldf(T.bsph, 2 * T.nsl + s) - r.oz;
-  const float re = ldf(T.bsph, 3 * T.nsl + s) + 1e-4f;
-  const float d_ax = lcx * dhx + lcy * dhy + lcz * dhz;
-  const float dist2 = lcx * lcx + lcy * lcy + lcz * lcz;
-  const float lim = re * re + 1e-5f * dist2;
-  return !(dist2 - d_ax * d_ax > lim || (d_ax < 0.0f && d_ax * d_ax > lim));
-}
 
 // this lane's reach bits of the spheres 32w .. 32w+31
 __device__ __forceinline__ unsigned ray_word(const Tables& T, const Ray& r,
@@ -1567,16 +1785,46 @@ static bool fits(int ns, int cull) {
   return ns >= 0 && (cull == 0 || ns <= 32 * MAX_WORDS);
 }
 
-// whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, cull != 0> over n threads
-template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND>
+// the persistent grids' caches of resident_blocks, one for each kernel
+enum { RES_PT, RES_PT_CULL, RES_RESUME_SPARSE, RES_KERNELS };
+
+// *blocks := the blocks of `kernel` (block threads, smem bytes of shared
+// memory; its cache `slot`) that the current card holds at once, queried
+// once per device
+static cudaError_t resident_blocks(const void* kernel, int block,
+                                   size_t smem, int slot, int* blocks) {
+  constexpr int MAX_DEVICES = 64;
+  static int resident[RES_KERNELS][MAX_DEVICES];
+  cudaError_t err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (resident[slot][dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        block, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident[slot][dev] = per_sm * sms;
+  }
+  *blocks = resident[slot][dev];
+  return cudaSuccess;
+}
+
+// whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, cull != 0> over n threads,
+// culled with per-ray masks where OWN
+template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND, bool OWN = false>
 static int launch(const float* rays, float* out, int* paths, float* state,
                   const int* idx, const int* count, int n, const Tables& T,
                   const Cfg& cfg, void* stream) {
   const dim3 block(W_BLOCK), grid((unsigned)((n + W_BLOCK - 1) / W_BLOCK));
   cudaStream_t s = (cudaStream_t)stream;
   if (cfg.cull)
-    whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, true><<<grid, block, 0, s>>>(
-        rays, out, paths, state, idx, count, n, T, cfg);
+    whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, true, OWN>
+        <<<grid, block, 0, s>>>(rays, out, paths, state, idx, count, n, T,
+                                cfg);
   else
     whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, false><<<grid, block, 0, s>>>(
         rays, out, paths, state, idx, count, n, T, cfg);
@@ -1628,35 +1876,67 @@ extern "C" int whitted_paths_launch(
 // Round 1 of two-round retirement, for a single-branch scene: as
 // whitted_launch with segments capped at k1, plus state: (21, n) f32, the
 // resumable ray state of every ray (rows as in the file header), every
-// element written by the kernel.
+// element written by the kernel. Culled, the camera segment takes the
+// warp's masks and the segments after it per-ray masks within a warp's
+// that keeps more than own_min (>= 0) surfaces (the OWN instantiation).
+// own_min comes after the stream, so that a caller of an entry point from
+// before it passes the arguments it reads.
 extern "C" int whitted_emit_launch(
     const float* rays, float* out, float* state, SCENE_PARAMS, int n,
     int ns, int nc, int nl, int depth, int k1, float cutoff, int cull,
-    void* stream) {
+    void* stream, int own_min) {
   if (n <= 0) return 0;
-  if (k1 < 1 || !fits(ns, cull)) return (int)cudaErrorInvalidValue;
+  if (k1 < 1 || !fits(ns, cull) || own_min < 0)
+    return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, k1, 1, cutoff, cull, 0};
-  return launch<false, false, EMIT>(rays, out, nullptr, state, nullptr,
-                                    nullptr, n, T, cfg, stream);
+  const Cfg cfg{depth, k1, 1, cutoff, cull, 0, own_min};
+  // k1 = 1 has no segment after the camera's, and a scene of at most
+  // own_min surfaces no mask to refine: the warp's masks alone
+  return k1 > 1 && ns > own_min
+             ? launch<false, false, EMIT, true>(rays, out, nullptr, state,
+                                                nullptr, nullptr, n, T, cfg,
+                                                stream)
+             : launch<false, false, EMIT>(rays, out, nullptr, state, nullptr,
+                                          nullptr, n, T, cfg, stream);
 }
 
 // Round 2: resumes the rays idx[0..*count) of state (written by
 // whitted_emit_launch; idx and count live on the device, count <= n) for
 // at most `segments` more segments and overwrites their colours in out,
-// the (3, n) buffer round 1 wrote. The grid covers n threads; those at
-// or past *count have no ray.
+// the (3, n) buffer round 1 wrote. warp_max (0..n): up to that many
+// survivors run a warp each (resume_sparse, on a grid of at most
+// warp_max warps, capped at what the card holds at once), more run a
+// thread each (the dense whitted_kernel, whose grid covers n threads);
+// both are launched on `stream` and the one whose range *count is not in
+// returns at once. 0: dense always; n: sparse always; 0 for a scene of
+// more real surfaces than the mask words hold (1024). The dense mode's
+// per-ray masks refine a warp's that keeps more than own_min (>= 0)
+// surfaces. warp_max and own_min come after the stream, so that a caller
+// of an entry point from before them passes the arguments it reads.
 extern "C" int whitted_resume_launch(
     const float* state, const int* idx, const int* count, float* out,
     SCENE_PARAMS, int n, int ns, int nc, int nl, int depth, int segments,
-    float cutoff, int cull, void* stream) {
+    float cutoff, int cull, void* stream, int warp_max, int own_min) {
   if (n <= 0) return 0;
-  if (segments < 1 || !fits(ns, cull)) return (int)cudaErrorInvalidValue;
+  if (segments < 1 || !fits(ns, cull) || warp_max < 0 || warp_max > n ||
+      (warp_max > 0 && !fits(ns, 1)) || own_min < 0)
+    return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, segments, 1, cutoff, cull, 0};
-  return launch<false, false, RESUME>(nullptr, out, nullptr,
-                                      const_cast<float*>(state), idx, count,
-                                      n, T, cfg, stream);
+  const Cfg cfg{depth, segments, 1, cutoff, cull, warp_max, own_min};
+  if (warp_max > 0) {
+    int resident = 0;
+    cudaError_t err = resident_blocks((const void*)resume_sparse, W_BLOCK,
+                                      0, RES_RESUME_SPARSE, &resident);
+    if (err != cudaSuccess) return (int)err;
+    const int need = (warp_max + W_BLOCK / 32 - 1) / (W_BLOCK / 32);
+    const int blocks = need < resident ? need : resident;
+    resume_sparse<<<(unsigned)blocks, W_BLOCK, 0, (cudaStream_t)stream>>>(
+        state, idx, count, out, n, T, cfg);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return launch<false, false, RESUME, true>(nullptr, out, nullptr,
+                                            const_cast<float*>(state), idx,
+                                            count, n, T, cfg, stream);
 }
 
 // Path-tracing entry point: one sample per ray. seeds: (n,) i32 LCG
@@ -1673,30 +1953,19 @@ extern "C" int whitted_pt_launch(
     const float* rays, const int* seeds, float* out, int* seeds_out,
     int* iters, SCENE_PARAMS, int n, int ns, int nc, int nl, int depth,
     void* stream, int cull) {
-  constexpr int MAX_DEVICES = 64;
-  // blocks of pt_kernel<false> and pt_kernel<true> a card holds
-  static int resident[2][MAX_DEVICES];
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(iters, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess || n <= 0) return (int)err;
   if (depth < 0 || depth > PT_MAX_DEPTH) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   const int c = cull ? 1 : 0;
-  if (resident[c][dev] == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, c ? pt_kernel<true> : pt_kernel<false>, PT_BLOCK, PT_SMEM);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident[c][dev] = per_sm * sms;
-  }
+  int resident = 0;
+  err = resident_blocks(
+      c ? (const void*)pt_kernel<true> : (const void*)pt_kernel<false>,
+      PT_BLOCK, PT_SMEM, c ? RES_PT_CULL : RES_PT, &resident);
+  if (err != cudaSuccess) return (int)err;
   const Tables T = SCENE_TABLES(ns, nc, nl);
   const int need = (n + PT_BLOCK - 1) / PT_BLOCK;
-  const int blocks = need < resident[c][dev] ? need : resident[c][dev];
+  const int blocks = need < resident ? need : resident;
   if (c)
     pt_kernel<true><<<(unsigned)blocks, PT_BLOCK, PT_SMEM, s>>>(
         rays, seeds, out, n, T, depth, iters, iters + 1);

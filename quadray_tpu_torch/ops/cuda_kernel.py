@@ -164,6 +164,32 @@ PT_CULL_MIN_SURFACES = 12
 # rays scatter, and loses 2-3% where they stay together (test14, test16,
 # demo03)
 COOP_MAX_LIVE = 2
+# two-round retirement's RESUME (csrc/whitted.cu, the whitted_resume_launch
+# argument warp_max): up to this many survivors of round 1 run a warp each
+# (resume_sparse), more run a thread each with per-ray masks; the kernel
+# compares it with the survivor count on the device. The same bits either
+# way; 0 forces a thread each, the ray count or more a warp each. From a
+# sweep of phase F2's 19 single-branch golden scenes at 800x480 and k1 =
+# 1 and 4 (chip_smoke.py phase I2; one run on an H100 80GB HBM3 at 700 W),
+# the sums of the 38 resume device ms: 3.6787 at 0, 3.2812 at 1024, 2.8642
+# at 4096, 2.8790 at 8192, 3.1281 at 32768 and 11.1999 at every ray. 4096
+# and 8192 tie within the spread between runs (they differ only on
+# test08's 4,148 survivors at k1 = 4), so the value stands for one to four
+# waves of the ~2,100 warps of resume_sparse an H100 holds, not a measured
+# optimum. A warp each wins where few survivors are scattered over the
+# frame (test13's 1,002 at k1 = 4: 0.0438 ms against 0.2545 at 0)
+RESUME_WARP_MAX = 4096
+# the two-round modes' per-ray masks (csrc/whitted.cu nearest_own and
+# occluded_own; the launch argument own_min of whitted_emit_launch and
+# whitted_resume_launch, which the plain trace_rays_emit and
+# trace_rays_resume read here too): a warp's mask that keeps more than
+# this many surfaces is refined by each lane's own ray; one that keeps
+# fewer, the lanes walk as it is. EMIT's later segments hold neighbouring
+# camera rays, whose narrow masks their own tests seldom shrink; RESUME's
+# dense mode holds survivors from all over the frame. Set from sweeps of
+# 0, 8, 16, 32 and 64 (scripts/ab_whitted.py, the 10 culled golden scenes
+# at 800x480 on an H100): the smallest sums of kernel ms
+EMIT_OWN_MIN_KEPT, RESUME_OWN_MIN_KEPT = 64, 0
 
 
 class CullGates(NamedTuple):
@@ -518,9 +544,9 @@ ARGTYPES = {
     "whitted_pt_launch": ([_VOIDP] * 5 + _SCENE_ARGS + [_INT] * 5
                           + [_VOIDP, _INT]),
     "whitted_emit_launch": ([_VOIDP] * 3 + _SCENE_ARGS + [_INT] * 6
-                            + [ctypes.c_float, _INT, _VOIDP]),
+                            + [ctypes.c_float, _INT, _VOIDP, _INT]),
     "whitted_resume_launch": ([_VOIDP] * 4 + _SCENE_ARGS + [_INT] * 6
-                              + [ctypes.c_float, _INT, _VOIDP]),
+                              + [ctypes.c_float, _INT, _VOIDP, _INT, _INT]),
 }
 
 
@@ -809,8 +835,12 @@ def trace_rays_emit_cuda(sc: SceneArrays, org, dirs, t_min,
     """Round 1 through the kernel's EMIT mode (``ops.trace.trace_rays_emit``
     on CPU tensors): at most k1 segments per ray; returns (colors (N, 3),
     a transposed view of a (3, N) buffer, and the (21, N) f32 ray state,
-    rows ``ops.trace.STATE_ROWS``). Single-branch scenes only."""
+    rows ``ops.trace.STATE_ROWS``). A culled launch bounds the camera
+    segment by the warp's masks and the segments after it by per-ray
+    masks within a warp's that keeps more than EMIT_OWN_MIN_KEPT
+    surfaces. Single-branch scenes only."""
     global emit_launches
+    _check_own_min()
     if dirs.device.type == "cpu":
         return trace_rays_emit(sc, org, dirs, t_min, cfg, k1)
     struct = struct or _get_struct(sc)
@@ -832,7 +862,8 @@ def trace_rays_emit_cuda(sc: SceneArrays, org, dirs, t_min,
         err = lib.whitted_emit_launch(
             rays.data_ptr(), out.data_ptr(), state.data_ptr(), *tables,
             N, struct.n_real, struct.nc, struct.nl, cfg.depth, k1,
-            cfg.cutoff, cull_gates(struct, cfg).flags, stream)
+            cfg.cutoff, cull_gates(struct, cfg).flags, stream,
+            EMIT_OWN_MIN_KEPT)
     if err != 0:
         raise RuntimeError(f"whitted emit kernel launch failed: CUDA error "
                            f"{err}")
@@ -859,6 +890,25 @@ def compact_active(state):
     return idx, count
 
 
+def _check_own_min():
+    for name, v in (("EMIT_OWN_MIN_KEPT", EMIT_OWN_MIN_KEPT),
+                    ("RESUME_OWN_MIN_KEPT", RESUME_OWN_MIN_KEPT)):
+        if not 0 <= v < 2**31:
+            raise ValueError(f"{name} must be in 0..2**31-1, got {v}")
+
+
+def resume_warp_max(struct: KernelStruct, n: int) -> int:
+    """RESUME's switch for n rays (``whitted_resume_launch`` warp_max): up
+    to this many survivors run a warp each. RESUME_WARP_MAX, at most n
+    (so n or more: a warp per survivor always; 0: a thread each always),
+    and 0 for a scene of more than MAX_SURFACES real surfaces, which the
+    one-ray masks cannot hold. ValueError if RESUME_WARP_MAX < 0."""
+    if RESUME_WARP_MAX < 0:
+        raise ValueError(f"RESUME_WARP_MAX must be >= 0, got "
+                         f"{RESUME_WARP_MAX}")
+    return min(RESUME_WARP_MAX, n if struct.n_real <= MAX_SURFACES else 0)
+
+
 def trace_rays_resume_cuda(sc: SceneArrays, state, cols, idx, count,
                            cfg: TraceConfig, k1: int,
                            struct: KernelStruct = None):
@@ -866,13 +916,18 @@ def trace_rays_resume_cuda(sc: SceneArrays, state, cols, idx, count,
     (``compact_active``) of ``state`` (from ``trace_rays_emit_cuda`` with
     the same k1) run at most cfg.max_segments - k1 more segments, and
     their colors are written in place into ``cols``, the color buffer
-    round 1 returned, which is returned. CPU tensors take the plain
+    round 1 returned, which is returned. Up to RESUME_WARP_MAX
+    (``resume_warp_max``) survivors run a warp each, more a thread each
+    with per-ray masks (RESUME_OWN_MIN_KEPT); the kernel picks by the
+    count on the device. CPU tensors take the plain
     ``ops.trace.trace_rays_resume``, which resumes every active ray (the
     same rays) and returns new colors. Single-branch scenes only."""
     global resume_launches
+    struct = struct or _get_struct(sc)
+    warp_max = resume_warp_max(struct, state.shape[1])
+    _check_own_min()
     if state.device.type == "cpu":
         return trace_rays_resume(sc, state, cols, cfg, k1)
-    struct = struct or _get_struct(sc)
     _check_whitted_cfg(cfg)
     check_rounds_struct(struct)
     segments = cfg.max_segments - k1
@@ -895,7 +950,8 @@ def trace_rays_resume_cuda(sc: SceneArrays, state, cols, idx, count,
             state.data_ptr(), idx.data_ptr(), count.data_ptr(),
             cols.data_ptr(), *tables, N, struct.n_real, struct.nc,
             struct.nl, cfg.depth, segments, cfg.cutoff,
-            cull_gates(struct, cfg).flags, stream)
+            cull_gates(struct, cfg).flags, stream, warp_max,
+            RESUME_OWN_MIN_KEPT)
     if err != 0:
         raise RuntimeError(f"whitted resume kernel launch failed: CUDA "
                            f"error {err}")

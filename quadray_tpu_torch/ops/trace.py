@@ -483,6 +483,31 @@ def ray_reach(org, dirs, spheres):
     return ~((dist2 - d_ax * d_ax > lim) | ((d_ax < 0.0) & (d_ax * d_ax > lim)))
 
 
+def seg_reach(org, dirs, spheres):
+    """Which bounding spheres each shadow ray may reach: the per-ray test
+    of the CUDA kernel's shadow masks in the two-round modes (whitted.cu
+    ``seg_reaches``), with its f32 operations in its order. org, dirs (N,
+    3) f32, a ray being the segment org + t dirs, t in [0, 1] (dirs
+    unnormalised: the hit point to the light); spheres (4, S) f32 rows cx,
+    cy, cz, radius (+inf: unbounded). A sphere is kept unless the point of
+    the segment nearest its centre c (t = (c - o).d / |d|^2 clamped to [0,
+    1]) lies farther than its radius from c, the radius widened by 1e-4 and
+    the squares by 1e-5 (|c - o|^2 + |d|^2) for f32 rounding; a comparison
+    that gives NaN or inf comes out as "reach". Returns (N, S) bool."""
+    dx, dy, dz = (v[:, None] for v in dirs.unbind(-1))
+    ox, oy, oz = (v[:, None] for v in org.unbind(-1))
+    scx, scy, scz, srs = (s[None, :] for s in spheres)
+    lcx, lcy, lcz = scx - ox, scy - oy, scz - oz              # (N, S)
+    re = srs + 1e-4
+    dd = dx * dx + dy * dy + dz * dz
+    tp = torch.clamp((lcx * dx + lcy * dy + lcz * dz)
+                     / torch.clamp(dd, min=1e-30), 0.0, 1.0)
+    qx, qy, qz = lcx - tp * dx, lcy - tp * dy, lcz - tp * dz
+    dist2 = lcx * lcx + lcy * lcy + lcz * lcz
+    lim = re * re + 1e-5 * (dist2 + dd)
+    return ~(qx * qx + qy * qy + qz * qz > lim)
+
+
 def _unpack_bits(words, n: int):
     """(..., NW) i32 words -> (..., n) bool, bit b of word w = column
     32w + b (the packing of ``cuda_kernel._pack_bits``)."""
@@ -500,7 +525,10 @@ class Cull:
     ``cuda_kernel.cull_gates`` switches them. The masks come back on the
     original surface order, for ``intersect``'s ``reach``. ``stats`` get
     the surface tests the masks keep and skip (``count_work``). With
-    ``pt``, the path tracer's gate and its per-ray masks (``rays``)."""
+    ``own``, ``nearest`` and ``shadow`` refine each ray's bundle mask by
+    its own reach bits (``ray_reach``, ``seg_reach``) and its own static
+    row (the two-round modes' per-ray masks). With ``pt``, the path
+    tracer's gate and its per-ray masks (``rays``)."""
 
     def __init__(self, sc: SceneArrays, cfg: TraceConfig, pt: bool = False):
         from quadray_tpu_torch.ops.cuda_kernel import (
@@ -536,9 +564,14 @@ class Cull:
         out[:N] = v
         return out.reshape((G, WARP) + v.shape[1:])
 
-    def _mask(self, org, dirs, on, shadow, rows_bits, total, key, stats):
+    def _mask(self, org, dirs, on, shadow, rows_bits, total, key, stats,
+              reach_own=None, own_min: int = 0):
         """(N, NS) bool on the original order: the bundle's mask of each
-        ray; rows_bits (N, n) bool, each ray's static-mask row or None."""
+        ray; rows_bits (N, n) bool, each ray's static-mask row or None.
+        With ``reach_own`` ((N, n) bool: each ray's own reach bits), each
+        ray of a bundle whose mask keeps more than ``own_min`` surfaces
+        refines it by its own reach bits and its own row, as the kernel's
+        two-round modes do (whitted.cu ``nearest_own``/``occluded_own``)."""
         N = on.shape[0]
         if self.gates.cull:
             m = bundle_reach(self._bundles(org, 0.0),
@@ -552,6 +585,13 @@ class Cull:
         if rows_bits is not None:
             m = m & self._bundles(rows_bits & on[:, None], False).any(dim=1)
         per_ray = m.repeat_interleave(WARP, dim=0)[:N]
+        if reach_own is not None:
+            own = per_ray & reach_own
+            if rows_bits is not None:
+                own = own & rows_bits
+            refine = (m.sum(dim=1) > own_min).repeat_interleave(
+                WARP)[:N]
+            per_ray = torch.where(refine[:, None], own, per_ray)
         if stats is not None:
             kept = int((per_ray & on[:, None]).sum())
             count_work(stats, key + "_kept", kept)
@@ -577,28 +617,41 @@ class Cull:
         out[:, self.perm] = m
         return out
 
-    def nearest(self, st, act, stats=None):
+    def nearest(self, st, act, stats=None, own=None):
         """The mask of a segment's nearest pass over the state ``st``:
         the cont rows are those of each ray's previous hit (``orow``, -1
         where the ray has none: a primary ray, a popped branch, the first
-        resumed segment), all bits where it has none."""
+        resumed segment), all bits where it has none. ``own`` (an int):
+        each ray refines a bundle mask that keeps more than ``own``
+        surfaces by its own (``ray_reach``); None, the bundle's alone."""
         rows = None
         if self.gates.cont:
             orow = st["orow"]
             side = (st["oside"] <= 0).long()
             rows = torch.where((orow >= 0)[:, None],
                                self.cont[orow.clamp(min=0), side], True)
+        reach = None
+        if own is not None:
+            reach = (ray_reach(st["org"], st["dir"], self.spheres)
+                     if self.gates.cull else torch.ones_like(act)[:, None])
         return self._mask(st["org"], st["dir"], act, False, rows, self.n,
-                          "nearest_tests", stats)
+                          "nearest_tests", stats, reach, own or 0)
 
-    def shadow(self, org, dirs, need, srf, light: int, stats=None):
+    def shadow(self, org, dirs, need, srf, light: int, stats=None,
+               own=None):
         """The mask of the shadow pass toward active light ``light`` from
-        the hits ``srf`` (original ids) of the rays that ``need`` it."""
+        the hits ``srf`` (original ids) of the rays that ``need`` it.
+        ``own``: as for ``nearest``, with ``seg_reach``."""
         rows = None
         if self.gates.lsort:
             rows = self.shad[self.row_of[srf.clamp(min=0).long()], light]
+        reach = None
+        if own is not None:
+            reach = (seg_reach(org, dirs, self.spheres)
+                     if self.gates.cull else torch.ones_like(need)[:, None])
         return self._mask(org, dirs, need, True, rows,
-                          int(self.blk.sum()), "shadow_tests", stats)
+                          int(self.blk.sum()), "shadow_tests", stats, reach,
+                          own or 0)
 
 
 # ---------------------------------------------------------------------------
@@ -649,13 +702,14 @@ def count_work(stats, key: str, mask) -> None:
 
 
 def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
-          stats=None, cull=None):
+          stats=None, cull=None, own=None):
     """Local color: ambient + per-light diffuse/specular with hard shadows
     (LT_reg..LT_end, tracer.cpp:2709-3180). Returns (col (N, 3), unlit
     (N,) i32): bit 16+l of ``unlit`` is set where active light l is not
     unoccluded-lit (the path record's light bits, pallas_kernel.py:1747),
     for the first 16 light rows. ``stats``: see ``count_work``; ``cull``,
-    a ``Cull`` or None, masks each shadow pass."""
+    a ``Cull`` or None, masks each shadow pass (``own``: per ray, see
+    ``Cull.nearest``)."""
     midx = material_index(sc, srf, side)
     props = sc.m_props[midx]
     tex = texture_color(sc, midx, p)
@@ -666,7 +720,7 @@ def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
         lvec = sc.l_pos[li][None, :] - x                # L = pos - hit
         r_dot = _dot3(lvec, n)
         lit = (r_dot > 0.0) & (sc.l_on[li] > 0) & hit
-        reach = (cull.shadow(x, lvec, lit, srf, li, stats)
+        reach = (cull.shadow(x, lvec, lit, srf, li, stats, own)
                  if cull is not None and li < cull.nl else None)
         # shadow any-hit along hit -> light, t in (0, 1)
         occ = intersect(sc, x, lvec, zero_t, torch.ones_like(zero_t),
@@ -878,16 +932,20 @@ def _fresh_state(org, dirs, t_min, D: int):
 
 
 def _run(sc: SceneArrays, cfg: TraceConfig, st, k_paths: int = 0,
-         push: bool = True, fixed: bool = False, stats=None, cull=None):
+         push: bool = True, fixed: bool = False, stats=None, cull=None,
+         own=None):
     """At most cfg.max_segments bounces from the loop state ``st``, whose
     rays are in the kernel's launch order (``cull``, a ``Cull`` or None,
-    bundles them by it); returns (the state after them, paths (k_paths, N)
-    i32)."""
+    bundles them by it; ``own``, None or (the first bounce, the kept
+    count): from that bounce on, each ray refines its bundle's masks that
+    keep more than that count by its own, ``Cull.nearest``); returns (the
+    state after them, paths (k_paths, N) i32)."""
     paths = torch.zeros((k_paths, st["org"].shape[0]), dtype=I32,
                         device=st["org"].device)
     it = 0
     while it < cfg.max_segments and (fixed or bool(st["active"].any())):
-        st, rec = _bounce(sc, cfg, st, push, stats, cull)
+        st, rec = _bounce(sc, cfg, st, push, stats, cull,
+                          own[1] if own and it >= own[0] else None)
         if it < k_paths:
             paths[it] = rec
         it += 1
@@ -945,7 +1003,11 @@ def trace_rays_emit(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
     state, rows STATE_ROWS). A ray that retired keeps its last ray with
     thru 0 and active 0, as the TPU kernel's single-branch update leaves
     it. Single-branch scenes only (ValueError otherwise): no lane pushes a
-    branch. ``stats``: as for ``trace_rays``."""
+    branch. The cull masks are the kernel's: the bundles' for the camera
+    segment and after it each ray's own within a bundle mask that keeps
+    more than ``cuda_kernel.EMIT_OWN_MIN_KEPT`` surfaces. ``stats``: as
+    for ``trace_rays``."""
+    from quadray_tpu_torch.ops.cuda_kernel import EMIT_OWN_MIN_KEPT
     _check_single_branch(sc)
     if k1 < 1:
         raise ValueError(f"k1 must be >= 1, got {k1}")
@@ -959,7 +1021,8 @@ def trace_rays_emit(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
     for i in range(0, N, CHUNK):
         st = _fresh_state(org[i:i + CHUNK].to(F32), dirs[i:i + CHUNK].to(F32),
                           t_min[i:i + CHUNK].to(F32), cfg.stack)
-        st, _ = _run(sc, cfg1, st, push=False, stats=stats, cull=cull)
+        st, _ = _run(sc, cfg1, st, push=False, stats=stats, cull=cull,
+                     own=(1, EMIT_OWN_MIN_KEPT))
         cols[i:i + CHUNK] = st["acc"]
         state[:, i:i + CHUNK] = _pack_state(st)
     return cols, state
@@ -972,9 +1035,12 @@ def trace_rays_resume(sc: SceneArrays, state, cols, cfg: TraceConfig,
     runs at most cfg.max_segments - k1 more segments, its color sums
     starting from the emitted acc, so the result is the f32 chain of
     ``trace_rays``. Returns new (N, 3) colors: ``cols`` where a ray had
-    retired. The active rays run in ascending order, packed as the
-    kernel's RESUME threads take them (``cuda_kernel.compact_active``).
-    Single-branch scenes only. ``stats``: as for ``trace_rays``."""
+    retired. The active rays run in ascending order, as the kernel's RESUME
+    takes them (``cuda_kernel.compact_active``), each with its own cull
+    masks within a bundle mask that keeps more than
+    ``cuda_kernel.RESUME_OWN_MIN_KEPT`` surfaces, as in the kernel's dense
+    mode. Single-branch scenes only. ``stats``: as for ``trace_rays``."""
+    from quadray_tpu_torch.ops.cuda_kernel import RESUME_OWN_MIN_KEPT
     _check_single_branch(sc)
     out = cols.clone()
     cfg2 = cfg._replace(max_segments=cfg.max_segments - k1)
@@ -985,19 +1051,20 @@ def trace_rays_resume(sc: SceneArrays, state, cols, cfg: TraceConfig,
     for i in range(0, alive.shape[0], CHUNK):
         ids = alive[i:i + CHUNK]
         st = _unpack_state(state[:, ids], cfg.stack)
-        st, _ = _run(sc, cfg2, st, push=False, stats=stats, cull=cull)
+        st, _ = _run(sc, cfg2, st, push=False, stats=stats, cull=cull,
+                     own=(0, RESUME_OWN_MIN_KEPT))
         out[ids] = st["acc"]
     return out
 
 
 def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
-            stats=None, cull=None):
+            stats=None, cull=None, own=None):
     """One bounce of the iterative Whitted loop (quadray_tpu.ops.trace
     _make_body): shade the nearest hit, continue with the reflection if
     it carries weight, else the refraction, pushing the refraction when
     both do (unless ``push_ok`` is False); lanes that cannot continue pop
     the branch stack. Returns the new state and the segment's path record
-    (see trace_paths)."""
+    (see trace_paths). ``own``: per-ray masks (``Cull.nearest``)."""
     N = st["org"].shape[0]
     D = cfg.stack
     act = st["active"]
@@ -1007,10 +1074,10 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
                   st["osrf"], st["oside"], st["thru"],
                   origin_loc=st["oloc"],
                   reach=None if cull is None else cull.nearest(st, act,
-                                                               stats))
+                                                               stats, own))
     hit = h["hit"] & act
     local, unlit = shade(sc, cfg, h["x"], h["p"], h["n"], st["dir"],
-                         h["srf"], h["side"], hit, stats, cull)
+                         h["srf"], h["side"], hit, stats, cull, own)
     midx = material_index(sc, h["srf"], h["side"])
     c_rfl, c_trn, refr_dir, _ = fresnel_terms(sc, midx, st["dir"], h["n"],
                                               cfg.schlick)

@@ -2,8 +2,10 @@
 
     python3 scripts/ab_whitted.py OTHER.cu [MORE.cu ...] [--rounds 8]
         [--reps 20] [--modes whitted paths emit resume pt]
-        [--cull on off] [--k1 4] [--coop 0 1 2 4 8 16 32]
-        [--scenes test03 test10 ...] [--sweep-others]
+        [--cull on off] [--k1 1 4] [--coop 0 1 2 4 8 16 32]
+        [--resume-warp 0 1024 n]
+        [--scenes test03 test10 ...] [--rounds-scenes test13 demo02 ...]
+        [--sweep-others]
 
 OTHER.cu is another version of quadray_tpu_torch/csrc/whitted.cu with the
 same C entry points (whitted_launch, whitted_paths_launch,
@@ -11,13 +13,16 @@ whitted_emit_launch, whitted_resume_launch, whitted_pt_launch) and
 arguments, for example the parent commit's, unpacked with git archive
 into a directory that .gitignore lists (with the headers it includes
 beside it), or a variant of this checkout's (another culling design).
-A version whose whitted_pt_launch ends at the stream (before PT culling)
-or whose whitted_launch does (before the cooperative tail) is called with
-this checkout's arguments too: the cull flags and coop_max come after the
-stream, and it ignores them. All are built with the port's nvcc flags
-and loaded into one process; the ptxas lines (registers, stack frame,
-spills) of every build are printed, one line each for every template
-instantiation. For each
+A version whose whitted_pt_launch ends at the stream (before PT culling),
+whose whitted_launch does (before the cooperative tail) or whose
+whitted_emit_launch and whitted_resume_launch do (before per-ray masks
+and RESUME's two modes; the parent of that change times the warp's masks
+after EMIT's camera segment) is called with this checkout's arguments
+too: the cull flags, coop_max, the rounds' own_min and RESUME's warp_max
+come after the stream, and it ignores them. All are built with the
+port's nvcc flags and loaded into one process; the ptxas lines
+(registers, stack frame, spills) of every build are printed, one line
+each for every template instantiation. For each
 case (a scene at 800x480, the Whitted mode, the path-record mode of the
 training step, round 1 or round 2 of two-round retirement, or one
 path-traced pass at depth 10) and each --cull setting (on: the default
@@ -30,8 +35,13 @@ more versions (a1, a2, ... in the order given) a round is
 a1 a2 ... b b ... a2 a1. --coop sweeps this checkout's coop_max (the
 cooperative tail's switch, ops/cuda_kernel.py COOP_MAX_LIVE, the default)
 in the Whitted cases: each value is a version of its own (b0, b4, ...),
-timed in the same rounds (a b0 b4 b4 b0 a); --sweep-others sweeps the
-OTHER versions too (a0, a4, ...: variants of this checkout's design).
+timed in the same rounds (a b0 b4 b4 b0 a); --resume-warp sweeps
+RESUME's switch (warp_max, ops/cuda_kernel.py RESUME_WARP_MAX; n: every
+ray, so always a warp per survivor) in the resume cases the same way;
+--sweep-others sweeps
+the OTHER versions too (a0, a4, ...: variants of this checkout's design).
+--k1 takes several values (the emit and resume cases run at each) and
+--rounds-scenes replaces their scenes.
 Prints each case's range and
 mean per version, then one JSON line with every case's times, means and
 the ratio of the means of each version of this checkout to each other
@@ -126,11 +136,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
-             coop: int):
+             opt):
     """(run, tensors to keep alive): run() launches lib's kernel on the
     case's inputs, culled as the default TraceConfig's gates say or not
     at all, and returns its output buffer; the rounds split after k1
-    segments; the Whitted mode's cooperative tail from coop rays a warp."""
+    segments. opt: the Whitted mode's coop_max, RESUME's warp_max ("n":
+    every ray)."""
     from quadray_tpu_torch.models.scenes.loader import load_scene
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.rays import camera_rays
@@ -151,8 +162,8 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
     rays, tables = ck._launch_inputs("ab", sc, org, dirs, tmin, struct, ps)
     n = dirs.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # the cull flags of this case's TraceConfig, the stream and coop_max,
-    # in the entry point's order
+    # the cull flags of this case's TraceConfig, the stream and the mode's
+    # option, in the entry point's order
     if mode == "pt":
         gates = ck.cull_gates(struct, TraceConfig(depth=PT_DEPTH, cull=cull),
                               pt=True)
@@ -161,7 +172,12 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
         gates = ck.cull_gates(struct, TraceConfig(
             **({} if mode != "paths" else dict(max_segments=K_PATHS,
                                                 stack=4)), cull=cull))
-        last = [gates.flags, stream] + ([coop] if mode == "whitted" else [])
+        last = [gates.flags, stream]
+        if mode == "whitted":
+            last.append(opt)
+        elif mode == "resume":
+            last += [n if opt == "n" else min(int(opt), n),
+                     ck.RESUME_OWN_MIN_KEPT]
     if mode == "pt":
         from quadray_tpu_torch.ops.pt import init_seeds
         seeds = init_seeds(n, device=dev)
@@ -198,7 +214,7 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
             err = lib.whitted_emit_launch(
                 rays.data_ptr(), out.data_ptr(), state.data_ptr(), *tables,
                 n, struct.n_real, struct.nc, struct.nl, cfg.depth, k1,
-                cfg.cutoff, *last)
+                cfg.cutoff, *last[:2], ck.EMIT_OWN_MIN_KEPT)
             assert err == 0, err
             return torch.cat([out.view(torch.int32), state.view(torch.int32)])
         if mode == "resume":
@@ -258,16 +274,25 @@ def main():
     ap.add_argument("--cull", nargs="+", default=["on", "off"],
                     choices=["on", "off"],
                     help="the cull settings to run each Whitted case at")
-    ap.add_argument("--k1", type=int, default=None,
-                    help="segments of round 1 in the emit and resume cases "
-                    "(default ROUNDS_K1; 1 times the primary segment)")
+    ap.add_argument("--k1", type=int, nargs="+", default=None,
+                    help="segments of round 1 in the emit and resume cases, "
+                    "each a case (default ROUNDS_K1; 1 times the primary "
+                    "segment)")
     ap.add_argument("--scenes", nargs="+", default=None,
                     help="the Whitted cases' scenes (default: CASES')")
+    ap.add_argument("--rounds-scenes", nargs="+", default=None,
+                    help="the emit and resume cases' scenes (default: "
+                    "CASES')")
     ap.add_argument("--coop", type=int, nargs="+", default=None,
                     help="coop_max values of this checkout's Whitted cases "
                     "(default COOP_MAX_LIVE alone)")
+    ap.add_argument("--resume-warp", nargs="+", default=None,
+                    help="warp_max values (integers, or n for every ray) of "
+                    "this checkout's resume cases (default RESUME_WARP_MAX "
+                    "alone)")
     ap.add_argument("--sweep-others", action="store_true",
-                    help="sweep --coop on the OTHER versions too")
+                    help="sweep --coop and --resume-warp on the OTHER "
+                    "versions too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False")
@@ -290,24 +315,37 @@ def main():
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
             print_ptxas("b", fh.read())
-    from quadray_tpu_torch.ops.cuda_kernel import COOP_MAX_LIVE, ROUNDS_K1
+    from quadray_tpu_torch.ops.cuda_kernel import (
+        COOP_MAX_LIVE, RESUME_WARP_MAX, ROUNDS_K1)
     result = {"device": smi, "other": dict(zip(labels, args.other)),
               "rounds": args.rounds, "reps": args.reps,
-              "coop_max_live": COOP_MAX_LIVE, "cases": {}}
-    k1 = args.k1 or ROUNDS_K1
+              "coop_max_live": COOP_MAX_LIVE,
+              "resume_warp_max": RESUME_WARP_MAX, "cases": {}}
+    # each mode's option (launcher's opt): its default and the sweep's
+    # values, {version suffix: value}
+    default = {"whitted": COOP_MAX_LIVE, "emit": None,
+               "resume": RESUME_WARP_MAX, "paths": None, "pt": None}
+    sweeps = {"whitted": {str(c): c for c in args.coop or ()},
+              "resume": {w: w for w in args.resume_warp or ()}}
     table = CASES if args.scenes is None else (
         [(n, "whitted") for n in args.scenes]
         + [c for c in CASES if c[1] != "whitted"])
-    cases = [(name, mode, cull) for name, mode in table
-             if mode in args.modes for cull in args.cull]
-    for name, mode, cull in cases:
-        # this checkout's versions: one per coop_max in the Whitted mode
-        sweep = mode == "whitted" and args.coop
-        mine = {f"b{c}": c for c in args.coop} if sweep else {
-            "b": COOP_MAX_LIVE}
-        others = ({f"{k}@{c}": (k, c) for k in labels for c in args.coop}
+    if args.rounds_scenes is not None:
+        table = [c for c in table if c[1] not in ("emit", "resume")] + [
+            (n, m) for m in ("emit", "resume") for n in args.rounds_scenes]
+    cases = [(name, mode, cull, k1) for name, mode in table
+             if mode in args.modes for cull in args.cull
+             for k1 in (args.k1 or [ROUNDS_K1]
+                        if mode in ("emit", "resume") else [0])]
+    for name, mode, cull, k1 in cases:
+        # this checkout's versions: one per value of the mode's sweep
+        sweep = sweeps.get(mode)
+        mine = {f"b{v}": c for v, c in sweep.items()} if sweep else {
+            "b": default[mode]}
+        others = ({f"{k}@{v}": (k, c) for k in labels
+                   for v, c in sweep.items()}
                   if sweep and args.sweep_others
-                  else {k: (k, COOP_MAX_LIVE) for k in labels})
+                  else {k: (k, default[mode]) for k in labels})
         runs = {v: launcher(libs[k], name, mode, dev, cull == "on", k1, c)
                 for v, (k, c) in others.items()}
         runs.update({k: launcher(libs["b"], name, mode, dev, cull == "on",
