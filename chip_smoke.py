@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only E   # kernel build + the path tracer only
     python3 chip_smoke.py --only H   # kernel build + bounding-sphere culling
     python3 chip_smoke.py --only I   # kernel build + RESUME's two modes
+    python3 chip_smoke.py --only J   # kernel build + the apps on the card
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points) and the conformance kernels with parallel nvcc processes,
@@ -101,6 +102,27 @@ then:
      render_cuda's with the exact bad-pixel counts, one emit and one
      resume launch a call; I2 the sweep of RESUME's switch (warp_max) on
      the same 38 cases, resume device ms (CUDA graphs) and their sums.
+  J. the interactive and developer entry points on the card, in-process:
+     J1 apps/core_test (quadray_tpu_torch.apps.core_test) -b 1 -e 18 -k
+     at 800x480: each run level's bad pixels equal H1's exact counts
+     (test11 6, test14 2, test16 38, else 0), so the app counts 3
+     failures, and its kernel vs plain difference within 1e-5 on every
+     level; J2 render_cli -i on demo01-03 at 800x480, 30 frames of one
+     key trace (all ten camera actions, a2 then a1, q twice, f4, f1): one
+     Whitted launch per Whitted frame and one PT launch per PT frame; the
+     frames it saved after a move, after a rotation and at a2 equal to
+     the plain version's uint8 frame on a second Scene replayed through
+     the same tokens, whose kernel frame is within 1e-5 of the plain one
+     on the same compiled arrays; the final camera equal to a host replay
+     of the trace through CameraController; J3 the interactive frame's
+     cost, demo01-03 and test13 at 800x480 with a camera action each
+     frame, two runs of 60 frames: AVG FPS, and in the same loop ms/frame
+     split into the update (compile_scene with the camera), the table
+     build (pack_scene and the culling tables) and the rest, the kernel's
+     device ms (CUDA events) and the card's share of the window the
+     kernel kept busy; J4 float64 rays and
+     a float64 scene raise ValueError before any launch; J5 plot_fresnel
+     on the card against -c.
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -1724,14 +1746,336 @@ def phase_i2(dev, cases):
     return rows, sums, best
 
 
+# ---- phase J: the interactive and developer entry points ---------------------
+
+# J2's key trace (render_cli -k, one token a frame): all ten camera
+# actions, a2 then a1, q twice (PT on frames 14-16, a move among them),
+# f4 and f1; the frames J2 holds against the plain version: after a move,
+# after a rotation, at a2
+J2_TRACE = (".,w,s,a,d,rise,fall,left,right,up,down,a2,w+left,a1,q,w,.,q,"
+            "f4,f1,w,left,s,right,rise,down,fall,up,d,.")
+J2_CHECKED = {1: "move", 7: "rotation", 11: "a2"}
+J2_FRAMES = 30
+J2_SCENES = ("demo01", "demo02", "demo03")
+# J3: its scenes, their trace, frame count and runs
+J3_SCENES = ("demo01", "demo02", "demo03", "test13")
+J3_TRACE = "w,left,w,right,s,up,d,down,a,."
+J3_FRAMES = 60
+J3_RUNS = 2
+
+
+@contextlib.contextmanager
+def quiet_in_tempdir():
+    """Run an app in a fresh working directory (its dump/ files go there)
+    with its standard output kept, not printed; yields the buffer."""
+    import io
+    import tempfile
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+            contextlib.redirect_stdout(buf):
+        yield buf
+
+
+def phase_j1():
+    """core_test -b 1 -e 18 -k at 800x480 on the card, in-process."""
+    from quadray_tpu_torch.apps import core_test
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    ck.launches = 0
+    with quiet_in_tempdir():
+        res = core_test.run(["-b", "1", "-e", "18", "-k"])
+    launches = ck.launches
+    fails = []
+    for name, r in res["levels"].items():
+        want = GOLDEN_BAD.get(name, 0)
+        ok = r["nbad"] == want and r["kernel_diff"] <= ATOL
+        log(f"J1 {name}: bad_px={r['nbad']} (H1: {want}) kernel_vs_plain="
+            f"{r['kernel_diff']:.3e} frame_ms={r['ms']:.1f}"
+            f"{'' if ok else '  FAIL'}")
+        if not ok:
+            fails.append(name)
+    log(f"J1 core_test: {res['failures']} run levels with differences "
+        f"(test11, test14, test16 as H1), whitted launches={launches}")
+    if fails or len(res["levels"]) != 18 or res["failures"] != 3 \
+            or launches < 36:
+        raise AssertionError(f"J1: {fails}, failures={res['failures']}, "
+                             f"launches={launches}")
+    return launches
+
+
+def camera_replay(sdef, tokens, frames):
+    """The camera render_cli's loop leaves behind, replayed on the host
+    through CameraController: the first action takes the scene's camera
+    with its clock at the last update's time; each frame's update
+    advances it to the frame's time."""
+    from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
+    from quadray_tpu_torch.engine import CameraController, _find_camera
+    cam, last = None, 0.0
+    for fi in range(frames):
+        t = frame_time(fi)
+        for key in tokens[fi % len(tokens)].split("+"):
+            if key in KEY_ACTIONS:
+                if cam is None:
+                    cam = CameraController(*_find_camera(sdef.root))
+                    cam.advance(last)
+                cam.update_action(t, KEY_ACTIONS[key])
+        if cam is not None:
+            cam.advance(t)
+        last = t
+    return cam
+
+
+def replay_scene(name, tokens, dev, upto):
+    """A second Scene driven by the camera and antialiasing tokens of
+    render_cli's loop, frame by frame up to frame ``upto``: yields (fi,
+    scene) after each frame's update (compile_scene with the camera), as
+    the app's Scene.render runs it, without rendering."""
+    from quadray_tpu_torch import Platform, Scene
+    from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
+    from quadray_tpu_torch.models.scenes import demos
+    pfm = Platform()
+    sc = Scene(demos.build(name), W, H, pfm=pfm, device=dev)
+    for fi in range(upto + 1):
+        t = frame_time(fi)
+        for key in tokens[fi % len(tokens)].split("+"):
+            if key in KEY_ACTIONS:
+                sc.update_action(t, KEY_ACTIONS[key])
+            elif key in ("a1", "a2", "a4"):
+                pfm.set_fsaa(int(key[1]))
+            elif key not in (".", "f1", "f4"):
+                raise ValueError(f"replay_scene: token {key} at frame {fi}")
+        sc.update(t)
+        yield fi, sc
+
+
+def phase_j2(dev):
+    """render_cli -i on demo01-03 at 800x480, J2_FRAMES frames each, one
+    key trace: every Whitted frame one Whitted launch, every PT frame one
+    PT launch; the frames it saved at J2_CHECKED against the plain version
+    on a second Scene replayed through the same tokens (the kernel's
+    linear frame within ATOL of the plain one on the same compiled arrays
+    and TraceConfig, the saved frame equal to the plain uint8 frame); the
+    final camera against a host replay."""
+    from quadray_tpu_torch.apps import render_cli
+    from quadray_tpu_torch.models.scenes import demos
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig, render, to_frame
+    from quadray_tpu_torch.utils.image import load_bmp
+    tokens = J2_TRACE.split(",")
+    total = {"whitted": 0, "pt": 0}
+    for name in J2_SCENES:
+        ck.launches = ck.pt_launches = 0
+        with quiet_in_tempdir() as out:
+            st = render_cli.main(["-d", name[-1], "-f", str(J2_FRAMES), "-i",
+                                  "-k", J2_TRACE])
+            saved = {fi: load_bmp(f"dump/demo{name[-1].zfill(2)}_f"
+                                  f"{fi:04d}.bmp") for fi in J2_CHECKED}
+        whitted, pt = ck.launches, ck.pt_launches
+        checked = {}
+        for fi, sc in replay_scene(name, tokens, dev, max(J2_CHECKED)):
+            if fi not in J2_CHECKED:
+                continue
+            lin = sc.render_linear()
+            plain = render(sc.arrays, W, H, sc.pfm.fsaa,
+                           TraceConfig(depth=sc.pfm.depth))
+            checked[fi] = (
+                float((lin - plain).abs().max()),
+                np.array_equal(saved[fi], to_frame(
+                    plain, sc.arrays.use_gamma).cpu().numpy()),
+                sc.pfm.fsaa)
+            del lin, plain
+            torch.cuda.empty_cache()
+        cam = st["scene"].camera
+        ref = camera_replay(demos.build(name), tokens, J2_FRAMES)
+        cam_ok = cam.pos == ref.pos and cam.rot == ref.rot
+        for fi, (err, eq, fsaa) in sorted(checked.items()):
+            log(f"J2 {name} frame {fi} ({J2_CHECKED[fi]}, fsaa={fsaa}): "
+                f"replayed kernel max_abs vs plain={err:.3e}, app's saved "
+                f"frame equal to plain uint8={eq}")
+        log(f"J2 {name}: {st['frames']} frames, whitted={st['whitted_frames']}"
+            f" launches={whitted}, pt={st['pt_frames']} launches={pt}, "
+            f"camera pos={cam.pos} rot={cam.rot} host replay equal={cam_ok}, "
+            f"AVG FPS={st['avg_fps']:.2f} (app, with f1, f4 and -i), "
+            f"f1 lines={out.getvalue().count('cam_pos')}")
+        ok = (whitted == st["whitted_frames"] and pt == st["pt_frames"]
+              and st["pt_frames"] >= 1 and cam_ok
+              and st["whitted_frames"] + st["pt_frames"] == J2_FRAMES
+              and len(checked) == len(J2_CHECKED)
+              and all(c[0] <= ATOL and c[1] for c in checked.values()))
+        if not ok:
+            raise AssertionError(f"J2 {name} failed")
+        total["whitted"] += whitted
+        total["pt"] += pt
+    return total
+
+
+@contextlib.contextmanager
+def timed_render_calls(sc):
+    """Time the calls Scene.render makes, in place, on ``sc``: the host
+    clock around sc.update (compile_scene with the camera) and around
+    ck._get_packed (pack_scene and the culling tables, inside
+    render_cuda), and a CUDA event pair around the Whitted kernel's launch
+    (recorded after the launch inputs are ready and after
+    trace_rays_cuda returns). No synchronisation is added. Yields a dict
+    of per-call lists: update and pack (host ms), kernel (event pairs)."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    rec = {"update": [], "pack": [], "kernel": []}
+    saved = {k: getattr(ck, k) for k in ("_get_packed", "_launch_inputs",
+                                         "trace_rays_cuda")}
+
+    def host_timed(key, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def launch_inputs(*a, **k):
+        out = saved["_launch_inputs"](*a, **k)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        rec["kernel"].append([ev, None])
+        return out
+
+    def trace(*a, **k):
+        out = saved["trace_rays_cuda"](*a, **k)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        rec["kernel"][-1][1] = ev
+        return out
+
+    sc.update = host_timed("update", sc.update)
+    ck._get_packed = host_timed("pack", saved["_get_packed"])
+    ck._launch_inputs = launch_inputs
+    ck.trace_rays_cuda = trace
+    try:
+        yield rec
+    finally:
+        del sc.update
+        for k, v in saved.items():
+            setattr(ck, k, v)
+
+
+def phase_j3(dev, smi):
+    """The interactive frame's cost at 800x480: Scene.render after the
+    trace's camera action, every frame a new compile and a new pack. Per
+    scene J3_RUNS runs of J3_FRAMES frames, each on a new Scene, as
+    render_cli's loop runs them: AVG FPS on the host clock, and in the
+    same loop and frames (timed_render_calls) ms/frame split into the
+    update, the table build, and the rest (the kernel's launch, to_frame,
+    the wait for the card and the copy to the host); the kernel's device
+    ms from CUDA events, and the card's share of the window (an event
+    pair around the loop) that the kernel kept it busy."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
+    from quadray_tpu_torch.models.scenes import demos
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    tokens = J3_TRACE.split(",")
+    sdef = lambda n: demos.build(n) if n.startswith("demo") else load_scene(n)
+    launches = 0
+    results = {}
+    for name in J3_SCENES:
+        for run in range(J3_RUNS):
+            sc = Scene(sdef(name), W, H, device=dev)
+            sc.render(0.0)                # first compile, kernel structure
+            ck.launches = 0
+            w0, w1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            frame_ms = []
+            with timed_render_calls(sc) as rec:
+                w0.record()
+                t0 = time.perf_counter()
+                for fi in range(1, J3_FRAMES + 1):
+                    tf = time.perf_counter()
+                    for key in tokens[fi % len(tokens)].split("+"):
+                        if key in KEY_ACTIONS:
+                            sc.update_action(frame_time(fi), KEY_ACTIONS[key])
+                    sc.render(frame_time(fi))
+                    frame_ms.append((time.perf_counter() - tf) * 1e3)
+                dt = time.perf_counter() - t0
+                w1.record()
+            torch.cuda.synchronize()
+            launches += ck.launches
+            if not (ck.launches == len(rec["update"]) == len(rec["pack"])
+                    == len(rec["kernel"]) == J3_FRAMES):
+                raise AssertionError(f"J3 {name}: {ck.launches} launches, "
+                                     f"{len(rec['kernel'])} timed")
+            kern = [a.elapsed_time(b) for a, b in rec["kernel"]]
+            window = w0.elapsed_time(w1)
+            upd, pack = np.array(rec["update"]), np.array(rec["pack"])
+            rest = np.array(frame_ms) - upd - pack
+            r = dict(fps=J3_FRAMES / dt, ms=dt * 1e3 / J3_FRAMES,
+                     update=upd.mean(), pack=pack.mean(), rest=rest.mean(),
+                     kernel=float(np.mean(kern)),
+                     busy=sum(kern) / window,
+                     update_min=upd.min(), update_max=upd.max())
+            results.setdefault(name, []).append(r)
+            log(f"J3 {name} run {run + 1} {W}x{H} ({smi}): AVG FPS="
+                f"{r['fps']:.2f} ms/frame={r['ms']:.3f} = update "
+                f"{r['update']:.3f} (min {r['update_min']:.3f}, max "
+                f"{r['update_max']:.3f}) + table build {r['pack']:.3f} + "
+                f"launch, to_frame, wait and copy {r['rest']:.3f} (mean of "
+                f"{J3_FRAMES}, host clock, same loop); kernel device "
+                f"{r['kernel']:.4f} ms (CUDA events), card busy with the "
+                f"kernel {100 * r['busy']:.2f}% of the {window:.1f} ms window")
+    return launches, results
+
+
+def phase_j4(dev):
+    """No silent down-cast: float64 rays, and a float64 scene, raise
+    ValueError before any launch."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import scene_astype
+    sc = compiled("test01", dev)
+    org, dirs, tmin = primary(sc, 64, 40)
+    cases = (("f64 rays", sc, org, dirs.double(), tmin),
+             ("f64 scene", scene_astype(sc, torch.float64), org.double(),
+              dirs.double(), tmin.double()))
+    before = ck.launches
+    for label, s, o, d, t in cases:
+        try:
+            ck.trace_rays_cuda(s, o, d, t)
+        except ValueError as e:
+            log(f"J4 {label}: ValueError: {e}")
+        else:
+            raise AssertionError(f"J4 {label}: no ValueError")
+    if ck.launches != before:
+        raise AssertionError("J4: a launch ran")
+
+
+def phase_j5(dev):
+    """plot_fresnel on the card (its default) against -c: the five curves
+    within 1e-6 and the six BMPs within 1 LSB."""
+    from quadray_tpu_torch.apps import plot_fresnel
+    from quadray_tpu_torch.utils.image import load_bmp
+    card, cpu = plot_fresnel.curves(device=dev), plot_fresnel.curves(
+        device="cpu")
+    err = max(float(np.abs(card[k] - cpu[k]).max()) for k in cpu)
+    bmps = {}
+    for label, argv in (("card", []), ("cpu", ["-c"])):
+        with quiet_in_tempdir():
+            plot_fresnel.main(argv)
+            bmps[label] = {n: load_bmp(f"dump/{n}").astype(np.int32)
+                           for n in sorted(os.listdir("dump"))}
+    lsb = max(int(np.abs(bmps["card"][n] - bmps["cpu"][n]).max())
+              for n in bmps["cpu"])
+    log(f"J5 plot_fresnel: curves on the card vs the CPU max_abs={err:.3e}"
+        f", {len(bmps['card'])} BMPs, max difference {lsb} LSB")
+    if err > 1e-6 or lsb > 1 or len(bmps["card"]) != 6 \
+            or bmps["card"].keys() != bmps["cpu"].keys():
+        raise AssertionError("J5: plot_fresnel on the card differs")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["A", "D", "E", "F", "G", "H", "I"],
+    ap.add_argument("--only",
+                    choices=["A", "D", "E", "F", "G", "H", "I", "J"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
-                    "retirement), G (conformance tier), H (culling) or I "
-                    "(RESUME's two modes and its switch's sweep)")
+                    "retirement), G (conformance tier), H (culling), I "
+                    "(RESUME's two modes and its switch's sweep) or J (the "
+                    "apps and the interactive frame)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -1844,6 +2188,18 @@ def main():
         del cases
         torch.cuda.empty_cache()
         log(f"phase I ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "J"):
+        t0 = time.perf_counter()
+        j1 = phase_j1()
+        j2 = phase_j2(dev)
+        j3_launches, _ = phase_j3(dev, smi)
+        phase_j4(dev)
+        phase_j5(dev)
+        j_whitted = j1 + j2["whitted"] + j3_launches
+        log(f"J launches: whitted {j_whitted} (J1 {j1}, J2 {j2['whitted']}, "
+            f"J3 {j3_launches}), pt {j2['pt']} (J2)")
+        log(f"phase J ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
 
@@ -1854,12 +2210,15 @@ def main():
     g_sum = [sum(g3[n][i] for n in lib_cases) for i in range(3)]
     g_bound = sum(g3[n][3][0] for n in lib_cases)
     log("kernel table: whitted ms/plain_ms are test13 800x480 frames "
-        "(render_cuda vs plain render); whitted_paths ms/plain_ms are "
+        "(render_cuda vs plain render), launches B's 21 frames plus phase "
+        "J's (core_test's 18 frames and -k, render_cli's Whitted frames, "
+        "J3's interactive frames); whitted_paths ms/plain_ms are "
         "test01 800x480 K=8 path-record traces (the training step's), "
         "launches the 10-step training run's, max_abs_err the worst "
         "color error of D1 (its records equal the plain version's); "
         "whitted_pt ms/plain_ms are one test18 800x480 depth-10 pass "
-        "(trace_pt_cuda vs plain trace_pt), launches E2's 64 passes, "
+        "(trace_pt_cuda vs plain trace_pt), launches E2's 64 passes "
+        "plus J2's PT frames, "
         "max_abs_err the worst radiance error of E1 (its seeds equal the "
         "plain version's); whitted_emit and whitted_resume ms/plain_ms "
         "are test13 800x480 at k1=4 (trace_rays_emit_cuda / "
@@ -1914,7 +2273,7 @@ def main():
         "name": "whitted", "route": "cuda", "culling": culled,
         "design": coop, "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2201",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + j_whitted, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain, "bound_ms": w_bound[0],
         "bound_by": w_bound[1], "library_ms": None}, {
         "name": "whitted_paths", "route": "cuda", "culling": culled,
@@ -1926,7 +2285,7 @@ def main():
         "name": "whitted_pt", "route": "cuda", "culling": pt_culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2313",
-        "launches": e_launches, "max_abs_err": e_err,
+        "launches": e_launches + j2["pt"], "max_abs_err": e_err,
         "ms": e_ms, "plain_ms": e_plain, "bound_ms": e_bound,
         "bound_by": e_by, "library_ms": None,
         "heavy": {"scene": "test13", "ms": heavy[0],

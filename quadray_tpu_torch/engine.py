@@ -7,13 +7,14 @@ path tracing, fsaa/depth options, frame save and state dump. A Scene
 renders on its ``device`` (the card unless the caller names the CPU): on
 a CUDA device through the hand-written kernels (``ops.cuda_kernel``), on
 the CPU through their plain versions (``ops.trace``, ``ops.pt``). There
-is no fallback between the two.
-
-Not ported yet: interactive camera actions.
+is no fallback between the two. Interactive camera actions
+(``update_action``, ``CameraController``) move the scene's camera between
+frames, as RooT's hotkeys do (``apps.render_cli``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -23,6 +24,94 @@ from quadray_tpu_torch.scene import schema as S
 from quadray_tpu_torch.scene.compile import compile_scene, SceneArrays
 from quadray_tpu_torch.ops.trace import TraceConfig, render as _render, \
     to_frame
+
+
+# camera action codes (RT_CAMERA_*, format.h / RooT key bindings)
+CAMERA_MOVE_UP = 1
+CAMERA_MOVE_DOWN = 2
+CAMERA_MOVE_LEFT = 3
+CAMERA_MOVE_RIGHT = 4
+CAMERA_MOVE_BACK = 5
+CAMERA_MOVE_FORWARD = 6
+CAMERA_ROTATE_LEFT = 7
+CAMERA_ROTATE_RIGHT = 8
+CAMERA_ROTATE_UP = 9
+CAMERA_ROTATE_DOWN = 10
+
+
+class CameraController:
+    """Interactive camera state (rt_Camera::update_action,
+    object.cpp:495-573): WASD-style moves scaled by the camera's dps
+    speeds in the heading frame (hor_sin/cos of the Z rotation), arrow
+    rotations scaled by drt with the reference's pitch clamps. Python
+    floats in the JAX controller's order, so its pos/rot are the JAX
+    engine's bit for bit."""
+
+    def __init__(self, trm: S.Transform3D, cam: S.Camera):
+        self.pos = list(float(v) for v in trm.pos)
+        self.rot = list(float(v) for v in trm.rot)
+        self.scl = tuple(trm.scl)
+        self.dps = tuple(float(v) for v in cam.dps)
+        self.drt = tuple(float(v) for v in cam.drt)
+        self._last_time = 0.0
+
+    def update_action(self, time: float, action: int):
+        t = (time - self._last_time) / 50.0
+        hor_sin = math.sin(math.radians(self.rot[2]))
+        hor_cos = math.cos(math.radians(self.rot[2]))
+        dps, drt = self.dps, self.drt
+        if action == CAMERA_MOVE_UP:
+            self.pos[2] += dps[2] * t
+        elif action == CAMERA_MOVE_DOWN:
+            self.pos[2] -= dps[2] * t
+        elif action == CAMERA_MOVE_LEFT:
+            self.pos[0] -= dps[0] * t * hor_cos
+            self.pos[1] -= dps[0] * t * hor_sin
+        elif action == CAMERA_MOVE_RIGHT:
+            self.pos[0] += dps[0] * t * hor_cos
+            self.pos[1] += dps[0] * t * hor_sin
+        elif action == CAMERA_MOVE_BACK:
+            self.pos[0] += dps[1] * t * hor_sin
+            self.pos[1] -= dps[1] * t * hor_cos
+        elif action == CAMERA_MOVE_FORWARD:
+            self.pos[0] -= dps[1] * t * hor_sin
+            self.pos[1] += dps[1] * t * hor_cos
+        elif action == CAMERA_ROTATE_LEFT:
+            self.rot[2] += drt[0] * t
+            if self.rot[2] >= 180.0:
+                self.rot[2] -= 360.0
+        elif action == CAMERA_ROTATE_RIGHT:
+            self.rot[2] -= drt[0] * t
+            if self.rot[2] <= -180.0:
+                self.rot[2] += 360.0
+        elif action == CAMERA_ROTATE_UP:
+            if self.rot[0] < 0.0:
+                self.rot[0] = min(self.rot[0] + drt[1] * t, 0.0)
+        elif action == CAMERA_ROTATE_DOWN:
+            if self.rot[0] > -180.0:
+                self.rot[0] = max(self.rot[0] - drt[1] * t, -180.0)
+
+    def advance(self, time: float):
+        self._last_time = time
+
+    def trm(self) -> S.Transform3D:
+        return S.Transform3D(scl=self.scl, rot=tuple(self.rot),
+                             pos=tuple(self.pos))
+
+
+def _find_camera(arr: S.Array):
+    """LAST (trm, Camera) in hierarchy order, recursing into sub-arrays:
+    index 0 of the camera registry, which prepends on construction
+    (object.cpp:429-431); the scene renders cam_head (engine.cpp:2923)."""
+    found = None
+    for ob in arr.objects:
+        if isinstance(ob.item, S.Camera):
+            found = (ob.trm, ob.item)
+        if isinstance(ob.item, S.Array):
+            sub = _find_camera(ob.item)
+            if sub is not None:
+                found = sub
+    return found
 
 
 class Platform:
@@ -61,6 +150,7 @@ class Scene:
         self._arrays: Optional[SceneArrays] = None
         self._shapes: Optional[dict] = None
         self._struct = None
+        self.camera: Optional[CameraController] = None
         self._time = 0.0
         self.frame = np.zeros((height, width, 3), np.uint8)
         # progressive path-tracer state (pseed/ptr planes analog,
@@ -73,7 +163,10 @@ class Scene:
     def update(self, t: float = 0.0) -> SceneArrays:
         """Compile the scene at time t (animators re-run the numeric pass;
         later frames keep the first frame's padded shapes and kernel
-        structure, which are time-invariant)."""
+        structure, which are time-invariant: a camera move changes no
+        surface kind, clip or material). Once a camera action has been
+        taken, the camera's transform is the controller's, and the
+        controller's clock advances to t."""
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Scene device {self.device}: CUDA is not "
                                "available")
@@ -83,6 +176,7 @@ class Scene:
         self._arrays = compile_scene(
             S.SceneDef(root=self.sdef.root, opts=self.opts), time=t,
             cam_index=self.cam_index, device=self.device,
+            cam_trm=self.camera.trm() if self.camera is not None else None,
             **(self._shapes or {}))
         if self._shapes is None:
             self._shapes = dict(ns=self._arrays.s_kind.shape[0],
@@ -91,7 +185,23 @@ class Scene:
         if self._struct is None and self.device.type == "cuda":
             from quadray_tpu_torch.ops.cuda_kernel import scene_struct
             self._struct = scene_struct(self._arrays)
+        if self.camera is not None:
+            self.camera.advance(t)
         return self._arrays
+
+    def update_action(self, t: float, action: int):
+        """Interactive camera action (rt_Scene::update + update_action,
+        engine.cpp:2968 + object.cpp:495-573): the first action takes the
+        scene's camera (``_find_camera``) into a controller whose clock
+        starts at the last update's time; the next ``update`` compiles
+        the scene with the moved camera."""
+        if self.camera is None:
+            found = _find_camera(self.sdef.root)
+            if found is None:
+                raise ValueError("scene has no camera")
+            self.camera = CameraController(*found)
+            self.camera.advance(self._time)
+        self.camera.update_action(t, action)
 
     @property
     def arrays(self) -> SceneArrays:
@@ -161,23 +271,32 @@ class Scene:
 
     def render(self, t: Optional[float] = None) -> np.ndarray:
         """Render a frame at time t; returns (H, W, 3) uint8: one
-        path-traced pass while path tracing is on, else the Whitted frame.
-        Uses the CUDA kernels on a CUDA device, the plain tracers on the
-        CPU."""
+        path-traced pass while path tracing is on, else the Whitted frame
+        (``render_linear``). Uses the CUDA kernels on a CUDA device, the
+        plain tracers on the CPU."""
         if t is not None or self._arrays is None:
             self.update(t if t is not None else self._time)
         if self.pt_on:
             return self.render_pt_pass()
-        sc = self.arrays
+        img = self.render_linear()
+        self.frame = to_frame(img, self.arrays.use_gamma).cpu().numpy()
+        return self.frame
+
+    def render_linear(self, t: Optional[float] = None) -> torch.Tensor:
+        """The Whitted frame at time t as (H, W, 3) linear radiance on the
+        scene's device, before ``to_frame``: through the CUDA kernel
+        (``render_cuda``) on a CUDA device, the plain ``render`` on the
+        CPU. (The JAX engine's ``render_linear`` always takes its jnp
+        tracer.)"""
+        if t is not None or self._arrays is None:
+            self.update(t if t is not None else self._time)
         cfg = TraceConfig(depth=self.pfm.depth)
         if self.device.type == "cuda":
             from quadray_tpu_torch.ops.cuda_kernel import render_cuda
-            img = render_cuda(sc, self.width, self.height, self.pfm.fsaa,
-                              cfg, struct=self._struct)
-        else:
-            img = _render(sc, self.width, self.height, self.pfm.fsaa, cfg)
-        self.frame = to_frame(img, sc.use_gamma).cpu().numpy()
-        return self.frame
+            return render_cuda(self.arrays, self.width, self.height,
+                               self.pfm.fsaa, cfg, struct=self._struct)
+        return _render(self.arrays, self.width, self.height, self.pfm.fsaa,
+                       cfg)
 
     def save_frame(self, path: str):
         from quadray_tpu_torch.utils.image import save_bmp

@@ -401,7 +401,14 @@ def pack_scene(sc: SceneArrays, struct: KernelStruct,
     """The tables the Whitted kernel reads, on the scene's device; rows
     permuted by ``struct.perm`` (bitwise the JAX package's pack_scene for
     the tables both have). ``cull`` False leaves the culling tables zero,
-    for launches that do not cull (``cull_gates``)."""
+    for launches that do not cull (``cull_gates``). The kernels are f32
+    only: a scene with another float type (the fp64 tier's) raises
+    ValueError, never a silent down-cast."""
+    for k in FIELDS:
+        v = getattr(sc, k)
+        if v.is_floating_point() and v.dtype != F32:
+            raise ValueError(f"pack_scene: the CUDA kernels take f32 scenes, "
+                             f"{k} is {v.dtype}")
     dev = sc.device
     NS = sc.s_pos.shape[0]
     NC = sc.c_op.shape[1]

@@ -43,23 +43,29 @@ kernel's ``_trace_tiled_emit`` / ``_trace_tiled_resume``): the same loop
 stopped after k1 segments with its state packed into 21 rows, and
 started again from such rows.
 
-fp64 tracing (``set_element``) is not ported yet.
+``set_element(torch.float64)`` runs this tracer in double precision (the
+reference's fp64 element tier, as ``quadray_tpu.ops.trace.set_element``):
+the caller upcasts the scene (``scene_astype``) and the rays. The CUDA
+kernels stay f32 and refuse f64 tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from quadray_tpu_torch.scene.compile import (
-    SceneArrays, PROP_LIGHT, PROP_METAL, PROP_OPAQUE, PROP_REFLECT,
+    FIELDS, SceneArrays, PROP_LIGHT, PROP_METAL, PROP_OPAQUE, PROP_REFLECT,
     PROP_REFRACT, PROP_DIFFUSE, PROP_SPECULAR, PROP_GAMMA, PROP_FRESNEL,
     PROP_TRANSP, CLIP_SURF, CLIP_ENTER, CLIP_LEAVE)
 
 F32 = torch.float32
 I32 = torch.int32
-BIG = 1e30
+ELEMENT = F32   # the plain tracer's element type: float32, or float64
+#                 (set_element); read it through the module, at call time
+BIG = 1e30   # a Python float: each tensor it meets rounds it to its own type
 D_EPS = 1e-11   # RT_DEPS_THRESHOLD (object.h:41): near-zero determinant
 T_EPS = 1e-7    # RT_TEPS_THRESHOLD (object.h:42): root sorting / apex nudge
 
@@ -86,17 +92,44 @@ class TraceConfig(NamedTuple):
     chunk: int = 32
 
 
+def set_element(dtype) -> None:
+    """RT_ELEMENT analog (rtbase.h:331-361): switch the plain tracer's
+    element type, a module-level setting as in the JAX package. The
+    reference ships an fp32/fp64 binary matrix (core_make_x64.mk:44
+    x64f32/x64f64); here the same tracer code runs in either precision.
+    In float64 the scene tables must be upcast by the caller
+    (``scene_astype``), integer tables stay int32, sqrt and rsqrt are
+    plain float64 operations, BIG is float64(1e30), and the tracer runs
+    unculled (the cull masks are the f32 kernel's), as the JAX jnp tracer
+    always does. The two-round modes and the CUDA kernels are f32 only."""
+    global ELEMENT
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"element type must be float32 or float64, got "
+                         f"{dtype}")
+    ELEMENT = dtype
+
+
+def scene_astype(sc: SceneArrays, dtype) -> SceneArrays:
+    """``sc`` with every floating-point field cast to ``dtype`` (the
+    integer tables unchanged): the scene of the fp64 tier."""
+    return dataclasses.replace(sc, **{
+        k: getattr(sc, k).to(dtype) for k in FIELDS
+        if getattr(sc, k).is_floating_point()})
+
+
 def _sqrt(x):
-    return torch.sqrt(x.double()).float()
+    """Correctly rounded sqrt: taken in float64 and rounded back to x's
+    type (a no-op round for float64)."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def _rsqrt(x):
-    return torch.rsqrt(x.double()).float()
+    return torch.rsqrt(x.double()).to(x.dtype)
 
 
 def _sgn(x):
     """+1 where x >= 0, else -1 (f32)."""
-    return torch.where(x >= 0.0, 1.0, -1.0).to(F32)
+    return torch.where(x >= 0.0, 1.0, -1.0).to(ELEMENT)
 
 
 def _dot3(a, b):
@@ -254,7 +287,8 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
 
     # gradient at the (possibly adjusted) hit point (plane: +K)
     g_r = torch.where(is_plane[..., None, None],
-                      torch.tensor([0.0, 0.0, 1.0], dtype=F32, device=dev),
+                      torch.tensor([0.0, 0.0, 1.0], dtype=ELEMENT,
+                                   device=dev),
                       sci[:, :, None, :] * p_r - scjh[:, :, None, :])
 
     # validity: strict t window; planes use the division-free window
@@ -324,7 +358,7 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     side = take(side_r)
     g = take(g_r)
     n_w = _apply3t(sc.s_inv[bs], g[:, 0], g[:, 1], g[:, 2])
-    n_w = n_w * side[:, None].to(F32)
+    n_w = n_w * side[:, None].to(ELEMENT)
     n_w = n_w * _rsqrt(torch.clamp(_dot3(n_w, n_w), min=1e-30))[:, None]
     out = dict(t=t, srf=torch.where(hit, bs.to(I32), -1), side=side,
                x=take(x_r), p=take(p_r), n=n_w, hit=hit)
@@ -379,7 +413,7 @@ def coop_fold(t, ids, kept, lanes: int = WARP):
     ii = torch.nn.functional.pad(ids.to(torch.int64)[order], (0, pad))
     hv = torch.nn.functional.pad(have, (0, pad))
     tt, ii, hv = (v.reshape(N, R, lanes) for v in (tt, ii, hv))
-    bt = torch.full((N, lanes), BIG, dtype=F32, device=t.device)
+    bt = torch.full((N, lanes), BIG, dtype=ELEMENT, device=t.device)
     bi = torch.full((N, lanes), NO_SRF, dtype=torch.int64, device=t.device)
     for j in range(R):   # round j: lane l folds the kept surface of rank
         # j * lanes + l
@@ -671,8 +705,8 @@ def texture_color(sc: SceneArrays, midx, p_local):
     base = sc.m_tex_base[midx]
     u = p_local[..., 0] - sc.m_tex_off[midx, 0]
     v = p_local[..., 1] - sc.m_tex_off[midx, 1]
-    xdim = (sc.m_tex_xmask[midx] + 1).to(F32)
-    ydim = (sc.m_tex_ymask[midx] + 1).to(F32)
+    xdim = (sc.m_tex_xmask[midx] + 1).to(ELEMENT)
+    ydim = (sc.m_tex_ymask[midx] + 1).to(ELEMENT)
     ix = torch.floor(u * xdim / sc.m_tex_scl[midx, 0]).to(I32)
     iy = torch.floor(v * ydim / sc.m_tex_scl[midx, 1]).to(I32)
     ix = ix & sc.m_tex_xmask[midx]
@@ -766,6 +800,23 @@ def fresnel_metal_fast(dot, rcp, ext2):
     rs = _safe_div(x0 + t, x0 - t, 1.0)
     rp = _safe_div(x1 + t, x1 - t, 1.0)
     return torch.abs(-0.5 * (rs + rp))
+
+
+def fresnel_metal_slow(dot, rcp, ext2):
+    """Exact conductor reflectance via the a^2/b^2 formulation
+    (FRESNEL_METAL_SLOW, tracer.cpp:3682-3726), in the JAX function's
+    operation order. Like the JAX tracer, the trace uses the fast one."""
+    c2 = dot * dot
+    sin2 = 1.0 - c2
+    n2 = rcp * rcp
+    t0 = n2 - ext2 - sin2
+    u = _sqrt(t0 * t0 + 4.0 * n2 * ext2)
+    a2 = torch.abs(0.5 * (t0 + u))
+    twoac = 2.0 * _sqrt(a2) * dot                  # negative
+    rs = _safe_div(c2 + u + twoac, c2 + u - twoac, 1.0)
+    rp_f = _safe_div(c2 * u + sin2 * sin2 + twoac * sin2,
+                     c2 * u + sin2 * sin2 - twoac * sin2, 1.0)
+    return torch.abs(-0.5 * (rs + rs * rp_f))
 
 
 def fresnel_schlick(dot, eta, sq):
@@ -872,14 +923,15 @@ def _chunked(sc, org, dirs, t_min, cfg, k_paths, push=True, stats=None):
     N = dirs.shape[0]
     if org.dim() == 1:
         org = org[None, :].expand(N, 3)
-    cull = Cull(sc, cfg)
-    outs = [_trace_chunk(sc, org[i:i + CHUNK].to(F32),
-                         dirs[i:i + CHUNK].to(F32),
-                         t_min[i:i + CHUNK].to(F32), cfg, k_paths, push,
+    el = ELEMENT
+    cull = Cull(sc, cfg) if el == F32 else None
+    outs = [_trace_chunk(sc, org[i:i + CHUNK].to(el),
+                         dirs[i:i + CHUNK].to(el),
+                         t_min[i:i + CHUNK].to(el), cfg, k_paths, push,
                          stats=stats, cull=cull)
             for i in range(0, N, CHUNK)]
     if not outs:
-        return (torch.zeros((0, 3), dtype=F32, device=dirs.device),
+        return (torch.zeros((0, 3), dtype=el, device=dirs.device),
                 torch.zeros((k_paths, 0), dtype=I32, device=dirs.device))
     return (torch.cat([o[0] for o in outs]),
             torch.cat([o[1] for o in outs], dim=1))
@@ -893,7 +945,8 @@ def trace_rays_diff(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
     N = dirs.shape[0]
     if org.dim() == 1:
         org = org[None, :].expand(N, 3)
-    return _trace_chunk(sc, org.to(F32), dirs.to(F32), t_min.to(F32), cfg,
+    el = ELEMENT
+    return _trace_chunk(sc, org.to(el), dirs.to(el), t_min.to(el), cfg,
                         0, fixed=True)[0]
 
 
@@ -917,10 +970,10 @@ def _fresh_state(org, dirs, t_min, D: int):
     N = dirs.shape[0]
     dev = dirs.device
     zi = lambda *s: torch.zeros((N,) + s, dtype=I32, device=dev)
-    zf = lambda *s: torch.zeros((N,) + s, dtype=F32, device=dev)
+    zf = lambda *s: torch.zeros((N,) + s, dtype=ELEMENT, device=dev)
     return dict(
         org=org.clone(), dir=dirs.clone(),
-        thr=torch.ones((N, 3), dtype=F32, device=dev),
+        thr=torch.ones((N, 3), dtype=ELEMENT, device=dev),
         depth=zi(), osrf=zi() - 1, oside=zi() + 1, orow=zi() - 1,
         thru=torch.zeros((N,), dtype=torch.bool, device=dev),
         oloc=zf(3), tmin=t_min.clone(),
@@ -967,8 +1020,12 @@ ACTIVE_ROW = 17
 
 
 def _check_single_branch(sc: SceneArrays):
+    """The two-round modes' preconditions: a single-branch scene, and the
+    f32 element type (the state rows hold int32 bits in f32 words)."""
     from quadray_tpu_torch.ops.cuda_kernel import _get_struct, \
         check_rounds_struct
+    if ELEMENT != F32:
+        raise ValueError("the two-round modes are f32 only")
     check_rounds_struct(_get_struct(sc))
 
 
@@ -1070,7 +1127,7 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
     act = st["active"]
     count_work(stats, "walks", act)
     h = intersect(sc, st["org"], st["dir"], st["tmin"],
-                  torch.full((N,), BIG, dtype=F32, device=act.device),
+                  torch.full((N,), BIG, dtype=ELEMENT, device=act.device),
                   st["osrf"], st["oside"], st["thru"],
                   origin_loc=st["oloc"],
                   reach=None if cull is None else cull.nearest(st, act,

@@ -346,3 +346,69 @@ def test_kernel_matches_plain_on_random_rays(dev, name, seed):
     want = trace_rays(sc, org, dirs, tmin, cfg)
     assert torch.equal(got.contiguous().view(torch.int32),
                        want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_f64_on_card(dev):
+    """The kernels stay f32: float64 rays, or a float64 scene (the fp64
+    tier's, ops.trace.scene_astype), raise ValueError before any launch,
+    never a silent down-cast."""
+    from quadray_tpu_torch.ops.trace import scene_astype
+    sc, org, dirs, tmin = _rays("test01", dev, 32, 16)
+    before = ck.launches
+    with pytest.raises(ValueError, match="need f32"):
+        ck.trace_rays_cuda(sc, org, dirs.double(), tmin)
+    with pytest.raises(ValueError, match="f32"):
+        ck.trace_rays_cuda(scene_astype(sc, torch.float64), org.double(),
+                           dirs.double(), tmin.double())
+    assert ck.launches == before
+
+
+@pytest.mark.cuda
+def test_render_cli_frame_matches_plain_on_card(dev, tmp_path, monkeypatch):
+    """One render_cli frame on the card after a camera move (demo01 at
+    200x120, saved with -i): one Whitted launch a frame; a Scene replayed
+    through the same tokens renders, through the kernel, within 1e-5 of
+    the plain version on the same compiled arrays and TraceConfig, and
+    the app's saved frame equals the plain uint8 frame."""
+    from quadray_tpu_torch.apps import render_cli
+    from quadray_tpu_torch.models.scenes import demos
+    from quadray_tpu_torch.ops.trace import render, to_frame
+    monkeypatch.chdir(tmp_path)
+    before = ck.launches
+    stats = render_cli.main(["-x", "200", "-y", "120", "-f", "2", "-i",
+                             "-k", ".,w+left"])
+    assert stats["scene"].device.type == "cuda"
+    assert stats["whitted_frames"] == 2 and ck.launches == before + 2
+    sc = Scene(demos.build("demo01"), 200, 120, device=dev)
+    sc.update(render_cli.frame_time(0))
+    for key in ("w", "left"):
+        sc.update_action(render_cli.frame_time(1), render_cli.KEY_ACTIONS[key])
+    sc.update(render_cli.frame_time(1))
+    lin = sc.render_linear()
+    want = render(sc.arrays, 200, 120, 1, TraceConfig(depth=sc.pfm.depth))
+    assert float((lin - want).abs().max()) <= 1e-5
+    assert np.array_equal(load_bmp("dump/demo01_f0001.bmp"),
+                          to_frame(want, sc.arrays.use_gamma).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_plot_fresnel_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """plot_fresnel evaluates its curves on the card by default: within
+    1e-6 of -c's, and the same six BMPs within 1 LSB."""
+    from quadray_tpu_torch.apps import plot_fresnel
+    card, cpu = plot_fresnel.curves(device=dev), plot_fresnel.curves(
+        device="cpu")
+    for k in cpu:
+        np.testing.assert_allclose(card[k], cpu[k], rtol=0, atol=1e-6)
+    for sub, argv in (("card", []), ("cpu", ["-c"])):
+        os.makedirs(tmp_path / sub)
+        monkeypatch.chdir(tmp_path / sub)
+        plot_fresnel.main(argv)
+    names = sorted(os.listdir(tmp_path / "cpu" / "dump"))
+    assert len(names) == 6
+    assert names == sorted(os.listdir(tmp_path / "card" / "dump"))
+    for n in names:
+        a = load_bmp(str(tmp_path / "card" / "dump" / n)).astype(np.int32)
+        b = load_bmp(str(tmp_path / "cpu" / "dump" / n)).astype(np.int32)
+        assert np.abs(a - b).max() <= 1, n
