@@ -7,10 +7,11 @@
     python3 chip_smoke.py --only H   # kernel build + bounding-sphere culling
     python3 chip_smoke.py --only I   # kernel build + RESUME's two modes
     python3 chip_smoke.py --only J   # kernel build + the apps on the card
+    python3 chip_smoke.py --only K   # kernel build + the culling tables
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
-entry points) and the conformance kernels with parallel nvcc processes,
-then:
+entry points), the conformance kernels and the culling tables' kernels
+(csrc/cull.cu) with parallel nvcc processes, then:
   A. kernel vs its plain PyTorch version (ops/trace.py), both on the card,
      at 200x120 on seven scenes chosen for their features and at the main
      path's 800x480 on two; max abs diff of linear colors <= 1e-5;
@@ -117,12 +118,24 @@ then:
      of the trace through CameraController; J3 the interactive frame's
      cost, demo01-03 and test13 at 800x480 with a camera action each
      frame, two runs of 60 frames: AVG FPS, and in the same loop ms/frame
-     split into the update (compile_scene with the camera), the table
-     build (pack_scene and the culling tables) and the rest, the kernel's
-     device ms (CUDA events) and the card's share of the window the
-     kernel kept busy; J4 float64 rays and
-     a float64 scene raise ValueError before any launch; J5 plot_fresnel
-     on the card against -c.
+     split into the update (the incremental update's numeric pass), the
+     table build (the parts of the pack whose fields moved) and the rest,
+     the kernel's device ms (CUDA events) and the card's share of the
+     window the kernel kept busy; beside the update and the table build,
+     a full compile_scene and pack_scene at 10 of the same frames' times
+     and cameras; J4 float64 rays and a float64 scene raise ValueError
+     before any launch; J5 plot_fresnel on the card against -c; J6 the
+     incremental update held at every frame of J3's trace (61 frames a
+     scene, demo01-03 and test13 at 800x480, through Scene.render): every
+     SceneArrays field bitwise compile_scene's, every packed table,
+     culled and unculled, bitwise pack_scene's, and the frame
+     uint8-equal to render_cuda's on the plain compile.
+  K. the culling tables' kernels (csrc/cull.cu, which the pack launches
+     for bsph_t, shad_msk and cont_msk on the card; J3 and J6 count their
+     launches on the main path): K1 against their plain versions
+     (ops/cuda_kernel.py CULL_PLAIN) on the 21 golden scenes and 10
+     frames of each J3 scene, bitwise; K2 device ms of the three on
+     demo02 (CUDA graphs) beside the plain versions' and the bound.
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -1762,6 +1775,8 @@ J3_SCENES = ("demo01", "demo02", "demo03", "test13")
 J3_TRACE = "w,left,w,right,s,up,d,down,a,."
 J3_FRAMES = 60
 J3_RUNS = 2
+# J3's frames whose full compile and pack are timed beside the update
+J3_FULL = 10
 
 
 @contextlib.contextmanager
@@ -1956,32 +1971,105 @@ def timed_render_calls(sc):
             setattr(ck, k, v)
 
 
-def phase_j3(dev, smi):
-    """The interactive frame's cost at 800x480: Scene.render after the
-    trace's camera action, every frame a new compile and a new pack. Per
-    scene J3_RUNS runs of J3_FRAMES frames, each on a new Scene, as
-    render_cli's loop runs them: AVG FPS on the host clock, and in the
-    same loop and frames (timed_render_calls) ms/frame split into the
-    update, the table build, and the rest (the kernel's launch, to_frame,
-    the wait for the card and the copy to the host); the kernel's device
-    ms from CUDA events, and the card's share of the window (an event
-    pair around the loop) that the kernel kept it busy."""
-    from quadray_tpu_torch import Scene
-    from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
+def j3_scene(name):
     from quadray_tpu_torch.models.scenes import demos
     from quadray_tpu_torch.models.scenes.loader import load_scene
+    return demos.build(name) if name.startswith("demo") else load_scene(name)
+
+
+def full_compile(sc, t, cam_trm):
+    """The plain version of a Scene's update at (t, cam_trm):
+    compile_scene with the scene's options, camera index and shapes."""
+    from quadray_tpu_torch.scene import schema as S
+    from quadray_tpu_torch.scene.compile import compile_scene
+    return compile_scene(S.SceneDef(root=sc.sdef.root, opts=sc.opts),
+                         time=t, cam_index=sc.cam_index, cam_trm=cam_trm,
+                         device=sc.device, **sc._shapes)
+
+
+def full_update_ms(sc, frames):
+    """Host ms of the full compile_scene and of a full pack_scene (culled,
+    as render_cuda packs) at each (t, cam_trm) of ``frames``, each timed
+    after a synchronisation, none added inside."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    comp, pack = [], []
+    for t, cam_trm in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = full_compile(sc, t, cam_trm)
+        t1 = time.perf_counter()
+        ck.pack_scene(full, sc._struct)
+        t2 = time.perf_counter()
+        comp.append((t1 - t0) * 1e3)
+        pack.append((t2 - t1) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.mean(comp)), float(np.mean(pack))
+
+
+def update_steps_ms(sc, frames):
+    """Host ms of each step of the incremental update and of each pack
+    part it can re-pack, called directly at each (t, cam_trm) of
+    ``frames`` on the Scene's recorded structure, each call followed by a
+    synchronisation: the structure check, the animators and camera
+    (local_values), the fields of every group the scene can move
+    (moved_fields), their staged copy, and each PACK_PARTS entry that
+    reads a field of those groups. Means over the frames."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.scene import compile as C
+    st, struct = sc._structure, sc._struct
+    groups = tuple(g for g in C.MOVED_GROUPS if st.deps[g])
+    moved = {k for g in groups for k in C.MOVED_GROUPS[g]}
+    stt = ck._struct_tensors(struct, sc.device)
+    rec = {}
+
+    def timed(key, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        rec.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for t, cam_trm in frames:
+        timed("check", st.check)
+        vals = timed("animators and camera", st.local_values, t, cam_trm)
+        fields = timed("moved fields", st.moved_fields, groups, vals)
+        timed("staged copy", C._staged, fields, sc.device)
+        for name, fn, reads in ck.PACK_PARTS:
+            if moved & set(reads):
+                timed(name, fn, sc.arrays, struct, stt)
+    return {k: float(np.mean(v)) for k, v in rec.items()}
+
+
+def phase_j3(dev, smi):
+    """The interactive frame's cost at 800x480: Scene.render after the
+    trace's camera action, every frame the incremental update (the
+    numeric pass and the tables its moved fields feed). Per scene J3_RUNS
+    runs of J3_FRAMES frames, each on a new Scene, as render_cli's loop
+    runs them: AVG FPS on the host clock, and in the same loop and frames
+    (timed_render_calls) ms/frame split into the update, the table build,
+    and the rest (the kernel's launch, to_frame, the wait for the card and
+    the copy to the host); the kernel's device ms from CUDA events, and
+    the card's share of the window (an event pair around the loop) that
+    the kernel kept it busy. Then, beside the update and the table build,
+    the host ms of a full compile_scene and pack_scene (the path before
+    the incremental update) at 10 of the same frames' times and cameras,
+    and the update's steps and pack parts timed alone at those frames
+    (update_steps_ms)."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
     from quadray_tpu_torch.ops import cuda_kernel as ck
     tokens = J3_TRACE.split(",")
-    sdef = lambda n: demos.build(n) if n.startswith("demo") else load_scene(n)
-    launches = 0
+    sdef = j3_scene
+    launches = cull = 0
     results = {}
     for name in J3_SCENES:
         for run in range(J3_RUNS):
             sc = Scene(sdef(name), W, H, device=dev)
             sc.render(0.0)                # first compile, kernel structure
-            ck.launches = 0
+            ck.launches = ck.cull_launches = 0
             w0, w1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            frame_ms = []
+            frame_ms, frames = [], []
             with timed_render_calls(sc) as rec:
                 w0.record()
                 t0 = time.perf_counter()
@@ -1992,10 +2080,15 @@ def phase_j3(dev, smi):
                             sc.update_action(frame_time(fi), KEY_ACTIONS[key])
                     sc.render(frame_time(fi))
                     frame_ms.append((time.perf_counter() - tf) * 1e3)
+                    if len(frames) < J3_FULL:
+                        frames.append((frame_time(fi), sc.camera.trm()
+                                       if sc.camera is not None else None))
                 dt = time.perf_counter() - t0
                 w1.record()
             torch.cuda.synchronize()
             launches += ck.launches
+            run_cull = ck.cull_launches
+            cull += run_cull
             if not (ck.launches == len(rec["update"]) == len(rec["pack"])
                     == len(rec["kernel"]) == J3_FRAMES):
                 raise AssertionError(f"J3 {name}: {ck.launches} launches, "
@@ -2004,11 +2097,16 @@ def phase_j3(dev, smi):
             window = w0.elapsed_time(w1)
             upd, pack = np.array(rec["update"]), np.array(rec["pack"])
             rest = np.array(frame_ms) - upd - pack
+            full_comp, full_pack = full_update_ms(sc, frames)
             r = dict(fps=J3_FRAMES / dt, ms=dt * 1e3 / J3_FRAMES,
                      update=upd.mean(), pack=pack.mean(), rest=rest.mean(),
                      kernel=float(np.mean(kern)),
                      busy=sum(kern) / window,
-                     update_min=upd.min(), update_max=upd.max())
+                     update_min=upd.min(), update_max=upd.max(),
+                     full_compile=full_comp, full_pack=full_pack,
+                     update_10=upd[:J3_FULL].mean(),
+                     pack_10=pack[:J3_FULL].mean(),
+                     cull=run_cull)
             results.setdefault(name, []).append(r)
             log(f"J3 {name} run {run + 1} {W}x{H} ({smi}): AVG FPS="
                 f"{r['fps']:.2f} ms/frame={r['ms']:.3f} = update "
@@ -2017,8 +2115,21 @@ def phase_j3(dev, smi):
                 f"launch, to_frame, wait and copy {r['rest']:.3f} (mean of "
                 f"{J3_FRAMES}, host clock, same loop); kernel device "
                 f"{r['kernel']:.4f} ms (CUDA events), card busy with the "
-                f"kernel {100 * r['busy']:.2f}% of the {window:.1f} ms window")
-    return launches, results
+                f"kernel {100 * r['busy']:.2f}% of the {window:.1f} ms window;"
+                f" on its first {J3_FULL} frames update {r['update_10']:.3f}"
+                f" + table build {r['pack_10']:.3f} against a full "
+                f"compile_scene {r['full_compile']:.3f} + pack_scene "
+                f"{r['full_pack']:.3f} at the same times and cameras (host "
+                f"clock, mean of {J3_FULL}); culling-table kernel launches "
+                f"{r['cull']}")
+        steps = update_steps_ms(sc, frames)
+        results[name][-1]["steps"] = steps
+        log(f"J3 {name} steps, each called alone at the last run's first "
+            f"{J3_FULL} frames and synchronised (host ms, mean): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in steps.items()))
+    if cull == 0:
+        raise AssertionError("J3: the culling tables' kernels never ran")
+    return launches, cull, results
 
 
 def phase_j4(dev):
@@ -2066,16 +2177,200 @@ def phase_j5(dev):
         raise AssertionError("J5: plot_fresnel on the card differs")
 
 
+def phase_j6(dev):
+    """J3's trace at 800x480 on demo01-03 and test13 through
+    Scene.render, the incremental update held at every frame (the first
+    one, the structure pass, and J3_FRAMES more): every SceneArrays field
+    bitwise the plain compile_scene's at the same time and camera, every
+    packed table the render used (culled, and the unculled tables)
+    bitwise a full pack_scene's and the culling tables bitwise their
+    plain versions (CULL_PLAIN) on the plain compile, the scene's kernel
+    structure equal to scene_struct's of the plain compile, and the frame
+    uint8-equal to
+    render_cuda's on the plain compile. One Whitted launch a frame on the
+    main path (the count set to 0 before each Scene.render and read
+    after). Counts, per packed table, the frames that re-packed it."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
+    from quadray_tpu_torch.scene.compile import FIELDS, MOVED_GROUPS
+    tokens = J3_TRACE.split(",")
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    same = lambda a, b: a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(bits(a), bits(b))
+    launches = n_cull = 0
+    for name in J3_SCENES:
+        sc = Scene(j3_scene(name), W, H, device=dev)
+        repacked = {f: 0 for f in ck.PackedScene._fields}
+        fails, prev = [], None
+        for fi in range(J3_FRAMES + 1):
+            t = frame_time(fi)
+            for key in tokens[fi % len(tokens)].split("+"):
+                if fi and key in KEY_ACTIONS:
+                    sc.update_action(t, KEY_ACTIONS[key])
+            ck.launches = ck.cull_launches = 0
+            frame = sc.render(t)
+            if ck.launches != 1:
+                raise AssertionError(f"J6 {name} frame {fi}: "
+                                     f"{ck.launches} launches")
+            launches += ck.launches
+            n_cull += ck.cull_launches
+            arr = sc.arrays
+            full = full_compile(sc, t, sc.camera.trm()
+                                if sc.camera is not None else None)
+            if fi == 0 and ck.scene_struct(full) != sc._struct:
+                fails.append("kernel structure")
+            bad = [k for k in FIELDS if not same(getattr(arr, k),
+                                                 getattr(full, k))]
+            for cull in (True, False):
+                got = ck._get_packed(arr, sc._struct, cull)
+                want = ck.pack_scene(full, sc._struct, cull)
+                bad += [f"{f} cull={cull}" for f in ck.PackedScene._fields
+                        if not same(getattr(got, f), getattr(want, f))]
+                if cull:
+                    stt = ck._struct_tensors(sc._struct, dev)
+                    bad += [f"{f} vs its plain version" for f in
+                            ck.CULL_PARTS if not same(getattr(got, f),
+                            ck.CULL_PLAIN[f](full, sc._struct, stt))]
+                if cull and prev is not None:
+                    for f in repacked:
+                        repacked[f] += getattr(got, f) is not getattr(prev, f)
+                if cull:
+                    prev = got
+            lin = ck.render_cuda(full, W, H, sc.pfm.fsaa,
+                                 TraceConfig(depth=sc.pfm.depth),
+                                 struct=sc._struct)
+            if not np.array_equal(frame, to_frame(
+                    lin, full.use_gamma).cpu().numpy()):
+                bad.append("frame")
+            if bad:
+                fails.append(f"frame {fi}: {bad}")
+            del lin, full
+        moved = [g for g in MOVED_GROUPS if sc._structure.deps[g]]
+        log(f"J6 {name} {W}x{H}: {J3_FRAMES + 1} frames through J3's trace, "
+            f"every field of the incremental update bitwise compile_scene's,"
+            f" every packed table (culled and unculled) bitwise pack_scene's"
+            f", the culling tables their plain versions' and every frame "
+            f"uint8-equal to render_cuda's on the plain "
+            f"compile: {'yes' if not fails else fails}; groups the scene "
+            f"can move: {moved}; frames that re-packed each table after the "
+            f"first: {repacked}")
+        if fails:
+            raise AssertionError(f"J6 {name}: {fails}")
+        del sc
+        torch.cuda.empty_cache()
+    return launches, n_cull
+
+
+def cull_inputs(dev):
+    """Phase K's cases: the 21 golden scenes as B compiles them, and J3's
+    scenes at 10 frames of its trace's times (their animators move
+    demo01's and demo02's spheres and lights)."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.apps.render_cli import frame_time
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    for name in SCENES:
+        sc = compiled(name, dev)
+        yield name, sc, ck.scene_struct(sc)
+    for name in J3_SCENES:
+        scene = Scene(j3_scene(name), W, H, device=dev)
+        for fi in range(1, 11):
+            sc = scene.update(frame_time(fi))
+            yield f"{name} frame {fi}", sc, scene._struct or \
+                ck.scene_struct(sc)
+
+
+def cull_work(struct, sc) -> tuple:
+    """The culling tables' bytes (each input read once, each output
+    written once) and operations, counted over what this scene's data
+    needs: pad rows and unbounded surfaces take no sphere arithmetic (their
+    bits are set), and only plane rows whose materials continue have
+    halfspaces. A sqrt a bounded sphere. Shadow masks: 9 a (light,
+    receiver) for the receiver's segment, 3 a (light, blocker) for the
+    light-to-blocker vector, 3 a (receiver, blocker) for the summed radii
+    squared, 20 a (light, receiver, blocker) for the capsule test.
+    Continuation masks: 10 a plane row for its normal, 21 a (plane row,
+    target) for the signed distance and the slack, 3 a (plane row,
+    continuing side, target) for the side's selects."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    NS, nl, nm = struct.ns, struct.nl, struct.nm
+    NW = -(-NS // 32)
+    nsl = -(-NS // 128) * 128
+    n_in = NS * (8 + 16 + 4 + 36 + 12 + 4 + 8) + nl * 12 + nm * 4 + 4
+    n_out = 4 * nsl * 4 + NS * max(1, nl * NW) * 4 + NS * 2 * NW * 4
+    nb = sum(1 for b in struct.bnd if b > 0)
+    planes = [struct.perm[r] for g in struct.groups if g.is_plane
+              for r in range(g.start, g.start + g.count)]
+    props = np.array(struct.props)
+    mats = sc.s_mat.cpu().numpy()[planes]
+    pm = props[mats]                                    # (planes, 2)
+    fres = bool(sc.use_fresnel.item() > 0)
+    can_trn = (pm & ck.PROP_OPAQUE) == 0
+    can_rfl = ((pm & ck.PROP_REFLECT) != 0) | (fres & can_trn)
+    sides = int((can_rfl | can_trn).sum())
+    rows = int((can_rfl | can_trn).any(axis=1).sum())
+    ops = (nb + nl * nb * (9 + 3) + 3 * nb * nb + 20 * nl * nb * nb
+           + 10 * rows + 21 * rows * nb + 3 * sides * nb)
+    return n_in + n_out, ops
+
+
+def phase_k(dev):
+    """The culling tables' kernels (csrc/cull.cu) against their plain
+    versions on the card: K1 bsph_t, shad_msk and cont_msk of every case
+    of cull_inputs bitwise; K2 on demo02 at a J3 frame (106 surfaces,
+    three lights, the scene whose tables J3 re-packs most), the three
+    kernels' device ms against the plain versions' (CUDA graphs of 20
+    calls), each call's ms with the host's launch work (CUDA events),
+    and the bound."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    fails, n, err = [], 0, 0.0
+    for label, sc, struct in cull_inputs(dev):
+        stt = ck._struct_tensors(struct, dev)
+        for name in ck.CULL_PARTS:
+            a = ck.cull_table(name, sc, struct, stt)
+            b = ck.CULL_PLAIN[name](sc, struct, stt)
+            n += 1
+            if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+                fails.append(f"{label} {name}")
+            elif a.dtype == torch.float32:
+                fin = torch.isfinite(b)
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
+    log(f"K1 culling tables, kernel vs plain on the card: {n} tables of "
+        f"{len(SCENES)} golden scenes and {len(J3_SCENES)} x 10 J3 frames, "
+        f"bitwise: {'yes' if not fails else fails}")
+    if fails:
+        raise AssertionError(f"K1: {fails}")
+    label, sc, struct = [c for c in cull_inputs(dev)
+                         if c[0] == "demo02 frame 10"][0]
+    stt = ck._struct_tensors(struct, dev)
+    kern = lambda: [ck.cull_table(k, sc, struct, stt) for k in ck.CULL_PARTS]
+    plain = lambda: [ck.CULL_PLAIN[k](sc, struct, stt)
+                     for k in ck.CULL_PARTS]
+    ms, plain_ms = graph_ms(kern, 20), graph_ms(plain, 20)
+    call_ms, plain_call_ms = cuda_ms(kern, 20), cuda_ms(plain, 20)
+    nbytes, ops = cull_work(struct, sc)
+    bound, by = bound_ms(nbytes, ops)
+    log(f"K2 {label} (NS={struct.ns}, {struct.nl} lights): the three "
+        f"kernels {ms:.4f} ms device (CUDA graph), {call_ms:.4f} ms a call "
+        f"with the host's launch work; plain {plain_ms:.4f} / "
+        f"{plain_call_ms:.4f} ms; bound {bound:.6f} ms ({by}: {nbytes} B, "
+        f"{ops} operations)")
+    return err, ms, plain_ms, bound, by
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
-                    choices=["A", "D", "E", "F", "G", "H", "I", "J"],
+                    choices=["A", "D", "E", "F", "G", "H", "I", "J", "K"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
                     "retirement), G (conformance tier), H (culling), I "
-                    "(RESUME's two modes and its switch's sweep) or J (the "
-                    "apps and the interactive frame)")
+                    "(RESUME's two modes and its switch's sweep), J (the "
+                    "apps and the interactive frame) or K (the culling "
+                    "tables' kernels)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -2091,7 +2386,7 @@ def main():
         f"python {sys.version.split()[0]}")
     from quadray_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.load_libraries("whitted", "conformance")
+    _build.load_libraries("whitted", "conformance", "cull")
     log(f"kernel build (parallel nvcc) and load: "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = os.path.join(_build.BUILD_DIR, "whitted.ptxas.txt")
@@ -2111,6 +2406,14 @@ def main():
         log(f"ptxas conformance: {len(regs)} kernels, {min(regs)}-"
             f"{max(regs)} registers, stack frames {stack}, spill stores "
             f"{spill}")
+    ptxas = os.path.join(_build.BUILD_DIR, "cull.ptxas.txt")
+    if os.path.exists(ptxas):
+        with open(ptxas) as fh:
+            text = fh.read()
+        regs = re.findall(r"Used (\d+) registers", text)
+        spill = sorted(set(re.findall(r"(\d+) bytes spill stores", text)))
+        log(f"ptxas cull: {len(regs)} kernels, registers {regs}, spill "
+            f"stores {spill}")
     dev = torch.device("cuda", 0)
     only = args.only
 
@@ -2193,13 +2496,19 @@ def main():
         t0 = time.perf_counter()
         j1 = phase_j1()
         j2 = phase_j2(dev)
-        j3_launches, _ = phase_j3(dev, smi)
+        j3_launches, j3_cull, _ = phase_j3(dev, smi)
         phase_j4(dev)
         phase_j5(dev)
-        j_whitted = j1 + j2["whitted"] + j3_launches
+        j6_launches, j6_cull = phase_j6(dev)
+        j_whitted = j1 + j2["whitted"] + j3_launches + j6_launches
         log(f"J launches: whitted {j_whitted} (J1 {j1}, J2 {j2['whitted']}, "
-            f"J3 {j3_launches}), pt {j2['pt']} (J2)")
+            f"J3 {j3_launches}, J6 {j6_launches}), pt {j2['pt']} (J2), "
+            f"culling tables {j3_cull + j6_cull} (J3 {j3_cull}, J6 "
+            f"{j6_cull})")
         log(f"phase J ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "K"):
+        k_err, k_ms, k_plain, k_bound, k_by = phase("K", phase_k, dev)
     if only:
         return
 
@@ -2212,9 +2521,10 @@ def main():
     log("kernel table: whitted ms/plain_ms are test13 800x480 frames "
         "(render_cuda vs plain render), launches B's 21 frames plus phase "
         "J's (core_test's 18 frames and -k, render_cli's Whitted frames, "
-        "J3's interactive frames); whitted_paths ms/plain_ms are "
-        "test01 800x480 K=8 path-record traces (the training step's), "
-        "launches the 10-step training run's, max_abs_err the worst "
+        "J3's interactive frames, J6's checked frames); whitted_paths "
+        "ms/plain_ms are test01 800x480 K=8 path-record traces (the "
+        "training step's), launches the 10-step training run's, "
+        "max_abs_err the worst "
         "color error of D1 (its records equal the plain version's); "
         "whitted_pt ms/plain_ms are one test18 800x480 depth-10 pass "
         "(trace_pt_cuda vs plain trace_pt), launches E2's 64 passes "
@@ -2233,7 +2543,12 @@ def main():
         "gates cull (test18 does not: 8 surfaces, under PT's floor); "
         "whitted_pt's heavy entry is one test13 800x480 depth-10 pass, "
         "culled (ms) and unculled (unculled_ms), kernel alone, with its "
-        "bound and the plain version's share of nearest tests culled")
+        "bound and the plain version's share of nearest tests culled; "
+        "cull_tables ms/plain_ms are the three culling tables of demo02 "
+        "at a J3 frame (K2, CUDA graphs), launches the main path's in J3 "
+        "and J6 (the frames whose spheres or lights moved), max_abs_err "
+        "K1's over bsph_t (every table bitwise); no PyTorch call builds "
+        "them, so library_ms is null")
     culled = ("on: warp reach masks (origin box + direction cone or "
               "endpoint capsule per warp, __ballot_sync over the bounding "
               "spheres), lsort and cont masks where cull_gates say so")
@@ -2312,7 +2627,18 @@ def main():
         "replaces": "tests/test_conformance.py:18",
         "launches": g_launches, "max_abs_err": g_err,
         "ms": g_sum[0], "plain_ms": g_sum[1], "bound_ms": g_bound,
-        "bound_by": "bytes", "library_ms": g_sum[2]}]}))
+        "bound_by": "bytes", "library_ms": g_sum[2]}, {
+        "name": "cull_tables", "route": "cuda",
+        "design": "one launch a table (bsph_t, shad_msk, cont_msk), a "
+                  "thread an output word of 32 surfaces",
+        "source": "quadray_tpu_torch/csrc/cull.cu",
+        "replaces": "quadray_tpu/ops/pallas_kernel.py:346",
+        "note": "the JAX package builds these tables with jnp in its "
+                "pack_scene (pallas_kernel.py:346-435), not in a Pallas "
+                "kernel",
+        "launches": j3_cull + j6_cull, "max_abs_err": k_err,
+        "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+        "bound_by": k_by, "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of ``quadray_tpu.engine`` (rt_Platform,
 engine.h:79-156, and rt_Scene, engine.h:229-362): scene management,
-per-frame update (animators -> scene recompile), render, progressive
+per-frame update (the structure once, then the animators and the camera
+through a batched numeric pass), render, progressive
 path tracing, fsaa/depth options, frame save and state dump. A Scene
 renders on its ``device`` (the card unless the caller names the CPU): on
 a CUDA device through the hand-written kernels (``ops.cuda_kernel``), on
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from quadray_tpu_torch.scene import schema as S
-from quadray_tpu_torch.scene.compile import compile_scene, SceneArrays
+from quadray_tpu_torch.scene.compile import SceneArrays, numeric_pass, \
+    structure_pass
 from quadray_tpu_torch.ops.trace import TraceConfig, render as _render, \
     to_frame
 
@@ -149,6 +151,7 @@ class Scene:
         self.opts = S.OPTS_FULL & ~sdef.opts
         self._arrays: Optional[SceneArrays] = None
         self._shapes: Optional[dict] = None
+        self._structure = None
         self._struct = None
         self.camera: Optional[CameraController] = None
         self._time = 0.0
@@ -161,27 +164,36 @@ class Scene:
         self._pt_seeds = None
 
     def update(self, t: float = 0.0) -> SceneArrays:
-        """Compile the scene at time t (animators re-run the numeric pass;
-        later frames keep the first frame's padded shapes and kernel
-        structure, which are time-invariant: a camera move changes no
-        surface kind, clip or material). Once a camera action has been
-        taken, the camera's transform is the controller's, and the
-        controller's clock advances to t."""
+        """The scene's arrays at time t, incrementally (the JAX engine's
+        update pipeline, quadray_tpu/engine.py:159-207): the first update,
+        and the first after ``set_opts``, records the structure
+        (``structure_pass``: the hierarchy walk and the relation compile,
+        and every field no transform moves, on the device); every update
+        then runs the numeric pass alone (``numeric_pass``: the animators
+        and the camera on the host, the transform-dependent fields batched,
+        one staged copy), bitwise ``compile_scene``'s. Later frames keep
+        the first frame's padded shapes and kernel structure. Once a
+        camera action has been taken, the camera's transform is the
+        controller's, and the controller's clock advances to t. A
+        hierarchy that changed after its structure was recorded raises
+        ValueError."""
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Scene device {self.device}: CUDA is not "
                                "available")
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
         self._time = t
-        self._arrays = compile_scene(
-            S.SceneDef(root=self.sdef.root, opts=self.opts), time=t,
-            cam_index=self.cam_index, device=self.device,
-            cam_trm=self.camera.trm() if self.camera is not None else None,
-            **(self._shapes or {}))
-        if self._shapes is None:
-            self._shapes = dict(ns=self._arrays.s_kind.shape[0],
-                                nc=self._arrays.c_op.shape[1],
-                                nl=self._arrays.l_on.shape[0])
+        cam_trm = self.camera.trm() if self.camera is not None else None
+        if self._structure is None:
+            self._structure = structure_pass(
+                S.SceneDef(root=self.sdef.root, opts=self.opts), time=t,
+                cam_index=self.cam_index, cam_trm=cam_trm,
+                device=self.device)
+            self._shapes = dict(self._structure.shapes)
+        elif self._structure.root is not self.sdef.root:
+            raise ValueError("Scene.sdef was replaced after its structure "
+                             "was recorded: make a new Scene")
+        self._arrays = numeric_pass(self._structure, t, cam_trm)
         if self._struct is None and self.device.type == "cuda":
             from quadray_tpu_torch.ops.cuda_kernel import scene_struct
             self._struct = scene_struct(self._arrays)
@@ -306,6 +318,7 @@ class Scene:
         self.opts = opts & ~self.sdef.opts
         self._arrays = None
         self._shapes = None
+        self._structure = None
         self._struct = None
 
     def print_state(self, log=print):

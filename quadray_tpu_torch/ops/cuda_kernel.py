@@ -3,7 +3,8 @@
 The counterpart of the host half of ``quadray_tpu.ops.pallas_kernel``:
 the static scene structure (``KernelStruct``/``scene_struct``, which
 permutes surfaces into contiguous classes with shadow blockers first), the
-packed scene tables the kernel reads (``pack_scene``), the launch
+packed scene tables the kernel reads (``pack_scene``, one part a table;
+``_get_packed`` re-packs only the parts whose fields are new), the launch
 wrapper ``trace_rays_cuda`` with ``render_cuda`` around it, the
 path-record wrappers ``trace_paths`` / ``trace_paths_with_struct``
 (counterparts of ``pallas_kernel.py:2296, 2475``) that trace-replay
@@ -21,7 +22,8 @@ takes the structure at run time (surface kind, singularity and clip count
 from ``sp_i``, material property bits and texture addressing from
 ``mat_i``), so one build serves every scene. Bounding-sphere culling
 reads the tables ``bsph_t``/``shad_msk``/``cont_msk`` (bitwise the JAX
-package's) and is switched per launch by ``cull_gates``, the one
+package's; on the card one launch each of ``csrc/cull.cu``,
+``cull_table``) and is switched per launch by ``cull_gates``, the one
 predicate that the wrappers and the plain tracer both call.
 
 Each wrapper on CPU tensors runs its plain version
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -232,12 +235,16 @@ def _mat_blocks(props: np.ndarray) -> np.ndarray:
                 & ((props & PROP_REFRACT) == 0)))
 
 
+# the SceneArrays fields scene_struct reads (tex_data for its length only)
+STRUCT_FIELDS = ("s_kind", "s_sing", "c_op", "m_props", "s_mat", "l_on",
+                 "use_fresnel", "use_gamma", "m_tex_base", "m_tex_xmask",
+                 "m_tex_ymask", "m_tex_xshift", "s_bnd", "tex_data")
+
+
 def scene_struct(sc: SceneArrays) -> KernelStruct:
     """Extract the static structure (host-side numpy)."""
     h = {k: getattr(sc, k).detach().cpu().numpy()
-         for k in ("s_kind", "s_sing", "c_op", "m_props", "s_mat", "l_on",
-                   "use_fresnel", "use_gamma", "m_tex_base", "m_tex_xmask",
-                   "m_tex_ymask", "m_tex_xshift", "s_bnd")}
+         for k in STRUCT_FIELDS if k != "tex_data"}
     kind, sing, cop = h["s_kind"], h["s_sing"], h["c_op"]
     props, smat = h["m_props"], h["s_mat"]
     NS, NC = cop.shape
@@ -315,10 +322,12 @@ def scene_struct(sc: SceneArrays) -> KernelStruct:
 
 
 class _SceneCache:
-    """Bounded cache keyed on the identity of every SceneArrays field, so
-    a SceneArrays with any field replaced misses and recomputes instead of
-    reusing stale tables; LRU-bounded so animations don't retain every
-    frame's tables."""
+    """Bounded cache of ``scene_struct`` keyed on the identity of the
+    SceneArrays fields it reads (STRUCT_FIELDS), so a SceneArrays with any
+    of them replaced misses and recomputes instead of reusing a stale
+    structure, and the frames of an incremental update, which move none
+    of them, share one; LRU-bounded so animations don't retain every
+    frame's entry."""
 
     def __init__(self, fn, maxlen: int = 8):
         self._fn = fn
@@ -326,7 +335,7 @@ class _SceneCache:
         self._entries = OrderedDict()
 
     def __call__(self, sc: SceneArrays, *args):
-        leaves = [getattr(sc, k) for k in FIELDS]
+        leaves = [getattr(sc, k) for k in STRUCT_FIELDS]
         key = tuple(id(x) for x in leaves) + tuple(id(a) for a in args)
         ent = self._entries.get(key)
         if ent is not None and all(a is b for a, b in zip(ent[0], leaves)):
@@ -396,65 +405,79 @@ def _struct_tensors(struct: KernelStruct, dev) -> _StructTensors:
     return ent
 
 
-def pack_scene(sc: SceneArrays, struct: KernelStruct,
-               cull: bool = True) -> PackedScene:
-    """The tables the Whitted kernel reads, on the scene's device; rows
-    permuted by ``struct.perm`` (bitwise the JAX package's pack_scene for
-    the tables both have). ``cull`` False leaves the culling tables zero,
-    for launches that do not cull (``cull_gates``). The kernels are f32
-    only: a scene with another float type (the fp64 tier's) raises
-    ValueError, never a silent down-cast."""
+def _check_f32(sc: SceneArrays):
     for k in FIELDS:
         v = getattr(sc, k)
         if v.is_floating_point() and v.dtype != F32:
             raise ValueError(f"pack_scene: the CUDA kernels take f32 scenes, "
                              f"{k} is {v.dtype}")
-    dev = sc.device
+
+
+# Each table the kernel reads is packed by its own function from the
+# fields it reads (PACK_PARTS), so a frame re-packs only the tables whose
+# fields moved (_get_packed). A part takes the device from the
+# structure's tensors, never from a field it does not declare.
+
+def _pack_sp_f(sc: SceneArrays, struct: KernelStruct, stt) -> torch.Tensor:
     NS = sc.s_pos.shape[0]
-    NC = sc.c_op.shape[1]
-    stt = _struct_tensors(struct, dev)
-    perm = stt.perm
-    sp_f = torch.cat([
+    return torch.cat([
         sc.s_pos, sc.s_inv.reshape(NS, 9), sc.s_sci, sc.s_scjh,
         sc.s_sciw[:, None],
         torch.clamp(sc.s_cmin, -BIG, BIG), torch.clamp(sc.s_cmax, -BIG, BIG),
         sc.s_fwd.reshape(NS, 9), sc.s_bsph, sc.s_emis.reshape(NS, 6),
-    ], dim=1).to(F32)[perm]
-    sp_i = torch.cat([
+    ], dim=1).to(F32)[stt.perm].contiguous()
+
+
+def _pack_sp_i(sc: SceneArrays, struct: KernelStruct, stt) -> torch.Tensor:
+    perm = stt.perm
+    return torch.cat([
         sc.s_kind[perm][:, None], sc.s_mat[perm],
         stt.blk[:, None], sc.s_sing[perm][:, None],
         stt.ncl[:, None], perm.to(I32)[:, None],
-        sc.s_bnd[perm][:, None]], dim=1).to(I32)
+        sc.s_bnd[perm][:, None]], dim=1).to(I32).contiguous()
+
+
+def _pack_cl_f(sc: SceneArrays, struct: KernelStruct, stt) -> torch.Tensor:
+    NS, NC = sc.c_op.shape
     ref = torch.clamp(sc.c_ref, min=0).long()
-    cl_f = torch.cat([
+    return torch.cat([
         sc.s_pos[ref], sc.s_inv[ref].reshape(NS, NC, 9), sc.s_sci[ref],
         sc.s_scjh[ref], sc.s_sciw[ref][..., None],
         sc.s_kind[ref][..., None].to(F32), sc.c_side[..., None],
         sc.c_op[..., None].to(F32),
-    ], dim=2).to(F32)[perm].reshape(NS, NC * CF)
-    mat_f = torch.stack([
+    ], dim=2).to(F32)[stt.perm].reshape(NS, NC * CF).contiguous()
+
+
+def _pack_mat_f(sc: SceneArrays, struct: KernelStruct, stt) -> torch.Tensor:
+    return torch.stack([
         sc.m_col[:, 0], sc.m_col[:, 1], sc.m_col[:, 2], sc.m_dff, sc.m_spc,
         sc.m_pow, sc.m_rfl, sc.m_trn, sc.m_rfr, sc.m_ext,
         sc.m_tex_scl[:, 0], sc.m_tex_scl[:, 1],
-        sc.m_tex_off[:, 0], sc.m_tex_off[:, 1]], dim=1)
-    lg_f = torch.cat([
+        sc.m_tex_off[:, 0], sc.m_tex_off[:, 1]], dim=1).contiguous()
+
+
+def _pack_lg_f(sc: SceneArrays, struct: KernelStruct, stt) -> torch.Tensor:
+    return torch.cat([
         sc.l_pos, sc.l_col, sc.l_cnt[:, None], sc.l_lnr[:, None],
-        sc.l_qdr[:, None], sc.l_on[:, None]], dim=1).to(F32)
-    misc = torch.cat([sc.amb_col, sc.use_gamma[None], sc.use_fresnel[None],
-                      torch.zeros((3,), dtype=F32, device=dev)])
-    # texture atlas packed for the kernel's gather: u8 rgb in one i32 per
-    # texel, 128 texels per row (tex_data is u8/255, so this is lossless;
-    # the kernel decodes through the same-division LUT)
+        sc.l_qdr[:, None], sc.l_on[:, None]], dim=1).to(F32).contiguous()
+
+
+def _pack_misc(sc: SceneArrays, struct: KernelStruct, stt) -> torch.Tensor:
+    return torch.cat([sc.amb_col, sc.use_gamma[None], sc.use_fresnel[None],
+                      torch.zeros((3,), dtype=F32, device=stt.perm.device)
+                      ]).contiguous()
+
+
+def _pack_tex_pk(sc: SceneArrays, struct: KernelStruct, stt) -> torch.Tensor:
+    # the texture atlas packed for the kernel's gather: u8 rgb in one i32
+    # per texel, 128 texels per row (tex_data is u8/255, so this is
+    # lossless; the kernel decodes through the same-division LUT)
     G = struct.tex_rows
     k8 = torch.round(sc.tex_data * 255.0).to(I32)
     pk = (k8[:, 0] << 16) | (k8[:, 1] << 8) | k8[:, 2]
-    tex_pk = torch.cat([pk, torch.zeros((G * LANES - pk.shape[0],),
-                                        dtype=I32, device=dev)])
-    return PackedScene(
-        sp_f.contiguous(), sp_i.contiguous(), cl_f.contiguous(),
-        mat_f.contiguous(), lg_f.contiguous(), misc.contiguous(),
-        tex_pk.reshape(G, LANES).contiguous(), stt.tex_lut, stt.mat_i,
-        *(_cull_tables(sc, struct, perm) if cull else stt.no_cull))
+    return torch.cat([pk, torch.zeros((G * LANES - pk.shape[0],), dtype=I32,
+                                      device=stt.perm.device)]) \
+        .reshape(G, LANES).contiguous()
 
 
 def _pack_bits(bits) -> torch.Tensor:
@@ -469,45 +492,69 @@ def _pack_bits(bits) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(I32)
 
 
-def _cull_tables(sc: SceneArrays, struct: KernelStruct, perm):
-    """bsph_t, shad_msk and cont_msk (pallas_kernel.py:346-435) on the
-    permuted rows, in the JAX package's f32 operations and order."""
-    dev = sc.device
-    NS = sc.s_pos.shape[0]
+# The culling tables bsph_t, shad_msk and cont_msk (pallas_kernel.py:346-
+# 435) on the permuted rows, in the JAX package's f32 operations and order.
+
+def _spheres(sc: SceneArrays, perm):
+    """The permuted rows' bounding spheres: bounded flags, radii (+inf
+    where unbounded) and centres."""
     bperm = sc.s_bsph[perm]
     bounded = sc.s_bnd[perm] > 0
     rs = torch.where(bounded, _sqrt(bperm[:, 3]), float("inf"))
-    cb = bperm[:, :3]
+    return bounded, rs, bperm[:, :3]
+
+
+def _sum3(v):
+    return v[..., 0] + v[..., 1] + v[..., 2]
+
+
+def _bsph_t_plain(sc: SceneArrays, struct: KernelStruct,
+                  stt) -> torch.Tensor:
+    _, rs, cb = _spheres(sc, stt.perm)
+    NS = cb.shape[0]
     nsl = -(-NS // LANES) * LANES
-    bsph_t = torch.zeros((4, 1, nsl), dtype=F32, device=dev)
+    bsph_t = torch.zeros((4, 1, nsl), dtype=F32, device=stt.perm.device)
     bsph_t[:, 0, :NS] = torch.stack([cb[:, 0], cb[:, 1], cb[:, 2], rs])
-    sum3 = lambda v: v[..., 0] + v[..., 1] + v[..., 2]
+    return bsph_t
+
+
+def _shad_msk_plain(sc: SceneArrays, struct: KernelStruct,
+                    stt) -> torch.Tensor:
     # lsort analog (engine.cpp:2456-2757): blocker b can shadow receiver r
     # from light l only if b's sphere meets the capsule from l to r's
     # sphere; unbounded receivers and blockers keep every bit
+    bounded, rs, cb = _spheres(sc, stt.perm)
     words = []
     for l in range(struct.nl):
         p = sc.l_pos[l]
         u = cb - p[None, :]                              # (NS, 3) receiver
-        uu = torch.clamp(sum3(u * u), min=1e-30)
+        uu = torch.clamp(_sum3(u * u), min=1e-30)
         lc = cb[None, :, :] - p[None, None, :]           # (1, NS, 3)
-        tp = torch.clamp(sum3(lc * u[:, None, :]) / uu[:, None], 0.0, 1.0)
+        tp = torch.clamp(_sum3(lc * u[:, None, :]) / uu[:, None], 0.0, 1.0)
         q = lc - tp[..., None] * u[:, None, :]
         re = rs[:, None] + rs[None, :] + 1e-3
-        occ = ~(sum3(q * q) > re * re) | ~bounded[None, :]
+        occ = ~(_sum3(q * q) > re * re) | ~bounded[None, :]
         words.append(_pack_bits(occ))
-    shad_msk = (torch.cat(words, dim=1) if words
-                else torch.zeros((NS, 1), dtype=I32, device=dev))
+    if not words:
+        return torch.zeros((cb.shape[0], 1), dtype=I32,
+                           device=stt.perm.device)
+    return torch.cat(words, dim=1).contiguous()
+
+
+def _cont_msk_plain(sc: SceneArrays, struct: KernelStruct,
+                    stt) -> torch.Tensor:
     # lst_p analog (tracer.h:955-968): a ray reflected off a plane stays in
     # the closed halfspace of its hit side and a transmitted one crosses
     # it, so plane rows keep the surfaces whose sphere meets the
     # halfspaces their materials send rays into; curved rows and unbounded
     # targets keep everything, and materials that cannot continue nothing
+    perm = stt.perm
+    bounded, rs, cb = _spheres(sc, perm)
     nrm = sc.s_inv[perm][:, 2, :]
-    nrm = nrm * _rsqrt(torch.clamp(sum3(nrm * nrm), min=1e-30))[:, None]
+    nrm = nrm * _rsqrt(torch.clamp(_sum3(nrm * nrm), min=1e-30))[:, None]
     dvec = cb[None, :, :] - sc.s_pos[perm][:, None, :]
-    signed = sum3(dvec * nrm[:, None, :])
-    distb = _sqrt(torch.clamp(sum3(dvec * dvec), min=0.0))
+    signed = _sum3(dvec * nrm[:, None, :])
+    distb = _sqrt(torch.clamp(_sum3(dvec * dvec), min=0.0))
     slack = rs[None, :] + 1e-3 + 1e-3 * distb
     h_pos = ~(signed < -slack)
     h_neg = ~(signed > slack)
@@ -524,11 +571,172 @@ def _cull_tables(sc: SceneArrays, struct: KernelStruct, perm):
         anyc = (can_rfl | can_trn)[:, None]
         mk = torch.where(plane, mk, anyc) | ~bounded[None, :]
         sides.append(_pack_bits(mk & anyc))
-    return (bsph_t, shad_msk.contiguous(),
-            torch.cat(sides, dim=1).contiguous())
+    return torch.cat(sides, dim=1).contiguous()
 
 
-_get_packed = _SceneCache(pack_scene)
+# the culling tables' kernels (csrc/cull.cu), in its table order, and
+# their plain versions
+CULL_PARTS = ("bsph_t", "shad_msk", "cont_msk")
+CULL_PLAIN = {"bsph_t": _bsph_t_plain, "shad_msk": _shad_msk_plain,
+              "cont_msk": _cont_msk_plain}
+# launches of the culling tables' kernels
+cull_launches = 0
+
+
+def _cull_lib():
+    from quadray_tpu_torch.ops._build import load_library
+    lib = load_library("cull")
+    if lib.cull_launch.argtypes is None:
+        lib.cull_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.cull_launch.restype = ctypes.c_int
+    return lib
+
+
+def cull_table(name: str, sc: SceneArrays, struct: KernelStruct,
+               stt) -> torch.Tensor:
+    """One culling table (``name`` in CULL_PARTS) of the permuted rows:
+    one launch of its kernel in csrc/cull.cu on a CUDA scene, bitwise its
+    plain version (CULL_PLAIN), which a CPU scene takes."""
+    global cull_launches
+    dev = sc.s_bsph.device
+    if dev.type == "cpu":
+        return CULL_PLAIN[name](sc, struct, stt)
+    if dev.type != "cuda":
+        raise ValueError(f"cull_table: unsupported device {dev}")
+    NS, NM, nl = struct.ns, struct.nm, struct.nl
+    NW = -(-NS // 32)
+    table = CULL_PARTS.index(name)
+    if table == 1 and nl == 0:
+        return torch.zeros((NS, 1), dtype=I32, device=dev)
+    args = [("perm", stt.perm, torch.long, (NS,)),
+            ("s_bsph", sc.s_bsph, F32, (NS, 4)),
+            ("s_bnd", sc.s_bnd, I32, (NS,))]
+    if table == 1:
+        args.append(("l_pos", sc.l_pos, F32, (sc.l_pos.shape[0], 3)))
+    if table == 2:
+        args += [("s_inv", sc.s_inv, F32, (NS, 3, 3)),
+                 ("s_pos", sc.s_pos, F32, (NS, 3)),
+                 ("s_kind", sc.s_kind, I32, (NS,)),
+                 ("s_mat", sc.s_mat, I32, (NS, 2)),
+                 ("m_props", sc.m_props, I32, (NM,)),
+                 ("use_fresnel", sc.use_fresnel, F32, ())]
+    for a, t, dtype, shape in args:
+        _check(a, t, dtype, shape, dev)
+    ptr = {a: t.data_ptr() for a, t, _, _ in args}
+    out = (torch.empty((4, 1, -(-NS // LANES) * LANES), dtype=F32,
+                       device=dev) if table == 0 else
+           torch.empty((NS, nl * NW if table == 1 else 2 * NW), dtype=I32,
+                       device=dev))
+    lib = _cull_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cull_launch(
+            table, ptr["perm"], ptr["s_bsph"], ptr["s_bnd"],
+            ptr.get("l_pos"), ptr.get("s_inv"), ptr.get("s_pos"),
+            ptr.get("s_kind"), ptr.get("s_mat"), ptr.get("m_props"),
+            ptr.get("use_fresnel"), out.data_ptr(), NS, nl, stream)
+    if err != 0:
+        raise RuntimeError(f"cull kernel launch failed: CUDA error {err}")
+    cull_launches += 1
+    return out
+
+
+_SPHERES = ("s_bsph", "s_bnd")
+# (table, its packer, the SceneArrays fields it reads), in PackedScene order
+PACK_PARTS = (
+    ("sp_f", _pack_sp_f, ("s_pos", "s_inv", "s_sci", "s_scjh", "s_sciw",
+                          "s_cmin", "s_cmax", "s_fwd", "s_bsph", "s_emis")),
+    ("sp_i", _pack_sp_i, ("s_kind", "s_mat", "s_sing", "s_bnd")),
+    ("cl_f", _pack_cl_f, ("c_ref", "c_side", "c_op", "s_pos", "s_inv",
+                          "s_sci", "s_scjh", "s_sciw", "s_kind")),
+    ("mat_f", _pack_mat_f, ("m_col", "m_dff", "m_spc", "m_pow", "m_rfl",
+                            "m_trn", "m_rfr", "m_ext", "m_tex_scl",
+                            "m_tex_off")),
+    ("lg_f", _pack_lg_f, ("l_pos", "l_col", "l_cnt", "l_lnr", "l_qdr",
+                          "l_on")),
+    ("misc", _pack_misc, ("amb_col", "use_gamma", "use_fresnel")),
+    ("tex_pk", _pack_tex_pk, ("tex_data",)),
+    ("bsph_t", partial(cull_table, "bsph_t"), _SPHERES),
+    ("shad_msk", partial(cull_table, "shad_msk"), _SPHERES + ("l_pos",)),
+    ("cont_msk", partial(cull_table, "cont_msk"), _SPHERES + (
+        "s_inv", "s_pos", "use_fresnel", "s_kind", "m_props", "s_mat")),
+)
+
+
+def _assemble(parts: dict, stt, cull: bool) -> PackedScene:
+    return PackedScene(
+        parts["sp_f"], parts["sp_i"], parts["cl_f"], parts["mat_f"],
+        parts["lg_f"], parts["misc"], parts["tex_pk"], stt.tex_lut,
+        stt.mat_i, *((parts[k] for k in CULL_PARTS) if cull
+                     else stt.no_cull))
+
+
+def pack_scene(sc: SceneArrays, struct: KernelStruct,
+               cull: bool = True) -> PackedScene:
+    """The tables the Whitted kernel reads, on the scene's device; rows
+    permuted by ``struct.perm`` (bitwise the JAX package's pack_scene for
+    the tables both have), every part packed afresh. ``cull`` False
+    leaves the culling tables zero, for launches that do not cull
+    (``cull_gates``). The kernels are f32 only: a scene with another float
+    type (the fp64 tier's) raises ValueError, never a silent down-cast."""
+    _check_f32(sc)
+    stt = _struct_tensors(struct, sc.device)
+    return _assemble({name: fn(sc, struct, stt) for name, fn, _ in PACK_PARTS
+                      if cull or name not in CULL_PARTS}, stt, cull)
+
+
+class _PackCache:
+    """``pack_scene`` by parts (``parts``: PACK_PARTS, or entries of its
+    form): a part is re-packed only when the structure, or a field it
+    reads, is a new object, and kept otherwise, so a frame of the
+    incremental update re-packs only the tables its moved fields feed (a
+    camera-only frame none). Each part's cache is LRU-bounded, as
+    ``_SceneCache`` is."""
+
+    def __init__(self, parts: tuple = PACK_PARTS, maxlen: int = 8):
+        self._def = parts
+        self._maxlen = maxlen
+        self._parts = {name: OrderedDict() for name, _, _ in parts}
+
+    def tables(self, sc: SceneArrays, struct: KernelStruct,
+               cull: bool = True):
+        """The parts by name (without the culling tables unless
+        ``cull``), and the structure's tensors."""
+        _check_f32(sc)
+        stt = _struct_tensors(struct, sc.device)
+        out = {}
+        for name, fn, fields in self._def:
+            if not cull and name in CULL_PARTS:
+                continue
+            cache = self._parts[name]
+            leaves = tuple(getattr(sc, k) for k in fields)
+            key = (id(struct),) + tuple(map(id, leaves))
+            ent = cache.get(key)
+            if ent is not None and ent[0] is struct and all(
+                    a is b for a, b in zip(ent[1], leaves)):
+                cache.move_to_end(key)
+                out[name] = ent[2]
+                continue
+            out[name] = fn(sc, struct, stt)
+            cache[key] = (struct, leaves, out[name])
+            while len(cache) > self._maxlen:
+                cache.popitem(last=False)
+        return out, stt
+
+    def __call__(self, sc: SceneArrays, struct: KernelStruct,
+                 cull: bool = True) -> PackedScene:
+        out, stt = self.tables(sc, struct, cull)
+        return _assemble(out, stt, cull)
+
+
+_get_packed = _PackCache()
+# the plain tracer's culling tables (ops/trace.py Cull): their plain
+# versions on every device, so that no kernel of csrc/cull.cu is shared by
+# a kernel under test and the plain tracer it is held against
+_get_cull_plain = _PackCache(tuple(
+    (name, CULL_PLAIN[name], fields) for name, _, fields in PACK_PARTS
+    if name in CULL_PARTS))
 
 # kernel launches by trace_rays_cuda, by the path-record wrappers, by
 # trace_pt_cuda and by the two rounds; a run that must have gone through a

@@ -566,7 +566,7 @@ class Cull:
 
     def __init__(self, sc: SceneArrays, cfg: TraceConfig, pt: bool = False):
         from quadray_tpu_torch.ops.cuda_kernel import (
-            _get_packed, _get_struct, cull_gates)
+            _get_cull_plain, _get_struct, cull_gates)
         struct = _get_struct(sc)
         self.gates = cull_gates(struct, cfg, pt)
         n = self.n = struct.n_real
@@ -580,14 +580,15 @@ class Cull:
         self.nl = struct.nl
         if not self.gates.cull:
             return
-        ps = _get_packed(sc, struct)
-        self.spheres = ps.bsph_t[:, 0, :n]
+        ps, _ = _get_cull_plain.tables(sc, struct)
+        self.spheres = ps["bsph_t"][:, 0, :n]
         nw = -(-self.ns // 32)
         if self.gates.lsort:
             self.shad = _unpack_bits(
-                ps.shad_msk.reshape(self.ns, struct.nl, nw), n)
+                ps["shad_msk"].reshape(self.ns, struct.nl, nw), n)
         if self.gates.cont:
-            self.cont = _unpack_bits(ps.cont_msk.reshape(self.ns, 2, nw), n)
+            self.cont = _unpack_bits(ps["cont_msk"].reshape(self.ns, 2, nw),
+                                     n)
 
     def _bundles(self, v, fill):
         """(N, ...) per ray -> (G, WARP, ...) in bundles, padded with fill."""

@@ -12,6 +12,15 @@ The numeric pass runs on the CPU and the finished ``SceneArrays`` moves to
 the scene's device in one hop (``SceneArrays.to``): it is hundreds of tiny
 ops, which cost far more as kernel launches than as host arithmetic.
 
+The incremental update (the counterpart of the JAX engine's jitted
+per-frame pass) splits ``compile_scene`` in two: ``structure_pass`` walks
+the hierarchy once and keeps every time-invariant field on the device;
+``numeric_pass`` evaluates the animators and the camera on the host each
+frame, recomputes only the transform-dependent fields (``MOVED_FIELDS``)
+batched over nodes, and moves them to the device in one staged copy.
+Every element goes through the scalar code's f32/f64 operations in the
+same order, so its fields are ``compile_scene``'s bit for bit.
+
 f32 agreement with the JAX compiler: its small matmuls run as a chain of
 fused multiply-adds from a zero accumulator, which ``_mm`` reproduces
 (each step computed in float64, where the f32 product is exact, and
@@ -22,8 +31,10 @@ built from them may differ from JAX's by an ulp or two.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
+import operator
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -125,6 +136,12 @@ class SceneArrays:
 
 
 FIELDS = tuple(f.name for f in dataclasses.fields(SceneArrays))
+# the fields a transform moves, by the group of nodes they come from; the
+# incremental update recomputes these and keeps every other field
+MOVED_GROUPS = {"surf": ("s_pos", "s_inv", "s_fwd", "s_bsph"),
+                "light": ("l_pos",),
+                "cam": ("cam_pos", "cam_hor", "cam_ver", "cam_nrm")}
+MOVED_FIELDS = tuple(k for g in MOVED_GROUPS.values() for k in g)
 
 
 def scene_arrays_from_numpy(d: Dict[str, np.ndarray],
@@ -775,3 +792,376 @@ def compile_scene(scene: S.SceneDef, time: float = 0.0,
         use_fresnel=torch.tensor(1.0 if use_fresnel else 0.0, dtype=F32),
     )
     return sc.to(device)
+
+
+# ---------------------------------------------------------------------------
+# incremental update: the structure once, a batched numeric pass a frame
+# (the JAX engine's first-frame compile and jitted later frames,
+# quadray_tpu/engine.py:165-207)
+# ---------------------------------------------------------------------------
+
+def _bmm(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``_mm`` over a batch in numpy, (B, M, K) @ (B, K, N) f32: every
+    element through the same float64 steps, each rounded to f32, in the
+    same order (numpy's f32/f64 arithmetic is IEEE, like torch's; small
+    numpy ops cost a fraction of torch's on the host)."""
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float64)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    for k in range(a.shape[-1]):
+        acc = (a64[..., k:k + 1] * b64[..., k:k + 1, :] + acc) \
+            .astype(np.float32).astype(np.float64)
+    return acc.astype(np.float32)
+
+
+def _trm_values(trm: S.Transform3D) -> tuple:
+    """A transform's nine numbers, scl, rot, pos, as ``_f`` reads them."""
+    return tuple(float(np.asarray(v))
+                 for v in (*trm.scl, *trm.rot, *trm.pos))
+
+
+_DEG2RAD = np.float32(math.pi / 180.0)
+
+
+def transform_matrices(vals) -> np.ndarray:
+    """``transform_matrix`` of B transforms at once, from rows of
+    ``_trm_values``: (B, 4, 4) f32, each matrix bitwise
+    ``transform_matrix``'s. sin and cos are torch's on a contiguous
+    float64 tensor, whose every element gets the bits of the scalar
+    code's 0-d call."""
+    v = np.array(vals, np.float64).reshape(-1, 9).astype(np.float32)
+    B = v.shape[0]
+    ang = torch.from_numpy((v[:, 3:6] * _DEG2RAD).astype(np.float64))
+    c = torch.cos(ang).float().numpy()
+    s = torch.sin(ang).float().numpy()
+    rx, ry, rz = (np.zeros((B, 3, 3), np.float32) for _ in range(3))
+    rx[:, 0, 0] = ry[:, 1, 1] = rz[:, 2, 2] = 1.0
+    rx[:, 1, 1], rx[:, 1, 2] = c[:, 0], -s[:, 0]
+    rx[:, 2, 1], rx[:, 2, 2] = s[:, 0], c[:, 0]
+    ry[:, 0, 0], ry[:, 0, 2] = c[:, 1], s[:, 1]
+    ry[:, 2, 0], ry[:, 2, 2] = -s[:, 1], c[:, 1]
+    rz[:, 0, 0], rz[:, 0, 1] = c[:, 2], -s[:, 2]
+    rz[:, 1, 0], rz[:, 1, 1] = s[:, 2], c[:, 2]
+    scl = np.zeros((B, 3, 3), np.float32)
+    scl[:, 0, 0], scl[:, 1, 1], scl[:, 2, 2] = v[:, 0], v[:, 1], v[:, 2]
+    m = np.zeros((B, 4, 4), np.float32)
+    m[:, :3, :3] = _bmm(_bmm(_bmm(rz, ry), rx), scl)
+    m[:, :3, 3] = v[:, 6:9]
+    m[:, 3, 3] = 1.0
+    return m
+
+
+def _inv3_batch(m: np.ndarray) -> np.ndarray:
+    """``_inv3`` of (B, 3, 3) f32, the same f32 operations per element."""
+    a, b, c = m[:, 0, 0], m[:, 0, 1], m[:, 0, 2]
+    d, e, f = m[:, 1, 0], m[:, 1, 1], m[:, 1, 2]
+    g, h, i = m[:, 2, 0], m[:, 2, 1], m[:, 2, 2]
+    A = e * i - f * h
+    B = f * g - d * i
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    adj = np.stack([np.stack([A, c * h - b * i, b * f - c * e], -1),
+                    np.stack([B, a * i - c * g, c * d - a * f], -1),
+                    np.stack([C, b * g - a * h, a * e - b * d], -1)], -2)
+    return adj / det[:, None, None]
+
+
+_R_SCALE, _R_PAD = np.float32(1.001), np.float32(1e-4)
+
+
+def _bounding_spheres(ctr: np.ndarray, corners: np.ndarray,
+                      lin: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """``_bounding_sphere`` of B surfaces from their f32 box centres (B, 3)
+    and corner offsets (B, 8, 3): (B, 4) f32 rows cx cy cz r2."""
+    center = _bmm(lin, ctr[:, :, None])[:, :, 0] + pos
+    off = _bmm(corners, lin.transpose(0, 2, 1))
+    sq = off * off
+    r2 = np.max(sq[..., 0] + sq[..., 1] + sq[..., 2], axis=1)
+    r = np.sqrt(r2.astype(np.float64)).astype(np.float32)
+    r = r * _R_SCALE + _R_PAD
+    return np.concatenate([center, (r * r)[:, None]], axis=1)
+
+
+def _box_corners(srf: S.Surface):
+    """A bounded surface's canonical box as ``_bounding_sphere`` takes it:
+    the f32 centre (3,) and corner offsets (8, 3)."""
+    cmin, cmax = _canonical_bounds(srf)
+    ctr = (cmin + cmax) * 0.5
+    half = (cmax - cmin) * 0.5
+    sgn = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                    for sz in (-1, 1)], np.float64)
+    return ctr.astype(np.float32), (sgn * half[None, :]).astype(np.float32)
+
+
+# a node's local transform: its own trm, its animator, or the camera slot
+# (the controller's transform once there is one, as _walk gives every
+# camera node cam_trm)
+SRC_STATIC, SRC_ANIM, SRC_CAMERA = 0, 1, 2
+
+_NODE_SIG = operator.attrgetter("item", "anim", "mat_outer", "mat_inner",
+                                "trm")
+_REL_SIG = operator.attrgetter("obj1", "rel", "obj2")
+_TRM_SIG = operator.attrgetter("trm.scl", "trm.rot", "trm.pos")
+
+
+def _array_sig(arrays) -> tuple:
+    return tuple((tuple(a.objects), tuple(map(_REL_SIG, a.relations)))
+                 for a in arrays)
+
+
+def _static_sig(obs) -> tuple:
+    return tuple(map(_TRM_SIG, obs))
+
+
+class SceneStructure:
+    """What ``structure_pass`` records of a scene: the node table (each
+    object's parent, hierarchy level and local transform source), the
+    nodes of the surfaces, lights and the rendered camera, the static
+    nodes' local and world matrices, the bounded surfaces' canonical
+    boxes, and the arrays of the last frame, whose time-invariant fields
+    every later frame shares. ``numeric_pass`` reads it and updates its
+    last frame."""
+
+    def __init__(self, scene: S.SceneDef, cam_index: int, device,
+                 sc0: SceneArrays):
+        self.root = scene.root
+        self.device = torch.device(device)
+        obs, parent, level, arrays = [], [], [], []
+        surf, light, cams = [], [], []
+
+        def walk(arr, par, lv):
+            arrays.append(arr)
+            for ob in arr.objects:
+                i = len(obs)
+                obs.append(ob)
+                parent.append(par)
+                level.append(lv)
+                if isinstance(ob.item, S.Array):
+                    walk(ob.item, i, lv + 1)
+                elif isinstance(ob.item, S.Surface):
+                    surf.append(i)
+                elif isinstance(ob.item, S.Light):
+                    light.append(i)
+                elif isinstance(ob.item, S.Camera):
+                    cams.append(i)
+
+        walk(scene.root, -1, 0)
+        N = len(obs)
+        self.obs = obs
+        self.src = np.array(
+            [SRC_CAMERA if isinstance(ob.item, S.Camera) else
+             SRC_ANIM if ob.anim is not None else SRC_STATIC for ob in obs],
+            np.int64)
+        # the root's parent is row N of the world matrices, the identity
+        self.parent = np.where(np.array(parent, np.int64) < 0, N,
+                               np.array(parent, np.int64))
+        self.level = np.array(level, np.int64)
+        self.arrays_walked = arrays
+        self.node_sig = tuple(map(_NODE_SIG, obs))
+        self.static_nodes = np.nonzero(self.src == SRC_STATIC)[0]
+        self.static_obs = [obs[i] for i in self.static_nodes]
+        # a copy, so that a transform changed in place differs from it
+        self.static_sig = copy.deepcopy(_static_sig(self.static_obs))
+        self.array_sig = _array_sig(arrays)
+        self.dyn = [int(i) for i in np.nonzero(self.src != SRC_STATIC)[0]]
+        # moved: the node or an ancestor has a transform that can change
+        moved = self.src != SRC_STATIC
+        for i in range(N):          # parents come before their children
+            if self.parent[i] < N and moved[self.parent[i]]:
+                moved[i] = True
+
+        def up(i):
+            while i < N:
+                yield i
+                i = self.parent[i]
+
+        cam_node = cams[::-1][min(cam_index, len(cams) - 1)]
+        self.nodes = {"surf": np.array(surf, np.int64),
+                      "light": np.array(light, np.int64),
+                      "cam": np.array([cam_node], np.int64)}
+        self.need, self.deps = {}, {}
+        for g, ids in self.nodes.items():
+            chain = sorted({int(a) for i in ids for a in up(i) if moved[a]})
+            self.need[g] = np.array(chain, np.int64)
+            self.deps[g] = [a for a in chain if self.src[a] != SRC_STATIC]
+        self.ns = sc0.s_pos.shape[0]
+        self.nl = sc0.l_pos.shape[0]
+        self.shapes = dict(ns=self.ns, nc=sc0.c_op.shape[1], nl=self.nl)
+        # local matrices of the static nodes and world matrices of the
+        # nodes that nothing moves, level by level from the root
+        L = np.zeros((N, 4, 4), np.float32)
+        if self.static_nodes.size:
+            L[self.static_nodes] = transform_matrices(
+                [_trm_values(obs[i].trm) for i in self.static_nodes])
+        self.L_static = L
+        W = np.zeros((N + 1, 4, 4), np.float32)
+        W[N] = np.eye(4, dtype=np.float32)
+        still = np.nonzero(~moved)[0]
+        for lv in np.unique(self.level[still]):
+            ids = still[self.level[still] == lv]
+            W[ids] = _bmm(W[self.parent[ids]], L[ids])
+        self.W_static = W
+        self.bnd = np.nonzero(sc0.s_bnd.numpy()[:len(surf)] > 0)[0]
+        boxes = [_box_corners(obs[surf[i]].item) for i in self.bnd]
+        self.box_ctr = np.array([c for c, _ in boxes],
+                                np.float32).reshape(-1, 3)
+        self.box_corners = np.array([k for _, k in boxes],
+                                    np.float32).reshape(-1, 8, 3)
+        self.keys: Dict[str, bytes] = {}
+        self.last: Optional[SceneArrays] = None
+
+    def check(self):
+        """Raise ValueError where the hierarchy is no longer the one this
+        structure recorded: an object, item, animator, material override
+        or relation added, removed or replaced, or a static transform
+        changed. (What the items themselves hold, the structure pass read
+        once, as the JAX engine's jitted pass does.)"""
+        if tuple(map(_NODE_SIG, self.obs)) != self.node_sig \
+                or _array_sig(self.arrays_walked) != self.array_sig:
+            raise ValueError(
+                "the scene's hierarchy changed after its structure was "
+                "recorded (an object, item, animator, material or relation "
+                "was added, removed or replaced): set_opts, or a new Scene, "
+                "records it again")
+        if _static_sig(self.static_obs) != self.static_sig:
+            raise ValueError(
+                "a static transform changed after the scene's structure was "
+                "recorded: give the object an animator, or record the "
+                "structure again (set_opts, or a new Scene)")
+
+    def local_values(self, time: float, cam_trm) -> Dict[int, tuple]:
+        """Each moving node's local transform at (time, cam_trm), as
+        ``_walk`` picks it, in ``_trm_values`` form."""
+        out = {}
+        for i in self.dyn:
+            ob = self.obs[i]
+            if self.src[i] == SRC_CAMERA and cam_trm is not None:
+                trm = cam_trm
+            else:
+                trm = ob.anim(time) if ob.anim is not None else ob.trm
+            out[i] = _trm_values(trm)
+        return out
+
+    def group_keys(self, vals) -> Dict[str, bytes]:
+        """Per group of ``MOVED_GROUPS``, the bits of the local transforms
+        it depends on: a group moved when its key changed (bits, not
+        values, so a zero that changes sign moves it too)."""
+        return {g: np.array([vals[d] for d in self.deps[g]],
+                            np.float64).tobytes() for g in MOVED_GROUPS}
+
+    def moved_fields(self, groups, vals) -> Dict[str, np.ndarray]:
+        """The fields of ``groups`` on the host (f32 numpy), from the
+        moving nodes' local transforms ``vals``: local matrices in one
+        batch, world matrices composed level by level, then the surfaces'
+        inverses and bounding spheres in one batch each."""
+        W = self.W_static
+        need = np.unique(np.concatenate([self.need[g] for g in groups]))
+        if need.size:
+            W = W.copy()
+            L = self.L_static.copy()
+            own = need[self.src[need] != SRC_STATIC]
+            L[own] = transform_matrices(
+                [vals[int(i)] for i in own])
+            for lv in np.unique(self.level[need]):
+                ids = need[self.level[need] == lv]
+                W[ids] = _bmm(W[self.parent[ids]], L[ids])
+        out = {}
+        if "surf" in groups:
+            M = W[self.nodes["surf"]]
+            n = M.shape[0]
+            lin, pos = M[:, :3, :3], M[:, :3, 3]
+            s_pos = np.zeros((self.ns, 3), np.float32)
+            s_inv = np.zeros((self.ns, 3, 3), np.float32)
+            s_fwd = np.zeros((self.ns, 3, 3), np.float32)
+            s_bsph = np.zeros((self.ns, 4), np.float32)
+            s_pos[:n] = pos
+            s_inv[:n] = _inv3_batch(lin)
+            s_fwd[:n] = lin
+            if self.bnd.size:
+                s_bsph[self.bnd] = _bounding_spheres(
+                    self.box_ctr, self.box_corners, lin[self.bnd],
+                    pos[self.bnd])
+            out.update(s_pos=s_pos, s_inv=s_inv, s_fwd=s_fwd, s_bsph=s_bsph)
+        if "light" in groups:
+            l_pos = np.zeros((self.nl, 3), np.float32)
+            ids = self.nodes["light"]
+            l_pos[:ids.size] = W[ids][:, :3, 3]
+            out["l_pos"] = l_pos
+        if "cam" in groups:
+            c = W[int(self.nodes["cam"][0])]
+            out.update(cam_pos=c[:3, 3], cam_hor=c[:3, 0],
+                       cam_ver=c[:3, 1], cam_nrm=c[:3, 2])
+        return out
+
+
+def _staged(fields: Dict[str, np.ndarray],
+            device) -> Dict[str, torch.Tensor]:
+    """Host f32 arrays to ``device`` in one copy: written into one (pinned,
+    for a card) buffer, copied without a wait, split into views."""
+    buf = torch.empty((sum(v.size for v in fields.values()),), dtype=F32,
+                      pin_memory=device.type == "cuda")
+    host, o = buf.numpy(), 0
+    for v in fields.values():
+        host[o:o + v.size] = v.reshape(-1)
+        o += v.size
+    buf = buf.to(device, non_blocking=True)
+    out, o = {}, 0
+    for k, v in fields.items():
+        out[k] = buf[o:o + v.size].view(v.shape)
+        o += v.size
+    return out
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(I32) if a.dtype == F32 else a,
+        b.view(I32) if b.dtype == F32 else b)
+
+
+def structure_pass(scene: S.SceneDef, time: float = 0.0, cam_index: int = 0,
+                   cam_trm: Optional[S.Transform3D] = None,
+                   device="cuda") -> SceneStructure:
+    """The incremental update's first half, run once per scene and options:
+    ``compile_scene`` at (time, cam_trm) on the host for the fields that no
+    transform moves (slots, clip programs, untied surfaces, cull
+    eligibility, materials, the texture atlas, emission, lights' colours,
+    the padded NS/NC/NL), which go to ``device`` once; and a walk that
+    records the node table ``numeric_pass`` composes. The batched pass is
+    held against that compile at once: a field that differs by a bit
+    raises RuntimeError."""
+    sc0 = compile_scene(scene, time, cam_index, cam_trm=cam_trm,
+                        device="cpu")
+    st = SceneStructure(scene, cam_index, device, sc0)
+    vals = st.local_values(time, cam_trm)
+    moved = st.moved_fields(tuple(MOVED_GROUPS), vals)
+    bad = [k for k in MOVED_FIELDS
+           if not _bits_equal(torch.from_numpy(moved[k]), getattr(sc0, k))]
+    if bad:
+        raise RuntimeError(f"structure_pass: the batched numeric pass "
+                           f"differs from compile_scene in {bad}")
+    st.keys = st.group_keys(vals)
+    fixed = {k: getattr(sc0, k).to(st.device) for k in FIELDS
+             if k not in MOVED_FIELDS}
+    st.last = SceneArrays(**fixed, **_staged(moved, st.device))
+    return st
+
+
+def numeric_pass(st: SceneStructure, time: float = 0.0,
+                 cam_trm: Optional[S.Transform3D] = None) -> SceneArrays:
+    """The incremental update's per-frame half: the SceneArrays of
+    ``compile_scene`` at (time, cam_trm), bit for bit, on the structure's
+    device. Evaluates the animators and the camera slot on the host, and
+    recomputes a group of ``MOVED_GROUPS`` only where a transform it
+    depends on changed since the last frame; the recomputed fields go to
+    the device in one staged copy, and every other field is the last
+    frame's tensor, the same object. A frame that moves nothing returns
+    the last frame's SceneArrays itself. Raises ValueError where the
+    hierarchy differs from the one recorded."""
+    st.check()
+    vals = st.local_values(time, cam_trm)
+    keys = st.group_keys(vals)
+    groups = tuple(g for g in MOVED_GROUPS if keys[g] != st.keys[g])
+    if groups:
+        moved = _staged(st.moved_fields(groups, vals), st.device)
+        st.last = dataclasses.replace(st.last, **moved)
+        st.keys = keys
+    return st.last
