@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only I   # kernel build + RESUME's two modes
     python3 chip_smoke.py --only J   # kernel build + the apps on the card
     python3 chip_smoke.py --only K   # kernel build + the culling tables
+    python3 chip_smoke.py --only L   # kernel build + the parallel layer
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points), the conformance kernels and the culling tables' kernels
@@ -136,6 +137,25 @@ entry points), the conformance kernels and the culling tables' kernels
      (ops/cuda_kernel.py CULL_PLAIN) on the 21 golden scenes and 10
      frames of each J3 scene, bitwise; K2 device ms of the three on
      demo02 (CUDA graphs) beside the plain versions' and the bound.
+  L. the parallel layer (quadray_tpu_torch/parallel/, one card; blocks of
+     a ray mesh on cuda:0 stand in for cards): L1 the counted main-path
+     run, all 21 golden scenes at 800x480 through render_sharded_cuda on
+     4 blocks, and test13 and demo03 on 1, 2, 7 and 8, each frame bitwise
+     render_cuda's, within its golden budget, one Whitted launch a block;
+     the plain render_sharded on test13 at 200x120 within 1e-5 of the
+     kernel's; L2 the sharded fast train step at bench_train's
+     configuration (every field) on 1 vs 4 blocks within JAX's
+     device-count bounds (loss rtol 1e-5, params rtol 1e-4 atol 1e-6), 10
+     counted make_train_scan_fast steps on 4 blocks (the loss falls, one
+     paths launch a block a step), ms/step on 1 and 4 blocks; L3 the
+     multi-process worker (python -m quadray_tpu_torch.dryrun): two gloo
+     ranks on cuda:0, the frame bitwise render_cuda's and the params equal
+     across ranks, then a world-size-1 NCCL group, then NCCL asked for
+     two ranks on one card (its refusal logged); L4 dryrun_multichip(8) on
+     the card, render_sharded_cuda ms/frame on test13 over 1, 2, 4 and 8
+     blocks beside render_cuda's, and scaling_report over the card's
+     devices and over blocks of one card (blocks on one card show what
+     sharding costs, not scaling).
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -2360,17 +2380,341 @@ def phase_k(dev):
     return err, ms, plain_ms, bound, by
 
 
+# ---------------------------------------------------------------------------
+# phase L: the parallel layer
+# ---------------------------------------------------------------------------
+
+# L1: the golden scenes on 4 blocks of the card; test13 and demo03 also on
+# these block counts (7: 54,858 rays a block, not a whole number of warps)
+L_BLOCKS, L_MORE, L_MORE_SCENES = 4, (1, 2, 7, 8), ("test13", "demo03")
+# L1's plain check and L4's frame times
+L_PLAIN = ("test13", 200, 120)
+L_TIMED_BLOCKS = (1, 2, 4, 8)
+# L2: the sharded fast step on these block counts; JAX's device-count
+# invariance bounds (tests/test_multidevice.py:102-104)
+L_STEP_BLOCKS = (1, 4)
+INV_LOSS_RTOL, INV_PARAM_RTOL, INV_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+# L3: the multi-process worker's time limit
+L_WORKER_TIMEOUT = 240
+
+
+def card_mesh(dev, blocks):
+    from quadray_tpu_torch.parallel.mesh import ray_mesh
+    return ray_mesh([dev] * blocks)
+
+
+def phase_l1(dev):
+    """render_sharded_cuda against render_cuda on the golden scenes, the
+    counted main-path run of the parallel layer."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
+    from quadray_tpu_torch.parallel.render import (render_sharded,
+                                                   render_sharded_cuda)
+    from quadray_tpu_torch.utils.image import load_bmp, frame_cmp
+    cases, arrays = [], {}
+    for n in SCENES:
+        s = Scene(load_scene(n), W, H, device=dev)
+        s.update(0.0)
+        arrays[n] = (s.arrays, TraceConfig(depth=s.pfm.depth))
+        cases += [(n, L_BLOCKS)] + [(n, b) for b in L_MORE
+                                    if n in L_MORE_SCENES]
+    want = {n: ck.render_cuda(a, W, H, 1, cfg) for n, (a, cfg) in
+            arrays.items()}
+    meshes = {b: card_mesh(dev, b) for _, b in cases}
+    # main path, counted: zeroed right before the run, read right after
+    ck.launches = 0
+    got, per_frame = [], []
+    for n, b in cases:
+        before = ck.launches
+        a, cfg = arrays[n]
+        got.append(render_sharded_cuda(a, W, H, meshes[b], 1, cfg))
+        per_frame.append(ck.launches - before)
+    torch.cuda.synchronize()
+    launches = ck.launches
+    fails = []
+    for (n, b), img, k in zip(cases, got, per_frame):
+        same = torch.equal(img, want[n])
+        frame = to_frame(img, arrays[n][0].use_gamma).cpu().numpy()
+        nbad, _ = frame_cmp(load_bmp(os.path.join(GOLDEN, f"ref_{n}.bmp")),
+                            frame, t_diff=3)
+        ok = same and k == b and nbad <= BUDGET.get(n, 0)
+        log(f"L1 {n} {b} blocks: bitwise_render_cuda={same} launches={k} "
+            f"bad_px={nbad} budget={BUDGET.get(n, 0)}"
+            f"{'' if ok else '  FAIL'}")
+        if not ok:
+            fails.append(f"{n}/{b}")
+    log(f"L1 launches: whitted {launches} over {len(cases)} frames "
+        f"(expected {sum(b for _, b in cases)})")
+    if fails or launches != sum(b for _, b in cases):
+        raise AssertionError(f"L1: frames not bitwise render_cuda's, "
+                             f"outside budget or not launched once a "
+                             f"block: {fails}")
+    n, w, h = L_PLAIN
+    a, cfg = arrays[n]
+    plain = render_sharded(a, w, h, meshes[L_BLOCKS], 1, cfg)
+    kern = render_sharded_cuda(a, w, h, meshes[L_BLOCKS], 1, cfg)
+    mx = float((plain - kern).abs().max())
+    log(f"L1 {n} {w}x{h} {L_BLOCKS} blocks: plain render_sharded vs "
+        f"render_sharded_cuda max_abs={mx:.3e}")
+    if not mx <= ATOL:
+        raise AssertionError(f"L1: plain sharded render off by {mx}")
+    return launches, arrays
+
+
+def phase_l2(dev, smi):
+    """The sharded fast train step: 1 vs 4 blocks, the counted scan on 4
+    blocks, ms/step."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.parallel import train as tr
+    sc, target, _ = train_task(dev)
+    cfg = train_cfg()
+    res = {}
+    for b in L_STEP_BLOCKS:
+        step_fn, opt_init = tr.make_train_step_fast(
+            sc, W, H, cfg=cfg, lr=TRAIN_LR, k_paths=K_PATHS,
+            mesh=card_mesh(dev, b))
+        p0 = tr.extract_params(sc)
+        params, state, loss = step_fn(p0, opt_init(p0), sc, target)
+        res[b] = (float(loss), params, state.mu)
+    (l1, p1, m1), (ln, pn, mn) = (res[L_STEP_BLOCKS[0]],
+                                  res[L_STEP_BLOCKS[-1]])
+
+    def worst(a, b):
+        return (max(float((a[k] - b[k]).abs().max()) for k in a),
+                all(torch.equal(a[k], b[k]) for k in a))
+
+    def close(a, b):
+        return all(torch.allclose(a[k], b[k], rtol=INV_PARAM_RTOL,
+                                  atol=INV_PARAM_ATOL) for k in a)
+
+    # after one step the params moved by about lr in the gradient's sign
+    # whatever its scale; Adam's first moment is 0.1 x the gradient
+    ok = (np.isclose(l1, ln, rtol=INV_LOSS_RTOL) and close(p1, pn)
+          and close(m1, mn))
+    top = max(float(v.abs().max()) for v in m1.values())
+    log(f"L2 test01 {W}x{H} K={K_PATHS} every field, one step: loss "
+        f"{L_STEP_BLOCKS[0]} block {l1:.9e}, {L_STEP_BLOCKS[-1]} blocks "
+        f"{ln:.9e}; largest |diff| and bitwise: params %.3e %s, Adam's "
+        f"first moment %.3e %s (largest |moment| {top:.3e}; rtol "
+        f"{INV_PARAM_RTOL}, atol {INV_PARAM_ATOL}){'' if ok else '  FAIL'}"
+        % (worst(p1, pn) + worst(m1, mn)))
+    if not ok:
+        raise AssertionError("L2: the 4-block step is off the 1-block "
+                             "step beyond JAX's invariance bounds")
+
+    b = L_STEP_BLOCKS[-1]
+    run_fn, opt_init = tr.make_train_scan_fast(
+        sc, W, H, cfg=cfg, lr=TRAIN_LR, k_paths=K_PATHS,
+        mesh=card_mesh(dev, b))
+    p0 = tr.extract_params(sc, RECOVER_FIELDS)
+    opt0 = opt_init(p0)
+    # main path, counted
+    ck.paths_launches = 0
+    params, _, losses = run_fn(p0, opt0, sc, target, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = ck.paths_launches
+    losses = [float(x) for x in losses]
+    log(f"L2 {b} blocks, {TRAIN_STEPS} steps of make_train_scan_fast, "
+        f"fields {','.join(RECOVER_FIELDS)}: losses "
+        + " ".join(f"{x:.6e}" for x in losses)
+        + f"; paths launches {launches} (expected {b * TRAIN_STEPS})")
+    if launches != b * TRAIN_STEPS:
+        raise AssertionError(f"L2: {launches} paths launches")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"L2: loss did not fall: {losses}")
+    for k, v in params.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"L2: parameter {k} not finite")
+
+    ms = {}
+    for b in L_STEP_BLOCKS:
+        run_fn, opt_init = tr.make_train_scan_fast(
+            sc, W, H, cfg=cfg, lr=TRAIN_LR, k_paths=K_PATHS,
+            mesh=card_mesh(dev, b))
+        p_all = tr.extract_params(sc)
+        state = [p_all, opt_init(p_all)]
+
+        def one():
+            state[0], state[1], _ = run_fn(state[0], state[1], sc, target, 1)
+
+        ms[b] = cuda_ms(one, 10, warmup=2)
+    log(f"L2 ms/step ({smi}; CUDA events, mean of 10 after 2, every "
+        "field): "
+        + ", ".join(f"{b} block(s) {t:.3f}" for b, t in ms.items()))
+    split = l2_split(sc, target)
+    log(f"L2 split over the blocks of a step ({smi}; CUDA events, mean of "
+        "5 after 1): " + ", ".join(f"{b} block(s): paths kernel with re-pack "
+                           f"{p:.3f}, replay fwd+bwd {r:.3f}"
+                           for b, (p, r) in split.items()))
+    return launches, ms
+
+
+def l2_split(sc, target):
+    """The two parts of a sharded fast step that run once a block, each
+    timed over every block of the frame: the paths kernel with its
+    re-pack, and replay's forward and backward (one autograd.grad a
+    block, as the step takes it)."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.replay import replay_color
+    from quadray_tpu_torch.parallel import train as tr
+    cfg = train_cfg()
+    struct = ck.scene_struct(sc)
+    _, dirs, tmin = primary(sc, W, H)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in tr.extract_params(sc).items()}
+    sc2 = dataclasses.replace(sc, **leaves)
+    out = {}
+    for b in L_STEP_BLOCKS:
+        m = dirs.shape[0] // b
+        blocks = [(sc.cam_pos[None, :].expand(m, 3), dirs[i * m:(i + 1) * m],
+                   tmin[i * m:(i + 1) * m], target[i * m:(i + 1) * m])
+                  for i in range(b)]
+        paths = [ck.trace_paths_with_struct(sc2, struct, *r[:3], cfg,
+                                            K_PATHS)[1] for r in blocks]
+
+        def trace():
+            for r in blocks:
+                ck.trace_paths_with_struct(sc2, struct, *r[:3], cfg, K_PATHS)
+
+        def replay():
+            for r, p in zip(blocks, paths):
+                cols = replay_color(sc2, *r[:3], p, cfg)
+                loss = ((torch.clamp(cols, 0.0, 1.0) - r[3]) ** 2).mean()
+                torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+
+        out[b] = (cuda_ms(trace, 5), cuda_ms(replay, 5))
+    return out
+
+
+def run_ranks(world, backend, timeout=L_WORKER_TIMEOUT):
+    """The multi-process worker (quadray_tpu_torch/dryrun.py), one process
+    a rank on this card, ``backend`` None for init_distributed's default:
+    [(returncode, output, timed out)], every process stopped."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "quadray_tpu_torch.dryrun", "--rank", str(r),
+         "--world", str(world), "--port", str(port), "--device", "cuda"]
+        + ([] if backend is None else ["--backend", backend]), cwd=REPO,
+        env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append((p.communicate(timeout=timeout)[0], False))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append((p.communicate()[0], True))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out, hung) for p, (out, hung) in zip(procs, outs)]
+
+
+def rank_lines(runs, label):
+    lines = []
+    for r, (rc, out, hung) in enumerate(runs):
+        tag = f"OK rank {r}: "
+        found = [ln for ln in out.splitlines() if ln.startswith(tag)]
+        if rc != 0 or hung or not found:
+            raise AssertionError(f"{label}: rank {r} failed (rc {rc}, "
+                                 f"timed out {hung}):\n{out[-3000:]}")
+        lines.append(json.loads(found[0][len(tag):]))
+    return lines
+
+
+def phase_l3(dev):
+    """Two gloo ranks on this card, then a world-size-1 NCCL group and one
+    of init_distributed's default backend (cpu:gloo,cuda:nccl), then NCCL
+    asked for two ranks on one card."""
+    from quadray_tpu_torch.dryrun import FRAME_H, FRAME_W, digest
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.scene.compile import compile_scene
+    sc = compile_scene(load_scene("test01"), device=dev)
+    want = digest(ck.render_cuda(sc, FRAME_W, FRAME_H))
+    for world, backend in ((2, "gloo"), (1, "nccl"), (1, None)):
+        t0 = time.perf_counter()
+        lines = rank_lines(run_ranks(world, backend),
+                           f"L3 {backend} world {world}")
+        backend = lines[0]["backend"]
+        frames = [ln["frame"] for ln in lines]
+        params = [ln["params"] + "/" + ln["mu"] for ln in lines]
+        log(f"L3 {backend} world {world} on {[ln['device'] for ln in lines]}"
+            f": frame digests {frames} (render_cuda {want}), params/first "
+            f"moment digests {params}, losses "
+            f"{[ln['loss'] for ln in lines]}, all_reduce "
+            f"{lines[0]['all_reduce']}, refused differing scenes: "
+            f"{[ln['refused'] is not None for ln in lines]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if frames != [want] * world or len(set(params)) != 1:
+            raise AssertionError(f"L3 {backend}: frames not render_cuda's "
+                                 "or params differ across ranks")
+    runs = run_ranks(2, "nccl", timeout=120)
+    why = sorted({ln.strip() for _, out, _ in runs
+                  for ln in out.splitlines() if "Duplicate GPU" in ln})
+    log(f"L3 NCCL, two ranks on one card: return codes "
+        f"{[rc for rc, _, _ in runs]}, timed out {[h for _, _, h in runs]}"
+        f"; {why[0] if why else 'no duplicate-GPU message'}")
+
+
+def phase_l4(dev, arrays, smi):
+    """dryrun_multichip(8) on the card; render_sharded_cuda ms/frame on
+    test13 over 1, 2, 4, 8 blocks; scaling_report."""
+    from quadray_tpu_torch.dryrun import dryrun_multichip
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.parallel.distributed import scaling_report
+    from quadray_tpu_torch.parallel.render import render_sharded_cuda
+    dryrun_multichip(8, device="cuda")
+    a, cfg = arrays["test13"]
+    ms = {"render_cuda": cuda_ms(lambda: ck.render_cuda(a, W, H, 1, cfg),
+                                 10, warmup=2)}
+    for b in L_TIMED_BLOCKS:
+        mesh = card_mesh(dev, b)
+        ms[b] = cuda_ms(lambda: render_sharded_cuda(a, W, H, mesh, 1, cfg),
+                        10, warmup=2)
+    log(f"L4 test13 {W}x{H} ms/frame ({smi}; CUDA events, mean of 10 "
+        "after 2; blocks on one card): " + ", ".join(
+            f"{k if k == 'render_cuda' else f'{k} blocks'} {v:.3f}"
+            for k, v in ms.items()))
+
+    def fn(mesh):
+        render_sharded_cuda(a, W, H, mesh, 1, cfg)
+        torch.cuda.synchronize()
+
+    for devices, counts in ((None, None), ([dev] * max(L_TIMED_BLOCKS),
+                                           list(L_TIMED_BLOCKS))):
+        rep = scaling_report(fn, counts, frames=3, devices=devices)
+        log(f"L4 scaling_report ({smi}; host clock, best of 3) "
+            + ("over the card's devices" if devices is None
+               else "over blocks of one card") + ": " + json.dumps(rep))
+        if rep["rows"][0]["efficiency"] != 1.0 or not all(
+                r["seconds_per_frame"] > 0 for r in rep["rows"]):
+            raise AssertionError("L4: scaling_report malformed")
+    return ms
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
-                    choices=["A", "D", "E", "F", "G", "H", "I", "J", "K"],
+                    choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
+                             "L"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
                     "retirement), G (conformance tier), H (culling), I "
                     "(RESUME's two modes and its switch's sweep), J (the "
-                    "apps and the interactive frame) or K (the culling "
-                    "tables' kernels)")
+                    "apps and the interactive frame), K (the culling "
+                    "tables' kernels) or L (the parallel layer)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -2509,6 +2853,15 @@ def main():
 
     if only in (None, "K"):
         k_err, k_ms, k_plain, k_bound, k_by = phase("K", phase_k, dev)
+
+    if only in (None, "L"):
+        t0 = time.perf_counter()
+        l_whitted, l_arrays = phase_l1(dev)
+        l_paths, _ = phase_l2(dev, smi)
+        phase_l3(dev)
+        phase_l4(dev, l_arrays, smi)
+        del l_arrays
+        log(f"phase L ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
 
@@ -2521,9 +2874,11 @@ def main():
     log("kernel table: whitted ms/plain_ms are test13 800x480 frames "
         "(render_cuda vs plain render), launches B's 21 frames plus phase "
         "J's (core_test's 18 frames and -k, render_cli's Whitted frames, "
-        "J3's interactive frames, J6's checked frames); whitted_paths "
+        "J3's interactive frames, J6's checked frames) and L1's (the "
+        "sharded frames, one launch a block); whitted_paths "
         "ms/plain_ms are test01 800x480 K=8 path-record traces (the "
-        "training step's), launches the 10-step training run's, "
+        "training step's), launches the 10-step training run's (D3) and "
+        "the 10-step sharded run's on 4 blocks (L2), "
         "max_abs_err the worst "
         "color error of D1 (its records equal the plain version's); "
         "whitted_pt ms/plain_ms are one test18 800x480 depth-10 pass "
@@ -2588,13 +2943,14 @@ def main():
         "name": "whitted", "route": "cuda", "culling": culled,
         "design": coop, "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2201",
-        "launches": launches + j_whitted, "max_abs_err": max_err,
+        "launches": launches + j_whitted + l_whitted,
+        "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain, "bound_ms": w_bound[0],
         "bound_by": w_bound[1], "library_ms": None}, {
         "name": "whitted_paths", "route": "cuda", "culling": culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2250",
-        "launches": d_launches, "max_abs_err": d_err,
+        "launches": d_launches + l_paths, "max_abs_err": d_err,
         "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound[0],
         "bound_by": d_bound[1], "library_ms": None}, {
         "name": "whitted_pt", "route": "cuda", "culling": pt_culled,

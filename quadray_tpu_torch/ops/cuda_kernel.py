@@ -322,21 +322,23 @@ def scene_struct(sc: SceneArrays) -> KernelStruct:
 
 
 class _SceneCache:
-    """Bounded cache of ``scene_struct`` keyed on the identity of the
-    SceneArrays fields it reads (STRUCT_FIELDS), so a SceneArrays with any
-    of them replaced misses and recomputes instead of reusing a stale
-    structure, and the frames of an incremental update, which move none
-    of them, share one; LRU-bounded so animations don't retain every
-    frame's entry."""
+    """Bounded cache of ``fn(sc, *args)`` keyed on the identity of the
+    SceneArrays fields it reads (``fields``, STRUCT_FIELDS for
+    ``scene_struct``) and on the value of ``args`` (hashable), so a
+    SceneArrays with any of those fields replaced misses and recomputes
+    instead of reusing a stale value, and the frames of an incremental
+    update, which move none of them, share one; LRU-bounded so animations
+    don't retain every frame's entry."""
 
-    def __init__(self, fn, maxlen: int = 8):
+    def __init__(self, fn, fields: tuple = STRUCT_FIELDS, maxlen: int = 8):
         self._fn = fn
+        self._fields = fields
         self._maxlen = maxlen
         self._entries = OrderedDict()
 
     def __call__(self, sc: SceneArrays, *args):
-        leaves = [getattr(sc, k) for k in STRUCT_FIELDS]
-        key = tuple(id(x) for x in leaves) + tuple(id(a) for a in args)
+        leaves = [getattr(sc, k) for k in self._fields]
+        key = tuple(id(x) for x in leaves) + args
         ent = self._entries.get(key)
         if ent is not None and all(a is b for a, b in zip(ent[0], leaves)):
             self._entries.move_to_end(key)

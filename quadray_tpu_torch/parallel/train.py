@@ -1,22 +1,32 @@
 """Inverse rendering: optimize scene parameters from a target image.
 
-The counterpart of ``quadray_tpu.parallel.train`` on one device: pixel L2
-loss against a target frame, gradients through the differentiable tracer
-to surface transforms, quadric coefficients, materials and lights, and
-Adam on top. The mesh, the ray sharding and the gradient ``pmean`` of the
-JAX package are not here; the device is the scene's.
+The counterpart of ``quadray_tpu.parallel.train``: pixel L2 loss against a
+target frame, gradients through the differentiable tracer to surface
+transforms, quadric coefficients, materials and lights, and Adam on top.
 
-Three steps, with the JAX names and call shapes minus the mesh and the
-``fields`` argument the JAX steps take and ignore (the params dict names
-the fields that train):
+Three steps, with the JAX names and call shapes, the mesh last and
+optional, and without the ``fields`` argument the JAX steps take and
+ignore (the params dict names the fields that train):
   * ``make_train_step_fast``: trace-replay differentiation. The path-record
     kernel (``ops.cuda_kernel.trace_paths_with_struct``, detached) traces
     the current scene, and ``ops.replay.replay_color`` re-evaluates the
     colors along those paths under autograd.
   * ``make_train_scan_fast``: S such steps in one call; the losses stay on
-    the device and nothing inside the S steps waits for the card.
+    the device and, in a single process, nothing inside the S steps waits
+    for the card.
   * ``make_train_step``: the all-surface autodiff path through
     ``ops.trace.trace_rays_diff`` (plain PyTorch, any device).
+
+Every step runs over a mesh (``parallel.mesh.RayMesh``); ``mesh=None``
+is one block on the scene's device, built at call time. The rays are
+padded to a multiple of the block count with ``dirs = 1``, ``target = 0``
+and ``w = 0`` and split in contiguous blocks; each block computes its
+shard's loss, ``sum(err * w) / max(sum(w) * 3, 1)``, and gradients on its
+own device against a replica of the scene; loss and gradients are averaged over this process's blocks
+in block order, then summed across ranks (``all_reduce``) and divided by
+the world size: the JAX ``pmean`` over the ray axis, a mean of per-shard
+means, padding included. One Adam update follows, the same on every
+rank.
 
 Parameters are a dict of tensors keyed by ``SceneArrays`` field. The
 optimizer state is ``AdamState``, optax's ``(count, mu, nu)``; each step
@@ -36,9 +46,11 @@ import numpy as np
 import torch
 
 from quadray_tpu_torch.ops import cuda_kernel as ck
-from quadray_tpu_torch.ops.rays import camera_rays
 from quadray_tpu_torch.ops.replay import replay_color
 from quadray_tpu_torch.ops.trace import TraceConfig, trace_rays_diff
+from quadray_tpu_torch.parallel.mesh import RayMesh
+from quadray_tpu_torch.parallel.render import (check_replicas, replica,
+                                               sharded_rays)
 from quadray_tpu_torch.scene.compile import SceneArrays
 
 # SceneArrays fields that make sense as optimization variables
@@ -99,17 +111,6 @@ def _loss_fast(params: Params, sc: SceneArrays, struct, org, dirs, t_min,
     return _weighted_mse(cols, target, w)
 
 
-def _primary(sc: SceneArrays, width: int, height: int, fsaa: int):
-    """Camera rays as the JAX train steps take them: org is the camera
-    position on every ray, t_min the camera's pov distance."""
-    _, dirs = camera_rays(sc.cam_pos, sc.cam_hor, sc.cam_ver, sc.cam_nrm,
-                          sc.cam_pov, width, height, fsaa)
-    n = dirs.shape[0]
-    org = sc.cam_pos[None, :].expand(n, 3)
-    w = torch.ones((n,), dtype=dirs.dtype, device=dirs.device)
-    return org, dirs, sc.cam_pov.expand(n), w
-
-
 def _leaves(params: Params) -> Params:
     """Fresh autograd leaves holding copies of params (the caller's
     tensors are never updated in place)."""
@@ -137,13 +138,89 @@ def adam_step(leaves: Params, state: AdamState, lr: float) -> AdamState:
                       for k, p in leaves.items()})
 
 
-def _step(loss_of, params: Params, opt_state: AdamState, lr: float):
+def _sharded_primary(sc: SceneArrays, width: int, height: int, fsaa: int,
+                     target, mesh: RayMesh):
+    """The camera rays, the target and the weights padded to a multiple
+    of the mesh's block count (``dirs = 1``, ``target = 0``, ``w = 0``)."""
+    org, dirs, t_min, n = sharded_rays(sc, width, height, fsaa, mesh.size)
+    npad = dirs.shape[0]
+    w = torch.ones((npad,), dtype=dirs.dtype, device=dirs.device)
+    if npad != n:
+        w[n:] = 0.0
+        target = torch.cat([target, target.new_zeros((npad - n, 3))])
+    return org, dirs, t_min, target, w
+
+
+def _mesh_step(loss_of, params: Params, opt_state: AdamState, lr: float,
+               sc: SceneArrays, rays, mesh: RayMesh):
+    """One step over the mesh: ``loss_of(leaves, sc, org, dirs, t_min,
+    target, w)`` on each of this process's blocks on its device, loss and
+    gradients averaged over the blocks in order, summed across ranks and
+    divided by the world size, then one Adam step on the params'
+    device."""
+    org, dirs, t_min, target, w = rays
     leaves = _leaves(params)
-    loss = loss_of(leaves)
-    loss.backward()
+    names = list(leaves)
+    home = dirs.device
+    copies = {home: leaves}
+    total = None
+    for dev, a, b in mesh.blocks(dirs.shape[0]):
+        lv = copies.get(dev)
+        if lv is None:
+            lv = copies[dev] = {k: v.detach().to(dev).requires_grad_(True)
+                                for k, v in leaves.items()}
+        loss = loss_of(lv, replica(sc, dev), org.to(dev)[None, :].expand(
+            b - a, 3), dirs[a:b].to(dev), t_min[a:b].to(dev),
+            target[a:b].to(dev), w[a:b].to(dev))
+        grads = torch.autograd.grad(loss, [lv[k] for k in names],
+                                    allow_unused=True)
+        flat = torch.cat([loss.detach().reshape(1).to(home)] + [
+            (torch.zeros_like(leaves[k]) if g is None else g.to(home))
+            .reshape(-1) for k, g in zip(names, grads)])
+        total = flat if total is None else total + flat
+    mean = mesh.all_reduce_sum(total / len(mesh.devices)) / mesh.world
+    at = 1
+    for k in names:
+        size = leaves[k].numel()
+        leaves[k].grad = mean[at:at + size].reshape(leaves[k].shape)
+        at += size
     opt_state = adam_step(leaves, opt_state, lr)
     return ({k: p.detach() for k, p in leaves.items()}, opt_state,
-            loss.detach())
+            mean[0])
+
+
+def _mesh_run(loss_of, width: int, height: int, fsaa: int, lr: float,
+              mesh: RayMesh):
+    """run_fn(params, opt_state, sc, target_flat, steps) -> (params,
+    opt_state, losses (steps,)) of ``_mesh_step``s, the rays padded once;
+    every rank must hold the same scene (``check_replicas``). A mesh of
+    None is one block on the scene's device."""
+    def run_fn(params, opt_state, sc, target_flat, steps: int):
+        m = RayMesh((sc.device,)) if mesh is None else mesh
+        check_replicas(sc, m)
+        rays = _sharded_primary(sc, width, height, fsaa, target_flat, m)
+        losses = []
+        for _ in range(steps):
+            params, opt_state, loss = _mesh_step(loss_of, params, opt_state,
+                                                 lr, sc, rays, m)
+            losses.append(loss)
+        return params, opt_state, torch.stack(losses)
+
+    return run_fn
+
+
+def _one_step(run_fn):
+    def step_fn(params, opt_state, sc, target_flat):
+        params, opt_state, losses = run_fn(params, opt_state, sc,
+                                           target_flat, 1)
+        return params, opt_state, losses[0]
+
+    return step_fn
+
+
+def _fast_loss_of(struct, cfg: TraceConfig, k_paths: int):
+    return lambda p, s, org, dirs, t_min, target, w: _loss_fast(
+        p, s, struct, org, dirs, t_min, target, w, cfg, k_paths)
 
 
 def _paths_struct(sc0: SceneArrays):
@@ -156,65 +233,45 @@ def make_train_step_fast(sc0: SceneArrays, width: int, height: int,
                          cfg: TraceConfig = TraceConfig(max_segments=8,
                                                         stack=4),
                          fsaa: int = 1, lr: float = 1e-2,
-                         k_paths: int = 8):
+                         k_paths: int = 8, mesh: RayMesh = None):
     """Fast train step via trace-replay differentiation. Returns (step_fn,
     opt_init); step_fn(params, opt_state, sc, target_flat) -> (params,
     opt_state, loss), target_flat (W*H*fsaa, 3). Requires a single-branch
     scene with at most 16 lights (ValueError otherwise); ``sc0`` supplies
     the static kernel structure, which parameter updates cannot change.
-    The params dict names the fields that train."""
-    struct = _paths_struct(sc0)
-
-    def step_fn(params, opt_state, sc, target_flat):
-        org, dirs, t_min, w = _primary(sc, width, height, fsaa)
-        return _step(lambda p: _loss_fast(p, sc, struct, org, dirs, t_min,
-                                          target_flat, w, cfg, k_paths),
-                     params, opt_state, lr)
-
-    return step_fn, adam_init
+    The params dict names the fields that train. One paths kernel launch
+    a block (module docstring)."""
+    return _one_step(_mesh_run(_fast_loss_of(_paths_struct(sc0), cfg,
+                                             k_paths),
+                               width, height, fsaa, lr, mesh)), adam_init
 
 
 def make_train_scan_fast(sc0: SceneArrays, width: int, height: int,
                          cfg: TraceConfig = TraceConfig(max_segments=8,
                                                         stack=4),
                          fsaa: int = 1, lr: float = 1e-2,
-                         k_paths: int = 8):
+                         k_paths: int = 8, mesh: RayMesh = None):
     """Multi-step trace-replay training. Returns (run_fn, opt_init);
     run_fn(params, opt_state, sc, target_flat, steps) -> (params,
     opt_state, losses (steps,)). The same steps as make_train_step_fast,
-    with the camera rays made once; the losses stay on the device, and no
-    step waits for the card, so the host queues the S steps ahead of
-    it."""
-    struct = _paths_struct(sc0)
-
-    def run_fn(params, opt_state, sc, target_flat, steps: int):
-        org, dirs, t_min, w = _primary(sc, width, height, fsaa)
-        losses = []
-        for _ in range(steps):
-            params, opt_state, loss = _step(
-                lambda p: _loss_fast(p, sc, struct, org, dirs, t_min,
-                                     target_flat, w, cfg, k_paths),
-                params, opt_state, lr)
-            losses.append(loss)
-        return params, opt_state, torch.stack(losses)
-
-    return run_fn, adam_init
+    with the camera rays made once; the losses stay on the device, and in
+    a single process no step waits for the card, so the host queues the S
+    steps ahead of it (over gloo ranks, each step's all-reduce waits for
+    it)."""
+    return _mesh_run(_fast_loss_of(_paths_struct(sc0), cfg, k_paths), width,
+                     height, fsaa, lr, mesh), adam_init
 
 
 def make_train_step(width: int, height: int,
                     cfg: TraceConfig = TraceConfig(max_segments=8, stack=4),
-                    fsaa: int = 1, lr: float = 1e-2):
+                    fsaa: int = 1, lr: float = 1e-2, mesh: RayMesh = None):
     """Train step through the all-surface differentiable tracer
     (``trace_rays_diff``). Returns (step_fn, opt_init); step_fn(params,
     opt_state, sc, target_flat) -> (params, opt_state, loss)."""
-
-    def step_fn(params, opt_state, sc, target_flat):
-        org, dirs, t_min, w = _primary(sc, width, height, fsaa)
-        return _step(lambda p: loss_fn(p, sc, org, dirs, t_min,
-                                       target_flat, w, cfg),
-                     params, opt_state, lr)
-
-    return step_fn, adam_init
+    return _one_step(_mesh_run(
+        lambda p, s, org, dirs, t_min, target, w: loss_fn(
+            p, s, org, dirs, t_min, target, w, cfg),
+        width, height, fsaa, lr, mesh)), adam_init
 
 
 # ---------------------------------------------------------------------------

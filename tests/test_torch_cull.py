@@ -284,7 +284,10 @@ def test_training_traces_unculled_at_trained_params(monkeypatch):
     for _ in range(2):
         params, opt, _ = step(params, opt, sc, target)
     assert len(traced) == 2
-    org, dirs, tmin, _ = ttrain._primary(sc, W, H, 1)
+    _, dirs = camera_rays(sc.cam_pos, sc.cam_hor, sc.cam_ver, sc.cam_nrm,
+                          sc.cam_pov, W, H, 1)
+    org = sc.cam_pos[None, :].expand(dirs.shape[0], 3)
+    tmin = sc.cam_pov.expand(dirs.shape[0])
     for s2, rec in traced:
         _, want = trace_paths(s2, org, dirs, tmin, cfg._replace(cull=False),
                               8)

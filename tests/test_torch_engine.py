@@ -91,13 +91,26 @@ def test_path_tracing_matches_jax_engine():
 
 def test_entry_points_default_to_the_card():
     import inspect
+    from quadray_tpu_torch.dryrun import dryrun_multichip
     from quadray_tpu_torch.parallel import checkpoint, train
+    from quadray_tpu_torch.parallel.mesh import ray_mesh
+    from quadray_tpu_torch.parallel.render import render_sharded_cuda
     from quadray_tpu_torch.scene import compile as comp
     for fn in (Scene.__init__, comp.compile_scene,
                comp.scene_arrays_from_numpy, train.params_from_numpy,
-               train.opt_state_from_numpy, checkpoint.load_checkpoint):
+               train.opt_state_from_numpy, checkpoint.load_checkpoint,
+               dryrun_multichip):
         assert inspect.signature(fn).parameters["device"].default == \
             "cuda", fn.__qualname__
+    # the sharded render runs on its mesh's devices, whose default is
+    # every visible card, never the CPU
+    assert "device" not in inspect.signature(render_sharded_cuda).parameters
+    assert inspect.signature(ray_mesh).parameters["devices"].default is None
+    if torch.cuda.is_available():
+        assert all(d.type == "cuda" for d in ray_mesh().devices)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ray_mesh()
 
 
 def test_default_device_scene_raises_without_cuda():

@@ -34,11 +34,13 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # package, 5 subpackages and every module below them, the path tracer
-    # and the conformance tier among them
+    # package, 5 subpackages and every module below them, the path tracer,
+    # the conformance tier and the parallel layer among them
     names = res.stdout.split()
     assert len(names) >= 19, names
-    for m in ("ops.pt", "ops.conformance", "ops.cuda_kernel", "ops.trace"):
+    for m in ("ops.pt", "ops.conformance", "ops.cuda_kernel", "ops.trace",
+              "parallel.mesh", "parallel.render", "parallel.distributed",
+              "dryrun"):
         assert f"quadray_tpu_torch.{m}" in names, names
 
 
