@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only J   # kernel build + the apps on the card
     python3 chip_smoke.py --only K   # kernel build + the culling tables
     python3 chip_smoke.py --only L   # kernel build + the parallel layer
+    python3 chip_smoke.py --only M   # kernel build + the port's bench
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points), the conformance kernels and the culling tables' kernels
@@ -156,6 +157,19 @@ entry points), the conformance kernels and the culling tables' kernels
      blocks beside render_cuda's, and scaling_report over the card's
      devices and over blocks of one card (blocks on one card show what
      sharding costs, not scaling).
+  M. the port's bench (quadray_tpu_torch/bench.py): M1 its cells in this
+     process, each counted: test01's K-frame batches (K = 8 and 64) in
+     one Whitted launch each, frames 0 and K-1 bitwise render_cuda's at
+     the bench's TraceConfig, then bench_scene("test01") (one launch a
+     batch: 2 x (1 + REPS) plus 1 + MAIN_PATH_CALLS main-path frames),
+     bench_pt (one PT launch a pass) and bench_train (one paths launch a
+     step); M2 python -m quadray_tpu_torch.bench in full as a
+     subprocess: exit code 0, its last line with the JAX bench's metric,
+     all ten scenes' entries with bad_px within budget and positive
+     numbers, pt_test18 and train_test01 positive, the device entry
+     naming the card and its power limit; the line printed with an M2
+     prefix; M3 each scene's marginal ms/frame beside phase B's
+     render_cuda ms/frame and main_path_ms_per_frame (printed, not held).
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -2703,18 +2717,125 @@ def phase_l4(dev, arrays, smi):
     return ms
 
 
+M2_TIMEOUT = 600
+
+
+def phase_m1(dev):
+    """The bench's cells in this process, each driven with its launch
+    count set to 0 just before and read just after."""
+    from quadray_tpu_torch import bench
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    cfg = bench.BENCH_CFG
+    sc = bench.compiled("test01", dev)
+    want = ck.render_cuda(sc, W, H, 1, cfg).reshape(-1, 3)
+    n = W * H
+    for k in (bench.K_SMALL, bench.K_BIG):
+        batch = bench.frame_batch(sc, k)
+        ck.launches = 0
+        cols = bench.trace_batch(sc, batch, cfg)
+        torch.cuda.synchronize()
+        launches = ck.launches
+        cols = torch.clamp(cols, 0.0, 1.0)
+        same = [torch.equal(cols[f * n:(f + 1) * n], want)
+                for f in (0, k - 1)]
+        log(f"M1 test01 K={k}: {k * n} rays, launches={launches}, frames "
+            f"0 and {k - 1} bitwise render_cuda's: {same}")
+        if launches != 1 or not all(same):
+            raise AssertionError(f"M1 K={k}: launches {launches}, frames "
+                                 f"equal {same}")
+        del batch, cols
+    torch.cuda.empty_cache()
+    counted = (
+        ("bench_scene test01", "launches",
+         lambda: bench.bench_scene("test01", cfg, dev),
+         2 * (1 + bench.REPS) + 1 + bench.MAIN_PATH_CALLS),
+        ("bench_pt", "pt_launches", lambda: bench.bench_pt(dev),
+         sum(bench.PT_SPP) * (1 + bench.PT_REPS)),
+        ("bench_train", "paths_launches", lambda: bench.bench_train(dev),
+         sum(bench.TRAIN_STEPS) * (1 + bench.TRAIN_REPS)))
+    for cell, counter, fn, expected in counted:
+        setattr(ck, counter, 0)
+        entry = fn()
+        torch.cuda.synchronize()
+        launches = getattr(ck, counter)
+        log(f"M1 {cell}: {entry} {counter}={launches} (expected "
+            f"{expected})")
+        if launches != expected:
+            raise AssertionError(f"M1 {cell}: {launches} {counter}, "
+                                 f"expected {expected}")
+        torch.cuda.empty_cache()
+
+
+def phase_m2(dev, smi):
+    """python -m quadray_tpu_torch.bench in full, its line checked."""
+    from quadray_tpu_torch import bench
+    r = subprocess.run(
+        [sys.executable, "-m", "quadray_tpu_torch.bench", "--device",
+         f"cuda:{dev.index}"], cwd=REPO, capture_output=True, text=True,
+        timeout=M2_TIMEOUT, env=dict(os.environ, PYTHONPATH=REPO))
+    for line in r.stderr.splitlines():
+        if any(k in line for k in ("marginal", "ms/spp-pass", "ms/step",
+                                   "golden guard", "failed", "Error")):
+            log(f"M2 {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"M2: the bench exited {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}\n{r.stdout[-2000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    log("M2 " + json.dumps(line))
+    extra = line["extra"]
+    bad = []
+    if line["metric"] != bench.METRIC or not line["value"] > 0 \
+            or not line["vs_baseline"] > 0 or "error" in line:
+        bad.append("headline")
+    for name in ("test01",) + bench.SCENES:
+        e = extra.get(name, {})
+        if "error" in e or not e.get("bad_px", 1 << 30) <= \
+                bench.BUDGET.get(name, 0) or not all(
+                    e.get(k, 0) > 0 for k in (
+                        "rays_per_s", "ms_per_frame", "vs_baseline",
+                        "ms_per_frame_median", "ms_per_frame_min",
+                        "ms_per_frame_max", "main_path_ms_per_frame")):
+            bad.append(name)
+    for cell, keys in (("pt_test18", ("ms_per_spp_pass", "paths_per_s")),
+                       ("train_test01", ("ms_per_step",
+                                         "fwd_bwd_rays_per_s"))):
+        if not all(extra.get(cell, {}).get(k, 0) > 0 for k in keys):
+            bad.append(cell)
+    info = extra.get("device", {})
+    if info.get("name") != torch.cuda.get_device_name(dev) or \
+            info.get("power_limit") != smi.split(",")[-1].strip():
+        bad.append("device")
+    if bad:
+        raise AssertionError(f"M2: entries wrong or missing: {bad}")
+    return line
+
+
+def phase_m3(line, rows):
+    """Each scene's marginal beside phase B's render_cuda ms/frame and the
+    main path's; printed, not held."""
+    from quadray_tpu_torch import bench
+    for name in ("test01",) + bench.SCENES:
+        e = line["extra"][name]
+        b = "not run" if rows is None else f"{rows[name][0]:.4f}"
+        log(f"M3 {name}: marginal {e['ms_per_frame']} (median "
+            f"{e['ms_per_frame_median']}, {e['ms_per_frame_min']}-"
+            f"{e['ms_per_frame_max']}) ms/frame, phase B render_cuda {b}, "
+            f"main path {e['main_path_ms_per_frame']}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
-                             "L"],
+                             "L", "M"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
                     "retirement), G (conformance tier), H (culling), I "
                     "(RESUME's two modes and its switch's sweep), J (the "
                     "apps and the interactive frame), K (the culling "
-                    "tables' kernels) or L (the parallel layer)")
+                    "tables' kernels), L (the parallel layer) or M (the "
+                    "port's bench)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -2862,6 +2983,14 @@ def main():
         phase_l4(dev, l_arrays, smi)
         del l_arrays
         log(f"phase L ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "M"):
+        t0 = time.perf_counter()
+        phase_m1(dev)
+        torch.cuda.empty_cache()
+        m2 = phase_m2(dev, smi)
+        phase_m3(m2, rows if only is None else None)
+        log(f"phase M ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
 
