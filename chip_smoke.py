@@ -12,8 +12,9 @@
     python3 chip_smoke.py --only M   # kernel build + the port's bench
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
-entry points), the conformance kernels and the culling tables' kernels
-(csrc/cull.cu) with parallel nvcc processes, then:
+entry points), the conformance kernels, the culling tables' kernels
+(csrc/cull.cu) and replay's row gathers (csrc/replay.cu) with parallel
+nvcc processes, then:
   A. kernel vs its plain PyTorch version (ops/trace.py), both on the card,
      at 200x120 on seven scenes chosen for their features and at the main
      path's 800x480 on two; max abs diff of linear colors <= 1e-5;
@@ -31,11 +32,20 @@ entry points), the conformance kernels and the culling tables' kernels
      equal and colors within 1e-5; D2 replay of the kernel's records vs
      the kernel's colors within 1e-5; D3 10 steps of make_train_scan_fast
      recovering surface positions moved by +0.05, toward the clean
-     render: the loss falls and the paths kernel launches once per step;
-     then bench_train's step (every differentiable field trains): its
-     ms/step and split (paths kernel, replay fwd+bwd, Adam) beside the
-     plain version's step; D4 the paths kernel vs its plain version on test13
-     and demo03 at 800x480.
+     render: the loss falls, the paths kernel launches once per step,
+     the replay gather's forward and backward once a segment, and no step
+     synchronises with the host; then bench_train's step (every
+     differentiable field trains): its ms/step and split (paths kernel,
+     replay fwd+bwd with the gather kernels' device ms in it, Adam) beside
+     the plain version's step, and the top device ops of one step under
+     torch.profiler; D4 the paths kernel vs its plain version on test13
+     and demo03 at 800x480; D5 the replay gather kernels
+     (ops/row_gather.py, csrc/replay.cu) against their plain versions on
+     every segment of the records of test01, test13 and demo03 at 800x480
+     with a seeded gradient: forward and backward bitwise, two launches
+     each; their device ms a step beside the plain versions' and
+     index_select + index_add_'s; two make_train_step_fast steps from one
+     state bitwise equal (loss, params, Adam's moments).
   E. the path tracer (bench.py bench_pt's configuration: test18 at 800x480,
      depth 10): E1 the PT kernel vs its plain version (ops/pt.py trace_pt)
      on the card, one pass at 200x120 on test18 (the Cornell box: Fresnel
@@ -215,6 +225,14 @@ RECOVER_FIELDS = ("s_pos",)
 PHASE_D1 = [(n, 200, 120) for n in ("test01", "test04", "test11", "test13",
                                     "test15", "demo01")] + [
     (n, W, H) for n in ("test01", "test13")]
+# D5: the scenes whose path records the replay gather kernels are held
+# on (4, 104 and 152 surfaces: one band of the backward, two, three), the
+# launches of one timing, and the bytes a ray of one segment moves:
+# forward 4 + 1 B of ids in, 29 floats and 3 ints out; backward 29
+# gradient floats and two ids in (csrc/replay.cu)
+PHASE_D5 = ("test01", "test13", "demo03")
+D5_REPS = 20
+GATHER_FWD_BYTES, GATHER_BWD_BYTES = 5 + 29 * 4 + 3 * 4, 29 * 4 + 2 * 4
 # phase E: bench_pt's configuration (bench.py:199-244)
 PT_DEPTH, PT_PASSES, PT_TIMED = 10, 64, 20
 # (scene, width, height, seed of the added emission or None)
@@ -511,6 +529,7 @@ def phase_d3(dev):
     """Training through make_train_scan_fast: the counted main-path run,
     then bench_train's step time and its split."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import row_gather as rg
     from quadray_tpu_torch.ops.replay import replay_color
     from quadray_tpu_torch.ops.trace import trace_paths
     from quadray_tpu_torch.parallel import train as tr
@@ -524,6 +543,7 @@ def phase_d3(dev):
     # run_fn warns under the sync debug mode
     opt0 = opt_init(p0)
     ck.launches = ck.paths_launches = 0
+    rg.launches = rg.backward_launches = 0
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -534,13 +554,15 @@ def phase_d3(dev):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     launches, whitted = ck.paths_launches, ck.launches
+    gathers = (rg.launches, rg.backward_launches)
     syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
              if "called a synchronizing" in str(w.message)]
     losses = [float(x) for x in losses]
     log(f"D3 test01 {W}x{H} K={K_PATHS} lr={TRAIN_LR} fields="
         f"{','.join(RECOVER_FIELDS)}: losses "
         + " ".join(f"{x:.6e}" for x in losses))
-    log(f"D3 launches: whitted_paths={launches} whitted={whitted}; "
+    log(f"D3 launches: whitted_paths={launches} whitted={whitted} "
+        f"replay_gather forward={gathers[0]} backward={gathers[1]}; "
         f"host syncs inside the {TRAIN_STEPS} steps: {len(syncs)}")
     if syncs:
         raise AssertionError("D3: run_fn synchronised: "
@@ -550,6 +572,9 @@ def phase_d3(dev):
     if launches != TRAIN_STEPS:
         raise AssertionError(f"D3: {launches} paths-kernel launches in "
                              f"{TRAIN_STEPS} steps")
+    if gathers != (TRAIN_STEPS * K_PATHS,) * 2:
+        raise AssertionError(f"D3: replay gather launches {gathers}, "
+                             f"expected {TRAIN_STEPS * K_PATHS} each")
     for k, v in params.items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"D3: parameter {k} not finite")
@@ -567,6 +592,7 @@ def phase_d3(dev):
     step_ms = cuda_ms(lambda: steps(1), 10, warmup=2)
     log("D3 all-field losses (12 steps from the moved scene): "
         + " ".join(f"{float(x):.6e}" for x in torch.cat(all_losses)))
+    profile_step(lambda: steps(1), step_ms)
 
     # the split: each piece of the step alone, on the same inputs
     struct = ck.scene_struct(sc)
@@ -593,6 +619,9 @@ def phase_d3(dev):
 
     replay_ms = cuda_ms(replay_fwd_bwd, 10)
     adam_ms = cuda_ms(lambda: tr.adam_step(leaves, state[1], TRAIN_LR), 10)
+    stab, mtab, segs = gather_inputs(sc2, paths)
+    g_fwd, g_bwd = gather_ms(stab, mtab, segs, [tuple(
+        torch.ones((f, W * H), device=dev) for f in (19, 10))] * K_PATHS)
 
     # the plain version's step: plain trace_paths on the card, 2 steps
     def plain_step():
@@ -616,9 +645,36 @@ def phase_d3(dev):
     torch.cuda.empty_cache()
     log(f"D3 ms/step={step_ms:.3f} (paths kernel with re-pack "
         f"{repack_ms:.3f} of which kernel {kernel_ms:.3f}, replay fwd+bwd "
-        f"{replay_ms:.3f}, Adam {adam_ms:.3f}) plain_ms/step="
-        f"{plain_step_ms:.1f} (plain trace_paths {plain_paths_ms:.1f})")
-    return launches, kernel_ms, plain_paths_ms, p_bound
+        f"{replay_ms:.3f} of which the gather kernels' forward {g_fwd:.4f} "
+        f"and backward {g_bwd:.4f} (device, CUDA graphs), Adam "
+        f"{adam_ms:.3f}) plain_ms/step={plain_step_ms:.1f} (plain "
+        f"trace_paths {plain_paths_ms:.1f})")
+    return launches, kernel_ms, plain_paths_ms, p_bound, gathers
+
+
+def profile_step(step, step_ms: float, top: int = 10):
+    """One training step under torch.profiler: the device kernels' time
+    and launches, the share of the unprofiled step (step_ms) the card is
+    busy, and the top kernels by device time (names cut to 80
+    characters)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type != DeviceType.CPU),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"D3 profiler, one all-field step: {sum(e.count for e in kernels)} "
+        f"kernel launches, {total:.3f} ms of device time, "
+        f"{100 * total / step_ms:.1f}% of the {step_ms:.3f} ms step; top "
+        "kernels: " + "; ".join(
+            f"{e.key[:80]} {e.self_device_time_total / 1e3:.3f} ms "
+            f"x{e.count}" for e in kernels[:top]))
 
 
 def phase_d4(dev):
@@ -641,6 +697,146 @@ def phase_d4(dev):
         log(f"D4 {name} {W}x{H} K={K_PATHS}: paths kernel ms={ms:.3f} "
             f"plain ms={plain:.1f} bound_ms={bound[0]:.4f} ({bound[1]}; "
             f"{work_line(stats)})")
+
+
+def gather_inputs(sc, paths):
+    """Replay's tables of sc (detached) and each segment's gather
+    arguments (s_kind, s_mat, m_props, srf, sidep)."""
+    from quadray_tpu_torch.ops.replay import record_ids, row_tables
+    with torch.no_grad():
+        stab, mtab = row_tables(sc)
+    return stab, mtab, [(sc.s_kind, sc.s_mat, sc.m_props, *record_ids(rec))
+                        for rec in paths]
+
+
+def gather_ms(stab, mtab, segs, grads):
+    """Device ms of the gather kernels over the 8 segments of a step,
+    (forward, backward), in CUDA graphs of D5_REPS steps."""
+    from quadray_tpu_torch.ops import row_gather as rg
+    ns, nm = stab.shape[1], mtab.shape[1]
+    outs = [rg._forward(stab, mtab, *a) for a in segs]
+
+    def fwd():
+        for a in segs:
+            rg._forward(stab, mtab, *a)
+
+    def bwd():
+        for a, o, (gs, gm) in zip(segs, outs, grads):
+            rg._backward(gs, gm, a[3], o[1], ns, nm)
+
+    return graph_ms(fwd, D5_REPS), graph_ms(bwd, D5_REPS)
+
+
+def gather_others_ms(stab, mtab, segs, grads):
+    """The same work as gather_ms by the plain versions (CUDA events:
+    torch.unique syncs) and by index_select and index_add_ (CUDA graphs):
+    (plain forward, plain backward, library forward, library backward)."""
+    from quadray_tpu_torch.ops import row_gather as rg
+    ns, nm = stab.shape[1], mtab.shape[1]
+    midx = [rg.gather_plain(stab, mtab, *a)[1] for a in segs]
+
+    def p_fwd():
+        for a in segs:
+            rg.gather_plain(stab, mtab, *a)
+
+    def p_bwd():
+        for a, m, (gs, gm) in zip(segs, midx, grads):
+            rg.row_sum_plain(gs, a[3], ns)
+            rg.row_sum_plain(gm, m, nm)
+
+    def l_fwd():
+        for a, m in zip(segs, midx):
+            torch.index_select(stab, 1, a[3])
+            torch.index_select(mtab, 1, m)
+
+    def l_bwd():
+        for a, m, (gs, gm) in zip(segs, midx, grads):
+            stab.new_zeros(stab.shape).index_add_(1, a[3], gs)
+            mtab.new_zeros(mtab.shape).index_add_(1, m, gm)
+
+    return (cuda_ms(p_fwd, 3), cuda_ms(p_bwd, 2), graph_ms(l_fwd, D5_REPS),
+            graph_ms(l_bwd, D5_REPS))
+
+
+def gather_bound(n: int, k: int, ns: int, nm: int) -> tuple:
+    """bound_ms of k segments' gathers and backward sums of n rays: the
+    bytes of GATHER_FWD_BYTES and GATHER_BWD_BYTES a ray, the tables read
+    and their gradients written once a segment; the backward's adds."""
+    table = 4 * (29 + 1) * (ns + nm)
+    return bound_ms(k * (n * (GATHER_FWD_BYTES + GATHER_BWD_BYTES)
+                         + 2 * table), k * n * 29)
+
+
+def phase_d5(dev, smi):
+    """The replay gather kernels (csrc/replay.cu) against their plain
+    versions on the path records of test01, test13 and demo03 at 800x480:
+    forward and backward bitwise, two launches bitwise; their device ms
+    beside index_select and index_add_; then two make_train_step_fast
+    steps from one state, bitwise."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import row_gather as rg
+    from quadray_tpu_torch.parallel import train as tr
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cfg = train_cfg()
+    rs = np.random.RandomState(5)
+    worst, out = 0.0, {}
+    for name in PHASE_D5:
+        sc = compiled(name, dev)
+        org, dirs, tmin = primary(sc, W, H)
+        _, paths = ck.trace_paths(sc, org, dirs, tmin, cfg, K_PATHS)
+        stab, mtab, segs = gather_inputs(sc, paths)
+        ns, nm, n = stab.shape[1], mtab.shape[1], dirs.shape[0]
+        grads = [tuple(torch.from_numpy(rs.standard_normal((f, n)).astype(
+            np.float32)).to(dev) for f in (19, 10)) for _ in segs]
+        differ, rows_hit = 0, []
+        for a, (gs, gm) in zip(segs, grads):
+            want = rg.gather_plain(stab, mtab, *a)
+            want_g = (rg.row_sum_plain(gs, a[3], ns),
+                      rg.row_sum_plain(gm, want[1], nm))
+            for _ in range(2):
+                got = rg._forward(stab, mtab, *a)
+                got_g = rg._backward(gs, gm, a[3], got[1], ns, nm)
+                torch.cuda.synchronize()
+                for x, y in zip(got + got_g, want + want_g):
+                    differ += int((bits(x) != bits(y)).sum())
+                    if x.dtype == torch.float32:
+                        worst = max(worst, float((x - y).abs().max()))
+            rows_hit.append(int(torch.unique(a[3]).numel()))
+        ms = (gather_ms(stab, mtab, segs, grads)
+              + gather_others_ms(stab, mtab, segs, grads))
+        bound = gather_bound(n, K_PATHS, ns, nm)
+        out[name] = ms + bound
+        log(f"D5 {name} {W}x{H} K={K_PATHS} ({ns} surface rows, {nm} "
+            f"material rows; surfaces hit a segment {rows_hit}): kernel vs "
+            f"plain, forward and backward, two launches each: {differ} "
+            f"words differ; ms a step ({smi}): kernel forward {ms[0]:.4f} "
+            f"backward {ms[1]:.4f}, plain {ms[2]:.3f} / {ms[3]:.3f}, "
+            f"index_select {ms[4]:.4f}, index_add_ {ms[5]:.4f}; bound "
+            f"{bound[0]:.4f} ({bound[1]})")
+        if differ:
+            raise AssertionError(f"D5 {name}: kernels off their plain "
+                                 f"versions in {differ} words")
+        del grads, paths
+        torch.cuda.empty_cache()
+
+    # two steps from one state: the same bits
+    sc, target, _ = train_task(dev)
+    step_fn, opt_init = tr.make_train_step_fast(
+        sc, W, H, cfg=cfg, lr=TRAIN_LR, k_paths=K_PATHS)
+    p0 = tr.extract_params(sc)
+    o0 = opt_init(p0)
+    runs = [step_fn(p0, o0, sc, target) for _ in range(2)]
+    torch.cuda.synchronize()
+    (pa, oa, la), (pb, ob, lb) = runs
+    same = {"loss": torch.equal(bits(la), bits(lb))}
+    for what, a, b in (("params", pa, pb), ("mu", oa.mu, ob.mu),
+                       ("nu", oa.nu, ob.nu)):
+        same[what] = all(torch.equal(bits(a[k]), bits(b[k])) for k in a)
+    log(f"D5 two make_train_step_fast steps from one state (test01, every "
+        f"field): bitwise {same}; loss {float(la):.9e}")
+    if not all(same.values()):
+        raise AssertionError(f"D5: two steps from one state differ: {same}")
+    return worst, out
 
 
 def bound_ms(n_bytes: float, ops: float) -> tuple:
@@ -2481,6 +2677,7 @@ def phase_l2(dev, smi):
     """The sharded fast train step: 1 vs 4 blocks, the counted scan on 4
     blocks, ms/step."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import row_gather as rg
     from quadray_tpu_torch.parallel import train as tr
     sc, target, _ = train_task(dev)
     cfg = train_cfg()
@@ -2526,16 +2723,21 @@ def phase_l2(dev, smi):
     opt0 = opt_init(p0)
     # main path, counted
     ck.paths_launches = 0
+    rg.launches = rg.backward_launches = 0
     params, _, losses = run_fn(p0, opt0, sc, target, TRAIN_STEPS)
     torch.cuda.synchronize()
     launches = ck.paths_launches
+    gathers = (rg.launches, rg.backward_launches)
     losses = [float(x) for x in losses]
     log(f"L2 {b} blocks, {TRAIN_STEPS} steps of make_train_scan_fast, "
         f"fields {','.join(RECOVER_FIELDS)}: losses "
         + " ".join(f"{x:.6e}" for x in losses)
-        + f"; paths launches {launches} (expected {b * TRAIN_STEPS})")
+        + f"; paths launches {launches} (expected {b * TRAIN_STEPS}), "
+        f"replay gather forward/backward {gathers}")
     if launches != b * TRAIN_STEPS:
         raise AssertionError(f"L2: {launches} paths launches")
+    if gathers != (b * TRAIN_STEPS * K_PATHS,) * 2:
+        raise AssertionError(f"L2: replay gather launches {gathers}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"L2: loss did not fall: {losses}")
     for k, v in params.items():
@@ -2562,7 +2764,7 @@ def phase_l2(dev, smi):
         "5 after 1): " + ", ".join(f"{b} block(s): paths kernel with re-pack "
                            f"{p:.3f}, replay fwd+bwd {r:.3f}"
                            for b, (p, r) in split.items()))
-    return launches, ms
+    return launches, gathers
 
 
 def l2_split(sc, target):
@@ -2851,7 +3053,7 @@ def main():
         f"python {sys.version.split()[0]}")
     from quadray_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.load_libraries("whitted", "conformance", "cull")
+    _build.load_libraries("whitted", "conformance", "cull", "replay")
     log(f"kernel build (parallel nvcc) and load: "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = os.path.join(_build.BUILD_DIR, "whitted.ptxas.txt")
@@ -2879,6 +3081,13 @@ def main():
         spill = sorted(set(re.findall(r"(\d+) bytes spill stores", text)))
         log(f"ptxas cull: {len(regs)} kernels, registers {regs}, spill "
             f"stores {spill}")
+    ptxas = os.path.join(_build.BUILD_DIR, "replay.ptxas.txt")
+    if os.path.exists(ptxas):
+        with open(ptxas) as fh:
+            for line in fh:
+                if any(k in line for k in ("Compiling entry", "registers",
+                                           "spill")):
+                    log(f"ptxas replay: {line.strip()}")
     dev = torch.device("cuda", 0)
     only = args.only
 
@@ -2902,8 +3111,9 @@ def main():
         t0 = time.perf_counter()
         d_err = phase_d1(dev)
         phase_d2(dev)
-        d_launches, d_ms, d_plain, d_bound = phase_d3(dev)
+        d_launches, d_ms, d_plain, d_bound, d_gathers = phase_d3(dev)
         phase_d4(dev)
+        d5_err, d5 = phase_d5(dev, smi)
         log(f"phase D ok ({time.perf_counter() - t0:.1f} s)")
 
     if only in (None, "E"):
@@ -2978,7 +3188,7 @@ def main():
     if only in (None, "L"):
         t0 = time.perf_counter()
         l_whitted, l_arrays = phase_l1(dev)
-        l_paths, _ = phase_l2(dev, smi)
+        l_paths, l_gathers = phase_l2(dev, smi)
         phase_l3(dev)
         phase_l4(dev, l_arrays, smi)
         del l_arrays
@@ -3032,7 +3242,12 @@ def main():
         "at a J3 frame (K2, CUDA graphs), launches the main path's in J3 "
         "and J6 (the frames whose spheres or lights moved), max_abs_err "
         "K1's over bsph_t (every table bitwise); no PyTorch call builds "
-        "them, so library_ms is null")
+        "them, so library_ms is null; replay_gather ms/plain_ms/bound_ms/"
+        "library_ms are the 8 segments of a test01 800x480 K=8 step "
+        "(D5), forward plus backward, the library index_select plus "
+        "index_add_, launches the forward's (backward_launches the "
+        "backward's) in D3's and L2's counted runs, max_abs_err D5's "
+        "(every word bitwise)")
     culled = ("on: warp reach masks (origin box + direction cone or "
               "endpoint capsule per warp, __ballot_sync over the bounding "
               "spheres), lsort and cont masks where cull_gates say so")
@@ -3123,7 +3338,25 @@ def main():
                 "kernel",
         "launches": j3_cull + j6_cull, "max_abs_err": k_err,
         "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
-        "bound_by": k_by, "library_ms": None}]}))
+        "bound_by": k_by, "library_ms": None}, {
+        "name": "replay_gather", "route": "cuda",
+        "design": "forward: a thread a ray writes its 29 float rows and 3 "
+                  "ints, (F, N) layout, one launch a segment; backward, no "
+                  "atomics: a block a (1024 rays, 64-row band), a warp's "
+                  "8 tiles each an xor butterfly per distinct row, warp "
+                  "accumulators in shared memory added in warp order, then "
+                  "the blocks' partials in block order",
+        "source": "quadray_tpu_torch/csrc/replay.cu",
+        "replaces": "quadray_tpu/ops/replay.py:107-135",
+        "note": "the JAX replay's one-hot row lookups (jnp contractions "
+                "in replay_color), not a Pallas kernel",
+        "launches": d_gathers[0] + l_gathers[0],
+        "backward_launches": d_gathers[1] + l_gathers[1],
+        "max_abs_err": d5_err,
+        "ms": d5["test01"][0] + d5["test01"][1],
+        "plain_ms": d5["test01"][2] + d5["test01"][3],
+        "bound_ms": d5["test01"][6], "bound_by": d5["test01"][7],
+        "library_ms": d5["test01"][4] + d5["test01"][5]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,9 +22,13 @@ the kernel: textured materials replay their plain color, and the conic
 apex nudge and D_EPS root sorting are omitted (measure-zero sets).
 
 Where the JAX replay looks rows up with a one-hot contraction (a TPU
-choice), this one gathers (``index_select``): on the card a contraction
-would be a matrix product, and geometry takes no matmul or TF32 here.
-Integer tables are gathered too. The gradient guards are the JAX
+choice: the backward of a take is a serialized scatter-add), this one
+gathers a segment's rows with ``ops.row_gather.RowGather``
+(``csrc/replay.cu``): a gather kernel forward, and a backward that sums
+each table row's gradient with no atomics in one fixed order, so a step
+is the same bits run after run; on the card a contraction would be a
+matrix product, and geometry takes no matmul or TF32 here. Integer
+tables are gathered as integers. The gradient guards are the JAX
 replay's: the 1e-20 floors under the sqrt of the determinant and of the
 refraction term, and where-guarded divisions (``_safe_div``, ``_root``),
 so that no ``inf * 0`` reaches a masked-off branch's gradient.
@@ -35,12 +39,33 @@ from __future__ import annotations
 import torch
 
 from quadray_tpu_torch.ops.cuda_kernel import MAX_PATH_LIGHTS
+from quadray_tpu_torch.ops.row_gather import RowGather
 from quadray_tpu_torch.ops.trace import TraceConfig, _root, _safe_div
 from quadray_tpu_torch.scene.compile import (
     SceneArrays, PROP_LIGHT, PROP_METAL, PROP_OPAQUE, PROP_REFLECT,
     PROP_REFRACT, PROP_DIFFUSE, PROP_SPECULAR, PROP_GAMMA, PROP_FRESNEL)
 
 F32 = torch.float32
+
+
+def row_tables(sc: SceneArrays):
+    """The tables replay gathers rows of: the surface table, transposed
+    (19, NS): pos 0-2, inv 3-11, sci 12-14, scjh 15-17, sciw 18; the
+    material table (10, NM): col 0-2, dff, spc, pow, rfl, trn, rfr, ext.
+    Both contiguous, differentiable in the scene's fields."""
+    ns = sc.s_pos.shape[0]
+    stab = torch.cat([sc.s_pos, sc.s_inv.reshape(ns, 9), sc.s_sci,
+                      sc.s_scjh, sc.s_sciw[:, None]], dim=1).T.contiguous()
+    mtab = torch.stack([
+        sc.m_col[:, 0], sc.m_col[:, 1], sc.m_col[:, 2], sc.m_dff,
+        sc.m_spc, sc.m_pow, sc.m_rfl, sc.m_trn, sc.m_rfr, sc.m_ext])
+    return stab, mtab
+
+
+def record_ids(rec):
+    """A segment's record (N,) i32 -> (surface ids (N,) i32, saved side
+    (N,) bool)."""
+    return rec & 0xFFF, ((rec >> 12) & 1) == 1
 
 
 def replay_color(sc: SceneArrays, org, dirs, t_min, paths,
@@ -55,19 +80,12 @@ def replay_color(sc: SceneArrays, org, dirs, t_min, paths,
     del t_min, cfg
     N = dirs.shape[0]
     K = paths.shape[0]
-    NS = sc.s_pos.shape[0]
     NL = sc.l_pos.shape[0]
     if org.dim() == 1:
         org = org[None, :].expand(N, 3)
 
-    # per-surface float table, transposed (19, NS): pos 0-2, inv 3-11,
-    # sci 12-14, scjh 15-17, sciw 18; per-material (10, NM): col 0-2,
-    # dff, spc, pow, rfl, trn, rfr, ext. Rows are gathered per lane.
-    stab = torch.cat([sc.s_pos, sc.s_inv.reshape(NS, 9), sc.s_sci,
-                      sc.s_scjh, sc.s_sciw[:, None]], dim=1).T
-    mtab = torch.stack([
-        sc.m_col[:, 0], sc.m_col[:, 1], sc.m_col[:, 2], sc.m_dff,
-        sc.m_spc, sc.m_pow, sc.m_rfl, sc.m_trn, sc.m_rfr, sc.m_ext])
+    # the tables whose rows are gathered per lane
+    stab, mtab = row_tables(sc)
     use_gamma = sc.use_gamma > 0.0
     use_fresnel = sc.use_fresnel > 0.0
     amb_r, amb_g, amb_b = sc.amb_col[0], sc.amb_col[1], sc.amb_col[2]
@@ -79,15 +97,18 @@ def replay_color(sc: SceneArrays, org, dirs, t_min, paths,
 
     for k in range(K):
         rec = paths[k]
-        srf = (rec & 0xFFF).long()
-        sidep = ((rec >> 12) & 1) == 1
+        srf, sidep = record_ids(rec)
         sf = torch.where(sidep, 1.0, -1.0)
         kindc = (rec >> 13) & 3
         hit = ((rec >> 15) & 1) != 0
         hitf = hit.to(F32)
 
+        # the surface's rows and, through the side-picked material, the
+        # material's (csrc/replay.cu, one launch a segment)
+        srows, _, mrows, skind, props = RowGather.apply(
+            stab, mtab, sc.s_kind, sc.s_mat, sc.m_props, srf, sidep)
         (px, py, pz, i00, i01, i02, i10, i11, i12, i20, i21, i22,
-         sx, sy, sz, jx, jy, jz, sw) = torch.index_select(stab, 1, srf)
+         sx, sy, sz, jx, jy, jz, sw) = srows
 
         rx, ry, rz = ox - px, oy - py, oz - pz
         lx = i00 * rx + i01 * ry + i02 * rz
@@ -97,7 +118,6 @@ def replay_color(sc: SceneArrays, org, dirs, t_min, paths,
         ey = i10 * dx + i11 * dy + i12 * dz
         ez = i20 * dx + i21 * dy + i22 * dz
 
-        skind = sc.s_kind[srf]
         is_pl = skind == 1
         is_tp = skind == 3
 
@@ -142,10 +162,8 @@ def replay_color(sc: SceneArrays, org, dirs, t_min, paths,
                                      min=1e-30))
         nx, ny, nz = nx * nn, ny * nn, nz * nn
 
-        midx = torch.where(sidep, sc.s_mat[srf, 0], sc.s_mat[srf, 1]).long()
         (mc_r, mc_g, mc_b, m_dff, m_spc, m_pow, m_rfl, m_trn, m_rfr,
-         m_ext) = torch.index_select(mtab, 1, midx)
-        props = sc.m_props[midx]
+         m_ext) = mrows
         bit = lambda p: (props & p) != 0
         gam = bit(PROP_GAMMA) & use_gamma
         mc_r = torch.where(gam, mc_r * mc_r, mc_r)
