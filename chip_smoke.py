@@ -225,6 +225,18 @@ RECOVER_FIELDS = ("s_pos",)
 PHASE_D1 = [(n, 200, 120) for n in ("test01", "test04", "test11", "test13",
                                     "test15", "demo01")] + [
     (n, W, H) for n in ("test01", "test13")]
+# D1's ray counts at the edges of the path-record kernel's persistent grid
+# and of a ragged warp: one ray, a warp less one, a warp and one more, 128
+# warps and one more ray, a frame and one more
+PATHS_EDGES = (1, 31, 33, 4097, W * H + 1)
+# D1: test13 with this many small spheres added (crowded_scene): with 384
+# its tables but cl_f fit in the path-record kernel's shared-memory budget
+# (cl_f stays in device memory), with 640 they do not fit (the
+# instantiation that reads device memory)
+CROWDS = (384, 640)
+# D4: the walks of the path-record kernel on the training step's scene
+# and the two heavy ones
+PHASE_D4 = ("test01", "test13", "demo03")
 # D5: the scenes whose path records the replay gather kernels are held
 # on (4, 104 and 152 surfaces: one band of the backward, two, three), the
 # launches of one timing, and the bytes a ray of one segment moves:
@@ -464,30 +476,114 @@ def phase_c(dev):
         prev = frame.astype(np.int32)
 
 
-def phase_d1(dev):
-    """The path-record kernel vs its plain version on the card."""
+def crowded_scene(dev, extra: int = CROWDS[-1]):
+    """test13 with `extra` small spheres in a grid between the camera and
+    the scene, every fourth a mirror (a single-branch scene still), to
+    outgrow the path-record kernel's shared-memory budget
+    (ops/cuda_kernel.py paths_staging): with CROWDS' 384 cl_f stays in
+    device memory, with 640 every table does (the instantiation that reads
+    device memory)."""
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.scene import schema as S
+    from quadray_tpu_torch.scene.compile import compile_scene
+    sd = load_scene("test13")
+    plain = S.Material(tex=S.Texture(color=0x80C040), dff=0.8, spc=0.3,
+                       pow=8.0)
+    mirror = S.Material(tex=S.Texture(color=0xC0C0C0), dff=0.2, rfl=0.6)
+    side = np.ceil(np.cbrt(extra)).astype(int)
+    balls = [S.obj(S.Sphere(rad=0.15, side_outer=S.Side(
+        material=mirror if k % 4 == 0 else plain)),
+        pos=(-8.0 + 16.0 * (k % side) / side,
+             -5.0 + 10.0 * (k // side % side) / side,
+             1.0 + 8.0 * (k // side // side) / side))
+        for k in range(extra)]
+    root = S.Array(objects=list(sd.root.objects) + balls,
+                   relations=list(sd.root.relations))
+    return compile_scene(S.SceneDef(root=root, opts=S.OPTS_FULL & ~sd.opts),
+                         device=dev)
+
+
+def paths_case(label, sc, org, dirs, tmin, cull: bool):
+    """One D1 case: the path-record kernel, culled as the training config's
+    gate says (cull) or unculled (trace_paths_with_struct, the walk the
+    training step runs), against its plain version with the same culling
+    setting: records equal, colours within ATOL; returns the colours' max
+    abs difference."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.trace import trace_paths
-    cfg = train_cfg()
+    cfg = train_cfg() if cull else train_cfg()._replace(cull=False)
+    before = ck.paths_launches
+    if cull:
+        got_c, got_p = ck.trace_paths(sc, org, dirs, tmin, cfg, K_PATHS)
+    else:
+        got_c, got_p = ck.trace_paths_with_struct(
+            sc, ck.scene_struct(sc), org, dirs, tmin, cfg, K_PATHS)
+    want_c, want_p = trace_paths(sc, org, dirs, tmin, cfg, K_PATHS)
+    torch.cuda.synchronize()
+    n_rec = int((got_p != want_p).any(dim=0).sum())
+    mx = float((got_c - want_c).abs().max())
+    log(f"D1 {label} {'culled' if cull else 'unculled'} K={K_PATHS}: "
+        f"rays={dirs.shape[0]} record_lanes_differing={n_rec} "
+        f"max_abs_color={mx:.3e} segments_recorded="
+        f"{int((got_p != 0).sum())}")
+    if ck.paths_launches != before + 1:
+        raise AssertionError(f"D1 {label}: not one paths launch")
+    if n_rec or not torch.equal(got_p, want_p):
+        raise AssertionError(f"D1 {label}: {n_rec} lanes' records differ")
+    if not (mx <= ATOL and bool(torch.isfinite(got_c).all())):
+        raise AssertionError(f"D1 {label}: colors off by {mx}")
+    return mx
+
+
+def edge_rays(sc, n: int):
+    """The first n camera rays of the 800x480 frame, the frame's first ray
+    again after them where n is past it."""
+    org, dirs, tmin = primary(sc, W, H)
+    idx = torch.arange(n, device=dirs.device) % dirs.shape[0]
+    return org, dirs[idx].contiguous(), tmin[idx].contiguous()
+
+
+def phase_d1(dev):
+    """The path-record kernel vs its plain version on the card, both walks
+    (culled by the training config's gate, and unculled, the walk the
+    training step runs), both instantiations (the tables in shared memory,
+    and on crowded_scene in device memory), at PATHS_EDGES' ray counts;
+    two launches bitwise equal."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
     worst = 0.0
     for name, w, h in PHASE_D1:
         sc = compiled(name, dev)
-        org, dirs, tmin = primary(sc, w, h)
-        got_c, got_p = ck.trace_paths(sc, org, dirs, tmin, cfg, K_PATHS)
-        want_c, want_p = trace_paths(sc, org, dirs, tmin, cfg, K_PATHS)
-        torch.cuda.synchronize()
-        n_rec = int((got_p != want_p).any(dim=0).sum())
-        mx = float((got_c - want_c).abs().max())
-        worst = max(worst, mx)
-        log(f"D1 {name} {w}x{h} K={K_PATHS}: rays={dirs.shape[0]} "
-            f"record_lanes_differing={n_rec} max_abs_color={mx:.3e} "
-            f"segments_recorded={int((got_p != 0).sum())}")
-        if n_rec or not torch.equal(got_p, want_p):
-            raise AssertionError(f"D1 {name}: {n_rec} lanes' records differ")
-        if not (mx <= ATOL and bool(torch.isfinite(got_c).all())):
-            raise AssertionError(f"D1 {name}: colors off by {mx}")
-        del want_c, want_p
+        for cull in (True, False):
+            worst = max(worst, paths_case(f"{name} {w}x{h}", sc,
+                                          *primary(sc, w, h), cull))
         torch.cuda.empty_cache()
+    for extra in (0,) + CROWDS:
+        sc = crowded_scene(dev, extra) if extra else compiled("test13", dev)
+        name = f"test13+{extra}" if extra else "test13"
+        st = ck.paths_staging(ck.scene_struct(sc))
+        log(f"D1 {name}: {ck.scene_struct(sc).n_real} surfaces, tables in "
+            + ("shared memory, " + ", ".join(
+                f"{k} {b}" for k, b in zip(ck.PATHS_TABLES, st.bytes))
+               + f" B, {st.total} B a block" if st else
+               f"device memory (over {ck.PATHS_SMEM_BYTES} B)"))
+        if (st is None, st is not None and st.bytes[2] == 0) != (
+                extra == CROWDS[1], extra == CROWDS[0]):
+            raise AssertionError(f"D1 {name}: the wrong instantiation")
+        for n in PATHS_EDGES:
+            for cull in (True, False):
+                worst = max(worst, paths_case(f"{name} n={n}", sc,
+                                              *edge_rays(sc, n), cull))
+            torch.cuda.empty_cache()
+        rays = primary(sc, W, H)
+        for cull in (True, False):
+            cfg = train_cfg() if cull else train_cfg()._replace(cull=False)
+            runs = [ck.trace_paths(sc, *rays, cfg, K_PATHS) for _ in (0, 1)]
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(*runs))
+            log(f"D1 {name} {W}x{H} {'culled' if cull else 'unculled'}: "
+                f"two launches bitwise equal: {same}")
+            if not same:
+                raise AssertionError(f"D1 {name}: two launches differ")
     return worst
 
 
@@ -678,25 +774,43 @@ def profile_step(step, step_ms: float, top: int = 10):
 
 
 def phase_d4(dev):
-    """The paths kernel alone vs its plain version on heavy scenes, with
-    the bound of the work the plain version counts (as D3's)."""
+    """The paths kernel vs its plain version in both walks on PHASE_D4's
+    scenes: culled as the training config's gate says (trace_paths) and
+    unculled (trace_paths_with_struct, the walk the training step runs),
+    each through its wrapper (the pack cached; the unculled wrapper packs
+    afresh, as the step does) beside the bound of the work the plain
+    version counts (as D3's: the same for both walks, which only skip
+    tests that cannot hit). Returns {scene: {walk: (ms, bound)}}."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.trace import trace_paths
-    cfg = train_cfg()
-    for name in ("test13", "demo03"):
+    out = {}
+    for name in PHASE_D4:
         sc = compiled(name, dev)
+        struct = ck.scene_struct(sc)
         org, dirs, tmin = primary(sc, W, H)
-        ms = cuda_ms(lambda: ck.trace_paths(sc, org, dirs, tmin, cfg,
-                                            K_PATHS), 5)
+        walks = {
+            "culled": lambda: ck.trace_paths(sc, org, dirs, tmin,
+                                             train_cfg(), K_PATHS),
+            "unculled": lambda: ck.trace_paths_with_struct(
+                sc, struct, org, dirs, tmin, train_cfg(), K_PATHS)}
         stats = {}
-        plain = cuda_ms(lambda: trace_paths(sc, org, dirs, tmin, cfg,
+        plain = cuda_ms(lambda: trace_paths(sc, org, dirs, tmin, train_cfg(),
                                             K_PATHS, stats), 1, 0)
         bound = bound_ms(W * H * (40 + 4 * K_PATHS),
-                         surface_ops(ck.scene_struct(sc), stats))
+                         surface_ops(struct, stats))
+        gate = ck.cull_gates(struct, train_cfg()).flags != 0
+        out[name] = {}
+        for walk, fn in walks.items():
+            ms = cuda_ms(fn, 20)
+            out[name][walk] = (ms, bound)
+            log(f"D4 {name} {W}x{H} K={K_PATHS} {walk} walk"
+                + ("" if gate or walk == "unculled" else
+                   " (the gate does not cull this scene: unculled)")
+                + f": paths kernel ms={ms:.4f} bound_ms={bound[0]:.4f} "
+                f"({bound[1]}; {work_line(stats)}) share of bound "
+                f"{bound[0] / ms:.3f}; plain ms={plain:.1f}")
         torch.cuda.empty_cache()
-        log(f"D4 {name} {W}x{H} K={K_PATHS}: paths kernel ms={ms:.3f} "
-            f"plain ms={plain:.1f} bound_ms={bound[0]:.4f} ({bound[1]}; "
-            f"{work_line(stats)})")
+    return out
 
 
 def gather_inputs(sc, paths):
@@ -3063,6 +3177,22 @@ def main():
                 if any(k in line for k in ("entry function", "registers",
                                            "stack frame")):
                     log(f"ptxas: {line.strip()}")
+    if os.path.exists(ptxas):
+        with open(ptxas) as fh:
+            text = fh.read()
+        for chunk in text.split("Compiling entry function")[1:]:
+            m = re.search(r"paths_kernelILb(\d)ELb(\d)ELb(\d)E", chunk)
+            if m:
+                log(f"ptxas paths_kernel<CULL={m.group(1)}, SM={m.group(2)}"
+                    f", OWN={m.group(3)}> (path records): " + "; ".join(
+                        re.findall(
+                            r"\d+ bytes stack frame, \d+ bytes spill "
+                            r"stores, \d+ bytes spill loads|Used \d+ "
+                            r"registers[^\n]*", chunk)))
+        from quadray_tpu_torch.ops.cuda_kernel import PATHS_SMEM_BYTES
+        log(f"paths_kernel dynamic shared memory budget: {PATHS_SMEM_BYTES} "
+            "B a block (the tables of a scene that fits; D1 prints each "
+            "scene's)")
     ptxas = os.path.join(_build.BUILD_DIR, "conformance.ptxas.txt")
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
@@ -3112,7 +3242,7 @@ def main():
         d_err = phase_d1(dev)
         phase_d2(dev)
         d_launches, d_ms, d_plain, d_bound, d_gathers = phase_d3(dev)
-        phase_d4(dev)
+        d4 = phase_d4(dev)
         d5_err, d5 = phase_d5(dev, smi)
         log(f"phase D ok ({time.perf_counter() - t0:.1f} s)")
 
@@ -3253,6 +3383,7 @@ def main():
               "spheres), lsort and cont masks where cull_gates say so")
     from quadray_tpu_torch.ops.cuda_kernel import (COOP_MAX_LIVE,
                                                    EMIT_OWN_MIN_KEPT,
+                                                   PATHS_SMEM_BYTES,
                                                    RESUME_WARP_MAX)
     coop = (f"cooperative tail: a culled warp with at most {COOP_MAX_LIVE} "
             "rays left (COOP_MAX_LIVE) runs them one at a time on all 32 "
@@ -3282,6 +3413,14 @@ def main():
     pt_culled = ("on from PT_CULL_MIN_SURFACES surfaces: per-ray reach "
                  "masks (each lane tests its own ray against the bounding "
                  "spheres of a word and walks its own bits), reach only")
+    paths_design = (
+        "paths_kernel, a persistent grid of 256-thread blocks, each warp "
+        "taking the next 32 rays from a work queue; each block copies the "
+        "scene tables into its shared memory (one cp.async.bulk a table "
+        f"on an mbarrier) where they fit in {PATHS_SMEM_BYTES} B "
+        "(PATHS_SMEM_BYTES), else the instantiation that reads device "
+        "memory; culled, per-ray masks after the camera segment where the "
+        f"warp's keeps more than {EMIT_OWN_MIN_KEPT} surfaces")
     heavy = e_heavy["test13"]
     log(json.dumps({"kernels": [{
         "name": "whitted", "route": "cuda", "culling": culled,
@@ -3292,11 +3431,16 @@ def main():
         "ms": ms, "plain_ms": plain, "bound_ms": w_bound[0],
         "bound_by": w_bound[1], "library_ms": None}, {
         "name": "whitted_paths", "route": "cuda", "culling": culled,
+        "design": paths_design,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2250",
         "launches": d_launches + l_paths, "max_abs_err": d_err,
         "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound[0],
-        "bound_by": d_bound[1], "library_ms": None}, {
+        "bound_by": d_bound[1], "library_ms": None,
+        "walks": {name: {walk: {"ms": v[0], "bound_ms": v[1][0],
+                                "bound_by": v[1][1]}
+                         for walk, v in walks.items()}
+                  for name, walks in d4.items()}}, {
         "name": "whitted_pt", "route": "cuda", "culling": pt_culled,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2313",

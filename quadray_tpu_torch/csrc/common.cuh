@@ -30,6 +30,17 @@ __device__ __forceinline__ float ldf(const float* p, int i) {
 __device__ __forceinline__ int ldi(const int* p, int i) {
   return __ldg(p + i);
 }
+// a scene-table value: through the read-only cache, or (SM: the kernel
+// copied the table into its block's shared memory) a plain load, which
+// the compiler makes a shared-memory load where it sees the table's origin
+template <bool SM>
+__device__ __forceinline__ float ldt(const float* p, int i) {
+  return SM ? p[i] : __ldg(p + i);
+}
+template <bool SM>
+__device__ __forceinline__ int ldt(const int* p, int i) {
+  return SM ? p[i] : __ldg(p + i);
+}
 
 // NaN-propagating max/clamp (jnp.maximum / jnp.clip semantics)
 __device__ __forceinline__ float maxn(float x, float lo) {
@@ -62,13 +73,16 @@ struct Fresnel {
 // Fresnel / refraction (tracer.cpp:3182-3424) for ray direction d at unit
 // normal n facing the ray: TR section with TIR, and the RF-section
 // reflectivity Fresnel of opaque reflective materials (tracer.cpp:
-// 3671-3830: the metal fast conductor formula, plain dielectric otherwise)
+// 3671-3830: the metal fast conductor formula, plain dielectric otherwise);
+// SM: the material row M is in shared memory
+template <bool SM = false>
 __device__ __forceinline__ Fresnel fresnel(int props, const float* M,
                                            bool fres_scene, float dx,
                                            float dy, float dz, float nx,
                                            float ny, float nz) {
-  const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7), m_rfr = ldf(M, 8);
-  const float m_ext = ldf(M, 9);
+  const float m_rfl = ldt<SM>(M, 6), m_trn = ldt<SM>(M, 7),
+              m_rfr = ldt<SM>(M, 8);
+  const float m_ext = ldt<SM>(M, 9);
   const float dl = __frsqrt_rn(maxn(dx * dx + dy * dy + dz * dz, 1e-30f));
   const float rhx = dx * dl, rhy = dy * dl, rhz = dz * dl;
   const float dot = rhx * nx + rhy * ny + rhz * nz;

@@ -2,7 +2,9 @@
 // ray, and the warp culls the surfaces its rays cannot reach; once few
 // rays of a culled warp are left, the whole warp traces them one at a
 // time (the cooperative tail); in PT mode each thread traces path-traced
-// samples from a work queue, one after another.
+// samples from a work queue, one after another; the path records of
+// training run on a persistent grid of their own, each block with the
+// scene tables in its shared memory.
 //
 // Replaces the TPU kernels quadray_tpu/ops/pallas_kernel.py
 // _trace_tiled (_make_kernel in Whitted mode), _trace_tiled_paths
@@ -67,8 +69,10 @@
 // and leaves the loop once its ray retires, so scenes that do not cull
 // pay nothing for the converged loop, and any number of surfaces fits.
 //
-// EMIT_PATHS (entry point whitted_paths_launch): segments are capped at k
-// and each thread writes its own i32 record of every segment it runs to
+// The path records (entry point whitted_paths_launch; paths_kernel, a
+// __global__ of its own that runs segment<> with EMIT_PATHS, so its f32
+// chain is the Whitted modes'): segments are capped at k and the lane of
+// each ray writes its own i32 record of every segment it runs to
 // paths[it * n + i] (bits 0-11 hit surface original id, 12 side > 0, 13-14
 // continuation 0 stop / 1 reflect / 2 transmit, 15 hit, 16+l light l not
 // unoccluded-lit), then zeroes the rows after the segment it retired in,
@@ -76,7 +80,23 @@
 // VMEM scratch because a dynamic-index store costs it scalar traffic
 // (pallas_kernel.py:1880-1882); here the store is direct and coalesced
 // (neighbouring threads, neighbouring words). Single-branch scenes only
-// (no branch stack) and at most 16 active lights, as on the TPU.
+// (no branch stack) and at most 16 active lights, as on the TPU. The
+// TPU kernel keeps the scene tables in VMEM scratch (_scene_specs,
+// pallas_kernel.py:2265-2266); here each block of a persistent grid (the
+// blocks that fit on the card at once) copies the tables every surface
+// test reads (sp_f, sp_i, mat_f, mat_i, lg_f, misc, and cl_f where it
+// fits too) into its shared memory, one bulk asynchronous copy a table
+// (cp.async.bulk on an mbarrier, Hopper's 1-D TMA path), so the copy is
+// paid once a block and not once per 128 rays, and the walks' reads,
+// warp-uniform, are broadcasts; a scene whose tables do not fit in
+// PATHS_SMEM runs the instantiation that reads them in device memory
+// (the host picks by byte count: paths_staging). Each warp takes the next
+// 32 consecutive rays from a work queue (one atomicAdd by lane 0), so the
+// culled walk's warp bundles are those of a thread a ray, and an SM whose
+// warps retire early takes more rays instead of idling through the
+// frame's tail. Culled, the segments after the camera's take per-ray
+// masks (below) where the warp's keep more than cfg.own_min surfaces, as
+// EMIT does. No branch stack, no cooperative tail and no state rows.
 //
 // Two-round retirement (entry points whitted_emit_launch and
 // whitted_resume_launch), single-branch scenes only (no branch stack), as
@@ -162,11 +182,11 @@
 // (48 per PT sample with the seeds; EMIT writes 84 more, RESUME reads 84
 // and writes 12 per surviving ray), so it is not bandwidth-bound; it is
 // latency- and divergence-bound on FP32 ALU work and scattered reads of
-// the small scene tables (through __ldg). The Whitted modes run one ray
-// per thread, with the branch stack in local memory, and walk the
-// surfaces their warp's masks keep; a culled PT node walks the surfaces
-// its own ray may reach (culling in PT mode, below), and tables in shared
-// memory are later work.
+// the small scene tables (through __ldg, or in shared memory in the
+// path-record kernel). The Whitted modes run one ray per thread, with the
+// branch stack in local memory, and walk the surfaces their warp's masks
+// keep; a culled PT node walks the surfaces its own ray may reach
+// (culling in PT mode, below).
 //
 // The cooperative tail (the culled whole-trace instantiations,
 // whitted_launch's coop_max). A ray is a serial chain of dependent
@@ -259,35 +279,44 @@ struct Cfg {
 
 constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
 
-// x - p, then m . (x - p): world -> canonical for the 12 floats at t
+// x - p, then m . (x - p): world -> canonical for the 12 floats at t.
+// SM, here and below: the scene tables sp_f, sp_i, mat_f, mat_i, lg_f and
+// misc are the copies in the block's shared memory (paths_kernel), cl_f
+// there or in device memory (common.cuh ldt)
+template <bool SM>
 __device__ __forceinline__ void to_local(const float* t, float x, float y,
                                          float z, float& lx, float& ly,
                                          float& lz) {
-  float rx = x - ldf(t, 0), ry = y - ldf(t, 1), rz = z - ldf(t, 2);
-  lx = ldf(t, 3) * rx + ldf(t, 4) * ry + ldf(t, 5) * rz;
-  ly = ldf(t, 6) * rx + ldf(t, 7) * ry + ldf(t, 8) * rz;
-  lz = ldf(t, 9) * rx + ldf(t, 10) * ry + ldf(t, 11) * rz;
+  float rx = x - ldt<SM>(t, 0), ry = y - ldt<SM>(t, 1),
+        rz = z - ldt<SM>(t, 2);
+  lx = ldt<SM>(t, 3) * rx + ldt<SM>(t, 4) * ry + ldt<SM>(t, 5) * rz;
+  ly = ldt<SM>(t, 6) * rx + ldt<SM>(t, 7) * ry + ldt<SM>(t, 8) * rz;
+  lz = ldt<SM>(t, 9) * rx + ldt<SM>(t, 10) * ry + ldt<SM>(t, 11) * rz;
 }
 
 // implicit value at a canonical point; q points at sx sy sz jx jy jz sw
+template <bool SM>
 __device__ __forceinline__ float implicit(const float* q, bool plane,
                                           float x, float y, float z) {
   if (plane) return z;
-  return ldf(q, 0) * x * x + ldf(q, 1) * y * y + ldf(q, 2) * z * z -
-         2.0f * (ldf(q, 3) * x + ldf(q, 4) * y + ldf(q, 5) * z) -
-         ldf(q, 6);
+  return ldt<SM>(q, 0) * x * x + ldt<SM>(q, 1) * y * y +
+         ldt<SM>(q, 2) * z * z -
+         2.0f * (ldt<SM>(q, 3) * x + ldt<SM>(q, 4) * y +
+                 ldt<SM>(q, 5) * z) -
+         ldt<SM>(q, 6);
 }
 
 // Custom clip program (CC_cyc, tracer.cpp:1939-2160) at world point w.
 // Called only with mask == true: programs from compile_scene are SURF
 // ANDs and ENTER..LEAVE segments, after which mask <= saved, so a false
 // mask stays false and needs no evaluation.
+template <bool SM>
 __device__ bool clip_program(const Tables& T, int s, int ncl, float wx,
                              float wy, float wz) {
   bool mask = true, saved = true;
   for (int j = 0; j < ncl; ++j) {
     const float* c = T.cl_f + (size_t)(s * T.nc + j) * CF;
-    int op = (int)ldf(c, 21);
+    int op = (int)ldt<SM>(c, 21);
     if (op == CLIP_ENTER) {
       saved = mask;
       mask = true;
@@ -295,9 +324,9 @@ __device__ bool clip_program(const Tables& T, int s, int ncl, float wx,
       mask = saved && !mask;
     } else if (op == CLIP_SURF) {
       float cx, cy, cz;
-      to_local(c, wx, wy, wz, cx, cy, cz);
-      float val = implicit(c + 12, ldf(c, 19) == 1.0f, cx, cy, cz);
-      bool keep = ldf(c, 20) >= 0.0f ? (val <= 0.0f) : (val >= 0.0f);
+      to_local<SM>(c, wx, wy, wz, cx, cy, cz);
+      float val = implicit<SM>(c + 12, ldt<SM>(c, 19) == 1.0f, cx, cy, cz);
+      bool keep = ldt<SM>(c, 20) >= 0.0f ? (val <= 0.0f) : (val >= 0.0f);
       mask = mask && keep;
     }
   }
@@ -325,20 +354,21 @@ struct Hit {
 // (any-hit); otherwise folds its nearest valid root into `best`. LOCAL:
 // the originating surface takes r.ol* as the ray's local origin (the
 // Whitted modes); else it transforms the world origin like any other.
-template <bool SHADOW, bool LOCAL>
+template <bool SHADOW, bool LOCAL, bool SM = false>
 __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   const float* P = T.sp_f + (size_t)s * PF;
+  const auto pf = [P](int k) { return ldt<SM>(P, k); };
   const int* I = T.sp_i + (size_t)s * SI;
-  const int kind = ldi(I, SI_KIND);
-  const int origid = ldi(I, SI_OID);
-  const int ncl = ldi(I, SI_NCL);
-  const int blk = SHADOW ? ldi(I, SI_BLK) : 0;
+  const int kind = ldt<SM>(I, SI_KIND);
+  const int origid = ldt<SM>(I, SI_OID);
+  const int ncl = ldt<SM>(I, SI_NCL);
+  const int blk = SHADOW ? ldt<SM>(I, SI_BLK) : 0;
 
   float lx, ly, lz;
-  to_local(P, r.ox, r.oy, r.oz, lx, ly, lz);
-  const float ex = ldf(P, 3) * r.dx + ldf(P, 4) * r.dy + ldf(P, 5) * r.dz;
-  const float ey = ldf(P, 6) * r.dx + ldf(P, 7) * r.dy + ldf(P, 8) * r.dz;
-  const float ez = ldf(P, 9) * r.dx + ldf(P, 10) * r.dy + ldf(P, 11) * r.dz;
+  to_local<SM>(P, r.ox, r.oy, r.oz, lx, ly, lz);
+  const float ex = pf(3) * r.dx + pf(4) * r.dy + pf(5) * r.dz;
+  const float ey = pf(6) * r.dx + pf(7) * r.dy + pf(8) * r.dz;
+  const float ez = pf(9) * r.dx + pf(10) * r.dy + pf(11) * r.dz;
   // secondary-ray local-diff reuse (tracer.cpp:1350-1373)
   const bool same = r.osrf == origid;
   if (LOCAL && same) {
@@ -346,8 +376,8 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
     ly = r.oly;
     lz = r.olz;
   }
-  const float cminx = ldf(P, 19), cminy = ldf(P, 20), cminz = ldf(P, 21);
-  const float cmaxx = ldf(P, 22), cmaxy = ldf(P, 23), cmaxz = ldf(P, 24);
+  const float cminx = pf(19), cminy = pf(20), cminz = pf(21);
+  const float cmaxx = pf(22), cmaxy = pf(23), cmaxz = pf(24);
 
   if (kind == 1) {
     // plane root + ray-sign side (tracer.cpp:4062-4210) with the
@@ -367,28 +397,28 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
         hy <= cmaxy && hz >= cminz && hz <= cmaxz;
     // CHECK_SIDE exact self-intersection skip
     v = v && (!same || (r.thru != (side == r.oside)));
-    if (v && ncl > 0) v = clip_program(T, s, ncl, wx, wy, wz);
+    if (v && ncl > 0) v = clip_program<SM>(T, s, ncl, wx, wy, wz);
     if (SHADOW) return v && (blk & (side > 0 ? 1 : 2));
     if (v && (t < best.t || (t == best.t && origid < best.srf))) {
       const float sf = (float)side;
       best.t = t;
       best.srf = origid;
       best.side = side;
-      best.mat = ldi(I, side > 0 ? SI_MO : SI_MI);
+      best.mat = ldt<SM>(I, side > 0 ? SI_MO : SI_MI);
       best.row = s;
       best.wx = wx; best.wy = wy; best.wz = wz;
-      best.nx = ldf(P, 9) * sf;
-      best.ny = ldf(P, 10) * sf;
-      best.nz = ldf(P, 11) * sf;
+      best.nx = pf(9) * sf;
+      best.ny = pf(10) * sf;
+      best.nz = pf(11) * sf;
       best.hx = hx; best.hy = hy; best.hz = hz;
     }
     return false;
   }
 
   // ---- quadric / two-plane: F(o + t d) = a t^2 + 2 b t + c
-  const float sx = ldf(P, 12), sy = ldf(P, 13), sz = ldf(P, 14);
-  const float jx = ldf(P, 15), jy = ldf(P, 16), jz = ldf(P, 17);
-  const float sw = ldf(P, 18);
+  const float sx = pf(12), sy = pf(13), sz = pf(14);
+  const float jx = pf(15), jy = pf(16), jz = pf(17);
+  const float sw = pf(18);
   const float a = sx * ex * ex + sy * ey * ey + sz * ez * ez;
   const float b = (sx * lx - jx) * ex + (sy * ly - jy) * ey +
                   (sz * lz - jz) * ez;
@@ -423,7 +453,7 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   const float root_b = (quad_ok && ok2) ? t2 : BIG;
 
   // conic singularity (CC_glb, tracer.cpp:1706-1860)
-  const int sing = ldi(I, SI_SING);
+  const int sing = ldt<SM>(I, SI_SING);
   const bool cyl = sing == 2;
   float inv_r = 0.0f, sqrt_ratio = 0.0f;
   if (sing > 0) {
@@ -435,6 +465,7 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   float h[2][9];          // per slot: local hit, world hit, gradient
   bool valid[2];
   const float roots[2] = {root_a, root_b};
+#pragma unroll
   for (int k = 0; k < 2; ++k) {
     const float t = roots[k];
     float hx = lx + t * ex, hy = ly + t * ey, hz = lz + t * ez;
@@ -447,16 +478,16 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
       const float aj = cyl ? 0.0f : sgnf(ly) * ij_flip * inv_r;
       const float ak = sgnf(lz) * k_flip * sqrt_ratio * inv_r;
       hx = ai; hy = aj; hz = ak;
-      wx = ldf(P, 0) + (ldf(P, 25) * ai + ldf(P, 26) * aj + ldf(P, 27) * ak);
-      wy = ldf(P, 1) + (ldf(P, 28) * ai + ldf(P, 29) * aj + ldf(P, 30) * ak);
-      wz = ldf(P, 2) + (ldf(P, 31) * ai + ldf(P, 32) * aj + ldf(P, 33) * ak);
+      wx = pf(0) + (pf(25) * ai + pf(26) * aj + pf(27) * ak);
+      wy = pf(1) + (pf(28) * ai + pf(29) * aj + pf(30) * ak);
+      wz = pf(2) + (pf(31) * ai + pf(32) * aj + pf(33) * ak);
     }
     const int side = k == 0 ? 1 : -1;
     bool v = t > r.tmn && t < r.tmx && t < BIG;
     v = v && hx >= cminx && hx <= cmaxx && hy >= cminy && hy <= cmaxy &&
         hz >= cminz && hz <= cmaxz;
     v = v && (!same || (r.thru != (side == r.oside)));
-    if (v && ncl > 0) v = clip_program(T, s, ncl, wx, wy, wz);
+    if (v && ncl > 0) v = clip_program<SM>(T, s, ncl, wx, wy, wz);
     valid[k] = v;
     if (SHADOW) {
       if (v && (blk & (k == 0 ? 1 : 2))) return true;
@@ -470,27 +501,29 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   }
   if (SHADOW) return false;
 
-  // per-surface nearest valid root, then one compare against the best
+  // per-surface nearest valid root, then one compare against the best;
+  // the slot is picked by selects, not by an index, so that h stays in
+  // registers
   const bool pick_b = valid[1] && (!valid[0] || root_b < root_a);
-  const int k = pick_b ? 1 : 0;
-  if (!valid[k]) return false;
-  const float t = roots[k];
+  const auto hk = [&](int j) { return pick_b ? h[1][j] : h[0][j]; };
+  if (!(pick_b ? valid[1] : valid[0])) return false;
+  const float t = pick_b ? root_b : root_a;
   if (!(t < BIG && (t < best.t || (t == best.t && origid < best.srf))))
     return false;
-  const int side = k == 0 ? 1 : -1;
+  const int side = pick_b ? -1 : 1;
   const float sf = (float)side;
-  const float gx = h[k][6], gy = h[k][7], gz = h[k][8];
+  const float gx = hk(6), gy = hk(7), gz = hk(8);
   // world normal = inv^T grad, flipped to the hit side
   best.t = t;
   best.srf = origid;
   best.side = side;
-  best.mat = ldi(I, side > 0 ? SI_MO : SI_MI);
+  best.mat = ldt<SM>(I, side > 0 ? SI_MO : SI_MI);
   best.row = s;
-  best.wx = h[k][3]; best.wy = h[k][4]; best.wz = h[k][5];
-  best.nx = (ldf(P, 3) * gx + ldf(P, 6) * gy + ldf(P, 9) * gz) * sf;
-  best.ny = (ldf(P, 4) * gx + ldf(P, 7) * gy + ldf(P, 10) * gz) * sf;
-  best.nz = (ldf(P, 5) * gx + ldf(P, 8) * gy + ldf(P, 11) * gz) * sf;
-  best.hx = h[k][0]; best.hy = h[k][1]; best.hz = h[k][2];
+  best.wx = hk(3); best.wy = hk(4); best.wz = hk(5);
+  best.nx = (pf(3) * gx + pf(6) * gy + pf(9) * gz) * sf;
+  best.ny = (pf(4) * gx + pf(7) * gy + pf(10) * gz) * sf;
+  best.nz = (pf(5) * gx + pf(8) * gy + pf(11) * gz) * sf;
+  best.hx = hk(0); best.hy = hk(1); best.hz = hk(2);
   return false;
 }
 
@@ -506,10 +539,10 @@ __device__ __forceinline__ void no_hit(Hit& best) {
 }
 
 // nearest hit over every surface (PT nodes)
-template <bool LOCAL>
+template <bool LOCAL, bool SM = false>
 __device__ void nearest_all(const Tables& T, const Ray& r, Hit& best) {
   no_hit(best);
-  for (int s = 0; s < T.ns; ++s) surface<false, LOCAL>(T, s, r, best);
+  for (int s = 0; s < T.ns; ++s) surface<false, LOCAL, SM>(T, s, r, best);
 }
 
 // ---- culling: the warp's masks (file header) ----------------------------
@@ -623,7 +656,7 @@ __device__ __forceinline__ bool reaches(const Tables& T, const Bundle& b,
 // row), nullptr for all bits; read only when the gate is on. Every lane
 // calls it with the same gates. ONE: every lane holds the same ray and
 // row (the cooperative tail): a one-ray bundle, without the collectives.
-template <bool SHADOW, bool ONE>
+template <bool SHADOW, bool ONE, bool SM = false>
 __device__ unsigned warp_mask(const Tables& T, int gates, bool on,
                               const Ray& r, const int* row) {
   const unsigned lane = threadIdx.x & 31u;
@@ -637,7 +670,7 @@ __device__ unsigned warp_mask(const Tables& T, int gates, bool on,
   for (int w = 0; w < words; ++w) {
     const int s = w * 32 + (int)lane;
     bool keep = s < T.ns;
-    if (SHADOW && keep) keep = ldi(T.sp_i + (size_t)s * SI, SI_BLK) != 0;
+    if (SHADOW && keep) keep = ldt<SM>(T.sp_i + (size_t)s * SI, SI_BLK) != 0;
     if (reach_on && keep) keep = reaches<SHADOW>(T, b, s);
     unsigned word = __ballot_sync(FULL_WARP, keep);
     if (rows_on)
@@ -653,17 +686,19 @@ __device__ unsigned warp_mask(const Tables& T, int gates, bool on,
 
 // any blocker between the hit point and the light (t in (0, 1)), every
 // blocker in row order (the unculled walk)
+template <bool SM>
 __device__ bool occluded_all(const Tables& T, const Ray& r) {
   Hit unused;
   for (int s = 0; s < T.ns; ++s) {
-    if (ldi(T.sp_i + (size_t)s * SI, SI_BLK) == 0) continue;
-    if (surface<true, true>(T, s, r, unused)) return true;
+    if (ldt<SM>(T.sp_i + (size_t)s * SI, SI_BLK) == 0) continue;
+    if (surface<true, true, SM>(T, s, r, unused)) return true;
   }
   return false;
 }
 
 // nearest hit over the surfaces of the warp's mask (lane w holds word w);
 // a lane that is not `on` walks with the warp and tests nothing
+template <bool SM>
 __device__ void nearest_masked(const Tables& T, const Ray& r, bool on,
                                unsigned mine, Hit& best) {
   no_hit(best);
@@ -673,7 +708,7 @@ __device__ void nearest_masked(const Tables& T, const Ray& r, bool on,
     while (word) {
       const int s = w * 32 + __ffs(word) - 1;
       word &= word - 1u;
-      if (on) surface<false, true>(T, s, r, best);
+      if (on) surface<false, true, SM>(T, s, r, best);
     }
   }
 }
@@ -681,6 +716,7 @@ __device__ void nearest_masked(const Tables& T, const Ray& r, bool on,
 // any blocker of the warp's shadow mask between the hit point and the
 // light (t in (0, 1)), for the lanes that `need` it; the warp stops once
 // every such lane is occluded
+template <bool SM>
 __device__ bool occluded_masked(const Tables& T, const Ray& r, bool need,
                                 unsigned mine) {
   bool occ = false;
@@ -691,7 +727,7 @@ __device__ bool occluded_masked(const Tables& T, const Ray& r, bool need,
       const int s = w * 32 + __ffs(word) - 1;
       word &= word - 1u;
       Hit unused;
-      if (need && !occ) occ = surface<true, true>(T, s, r, unused);
+      if (need && !occ) occ = surface<true, true, SM>(T, s, r, unused);
       if (!__any_sync(FULL_WARP, need && !occ)) return occ;
     }
   }
@@ -877,6 +913,7 @@ __device__ __forceinline__ unsigned own_bits(const Tables& T, int gates,
 // all bits) within the warp's (lane w holds word w): word by word, the
 // lanes refine each word in step, then each walks its own kept bits; a
 // lane that is not `on` tests nothing
+template <bool SM>
 __device__ void nearest_own(const Tables& T, int gates, const Ray& r,
                             bool on, unsigned mine, const int* crow,
                             Hit& best) {
@@ -893,7 +930,7 @@ __device__ void nearest_own(const Tables& T, int gates, const Ray& r,
     while (word) {
       const int s = w * 32 + __ffs(word) - 1;
       word &= word - 1u;
-      surface<false, true>(T, s, r, best);
+      surface<false, true, SM>(T, s, r, best);
     }
   }
 }
@@ -902,6 +939,7 @@ __device__ void nearest_own(const Tables& T, int gates, const Ray& r,
 // row for the light) within the warp's, for the lanes that `need` it: a
 // lane's walk stops at its first blocker, the warp once every such lane
 // is occluded
+template <bool SM>
 __device__ bool occluded_own(const Tables& T, int gates, const Ray& r,
                              bool need, unsigned mine, const int* srow) {
   bool occ = false;
@@ -915,7 +953,7 @@ __device__ bool occluded_own(const Tables& T, int gates, const Ray& r,
         const int s = w * 32 + __ffs(word) - 1;
         word &= word - 1u;
         Hit unused;
-        if (surface<true, true>(T, s, r, unused)) {
+        if (surface<true, true, SM>(T, s, r, unused)) {
           occ = true;
           break;
         }
@@ -928,23 +966,24 @@ __device__ bool occluded_own(const Tables& T, int gates, const Ray& r,
 
 // material at a hit: properties, colour (texture through the packed atlas
 // and the decode LUT, then the gamma decode) and the material row
+template <bool SM = false>
 __device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
                                             bool gamma_on, float mc[3],
                                             const float*& M) {
   M = T.mat_f + (size_t)hb.mat * MF;
   const int* Mi = T.mat_i + (size_t)hb.mat * MI;
-  const int props = ldi(Mi, 0);
-  mc[0] = ldf(M, 0); mc[1] = ldf(M, 1); mc[2] = ldf(M, 2);
-  const int base = ldi(Mi, 1);
+  const int props = ldt<SM>(Mi, 0);
+  mc[0] = ldt<SM>(M, 0); mc[1] = ldt<SM>(M, 1); mc[2] = ldt<SM>(M, 2);
+  const int base = ldt<SM>(Mi, 1);
   if ((props & PROP_TEXTURE) && base >= 0) {
     // pow-2 mask/shift addressing (MT_tex, tracer.cpp:2297-2321)
-    const int xm = ldi(Mi, 2), ym = ldi(Mi, 3), xs = ldi(Mi, 4);
-    const float u = hb.hx - ldf(M, 12);
-    const float v = hb.hy - ldf(M, 13);
+    const int xm = ldt<SM>(Mi, 2), ym = ldt<SM>(Mi, 3), xs = ldt<SM>(Mi, 4);
+    const float u = hb.hx - ldt<SM>(M, 12);
+    const float v = hb.hy - ldt<SM>(M, 13);
     const int ix =
-        __float2int_rz(floorf(u * (float)(xm + 1) / ldf(M, 10))) & xm;
+        __float2int_rz(floorf(u * (float)(xm + 1) / ldt<SM>(M, 10))) & xm;
     const int iy =
-        __float2int_rz(floorf(v * (float)(ym + 1) / ldf(M, 11))) & ym;
+        __float2int_rz(floorf(v * (float)(ym + 1) / ldt<SM>(M, 11))) & ym;
     const int texel = ldi(T.tex_pk, base + (iy << xs) + ix);
     mc[0] = ldf(T.tex_lut, (texel >> 16) & 255);
     mc[1] = ldf(T.tex_lut, (texel >> 8) & 255);
@@ -1012,33 +1051,35 @@ __device__ __forceinline__ void tail_load(const float* col, Ray& r,
 // and only the owner's branch stack is written (a pop is shuffled from
 // it). RAY: the two-round modes, whose segments take each lane's own
 // masks within the warp's where `per_ray`, if the warp's keeps more than
-// cfg.own_min surfaces.
+// cfg.own_min surfaces. EMIT_PATHS: the path-record kernel, which writes
+// this segment's record to paths (SM: its tables in shared memory).
 template <bool CAN_PUSH, bool EMIT_PATHS, bool CULL, bool TAIL,
-          bool RAY = false>
+          bool RAY = false, bool SM = false>
 __device__ __forceinline__ void segment(
     const Tables& T, const Cfg& cfg, int it, int i, int n,
     int* __restrict__ paths, Ray& r, float thr[3], float acc[3], int& depth,
     int& sp, float (*stk)[SLOT], bool& active, int& seg, int owner,
     bool per_ray = false) {
   const bool own = RAY && per_ray;
-  const float amb[3] = {ldf(T.misc, 0), ldf(T.misc, 1), ldf(T.misc, 2)};
-  const bool gamma_on = ldf(T.misc, 3) > 0.0f;
-  const bool fres_scene = ldf(T.misc, 4) > 0.0f;
+  const float amb[3] = {ldt<SM>(T.misc, 0), ldt<SM>(T.misc, 1),
+                        ldt<SM>(T.misc, 2)};
+  const bool gamma_on = ldt<SM>(T.misc, 3) > 0.0f;
+  const bool fres_scene = ldt<SM>(T.misc, 4) > 0.0f;
   Hit hb;
   if (CULL) {
     const int* crow = nullptr;   // the cont row of this ray's last hit
     if ((cfg.cull & CULL_CONT) && active && r.orow >= 0)
       crow = T.cont + (size_t)r.orow * 2 * T.nw + (r.oside > 0 ? 0 : T.nw);
     const unsigned mine =
-        warp_mask<false, TAIL>(T, cfg.cull, active, r, crow);
+        warp_mask<false, TAIL, SM>(T, cfg.cull, active, r, crow);
     if (TAIL)   // every lane holds the owner's ray
       nearest_coop(T, r, mine, hb);
     else if (own && warp_kept(mine) > cfg.own_min)
-      nearest_own(T, cfg.cull, r, active, mine, crow, hb);
+      nearest_own<SM>(T, cfg.cull, r, active, mine, crow, hb);
     else
-      nearest_masked(T, r, active, mine, hb);
+      nearest_masked<SM>(T, r, active, mine, hb);
   } else {
-    nearest_all<true>(T, r, hb);
+    nearest_all<true, SM>(T, r, hb);
   }
   // unculled, a lane in the loop has a ray
   const bool hit = (!CULL || active) && hb.t < BIG;
@@ -1063,10 +1104,10 @@ __device__ __forceinline__ void segment(
     nz = hb.nz * nn;
     rec = (unsigned)(hb.srf & 0xFFF) | (hb.side > 0 ? 1u << 12 : 0u) |
           (1u << 15);
-    props = hit_material(T, hb, gamma_on, mc, M);
-    m_dff = ldf(M, 3);
-    m_spc = ldf(M, 4);
-    m_pow = ldf(M, 5);
+    props = hit_material<SM>(T, hb, gamma_on, mc, M);
+    m_dff = ldt<SM>(M, 3);
+    m_spc = ldt<SM>(M, 4);
+    m_pow = ldt<SM>(M, 5);
     for (int c = 0; c < 3; ++c) col[c] = mc[c] * amb[c];
   }
   // culled, every lane takes part in every light's shadow pass
@@ -1087,9 +1128,9 @@ __device__ __forceinline__ void segment(
     float r_dot = 0.0f;
     bool need = false;
     if (hit) {
-      sr.dx = ldf(L, 0) - hb.wx;
-      sr.dy = ldf(L, 1) - hb.wy;
-      sr.dz = ldf(L, 2) - hb.wz;
+      sr.dx = ldt<SM>(L, 0) - hb.wx;
+      sr.dy = ldt<SM>(L, 1) - hb.wy;
+      sr.dz = ldt<SM>(L, 2) - hb.wz;
       r_dot = sr.dx * nx + sr.dy * ny + sr.dz * nz;
       need = r_dot > 0.0f;
       if (!need) rec |= unlit;
@@ -1100,13 +1141,13 @@ __device__ __forceinline__ void segment(
       if ((cfg.cull & CULL_LSORT) && need)
         srow = T.shad + (size_t)hb.row * T.nl * T.nw + (size_t)l * T.nw;
       const unsigned mine =
-          warp_mask<true, TAIL>(T, cfg.cull, need, sr, srow);
+          warp_mask<true, TAIL, SM>(T, cfg.cull, need, sr, srow);
       occ = TAIL ? occluded_coop(T, sr, mine)
             : own && warp_kept(mine) > cfg.own_min
-                ? occluded_own(T, cfg.cull, sr, need, mine, srow)
-                : occluded_masked(T, sr, need, mine);
+                ? occluded_own<SM>(T, cfg.cull, sr, need, mine, srow)
+                : occluded_masked<SM>(T, sr, need, mine);
     } else {
-      occ = need && occluded_all(T, sr);
+      occ = need && occluded_all<SM>(T, sr);
     }
     if (!need) continue;
     if (occ) {
@@ -1118,7 +1159,8 @@ __device__ __forceinline__ void segment(
     const float r2 = lvx * lvx + lvy * lvy + lvz * lvz;
     const float rr = __fsqrt_rn(maxn(r2, 1e-30f));
     const float attn = __frsqrt_rn(
-        maxn(ldf(L, 6) + ldf(L, 7) * rr + ldf(L, 8) * r2, 1e-30f));
+        maxn(ldt<SM>(L, 6) + ldt<SM>(L, 7) * rr + ldt<SM>(L, 8) * r2,
+             1e-30f));
     const float dfs =
         (props & PROP_DIFFUSE) ? r_dot / rr * attn * m_dff : 0.0f;
     float spc = 0.0f;
@@ -1135,7 +1177,7 @@ __device__ __forceinline__ void segment(
       }
     }
     for (int c = 0; c < 3; ++c) {
-      const float lc = ldf(L, 3 + c);
+      const float lc = ldt<SM>(L, 3 + c);
       col[c] = col[c] + ((props & PROP_METAL)
                              ? mc[c] * lc * (dfs + spc)
                              : mc[c] * lc * dfs + lc * spc);
@@ -1146,12 +1188,12 @@ __device__ __forceinline__ void segment(
       for (int c = 0; c < 3; ++c) col[c] = mc[c];
     }
 
-    const Fresnel fr = fresnel(props, M, fres_scene, dx, dy, dz, nx, ny,
-                               nz);
+    const Fresnel fr = fresnel<SM>(props, M, fres_scene, dx, dy, dz, nx,
+                                   ny, nz);
 
     // local weight from the ORIGINAL material rfl/trn (TR_mix,
     // tracer.cpp:3566-3571), not the Fresnel-modulated values
-    const float m_rfl = ldf(M, 6), m_trn = ldf(M, 7);
+    const float m_rfl = ldt<SM>(M, 6), m_trn = ldt<SM>(M, 7);
     const float lw = maxn(1.0f - m_trn - m_rfl, 0.0f);
     for (int c = 0; c < 3; ++c) acc[c] = acc[c] + thr[c] * col[c] * lw;
 
@@ -1259,14 +1301,12 @@ __device__ __noinline__ void coop_tail(Tables T, Cfg cfg, float* cols,
   }
 }
 
-template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND, bool CULL,
-          bool OWN = false>
+template <bool CAN_PUSH, int ROUND, bool CULL, bool OWN = false>
 __global__ void __launch_bounds__(W_BLOCK)
 whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
-               int* __restrict__ paths, float* __restrict__ state,
-               const int* __restrict__ idx, const int* __restrict__ count,
-               int n, Tables T, Cfg cfg) {
-  static_assert(ROUND == WHOLE || !(CAN_PUSH || EMIT_PATHS),
+               float* __restrict__ state, const int* __restrict__ idx,
+               const int* __restrict__ count, int n, Tables T, Cfg cfg) {
+  static_assert(ROUND == WHOLE || !CAN_PUSH,
                 "two-round retirement is for single-branch scenes");
   // OWN, per-ray masks (culled): EMIT's segments after the camera
   // segment, every segment of RESUME's dense mode
@@ -1339,7 +1379,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   // once at most cfg.sw (coop_max) of a warp's lanes hold a ray, each lane
   // saves its state in its column of `tail` and the warp runs those rays
   // one at a time (coop_tail); then each lane takes back its colour sums.
-  constexpr bool COOP = CULL && ROUND == WHOLE && !EMIT_PATHS;
+  constexpr bool COOP = CULL && ROUND == WHOLE;
   __shared__ float tail[COOP ? TAIL_WORDS * W_BLOCK : 1];
   for (int it = 0; it < cfg.max_segments; ++it) {
     const bool per_ray = RAY && (ROUND == RESUME || it > 0);
@@ -1359,19 +1399,14 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
     } else if (!active) {
       break;
     }
-    segment<CAN_PUSH, EMIT_PATHS, CULL, false, RAY>(
-        T, cfg, it, i, n, paths, r, thr, acc, depth, sp, stk, active, seg,
+    segment<CAN_PUSH, false, CULL, false, RAY>(
+        T, cfg, it, i, n, nullptr, r, thr, acc, depth, sp, stk, active, seg,
         0, per_ray);
   }
   if (!has_ray) return;
   out[i] = acc[0];
   out[n + i] = acc[1];
   out[2 * n + i] = acc[2];
-  if (EMIT_PATHS) {
-    // segments after the one this thread retired in record 0
-    for (int k = seg + 1; k < cfg.max_segments; ++k)
-      paths[(size_t)k * n + i] = 0;
-  }
   if (ROUND == EMIT) {
     // a thread that retired left the loop before the cap: its ray is as
     // it was, with thru and active 0 (pallas_kernel.py:1935, 1937)
@@ -1439,6 +1474,157 @@ resume_sparse(const float* __restrict__ state, const int* __restrict__ idx,
       out[i] = acc[0];
       out[n + i] = acc[1];
       out[2 * n + i] = acc[2];
+    }
+  }
+}
+
+// ---- the path-record kernel (whitted_paths_launch; file header) ---------
+
+constexpr int P_BLOCK = 256;   // threads a block
+// the most dynamic shared memory a block stages its tables in: two such
+// blocks and their 1 KB reserves fit in an SM's 228 KB, so the copies keep
+// the number of blocks an SM that the registers allow (ops/cuda_kernel.py
+// PATHS_SMEM_BYTES mirrors it)
+constexpr int PATHS_SMEM = 112 * 1024;
+// the tables a block stages, in this order: sp_f, sp_i, cl_f, mat_f,
+// mat_i, lg_f, misc
+constexpr int P_TABLES = 7;
+
+// A block's plan for its dynamic shared memory: the mbarrier at byte 0,
+// table k at off[k] (a multiple of 16) with bytes[k] bytes (cl_f 0: it
+// stays in device memory, where the others fit and it does not), total
+// the bytes a block takes (ops/cuda_kernel.py paths_staging mirrors it)
+struct Staging {
+  int off[P_TABLES], bytes[P_TABLES];
+  int total;
+};
+
+// Copies the block's tables into its shared memory at base (plan st): one
+// bulk asynchronous copy a table (cp.async.bulk, Hopper's 1-D TMA path;
+// thread 0 issues them and they complete on the mbarrier at base) of its
+// bytes rounded down to 16, and the rest, at most three words, by plain
+// loads; returns the tables pointing at the copies. Every thread of the
+// block calls it once.
+__device__ __forceinline__ Tables stage_tables(Tables T, const Staging& st,
+                                               unsigned char* base) {
+  const void* src[P_TABLES] = {T.sp_f,  T.sp_i, T.cl_f, T.mat_f,
+                               T.mat_i, T.lg_f, T.misc};
+  const unsigned bar = (unsigned)__cvta_generic_to_shared(base);
+  if (threadIdx.x == 0) {
+    unsigned tx = 0;
+    for (int k = 0; k < P_TABLES; ++k) tx += (unsigned)st.bytes[k] & ~15u;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(tx) : "memory");
+    for (int k = 0; k < P_TABLES; ++k) {
+      const unsigned bulk = (unsigned)st.bytes[k] & ~15u;
+      if (bulk)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+            "::bytes [%0], [%1], %2, [%3];"
+            :: "r"(bar + (unsigned)st.off[k]), "l"(src[k]), "r"(bulk),
+               "r"(bar)
+            : "memory");
+    }
+  }
+  // word w of table k's last bytes % 16, by thread 4k + w
+  if (threadIdx.x < 4 * P_TABLES) {
+    const int k = (int)threadIdx.x >> 2, w = (int)threadIdx.x & 3;
+    const int bulk = st.bytes[k] & ~15;
+    if (bulk + 4 * w < st.bytes[k])
+      reinterpret_cast<int*>(base + st.off[k] + bulk)[w] =
+          reinterpret_cast<const int*>(static_cast<const char*>(src[k]) +
+                                       bulk)[w];
+  }
+  __syncthreads();   // the barrier's init and those words, to every thread
+  for (unsigned done = 0; !done;)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1],"
+        " 0; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(bar) : "memory");
+  T.sp_f = reinterpret_cast<const float*>(base + st.off[0]);
+  T.sp_i = reinterpret_cast<const int*>(base + st.off[1]);
+  if (st.bytes[2]) T.cl_f = reinterpret_cast<const float*>(base + st.off[2]);
+  T.mat_f = reinterpret_cast<const float*>(base + st.off[3]);
+  T.mat_i = reinterpret_cast<const int*>(base + st.off[4]);
+  T.lg_f = reinterpret_cast<const float*>(base + st.off[5]);
+  T.misc = reinterpret_cast<const float*>(base + st.off[6]);
+  return T;
+}
+
+// the first of the next 32 rays, for the whole warp: one atomicAdd on the
+// work queue by lane 0
+__device__ __forceinline__ int next_rays(int* queue) {
+  int base = 0;
+  if ((threadIdx.x & 31u) == 0) base = atomicAdd(queue, 32);
+  return __shfl_sync(FULL_WARP, base, 0);
+}
+
+// The path records of rays 0..n-1 (file header), segments capped at
+// cfg.max_segments, on a persistent grid: each warp takes the next 32
+// consecutive rays from the work queue *queue, traces them as the
+// Whitted modes trace a ray (segment<>, no branch stack), writes their
+// colours and records, and takes the next 32 until the queue is empty.
+// SM: the block first copies its tables into shared memory
+// (stage_tables). CULL: the warp's masks; OWN (culled), each lane's own
+// within them after the camera segment (nearest_own, occluded_own, where
+// the warp's keeps more than cfg.own_min surfaces), as EMIT does;
+// unculled, each lane walks every surface and leaves the loop once its
+// ray retires. The blocks an SM must hold at once, to which
+// __launch_bounds__ holds the registers: culled two (128 a thread);
+// unculled in device memory three (80, so that 24 warps hide the
+// device-memory reads); unculled in shared memory no minimum (ptxas
+// takes 127: two blocks). Each was the fastest on the H100 (PERF.md,
+// section 6).
+template <bool CULL, bool SM, bool OWN>
+__global__ void __launch_bounds__(P_BLOCK, CULL ? 2 : SM ? 1 : 3)
+paths_kernel(const float* __restrict__ rays, float* __restrict__ out,
+             int* __restrict__ paths, int n, Tables T, Cfg cfg, Staging st,
+             int* __restrict__ queue) {
+  static_assert(CULL || !OWN, "per-ray masks refine the warp's masks");
+  extern __shared__ __align__(16) unsigned char p_tables[];
+  if (SM) T = stage_tables(T, st, p_tables);
+  float stk[1][SLOT];   // no branch stack: never read
+  for (int base = next_rays(queue); base < n; base = next_rays(queue)) {
+    const int i = base + (int)(threadIdx.x & 31u);
+    bool active = i < n;
+    Ray r;
+    r.ox = r.oy = r.oz = r.dx = r.dy = r.dz = r.tmn = 0.0f;
+    if (active) {
+      r.ox = rays[i];
+      r.oy = rays[n + i];
+      r.oz = rays[2 * n + i];
+      r.dx = rays[3 * n + i];
+      r.dy = rays[4 * n + i];
+      r.dz = rays[5 * n + i];
+      r.tmn = rays[6 * n + i];
+    }
+    r.tmx = BIG;
+    r.osrf = -1;
+    r.oside = 1;
+    r.thru = false;
+    r.olx = r.oly = r.olz = 0.0f;
+    r.orow = -1;
+    float thr[3] = {1.0f, 1.0f, 1.0f};
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+    int depth = 0, sp = 0;
+    int seg = cfg.max_segments;   // the segment this ray retired in
+    // culled, every lane of the warp runs the loop while any has a ray
+    for (int it = 0; it < cfg.max_segments; ++it) {
+      if (CULL ? !__any_sync(FULL_WARP, active) : !active) break;
+      segment<false, true, CULL, false, OWN, SM>(
+          T, cfg, it, i, n, paths, r, thr, acc, depth, sp, stk, active, seg,
+          0, OWN && it > 0);
+    }
+    if (i < n) {
+      out[i] = acc[0];
+      out[n + i] = acc[1];
+      out[2 * n + i] = acc[2];
+      // the segments after the one this ray retired in record 0
+      for (int k = seg + 1; k < cfg.max_segments; ++k)
+        paths[(size_t)k * n + i] = 0;
     }
   }
 }
@@ -1786,11 +1972,13 @@ static bool fits(int ns, int cull) {
 }
 
 // the persistent grids' caches of resident_blocks, one for each kernel
-enum { RES_PT, RES_PT_CULL, RES_RESUME_SPARSE, RES_KERNELS };
+// (the path-record kernel's six, paths_kind)
+enum { RES_PT, RES_PT_CULL, RES_RESUME_SPARSE, RES_PATHS, RES_KERNELS =
+       RES_PATHS + 6 };
 
-// *blocks := the blocks of `kernel` (block threads, smem bytes of shared
-// memory; its cache `slot`) that the current card holds at once, queried
-// once per device
+// *blocks := the blocks of `kernel` (block threads, smem bytes of dynamic
+// shared memory, allowed to it above 48 KB; its cache `slot`) that the
+// current card holds at once, queried once per device
 static cudaError_t resident_blocks(const void* kernel, int block,
                                    size_t smem, int slot, int* blocks) {
   constexpr int MAX_DEVICES = 64;
@@ -1801,6 +1989,11 @@ static cudaError_t resident_blocks(const void* kernel, int block,
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (resident[slot][dev] == 0) {
     int per_sm = 0, sms = 0;
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) != cudaSuccess)
+      return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         block, smem);
     if (err == cudaSuccess)
@@ -1813,22 +2006,52 @@ static cudaError_t resident_blocks(const void* kernel, int block,
   return cudaSuccess;
 }
 
-// whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, cull != 0> over n threads,
-// culled with per-ray masks where OWN
-template <bool CAN_PUSH, bool EMIT_PATHS, int ROUND, bool OWN = false>
-static int launch(const float* rays, float* out, int* paths, float* state,
+// whitted_kernel<CAN_PUSH, ROUND, cull != 0> over n threads, culled with
+// per-ray masks where OWN
+template <bool CAN_PUSH, int ROUND, bool OWN = false>
+static int launch(const float* rays, float* out, float* state,
                   const int* idx, const int* count, int n, const Tables& T,
                   const Cfg& cfg, void* stream) {
   const dim3 block(W_BLOCK), grid((unsigned)((n + W_BLOCK - 1) / W_BLOCK));
   cudaStream_t s = (cudaStream_t)stream;
   if (cfg.cull)
-    whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, true, OWN>
-        <<<grid, block, 0, s>>>(rays, out, paths, state, idx, count, n, T,
-                                cfg);
+    whitted_kernel<CAN_PUSH, ROUND, true, OWN><<<grid, block, 0, s>>>(
+        rays, out, state, idx, count, n, T, cfg);
   else
-    whitted_kernel<CAN_PUSH, EMIT_PATHS, ROUND, false><<<grid, block, 0, s>>>(
-        rays, out, paths, state, idx, count, n, T, cfg);
+    whitted_kernel<CAN_PUSH, ROUND, false><<<grid, block, 0, s>>>(
+        rays, out, state, idx, count, n, T, cfg);
   return (int)cudaGetLastError();
+}
+
+// The plan of a scene's tables in a block's shared memory (Staging; ns
+// real surfaces, clip width nc, nm materials, nl active lights): false
+// where they do not fit in PATHS_SMEM without cl_f, which goes in where
+// it fits too
+static bool paths_staging(int ns, int nc, int nm, int nl, Staging& st) {
+  const long long bytes[P_TABLES] = {
+      4LL * ns * PF, 4LL * ns * SI, 4LL * ns * nc * CF, 4LL * nm * MF,
+      4LL * nm * MI, 4LL * nl * LF, 4LL * 8};
+  const auto pad = [](long long b) { return (b + 15) & ~15LL; };
+  long long core = 16;   // the mbarrier's 8 bytes, padded
+  for (int k = 0; k < P_TABLES; ++k)
+    if (k != 2) core += pad(bytes[k]);
+  if (core > PATHS_SMEM) return false;
+  const bool cl = core + pad(bytes[2]) <= PATHS_SMEM;
+  long long off = 16;
+  for (int k = 0; k < P_TABLES; ++k) {
+    st.off[k] = (int)off;
+    st.bytes[k] = k == 2 && !cl ? 0 : (int)bytes[k];
+    off += pad(st.bytes[k]);
+  }
+  st.total = (int)off;
+  return true;
+}
+
+// paths_kernel's instantiations, indexed by paths_kind
+using PathsKernel = void (*)(const float*, float*, int*, int, Tables, Cfg,
+                             Staging, int*);
+static int paths_kind(bool cull, bool sm, bool own) {
+  return cull ? 2 + 2 * own + sm : sm;
 }
 
 // C entry point (bound with ctypes): launches on `stream` and returns the
@@ -1849,28 +2072,62 @@ extern "C" int whitted_launch(
     return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
   const Cfg cfg{depth, max_segments, stack, cutoff, cull, coop_max};
-  return can_push ? launch<true, false, WHOLE>(rays, out, nullptr, nullptr,
-                                               nullptr, nullptr, n, T, cfg,
-                                               stream)
-                  : launch<false, false, WHOLE>(rays, out, nullptr, nullptr,
-                                                nullptr, nullptr, n, T, cfg,
-                                                stream);
+  return can_push ? launch<true, WHOLE>(rays, out, nullptr, nullptr,
+                                        nullptr, n, T, cfg, stream)
+                  : launch<false, WHOLE>(rays, out, nullptr, nullptr,
+                                         nullptr, n, T, cfg, stream);
 }
 
-// Path-record entry point: as whitted_launch for a single-branch scene,
-// with segments capped at k, plus paths: (k, n) i32, every element
-// written by the kernel (no zeroing needed).
+// Path-record entry point, for a single-branch scene of at most 16 active
+// lights: segments capped at k; out: (3, n) f32 SoA colours; paths: (k,
+// n) i32, every element written by the kernel (no zeroing needed); queue:
+// one i32 of scratch, the work queue, zeroed here; nm: the material rows;
+// own_min (>= 0): culled, the per-ray masks after the camera segment
+// refine a warp's mask that keeps more than this many surfaces. Launches
+// paths_kernel on the persistent grid (the blocks of the instantiation
+// that fit on the card at once, or fewer when n needs fewer): with the
+// tables in shared memory where paths_staging says they fit, else the
+// instantiation that reads them in device memory. queue, nm and own_min
+// come after the stream, so that a caller of an entry point from before
+// them passes the arguments it reads.
 extern "C" int whitted_paths_launch(
     const float* rays, float* out, int* paths, SCENE_PARAMS, int n, int ns,
     int nc, int nl, int depth, int k, float cutoff, int cull,
-    void* stream) {
+    void* stream, int* queue, int nm, int own_min) {
+  cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return 0;
-  if (k < 1 || nl < 0 || nl > 16 || !fits(ns, cull))
+  if (k < 1 || nl < 0 || nl > 16 || !fits(ns, cull) || nc < 0 || nm < 0 ||
+      own_min < 0)
     return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(queue, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, k, 1, cutoff, cull, 0};
-  return launch<false, true, WHOLE>(rays, out, paths, nullptr, nullptr,
-                                    nullptr, n, T, cfg, stream);
+  const Cfg cfg{depth, k, 1, cutoff, cull, 0, own_min};
+  Staging st{};
+  const bool sm = paths_staging(ns, nc, nm, nl, st);
+  // the bulk copies read from 16-byte boundaries
+  const void* src[P_TABLES] = {sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc};
+  for (int t = 0; sm && t < P_TABLES; ++t)
+    if (st.bytes[t] && ((size_t)src[t] & 15u))
+      return (int)cudaErrorMisalignedAddress;
+  // culled, per-ray masks after the camera segment where there is a
+  // segment after it and more than own_min surfaces to refine, as EMIT
+  const bool own = cull && k > 1 && ns > own_min;
+  const int kind = paths_kind(cull != 0, sm, own);
+  static const PathsKernel kernels[6] = {
+      paths_kernel<false, false, false>, paths_kernel<false, true, false>,
+      paths_kernel<true, false, false>,  paths_kernel<true, true, false>,
+      paths_kernel<true, false, true>,   paths_kernel<true, true, true>};
+  const PathsKernel kern = kernels[kind];
+  int resident = 0;
+  err = resident_blocks((const void*)kern, P_BLOCK, sm ? PATHS_SMEM : 0,
+                        RES_PATHS + kind, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const int need = (n + P_BLOCK - 1) / P_BLOCK;
+  const int blocks = need < resident ? need : resident;
+  kern<<<(unsigned)blocks, P_BLOCK, sm ? st.total : 0, s>>>(
+      rays, out, paths, n, T, cfg, st, queue);
+  return (int)cudaGetLastError();
 }
 
 // Round 1 of two-round retirement, for a single-branch scene: as
@@ -1893,11 +2150,10 @@ extern "C" int whitted_emit_launch(
   // k1 = 1 has no segment after the camera's, and a scene of at most
   // own_min surfaces no mask to refine: the warp's masks alone
   return k1 > 1 && ns > own_min
-             ? launch<false, false, EMIT, true>(rays, out, nullptr, state,
-                                                nullptr, nullptr, n, T, cfg,
-                                                stream)
-             : launch<false, false, EMIT>(rays, out, nullptr, state, nullptr,
-                                          nullptr, n, T, cfg, stream);
+             ? launch<false, EMIT, true>(rays, out, state, nullptr, nullptr,
+                                         n, T, cfg, stream)
+             : launch<false, EMIT>(rays, out, state, nullptr, nullptr, n, T,
+                                   cfg, stream);
 }
 
 // Round 2: resumes the rays idx[0..*count) of state (written by
@@ -1934,9 +2190,9 @@ extern "C" int whitted_resume_launch(
         state, idx, count, out, n, T, cfg);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  return launch<false, false, RESUME, true>(nullptr, out, nullptr,
-                                            const_cast<float*>(state), idx,
-                                            count, n, T, cfg, stream);
+  return launch<false, RESUME, true>(nullptr, out,
+                                     const_cast<float*>(state), idx, count,
+                                     n, T, cfg, stream);
 }
 
 // Path-tracing entry point: one sample per ray. seeds: (n,) i32 LCG

@@ -193,6 +193,46 @@ RESUME_WARP_MAX = 4096
 # 0, 8, 16, 32 and 64 (scripts/ab_whitted.py, the 10 culled golden scenes
 # at 800x480 on an H100): the smallest sums of kernel ms
 EMIT_OWN_MIN_KEPT, RESUME_OWN_MIN_KEPT = 64, 0
+# the path-record kernel (csrc/whitted.cu paths_kernel, PATHS_SMEM there):
+# each block of its persistent grid copies the scene tables it walks into
+# its shared memory where they fit in this many bytes, so that two blocks
+# an SM (what their registers allow) still fit in the SM's 228 KB; a scene
+# whose tables do not fit runs the instantiation that reads them in
+# device memory
+PATHS_SMEM_BYTES = 112 * 1024
+# the tables a block copies, in the kernel's order; their rows are the
+# real surfaces, the materials and the active lights, and misc's 8 values
+PATHS_TABLES = ("sp_f", "sp_i", "cl_f", "mat_f", "mat_i", "lg_f", "misc")
+
+
+class PathsStaging(NamedTuple):
+    """A block's plan for its shared memory (``paths_staging``)."""
+    off: tuple     # byte offset of each of PATHS_TABLES (a multiple of 16;
+    #                the mbarrier of the copies takes bytes 0-15)
+    bytes: tuple   # its bytes (cl_f 0: it stays in device memory)
+    total: int     # the dynamic shared memory a block takes
+
+
+def paths_staging(struct: KernelStruct):
+    """The shared-memory plan of the path-record kernel for the scene
+    (csrc/whitted.cu ``paths_staging``, mirrored): None where the tables
+    but cl_f do not fit in PATHS_SMEM_BYTES (the instantiation that reads
+    device memory runs); cl_f goes in where it fits too."""
+    ns = struct.n_real
+    nbytes = [4 * ns * PF, 4 * ns * 8, 4 * ns * struct.nc * CF,
+              4 * struct.nm * MF, 4 * struct.nm * MI, 4 * struct.nl * LF,
+              4 * 8]
+    pad = lambda b: -(-b // 16) * 16
+    core = 16 + sum(pad(b) for k, b in enumerate(nbytes) if k != 2)
+    if core > PATHS_SMEM_BYTES:
+        return None
+    if core + pad(nbytes[2]) > PATHS_SMEM_BYTES:
+        nbytes[2] = 0
+    off, at = [], 16
+    for b in nbytes:
+        off.append(at)
+        at += pad(b)
+    return PathsStaging(tuple(off), tuple(nbytes), at)
 
 
 class CullGates(NamedTuple):
@@ -757,7 +797,8 @@ ARGTYPES = {
     "whitted_launch": ([_VOIDP] * 2 + _SCENE_ARGS + [_INT] * 7
                        + [ctypes.c_float, _INT, _INT, _VOIDP, _INT]),
     "whitted_paths_launch": ([_VOIDP] * 3 + _SCENE_ARGS + [_INT] * 6
-                             + [ctypes.c_float, _INT, _VOIDP]),
+                             + [ctypes.c_float, _INT, _VOIDP, _VOIDP, _INT,
+                                _INT]),
     "whitted_pt_launch": ([_VOIDP] * 5 + _SCENE_ARGS + [_INT] * 5
                           + [_VOIDP, _INT]),
     "whitted_emit_launch": ([_VOIDP] * 3 + _SCENE_ARGS + [_INT] * 6
@@ -891,8 +932,9 @@ def trace_paths(sc: SceneArrays, org, dirs, t_min,
     """Kernel forward that also returns the per-segment path records:
     (colors (N, 3) f32, paths (K, N) i32), K = k_paths, segments capped
     at K (record layout: ``ops.trace.trace_paths``). Single-branch scenes
-    with at most 16 active lights (ValueError otherwise). CPU tensors
-    take the plain version."""
+    with at most 16 active lights (ValueError otherwise). Culled, the
+    segments after the camera's refine the warp's masks by each ray's own
+    (EMIT_OWN_MIN_KEPT). CPU tensors take the plain version."""
     return _paths(sc, _get_struct(sc), _get_packed, org, dirs, t_min, cfg,
                   k_paths)
 
@@ -930,6 +972,7 @@ def _paths(sc, struct, pack, org, dirs, t_min, cfg, k_paths):
         paths = torch.empty((k_paths, N), dtype=I32, device=dev)
         if N == 0:
             return out.T, paths
+        queue = torch.empty((1,), dtype=I32, device=dev)   # the work queue
         lib = _lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -937,7 +980,8 @@ def _paths(sc, struct, pack, org, dirs, t_min, cfg, k_paths):
                 rays.data_ptr(), out.data_ptr(), paths.data_ptr(), *tables,
                 N, struct.n_real, struct.nc, struct.nl,
                 cfg.depth, k_paths, cfg.cutoff,
-                cull_gates(struct, cfg).flags, stream)
+                cull_gates(struct, cfg).flags, stream, queue.data_ptr(),
+                struct.nm, EMIT_OWN_MIN_KEPT)
     if err != 0:
         raise RuntimeError(
             f"whitted paths kernel launch failed: CUDA error {err}")

@@ -40,7 +40,7 @@ import torch
 
 from quadray_tpu_torch.ops.cuda_kernel import MAX_PATH_LIGHTS
 from quadray_tpu_torch.ops.row_gather import RowGather
-from quadray_tpu_torch.ops.trace import TraceConfig, _root, _safe_div
+from quadray_tpu_torch.ops.trace import TraceConfig, _root, _safe_div, clip
 from quadray_tpu_torch.scene.compile import (
     SceneArrays, PROP_LIGHT, PROP_METAL, PROP_OPAQUE, PROP_REFLECT,
     PROP_REFRACT, PROP_DIFFUSE, PROP_SPECULAR, PROP_GAMMA, PROP_FRESNEL)
@@ -200,7 +200,7 @@ def replay_color(sc: SceneArrays, org, dirs, t_min, paths,
             sdot = rlx * dx + rly * dy + rlz * dz
             cosr = sdot * torch.rsqrt(torch.clamp(d2 * r2, min=1e-30))
             spc_on = hm & (sdot > 0.0) & specular
-            cosr = torch.clamp(torch.where(spc_on, cosr, 1.0), 1e-6, 1.0)
+            cosr = clip(torch.where(spc_on, cosr, 1.0), 1e-6, 1.0)
             spc = torch.where(spc_on,
                               torch.exp(m_pow * torch.log(cosr)) * m_spc, 0.0)
             tm_ = dfs + spc
@@ -235,7 +235,7 @@ def replay_color(sc: SceneArrays, org, dirs, t_min, paths,
         fres_lanes = bit(PROP_FRESNEL) & ~bit(PROP_OPAQUE) & use_fresnel
         rs = _safe_div(ed + sqk, ed - sqk, 1.0)
         rp = _safe_div(dot + eta * sqk, dot - eta * sqk, 1.0)
-        Fr = torch.clamp(0.5 * (rs * rs + rp * rp), 0.0, 1.0)
+        Fr = clip(0.5 * (rs * rs + rp * rp), 0.0, 1.0)
         Fr = torch.where(fres_lanes, Fr, 0.0)
         # TIR reflectivity fold only under Fresnel (tracer.cpp:3268-3301)
         Fr = torch.where(tir & fres_lanes, 1.0, Fr)

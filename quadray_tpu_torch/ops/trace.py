@@ -127,6 +127,15 @@ def _rsqrt(x):
     return torch.rsqrt(x.double()).to(x.dtype)
 
 
+def clip(x, lo: float, hi: float):
+    """jnp.clip: x limited to [lo, hi], NaN kept, as minimum(maximum(x,
+    lo), hi), whose gradient at a tie with either bound is one half, as
+    JAX's is (torch.clamp passes all of it). The bounds are zero-dim CPU
+    tensors, which a CUDA x takes as scalars: no copy, no launch."""
+    return torch.minimum(torch.maximum(x, torch.tensor(lo, dtype=x.dtype)),
+                         torch.tensor(hi, dtype=x.dtype))
+
+
 def _sgn(x):
     """+1 where x >= 0, else -1 (f32)."""
     return torch.where(x >= 0.0, 1.0, -1.0).to(ELEMENT)
@@ -778,7 +787,7 @@ def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
         cosr = sdot * _rsqrt(torch.clamp(_dot3(ray_d, ray_d) * r2,
                                          min=1e-30))
         spc_on = hm & (sdot > 0.0) & ((props & PROP_SPECULAR) != 0)
-        cosr = torch.clamp(torch.where(spc_on, cosr, 1.0), 1e-6, 1.0)
+        cosr = clip(torch.where(spc_on, cosr, 1.0), 1e-6, 1.0)
         spc = torch.where(
             spc_on, torch.exp(sc.m_pow[midx] * torch.log(cosr))
             * sc.m_spc[midx], 0.0)
@@ -858,7 +867,7 @@ def fresnel_terms(sc: SceneArrays, midx, d, n, schlick: bool = False):
         rs = _safe_div(ed + sq, ed - sq, 1.0)
         rp = _safe_div(dot + eta * sq, dot - eta * sq, 1.0)
         F = 0.5 * (rs * rs + rp * rp)
-    F = torch.where(fres_on, torch.clamp(F, 0.0, 1.0), 0.0)
+    F = torch.where(fres_on, clip(F, 0.0, 1.0), 0.0)
     # TIR folds transparency into reflectivity only under Fresnel
     F = torch.where(tir & fres_on, 1.0, F)
     c_trn = torch.where(tir, 0.0, trn * (1.0 - F))

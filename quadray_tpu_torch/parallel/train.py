@@ -47,7 +47,7 @@ import torch
 
 from quadray_tpu_torch.ops import cuda_kernel as ck
 from quadray_tpu_torch.ops.replay import replay_color
-from quadray_tpu_torch.ops.trace import TraceConfig, trace_rays_diff
+from quadray_tpu_torch.ops.trace import TraceConfig, clip, trace_rays_diff
 from quadray_tpu_torch.parallel.mesh import RayMesh
 from quadray_tpu_torch.parallel.render import (check_replicas, replica,
                                                sharded_rays)
@@ -93,7 +93,8 @@ def loss_fn(params: Params, sc: SceneArrays, org, dirs, t_min, target, w,
 
 
 def _weighted_mse(cols, target, w):
-    cols = torch.clamp(cols, 0.0, 1.0)
+    # jnp.clip's gradient, which halves at a channel of exactly 0 or 1
+    cols = clip(cols, 0.0, 1.0)
     err = torch.sum(((cols - target) ** 2) * w[:, None])
     return err / torch.clamp(torch.sum(w) * 3.0, min=1.0)
 

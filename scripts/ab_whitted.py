@@ -5,7 +5,8 @@
         [--cull on off] [--k1 1 4] [--coop 0 1 2 4 8 16 32]
         [--resume-warp 0 1024 n]
         [--scenes test03 test10 ...] [--rounds-scenes test13 demo02 ...]
-        [--sweep-others]
+        [--paths-scenes test01 test13 demo03 | single] [--sweep-others]
+        [--sass]
 
 OTHER.cu is another version of quadray_tpu_torch/csrc/whitted.cu with the
 same C entry points (whitted_launch, whitted_paths_launch,
@@ -41,7 +42,11 @@ ray, so always a warp per survivor) in the resume cases the same way;
 --sweep-others sweeps
 the OTHER versions too (a0, a4, ...: variants of this checkout's design).
 --k1 takes several values (the emit and resume cases run at each) and
---rounds-scenes replaces their scenes.
+--rounds-scenes replaces their scenes; --paths-scenes replaces the
+path-record cases' scenes ("single": every single-branch golden scene).
+--sass counts, from cuobjdump -sass of every build, each path-record
+kernel's loads by kind: LDG (device memory), LDS (shared), LD (generic),
+LDL/STL (local memory: the stack and spills).
 Prints each case's range and
 mean per version, then one JSON line with every case's times, means and
 the ratio of the means of each version of this checkout to each other
@@ -67,8 +72,8 @@ sys.path.insert(0, REPO)
 
 W, H = 800, 480
 # (scene, mode): test13, test14 and demo03 are the kernel table's heavy
-# Whitted scenes (demo02 has three lights), test01 and test13 the training
-# step's path-record mode, test13 the two rounds of two-round retirement
+# Whitted scenes (demo02 has three lights), test01 (the training step's
+# scene), test13 and demo03 the path-record mode, test13 the two rounds of two-round retirement
 # after --k1 segments (resume from the state this checkout's emit leaves),
 # test18 the path tracer's pass (bench_pt's scene) and the three other
 # scenes of chip_smoke.py phase E1, whose samples reach the node cap (the
@@ -83,6 +88,8 @@ CASES = [("test13", "whitted"), ("test14", "whitted"), ("demo02", "whitted"),
 K_PATHS = 8
 MODES = ("whitted", "paths", "emit", "resume", "pt")
 PT_DEPTH = 10
+GOLDEN = [f"test{i:02d}" for i in range(1, 19)] + ["demo01", "demo02",
+                                                    "demo03"]
 # PT scenes whose paths seldom reach their light get chip_smoke.py's seeded
 # emission on every surface, so that the bitwise check compares radiance,
 # not zeros; emission changes no path, so the time is the scene's own
@@ -123,6 +130,36 @@ def print_ptxas(which: str, text: str):
         if any(k in line for k in ("entry function", "registers",
                                    "stack frame")):
             print(f"ptxas {which}: {line.strip()}", flush=True)
+
+
+SASS_KINDS = ("LDG", "LDS", "LD", "LDL", "STL")
+
+
+def sass_loads(which: str, path: str):
+    """Prints, for each path-record kernel of the library at path, its
+    SASS load and store instructions by kind (cuobjdump -sass)."""
+    from quadray_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        # whitted_kernel<CAN_PUSH, EMIT_PATHS = true, ...> or paths_kernel
+        if "paths_kernel" not in name and "whitted_kernelILb0ELb1E" not in name:
+            continue
+        ops = []
+        for ln in chunk.splitlines():
+            if not ln.strip().startswith("/*") or "*/" not in ln:
+                continue
+            words = ln.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):   # a predicate
+                words = words[1:]
+            if words and not words[0].startswith("/*"):
+                ops.append(words[0].split(".")[0])
+        counts = {k: sum(o == k for o in ops) for k in SASS_KINDS}
+        print(f"sass {which}: {name}: " + " ".join(
+            f"{k} {v}" for k, v in counts.items())
+            + f" (instructions {len(ops)})", flush=True)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -235,6 +272,8 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
         cfg = TraceConfig(max_segments=K_PATHS, stack=4)
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
         paths = torch.empty((K_PATHS, n), dtype=torch.int32, device=dev)
+        queue = torch.empty((1,), dtype=torch.int32, device=dev)
+        last += [queue.data_ptr(), struct.nm, ck.EMIT_OWN_MIN_KEPT]
 
         def run():
             err = lib.whitted_paths_launch(
@@ -243,6 +282,7 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
                 cfg.cutoff, *last)
             assert err == 0, err
             return torch.cat([out.view(torch.int32), paths])
+        return run, (rays, ps, sc, queue)
     # the tables are passed as raw pointers: keep their tensors alive
     return run, (rays, ps, sc)
 
@@ -290,6 +330,11 @@ def main():
                     help="warp_max values (integers, or n for every ray) of "
                     "this checkout's resume cases (default RESUME_WARP_MAX "
                     "alone)")
+    ap.add_argument("--paths-scenes", nargs="+", default=None,
+                    help="the path-record cases' scenes (default: CASES'; "
+                    "single: every single-branch golden scene)")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the path-record kernels' SASS loads")
     ap.add_argument("--sweep-others", action="store_true",
                     help="sweep --coop and --resume-warp on the OTHER "
                     "versions too")
@@ -315,6 +360,9 @@ def main():
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
             print_ptxas("b", fh.read())
+    if args.sass:
+        for k, lib in libs.items():
+            sass_loads(k, lib._name)
     from quadray_tpu_torch.ops.cuda_kernel import (
         COOP_MAX_LIVE, RESUME_WARP_MAX, ROUNDS_K1)
     result = {"device": smi, "other": dict(zip(labels, args.other)),
@@ -330,6 +378,18 @@ def main():
     table = CASES if args.scenes is None else (
         [(n, "whitted") for n in args.scenes]
         + [c for c in CASES if c[1] != "whitted"])
+    if args.paths_scenes is not None:
+        names = args.paths_scenes
+        if names == ["single"]:
+            from quadray_tpu_torch.models.scenes.loader import load_scene
+            from quadray_tpu_torch.ops import cuda_kernel as ck
+            from quadray_tpu_torch.scene import schema as S
+            from quadray_tpu_torch.scene.compile import compile_scene
+            names = [g for g in GOLDEN if not ck.scene_struct(compile_scene(
+                S.SceneDef(root=load_scene(g).root, opts=S.OPTS_FULL
+                           & ~load_scene(g).opts), device=dev)).can_push]
+        table = [c for c in table if c[1] != "paths"] + [
+            (n, "paths") for n in names]
     if args.rounds_scenes is not None:
         table = [c for c in table if c[1] not in ("emit", "resume")] + [
             (n, m) for m in ("emit", "resume") for n in args.rounds_scenes]
