@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only K   # kernel build + the culling tables
     python3 chip_smoke.py --only L   # kernel build + the parallel layer
     python3 chip_smoke.py --only M   # kernel build + the port's bench
+    python3 chip_smoke.py --only N   # kernel build + the main path's kernel
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points), the conformance kernels, the culling tables' kernels
@@ -167,6 +168,18 @@ nvcc processes, then:
      blocks beside render_cuda's, and scaling_report over the card's
      devices and over blocks of one card (blocks on one card show what
      sharding costs, not scaling).
+  N. the main path's Whitted kernel (csrc/whitted.cu whole_kernel, which
+     whitted_launch runs: one thread a ray, the tables in device memory;
+     culled, per-ray masks after the camera segment in a launch of at most
+     WHOLE_OWN_MAX_RAYS rays): N1 each of its six instantiations (test13
+     and test18, unculled and culled with and without per-ray masks) at
+     1, 31, 33, 4,097 and 384,001 rays bitwise the plain trace_rays' on
+     the card, one launch each, and two launches at 384,001 bitwise
+     equal; test13 culled at the default floor on either side of
+     WHOLE_OWN_MAX_RAYS (four and five frames' rays), with and without
+     the masks; N2 each instantiation's ptxas line; N3 a frame launched
+     alone against its share of a launch of 64 frames, kernel device ms
+     (CUDA events), on test01, test13, demo02 and demo03.
   M. the port's bench (quadray_tpu_torch/bench.py): M1 its cells in this
      process, each counted: test01's K-frame batches (K = 8 and 64) in
      one Whitted launch each, frames 0 and K-1 bitwise render_cuda's at
@@ -266,6 +279,22 @@ PT_PREFIXES = (1, 31, 33, 24007)
 # branch or pop shows (one test18 pass at 100x60 on the CPU lit 8% of its
 # lanes; test17, test15, test05 with the added emission 48%, 46%, 100%)
 PT_LIT = 0.05
+# phase N: the main path's Whitted kernel (csrc/whitted.cu whole_kernel).
+# Its six instantiations (CAN_PUSH x unculled, or culled with or without
+# per-ray masks) all run on these scenes, a single-branch scene and one
+# that pushes branches, each unculled and culled (the floor lowered) with
+# per-ray masks after the camera segment (own_min 0) and without (own_min
+# above any scene's surfaces), at a ragged warp's and the grid's edge ray
+# counts (PATHS_EDGES)
+PHASE_N1 = ("test13", "test18")
+N_GATES = (("unculled", None), ("own", 0), ("warp", 1 << 20))
+# and test13 culled at the default own_min in launches of this many
+# frames' rays, on either side of WHOLE_OWN_MAX_RAYS (four frames)
+N1_FRAMES = (4, 5)
+# N3: a frame launched alone against its share of a launch of 64 frames
+# (the bench's K_BIG; quadray_tpu_torch/bench.py), kernel alone
+PHASE_N3 = ("test01", "test13", "demo02", "demo03")
+N3_FRAMES, N3_REPS = 64, 5
 # golden/ref_test18_pt64.bmp limits (tests/test_pt.py:43-53)
 PT_LIMITS = {"global_mean": 2.5, "block_mean": 3.5, "block_p95": 9.0,
              "block_max": 18.0}
@@ -3036,6 +3065,111 @@ def phase_l4(dev, arrays, smi):
 M2_TIMEOUT = 600
 
 
+# ---- phase N: the main path's Whitted kernel ----------------------------------
+
+def phase_n1(dev):
+    """Every instantiation of whole_kernel (PHASE_N1 x N_GATES) at the edge
+    ray counts, bitwise the plain trace_rays on the card (per-ray masks as
+    the kernel takes them: the same bits either way), one launch each; two
+    launches of a frame and one more ray bitwise equal; test13 culled in
+    launches of N1_FRAMES frames, the masks on and then off. Returns the
+    worst abs difference, 0.0: any differing word raises."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig, trace_rays
+
+    def check(what, sc, rays, want, cfg, counts):
+        for n in counts:
+            before = ck.launches
+            got = ck.trace_rays_cuda(sc, rays[0], rays[1][:n], rays[2][:n],
+                                     cfg)
+            torch.cuda.synchronize()
+            nd = int((_bits(got) != _bits(want[:n])).any(1).sum())
+            if ck.launches != before + 1 or nd:
+                raise AssertionError(f"N1 {what} n={n}: {nd} rays differ, "
+                                     f"launches {ck.launches - before}")
+        return got
+
+    seen = set()
+    for name in PHASE_N1:
+        sc = compiled(name, dev)
+        struct = ck.scene_struct(sc)
+        rays = edge_rays(sc, PATHS_EDGES[-1])
+        for gate, own_min in N_GATES:
+            cfg = TraceConfig(cull=gate != "unculled")
+            with cull_every_scene(), contextlib.ExitStack() as stack:
+                if own_min is not None:
+                    stack.enter_context(ck_value("EMIT_OWN_MIN_KEPT",
+                                                 own_min))
+                inst = ck.whitted_instance(struct, cfg, PATHS_EDGES[-1])
+                want = trace_rays(sc, *rays, cfg, own=(
+                    1, ck.EMIT_OWN_MIN_KEPT) if inst["own"] else None)
+                got = check(f"{name} {gate}", sc, rays, want, cfg,
+                            PATHS_EDGES)
+                again = ck.trace_rays_cuda(sc, *rays, cfg)
+                torch.cuda.synchronize()
+                if not torch.equal(_bits(got), _bits(again)):
+                    raise AssertionError(f"N1 {name} {gate}: two launches "
+                                         "differ")
+            key = tuple(int(inst[k]) for k in ("can_push", "cull", "own"))
+            seen.add(key)
+            log(f"N1 {name} {gate}: whole_kernel<CAN_PUSH={key[0]}, "
+                f"CULL={key[1]}, OWN={key[2]}> surfaces={struct.n_real} "
+                f"rays={list(PATHS_EDGES)} bitwise plain, two launches "
+                "bitwise")
+            del want
+            torch.cuda.empty_cache()
+    if len(seen) != 6:
+        raise AssertionError(f"N1: {len(seen)} of whole_kernel's 6 "
+                             "instantiations ran")
+    sc = compiled("test13", dev)
+    struct, cfg = ck.scene_struct(sc), TraceConfig()
+    frame = primary(sc, W, H)
+    want = trace_rays(sc, *frame, cfg)
+    sides = []
+    for k in N1_FRAMES:
+        rays = edge_rays(sc, k * W * H)
+        inst = ck.whitted_instance(struct, cfg, k * W * H)
+        check(f"test13 {k} frames", sc, rays, want.repeat(k, 1), cfg,
+              (k * W * H,))
+        sides.append(inst["own"])
+        log(f"N1 test13 culled, one launch of {k} frames ({k * W * H} rays,"
+            f" WHOLE_OWN_MAX_RAYS {ck.WHOLE_OWN_MAX_RAYS}): whole_kernel<"
+            f"OWN={int(inst['own'])}> bitwise plain")
+        del rays
+        torch.cuda.empty_cache()
+    if sides != [True, False]:
+        raise AssertionError(f"N1: per-ray masks {sides} in launches of "
+                             f"{N1_FRAMES} frames, not on then off")
+    return 0.0
+
+
+def phase_n3(dev):
+    """A frame launched alone against its share of a launch of N3_FRAMES
+    frames (the frames' rays one after another, as the bench's batches),
+    kernel device ms from CUDA events around N3_REPS launches after a
+    warm-up, at the default TraceConfig; returns {scene: (alone, share)}."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    out = {}
+    for name in PHASE_N3:
+        sc = compiled(name, dev)
+        struct = ck.scene_struct(sc)
+        org, dirs, tmin = primary(sc, W, H)
+        big = (org, dirs.repeat(N3_FRAMES, 1), tmin.repeat(N3_FRAMES))
+        cfg = TraceConfig()
+        alone = cuda_ms(lambda: ck.trace_rays_cuda(sc, org, dirs, tmin, cfg,
+                                                   struct), N3_REPS * 4)
+        share = cuda_ms(lambda: ck.trace_rays_cuda(sc, *big, cfg, struct),
+                        N3_REPS) / N3_FRAMES
+        out[name] = (alone, share)
+        log(f"N3 {name}: one frame alone {alone:.4f} ms, a frame's share of "
+            f"a {N3_FRAMES}-frame launch {share:.4f} ms, alone/share "
+            f"{alone / share:.3f}")
+        del big
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_m1(dev):
     """The bench's cells in this process, each driven with its launch
     count set to 0 just before and read just after."""
@@ -3143,15 +3277,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
-                             "L", "M"],
+                             "L", "M", "N"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
                     "retirement), G (conformance tier), H (culling), I "
                     "(RESUME's two modes and its switch's sweep), J (the "
                     "apps and the interactive frame), K (the culling "
-                    "tables' kernels), L (the parallel layer) or M (the "
-                    "port's bench)")
+                    "tables' kernels), L (the parallel layer), M (the "
+                    "port's bench) or N (the main path's Whitted kernel)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -3193,6 +3327,15 @@ def main():
         log(f"paths_kernel dynamic shared memory budget: {PATHS_SMEM_BYTES} "
             "B a block (the tables of a scene that fits; D1 prints each "
             "scene's)")
+        for chunk in text.split("Compiling entry function")[1:]:
+            m = re.search(r"whole_kernelILb(\d)ELb(\d)ELb(\d)E", chunk)
+            if m:
+                log(f"ptxas whole_kernel<CAN_PUSH={m.group(1)}, CULL="
+                    f"{m.group(2)}, OWN={m.group(3)}> (the main path): "
+                    + "; ".join(re.findall(
+                        r"\d+ bytes stack frame, \d+ bytes spill stores, "
+                        r"\d+ bytes spill loads|Used \d+ registers[^\n]*",
+                        chunk)))
     ptxas = os.path.join(_build.BUILD_DIR, "conformance.ptxas.txt")
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
@@ -3236,6 +3379,12 @@ def main():
         del scenes
         w_bound = whitted_bound(dev, "test13")
         phase("C", phase_c, dev)
+
+    if only in (None, "N"):
+        t0 = time.perf_counter()
+        n_err = phase_n1(dev)
+        n3 = phase_n3(dev)
+        log(f"phase N ok ({time.perf_counter() - t0:.1f} s)")
 
     if only in (None, "D"):
         t0 = time.perf_counter()
@@ -3384,12 +3533,21 @@ def main():
     from quadray_tpu_torch.ops.cuda_kernel import (COOP_MAX_LIVE,
                                                    EMIT_OWN_MIN_KEPT,
                                                    PATHS_SMEM_BYTES,
-                                                   RESUME_WARP_MAX)
+                                                   RESUME_WARP_MAX,
+                                                   WHOLE_OWN_MAX_RAYS)
     coop = (f"cooperative tail: a culled warp with at most {COOP_MAX_LIVE} "
             "rays left (COOP_MAX_LIVE) runs them one at a time on all 32 "
             "lanes, the kept surfaces and blockers dealt out by rank and "
             "the nearest hit reduced by an xor butterfly on (t, original "
             "id); bitwise the per-lane walk (H4)")
+    whitted_design = (
+        "whole_kernel, one thread a ray, ceil(n / 128) blocks of 128 "
+        "threads, the scene tables in device memory; unculled, five "
+        "blocks an SM (96 registers); culled, four blocks an SM (128 "
+        "registers), per-ray masks after the camera segment where the "
+        f"warp's keeps more than {EMIT_OWN_MIN_KEPT} surfaces "
+        f"(EMIT_OWN_MIN_KEPT) in a launch of at most {WHOLE_OWN_MAX_RAYS} "
+        "rays (WHOLE_OWN_MAX_RAYS); " + coop)
     conf_design = ("four consecutive elements a thread, one 16-byte load "
                    "(float4; int4 for the gather's indices) per input and "
                    "one 16-byte store, blocks of 256 threads; one element "
@@ -3424,10 +3582,13 @@ def main():
     heavy = e_heavy["test13"]
     log(json.dumps({"kernels": [{
         "name": "whitted", "route": "cuda", "culling": culled,
-        "design": coop, "source": "quadray_tpu_torch/csrc/whitted.cu",
+        "design": whitted_design,
+        "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2201",
         "launches": launches + j_whitted + l_whitted,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, n_err),
+        "frame_alone_vs_share_of_64": {
+            n: {"alone_ms": a, "share_ms": b} for n, (a, b) in n3.items()},
         "ms": ms, "plain_ms": plain, "bound_ms": w_bound[0],
         "bound_by": w_bound[1], "library_ms": None}, {
         "name": "whitted_paths", "route": "cuda", "culling": culled,

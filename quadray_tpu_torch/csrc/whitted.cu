@@ -2,9 +2,10 @@
 // ray, and the warp culls the surfaces its rays cannot reach; once few
 // rays of a culled warp are left, the whole warp traces them one at a
 // time (the cooperative tail); in PT mode each thread traces path-traced
-// samples from a work queue, one after another; the path records of
-// training run on a persistent grid of their own, each block with the
-// scene tables in its shared memory.
+// samples from a work queue, one after another; the whole traces of the
+// main path (whole_kernel) and the path records of training (paths_kernel)
+// run kernels of their own, the path records on a persistent grid whose
+// blocks hold the scene tables in shared memory.
 //
 // Replaces the TPU kernels quadray_tpu/ops/pallas_kernel.py
 // _trace_tiled (_make_kernel in Whitted mode), _trace_tiled_paths
@@ -139,7 +140,8 @@
 //
 // Per-ray masks (nearest_own, occluded_own): the warp builds its mask as
 // before, and where it keeps more than cfg.own_min surfaces (a launch
-// argument: ops/cuda_kernel.py EMIT_OWN_MIN_KEPT, RESUME_OWN_MIN_KEPT)
+// argument: ops/cuda_kernel.py EMIT_OWN_MIN_KEPT, which whole_kernel and
+// paths_kernel take too, and RESUME_OWN_MIN_KEPT)
 // each lane refines it, word by word in step, by its own cont row (a
 // nearest pass) or the receiver's own lsort row (a shadow pass) and by
 // its own ray's sphere tests (ray_reaches, the half-line;
@@ -188,6 +190,16 @@
 // keep; a culled PT node walks the surfaces its own ray may reach
 // (culling in PT mode, below).
 //
+// The main path's whole traces (entry point whitted_launch; whole_kernel,
+// a __global__ of its own that runs segment<>, so its f32 chain is the
+// Whitted modes'): one thread a ray, a grid of ceil(n / 128) blocks, the
+// tables in device memory. Culled, the cooperative tail below, and after
+// the camera segment per-ray masks (below) where the warp's mask keeps
+// more than cfg.own_min surfaces and the launch holds at most own_max
+// rays. A persistent grid on a work queue and the tables in shared memory
+// were measured against this on the H100 and lost on the scenes that
+// reach each walk by default (PERF.md, section 6).
+//
 // The cooperative tail (the culled whole-trace instantiations,
 // whitted_launch's coop_max). A ray is a serial chain of dependent
 // segments, and a warp runs as long as its longest ray: in a frame most
@@ -211,8 +223,8 @@
 // shuffled from it. The fold is lexicographic on unique ids, so no output
 // bit depends on the split, and each ray counts its own segments against
 // max_segments as before. coop_tail is not inlined and the state goes
-// through shared memory, so the per-lane loop keeps its 126-128
-// registers. The chain stays serial; what shortens is each tail segment's
+// through shared memory, so the per-lane loop keeps its 128 registers.
+// The chain stays serial; what shortens is each tail segment's
 // walk, from K tests one after another to ceil(K / 32) rounds, for the
 // price of running the tail's rays one at a time.
 
@@ -996,9 +1008,10 @@ __device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
   return props;
 }
 
-// ROUND: whole traces (0), round 1 of two-round retirement that also
-// writes the ray state (EMIT), or round 2 that resumes it (RESUME). CULL:
-// the warp's masks (cfg.cull non-zero) or every surface for every ray.
+// ROUND: round 1 of two-round retirement that also writes the ray state
+// (EMIT), or round 2 that resumes it (RESUME); whole traces (WHOLE) run
+// whole_kernel. CULL: the warp's masks (cfg.cull non-zero) or every
+// surface for every ray.
 constexpr int WHOLE = 0, EMIT = 1, RESUME = 2;
 constexpr int STATE_ROWS = 21;
 constexpr int W_BLOCK = 128;   // threads a block of the Whitted modes
@@ -1049,10 +1062,11 @@ __device__ __forceinline__ void tail_load(const float* col, Ray& r,
 // else retirement (seg := it). TAIL: the cooperative tail, where every
 // lane holds the ray of lane `owner`; the walks are dealt over the warp,
 // and only the owner's branch stack is written (a pop is shuffled from
-// it). RAY: the two-round modes, whose segments take each lane's own
-// masks within the warp's where `per_ray`, if the warp's keeps more than
-// cfg.own_min surfaces. EMIT_PATHS: the path-record kernel, which writes
-// this segment's record to paths (SM: its tables in shared memory).
+// it). RAY: segments that take each lane's own masks within the warp's
+// where `per_ray`, if the warp's keeps more than cfg.own_min surfaces (the
+// two-round modes, whole_kernel and paths_kernel, culled). EMIT_PATHS: the
+// path-record kernel, which writes this segment's record to paths. SM:
+// the tables in the block's shared memory.
 template <bool CAN_PUSH, bool EMIT_PATHS, bool CULL, bool TAIL,
           bool RAY = false, bool SM = false>
 __device__ __forceinline__ void segment(
@@ -1301,16 +1315,17 @@ __device__ __noinline__ void coop_tail(Tables T, Cfg cfg, float* cols,
   }
 }
 
-template <bool CAN_PUSH, int ROUND, bool CULL, bool OWN = false>
+// The two rounds of two-round retirement (file header), single-branch
+// scenes only: one thread a ray, a grid of ceil(n / W_BLOCK) blocks.
+template <int ROUND, bool CULL, bool OWN = false>
 __global__ void __launch_bounds__(W_BLOCK)
 whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
                float* __restrict__ state, const int* __restrict__ idx,
                const int* __restrict__ count, int n, Tables T, Cfg cfg) {
-  static_assert(ROUND == WHOLE || !CAN_PUSH,
-                "two-round retirement is for single-branch scenes");
+  static_assert(ROUND == EMIT || ROUND == RESUME,
+                "whole traces run whole_kernel");
   // OWN, per-ray masks (culled): EMIT's segments after the camera
   // segment, every segment of RESUME's dense mode
-  static_assert(!OWN || ROUND != WHOLE, "per-ray masks are the rounds'");
   static_assert(!CULL || ROUND != RESUME || OWN, "RESUME's dense mode");
   constexpr bool RAY = CULL && OWN;
   // culled, every lane of a warp runs the segment loop, with a ray or
@@ -1365,7 +1380,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
     r.tmn = rays[6 * n + i];
   }
   r.tmx = BIG;
-  float stk[CAN_PUSH ? MAX_STACK : 1][SLOT];
+  float stk[1][SLOT];   // no branch stack: never read
 
   // The TPU kernel caps segments per block; here the cap is per thread.
   // That is equivalent because a retired lane is a fixed point of
@@ -1375,31 +1390,10 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   // A lane still active at block iteration `it` has run exactly `it`
   // segments, so stopping each thread at max_segments is exact.
   int seg = cfg.max_segments;   // the segment this thread retired in
-  // The cooperative tail (file header) of the culled whole-trace modes:
-  // once at most cfg.sw (coop_max) of a warp's lanes hold a ray, each lane
-  // saves its state in its column of `tail` and the warp runs those rays
-  // one at a time (coop_tail); then each lane takes back its colour sums.
-  constexpr bool COOP = CULL && ROUND == WHOLE;
-  __shared__ float tail[COOP ? TAIL_WORDS * W_BLOCK : 1];
   for (int it = 0; it < cfg.max_segments; ++it) {
     const bool per_ray = RAY && (ROUND == RESUME || it > 0);
-    if (CULL) {
-      const unsigned live = __ballot_sync(FULL_WARP, active);
-      if (!live) break;
-      if (COOP && __popc(live) <= cfg.sw) {
-        float* const cols = tail + (threadIdx.x & ~31u);
-        const int lane = (int)(threadIdx.x & 31u);
-        tail_save(cols + lane, r, thr, acc, depth, sp);
-        __syncwarp();
-        coop_tail<CAN_PUSH>(T, cfg, cols, live, it, stk);
-        __syncwarp();
-        for (int c = 0; c < 3; ++c) acc[c] = cols[lane + (17 + c) * W_BLOCK];
-        break;
-      }
-    } else if (!active) {
-      break;
-    }
-    segment<CAN_PUSH, false, CULL, false, RAY>(
+    if (CULL ? !__any_sync(FULL_WARP, active) : !active) break;
+    segment<false, false, CULL, false, RAY>(
         T, cfg, it, i, n, nullptr, r, thr, acc, depth, sp, stk, active, seg,
         0, per_ray);
   }
@@ -1627,6 +1621,82 @@ paths_kernel(const float* __restrict__ rays, float* __restrict__ out,
         paths[(size_t)k * n + i] = 0;
     }
   }
+}
+
+// ---- the whole-trace kernel (whitted_launch; file header) ---------------
+
+// The Whitted colours of rays 0..n-1 (file header): thread i traces ray i
+// to its end (segment<>, the branch stack where CAN_PUSH) on a grid of
+// ceil(n / W_BLOCK) blocks, the tables in device memory. Culled, the
+// warp's masks, and once at most cfg.sw (coop_max) of the warp's lanes
+// hold a ray the cooperative tail runs them one at a time (coop_tail);
+// OWN, each lane's own masks within the warp's after the camera segment
+// where the warp's keeps more than cfg.own_min surfaces, as EMIT does.
+// Culled, four blocks an SM (128 registers a thread): without the minimum
+// ptxas took 154-168 registers (three blocks), which lost; unculled, five
+// (96 registers): without it ptxas took 104-107 (four blocks), 5-10%
+// slower.
+template <bool CAN_PUSH, bool CULL, bool OWN>
+__global__ void __launch_bounds__(W_BLOCK, CULL ? 4 : 5)
+whole_kernel(const float* __restrict__ rays, float* __restrict__ out, int n,
+             Tables T, Cfg cfg) {
+  static_assert(CULL || !OWN, "per-ray masks refine the warp's masks");
+  // culled, every lane of a warp runs the segment loop, with a ray or
+  // without one (active false): the warp collectives need the whole warp
+  const int i = blockIdx.x * W_BLOCK + threadIdx.x;
+  bool active = i < n;
+  if (!CULL && !active) return;   // unculled, a lane is on its own
+  Ray r;
+  r.ox = r.oy = r.oz = r.dx = r.dy = r.dz = r.tmn = 0.0f;
+  if (active) {
+    r.ox = rays[i];
+    r.oy = rays[n + i];
+    r.oz = rays[2 * n + i];
+    r.dx = rays[3 * n + i];
+    r.dy = rays[4 * n + i];
+    r.dz = rays[5 * n + i];
+    r.tmn = rays[6 * n + i];
+  }
+  r.tmx = BIG;
+  r.osrf = -1;
+  r.oside = 1;
+  r.thru = false;
+  r.olx = r.oly = r.olz = 0.0f;
+  r.orow = -1;
+  float thr[3] = {1.0f, 1.0f, 1.0f};
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  int depth = 0, sp = 0;
+  float stk[CAN_PUSH ? MAX_STACK : 1][SLOT];
+  int seg = cfg.max_segments;   // the segment this ray retired in
+  // the cooperative tail's columns: once at most cfg.sw of the warp's
+  // lanes hold a ray, each lane saves its state in its column and the warp
+  // runs those rays one at a time; then each lane takes back its sums
+  __shared__ float tail[CULL ? TAIL_WORDS * W_BLOCK : 1];
+  for (int it = 0; it < cfg.max_segments; ++it) {
+    if (CULL) {
+      const unsigned live = __ballot_sync(FULL_WARP, active);
+      if (!live) break;
+      if (__popc(live) <= cfg.sw) {
+        float* const cols = tail + (threadIdx.x & ~31u);
+        const int lane = (int)(threadIdx.x & 31u);
+        tail_save(cols + lane, r, thr, acc, depth, sp);
+        __syncwarp();
+        coop_tail<CAN_PUSH>(T, cfg, cols, live, it, stk);
+        __syncwarp();
+        for (int c = 0; c < 3; ++c) acc[c] = cols[lane + (17 + c) * W_BLOCK];
+        break;
+      }
+    } else if (!active) {
+      break;
+    }
+    segment<CAN_PUSH, false, CULL, false, OWN>(
+        T, cfg, it, i, n, nullptr, r, thr, acc, depth, sp, stk, active, seg,
+        0, OWN && it > 0);
+  }
+  if (i >= n) return;
+  out[i] = acc[0];
+  out[n + i] = acc[1];
+  out[2 * n + i] = acc[2];
 }
 
 // ---- path tracing (PT mode) -------------------------------------------
@@ -2006,19 +2076,19 @@ static cudaError_t resident_blocks(const void* kernel, int block,
   return cudaSuccess;
 }
 
-// whitted_kernel<CAN_PUSH, ROUND, cull != 0> over n threads, culled with
-// per-ray masks where OWN
-template <bool CAN_PUSH, int ROUND, bool OWN = false>
+// whitted_kernel<ROUND, cull != 0> over n threads, culled with per-ray
+// masks where OWN
+template <int ROUND, bool OWN = false>
 static int launch(const float* rays, float* out, float* state,
                   const int* idx, const int* count, int n, const Tables& T,
                   const Cfg& cfg, void* stream) {
   const dim3 block(W_BLOCK), grid((unsigned)((n + W_BLOCK - 1) / W_BLOCK));
   cudaStream_t s = (cudaStream_t)stream;
   if (cfg.cull)
-    whitted_kernel<CAN_PUSH, ROUND, true, OWN><<<grid, block, 0, s>>>(
+    whitted_kernel<ROUND, true, OWN><<<grid, block, 0, s>>>(
         rays, out, state, idx, count, n, T, cfg);
   else
-    whitted_kernel<CAN_PUSH, ROUND, false><<<grid, block, 0, s>>>(
+    whitted_kernel<ROUND, false><<<grid, block, 0, s>>>(
         rays, out, state, idx, count, n, T, cfg);
   return (int)cudaGetLastError();
 }
@@ -2059,23 +2129,38 @@ static int paths_kind(bool cull, bool sm, bool own) {
 // rays: (7, n) f32 SoA (ox oy oz dx dy dz tmin); out: (3, n) f32 SoA;
 // cull: the culling gates (Cfg.cull bits); coop_max (0..32): a culled
 // warp with at most this many rays left runs them one at a time on all
-// its lanes (0 never, 32 from the first segment). coop_max comes after
-// the stream, so that a caller of an entry point from before the
-// cooperative tail passes the arguments it reads.
+// its lanes (0 never, 32 from the first segment); own_min (>= 0) and
+// own_max: culled, the per-ray masks after the camera segment refine a
+// warp's mask that keeps more than own_min surfaces, in a launch of at
+// most own_max rays (a batch of several frames keeps the card busy, and
+// there the refinement costs more than it saves). Launches whole_kernel
+// on ceil(n / W_BLOCK) blocks. coop_max, own_min and own_max come after
+// the stream, so that a caller of an entry point from before them passes
+// the arguments it reads.
 extern "C" int whitted_launch(
     const float* rays, float* out, SCENE_PARAMS, int n, int ns, int nc,
     int nl, int depth, int max_segments, int stack, float cutoff,
-    int can_push, int cull, void* stream, int coop_max) {
+    int can_push, int cull, void* stream, int coop_max, int own_min,
+    int own_max) {
   if (n <= 0) return 0;
   if (stack < 1 || stack > MAX_STACK || !fits(ns, cull) || coop_max < 0 ||
-      coop_max > 32)
+      coop_max > 32 || own_min < 0)
     return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, max_segments, stack, cutoff, cull, coop_max};
-  return can_push ? launch<true, WHOLE>(rays, out, nullptr, nullptr,
-                                        nullptr, n, T, cfg, stream)
-                  : launch<false, WHOLE>(rays, out, nullptr, nullptr,
-                                         nullptr, n, T, cfg, stream);
+  const Cfg cfg{depth, max_segments, stack, cutoff, cull, coop_max, own_min};
+  // culled, per-ray masks after the camera segment where there is a
+  // segment after it and more than own_min surfaces to refine, as EMIT
+  const bool own = cull && max_segments > 1 && ns > own_min && n <= own_max;
+  using WholeKernel = void (*)(const float*, float*, int, Tables, Cfg);
+  static const WholeKernel kernels[2][3] = {
+      {whole_kernel<false, false, false>, whole_kernel<false, true, false>,
+       whole_kernel<false, true, true>},
+      {whole_kernel<true, false, false>, whole_kernel<true, true, false>,
+       whole_kernel<true, true, true>}};
+  const WholeKernel kern = kernels[can_push != 0][cull ? 1 + own : 0];
+  kern<<<(unsigned)((n + W_BLOCK - 1) / W_BLOCK), W_BLOCK, 0,
+         (cudaStream_t)stream>>>(rays, out, n, T, cfg);
+  return (int)cudaGetLastError();
 }
 
 // Path-record entry point, for a single-branch scene of at most 16 active
@@ -2150,10 +2235,10 @@ extern "C" int whitted_emit_launch(
   // k1 = 1 has no segment after the camera's, and a scene of at most
   // own_min surfaces no mask to refine: the warp's masks alone
   return k1 > 1 && ns > own_min
-             ? launch<false, EMIT, true>(rays, out, state, nullptr, nullptr,
-                                         n, T, cfg, stream)
-             : launch<false, EMIT>(rays, out, state, nullptr, nullptr, n, T,
-                                   cfg, stream);
+             ? launch<EMIT, true>(rays, out, state, nullptr, nullptr, n, T,
+                                  cfg, stream)
+             : launch<EMIT>(rays, out, state, nullptr, nullptr, n, T, cfg,
+                            stream);
 }
 
 // Round 2: resumes the rays idx[0..*count) of state (written by
@@ -2190,9 +2275,8 @@ extern "C" int whitted_resume_launch(
         state, idx, count, out, n, T, cfg);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  return launch<false, RESUME, true>(nullptr, out,
-                                     const_cast<float*>(state), idx, count,
-                                     n, T, cfg, stream);
+  return launch<RESUME, true>(nullptr, out, const_cast<float*>(state), idx,
+                              count, n, T, cfg, stream);
 }
 
 // Path-tracing entry point: one sample per ray. seeds: (n,) i32 LCG

@@ -191,8 +191,19 @@ RESUME_WARP_MAX = 4096
 # camera rays, whose narrow masks their own tests seldom shrink; RESUME's
 # dense mode holds survivors from all over the frame. Set from sweeps of
 # 0, 8, 16, 32 and 64 (scripts/ab_whitted.py, the 10 culled golden scenes
-# at 800x480 on an H100): the smallest sums of kernel ms
+# at 800x480 on an H100): the smallest sums of kernel ms. The main path's
+# culled walk (whitted_launch) and the path records take EMIT's too: the
+# same sweep of the main path's kernel gave 64 the smallest sum
+# (ab_whitted.py --own-min)
 EMIT_OWN_MIN_KEPT, RESUME_OWN_MIN_KEPT = 64, 0
+# the main path's per-ray masks only in a launch of at most this many rays:
+# a frame launched alone ends in a tail of few busy warps, whose walks the
+# masks shorten, while a batch of frames keeps the card busy and pays the
+# refinement on every ray. Set from one launch of 1, 2, 4, 8, 16 and 64
+# frames at 800x480 on the 10 culled golden scenes, masks on against off
+# (ab_whitted.py --frames, on an H100): the masks' sums 0.922, 0.966,
+# 0.994, 1.009, 1.016 and 1.021 of the warp's masks alone
+WHOLE_OWN_MAX_RAYS = 4 * 800 * 480
 # the path-record kernel (csrc/whitted.cu paths_kernel, PATHS_SMEM there):
 # each block of its persistent grid copies the scene tables it walks into
 # its shared memory where they fit in this many bytes, so that two blocks
@@ -233,6 +244,18 @@ def paths_staging(struct: KernelStruct):
         off.append(at)
         at += pad(b)
     return PathsStaging(tuple(off), tuple(nbytes), at)
+
+
+def whitted_instance(struct: KernelStruct, cfg, n: int) -> dict:
+    """The instantiation of ``whole_kernel`` that ``whitted_launch`` runs
+    for the scene, config and n rays (its own choice, mirrored): can_push,
+    cull (the gate's) and own (culled, per-ray masks after the camera
+    segment, in a launch of at most WHOLE_OWN_MAX_RAYS rays)."""
+    cull = cull_gates(struct, cfg).flags != 0
+    return dict(can_push=struct.can_push, cull=cull,
+                own=cull and cfg.max_segments > 1
+                and struct.n_real > EMIT_OWN_MIN_KEPT
+                and n <= WHOLE_OWN_MAX_RAYS)
 
 
 class CullGates(NamedTuple):
@@ -795,7 +818,8 @@ _SCENE_ARGS = [_VOIDP] * 12 + [_INT]   # sp_f ... cont_msk, rows
 # the C entry points' arguments, in csrc/whitted.cu order
 ARGTYPES = {
     "whitted_launch": ([_VOIDP] * 2 + _SCENE_ARGS + [_INT] * 7
-                       + [ctypes.c_float, _INT, _INT, _VOIDP, _INT]),
+                       + [ctypes.c_float, _INT, _INT, _VOIDP, _INT, _INT,
+                          _INT]),
     "whitted_paths_launch": ([_VOIDP] * 3 + _SCENE_ARGS + [_INT] * 6
                              + [ctypes.c_float, _INT, _VOIDP, _VOIDP, _INT,
                                 _INT]),
@@ -896,7 +920,10 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
     """Trace N rays to completion through the CUDA kernel; returns (N, 3)
     linear radiance. org (3,) or (N, 3), dirs (N, 3), t_min (N,), all
     f32 on the scene's device. A culled launch runs the cooperative tail
-    from COOP_MAX_LIVE rays a warp. CPU tensors take the plain tracer."""
+    from COOP_MAX_LIVE rays a warp, and, where it holds at most
+    WHOLE_OWN_MAX_RAYS rays, refines the warp's masks after the camera
+    segment by each ray's own (EMIT_OWN_MIN_KEPT). CPU tensors take the
+    plain tracer."""
     global launches
     if not 0 <= COOP_MAX_LIVE <= 32:
         raise ValueError(f"COOP_MAX_LIVE must be in 0..32, got "
@@ -920,7 +947,8 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
             N, struct.n_real, struct.nc, struct.nl,
             cfg.depth, cfg.max_segments, cfg.stack,
             cfg.cutoff, int(struct.can_push),
-            cull_gates(struct, cfg).flags, stream, COOP_MAX_LIVE)
+            cull_gates(struct, cfg).flags, stream, COOP_MAX_LIVE,
+            EMIT_OWN_MIN_KEPT, WHOLE_OWN_MAX_RAYS)
     if err != 0:
         raise RuntimeError(f"whitted kernel launch failed: CUDA error {err}")
     launches += 1

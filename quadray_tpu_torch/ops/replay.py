@@ -257,7 +257,9 @@ def replay_color(sc: SceneArrays, org, dirs, t_min, paths,
         f_rf = torch.where(metal, f_metal, f_plain)
         c_rfl = torch.where(rf_mask, m_rfl * f_rf, c_rfl)
 
-        lw = torch.clamp(1.0 - m_trn - m_rfl, min=0.0)
+        # jnp.maximum's gradient: one half at a tie with 0
+        lw = 1.0 - m_trn - m_rfl
+        lw = torch.maximum(lw, torch.tensor(0.0, dtype=lw.dtype))
         acc_r = acc_r + hitf * thr_r * col_r * lw
         acc_g = acc_g + hitf * thr_g * col_g * lw
         acc_b = acc_b + hitf * thr_b * col_b * lw

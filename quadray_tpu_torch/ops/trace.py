@@ -896,11 +896,14 @@ CHUNK = 1 << 15
 
 
 def trace_rays(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
-               stats=None):
+               stats=None, own=None):
     """Trace N rays to completion; returns (N, 3) linear radiance.
     Rays are independent, so they are traced CHUNK at a time. ``stats``,
-    a dict or None, gets the call's work added in (``count_work``)."""
-    return _chunked(sc, org, dirs, t_min, cfg, 0, stats=stats)[0]
+    a dict or None, gets the call's work added in (``count_work``).
+    ``own``: None, or per-ray masks from a bounce on (``_run``), as the
+    kernel's OWN instantiation takes them after the camera segment
+    (``(1, cuda_kernel.EMIT_OWN_MIN_KEPT)``); the same bits either way."""
+    return _chunked(sc, org, dirs, t_min, cfg, 0, stats=stats, own=own)[0]
 
 
 def trace_paths(sc: SceneArrays, org, dirs, t_min,
@@ -929,7 +932,8 @@ def trace_paths(sc: SceneArrays, org, dirs, t_min,
                     stats=stats)
 
 
-def _chunked(sc, org, dirs, t_min, cfg, k_paths, push=True, stats=None):
+def _chunked(sc, org, dirs, t_min, cfg, k_paths, push=True, stats=None,
+             own=None):
     N = dirs.shape[0]
     if org.dim() == 1:
         org = org[None, :].expand(N, 3)
@@ -938,7 +942,7 @@ def _chunked(sc, org, dirs, t_min, cfg, k_paths, push=True, stats=None):
     outs = [_trace_chunk(sc, org[i:i + CHUNK].to(el),
                          dirs[i:i + CHUNK].to(el),
                          t_min[i:i + CHUNK].to(el), cfg, k_paths, push,
-                         stats=stats, cull=cull)
+                         stats=stats, cull=cull, own=own)
             for i in range(0, N, CHUNK)]
     if not outs:
         return (torch.zeros((0, 3), dtype=el, device=dirs.device),
@@ -962,13 +966,13 @@ def trace_rays_diff(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
 
 def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
                  k_paths: int = 0, push: bool = True, fixed: bool = False,
-                 stats=None, cull=None):
+                 stats=None, cull=None, own=None):
     """Returns (acc (N, 3), paths (k_paths, N) i32); ``push`` lets a lane
     push the transmission where both branches go on; ``fixed`` runs all
     cfg.max_segments bounces instead of stopping once every lane retired;
-    ``cull``: see ``_run``."""
+    ``cull`` and ``own``: see ``_run``."""
     st, paths = _run(sc, cfg, _fresh_state(org, dirs, t_min, cfg.stack),
-                     k_paths, push, fixed, stats, cull)
+                     k_paths, push, fixed, stats, cull, own)
     return st["acc"], paths
 
 
@@ -1150,7 +1154,9 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
                                               cfg.schlick)
     # local color weight uses the ORIGINAL material rfl/trn (TR_mix,
     # tracer.cpp:3566-3571), not the Fresnel-modulated values
-    local_w = torch.clamp(1.0 - sc.m_trn[midx] - sc.m_rfl[midx], min=0.0)
+    # jnp.maximum's gradient: one half at a tie with 0 (rfl + trn == 1)
+    local_w = 1.0 - sc.m_trn[midx] - sc.m_rfl[midx]
+    local_w = torch.maximum(local_w, torch.tensor(0.0, dtype=local_w.dtype))
     acc = st["acc"] + torch.where(hit[:, None],
                                   st["thr"] * local * local_w[:, None], 0.0)
 

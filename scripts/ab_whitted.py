@@ -3,7 +3,8 @@
     python3 scripts/ab_whitted.py OTHER.cu [MORE.cu ...] [--rounds 8]
         [--reps 20] [--modes whitted paths emit resume pt]
         [--cull on off] [--k1 1 4] [--coop 0 1 2 4 8 16 32]
-        [--resume-warp 0 1024 n]
+        [--own-min 0 8 16 32 64] [--own-max N] [--resume-warp 0 1024 n]
+        [--frames 64]
         [--scenes test03 test10 ...] [--rounds-scenes test13 demo02 ...]
         [--paths-scenes test01 test13 demo03 | single] [--sweep-others]
         [--sass]
@@ -19,9 +20,10 @@ whose whitted_launch does (before the cooperative tail) or whose
 whitted_emit_launch and whitted_resume_launch do (before per-ray masks
 and RESUME's two modes; the parent of that change times the warp's masks
 after EMIT's camera segment) is called with this checkout's arguments
-too: the cull flags, coop_max, the rounds' own_min and RESUME's warp_max
-come after the stream, and it ignores them. All are built with the
-port's nvcc flags and loaded into one process; the ptxas lines
+too: the cull flags, coop_max, the Whitted mode's own_min and own_max
+(before whole_kernel), the rounds' own_min and RESUME's warp_max come
+after the stream, and it ignores them. All are built with the port's
+nvcc flags and loaded into one process; the ptxas lines
 (registers, stack frame, spills) of every build are printed, one line
 each for every template instantiation. For each
 case (a scene at 800x480, the Whitted mode, the path-record mode of the
@@ -36,7 +38,13 @@ more versions (a1, a2, ... in the order given) a round is
 a1 a2 ... b b ... a2 a1. --coop sweeps this checkout's coop_max (the
 cooperative tail's switch, ops/cuda_kernel.py COOP_MAX_LIVE, the default)
 in the Whitted cases: each value is a version of its own (b0, b4, ...),
-timed in the same rounds (a b0 b4 b4 b0 a); --resume-warp sweeps
+timed in the same rounds (a b0 b4 b4 b0 a); --frames K times the Whitted
+cases as one launch of K frames' rays, as the port's bench batches them;
+--own-min sweeps the Whitted cases' own_min (the per-ray masks' floor,
+ops/cuda_kernel.py EMIT_OWN_MIN_KEPT, the default) the same way (o0, o8,
+...; a value above every scene's surfaces turns the masks off), and
+--own-max sets their own_max (the most rays of a launch with per-ray
+masks, WHOLE_OWN_MAX_RAYS by default); --resume-warp sweeps
 RESUME's switch (warp_max, ops/cuda_kernel.py RESUME_WARP_MAX; n: every
 ray, so always a warp per survivor) in the resume cases the same way;
 --sweep-others sweeps
@@ -45,8 +53,8 @@ the OTHER versions too (a0, a4, ...: variants of this checkout's design).
 --rounds-scenes replaces their scenes; --paths-scenes replaces the
 path-record cases' scenes ("single": every single-branch golden scene).
 --sass counts, from cuobjdump -sass of every build, each path-record
-kernel's loads by kind: LDG (device memory), LDS (shared), LD (generic),
-LDL/STL (local memory: the stack and spills).
+and whole-trace kernel's loads by kind: LDG (device memory), LDS
+(shared), LD (generic), LDL/STL (local memory: the stack and spills).
 Prints each case's range and
 mean per version, then one JSON line with every case's times, means and
 the ratio of the means of each version of this checkout to each other
@@ -136,16 +144,19 @@ SASS_KINDS = ("LDG", "LDS", "LD", "LDL", "STL")
 
 
 def sass_loads(which: str, path: str):
-    """Prints, for each path-record kernel of the library at path, its
-    SASS load and store instructions by kind (cuobjdump -sass)."""
+    """Prints, for each path-record and whole-trace kernel of the library
+    at path, its SASS load and store instructions by kind (cuobjdump
+    -sass)."""
     from quadray_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
     for chunk in text.split("Function : ")[1:]:
         name = chunk.split(None, 1)[0]
-        # whitted_kernel<CAN_PUSH, EMIT_PATHS = true, ...> or paths_kernel
-        if "paths_kernel" not in name and "whitted_kernelILb0ELb1E" not in name:
+        # paths_kernel, whole_kernel, or a parent's megakernel instantiation
+        # with EMIT_PATHS (whitted_kernel<CAN_PUSH, EMIT_PATHS = true, ...>)
+        if not any(k in name for k in ("paths_kernel", "whole_kernel",
+                                       "whitted_kernelILb0ELb1E")):
             continue
         ops = []
         for ln in chunk.splitlines():
@@ -173,12 +184,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
-             opt):
+             opt, frames: int = 1):
     """(run, tensors to keep alive): run() launches lib's kernel on the
     case's inputs, culled as the default TraceConfig's gates say or not
     at all, and returns its output buffer; the rounds split after k1
-    segments. opt: the Whitted mode's coop_max, RESUME's warp_max ("n":
-    every ray)."""
+    segments. opt: the Whitted mode's (coop_max, own_min, own_max),
+    RESUME's warp_max ("n": every ray)."""
     from quadray_tpu_torch.models.scenes.loader import load_scene
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.rays import camera_rays
@@ -193,6 +204,10 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
         sc = with_emission(sc, PT_EMISSION[name])
     org, dirs = camera_rays(sc.cam_pos, sc.cam_hor, sc.cam_ver, sc.cam_nrm,
                             sc.cam_pov, W, H, 1)
+    if mode == "whitted" and frames > 1:
+        # one launch of several frames' rays one after another, as the
+        # port's bench batches them
+        dirs = dirs.repeat(frames, 1)
     tmin = sc.cam_pov.expand(dirs.shape[0])
     struct = ck.scene_struct(sc)
     ps = ck.pack_scene(sc, struct)
@@ -211,7 +226,7 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
                                                 stack=4)), cull=cull))
         last = [gates.flags, stream]
         if mode == "whitted":
-            last.append(opt)
+            last += list(opt)
         elif mode == "resume":
             last += [n if opt == "n" else min(int(opt), n),
                      ck.RESUME_OWN_MIN_KEPT]
@@ -326,6 +341,15 @@ def main():
     ap.add_argument("--coop", type=int, nargs="+", default=None,
                     help="coop_max values of this checkout's Whitted cases "
                     "(default COOP_MAX_LIVE alone)")
+    ap.add_argument("--frames", type=int, default=1,
+                    help="frames a Whitted launch traces, their rays one "
+                    "after another (the port's bench batches 8 and 64)")
+    ap.add_argument("--own-min", type=int, nargs="+", default=None,
+                    help="own_min values of this checkout's Whitted cases "
+                    "(default EMIT_OWN_MIN_KEPT alone)")
+    ap.add_argument("--own-max", type=int, default=None,
+                    help="own_max of this checkout's Whitted cases (default "
+                    "WHOLE_OWN_MAX_RAYS)")
     ap.add_argument("--resume-warp", nargs="+", default=None,
                     help="warp_max values (integers, or n for every ray) of "
                     "this checkout's resume cases (default RESUME_WARP_MAX "
@@ -334,7 +358,8 @@ def main():
                     help="the path-record cases' scenes (default: CASES'; "
                     "single: every single-branch golden scene)")
     ap.add_argument("--sass", action="store_true",
-                    help="count the path-record kernels' SASS loads")
+                    help="count the path-record and whole-trace kernels' "
+                    "SASS loads")
     ap.add_argument("--sweep-others", action="store_true",
                     help="sweep --coop and --resume-warp on the OTHER "
                     "versions too")
@@ -364,17 +389,25 @@ def main():
         for k, lib in libs.items():
             sass_loads(k, lib._name)
     from quadray_tpu_torch.ops.cuda_kernel import (
-        COOP_MAX_LIVE, RESUME_WARP_MAX, ROUNDS_K1)
+        COOP_MAX_LIVE, EMIT_OWN_MIN_KEPT, RESUME_WARP_MAX, ROUNDS_K1,
+        WHOLE_OWN_MAX_RAYS)
+    own_max = WHOLE_OWN_MAX_RAYS if args.own_max is None else args.own_max
     result = {"device": smi, "other": dict(zip(labels, args.other)),
               "rounds": args.rounds, "reps": args.reps,
+              "frames": args.frames,
               "coop_max_live": COOP_MAX_LIVE,
+              "own_min": EMIT_OWN_MIN_KEPT, "own_max": own_max,
               "resume_warp_max": RESUME_WARP_MAX, "cases": {}}
     # each mode's option (launcher's opt): its default and the sweep's
     # values, {version suffix: value}
-    default = {"whitted": COOP_MAX_LIVE, "emit": None,
+    default = {"whitted": (COOP_MAX_LIVE, EMIT_OWN_MIN_KEPT, own_max),
+               "emit": None,
                "resume": RESUME_WARP_MAX, "paths": None, "pt": None}
-    sweeps = {"whitted": {str(c): c for c in args.coop or ()},
-              "resume": {w: w for w in args.resume_warp or ()}}
+    sweeps = {"whitted": {
+        **{str(c): (c, EMIT_OWN_MIN_KEPT, own_max)
+           for c in args.coop or ()},
+        **{f"o{m}": (COOP_MAX_LIVE, m, own_max) for m in args.own_min or ()}},
+        "resume": {w: w for w in args.resume_warp or ()}}
     table = CASES if args.scenes is None else (
         [(n, "whitted") for n in args.scenes]
         + [c for c in CASES if c[1] != "whitted"])
@@ -406,10 +439,11 @@ def main():
                    for v, c in sweep.items()}
                   if sweep and args.sweep_others
                   else {k: (k, default[mode]) for k in labels})
-        runs = {v: launcher(libs[k], name, mode, dev, cull == "on", k1, c)
+        runs = {v: launcher(libs[k], name, mode, dev, cull == "on", k1, c,
+                            args.frames)
                 for v, (k, c) in others.items()}
         runs.update({k: launcher(libs["b"], name, mode, dev, cull == "on",
-                                 k1, c) for k, c in mine.items()})
+                                 k1, c, args.frames) for k, c in mine.items()})
         outs = {k: runs[k][0]().clone() for k in runs}
         torch.cuda.synchronize()
         ref = next(iter(mine))

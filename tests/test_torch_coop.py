@@ -176,8 +176,9 @@ def test_coop_max_is_passed_to_the_launch(monkeypatch):
     ck.trace_rays_cuda(sc, meta(3), meta(64, 3), meta(64))
     (args,) = calls
     assert len(args) == len(ck.ARGTYPES["whitted_launch"])
-    assert args[-2:] == (1234, 7)
-    assert args[-3] == ck.cull_gates(ck.scene_struct(sc),
+    # then the per-ray masks' floor and their most rays
+    assert args[-4:-2] == (1234, 7)
+    assert args[-5] == ck.cull_gates(ck.scene_struct(sc),
                                      TraceConfig()).flags != 0
     assert ck.launches == before + 1
 
