@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only L   # kernel build + the parallel layer
     python3 chip_smoke.py --only M   # kernel build + the port's bench
     python3 chip_smoke.py --only N   # kernel build + the main path's kernel
+    python3 chip_smoke.py --only O   # kernel build + a CUDA graph a frame
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points), the conformance kernels, the culling tables' kernels
@@ -64,8 +65,8 @@ nvcc processes, then:
      (global mean per channel < 2.5, 16x16 block mean < 3.5, p95 < 9,
      max < 18), with exactly 64 PT launches; E3 the engine's state across
      calls: render_pt_pass(1) then render_pt_pass(3) equal one
-     render_pt_cuda of 4 passes, bitwise (one pass loop serves both; there
-     is no fused path); E4 ms per pass (mean of 20 after 2 warm-up passes,
+     render_pt_cuda of 4 passes, bitwise (both replay a pass program's
+     graph a pass, ops/graphs.py); E4 ms per pass (mean of 20 after 2 warm-up passes,
      CUDA events), the kernel alone, the plain version's pass, the call's
      iteration count M, the nodes run and the share of issue slots a
      one-sample-per-thread layout would fill (warps of 32 consecutive
@@ -130,11 +131,12 @@ nvcc processes, then:
      on the same compiled arrays; the final camera equal to a host replay
      of the trace through CameraController; J3 the interactive frame's
      cost, demo01-03 and test13 at 800x480 with a camera action each
-     frame, two runs of 60 frames: AVG FPS, and in the same loop ms/frame
-     split into the update (the incremental update's numeric pass), the
-     table build (the parts of the pack whose fields moved) and the rest,
-     the kernel's device ms (CUDA events) and the card's share of the
-     window the kernel kept busy; beside the update and the table build,
+     frame, two runs of 60 frames through Scene.render (one replay of the
+     frame program's graph a frame): AVG FPS, and in the same loop
+     ms/frame split into the update (the incremental update's numeric
+     pass), the table build (the parts of the pack whose fields moved) and
+     the rest, the frame graph's device ms (CUDA events) and the card's
+     share of the window it kept busy; beside the update and the table build,
      a full compile_scene and pack_scene at 10 of the same frames' times
      and cameras; J4 float64 rays and a float64 scene raise ValueError
      before any launch; J5 plot_fresnel on the card against -c; J6 the
@@ -193,6 +195,24 @@ nvcc processes, then:
      naming the card and its power limit; the line printed with an M2
      prefix; M3 each scene's marginal ms/frame beside phase B's
      render_cuda ms/frame and main_path_ms_per_frame (printed, not held).
+  O. one CUDA graph a frame and a pass (quadray_tpu_torch/ops/graphs.py:
+     Scene.render replays the scene's frame program, render_pt_pass and
+     render_pt_cuda a pass program a pass): O1 the 21 golden scenes
+     through Scene.render, the capture frame and a replayed one
+     uint8-equal to render_cuda + to_frame, one launch each, the capture
+     ms; O2 J3's trace on demo01-03 and test13, every frame uint8-equal
+     to render_cuda + to_frame, one launch a frame, every returned frame
+     unchanged at the end, the inputs copied a frame, and demo02 at fsaa
+     2 (a new program); O3 E2's and E5's 64 passes (test18; test13 and
+     demo03 culled) through render_pt_pass, one PT launch a pass, sum,
+     seeds and frame bitwise pt_passes' from the same seeds, a test18
+     checkpoint after 32 graphed passes resumed in a new Scene bitwise
+     the 64 eager passes, and render_pt_cuda's 4 graphed passes bitwise
+     the eager ones; O4 eager against graphed in this process, a b b a:
+     J3's split, main_path_ms_per_frame on the bench's ten scenes and
+     bench_pt's ms/spp-pass; O5 one torch.profiler window each of an
+     interactive frame (demo02) and a PT pass (test18), eager and
+     graphed: host launch calls, device ops and ms, busy share.
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -1160,8 +1180,8 @@ def phase_e2(dev):
 def phase_e3(dev, scene):
     """The engine carries its pass state (sum, seeds, sample count) across
     calls: 1 then 3 passes through render_pt_pass equal one render_pt_cuda
-    of 4 passes from fresh seeds. Both run ops/cuda_kernel.py pt_passes;
-    the port has no fused path."""
+    of 4 passes from fresh seeds. Both replay a pass program's graph a
+    pass (ops/graphs.py), the Scene's and render_pt_cuda's own."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.pt import init_seeds
     from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
@@ -2150,6 +2170,12 @@ J3_FRAMES = 60
 J3_RUNS = 2
 # J3's frames whose full compile and pack are timed beside the update
 J3_FULL = 10
+# phase O: eager against graphed in this order (a b b a), the passes of
+# the test18 run checkpointed and resumed, and the frames or passes of
+# each profiler window
+O_ABBA = ("eager", "graph", "graph", "eager")
+O_CHECKPOINT = 32
+O_PROFILED = 10
 
 
 @contextlib.contextmanager
@@ -2296,19 +2322,47 @@ def phase_j2(dev):
     return total
 
 
-@contextlib.contextmanager
-def timed_render_calls(sc):
-    """Time the calls Scene.render makes, in place, on ``sc``: the host
-    clock around sc.update (compile_scene with the camera) and around
-    ck._get_packed (pack_scene and the culling tables, inside
-    render_cuda), and a CUDA event pair around the Whitted kernel's launch
-    (recorded after the launch inputs are ready and after
-    trace_rays_cuda returns). No synchronisation is added. Yields a dict
-    of per-call lists: update and pack (host ms), kernel (event pairs)."""
+def eager_render(sc, t):
+    """Scene.render's Whitted frame issued op by op, as before the frame
+    programs (the yardstick they are held to): the update, render_linear
+    (render_cuda: camera rays, the kernel, clamp, the AA mean), to_frame
+    and a pageable copy to the host."""
+    from quadray_tpu_torch.ops.trace import to_frame
+    sc.update(t)
+    return to_frame(sc.render_linear(), sc.arrays.use_gamma).cpu().numpy()
+
+
+def eager_render_pt(sc, w, h, seeds, spp, cfg, struct=None):
+    """render_pt_cuda issued op by op, as before the pass programs: spp
+    passes of pt_passes from a zero sum, then the mean."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
+    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=seeds.device)
+    acc, seeds = ck.pt_passes(sc, w, h, acc, seeds, spp, cfg, struct)
+    return (acc / float(max(spp, 1))).reshape(h, w, 3), seeds
+
+
+# J3's two ways to render a frame: eager_render, or Scene.render, which
+# replays the scene's frame program (ops/graphs.py)
+J3_RENDER = {"eager": eager_render, "graph": lambda sc, t: sc.render(t)}
+
+
+@contextlib.contextmanager
+def timed_render_calls(sc, mode: str = "graph"):
+    """Time the calls a frame makes, in place, on ``sc``: the host clock
+    around sc.update (the incremental update) and around ck._get_packed
+    (the tables whose fields moved), and a CUDA event pair around the
+    device work: in "eager" mode around the Whitted kernel's launch
+    (recorded after the launch inputs are ready and after
+    trace_rays_cuda returns), in "graph" mode around the frame program's
+    launch (FrameProgram.launch: the replay of the whole frame's graph).
+    No synchronisation is added. Yields a dict of per-call lists: update
+    and pack (host ms), kernel (event pairs)."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import graphs
     rec = {"update": [], "pack": [], "kernel": []}
     saved = {k: getattr(ck, k) for k in ("_get_packed", "_launch_inputs",
                                          "trace_rays_cuda")}
+    launch = graphs.FrameProgram.launch
 
     def host_timed(key, fn):
         def call(*a, **k):
@@ -2318,30 +2372,40 @@ def timed_render_calls(sc):
             return out
         return call
 
-    def launch_inputs(*a, **k):
-        out = saved["_launch_inputs"](*a, **k)
+    def event():
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        rec["kernel"].append([ev, None])
+        return ev
+
+    def launch_inputs(*a, **k):
+        out = saved["_launch_inputs"](*a, **k)
+        rec["kernel"].append([event(), None])
         return out
 
     def trace(*a, **k):
         out = saved["trace_rays_cuda"](*a, **k)
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        rec["kernel"][-1][1] = ev
+        rec["kernel"][-1][1] = event()
         return out
+
+    def replay(prog):
+        start = event()
+        launch(prog)
+        rec["kernel"].append([start, event()])
 
     sc.update = host_timed("update", sc.update)
     ck._get_packed = host_timed("pack", saved["_get_packed"])
-    ck._launch_inputs = launch_inputs
-    ck.trace_rays_cuda = trace
+    if mode == "eager":
+        ck._launch_inputs = launch_inputs
+        ck.trace_rays_cuda = trace
+    else:
+        graphs.FrameProgram.launch = replay
     try:
         yield rec
     finally:
         del sc.update
         for k, v in saved.items():
             setattr(ck, k, v)
+        graphs.FrameProgram.launch = launch
 
 
 def j3_scene(name):
@@ -2414,21 +2478,24 @@ def update_steps_ms(sc, frames):
     return {k: float(np.mean(v)) for k, v in rec.items()}
 
 
-def phase_j3(dev, smi):
-    """The interactive frame's cost at 800x480: Scene.render after the
-    trace's camera action, every frame the incremental update (the
-    numeric pass and the tables its moved fields feed). Per scene J3_RUNS
-    runs of J3_FRAMES frames, each on a new Scene, as render_cli's loop
-    runs them: AVG FPS on the host clock, and in the same loop and frames
-    (timed_render_calls) ms/frame split into the update, the table build,
-    and the rest (the kernel's launch, to_frame, the wait for the card and
-    the copy to the host); the kernel's device ms from CUDA events, and
-    the card's share of the window (an event pair around the loop) that
-    the kernel kept it busy. Then, beside the update and the table build,
-    the host ms of a full compile_scene and pack_scene (the path before
-    the incremental update) at 10 of the same frames' times and cameras,
-    and the update's steps and pack parts timed alone at those frames
-    (update_steps_ms)."""
+def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
+             extras=True):
+    """The interactive frame's cost at 800x480: a frame after the trace's
+    camera action, every frame the incremental update (the numeric pass
+    and the tables its moved fields feed). Per scene a run of J3_FRAMES
+    frames for each of ``modes``, each on a new Scene, as render_cli's
+    loop runs them: "graph" Scene.render (one replay of the frame
+    program), "eager" eager_render. AVG FPS on the host clock, and in the
+    same loop and frames (timed_render_calls) ms/frame split into the
+    update, the table build, and the rest (the launch or the replay,
+    to_frame, the wait for the card and the copy to the host); the
+    device ms of the kernel (eager) or of the frame's whole graph (graph)
+    from CUDA events, and the card's share of the window (an event pair
+    around the loop) that it kept the card busy. With ``extras``, beside
+    the update and the table build, the host ms of a full compile_scene
+    and pack_scene (the path before the incremental update) at 10 of the
+    same frames' times and cameras, and the update's steps and pack parts
+    timed alone at those frames (update_steps_ms)."""
     from quadray_tpu_torch import Scene
     from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
     from quadray_tpu_torch.ops import cuda_kernel as ck
@@ -2437,13 +2504,14 @@ def phase_j3(dev, smi):
     launches = cull = 0
     results = {}
     for name in J3_SCENES:
-        for run in range(J3_RUNS):
+        for run, mode in enumerate(modes):
+            render = J3_RENDER[mode]
             sc = Scene(sdef(name), W, H, device=dev)
-            sc.render(0.0)                # first compile, kernel structure
+            render(sc, 0.0)      # first compile, kernel structure, capture
             ck.launches = ck.cull_launches = 0
             w0, w1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             frame_ms, frames = [], []
-            with timed_render_calls(sc) as rec:
+            with timed_render_calls(sc, mode) as rec:
                 w0.record()
                 t0 = time.perf_counter()
                 for fi in range(1, J3_FRAMES + 1):
@@ -2451,7 +2519,7 @@ def phase_j3(dev, smi):
                     for key in tokens[fi % len(tokens)].split("+"):
                         if key in KEY_ACTIONS:
                             sc.update_action(frame_time(fi), KEY_ACTIONS[key])
-                    sc.render(frame_time(fi))
+                    render(sc, frame_time(fi))
                     frame_ms.append((time.perf_counter() - tf) * 1e3)
                     if len(frames) < J3_FULL:
                         frames.append((frame_time(fi), sc.camera.trm()
@@ -2464,14 +2532,15 @@ def phase_j3(dev, smi):
             cull += run_cull
             if not (ck.launches == len(rec["update"]) == len(rec["pack"])
                     == len(rec["kernel"]) == J3_FRAMES):
-                raise AssertionError(f"J3 {name}: {ck.launches} launches, "
-                                     f"{len(rec['kernel'])} timed")
+                raise AssertionError(f"{label} {name} {mode}: {ck.launches} "
+                                     f"launches, {len(rec['kernel'])} timed")
             kern = [a.elapsed_time(b) for a, b in rec["kernel"]]
             window = w0.elapsed_time(w1)
             upd, pack = np.array(rec["update"]), np.array(rec["pack"])
             rest = np.array(frame_ms) - upd - pack
-            full_comp, full_pack = full_update_ms(sc, frames)
-            r = dict(fps=J3_FRAMES / dt, ms=dt * 1e3 / J3_FRAMES,
+            full_comp, full_pack = (full_update_ms(sc, frames) if extras
+                                    else (float("nan"),) * 2)
+            r = dict(mode=mode, fps=J3_FRAMES / dt, ms=dt * 1e3 / J3_FRAMES,
                      update=upd.mean(), pack=pack.mean(), rest=rest.mean(),
                      kernel=float(np.mean(kern)),
                      busy=sum(kern) / window,
@@ -2481,20 +2550,23 @@ def phase_j3(dev, smi):
                      pack_10=pack[:J3_FULL].mean(),
                      cull=run_cull)
             results.setdefault(name, []).append(r)
-            log(f"J3 {name} run {run + 1} {W}x{H} ({smi}): AVG FPS="
-                f"{r['fps']:.2f} ms/frame={r['ms']:.3f} = update "
+            what = "kernel" if mode == "eager" else "frame graph"
+            log(f"{label} {name} run {run + 1} ({mode}) {W}x{H} ({smi}): AVG "
+                f"FPS={r['fps']:.2f} ms/frame={r['ms']:.3f} = update "
                 f"{r['update']:.3f} (min {r['update_min']:.3f}, max "
                 f"{r['update_max']:.3f}) + table build {r['pack']:.3f} + "
                 f"launch, to_frame, wait and copy {r['rest']:.3f} (mean of "
-                f"{J3_FRAMES}, host clock, same loop); kernel device "
+                f"{J3_FRAMES}, host clock, same loop); {what} device "
                 f"{r['kernel']:.4f} ms (CUDA events), card busy with the "
-                f"kernel {100 * r['busy']:.2f}% of the {window:.1f} ms window;"
-                f" on its first {J3_FULL} frames update {r['update_10']:.3f}"
+                f"{what} {100 * r['busy']:.2f}% of the {window:.1f} ms "
+                f"window; on its first {J3_FULL} frames update {r['update_10']:.3f}"
                 f" + table build {r['pack_10']:.3f} against a full "
                 f"compile_scene {r['full_compile']:.3f} + pack_scene "
                 f"{r['full_pack']:.3f} at the same times and cameras (host "
                 f"clock, mean of {J3_FULL}); culling-table kernel launches "
                 f"{r['cull']}")
+        if not extras:
+            continue
         steps = update_steps_ms(sc, frames)
         results[name][-1]["steps"] = steps
         log(f"J3 {name} steps, each called alone at the last run's first "
@@ -3170,6 +3242,354 @@ def phase_n3(dev):
     return out
 
 
+def eager_pt_frame(acc, samples, use_gamma, w=W, h=H):
+    """Scene.render_pt_pass's frame of a running sum issued op by op, as
+    before the pass programs."""
+    from quadray_tpu_torch.ops.trace import to_frame
+    img = torch.clamp(acc / max(samples, 1), 0.0, 1.0).reshape(h, w, 3)
+    return to_frame(img, use_gamma).cpu().numpy()
+
+
+def phase_o1(dev):
+    """The golden scenes through Scene.render: the first frame (the
+    frame program's warm-up, then its capture) and a replayed one, each
+    uint8-equal to render_cuda + to_frame, one Whitted launch each (the
+    count set to 0 before and read after). Returns the capture ms
+    (warm-up and capture, set-up) by scene."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import graphs
+    from quadray_tpu_torch.ops.trace import to_frame
+    capture, fails = {}, []
+    for n in SCENES:
+        sc = Scene(load_scene(n), W, H, device=dev)
+        ck.launches = 0
+        frames = [sc.render(0.0), sc.render(0.0)]
+        torch.cuda.synchronize()
+        launches = ck.launches
+        want = to_frame(ck.render_cuda(sc.arrays, W, H, sc.pfm.fsaa,
+                                       sc._cfg(), sc._struct),
+                        sc.arrays.use_gamma).cpu().numpy()
+        replay = sc._frame_prog.replay
+        same = [np.array_equal(f, want) for f in frames]
+        capture[n] = replay.ms
+        log(f"O1 {n}: capture frame, replayed frame uint8-equal to "
+            f"render_cuda + to_frame: {same}; launches {launches}; "
+            f"warm-up + capture {replay.ms:.1f} ms; the graph's launches "
+            f"{replay.counts}")
+        if not all(same) or launches != 2 or not isinstance(
+                replay, graphs.Replay) or replay.counts != {"launches": 1}:
+            fails.append(n)
+        del sc
+    if fails:
+        raise AssertionError(f"O1: graphed frames differ or miscounted: "
+                             f"{fails}")
+    v = sorted(capture.values())
+    log(f"O1 capture (set-up, host ms, warm-up and capture of a frame "
+        f"program) over the {len(v)} scenes: min {v[0]:.1f}, median "
+        f"{v[len(v) // 2]:.1f}, max {v[-1]:.1f}")
+    return capture
+
+
+def phase_o2(dev):
+    """J3's trace on demo01-03 and test13 through Scene.render (one
+    replay a frame after the first), every frame uint8-equal to
+    render_cuda + to_frame on the frame's arrays, one Whitted launch a
+    frame; every frame returned kept as it was to the end; the inputs
+    the frame program copied a frame (none where nothing moved). Then
+    fsaa 2 (a new key, so a new capture) on demo02 for three frames."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.trace import to_frame
+    tokens = J3_TRACE.split(",")
+
+    def eager(sc):
+        return to_frame(ck.render_cuda(sc.arrays, W, H, sc.pfm.fsaa,
+                                       sc._cfg(), sc._struct),
+                        sc.arrays.use_gamma).cpu().numpy()
+
+    for name in J3_SCENES:
+        sc = Scene(j3_scene(name), W, H, device=dev)
+        kept, bad, copies = [], [], []
+        for fi in range(J3_FRAMES + 1):
+            t = frame_time(fi)
+            for key in tokens[fi % len(tokens)].split("+"):
+                if fi and key in KEY_ACTIONS:
+                    sc.update_action(t, KEY_ACTIONS[key])
+            n0 = sc._frame_prog.inputs.copies if fi else 0
+            ck.launches = 0
+            frame = sc.render(t)
+            if ck.launches != 1:
+                raise AssertionError(f"O2 {name} frame {fi}: {ck.launches} "
+                                     "launches")
+            copies.append(sc._frame_prog.inputs.copies - n0)
+            if not np.array_equal(frame, eager(sc)):
+                bad.append(fi)
+            kept.append((frame, frame.copy()))
+        changed = [i for i, (a, b) in enumerate(kept)
+                   if not np.array_equal(a, b)]
+        fsaa = []
+        if name == "demo02":
+            sc.pfm.set_fsaa(2)
+            prog = sc._frame_prog
+            for fi in range(J3_FRAMES + 1, J3_FRAMES + 4):
+                fsaa.append(np.array_equal(sc.render(frame_time(fi)),
+                                           eager(sc)))
+            fsaa.append(sc._frame_prog is not prog)
+        log(f"O2 {name} {W}x{H}: {J3_FRAMES + 1} frames of J3's trace "
+            f"graphed, uint8-equal to render_cuda + to_frame: "
+            f"{'all' if not bad else f'not at {bad}'}; returned frames "
+            f"changed later: {changed or 'none'}; inputs copied a frame "
+            f"after the first: {sorted(set(copies[1:]))} (frames that "
+            f"copied none: {copies[1:].count(0)})"
+            + (f"; fsaa 2, a new program, three frames equal: {fsaa}"
+               if fsaa else ""))
+        if bad or changed or not all(fsaa):
+            raise AssertionError(f"O2 {name}: frames {bad}, changed "
+                                 f"{changed}, fsaa {fsaa}")
+        del sc, kept
+        torch.cuda.empty_cache()
+
+
+def phase_o3(dev):
+    """Graphed passes against the eager ones, bitwise: E2's 64 passes on
+    test18 and E5's culled test13 and demo03 through render_pt_pass (one
+    PT launch a pass), the sum, seeds and frame against pt_passes' from
+    the same seeds; a test18 checkpoint after O_CHECKPOINT passes resumed
+    in a new Scene for the rest against the 64 eager passes; and
+    render_pt_cuda's graphed passes against eager_render_pt. Returns the
+    pass programs' capture ms."""
+    import tempfile
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.pt import init_seeds
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    from quadray_tpu_torch.parallel.checkpoint import (load_checkpoint,
+                                                       save_checkpoint)
+    cfg = TraceConfig(depth=PT_DEPTH)
+    same = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32)) \
+        if a.dtype == torch.float32 else torch.equal(a, b)
+
+    def pt_scene(name):
+        sc = Scene(load_scene(name), W, H, device=dev)
+        sc.update(0.0)
+        if not sc.set_pton(True):
+            raise AssertionError(f"O3 {name}: set_pton(True) refused")
+        return sc
+
+    capture, eager64 = {}, None
+    for name in ("test18",) + PT_HEAVY:
+        sc = pt_scene(name)
+        ck.pt_launches = 0
+        frame = sc.render_pt_pass(PT_PASSES)
+        torch.cuda.synchronize()
+        launches = ck.pt_launches
+        acc, seeds = ck.pt_passes(
+            sc.arrays, W, H, torch.zeros((W * H, 3), device=dev),
+            init_seeds(W * H, device=dev), PT_PASSES, cfg, sc._struct)
+        want = eager_pt_frame(acc, PT_PASSES, sc.arrays.use_gamma)
+        ok = [same(sc._pt_acc, acc), same(sc._pt_seeds, seeds),
+              np.array_equal(frame, want)]
+        prog = sc._pass_prog
+        capture[name] = (prog.replay.ms, prog.frame_replay.ms)
+        log(f"O3 {name} {W}x{H} {PT_PASSES} graphed passes against "
+            f"pt_passes: sum, seeds, frame bitwise {ok}; pt_launches "
+            f"{launches}; warm-up + capture of the pass "
+            f"{capture[name][0]:.1f} ms, of the frame {capture[name][1]:.1f}"
+            f" ms; gate cull="
+            f"{ck.cull_gates(sc._struct, cfg, pt=True).cull}")
+        if not all(ok) or launches != PT_PASSES:
+            raise AssertionError(f"O3 {name}: {ok}, {launches} launches")
+        if name == "test18":
+            eager64 = (acc, seeds, want)
+        img, out = ck.render_pt_cuda(sc.arrays, W, H,
+                                     init_seeds(W * H, device=dev), 4, cfg,
+                                     sc._struct)
+        img2, out2 = eager_render_pt(sc.arrays, W, H,
+                                     init_seeds(W * H, device=dev), 4, cfg,
+                                     sc._struct)
+        if not (same(img, img2) and same(out, out2)):
+            raise AssertionError(f"O3 {name}: render_pt_cuda's graphed "
+                                 "passes differ from the eager ones")
+        del sc, acc, seeds, img, img2
+        torch.cuda.empty_cache()
+    first = pt_scene("test18")
+    first.render_pt_pass(O_CHECKPOINT)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(tmp, O_CHECKPOINT, None, None,
+                               first.pt_state())
+        pt = load_checkpoint(path, device=dev, with_pt=True)[3]
+    resumed = pt_scene("test18")
+    resumed.set_pt_state(pt)
+    frame = resumed.render_pt_pass(PT_PASSES - O_CHECKPOINT)
+    ok = [same(resumed._pt_acc, eager64[0]),
+          same(resumed._pt_seeds, eager64[1]),
+          np.array_equal(frame, eager64[2])]
+    log(f"O3 test18 checkpoint after {O_CHECKPOINT} graphed passes, resumed "
+        f"in a new Scene for {PT_PASSES - O_CHECKPOINT} more: sum, seeds, "
+        f"frame bitwise the {PT_PASSES} eager passes' {ok}; render_pt_cuda "
+        "4 graphed passes bitwise eager_render_pt's on all three: True")
+    if not all(ok):
+        raise AssertionError("O3: the resumed graphed run differs")
+    return capture
+
+
+def abba_summary(label, rows):
+    """rows: [(mode, value)] in a b b a order; logs each mode's mean."""
+    by = {}
+    for mode, v in rows:
+        by.setdefault(mode, []).append(v)
+    log(f"{label}: " + ", ".join(f"{m} {' / '.join(f'{x:.4f}' for x in v)}"
+                                 f" (mean {np.mean(v):.4f})"
+                                 for m, v in by.items())
+        + f"; graph / eager {np.mean(by['graph']) / np.mean(by['eager']):.3f}")
+    return {m: float(np.mean(v)) for m, v in by.items()}
+
+
+def phase_o4(dev, smi):
+    """Eager against graphed in one process, a b b a: J3's split (a run
+    of J3_FRAMES frames a mode on each scene), main_path_ms_per_frame on
+    the bench's ten scenes (median host ms of MAIN_PATH_CALLS frames after
+    one, a mode at a time on one Scene) and bench_pt's ms/spp-pass
+    (render_pt_cuda against eager_render_pt, through bench.bench_pt)."""
+    import statistics
+    from quadray_tpu_torch import Scene, bench
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    out = {}
+    _, _, j3 = phase_j3(dev, smi, modes=O_ABBA, label="O4 J3",
+                        extras=False)
+    for name, runs in j3.items():
+        for key in ("ms", "update", "pack", "rest", "kernel", "busy"):
+            out[f"J3 {name} {key}"] = abba_summary(
+                f"O4 J3 {name} {key} ({smi})",
+                [(r["mode"], r[key]) for r in runs])
+    clock = bench.CardClock(dev)
+    for name in ("test01",) + bench.SCENES:
+        sc = Scene(load_scene(name), W, H, device=dev)
+        rows = []
+        for mode in O_ABBA:
+            fn = lambda: J3_RENDER[mode](sc, 0.0)
+            fn()
+            rows.append((mode, statistics.median(
+                clock.host(fn) for _ in range(bench.MAIN_PATH_CALLS))))
+        out[f"main {name}"] = abba_summary(
+            f"O4 main_path_ms_per_frame {name} ({smi})", rows)
+        del sc
+    rows = []
+    for mode in O_ABBA:
+        saved = ck.render_pt_cuda
+        if mode == "eager":
+            ck.render_pt_cuda = eager_render_pt
+        try:
+            rows.append((mode, bench.bench_pt(dev, clock)[
+                "ms_per_spp_pass"]))
+        finally:
+            ck.render_pt_cuda = saved
+    out["pt"] = abba_summary(f"O4 bench_pt ms/spp-pass test18 ({smi})",
+                             rows)
+    return out
+
+
+def profile_window(label, fn, n: int, smi):
+    """fn(i) for i < n under torch.profiler after one unprofiled call:
+    the host's launch calls (the CUDA API calls that queue work), the
+    device's kernels, memsets and copies, their device ms, and the card's
+    busy share of the window (the union of their intervals over the host
+    clock around the n calls and a synchronize)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    dev_ev = [e for e in events if e.device_type != DeviceType.CPU]
+    api = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith((
+                "cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy",
+                "cudaMemset")):
+            api[e.name] = api.get(e.name, 0) + 1
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_ev)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    dev_ms = sum(b - a for a, b in spans) / 1e3
+    if not dev_ev:
+        log(f"O5 {label}: the profiler saw no device work: device ms and "
+            f"busy share not measured; host calls {api}")
+        return None
+    r = dict(calls=sum(api.values()) / n, device_ops=len(dev_ev) / n,
+             device_ms=dev_ms / n, busy=busy / 1e3 / wall, wall=wall / n)
+    log(f"O5 {label} ({smi}), {n} under torch.profiler: a {r['wall']:.4f} "
+        f"ms each on the host clock; host launch calls a call "
+        f"{r['calls']:.1f} ({ {k: v / n for k, v in api.items()} }); device "
+        f"kernels, memsets and copies a call {r['device_ops']:.1f}, device "
+        f"{r['device_ms']:.4f} ms a call; card busy {100 * r['busy']:.2f}% "
+        "of the window")
+    return r
+
+
+def phase_o5(dev, smi):
+    """One torch.profiler window each for an interactive frame (demo02,
+    800x480, J3's trace, O_PROFILED frames) and a PT pass (test18,
+    O_PROFILED passes at depth 10), eager and graphed."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops.pt import init_seeds
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    tokens = J3_TRACE.split(",")
+    out = {}
+    for mode in ("eager", "graph"):
+        sc = Scene(j3_scene("demo02"), W, H, device=dev)
+        render = J3_RENDER[mode]
+
+        def frame(i):
+            fi = i + 2
+            for key in tokens[fi % len(tokens)].split("+"):
+                if key in KEY_ACTIONS:
+                    sc.update_action(frame_time(fi), KEY_ACTIONS[key])
+            render(sc, frame_time(fi))
+
+        render(sc, 0.0)
+        out[f"frame {mode}"] = profile_window(
+            f"interactive frame, demo02 {W}x{H}, {mode}", frame, O_PROFILED,
+            smi)
+        del sc
+    sc = Scene(load_scene("test18"), W, H, device=dev)
+    sc.update(0.0)
+    sc.set_pton(True)
+    cfg, n = TraceConfig(depth=PT_DEPTH), W * H
+    state = [torch.zeros((n, 3), device=dev), init_seeds(n, device=dev)]
+
+    def eager_pass(i):
+        state[:] = ck.pt_passes(sc.arrays, W, H, state[0], state[1], 1, cfg,
+                                sc._struct)
+        eager_pt_frame(state[0], i + 2, sc.arrays.use_gamma)
+
+    out["pass eager"] = profile_window(
+        f"PT pass, test18 {W}x{H} depth {PT_DEPTH}, eager (pt_passes and "
+        "the frame)", eager_pass, O_PROFILED, smi)
+    out["pass graph"] = profile_window(
+        f"PT pass, test18 {W}x{H} depth {PT_DEPTH}, graph "
+        "(render_pt_pass(1), with its frame)",
+        lambda i: sc.render_pt_pass(1), O_PROFILED, smi)
+    return out
+
+
 def phase_m1(dev):
     """The bench's cells in this process, each driven with its launch
     count set to 0 just before and read just after."""
@@ -3277,7 +3697,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
-                             "L", "M", "N"],
+                             "L", "M", "N", "O"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
@@ -3285,7 +3705,8 @@ def main():
                     "(RESUME's two modes and its switch's sweep), J (the "
                     "apps and the interactive frame), K (the culling "
                     "tables' kernels), L (the parallel layer), M (the "
-                    "port's bench) or N (the main path's Whitted kernel)")
+                    "port's bench), N (the main path's Whitted kernel) or O (one "
+                    "CUDA graph a frame and a pass)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -3480,6 +3901,16 @@ def main():
         m2 = phase_m2(dev, smi)
         phase_m3(m2, rows if only is None else None)
         log(f"phase M ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "O"):
+        t0 = time.perf_counter()
+        phase_o1(dev)
+        phase_o2(dev)
+        phase_o3(dev)
+        torch.cuda.empty_cache()
+        phase_o4(dev, smi)
+        phase_o5(dev, smi)
+        log(f"phase O ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
 

@@ -25,11 +25,14 @@ the scene's tables and queries the kernel's occupancy):
     (t(64) - t(8)) / 56 of the best of REPS batches each, falling back to
     t(64) / 64 where it is not in (0, t(64)) (bench.py:128-135); beside it
     the median, least and most of the REPS' own marginals, and
-    ``main_path_ms_per_frame``: ``Scene(...).render(0.0)``, the uint8
-    frame on the host, host clock, median of 10 calls after one.
-  bench_pt: test18, depth 10; ``render_pt_cuda`` at 4 and 20 passes from
-    fresh seeds, host clock around the call and a synchronize, each the
-    best of 3; ms per pass is (t(20) - t(4)) / 16 (at least 1e-6 ms).
+    ``main_path_ms_per_frame``: ``Scene(...).render(0.0)`` (on the card
+    one replay of the scene's frame program, ``ops/graphs.py``), the
+    uint8 frame on the host, host clock, median of 10 calls after one
+    (the first captures).
+  bench_pt: test18, depth 10; ``render_pt_cuda`` (a replay of its pass
+    program's graph a pass) at 4 and 20 passes from fresh seeds, host
+    clock around the call and a synchronize, each the best of 3; ms per
+    pass is (t(20) - t(4)) / 16 (at least 1e-6 ms).
   bench_train: test01, ``make_train_scan_fast`` with TraceConfig(
     max_segments=8, stack=4) and a zero target; after a run of 2 and one
     of 12 steps, runs of 2 and 12 steps, each ending by reading the last
@@ -264,8 +267,8 @@ def bench_scene(name: str, cfg: TraceConfig, device="cuda", clock=None,
 def bench_pt(device="cuda", clock=None, width: int = WIDTH,
              height: int = HEIGHT, spps: tuple = PT_SPP,
              reps: int = PT_REPS) -> dict:
-    """pt_test18's entry: ms_per_spp_pass and paths_per_s. The pass loop
-    queues its launches without waiting for the card, so the marginal is
+    """pt_test18's entry: ms_per_spp_pass and paths_per_s. The passes
+    queue their replays without waiting for the card, so the marginal is
     whichever of the host and the card sets the pace, and differencing
     keeps the host work that every pass repeats."""
     clock = clock or CardClock(device)

@@ -8,7 +8,10 @@ path tracing, fsaa/depth options, frame save and state dump. A Scene
 renders on its ``device`` (the card unless the caller names the CPU): on
 a CUDA device through the hand-written kernels (``ops.cuda_kernel``), on
 the CPU through their plain versions (``ops.trace``, ``ops.pt``). There
-is no fallback between the two. Interactive camera actions
+is no fallback between the two. On a CUDA device ``render`` and
+``render_pt_pass`` replay one CUDA graph a frame and a pass
+(``ops.graphs``: the scene's frame and pass programs, which live and die
+with it); ``render_linear`` stays eager. Interactive camera actions
 (``update_action``, ``CameraController``) move the scene's camera between
 frames, as RooT's hotkeys do (``apps.render_cli``).
 """
@@ -162,6 +165,10 @@ class Scene:
         self._pt_acc = None
         self._pt_samples = 0
         self._pt_seeds = None
+        # the frame and pass programs (ops.graphs), each for the key of
+        # its last call; a new key replaces it
+        self._frame_prog = None
+        self._pass_prog = None
 
     def update(self, t: float = 0.0) -> SceneArrays:
         """The scene's arrays at time t, incrementally (the JAX engine's
@@ -245,13 +252,16 @@ class Scene:
         sample count; None before the first pass."""
         if self._pt_acc is None:
             return None
-        return dict(acc=self._pt_acc, seeds=self._pt_seeds,
+        # copies: on the card the sum and seeds are a pass program's
+        # buffers, which the next pass overwrites
+        return dict(acc=self._pt_acc.clone(), seeds=self._pt_seeds.clone(),
                     samples=self._pt_samples)
 
     def set_pt_state(self, state: dict):
         """Resume a progressive render from ``pt_state()``'s dict (from
         ``load_checkpoint(..., with_pt=True)``): the next pass continues
-        the sum, seeds and sample count bit for bit."""
+        the sum, seeds and sample count bit for bit. The state is copied:
+        the next pass program stages the copies into its buffers."""
         n = self.width * self.height
         acc = state["acc"].to(self.device, torch.float32)
         seeds = state["seeds"].to(self.device, torch.int32)
@@ -264,51 +274,124 @@ class Scene:
 
     def render_pt_pass(self, passes: int = 1) -> np.ndarray:
         """Accumulate `passes` path-traced samples/pixel; return the frame
-        of the running mean. One PT kernel launch per pass on a CUDA
-        device, the plain ``trace_pt`` on the CPU; both cull where PT's
+        of the running mean. On a CUDA device one replay of the scene's
+        pass program a pass (``render_pt_program``), on the CPU the plain
+        ``trace_pt`` issued op by op (``pt_passes``); both cull where PT's
         gate says so (``ops.cuda_kernel.cull_gates``), which changes no
         bit of the frame."""
+        if self.device.type == "cuda":
+            return self.render_pt_program(passes)
         from quadray_tpu_torch.ops.cuda_kernel import pt_passes
         sc = self.arrays
         if self._pt_acc is None:
             self.reset_pt()
         self._pt_acc, self._pt_seeds = pt_passes(
             sc, self.width, self.height, self._pt_acc, self._pt_seeds,
-            passes, TraceConfig(depth=self.pfm.depth), self._struct)
+            passes, self._cfg(), self._struct)
         self._pt_samples += max(passes, 0)
         img = torch.clamp(self._pt_acc / max(self._pt_samples, 1), 0.0, 1.0)
         img = img.reshape(self.height, self.width, 3)
         self.frame = to_frame(img, sc.use_gamma).cpu().numpy()
         return self.frame
 
+    def render_pt_program(self, passes: int = 1) -> np.ndarray:
+        """``render_pt_pass`` through the scene's pass program
+        (``ops.graphs.PassProgram``): on a CUDA device one replay of its
+        CUDA graph a pass and one of its frame's, which is what
+        ``render_pt_pass`` runs there; on the CPU the same bodies called
+        eagerly, which the tests hold to ``render_pt_pass``. The running
+        sum and seeds are then the program's buffers; ``pt_state`` copies
+        them."""
+        sc = self.arrays
+        if self._pt_acc is None:
+            self.reset_pt()
+        prog = self._pass_program()
+        self._pt_acc, self._pt_seeds = prog.passes(
+            sc, self._pt_acc, self._pt_seeds, passes)
+        self._pt_samples += max(passes, 0)
+        self.frame = prog.frame(self._pt_samples)
+        return self.frame
+
     def render(self, t: Optional[float] = None) -> np.ndarray:
         """Render a frame at time t; returns (H, W, 3) uint8: one
-        path-traced pass while path tracing is on, else the Whitted frame
-        (``render_linear``). Uses the CUDA kernels on a CUDA device, the
-        plain tracers on the CPU."""
+        path-traced pass while path tracing is on, else the Whitted frame.
+        On a CUDA device one replay of the scene's frame program
+        (``render_program``), on the CPU the plain tracer
+        (``render_linear``, then ``to_frame``)."""
         if t is not None or self._arrays is None:
             self.update(t if t is not None else self._time)
         if self.pt_on:
             return self.render_pt_pass()
+        if self.device.type == "cuda":
+            return self.render_program()
         img = self.render_linear()
         self.frame = to_frame(img, self.arrays.use_gamma).cpu().numpy()
+        return self.frame
+
+    def render_program(self, t: Optional[float] = None) -> np.ndarray:
+        """The Whitted frame at time t through the scene's frame program
+        (``ops.graphs.FrameProgram``, one for the scene's structure, size,
+        fsaa and depth): on a CUDA device one replay of its CUDA graph
+        (ray generation, the kernel, the AA mean, ``to_frame`` and the
+        copy into pinned host memory), which is what ``render`` runs
+        there; on the CPU the same body called eagerly, which the tests
+        hold to ``render``. The returned array is the caller's: a later
+        frame never writes it."""
+        if t is not None or self._arrays is None:
+            self.update(t if t is not None else self._time)
+        self.frame = self._frame_program().run(self.arrays)
         return self.frame
 
     def render_linear(self, t: Optional[float] = None) -> torch.Tensor:
         """The Whitted frame at time t as (H, W, 3) linear radiance on the
         scene's device, before ``to_frame``: through the CUDA kernel
-        (``render_cuda``) on a CUDA device, the plain ``render`` on the
-        CPU. (The JAX engine's ``render_linear`` always takes its jnp
-        tracer.)"""
+        (``render_cuda``, issued op by op) on a CUDA device, the plain
+        ``render`` on the CPU. (The JAX engine's ``render_linear`` always
+        takes its jnp tracer.)"""
         if t is not None or self._arrays is None:
             self.update(t if t is not None else self._time)
-        cfg = TraceConfig(depth=self.pfm.depth)
+        cfg = self._cfg()
         if self.device.type == "cuda":
             from quadray_tpu_torch.ops.cuda_kernel import render_cuda
             return render_cuda(self.arrays, self.width, self.height,
                                self.pfm.fsaa, cfg, struct=self._struct)
         return _render(self.arrays, self.width, self.height, self.pfm.fsaa,
                        cfg)
+
+    def _cfg(self) -> TraceConfig:
+        return TraceConfig(depth=self.pfm.depth)
+
+    def _kernel_struct(self):
+        """The scene's KernelStruct (made here on the CPU, where update
+        does not need it)."""
+        if self._struct is None:
+            from quadray_tpu_torch.ops.cuda_kernel import scene_struct
+            self._struct = scene_struct(self.arrays)
+        return self._struct
+
+    def _frame_program(self):
+        """The frame program for the scene's present key (``frame_key``),
+        replacing one made for another."""
+        from quadray_tpu_torch.ops.graphs import FrameProgram, frame_key
+        struct, cfg, fsaa = self._kernel_struct(), self._cfg(), self.pfm.fsaa
+        key = frame_key(struct, self.width, self.height, fsaa, cfg)
+        if self._frame_prog is None or self._frame_prog.key != key:
+            self._frame_prog = None      # its graph's memory goes first
+            self._frame_prog = FrameProgram(struct, self.width, self.height,
+                                            fsaa, cfg, self.device)
+        return self._frame_prog
+
+    def _pass_program(self):
+        """The pass program for the scene's present key (``pass_key``),
+        replacing one made for another."""
+        from quadray_tpu_torch.ops.graphs import PassProgram, pass_key
+        struct, cfg = self._kernel_struct(), self._cfg()
+        key = pass_key(struct, self.width, self.height, cfg)
+        if self._pass_prog is None or self._pass_prog.key != key:
+            self._pass_prog = None
+            self._pass_prog = PassProgram(struct, self.width, self.height,
+                                          cfg, self.device)
+        return self._pass_prog
 
     def save_frame(self, path: str):
         from quadray_tpu_torch.utils.image import save_bmp
@@ -320,6 +403,7 @@ class Scene:
         self._shapes = None
         self._structure = None
         self._struct = None
+        self._frame_prog = self._pass_prog = None
 
     def print_state(self, log=print):
         """State dump for reproduction (print_state analog,

@@ -16,6 +16,9 @@ the kernel's EMIT and RESUME modes, ``compact_active`` between them and
 the driver ``trace_rays_rounds`` (the counterpart of
 ``trace_rays_pallas_rounds``, ``_trace_rounds_impl`` and
 ``_trace_wavefront_impl``, ``pallas_kernel.py:2756, 2614, 2647``).
+``launch_whitted`` and ``launch_pt`` are the Whitted and PT launches on
+given packed tables, which the frame and pass programs of ``ops.graphs``
+capture in CUDA graphs on their own copies of the tables.
 
 Where the TPU kernel is compiled per scene structure, the CUDA kernel
 takes the structure at run time (surface kind, singularity and clip count
@@ -924,15 +927,32 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
     WHOLE_OWN_MAX_RAYS rays, refines the warp's masks after the camera
     segment by each ray's own (EMIT_OWN_MIN_KEPT). CPU tensors take the
     plain tracer."""
-    global launches
-    if not 0 <= COOP_MAX_LIVE <= 32:
-        raise ValueError(f"COOP_MAX_LIVE must be in 0..32, got "
-                         f"{COOP_MAX_LIVE}")
+    _check_coop()
     if dirs.device.type == "cpu":
         return trace_rays(sc, org, dirs, t_min, cfg)
     struct = struct or _get_struct(sc)
     _check_whitted_cfg(cfg)
-    ps = _get_packed(sc, struct)
+    return launch_whitted(sc, struct, _get_packed(sc, struct), org, dirs,
+                          t_min, cfg)
+
+
+def _check_coop():
+    if not 0 <= COOP_MAX_LIVE <= 32:
+        raise ValueError(f"COOP_MAX_LIVE must be in 0..32, got "
+                         f"{COOP_MAX_LIVE}")
+
+
+def launch_whitted(sc: SceneArrays, struct: KernelStruct, ps: PackedScene,
+                   org, dirs, t_min, cfg: TraceConfig) -> torch.Tensor:
+    """``trace_rays_cuda`` on the packed tables ``ps`` (the scene's, or a
+    frame program's copies of them: ``ops.graphs``): one Whitted launch on
+    the current stream, which reads sc for its shapes and device only.
+    CPU rays take the plain tracer, which reads sc and not ps."""
+    global launches
+    _check_coop()
+    if dirs.device.type == "cpu":
+        return trace_rays(sc, org, dirs, t_min, cfg)
+    _check_whitted_cfg(cfg)
     rays, tables = _launch_inputs("trace_rays_cuda", sc, org, dirs, t_min,
                                   struct, ps)
     N, dev = dirs.shape[0], dirs.device
@@ -1042,19 +1062,36 @@ def trace_pt_cuda(sc: SceneArrays, org, dirs, t_min, seeds,
     tensors take the plain ``trace_pt``. Launches the PT kernel (a
     persistent grid that pulls the samples from a work queue) and its seed
     tail on the current stream without waiting for the card."""
-    global pt_launches
     if dirs.device.type == "cpu":
         return trace_pt(sc, org, dirs, t_min, seeds, cfg)
     struct = struct or _get_struct(sc)
+    return launch_pt(sc, struct, pt_tables(sc, struct, cfg), org, dirs,
+                     t_min, seeds, cfg)
+
+
+def pt_tables(sc: SceneArrays, struct: KernelStruct,
+              cfg: TraceConfig) -> PackedScene:
+    """The packed tables of a PT launch: the culling tables only where
+    PT's gate culls (``cull_gates(..., pt=True)``)."""
+    return _get_packed(sc, struct, cull_gates(struct, cfg, pt=True).cull)
+
+
+def launch_pt(sc: SceneArrays, struct: KernelStruct, ps: PackedScene, org,
+              dirs, t_min, seeds, cfg: TraceConfig):
+    """``trace_pt_cuda`` on the packed tables ``ps`` (``pt_tables``'s, or
+    a pass program's copies of them: ``ops.graphs``): the PT kernel and
+    its seed tail on the current stream, which read sc for its shapes and
+    device only. CPU rays take the plain ``trace_pt``, which reads sc and
+    not ps."""
+    global pt_launches
+    if dirs.device.type == "cpu":
+        return trace_pt(sc, org, dirs, t_min, seeds, cfg)
     if not 0 <= cfg.depth <= PT_MAX_DEPTH:
         raise ValueError(f"cfg.depth must be in 0..{PT_MAX_DEPTH}")
     if struct.ns > PT_MAX_SURFACES:
         raise ValueError(f"the PT kernel takes at most {PT_MAX_SURFACES} "
                          f"surfaces, got {struct.ns}")
     gates = cull_gates(struct, cfg, pt=True)
-    # the culling tables only where the gate culls
-    ps = (_get_packed(sc, struct) if gates.cull
-          else _get_packed(sc, struct, False))
     rays, tables = _launch_inputs("trace_pt_cuda", sc, org, dirs, t_min,
                                   struct, ps)
     N, dev = dirs.shape[0], dirs.device
@@ -1080,12 +1117,13 @@ def trace_pt_cuda(sc: SceneArrays, org, dirs, t_min, seeds,
 def pt_passes(sc: SceneArrays, width: int, height: int, acc, seeds,
               passes: int, cfg: TraceConfig = TraceConfig(),
               struct: KernelStruct = None):
-    """``passes`` path-traced passes added into a running sum: per pass,
-    jittered primary rays on the seeds' device (``pt_camera_rays``), one
-    ``trace_pt_cuda`` call and the sum, with no wait for the card. acc
-    (W*H, 3) f32 and seeds (W*H,) int32; returns the new (acc, seeds).
-    The pass loop of both ``render_pt_cuda`` and ``Scene.render_pt_pass``.
-    CPU seeds take the plain tracer."""
+    """``passes`` path-traced passes added into a running sum, issued op
+    by op: per pass, jittered primary rays on the seeds' device
+    (``pt_camera_rays``), one ``trace_pt_cuda`` call and the sum, with no
+    wait for the card. acc (W*H, 3) f32 and seeds (W*H,) int32; returns
+    the new (acc, seeds). The pass loop of ``Scene.render_pt_pass`` on the
+    CPU, and the eager yardstick of the pass programs that replay a pass
+    on the card (``ops.graphs.PassProgram``)."""
     t_min = sc.cam_pov.expand(width * height)
     for _ in range(passes):
         org, dirs, seeds = pt_camera_rays(sc, width, height, seeds)
@@ -1097,14 +1135,23 @@ def pt_passes(sc: SceneArrays, width: int, height: int, acc, seeds,
 def render_pt_cuda(sc: SceneArrays, width: int, height: int, seeds,
                    spp: int, cfg: TraceConfig = TraceConfig(),
                    struct: KernelStruct = None):
-    """spp passes from a zero sum (the counterpart of ``render_pt_pallas``;
-    there is no fused path: the passes are ``pt_passes``, one PT launch
-    each). Returns ((H, W, 3) mean radiance, the advanced (W*H,) int32
-    seeds)."""
-    acc = torch.zeros((width * height, 3), dtype=F32, device=seeds.device)
-    acc, seeds = pt_passes(sc, width, height, acc, seeds, spp, cfg, struct)
+    """spp passes from a zero sum (the counterpart of ``render_pt_pallas``,
+    whose passes are one dispatch): on a CUDA device spp replays of a pass
+    program's CUDA graph (``ops.graphs.pt_program``: one program a
+    structure, frame size, config and device, the last few kept), on the
+    CPU ``pt_passes``. Returns ((H, W, 3) mean radiance, the advanced
+    (W*H,) int32 seeds), both the caller's: a later call writes neither."""
+    if seeds.device.type == "cpu":
+        acc = torch.zeros((width * height, 3), dtype=F32, device=seeds.device)
+        acc, seeds = pt_passes(sc, width, height, acc, seeds, spp, cfg,
+                               struct)
+    else:
+        from quadray_tpu_torch.ops.graphs import pt_program
+        prog = pt_program(struct or _get_struct(sc), width, height, cfg,
+                          seeds.device)
+        acc, seeds = prog.passes(sc, None, seeds, spp)
+        seeds = seeds.clone()
     return (acc / float(max(spp, 1))).reshape(height, width, 3), seeds
-
 
 
 # ---- two-round retirement ---------------------------------------------------
