@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only M   # kernel build + the port's bench
     python3 chip_smoke.py --only N   # kernel build + the main path's kernel
     python3 chip_smoke.py --only O   # kernel build + a CUDA graph a frame
+    python3 chip_smoke.py --only P   # kernel build + a CUDA graph a step
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points), the conformance kernels, the culling tables' kernels
@@ -32,14 +33,16 @@ nvcc processes, then:
      D1 the path-record kernel vs its plain version (ops/trace.py
      trace_paths) on six scenes at 200x120 and two at 800x480, records
      equal and colors within 1e-5; D2 replay of the kernel's records vs
-     the kernel's colors within 1e-5; D3 10 steps of make_train_scan_fast
-     recovering surface positions moved by +0.05, toward the clean
-     render: the loss falls, the paths kernel launches once per step,
-     the replay gather's forward and backward once a segment, and no step
-     synchronises with the host; then bench_train's step (every
-     differentiable field trains): its ms/step and split (paths kernel,
-     replay fwd+bwd with the gather kernels' device ms in it, Adam) beside
-     the plain version's step, and the top device ops of one step under
+     the kernel's colors within 1e-5; D3 make_train_scan_fast recovering
+     surface positions moved by +0.05, toward the clean render: a first
+     call of one step, which captures the step's CUDA graph, then 10
+     counted steps, each a replay: the loss falls, the paths kernel
+     launches once per step, the replay gather's forward and backward
+     once a segment, and no step synchronises with the host; then
+     bench_train's step (every differentiable field trains, graphed): its
+     ms/step and split (paths kernel, replay fwd+bwd with the gather
+     kernels' device ms in it, Adam, each piece eager) beside the plain
+     version's step, and the top device ops of one step under
      torch.profiler; D4 the paths kernel vs its plain version on test13
      and demo03 at 800x480; D5 the replay gather kernels
      (ops/row_gather.py, csrc/replay.cu) against their plain versions on
@@ -213,6 +216,16 @@ nvcc processes, then:
      bench_pt's ms/spp-pass; O5 one torch.profiler window each of an
      interactive frame (demo02) and a PT pass (test18), eager and
      graphed: host launch calls, device ops and ms, busy share.
+  P. one CUDA graph a training step (parallel/train.py StepProgram, the
+     graph route of make_train_scan_fast and make_train_step_fast): P1 on
+     bench_train's task (test01 800x480, K=8, every field) on 1 block and
+     on 4 blocks of cuda:0, 10 graphed steps against 10 eager ones
+     (eager=True) from one state, loss, params and Adam's moments
+     bitwise, the same launch counts, the first call's warm-up and
+     capture ms and the memory the graph keeps; P2 ms/step eager against
+     graphed, a b b a, calls of 10 steps, on 1 and 4 blocks, and one-step
+     calls of each route under torch.profiler: host launch calls, device
+     ops and ms, busy share.
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -684,9 +697,24 @@ def phase_d3(dev):
                                                lr=TRAIN_LR, k_paths=K_PATHS)
     # main path, counted: recover the moved surface positions
     p0 = tr.extract_params(sc, RECOVER_FIELDS)
-    # and no step waits for the card: a synchronising CUDA call inside
-    # run_fn warns under the sync debug mode
     opt0 = opt_init(p0)
+    route = run_fn.route(sc)
+    if route != "graph":
+        raise AssertionError(f"D3: one block on the card took the {route} "
+                             "route")
+    # the program's first call runs its first step and captures the step,
+    # before the window (a capture may synchronise); then no step waits
+    # for the card: a synchronising CUDA call inside run_fn warns under
+    # the sync debug mode
+    t0 = time.perf_counter()
+    p0, opt0, first = run_fn(p0, opt0, sc, target, 1)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    prog = next(iter(run_fn.programs.values()))
+    log(f"D3 route {route}: the first call (its step and the capture of "
+        f"the step: {prog.replay.ms:.1f} ms of {first_ms:.1f}, loss "
+        f"{float(first[0]):.6e}) ran before the sync-debug window; the "
+        f"{TRAIN_STEPS} counted steps are replays of its graph")
     ck.launches = ck.paths_launches = 0
     rg.launches = rg.backward_launches = 0
     with warnings.catch_warnings(record=True) as caught:
@@ -706,7 +734,8 @@ def phase_d3(dev):
     log(f"D3 test01 {W}x{H} K={K_PATHS} lr={TRAIN_LR} fields="
         f"{','.join(RECOVER_FIELDS)}: losses "
         + " ".join(f"{x:.6e}" for x in losses))
-    log(f"D3 launches: whitted_paths={launches} whitted={whitted} "
+    log(f"D3 launches (replays counted as their capture's): "
+        f"whitted_paths={launches} whitted={whitted} "
         f"replay_gather forward={gathers[0]} backward={gathers[1]}; "
         f"host syncs inside the {TRAIN_STEPS} steps: {len(syncs)}")
     if syncs:
@@ -724,8 +753,9 @@ def phase_d3(dev):
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"D3: parameter {k} not finite")
 
-    # bench_train's step, every DIFFERENTIABLE_FIELDS entry training:
-    # 2 warm-up steps, then the mean of 10
+    # bench_train's step, every DIFFERENTIABLE_FIELDS entry training
+    # (a program of its own): 2 warm-up steps (the first captures), then
+    # the mean of 10 graph replays, a call each
     p_all = tr.extract_params(sc)
     state = [p_all, opt_init(p_all)]
     all_losses = []
@@ -739,10 +769,11 @@ def phase_d3(dev):
         + " ".join(f"{float(x):.6e}" for x in torch.cat(all_losses)))
     profile_step(lambda: steps(1), step_ms)
 
-    # the split: each piece of the step alone, on the same inputs
+    # the split: each piece of the step alone, on the same inputs, eager
     struct = ck.scene_struct(sc)
-    leaves = {k: v.detach().clone().requires_grad_(True)
-              for k, v in state[0].items()}
+    flat = tr.FlatState(state[0], dev)
+    flat.stage(state[0], state[1])
+    leaves = flat.leaves
     sc2 = dataclasses.replace(sc, **leaves)
     sc_fixed = dataclasses.replace(sc, **state[0])
 
@@ -763,20 +794,24 @@ def phase_d3(dev):
         loss_of(sc2, paths).backward()
 
     replay_ms = cuda_ms(replay_fwd_bwd, 10)
-    adam_ms = cuda_ms(lambda: tr.adam_step(leaves, state[1], TRAIN_LR), 10)
+    grad = torch.zeros_like(flat.p)
+    adam_ms = cuda_ms(lambda: flat.adam(grad, TRAIN_LR), 10)
     stab, mtab, segs = gather_inputs(sc2, paths)
     g_fwd, g_bwd = gather_ms(stab, mtab, segs, [tuple(
         torch.ones((f, W * H), device=dev) for f in (19, 10))] * K_PATHS)
 
     # the plain version's step: plain trace_paths on the card, 2 steps
     def plain_step():
-        lv = {k: v.detach().clone().requires_grad_(True)
-              for k, v in state[0].items()}
-        s2 = dataclasses.replace(sc, **lv)
+        st = tr.FlatState(state[0], dev)
+        st.stage(state[0], state[1])
+        s2 = dataclasses.replace(sc, **st.leaves)
         with torch.no_grad():
             _, p = trace_paths(s2, *rays, cfg, K_PATHS)
-        loss_of(s2, p).backward()
-        tr.adam_step(lv, state[1], TRAIN_LR)
+        g = torch.autograd.grad(loss_of(s2, p), list(st.leaves.values()),
+                                allow_unused=True)
+        st.adam(torch.cat([(torch.zeros_like(v) if x is None else x)
+                           .reshape(-1) for v, x in zip(st.leaves.values(),
+                                                        g)]), TRAIN_LR)
 
     stats = {}
     trace_paths(sc_fixed, *rays, cfg, K_PATHS, stats)
@@ -788,7 +823,8 @@ def phase_d3(dev):
     plain_paths_ms = cuda_ms(lambda: trace_paths(
         sc_fixed, *rays, cfg, K_PATHS), 2)
     torch.cuda.empty_cache()
-    log(f"D3 ms/step={step_ms:.3f} (paths kernel with re-pack "
+    log(f"D3 ms/step={step_ms:.3f} (graph replays, a call a step; the "
+        f"split, each piece eager: paths kernel with re-pack "
         f"{repack_ms:.3f} of which kernel {kernel_ms:.3f}, replay fwd+bwd "
         f"{replay_ms:.3f} of which the gather kernels' forward {g_fwd:.4f} "
         f"and backward {g_bwd:.4f} (device, CUDA graphs), Adam "
@@ -996,7 +1032,9 @@ def phase_d5(dev, smi):
                        ("nu", oa.nu, ob.nu)):
         same[what] = all(torch.equal(bits(a[k]), bits(b[k])) for k in a)
     log(f"D5 two make_train_step_fast steps from one state (test01, every "
-        f"field): bitwise {same}; loss {float(la):.9e}")
+        f"field; route {step_fn.run.route(sc)}: the first call the "
+        f"program's warm-up and capture, the second a replay): bitwise "
+        f"{same}; loss {float(la):.9e}")
     if not all(same.values()):
         raise AssertionError(f"D5: two steps from one state differ: {same}")
     return worst, out
@@ -2174,6 +2212,11 @@ J3_FULL = 10
 # the test18 run checkpointed and resumed, and the frames or passes of
 # each profiler window
 O_ABBA = ("eager", "graph", "graph", "eager")
+# phase P: steps graphed against eager, on these block counts of cuda:0;
+# one-step calls under the profiler
+P_STEPS = 10
+P_BLOCKS = (1, 4)
+P_PROFILED = 3
 O_CHECKPOINT = 32
 O_PROFILED = 10
 
@@ -2903,9 +2946,9 @@ def phase_l2(dev, smi):
             mesh=card_mesh(dev, b))
         p0 = tr.extract_params(sc)
         params, state, loss = step_fn(p0, opt_init(p0), sc, target)
-        res[b] = (float(loss), params, state.mu)
-    (l1, p1, m1), (ln, pn, mn) = (res[L_STEP_BLOCKS[0]],
-                                  res[L_STEP_BLOCKS[-1]])
+        res[b] = (float(loss), params, state.mu, step_fn.run.route(sc))
+    (l1, p1, m1, r1), (ln, pn, mn, rn) = (res[L_STEP_BLOCKS[0]],
+                                          res[L_STEP_BLOCKS[-1]])
 
     def worst(a, b):
         return (max(float((a[k] - b[k]).abs().max()) for k in a),
@@ -2920,7 +2963,8 @@ def phase_l2(dev, smi):
     ok = (np.isclose(l1, ln, rtol=INV_LOSS_RTOL) and close(p1, pn)
           and close(m1, mn))
     top = max(float(v.abs().max()) for v in m1.values())
-    log(f"L2 test01 {W}x{H} K={K_PATHS} every field, one step: loss "
+    log(f"L2 test01 {W}x{H} K={K_PATHS} every field, one step (routes "
+        f"{r1}, {rn}): loss "
         f"{L_STEP_BLOCKS[0]} block {l1:.9e}, {L_STEP_BLOCKS[-1]} blocks "
         f"{ln:.9e}; largest |diff| and bitwise: params %.3e %s, Adam's "
         f"first moment %.3e %s (largest |moment| {top:.3e}; rtol "
@@ -2944,8 +2988,10 @@ def phase_l2(dev, smi):
     launches = ck.paths_launches
     gathers = (rg.launches, rg.backward_launches)
     losses = [float(x) for x in losses]
-    log(f"L2 {b} blocks, {TRAIN_STEPS} steps of make_train_scan_fast, "
-        f"fields {','.join(RECOVER_FIELDS)}: losses "
+    log(f"L2 {b} blocks, {TRAIN_STEPS} steps of make_train_scan_fast "
+        f"(route {run_fn.route(sc)}: the first step the program's warm-up "
+        f"before its capture, the rest replays), fields "
+        f"{','.join(RECOVER_FIELDS)}: losses "
         + " ".join(f"{x:.6e}" for x in losses)
         + f"; paths launches {launches} (expected {b * TRAIN_STEPS}), "
         f"replay gather forward/backward {gathers}")
@@ -2972,7 +3018,7 @@ def phase_l2(dev, smi):
 
         ms[b] = cuda_ms(one, 10, warmup=2)
     log(f"L2 ms/step ({smi}; CUDA events, mean of 10 after 2, every "
-        "field): "
+        f"field, route {run_fn.route(sc)}: graph replays, a call a step): "
         + ", ".join(f"{b} block(s) {t:.3f}" for b, t in ms.items()))
     split = l2_split(sc, target)
     log(f"L2 split over the blocks of a step ({smi}; CUDA events, mean of "
@@ -3494,7 +3540,7 @@ def phase_o4(dev, smi):
     return out
 
 
-def profile_window(label, fn, n: int, smi):
+def profile_window(label, fn, n: int, smi, prefix: str = "O5"):
     """fn(i) for i < n under torch.profiler after one unprofiled call:
     the host's launch calls (the CUDA API calls that queue work), the
     device's kernels, memsets and copies, their device ms, and the card's
@@ -3527,12 +3573,14 @@ def profile_window(label, fn, n: int, smi):
             end = b
     dev_ms = sum(b - a for a, b in spans) / 1e3
     if not dev_ev:
-        log(f"O5 {label}: the profiler saw no device work: device ms and "
+        log(f"{prefix} {label}: the profiler saw no device work: device "
+            "ms and "
             f"busy share not measured; host calls {api}")
         return None
     r = dict(calls=sum(api.values()) / n, device_ops=len(dev_ev) / n,
              device_ms=dev_ms / n, busy=busy / 1e3 / wall, wall=wall / n)
-    log(f"O5 {label} ({smi}), {n} under torch.profiler: a {r['wall']:.4f} "
+    log(f"{prefix} {label} ({smi}), {n} under torch.profiler: a "
+        f"{r['wall']:.4f} "
         f"ms each on the host clock; host launch calls a call "
         f"{r['calls']:.1f} ({ {k: v / n for k, v in api.items()} }); device "
         f"kernels, memsets and copies a call {r['device_ops']:.1f}, device "
@@ -3587,6 +3635,109 @@ def phase_o5(dev, smi):
         f"PT pass, test18 {W}x{H} depth {PT_DEPTH}, graph "
         "(render_pt_pass(1), with its frame)",
         lambda i: sc.render_pt_pass(1), O_PROFILED, smi)
+    return out
+
+
+def phase_p1(dev, smi):
+    """The graphed step against the eager one, bitwise: P_STEPS steps of
+    make_train_scan_fast from one state on bench_train's task (every
+    field) on each of P_BLOCKS, graph route and eager=True; the first
+    call's warm-up and capture ms and the memory it keeps (the graph's
+    pool). Returns ({blocks: ({route: run_fn}, the graphed run's params
+    and state)}, the task)."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import row_gather as rg
+    from quadray_tpu_torch.parallel import train as tr
+    bits = lambda t: t.contiguous().view(torch.int32)
+    sc, target, _ = train_task(dev)
+    out = {}
+    for b in P_BLOCKS:
+        mesh = None if b == 1 else card_mesh(dev, b)
+        fns, runs, counts = {}, {}, {}
+        for mode in ("graph", "eager"):
+            fns[mode], opt_init = tr.make_train_scan_fast(
+                sc, W, H, cfg=train_cfg(), lr=TRAIN_LR, k_paths=K_PATHS,
+                mesh=mesh, eager=mode == "eager")
+            if fns[mode].route(sc) != mode:
+                raise AssertionError(f"P1 {b} blocks: the {mode} run took "
+                                     f"the {fns[mode].route(sc)} route")
+            p0 = tr.extract_params(sc)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem0 = (torch.cuda.memory_allocated(dev),
+                    torch.cuda.memory_reserved(dev))
+            ck.paths_launches = rg.launches = rg.backward_launches = 0
+            t0 = time.perf_counter()
+            runs[mode] = fns[mode](p0, opt_init(p0), sc, target, P_STEPS)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts[mode] = (ck.paths_launches, rg.launches,
+                            rg.backward_launches)
+            if mode == "graph":
+                torch.cuda.empty_cache()
+                prog = next(iter(fns[mode].programs.values()))
+                kept = (torch.cuda.memory_allocated(dev) - mem0[0],
+                        torch.cuda.memory_reserved(dev) - mem0[1])
+                log(f"P1 {b} block(s), route graph: the first call of "
+                    f"{P_STEPS} steps {ms:.1f} ms, of which the first step "
+                    f"and the capture {prog.replay.ms:.1f} ms; the graph's "
+                    f"launches {prog.replay.counts}; memory kept after "
+                    f"the call: allocated +{kept[0] / 2**20:.1f} MiB, "
+                    f"reserved +{kept[1] / 2**20:.1f} MiB (the graph's "
+                    "pool and the program's buffers)")
+        same = {"loss": torch.equal(bits(runs["graph"][2]),
+                                    bits(runs["eager"][2]))}
+        (pa, oa, _), (pb, ob, _) = runs["graph"], runs["eager"]
+        for what, x, y in (("params", pa, pb), ("mu", oa.mu, ob.mu),
+                           ("nu", oa.nu, ob.nu)):
+            same[what] = all(torch.equal(bits(x[k]), bits(y[k])) for k in x)
+        losses = [float(x) for x in runs["graph"][2]]
+        log(f"P1 test01 {W}x{H} K={K_PATHS} every field, {b} block(s), "
+            f"{P_STEPS} steps graphed against eager from one state: "
+            f"bitwise {same}; counts (paths, gather forward, backward) "
+            f"graph {counts['graph']} eager {counts['eager']}; losses "
+            + " ".join(f"{x:.6e}" for x in losses))
+        want = (b * P_STEPS, b * P_STEPS * K_PATHS, b * P_STEPS * K_PATHS)
+        if not all(same.values()) or set(counts.values()) != {want}:
+            raise AssertionError(f"P1 {b} blocks: graphed steps off the "
+                                 f"eager ones: {same}, counts {counts}")
+        if oa.count != P_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"P1 {b} blocks: count {oa.count}, "
+                                 f"losses {losses}")
+        out[b] = (fns, runs["graph"][:2])
+        del runs
+    return out, (sc, target)
+
+
+def phase_p2(dev, smi, fns, task):
+    """Eager against graphed in this process, a b b a: ms/step of calls of
+    P_STEPS steps (CUDA events around each call, the runs warmed by P1),
+    on each of P_BLOCKS; then P_PROFILED one-step calls of each route on
+    one block under torch.profiler."""
+    sc, target = task
+    out = {}
+    for b, (runs, start) in fns.items():
+        state = {mode: list(start) for mode in runs}
+        rows = []
+        for mode in O_ABBA:
+            def call():
+                p, o, _ = runs[mode](*state[mode], sc, target, P_STEPS)
+                state[mode][:] = [p, o]
+            rows.append((mode, cuda_ms(call, 1, warmup=0) / P_STEPS))
+        out[b] = abba_summary(f"P2 ms/step, {b} block(s), calls of "
+                              f"{P_STEPS} steps ({smi})", rows)
+    runs, start = fns[P_BLOCKS[0]]
+    for mode in ("eager", "graph"):
+        state = list(start)
+
+        def step(i):
+            p, o, _ = runs[mode](*state, sc, target, 1)
+            state[:] = [p, o]
+
+        out[f"profile {mode}"] = profile_window(
+            f"one training step a call, test01 {W}x{H} K={K_PATHS} every "
+            f"field, {P_BLOCKS[0]} block, {mode}", step, P_PROFILED, smi,
+            prefix="P2")
     return out
 
 
@@ -3697,7 +3848,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
-                             "L", "M", "N", "O"],
+                             "L", "M", "N", "O", "P"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
@@ -3705,8 +3856,9 @@ def main():
                     "(RESUME's two modes and its switch's sweep), J (the "
                     "apps and the interactive frame), K (the culling "
                     "tables' kernels), L (the parallel layer), M (the "
-                    "port's bench), N (the main path's Whitted kernel) or O (one "
-                    "CUDA graph a frame and a pass)")
+                    "port's bench), N (the main path's Whitted kernel), O (one "
+                    "CUDA graph a frame and a pass) or P (one CUDA graph a "
+                    "training step)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -3911,6 +4063,14 @@ def main():
         phase_o4(dev, smi)
         phase_o5(dev, smi)
         log(f"phase O ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "P"):
+        t0 = time.perf_counter()
+        fns, task = phase_p1(dev, smi)
+        phase_p2(dev, smi, fns, task)
+        del fns, task
+        torch.cuda.empty_cache()
+        log(f"phase P ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
 

@@ -303,7 +303,10 @@ def bench_train(device="cuda", clock=None, width: int = WIDTH,
                 reps: int = TRAIN_REPS) -> dict:
     """train_test01's entry: ms_per_step and fwd_bwd_rays_per_s of the
     trace-replay train step (paths kernel forward, replay backward, Adam)
-    on test01; params and Adam's state carry over from run to run."""
+    on test01; params and Adam's state carry over from run to run. On the
+    card the step is one CUDA graph (``parallel/train.py`` route "graph"):
+    the warm-up's first step captures it, and every timed step is one
+    replay."""
     clock = clock or CardClock(device)
     sc = compiled("test01", device)
     run_fn, opt_init = make_train_scan_fast(
@@ -318,8 +321,9 @@ def bench_train(device="cuda", clock=None, width: int = WIDTH,
                                             nsteps)
         float(losses[-1])
 
-    for nsteps in steps:                             # warm-up
+    for nsteps in steps:                 # warm-up: the first captures
         run(nsteps)
+    route = run_fn.route(sc)
 
     def timed(nsteps):
         best = float("inf")
@@ -332,8 +336,10 @@ def bench_train(device="cuda", clock=None, width: int = WIDTH,
     t_small, t_big = timed(steps[0]), timed(steps[1])
     per_step, _ = marginal(t_small, t_big, *steps)
     rays = width * height / (per_step / 1e3)
-    log(f"# train step (test01 {width}x{height} fwd+bwd+adam): "
-        f"{per_step:.4f} ms/step (runs {t_small:.4f} / {t_big:.4f} ms), "
+    log(f"# train step (test01 {width}x{height} fwd+bwd+adam, route "
+        f"{route}: " + ("graph replays, one a step" if route == "graph"
+                        else "eager launches") + f"): {per_step:.4f} "
+        f"ms/step (runs {t_small:.4f} / {t_big:.4f} ms), "
         f"{rays / 1e6:.2f} Mray/s")
     return {"ms_per_step": round(per_step, 4),
             "fwd_bwd_rays_per_s": round(rays)}

@@ -25,6 +25,9 @@ kernels' place.
   (``launch_pt``) and the running sum, in place in the program's sum and
   seeds; and a frame body for the mean. ``Scene.render_pt_pass`` and
   ``render_pt_cuda`` replay it once a pass.
+- ``parallel.train.StepProgram`` (a training step: the re-pack, the paths
+  launch, replay with its row gathers, the loss's gradients and Adam)
+  takes ``capture``, ``Replay`` and ``Inputs`` from here.
 
 Hazards, and what is done about each:
 - a capture bakes in pointers, while the incremental update hands a moved
@@ -39,8 +42,9 @@ Hazards, and what is done about each:
   any of them makes a new program. The mean's divisor changes every call,
   so it runs outside the graph, as today's op;
 - a replay does not pass through the launch wrappers, so it adds to their
-  counters (``ops.cuda_kernel.launches``, ``pt_launches``, ...) what its
-  capture recorded;
+  counters (``ops.cuda_kernel.launches``, ``pt_launches``, ...,
+  ``ops.row_gather.launches``, ``backward_launches``) what its capture
+  recorded;
 - a frame returned to the caller is a copy of the pinned buffer, which
   the next frame overwrites.
 
@@ -58,6 +62,7 @@ import numpy as np
 import torch
 
 from quadray_tpu_torch.ops import cuda_kernel as ck
+from quadray_tpu_torch.ops import row_gather as rg
 from quadray_tpu_torch.ops.pt import pt_camera_rays
 from quadray_tpu_torch.ops.rays import camera_rays, resolve_aa
 from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
@@ -65,9 +70,13 @@ from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
 F32 = torch.float32
 I32 = torch.int32
 
-# the launch wrappers' counters (ops.cuda_kernel), which a replay adds to
-COUNTERS = ("launches", "paths_launches", "pt_launches", "emit_launches",
-            "resume_launches", "cull_launches")
+# the launch wrappers' counters, which a replay adds to, by name:
+# (module, attribute)
+COUNTERS = {k: (ck, k) for k in ("launches", "paths_launches",
+                                 "pt_launches", "emit_launches",
+                                 "resume_launches", "cull_launches")}
+COUNTERS.update(gather_launches=(rg, "launches"),
+                gather_backward_launches=(rg, "backward_launches"))
 CAMERA = ("cam_pos", "cam_hor", "cam_ver", "cam_nrm", "cam_pov")
 # render_pt_cuda's pass programs kept, the most recently used
 PT_PROGRAMS = 4
@@ -95,7 +104,8 @@ class Replay:
     def __call__(self):
         self.graph.replay()
         for k, n in self.counts.items():
-            setattr(ck, k, getattr(ck, k) + n)
+            mod, attr = COUNTERS[k]
+            setattr(mod, attr, getattr(mod, attr) + n)
 
 
 def capture(body, device: torch.device):
@@ -121,7 +131,7 @@ def capture(body, device: torch.device):
         with torch.cuda.stream(side):
             body()
             cur.wait_stream(side)
-            before = {k: getattr(ck, k) for k in COUNTERS}
+            before = {k: getattr(*c) for k, c in COUNTERS.items()}
             try:
                 graph.capture_begin()
                 try:
@@ -129,9 +139,10 @@ def capture(body, device: torch.device):
                 finally:
                     graph.capture_end()
             finally:
-                counts = {k: getattr(ck, k) - v for k, v in before.items()}
+                counts = {k: getattr(*COUNTERS[k]) - v
+                          for k, v in before.items()}
                 for k, v in before.items():
-                    setattr(ck, k, v)
+                    setattr(*COUNTERS[k], v)
     return Replay(graph, {k: n for k, n in counts.items() if n},
                   (time.perf_counter() - t0) * 1e3)
 

@@ -11,9 +11,9 @@ ignore (the params dict names the fields that train):
     kernel (``ops.cuda_kernel.trace_paths_with_struct``, detached) traces
     the current scene, and ``ops.replay.replay_color`` re-evaluates the
     colors along those paths under autograd.
-  * ``make_train_scan_fast``: S such steps in one call; the losses stay on
-    the device and, in a single process, nothing inside the S steps waits
-    for the card.
+  * ``make_train_scan_fast``: S such steps in one call, the counterpart of
+    the JAX ``lax.scan`` of S steps in one executable; the losses stay on
+    the device.
   * ``make_train_step``: the all-surface autodiff path through
     ``ops.trace.trace_rays_diff`` (plain PyTorch, any device).
 
@@ -28,30 +28,47 @@ the world size: the JAX ``pmean`` over the ray axis, a mean of per-shard
 means, padding included. One Adam update follows, the same on every
 rank.
 
+The mesh's layout picks the route a fast step takes (``step_route``):
+  * "graph": one process, every block on the scene's device. The step is
+    a ``StepProgram``: captured once into a CUDA graph (``ops.graphs
+    .capture``) and replayed once a step, the counterpart of the JAX
+    scan's one executable; on the CPU its body is called, with the plain
+    versions in the kernels' place.
+  * "eager": blocks on several devices, or a process group (the
+    all-reduce crosses the host or NCCL), and ``make_train_step``, whose
+    plain tracer uploads constants from the host (``ops/trace.py``
+    ``intersect``): every op of every step is queued from Python.
+``eager=True`` asks the fast steps for the eager route on any layout (to
+compare the two). The routes give the same bits. A capture or a replay
+that fails raises; nothing falls back to eager launches.
+
 Parameters are a dict of tensors keyed by ``SceneArrays`` field. The
 optimizer state is ``AdamState``, optax's ``(count, mu, nu)``; each step
-runs ``torch.optim.Adam`` with optax.adam's defaults (betas 0.9/0.999,
-eps 1e-8, no weight decay) from that state. Steps are functional: they
-return new params and a new state and leave their inputs as they were.
-``params_*_numpy`` and ``opt_state_*_numpy`` carry both across from and to
-numpy, so a run can start from the JAX package's state.
+runs optax.adam's update with its defaults (betas 0.9/0.999, eps 1e-8),
+in its order, on the device (``FlatState.adam``). Steps are functional:
+they return new params and a new state and leave their inputs as they
+were. ``params_*_numpy`` and ``opt_state_*_numpy`` carry both across from
+and to numpy, so a run can start from the JAX package's state.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple
+import math
+from collections import OrderedDict
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from quadray_tpu_torch.ops import cuda_kernel as ck
+from quadray_tpu_torch.ops.graphs import Inputs, capture
 from quadray_tpu_torch.ops.replay import replay_color
 from quadray_tpu_torch.ops.trace import TraceConfig, clip, trace_rays_diff
 from quadray_tpu_torch.parallel.mesh import RayMesh
 from quadray_tpu_torch.parallel.render import (check_replicas, replica,
                                                sharded_rays)
-from quadray_tpu_torch.scene.compile import SceneArrays
+from quadray_tpu_torch.scene.compile import FIELDS, SceneArrays
 
 # SceneArrays fields that make sense as optimization variables
 DIFFERENTIABLE_FIELDS = (
@@ -63,6 +80,12 @@ DIFFERENTIABLE_FIELDS = (
 # optax.adam's defaults
 BETAS = (0.9, 0.999)
 EPS = 1e-8
+# the step programs a run keeps, the most recently used (each holds its
+# graph's memory pool: the saved activations of a step)
+STEP_PROGRAMS = 2
+# a step's rays, target and weights (_sharded_primary), as a program
+# stages them
+RAYS = ("org", "dirs", "t_min", "target", "w")
 
 Params = Dict[str, torch.Tensor]
 
@@ -112,31 +135,67 @@ def _loss_fast(params: Params, sc: SceneArrays, struct, org, dirs, t_min,
     return _weighted_mse(cols, target, w)
 
 
-def _leaves(params: Params) -> Params:
-    """Fresh autograd leaves holding copies of params (the caller's
-    tensors are never updated in place)."""
-    return {k: v.detach().clone().requires_grad_(True)
-            for k, v in params.items()}
+class FlatState:
+    """A step's params and Adam state in flat buffers on one device, in
+    the params' order: ``p``, ``mu`` and ``nu`` one vector each, ``count``
+    a device scalar of the steps taken. ``leaves`` are the autograd leaves
+    the loss takes, views of ``p``'s storage, so that the update of ``p``
+    in place moves them; ``adam`` is the update both routes run. A flat
+    gradient in the same order is one vector too."""
 
+    def __init__(self, params: Params, device):
+        self.names = list(params)
+        self.shapes = [tuple(v.shape) for v in params.values()]
+        dtype = params[self.names[0]].dtype
+        for v in params.values():
+            dtype = torch.promote_types(dtype, v.dtype)
+        n = sum(math.prod(s) for s in self.shapes)
+        self.p, self.mu, self.nu = (torch.empty((n,), dtype=dtype,
+                                                device=device)
+                                    for _ in range(3))
+        self.count = torch.zeros((), dtype=dtype, device=device)
+        self.leaves = {k: v.detach().requires_grad_(True)
+                       for k, v in self.tree(self.p).items()}
 
-def adam_step(leaves: Params, state: AdamState, lr: float) -> AdamState:
-    """One ``torch.optim.Adam`` step on leaves holding their gradients,
-    started from ``state``; updates leaves in place, returns the new
-    state. A leaf the loss did not reach steps with a zero gradient, as
-    optax does."""
-    ps = list(leaves.values())
-    opt = torch.optim.Adam(ps, lr=lr, betas=BETAS, eps=EPS, weight_decay=0.0)
-    for k, p in leaves.items():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        opt.state[p] = {"step": torch.tensor(float(state.count)),
-                        "exp_avg": state.mu[k].detach().clone(),
-                        "exp_avg_sq": state.nu[k].detach().clone()}
-    opt.step()
-    return AdamState(state.count + 1,
-                     {k: opt.state[p]["exp_avg"] for k, p in leaves.items()},
-                     {k: opt.state[p]["exp_avg_sq"]
-                      for k, p in leaves.items()})
+    def tree(self, flat: torch.Tensor) -> Params:
+        """flat's views in the params' names and shapes."""
+        out, at = {}, 0
+        for k, s in zip(self.names, self.shapes):
+            n = math.prod(s)
+            out[k] = flat[at:at + n].view(s)
+            at += n
+        return out
+
+    def stage(self, params: Params, state: AdamState) -> None:
+        """Writes params and state into the buffers in place."""
+        with torch.no_grad():
+            for buf, tree in ((self.p, params), (self.mu, state.mu),
+                              (self.nu, state.nu)):
+                torch.cat([tree[k].detach().reshape(-1)
+                           for k in self.names], out=buf)
+            self.count.fill_(state.count)
+
+    def adam(self, g: torch.Tensor, lr: float) -> None:
+        """optax.adam's update from the flat gradient g, in place:
+        ``scale_by_adam`` then ``scale(-lr)`` and ``apply_updates``, in
+        optax's order, the bias corrections from the device's count (the
+        count incremented first), so that a captured step reads no host
+        value but lr."""
+        b1, b2 = BETAS
+        with torch.no_grad():
+            torch.add((1 - b1) * g, b1 * self.mu, out=self.mu)
+            torch.add((1 - b2) * (g * g), b2 * self.nu, out=self.nu)
+            self.count.add_(1)
+            mu_hat = self.mu / (1 - b1 ** self.count)
+            nu_hat = self.nu / (1 - b2 ** self.count)
+            self.p.add_(-lr * (mu_hat / (torch.sqrt(nu_hat) + EPS)))
+
+    def result(self, count: int, copy: bool = False):
+        """(params, AdamState) of the buffers (copies of them with
+        ``copy``); ``count`` the host's count of the steps taken."""
+        p, mu, nu = ((t.clone() if copy else t)
+                     for t in (self.p, self.mu, self.nu))
+        return self.tree(p), AdamState(count, self.tree(mu), self.tree(nu))
 
 
 def _sharded_primary(sc: SceneArrays, width: int, height: int, fsaa: int,
@@ -152,15 +211,14 @@ def _sharded_primary(sc: SceneArrays, width: int, height: int, fsaa: int,
     return org, dirs, t_min, target, w
 
 
-def _mesh_step(loss_of, params: Params, opt_state: AdamState, lr: float,
-               sc: SceneArrays, rays, mesh: RayMesh):
-    """One step over the mesh: ``loss_of(leaves, sc, org, dirs, t_min,
-    target, w)`` on each of this process's blocks on its device, loss and
-    gradients averaged over the blocks in order, summed across ranks and
-    divided by the world size, then one Adam step on the params'
-    device."""
+def _mesh_grads(loss_of, leaves: Params, sc: SceneArrays, rays,
+                mesh: RayMesh) -> torch.Tensor:
+    """``loss_of(leaves, sc, org, dirs, t_min, target, w)`` on each of
+    this process's blocks on its device; the loss and the gradients in
+    the leaves' order as one flat vector on the rays' device, averaged
+    over the blocks in order, summed across ranks and divided by the
+    world size."""
     org, dirs, t_min, target, w = rays
-    leaves = _leaves(params)
     names = list(leaves)
     home = dirs.device
     copies = {home: leaves}
@@ -179,49 +237,187 @@ def _mesh_step(loss_of, params: Params, opt_state: AdamState, lr: float,
             (torch.zeros_like(leaves[k]) if g is None else g.to(home))
             .reshape(-1) for k, g in zip(names, grads)])
         total = flat if total is None else total + flat
-    mean = mesh.all_reduce_sum(total / len(mesh.devices)) / mesh.world
-    at = 1
-    for k in names:
-        size = leaves[k].numel()
-        leaves[k].grad = mean[at:at + size].reshape(leaves[k].shape)
-        at += size
-    opt_state = adam_step(leaves, opt_state, lr)
-    return ({k: p.detach() for k, p in leaves.items()}, opt_state,
-            mean[0])
+    return mesh.all_reduce_sum(total / len(mesh.devices)) / mesh.world
 
 
-def _mesh_run(loss_of, width: int, height: int, fsaa: int, lr: float,
-              mesh: RayMesh):
+def _step_body(loss_of, st: FlatState, lr: float, sc: SceneArrays, rays,
+               mesh: RayMesh) -> torch.Tensor:
+    """One step on st in place; returns the loss (a device scalar)."""
+    mean = _mesh_grads(loss_of, st.leaves, sc, rays, mesh)
+    st.adam(mean[1:], lr)
+    return mean[0]
+
+
+def _mesh_step(loss_of, params: Params, opt_state: AdamState, lr: float,
+               sc: SceneArrays, rays, mesh: RayMesh):
+    """The eager step: ``_step_body`` on fresh buffers holding copies of
+    params and opt_state, on the rays' device."""
+    st = FlatState(params, rays[1].device)
+    st.stage(params, opt_state)
+    loss = _step_body(loss_of, st, lr, sc, rays, mesh)
+    return st.result(opt_state.count + 1) + (loss,)
+
+
+class StepProgram:
+    """A training step with fixed inputs, for one ``StepKey``: the
+    counterpart of the body of the JAX scan's ``one_step``
+    (``quadray_tpu/parallel/train.py:193-206``). Its body is
+    ``_step_body`` on the program's own buffers: the params and Adam's
+    state (``FlatState``, updated in place), the scene's other fields and
+    the rays, target and weights (``ops.graphs.Inputs``, staged by
+    identity); the re-pack, the paths launch (its work queue zeroed by a
+    ``cudaMemsetAsync`` in the launch), replay with its row gathers, the
+    loss, ``autograd.grad`` with the gathers' backward, the mean over the
+    blocks and Adam. ``run`` stages a call's inputs, then runs the body
+    (the first time, on a side stream, and captures it: ``capture``) or
+    replays it, once a step, and copies each step's loss out of the
+    program's loss scalar; it returns copies of the buffers."""
+
+    def __init__(self, loss_of, lr: float, mesh: RayMesh, params: Params,
+                 device):
+        self.loss_of, self.lr, self.mesh = loss_of, lr, mesh
+        self.device = torch.device(device)
+        self.state = FlatState(params, self.device)
+        self.inputs = Inputs()
+        self.loss = torch.zeros((), dtype=self.state.p.dtype,
+                                device=self.device)
+        self.replay = None
+        self._sc = self._rays = None
+
+    def stage(self, params: Params, opt_state: AdamState, sc: SceneArrays,
+              rays) -> None:
+        self.state.stage(params, opt_state)
+        leaves = self.state.leaves
+        for k in FIELDS:
+            if k not in leaves:
+                self.inputs.stage(k, getattr(sc, k))
+        for k, t in zip(RAYS, rays):
+            self.inputs.stage(k, t)
+        if self._sc is None:
+            b = self.inputs.buf
+            self._sc = SceneArrays(**{k: leaves[k] if k in leaves else b[k]
+                                      for k in FIELDS})
+            self._rays = tuple(b[k] for k in RAYS)
+
+    def run(self, params: Params, opt_state: AdamState, sc: SceneArrays,
+            rays, steps: int):
+        self.stage(params, opt_state, sc, rays)
+        losses = self.loss.new_empty((steps,))
+        for i in range(steps):
+            if self.replay is None:
+                self.replay = capture(self._body, self.device)
+            else:
+                self.replay()
+            losses[i].copy_(self.loss)
+        return self.state.result(opt_state.count + steps, copy=True) + (
+            losses,)
+
+    def _body(self):
+        self.loss.copy_(_step_body(self.loss_of, self.state, self.lr,
+                                   self._sc, self._rays, self.mesh))
+
+
+def step_route(mesh: Optional[RayMesh], device) -> str:
+    """The route of a fast step over ``mesh`` (None: one block on
+    ``device``, the scene's): "graph" in one process with every block on
+    ``device`` (a ``StepProgram``), else "eager"."""
+    device = torch.device(device)
+    if mesh is None or (mesh.group is None
+                        and all(d == device for d in mesh.devices)):
+        return "graph"
+    return "eager"
+
+
+class StepKey(NamedTuple):
+    """What a step's capture freezes: the loss's own (``_FastLoss.key``),
+    the frame, lr, each trained field's (name, shape, dtype), the blocks'
+    devices and the device."""
+    loss: tuple
+    width: int
+    height: int
+    fsaa: int
+    lr: float
+    fields: tuple
+    devices: tuple
+    device: str
+
+
+def step_key(loss_key: tuple, width: int, height: int, fsaa: int,
+             lr: float, params: Params, mesh: RayMesh, device) -> StepKey:
+    return StepKey(loss_key, width, height, fsaa, lr, tuple(
+        (k, tuple(v.shape), v.dtype) for k, v in params.items()), tuple(
+        str(d) for d in mesh.devices), str(torch.device(device)))
+
+
+class _Run:
     """run_fn(params, opt_state, sc, target_flat, steps) -> (params,
-    opt_state, losses (steps,)) of ``_mesh_step``s, the rays padded once;
-    every rank must hold the same scene (``check_replicas``). A mesh of
-    None is one block on the scene's device."""
-    def run_fn(params, opt_state, sc, target_flat, steps: int):
-        m = RayMesh((sc.device,)) if mesh is None else mesh
+    opt_state, losses (steps,)): ``steps`` steps from the rays padded once,
+    on the route the mesh's layout picks (``step_route``), or eager;
+    every rank must hold the same scene (``check_replicas``). The graph
+    route keeps a ``StepProgram`` a key, the STEP_PROGRAMS most recently
+    used (``programs``)."""
+
+    def __init__(self, loss_of, width: int, height: int, fsaa: int,
+                 lr: float, mesh: Optional[RayMesh], eager: bool):
+        self.loss_of, self.lr, self.mesh, self.eager = loss_of, lr, mesh, eager
+        self.width, self.height, self.fsaa = width, height, fsaa
+        self.programs: OrderedDict = OrderedDict()
+
+    def route(self, sc: SceneArrays) -> str:
+        return "eager" if self.eager else step_route(self.mesh, sc.device)
+
+    def __call__(self, params: Params, opt_state: AdamState,
+                 sc: SceneArrays, target_flat, steps: int):
+        m = RayMesh((sc.device,)) if self.mesh is None else self.mesh
         check_replicas(sc, m)
-        rays = _sharded_primary(sc, width, height, fsaa, target_flat, m)
-        losses = []
-        for _ in range(steps):
-            params, opt_state, loss = _mesh_step(loss_of, params, opt_state,
-                                                 lr, sc, rays, m)
-            losses.append(loss)
-        return params, opt_state, torch.stack(losses)
+        rays = _sharded_primary(sc, self.width, self.height, self.fsaa,
+                                target_flat, m)
+        if self.route(sc) == "eager":
+            losses = []
+            for _ in range(steps):
+                params, opt_state, loss = _mesh_step(
+                    self.loss_of, params, opt_state, self.lr, sc, rays, m)
+                losses.append(loss)
+            return params, opt_state, torch.stack(losses)
+        key = step_key(self.loss_of.key(), self.width, self.height,
+                       self.fsaa, self.lr, params, m, sc.device)
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self.programs[key] = StepProgram(
+                self.loss_of, self.lr, m, params, sc.device)
+            while len(self.programs) > STEP_PROGRAMS:
+                self.programs.popitem(last=False)
+        self.programs.move_to_end(key)
+        return prog.run(params, opt_state, sc, rays, steps)
 
-    return run_fn
 
-
-def _one_step(run_fn):
+def _one_step(run_fn: _Run):
     def step_fn(params, opt_state, sc, target_flat):
         params, opt_state, losses = run_fn(params, opt_state, sc,
                                            target_flat, 1)
         return params, opt_state, losses[0]
 
+    step_fn.run = run_fn
     return step_fn
 
 
-def _fast_loss_of(struct, cfg: TraceConfig, k_paths: int):
-    return lambda p, s, org, dirs, t_min, target, w: _loss_fast(
-        p, s, struct, org, dirs, t_min, target, w, cfg, k_paths)
+class _FastLoss:
+    """The trace-replay loss (``_loss_fast``) of one structure, config and
+    K, and what a captured step freezes of it (``key``): the structure
+    (by identity: the loss holds it), the config, K and what the paths
+    launch reads from Python, its gates and EMIT_OWN_MIN_KEPT."""
+
+    def __init__(self, struct, cfg: TraceConfig, k_paths: int):
+        self.struct, self.cfg, self.k_paths = struct, cfg, k_paths
+
+    def __call__(self, p, s, org, dirs, t_min, target, w):
+        return _loss_fast(p, s, self.struct, org, dirs, t_min, target, w,
+                          self.cfg, self.k_paths)
+
+    def key(self) -> tuple:
+        gates = ck.cull_gates(self.struct, self.cfg._replace(cull=False))
+        return (id(self.struct), self.cfg, self.k_paths, gates.flags,
+                ck.EMIT_OWN_MIN_KEPT)
 
 
 def _paths_struct(sc0: SceneArrays):
@@ -234,33 +430,36 @@ def make_train_step_fast(sc0: SceneArrays, width: int, height: int,
                          cfg: TraceConfig = TraceConfig(max_segments=8,
                                                         stack=4),
                          fsaa: int = 1, lr: float = 1e-2,
-                         k_paths: int = 8, mesh: RayMesh = None):
+                         k_paths: int = 8, mesh: RayMesh = None,
+                         eager: bool = False):
     """Fast train step via trace-replay differentiation. Returns (step_fn,
     opt_init); step_fn(params, opt_state, sc, target_flat) -> (params,
     opt_state, loss), target_flat (W*H*fsaa, 3). Requires a single-branch
     scene with at most 16 lights (ValueError otherwise); ``sc0`` supplies
     the static kernel structure, which parameter updates cannot change.
     The params dict names the fields that train. One paths kernel launch
-    a block (module docstring)."""
-    return _one_step(_mesh_run(_fast_loss_of(_paths_struct(sc0), cfg,
-                                             k_paths),
-                               width, height, fsaa, lr, mesh)), adam_init
+    a block; the mesh's layout picks the route, ``eager`` asks for the
+    eager one (module docstring). ``step_fn.run`` is its run_fn."""
+    return _one_step(_Run(_FastLoss(_paths_struct(sc0), cfg, k_paths),
+                          width, height, fsaa, lr, mesh, eager)), adam_init
 
 
 def make_train_scan_fast(sc0: SceneArrays, width: int, height: int,
                          cfg: TraceConfig = TraceConfig(max_segments=8,
                                                         stack=4),
                          fsaa: int = 1, lr: float = 1e-2,
-                         k_paths: int = 8, mesh: RayMesh = None):
+                         k_paths: int = 8, mesh: RayMesh = None,
+                         eager: bool = False):
     """Multi-step trace-replay training. Returns (run_fn, opt_init);
     run_fn(params, opt_state, sc, target_flat, steps) -> (params,
     opt_state, losses (steps,)). The same steps as make_train_step_fast,
-    with the camera rays made once; the losses stay on the device, and in
-    a single process no step waits for the card, so the host queues the S
-    steps ahead of it (over gloo ranks, each step's all-reduce waits for
-    it)."""
-    return _mesh_run(_fast_loss_of(_paths_struct(sc0), cfg, k_paths), width,
-                     height, fsaa, lr, mesh), adam_init
+    with the camera rays made once; the losses stay on the device. On the
+    graph route the program's first call runs its first step and captures
+    the step, and every other step is one replay; in a single process no
+    step waits for the card (over gloo ranks each step's all-reduce waits
+    for it). ``run_fn.programs`` holds the step programs."""
+    return _Run(_FastLoss(_paths_struct(sc0), cfg, k_paths), width, height,
+                fsaa, lr, mesh, eager), adam_init
 
 
 def make_train_step(width: int, height: int,
@@ -268,11 +467,14 @@ def make_train_step(width: int, height: int,
                     fsaa: int = 1, lr: float = 1e-2, mesh: RayMesh = None):
     """Train step through the all-surface differentiable tracer
     (``trace_rays_diff``). Returns (step_fn, opt_init); step_fn(params,
-    opt_state, sc, target_flat) -> (params, opt_state, loss)."""
-    return _one_step(_mesh_run(
+    opt_state, sc, target_flat) -> (params, opt_state, loss). Always the
+    eager route: the plain tracer's ``intersect`` uploads small constant
+    tables from the host (``torch.tensor(..., device=...)``), which a
+    capture cannot hold."""
+    return _one_step(_Run(
         lambda p, s, org, dirs, t_min, target, w: loss_fn(
             p, s, org, dirs, t_min, target, w, cfg),
-        width, height, fsaa, lr, mesh)), adam_init
+        width, height, fsaa, lr, mesh, eager=True)), adam_init
 
 
 # ---------------------------------------------------------------------------

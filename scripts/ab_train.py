@@ -1,6 +1,8 @@
-"""Time the trace-replay training step of two checkouts on one card.
+"""Time the trace-replay training step of two checkouts on one card, or
+of its two routes in this checkout.
 
     python3 scripts/ab_train.py OTHER_ROOT [--rounds 2] [--steps 10]
+    python3 scripts/ab_train.py --routes [--rounds 2] [--steps 10]
 
 OTHER_ROOT is another checkout of this repository (quadray_tpu_torch/ and
 golden/scenes/ are enough), for example the parent commit unpacked with
@@ -14,10 +16,16 @@ surface moved by +0.05, the clean kernel render as the target,
 TraceConfig(max_segments=8, stack=4), K=8, Adam lr 1e-2, every
 DIFFERENTIABLE_FIELDS entry training) and measures make_train_scan_fast's
 ms/step on one block and on 4 blocks of the card (CUDA events around
---steps steps after 2), then one one-block step under torch.profiler: its
-kernel launches and their device time. Prints each worker's JSON line,
-then the means of each side. Needs a CUDA card; exits with code 2 without
-one.
+--steps one-step calls after 2), then one one-block step under
+torch.profiler: its kernel launches and their device time. Prints each
+worker's JSON line, then the means of each side.
+
+--routes measures this checkout alone, in one process: the same task on
+the eager route (make_train_scan_fast(..., eager=True)) against the graph
+route (one CUDA graph a step), a b b a per round, on 1 and 4 blocks, then
+each route's one-block step under torch.profiler.
+
+Needs a CUDA card; exits with code 2 without one.
 """
 
 from __future__ import annotations
@@ -55,18 +63,14 @@ def step_ms(run_fn, params, opt, sc, target, steps: int) -> float:
     return t0.elapsed_time(t1) / steps
 
 
-def worker(root: str, steps: int):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def task(dev):
+    """bench_train's task: (the moved scene, the target, TraceConfig)."""
     from quadray_tpu_torch.models.scenes.loader import load_scene
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.rays import camera_rays
     from quadray_tpu_torch.ops.trace import TraceConfig
-    from quadray_tpu_torch.parallel import train as tr
-    from quadray_tpu_torch.parallel.mesh import ray_mesh
     from quadray_tpu_torch.scene import schema as S
     from quadray_tpu_torch.scene.compile import compile_scene
-    dev = torch.device("cuda", 0)
     cfg = TraceConfig(max_segments=8, stack=4)
     sd = load_scene("test01")
     sc = compile_scene(S.SceneDef(root=sd.root, opts=S.OPTS_FULL & ~sd.opts),
@@ -75,7 +79,37 @@ def worker(root: str, steps: int):
                             sc.cam_pov, W, H, 1)
     target = torch.clamp(ck.trace_rays_cuda(
         sc, org, dirs, sc.cam_pov.expand(dirs.shape[0]), cfg), 0.0, 1.0)
-    sc = dataclasses.replace(sc, s_pos=sc.s_pos + 0.05)
+    return dataclasses.replace(sc, s_pos=sc.s_pos + 0.05), target, cfg
+
+
+def profiled(run_fn, params, opt, sc, target) -> dict:
+    """One one-step call after one, under torch.profiler: its kernel
+    launches, their device ms and the host's launch calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run_fn(params, opt, sc, target, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_fn(params, opt, sc, target, 1)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU]
+    calls = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU and e.key.startswith(
+                    ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cudaMemcpy", "cudaMemset")))
+    return {"kernel_launches": sum(e.count for e in kernels),
+            "device_ms": sum(e.self_device_time_total
+                             for e in kernels) / 1e3,
+            "host_launch_calls": calls}
+
+
+def worker(root: str, steps: int):
+    from quadray_tpu_torch.parallel import train as tr
+    from quadray_tpu_torch.parallel.mesh import ray_mesh
+    dev = torch.device("cuda", 0)
+    sc, target, cfg = task(dev)
     out = {"root": root}
     for blocks in (1, 4):
         run_fn, opt_init = tr.make_train_scan_fast(
@@ -87,23 +121,49 @@ def worker(root: str, steps: int):
     run_fn, opt_init = tr.make_train_scan_fast(sc, W, H, cfg=cfg, lr=LR,
                                                k_paths=K)
     p = tr.extract_params(sc)
-    o = opt_init(p)
-    run_fn(p, o, sc, target, 1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_fn(p, o, sc, target, 1)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU]
-    out["kernel_launches"] = sum(e.count for e in kernels)
-    out["device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+    prof = profiled(run_fn, p, opt_init(p), sc, target)
+    out["kernel_launches"] = prof["kernel_launches"]
+    out["device_ms"] = prof["device_ms"]
     print("RESULT " + json.dumps(out), flush=True)
+
+
+def routes(rounds: int, steps: int, smi: str):
+    """Eager against graphed in this process (module docstring)."""
+    from quadray_tpu_torch.parallel import train as tr
+    from quadray_tpu_torch.parallel.mesh import ray_mesh
+    dev = torch.device("cuda", 0)
+    sc, target, cfg = task(dev)
+    res = {}
+    for blocks in (1, 4):
+        mesh = None if blocks == 1 else ray_mesh([dev] * blocks)
+        fns = {}
+        for mode in ("eager", "graph"):
+            fns[mode], opt_init = tr.make_train_scan_fast(
+                sc, W, H, cfg=cfg, lr=LR, k_paths=K, mesh=mesh,
+                eager=mode == "eager")
+            assert fns[mode].route(sc) == mode
+        p = tr.extract_params(sc)
+        for _ in range(rounds):
+            for mode in ("eager", "graph", "graph", "eager"):
+                ms = step_ms(fns[mode], p, opt_init(p), sc, target, steps)
+                print(f"{blocks} block(s) {mode}: {ms:.3f} ms/step",
+                      flush=True)
+                res.setdefault(f"ms_per_step_{blocks}_{mode}", []).append(ms)
+        if blocks == 1:
+            for mode, fn in fns.items():
+                for k, v in profiled(fn, p, opt_init(p), sc,
+                                     target).items():
+                    res[f"{k}_{mode}"] = [v]
+    print(json.dumps({"device": smi, "root": REPO, "steps": steps,
+                      "mean": {k: float(np.mean(v)) for k, v in res.items()},
+                      "runs": res}))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", nargs="?", help="the other checkout's root")
+    ap.add_argument("--routes", action="store_true",
+                    help="eager against graphed in this checkout")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
@@ -120,6 +180,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if args.routes:
+        sys.path.insert(0, REPO)
+        routes(args.rounds, args.steps, smi)
+        return
+    if not args.other:
+        ap.error("give OTHER_ROOT or --routes")
     sides = {"a": os.path.abspath(args.other), "b": REPO}
     res = {"a": [], "b": []}
     for _ in range(args.rounds):
