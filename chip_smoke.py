@@ -13,11 +13,12 @@
     python3 chip_smoke.py --only N   # kernel build + the main path's kernel
     python3 chip_smoke.py --only O   # kernel build + a CUDA graph a frame
     python3 chip_smoke.py --only P   # kernel build + a CUDA graph a step
+    python3 chip_smoke.py --only R   # kernel build + the fused replay
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points), the conformance kernels, the culling tables' kernels
-(csrc/cull.cu) and replay's row gathers (csrc/replay.cu) with parallel
-nvcc processes, then:
+(csrc/cull.cu) and replay's kernels (csrc/replay.cu: the fused replay and
+the row gathers) with parallel nvcc processes, then:
   A. kernel vs its plain PyTorch version (ops/trace.py), both on the card,
      at 200x120 on seven scenes chosen for their features and at the main
      path's 800x480 on two; max abs diff of linear colors <= 1e-5;
@@ -36,12 +37,13 @@ nvcc processes, then:
      the kernel's colors within 1e-5; D3 make_train_scan_fast recovering
      surface positions moved by +0.05, toward the clean render: a first
      call of one step, which captures the step's CUDA graph, then 10
-     counted steps, each a replay: the loss falls, the paths kernel
-     launches once per step, the replay gather's forward and backward
-     once a segment, and no step synchronises with the host; then
-     bench_train's step (every differentiable field trains, graphed): its
-     ms/step and split (paths kernel, replay fwd+bwd with the gather
-     kernels' device ms in it, Adam, each piece eager) beside the plain
+     counted steps, each a replay: the loss falls, the paths kernel, the
+     fused replay's forward and backward and the row sums launch once
+     per step, the gather's forward never, and no step synchronises with
+     the host; then bench_train's step (every differentiable field
+     trains, graphed): its ms/step and split (paths kernel, replay
+     fwd+bwd with the fused kernels' device ms in it, Adam, each piece
+     eager) beside the plain
      version's step, and the top device ops of one step under
      torch.profiler; D4 the paths kernel vs its plain version on test13
      and demo03 at 800x480; D5 the replay gather kernels
@@ -226,6 +228,21 @@ nvcc processes, then:
      graphed, a b b a, calls of 10 steps, on 1 and 4 blocks, and one-step
      calls of each route under torch.profiler: host launch calls, device
      ops and ms, busy share.
+  R. the fused replay (csrc/replay.cu replay_forward_launch and
+     replay_backward_launch, ops/replay.py replay_color_fused, whose
+     plain version is replay_plain): R1 on the path-record kernel's own
+     records of test01, test13 and demo03 at 800x480, K=8, with a seeded
+     colour gradient: colors, saved state and ids bitwise forward_plain's
+     and the colors bitwise autograd's replay_color's; the row gradients,
+     the lights' and ambient's sums and the tables' gradients bitwise
+     backward_plain's; two launches bitwise; every float field's
+     gradient within 1e-3 of its largest against autograd's
+     replay_color; device ms (CUDA graphs) of the forward, the backward
+     and the row sums beside their bounds, the row sums beside
+     index_add_, the plain version's and autograd's ms; R2
+     one make_train_step_fast step on each route launches the paths
+     kernel, the fused forward and backward and the row sums once each
+     and the gather's forward never.
 Any failure raises (exit code != 0). The last two lines are the kernel
 table and {"ok": true, "device": {...}} as JSON; each kernel's bound_ms
 is the larger of its bytes over 3.35 TB/s and the FP32 operations of the
@@ -291,6 +308,22 @@ PHASE_D4 = ("test01", "test13", "demo03")
 PHASE_D5 = ("test01", "test13", "demo03")
 D5_REPS = 20
 GATHER_FWD_BYTES, GATHER_BWD_BYTES = 5 + 29 * 4 + 3 * 4, 29 * 4 + 2 * 4
+# phase R: the fused replay (csrc/replay.cu replay_forward_launch and
+# replay_backward_launch) on the path-record kernel's own records of these
+# scenes (4, 104 and 152 surfaces) at 800x480, K=8, every float field; the
+# launches of one timing; autograd's replay_color is held within
+# tests/test_torch_replay.py's GRAD_RTOL_ALL of each field's largest
+PHASE_R = ("test01", "test13", "demo03")
+R_REPS = 20
+R_GRAD_RTOL = 1e-3
+R_FIELDS = ("s_pos", "s_inv", "s_sci", "s_scjh", "s_sciw", "m_col", "m_dff",
+            "m_spc", "m_pow", "m_rfl", "m_trn", "m_rfr", "m_ext", "l_pos",
+            "l_col", "l_on", "l_cnt", "l_lnr", "l_qdr", "amb_col")
+# FP32 operations of one live ray segment, counted from csrc/replay.cu
+# (each + - * / sqrt rsqrt exp log one): the forward's segment with its
+# Fresnel and continuation, and each light's term; the backward recomputes
+# both and runs an adjoint about twice as long (an estimate)
+R_SEG_OPS, R_LIGHT_OPS, R_BWD_FACTOR = 230, 60, 3
 # phase E: bench_pt's configuration (bench.py:199-244)
 PT_DEPTH, PT_PASSES, PT_TIMED = 10, 64, 20
 # (scene, width, height, seed of the added emission or None)
@@ -671,11 +704,12 @@ def train_task(dev):
 def phase_d2(dev):
     """Replay of the kernel's records reproduces the kernel's colors."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
-    from quadray_tpu_torch.ops.replay import replay_color
+    from quadray_tpu_torch.ops.replay import replay_color_fused
     sc, _, rays = train_task(dev)
     cfg = train_cfg()
     cols, paths = ck.trace_paths(sc, *rays, cfg, K_PATHS)
-    rep = replay_color(sc, *rays, paths, cfg)
+    with torch.no_grad():
+        rep = replay_color_fused(sc, *rays, paths, cfg)
     mx = float((rep - cols).abs().max())
     log(f"D2 test01 {W}x{H}: replay vs kernel colors max_abs={mx:.3e}")
     if not mx <= ATOL:
@@ -687,8 +721,9 @@ def phase_d3(dev):
     """Training through make_train_scan_fast: the counted main-path run,
     then bench_train's step time and its split."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import replay as rp
     from quadray_tpu_torch.ops import row_gather as rg
-    from quadray_tpu_torch.ops.replay import replay_color
+    from quadray_tpu_torch.ops.replay import replay_color_fused
     from quadray_tpu_torch.ops.trace import trace_paths
     from quadray_tpu_torch.parallel import train as tr
     sc, target, rays = train_task(dev)
@@ -717,6 +752,7 @@ def phase_d3(dev):
         f"{TRAIN_STEPS} counted steps are replays of its graph")
     ck.launches = ck.paths_launches = 0
     rg.launches = rg.backward_launches = 0
+    rp.launches = rp.backward_launches = 0
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -728,6 +764,7 @@ def phase_d3(dev):
     torch.cuda.synchronize()
     launches, whitted = ck.paths_launches, ck.launches
     gathers = (rg.launches, rg.backward_launches)
+    fused = (rp.launches, rp.backward_launches)
     syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
              if "called a synchronizing" in str(w.message)]
     losses = [float(x) for x in losses]
@@ -736,7 +773,8 @@ def phase_d3(dev):
         + " ".join(f"{x:.6e}" for x in losses))
     log(f"D3 launches (replays counted as their capture's): "
         f"whitted_paths={launches} whitted={whitted} "
-        f"replay_gather forward={gathers[0]} backward={gathers[1]}; "
+        f"replay forward={fused[0]} backward={fused[1]} "
+        f"replay_gather forward={gathers[0]} row sums={gathers[1]}; "
         f"host syncs inside the {TRAIN_STEPS} steps: {len(syncs)}")
     if syncs:
         raise AssertionError("D3: run_fn synchronised: "
@@ -746,9 +784,11 @@ def phase_d3(dev):
     if launches != TRAIN_STEPS:
         raise AssertionError(f"D3: {launches} paths-kernel launches in "
                              f"{TRAIN_STEPS} steps")
-    if gathers != (TRAIN_STEPS * K_PATHS,) * 2:
-        raise AssertionError(f"D3: replay gather launches {gathers}, "
-                             f"expected {TRAIN_STEPS * K_PATHS} each")
+    if fused != (TRAIN_STEPS,) * 2 or gathers != (0, TRAIN_STEPS):
+        raise AssertionError(f"D3: replay launches {fused}, gather forward "
+                             f"and row sums {gathers}, expected "
+                             f"{TRAIN_STEPS} fused forward and backward "
+                             f"and row sums, no gather forward")
     for k, v in params.items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"D3: parameter {k} not finite")
@@ -778,7 +818,7 @@ def phase_d3(dev):
     sc_fixed = dataclasses.replace(sc, **state[0])
 
     def loss_of(s2, paths):
-        cols = replay_color(s2, *rays, paths, cfg)
+        cols = replay_color_fused(s2, *rays, paths, cfg)
         return ((torch.clamp(cols, 0.0, 1.0) - target) ** 2).mean()
 
     repack_ms = cuda_ms(lambda: ck.trace_paths_with_struct(
@@ -796,9 +836,14 @@ def phase_d3(dev):
     replay_ms = cuda_ms(replay_fwd_bwd, 10)
     grad = torch.zeros_like(flat.p)
     adam_ms = cuda_ms(lambda: flat.adam(grad, TRAIN_LR), 10)
-    stab, mtab, segs = gather_inputs(sc2, paths)
-    g_fwd, g_bwd = gather_ms(stab, mtab, segs, [tuple(
-        torch.ones((f, W * H), device=dev) for f in (19, 10))] * K_PATHS)
+    tabs = fused_tables(sc2)
+    fwd = rp._forward_kernel(*tabs, *rays[:2], paths)
+    g_cols = torch.ones((W * H, 3), device=dev)
+    g_fwd = graph_ms(lambda: rp._forward_kernel(*tabs, *rays[:2], paths),
+                     D5_REPS)
+    g_bwd = graph_ms(lambda: rp._backward_kernel(g_cols, *tabs, paths,
+                                                 fwd[1], fwd[2]), D5_REPS)
+    del fwd
 
     # the plain version's step: plain trace_paths on the card, 2 steps
     def plain_step():
@@ -826,11 +871,11 @@ def phase_d3(dev):
     log(f"D3 ms/step={step_ms:.3f} (graph replays, a call a step; the "
         f"split, each piece eager: paths kernel with re-pack "
         f"{repack_ms:.3f} of which kernel {kernel_ms:.3f}, replay fwd+bwd "
-        f"{replay_ms:.3f} of which the gather kernels' forward {g_fwd:.4f} "
-        f"and backward {g_bwd:.4f} (device, CUDA graphs), Adam "
+        f"{replay_ms:.3f} of which the fused forward {g_fwd:.4f} and "
+        f"backward with its row sums {g_bwd:.4f} (device, CUDA graphs), Adam "
         f"{adam_ms:.3f}) plain_ms/step={plain_step_ms:.1f} (plain "
         f"trace_paths {plain_paths_ms:.1f})")
-    return launches, kernel_ms, plain_paths_ms, p_bound, gathers
+    return launches, kernel_ms, plain_paths_ms, p_bound, gathers + fused
 
 
 def profile_step(step, step_ms: float, top: int = 10):
@@ -1038,6 +1083,193 @@ def phase_d5(dev, smi):
     if not all(same.values()):
         raise AssertionError(f"D5: two steps from one state differ: {same}")
     return worst, out
+
+
+def replay_bounds(n: int, k: int, ns: int, nm: int, nl: int,
+                  live: int) -> dict:
+    """bound_ms of the fused replay's three parts on n rays of k segments,
+    live of them hit or continued: the forward reads the records and the
+    rays and writes the colors, each segment's 9-float state and 2 ids;
+    the backward reads every record, the colors' gradient and the state
+    and ids of the live segments only (a dead one adds nothing), and
+    writes 29 row gradients a ray a segment; the row sums read those and
+    the ids and write the tables' gradients (csrc/replay.cu). Bytes and
+    operations of the backward are both counted on the live segments."""
+    kn = k * n
+    tables = 4 * (29 + 3) * (ns + nm) + 4 * 10 * nl
+    ops = live * (R_SEG_OPS + nl * R_LIGHT_OPS)
+    return {"forward": bound_ms(4 * kn + 24 * n + 44 * kn + tables, ops),
+            "backward": bound_ms(4 * kn + 12 * n + 44 * live + 116 * kn
+                                 + tables, R_BWD_FACTOR * ops),
+            "row_sums": bound_ms(124 * kn + 4 * 29 * (ns + nm), 29 * kn)}
+
+
+def fused_tables(sc):
+    """The fused replay's table arguments of sc, detached."""
+    from quadray_tpu_torch.ops import replay as rp
+    with torch.no_grad():
+        return [t.detach() for t in rp._table_args(sc)]
+
+
+def replay_grads(fn, sc, rays, paths, g):
+    """{field: gradient of sum(g * fn(...))} for R_FIELDS."""
+    leaves = {k: getattr(sc, k).detach().clone().requires_grad_(True)
+              for k in R_FIELDS}
+    cols = fn(dataclasses.replace(sc, **leaves), *rays, paths, train_cfg())
+    (cols * g).sum().backward()
+    return cols.detach(), {k: v.grad for k, v in leaves.items()}
+
+
+def phase_r1(dev, smi):
+    """The fused replay against its plain version and autograd's
+    replay_color on PHASE_R's records: colors, saved state and ids
+    bitwise forward_plain's and the colors bitwise replay_color's; row
+    gradients, light and ambient sums and the tables' gradients bitwise
+    backward_plain's; two launches bitwise; every field's gradient within
+    R_GRAD_RTOL of autograd's; device ms of each part (CUDA graphs)
+    beside the plain version's and autograd's. Returns {scene: numbers},
+    with the largest absolute difference of the kernels' float outputs
+    from the plain version's: the forward's (colors, state) and the
+    backward's (the four tables' gradients)."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import replay as rp
+    from quadray_tpu_torch.ops import row_gather as rg
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cfg = train_cfg()
+    rs = np.random.RandomState(19)
+    out = {}
+    for name in PHASE_R:
+        sc = compiled(name, dev)
+        rays = primary(sc, W, H)
+        org, dirs, _ = rays
+        n = dirs.shape[0]
+        _, paths = ck.trace_paths(sc, *rays, cfg, K_PATHS)
+        tabs = fused_tables(sc)
+        ns, nm, nl = tabs[0].shape[1], tabs[1].shape[1], tabs[2].shape[0]
+        g = torch.from_numpy(rs.standard_normal((n, 3)).astype(
+            np.float32)).to(dev)
+        counts0 = (rp.launches, rp.backward_launches, rg.launches,
+                   rg.backward_launches)
+        runs = [rp._forward_kernel(*tabs, org, dirs, paths) for _ in range(2)]
+        runs = [f + rp._backward_kernel(g, *tabs, paths, f[1], f[2])
+                for f in runs]
+        counts = tuple(a - b for a, b in zip(
+            (rp.launches, rp.backward_launches, rg.launches,
+             rg.backward_launches), counts0))
+        want = rp.forward_plain(*tabs, org, dirs, paths)
+        want = want + rp.backward_plain(g, *tabs, paths, want[1], want[2])
+        with torch.no_grad():
+            ref = rp.replay_color(sc, *rays, paths, cfg)
+        torch.cuda.synchronize()
+        differ = sum(int((bits(x) != bits(y)).sum()) for got in runs
+                     for x, y in zip(got, want))
+        abs_err = [max(float((got[j] - want[j]).abs().max()) for got in runs
+                   for j in part) for part in ((0, 1), (3, 4, 5, 6))]
+        differ_ref = int((bits(runs[0][0]) != bits(ref)).sum())
+        _, g_ref = replay_grads(rp.replay_color, sc, rays, paths, g)
+        _, g_fused = replay_grads(rp.replay_color_fused, sc, rays, paths, g)
+        rel = {}
+        for k in R_FIELDS:
+            scale = float(g_ref[k].abs().max())
+            err = float((g_fused[k] - g_ref[k]).abs().max())
+            rel[k] = err / scale if scale > 0 else err
+        worst = max(rel, key=rel.get)
+        live_at = (((paths >> 15) & 1) != 0) | (((paths >> 13) & 3) != 0)
+        live = int(live_at.sum())
+        # lanes of the warps that the backward does not skip
+        live_lanes = 32 * int(live_at.reshape(K_PATHS, -1, 32).any(-1).sum())
+        bounds = replay_bounds(n, K_PATHS, ns, nm, nl, live)
+        state, ids = runs[0][1], runs[0][2]
+        g_s, g_m, _ = rp.backward_rows_kernel(g, *tabs, paths, state, ids)
+        ids_s, ids_m = ids[0].reshape(-1), ids[1].reshape(-1)
+        ms = {"forward": graph_ms(
+            lambda: rp._forward_kernel(*tabs, org, dirs, paths), R_REPS),
+              "backward": graph_ms(
+            lambda: rp.backward_rows_kernel(g, *tabs, paths, state, ids),
+            R_REPS)}
+        ms["row_sums"] = graph_ms(lambda: rg._backward(
+            g_s, g_m, ids_s, ids_m, ns, nm), R_REPS)
+        ms["library_row_sums"] = graph_ms(lambda: (
+            tabs[0].new_zeros((19, ns)).index_add_(1, ids_s, g_s),
+            tabs[1].new_zeros((10, nm)).index_add_(1, ids_m, g_m)), R_REPS)
+        ms["plain_forward"] = cuda_ms(
+            lambda: rp.forward_plain(*tabs, org, dirs, paths), 2)
+        ms["plain_backward"] = cuda_ms(lambda: rp._block_sums(
+            rp.backward_rows_plain(g, *tabs, paths, state, ids)[2]), 1)
+        ms["plain_row_sums"] = cuda_ms(lambda: (
+            rg.row_sum_plain(g_s, ids_s, ns),
+            rg.row_sum_plain(g_m, ids_m, nm)), 1)
+        ms["autograd"] = cuda_ms(lambda: replay_grads(
+            rp.replay_color, sc, rays, paths, g), 3)
+        out[name] = {"ms": ms, "bounds": bounds, "differ": differ,
+                     "err": abs_err, "differ_ref": differ_ref, "rel": rel,
+                     "live": live}
+        log(f"R1 {name} {W}x{H} K={K_PATHS} ({ns} surfaces, {nm} materials, "
+            f"{nl} lights; {live} live ray segments of {K_PATHS * n}, "
+            f"{live_lanes} lanes of warps with a live one): "
+            f"launches (forward, backward, gather forward, row sums) "
+            f"{counts}; kernels vs plain (colors, state, ids, four "
+            f"gradients), two launches: {differ} words differ, largest "
+            f"absolute difference forward {abs_err[0]!r} backward "
+            f"{abs_err[1]!r}; "
+            f"colors vs "
+            f"replay_color: {differ_ref} words differ; gradients vs "
+            f"autograd: worst {worst} {rel[worst]:.3e} of its largest "
+            f"(limit {R_GRAD_RTOL})")
+        log(f"R1 {name} ms ({smi}; CUDA graphs of {R_REPS}): forward "
+            f"{ms['forward']:.4f}, bound "
+            f"{bounds['forward'][0]:.4f} ({bounds['forward'][1]}); backward "
+            f"{ms['backward']:.4f}, bound "
+            f"{bounds['backward'][0]:.4f} ({bounds['backward'][1]}); row "
+            f"sums {ms['row_sums']:.4f}, bound {bounds['row_sums'][0]:.4f} "
+            f"({bounds['row_sums'][1]}), index_add_ "
+            f"{ms['library_row_sums']:.4f}; plain forward "
+            f"{ms['plain_forward']:.3f}, backward {ms['plain_backward']:.3f}"
+            f", row sums {ms['plain_row_sums']:.3f}; autograd replay_color "
+            f"forward+backward {ms['autograd']:.3f}")
+        if counts != (2, 2, 0, 2):
+            raise AssertionError(f"R1 {name}: launches {counts}")
+        if differ or differ_ref:
+            raise AssertionError(f"R1 {name}: the kernels are off the plain "
+                                 f"version in {differ} words, off "
+                                 f"replay_color's colors in {differ_ref}")
+        if not rel[worst] <= R_GRAD_RTOL:
+            raise AssertionError(f"R1 {name}: {worst}'s gradient off "
+                                 f"autograd's by {rel[worst]:.3e}")
+        del runs, want, g_s, g_m, state, ids
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_r2(dev):
+    """A training step on bench_train's task goes through the fused
+    kernels, on both routes, and never through the gather's forward: one
+    make_train_step_fast step each, counted."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import replay as rp
+    from quadray_tpu_torch.ops import row_gather as rg
+    from quadray_tpu_torch.parallel import train as tr
+    sc, target, _ = train_task(dev)
+    for eager in (False, True):
+        step_fn, opt_init = tr.make_train_step_fast(
+            sc, W, H, cfg=train_cfg(), lr=TRAIN_LR, k_paths=K_PATHS,
+            eager=eager)
+        p0 = tr.extract_params(sc)
+        o0 = opt_init(p0)
+        step_fn(p0, o0, sc, target)
+        torch.cuda.synchronize()
+        ck.paths_launches = rp.launches = rp.backward_launches = 0
+        rg.launches = rg.backward_launches = 0
+        _, _, loss = step_fn(p0, o0, sc, target)
+        torch.cuda.synchronize()
+        counts = (ck.paths_launches, rp.launches, rp.backward_launches,
+                  rg.launches, rg.backward_launches)
+        route = step_fn.run.route(sc)
+        log(f"R2 one make_train_step_fast step, route {route}: launches "
+            f"(paths, replay forward, replay backward, gather forward, row "
+            f"sums) {counts}; loss {float(loss):.9e}")
+        if counts != (1, 1, 1, 0, 1):
+            raise AssertionError(f"R2 route {route}: launches {counts}")
 
 
 def bound_ms(n_bytes: float, ops: float) -> tuple:
@@ -2935,6 +3167,7 @@ def phase_l2(dev, smi):
     """The sharded fast train step: 1 vs 4 blocks, the counted scan on 4
     blocks, ms/step."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import replay as rp
     from quadray_tpu_torch.ops import row_gather as rg
     from quadray_tpu_torch.parallel import train as tr
     sc, target, _ = train_task(dev)
@@ -2983,10 +3216,12 @@ def phase_l2(dev, smi):
     # main path, counted
     ck.paths_launches = 0
     rg.launches = rg.backward_launches = 0
+    rp.launches = rp.backward_launches = 0
     params, _, losses = run_fn(p0, opt0, sc, target, TRAIN_STEPS)
     torch.cuda.synchronize()
     launches = ck.paths_launches
-    gathers = (rg.launches, rg.backward_launches)
+    gathers = (rg.launches, rg.backward_launches, rp.launches,
+               rp.backward_launches)
     losses = [float(x) for x in losses]
     log(f"L2 {b} blocks, {TRAIN_STEPS} steps of make_train_scan_fast "
         f"(route {run_fn.route(sc)}: the first step the program's warm-up "
@@ -2994,11 +3229,12 @@ def phase_l2(dev, smi):
         f"{','.join(RECOVER_FIELDS)}: losses "
         + " ".join(f"{x:.6e}" for x in losses)
         + f"; paths launches {launches} (expected {b * TRAIN_STEPS}), "
-        f"replay gather forward/backward {gathers}")
+        f"gather forward, row sums, fused replay forward and backward "
+        f"{gathers}")
     if launches != b * TRAIN_STEPS:
         raise AssertionError(f"L2: {launches} paths launches")
-    if gathers != (b * TRAIN_STEPS * K_PATHS,) * 2:
-        raise AssertionError(f"L2: replay gather launches {gathers}")
+    if gathers != (0,) + (b * TRAIN_STEPS,) * 3:
+        raise AssertionError(f"L2: replay launches {gathers}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"L2: loss did not fall: {losses}")
     for k, v in params.items():
@@ -3031,10 +3267,10 @@ def phase_l2(dev, smi):
 def l2_split(sc, target):
     """The two parts of a sharded fast step that run once a block, each
     timed over every block of the frame: the paths kernel with its
-    re-pack, and replay's forward and backward (one autograd.grad a
-    block, as the step takes it)."""
+    re-pack, and the fused replay's forward and backward (one
+    autograd.grad a block, as the step takes it)."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
-    from quadray_tpu_torch.ops.replay import replay_color
+    from quadray_tpu_torch.ops.replay import replay_color_fused
     from quadray_tpu_torch.parallel import train as tr
     cfg = train_cfg()
     struct = ck.scene_struct(sc)
@@ -3057,7 +3293,7 @@ def l2_split(sc, target):
 
         def replay():
             for r, p in zip(blocks, paths):
-                cols = replay_color(sc2, *r[:3], p, cfg)
+                cols = replay_color_fused(sc2, *r[:3], p, cfg)
                 loss = ((torch.clamp(cols, 0.0, 1.0) - r[3]) ** 2).mean()
                 torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
@@ -3646,6 +3882,7 @@ def phase_p1(dev, smi):
     pool). Returns ({blocks: ({route: run_fn}, the graphed run's params
     and state)}, the task)."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import replay as rp
     from quadray_tpu_torch.ops import row_gather as rg
     from quadray_tpu_torch.parallel import train as tr
     bits = lambda t: t.contiguous().view(torch.int32)
@@ -3667,11 +3904,13 @@ def phase_p1(dev, smi):
             mem0 = (torch.cuda.memory_allocated(dev),
                     torch.cuda.memory_reserved(dev))
             ck.paths_launches = rg.launches = rg.backward_launches = 0
+            rp.launches = rp.backward_launches = 0
             t0 = time.perf_counter()
             runs[mode] = fns[mode](p0, opt_init(p0), sc, target, P_STEPS)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            counts[mode] = (ck.paths_launches, rg.launches,
+            counts[mode] = (ck.paths_launches, rp.launches,
+                            rp.backward_launches, rg.launches,
                             rg.backward_launches)
             if mode == "graph":
                 torch.cuda.empty_cache()
@@ -3694,10 +3933,11 @@ def phase_p1(dev, smi):
         losses = [float(x) for x in runs["graph"][2]]
         log(f"P1 test01 {W}x{H} K={K_PATHS} every field, {b} block(s), "
             f"{P_STEPS} steps graphed against eager from one state: "
-            f"bitwise {same}; counts (paths, gather forward, backward) "
+            f"bitwise {same}; counts (paths, replay forward, backward, "
+            f"gather forward, row sums) "
             f"graph {counts['graph']} eager {counts['eager']}; losses "
             + " ".join(f"{x:.6e}" for x in losses))
-        want = (b * P_STEPS, b * P_STEPS * K_PATHS, b * P_STEPS * K_PATHS)
+        want = (b * P_STEPS,) * 3 + (0, b * P_STEPS)
         if not all(same.values()) or set(counts.values()) != {want}:
             raise AssertionError(f"P1 {b} blocks: graphed steps off the "
                                  f"eager ones: {same}, counts {counts}")
@@ -3848,7 +4088,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
-                             "L", "M", "N", "O", "P"],
+                             "L", "M", "N", "O", "P", "R"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
@@ -3857,8 +4097,8 @@ def main():
                     "apps and the interactive frame), K (the culling "
                     "tables' kernels), L (the parallel layer), M (the "
                     "port's bench), N (the main path's Whitted kernel), O (one "
-                    "CUDA graph a frame and a pass) or P (one CUDA graph a "
-                    "training step)")
+                    "CUDA graph a frame and a pass), P (one CUDA graph a "
+                    "training step) or R (the fused replay)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -3967,6 +4207,12 @@ def main():
         d4 = phase_d4(dev)
         d5_err, d5 = phase_d5(dev, smi)
         log(f"phase D ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "R"):
+        t0 = time.perf_counter()
+        r1 = phase_r1(dev, smi)
+        phase_r2(dev)
+        log(f"phase R ok ({time.perf_counter() - t0:.1f} s)")
 
     if only in (None, "E"):
         t0 = time.perf_counter()
@@ -4112,12 +4358,19 @@ def main():
         "at a J3 frame (K2, CUDA graphs), launches the main path's in J3 "
         "and J6 (the frames whose spheres or lights moved), max_abs_err "
         "K1's over bsph_t (every table bitwise); no PyTorch call builds "
-        "them, so library_ms is null; replay_gather ms/plain_ms/bound_ms/"
-        "library_ms are the 8 segments of a test01 800x480 K=8 step "
-        "(D5), forward plus backward, the library index_select plus "
-        "index_add_, launches the forward's (backward_launches the "
-        "backward's) in D3's and L2's counted runs, max_abs_err D5's "
-        "(every word bitwise)")
+        "them, so library_ms is null; replay_forward and replay_backward "
+        "ms/plain_ms/bound_ms are the fused replay on test01's 800x480 "
+        "K=8 records (R1, CUDA graphs; backward without its row sums), "
+        "launches D3's and L2's counted runs, max_abs_err R1's largest "
+        "absolute difference from the plain version (colors and state; "
+        "the tables' gradients); no single PyTorch call "
+        "computes replay, so library_ms is null; replay_gather "
+        "ms/plain_ms/bound_ms/library_ms are the row sums of the same "
+        "step (R1: one call over all K x N entries; the library two "
+        "index_add_), launches the row sums' in D3's and L2's counted "
+        "runs (forward_launches the gather forward's, 0 on the main path), "
+        "max_abs_err D5's (every word bitwise), d5_per_segment D5's "
+        "per-segment gather and backward")
     culled = ("on: warp reach masks (origin box + direction cone or "
               "endpoint capsule per warp, __ballot_sync over the bounding "
               "spheres), lsort and cont masks where cull_gates say so")
@@ -4171,6 +4424,20 @@ def main():
         "memory; culled, per-ray masks after the camera segment where the "
         f"warp's keeps more than {EMIT_OWN_MIN_KEPT} surfaces")
     heavy = e_heavy["test13"]
+    r = r1["test01"]
+    replay_fwd_design = (
+        "a thread a ray runs its K segments in replay_color's f32 "
+        "operations and order (blocks of 128), saving each segment's "
+        "entry state and row ids; the scene tables read through L1 "
+        "(staging them in each block's shared memory measured as fast or "
+        "slower, PERF.md)")
+    replay_bwd_design = (
+        "a thread a ray runs the segments in reverse, each recomputed from "
+        "its saved state with the hand-written adjoint; a warp with no live "
+        "ray skips a segment; 29 row gradients a ray a segment to device "
+        "memory (summed by replay_gather's row sums); the lights' and "
+        "ambient's gradients an xor butterfly a segment into the warp's "
+        "accumulators, warps in order, then blocks in order (no atomics)")
     log(json.dumps({"kernels": [{
         "name": "whitted", "route": "cuda", "culling": culled,
         "design": whitted_design,
@@ -4235,24 +4502,50 @@ def main():
         "launches": j3_cull + j6_cull, "max_abs_err": k_err,
         "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
         "bound_by": k_by, "library_ms": None}, {
+        "name": "replay_forward", "route": "cuda",
+        "design": replay_fwd_design,
+        "source": "quadray_tpu_torch/csrc/replay.cu",
+        "replaces": "quadray_tpu/ops/replay.py:58",
+        "note": "the JAX replay_color (jnp, differentiated by "
+                "jax.value_and_grad), not a Pallas kernel",
+        "launches": d_gathers[2] + l_gathers[2],
+        "max_abs_err": r["err"][0],
+        "ms": r["ms"]["forward"], "plain_ms": r["ms"]["plain_forward"],
+        "bound_ms": r["bounds"]["forward"][0],
+        "bound_by": r["bounds"]["forward"][1], "library_ms": None}, {
+        "name": "replay_backward", "route": "cuda",
+        "design": replay_bwd_design,
+        "source": "quadray_tpu_torch/csrc/replay.cu",
+        "replaces": "quadray_tpu/ops/replay.py:58",
+        "note": "the gradient of the JAX replay_color, which "
+                "jax.value_and_grad derives",
+        "launches": d_gathers[3] + l_gathers[3],
+        "max_abs_err": r["err"][1],
+        "ms": r["ms"]["backward"],
+        "plain_ms": r["ms"]["plain_backward"],
+        "bound_ms": r["bounds"]["backward"][0],
+        "bound_by": r["bounds"]["backward"][1], "library_ms": None}, {
         "name": "replay_gather", "route": "cuda",
-        "design": "forward: a thread a ray writes its 29 float rows and 3 "
-                  "ints, (F, N) layout, one launch a segment; backward, no "
-                  "atomics: a block a (1024 rays, 64-row band), a warp's "
-                  "8 tiles each an xor butterfly per distinct row, warp "
-                  "accumulators in shared memory added in warp order, then "
-                  "the blocks' partials in block order",
+        "design": "the row sums: a block a (1024 entries, 64-row band), a "
+                  "warp's 8 tiles each an xor butterfly per distinct row, "
+                  "warp accumulators in shared memory added in warp order, "
+                  "then the blocks' partials in block order; one call over "
+                  "all K x N entries of the fused backward. Its forward "
+                  "gather (a thread a ray, one launch a segment) runs only "
+                  "in replay_color, the reference",
         "source": "quadray_tpu_torch/csrc/replay.cu",
         "replaces": "quadray_tpu/ops/replay.py:107-135",
         "note": "the JAX replay's one-hot row lookups (jnp contractions "
                 "in replay_color), not a Pallas kernel",
-        "launches": d_gathers[0] + l_gathers[0],
-        "backward_launches": d_gathers[1] + l_gathers[1],
+        "launches": d_gathers[1] + l_gathers[1],
+        "forward_launches": d_gathers[0] + l_gathers[0],
         "max_abs_err": d5_err,
-        "ms": d5["test01"][0] + d5["test01"][1],
-        "plain_ms": d5["test01"][2] + d5["test01"][3],
-        "bound_ms": d5["test01"][6], "bound_by": d5["test01"][7],
-        "library_ms": d5["test01"][4] + d5["test01"][5]}]}))
+        "ms": r["ms"]["row_sums"], "plain_ms": r["ms"]["plain_row_sums"],
+        "bound_ms": r["bounds"]["row_sums"][0],
+        "bound_by": r["bounds"]["row_sums"][1],
+        "library_ms": r["ms"]["library_row_sums"],
+        "d5_per_segment": {"forward_ms": d5["test01"][0],
+                           "backward_ms": d5["test01"][1]}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

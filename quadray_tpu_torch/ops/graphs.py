@@ -43,7 +43,8 @@ Hazards, and what is done about each:
   so it runs outside the graph, as today's op;
 - a replay does not pass through the launch wrappers, so it adds to their
   counters (``ops.cuda_kernel.launches``, ``pt_launches``, ...,
-  ``ops.row_gather.launches``, ``backward_launches``) what its capture
+  ``ops.row_gather.launches``, ``backward_launches``, ``ops.replay
+  .launches``, ``backward_launches``) what its capture
   recorded;
 - a frame returned to the caller is a copy of the pinned buffer, which
   the next frame overwrites.
@@ -62,6 +63,7 @@ import numpy as np
 import torch
 
 from quadray_tpu_torch.ops import cuda_kernel as ck
+from quadray_tpu_torch.ops import replay as rp
 from quadray_tpu_torch.ops import row_gather as rg
 from quadray_tpu_torch.ops.pt import pt_camera_rays
 from quadray_tpu_torch.ops.rays import camera_rays, resolve_aa
@@ -76,7 +78,9 @@ COUNTERS = {k: (ck, k) for k in ("launches", "paths_launches",
                                  "pt_launches", "emit_launches",
                                  "resume_launches", "cull_launches")}
 COUNTERS.update(gather_launches=(rg, "launches"),
-                gather_backward_launches=(rg, "backward_launches"))
+                gather_backward_launches=(rg, "backward_launches"),
+                replay_launches=(rp, "launches"),
+                replay_backward_launches=(rp, "backward_launches"))
 CAMERA = ("cam_pos", "cam_hor", "cam_ver", "cam_nrm", "cam_pov")
 # render_pt_cuda's pass programs kept, the most recently used
 PT_PROGRAMS = 4

@@ -9,8 +9,9 @@ optional, and without the ``fields`` argument the JAX steps take and
 ignore (the params dict names the fields that train):
   * ``make_train_step_fast``: trace-replay differentiation. The path-record
     kernel (``ops.cuda_kernel.trace_paths_with_struct``, detached) traces
-    the current scene, and ``ops.replay.replay_color`` re-evaluates the
-    colors along those paths under autograd.
+    the current scene, and ``ops.replay.replay_color_fused`` re-evaluates
+    the colors along those paths, one forward and one backward launch for
+    all K segments (on the CPU its plain version, ``replay_plain``).
   * ``make_train_scan_fast``: S such steps in one call, the counterpart of
     the JAX ``lax.scan`` of S steps in one executable; the losses stay on
     the device.
@@ -63,7 +64,7 @@ import torch
 
 from quadray_tpu_torch.ops import cuda_kernel as ck
 from quadray_tpu_torch.ops.graphs import Inputs, capture
-from quadray_tpu_torch.ops.replay import replay_color
+from quadray_tpu_torch.ops.replay import replay_color_fused
 from quadray_tpu_torch.ops.trace import TraceConfig, clip, trace_rays_diff
 from quadray_tpu_torch.parallel.mesh import RayMesh
 from quadray_tpu_torch.parallel.render import (check_replicas, replica,
@@ -127,11 +128,12 @@ def _loss_fast(params: Params, sc: SceneArrays, struct, org, dirs, t_min,
     """The trace-replay loss: path records from the kernel on the scene
     with the current parameters (detached: the discrete path structure is
     piecewise constant in them; unculled, as the scene's bounding spheres
-    are those of ``sc``), colors replayed along them under autograd."""
+    are those of ``sc``), colors replayed along them by the fused replay
+    (its backward the hand-written adjoint)."""
     sc2 = dataclasses.replace(sc, **params)
     _, paths = ck.trace_paths_with_struct(sc2, struct, org, dirs, t_min,
                                           cfg, k_paths)
-    cols = replay_color(sc2, org, dirs, t_min, paths, cfg)
+    cols = replay_color_fused(sc2, org, dirs, t_min, paths, cfg)
     return _weighted_mse(cols, target, w)
 
 
@@ -266,12 +268,13 @@ class StepProgram:
     state (``FlatState``, updated in place), the scene's other fields and
     the rays, target and weights (``ops.graphs.Inputs``, staged by
     identity); the re-pack, the paths launch (its work queue zeroed by a
-    ``cudaMemsetAsync`` in the launch), replay with its row gathers, the
-    loss, ``autograd.grad`` with the gathers' backward, the mean over the
-    blocks and Adam. ``run`` stages a call's inputs, then runs the body
-    (the first time, on a side stream, and captures it: ``capture``) or
-    replays it, once a step, and copies each step's loss out of the
-    program's loss scalar; it returns copies of the buffers."""
+    ``cudaMemsetAsync`` in the launch), the fused replay's forward, the
+    loss, ``autograd.grad`` with the fused backward and its row sums, the
+    mean over the blocks and Adam. ``run`` stages a call's inputs, then
+    runs the body (the first time, on a side stream, and captures it:
+    ``capture``) or replays it, once a step, and copies each step's loss
+    out of the program's loss scalar; it returns copies of the
+    buffers."""
 
     def __init__(self, loss_of, lr: float, mesh: RayMesh, params: Params,
                  device):

@@ -321,5 +321,9 @@ def test_graphed_steps_bitwise_eager_on_card(blocks):
     _assert_bitwise(runs[False], runs[True])
     prog = graph_fn.programs[next(iter(graph_fn.programs))]
     assert prog.replay.counts["paths_launches"] == blocks
-    assert prog.replay.counts["gather_launches"] == K * blocks
-    assert prog.replay.counts["gather_backward_launches"] == K * blocks
+    # the fused replay: one forward, one backward and one row-sum launch
+    # a block, no gather forward
+    assert prog.replay.counts["replay_launches"] == blocks
+    assert prog.replay.counts["replay_backward_launches"] == blocks
+    assert "gather_launches" not in prog.replay.counts
+    assert prog.replay.counts["gather_backward_launches"] == blocks
