@@ -7,7 +7,7 @@
     python3 chip_smoke.py --only H   # kernel build + bounding-sphere culling
     python3 chip_smoke.py --only I   # kernel build + RESUME's two modes
     python3 chip_smoke.py --only J   # kernel build + the apps on the card
-    python3 chip_smoke.py --only K   # kernel build + the culling tables
+    python3 chip_smoke.py --only K   # kernel build + the scene pack
     python3 chip_smoke.py --only L   # kernel build + the parallel layer
     python3 chip_smoke.py --only M   # kernel build + the port's bench
     python3 chip_smoke.py --only N   # kernel build + the main path's kernel
@@ -16,8 +16,8 @@
     python3 chip_smoke.py --only R   # kernel build + the fused replay
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
-entry points), the conformance kernels, the culling tables' kernels
-(csrc/cull.cu) and replay's kernels (csrc/replay.cu: the fused replay and
+entry points), the conformance kernels, the scene pack's kernel
+(csrc/pack.cu) and replay's kernels (csrc/replay.cu: the fused replay and
 the row gathers) with parallel nvcc processes, then:
   A. kernel vs its plain PyTorch version (ops/trace.py), both on the card,
      at 200x120 on seven scenes chosen for their features and at the main
@@ -150,12 +150,16 @@ the row gathers) with parallel nvcc processes, then:
      SceneArrays field bitwise compile_scene's, every packed table,
      culled and unculled, bitwise pack_scene's, and the frame
      uint8-equal to render_cuda's on the plain compile.
-  K. the culling tables' kernels (csrc/cull.cu, which the pack launches
-     for bsph_t, shad_msk and cont_msk on the card; J3 and J6 count their
-     launches on the main path): K1 against their plain versions
-     (ops/cuda_kernel.py CULL_PLAIN) on the 21 golden scenes and 10
-     frames of each J3 scene, bitwise; K2 device ms of the three on
-     demo02 (CUDA graphs) beside the plain versions' and the bound.
+  K. the scene pack's kernel (csrc/pack.cu pack_launch, one launch for
+     any subset of the ten tables, which every pack on the card makes;
+     J3, J6 and D3 count its launches on the main path): K1 the launch of
+     every part, of a J3 frame's moved parts and of the training step's
+     seven against their plain versions (ops/cuda_kernel.py PACK_PARTS)
+     on the 21 golden scenes and 10 frames of each J3 scene, bitwise, one
+     launch each; K2 on demo02 at a J3 frame the device ms of the three
+     culling tables in one launch, of J3's moved parts and of a whole
+     pack (CUDA graphs), a call's host ms and its ms with the host's
+     launch work (CUDA events), the plain parts' ms and the bound.
   L. the parallel layer (quadray_tpu_torch/parallel/, one card; blocks of
      a ray mesh on cuda:0 stand in for cards): L1 the counted main-path
      run, all 21 golden scenes at 800x480 through render_sharded_cuda on
@@ -750,7 +754,7 @@ def phase_d3(dev):
         f"the step: {prog.replay.ms:.1f} ms of {first_ms:.1f}, loss "
         f"{float(first[0]):.6e}) ran before the sync-debug window; the "
         f"{TRAIN_STEPS} counted steps are replays of its graph")
-    ck.launches = ck.paths_launches = 0
+    ck.launches = ck.paths_launches = ck.pack_launches = 0
     rg.launches = rg.backward_launches = 0
     rp.launches = rp.backward_launches = 0
     with warnings.catch_warnings(record=True) as caught:
@@ -762,7 +766,8 @@ def phase_d3(dev):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches, whitted = ck.paths_launches, ck.launches
+    launches, whitted, packs = ck.paths_launches, ck.launches, \
+        ck.pack_launches
     gathers = (rg.launches, rg.backward_launches)
     fused = (rp.launches, rp.backward_launches)
     syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
@@ -772,7 +777,7 @@ def phase_d3(dev):
         f"{','.join(RECOVER_FIELDS)}: losses "
         + " ".join(f"{x:.6e}" for x in losses))
     log(f"D3 launches (replays counted as their capture's): "
-        f"whitted_paths={launches} whitted={whitted} "
+        f"whitted_paths={launches} whitted={whitted} pack={packs} "
         f"replay forward={fused[0]} backward={fused[1]} "
         f"replay_gather forward={gathers[0]} row sums={gathers[1]}; "
         f"host syncs inside the {TRAIN_STEPS} steps: {len(syncs)}")
@@ -781,9 +786,9 @@ def phase_d3(dev):
                              + " | ".join(sorted(set(syncs))))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"D3: loss did not fall: {losses}")
-    if launches != TRAIN_STEPS:
-        raise AssertionError(f"D3: {launches} paths-kernel launches in "
-                             f"{TRAIN_STEPS} steps")
+    if launches != TRAIN_STEPS or packs != TRAIN_STEPS:
+        raise AssertionError(f"D3: {launches} paths-kernel and {packs} "
+                             f"pack launches in {TRAIN_STEPS} steps")
     if fused != (TRAIN_STEPS,) * 2 or gathers != (0, TRAIN_STEPS):
         raise AssertionError(f"D3: replay launches {fused}, gather forward "
                              f"and row sums {gathers}, expected "
@@ -875,7 +880,8 @@ def phase_d3(dev):
         f"backward with its row sums {g_bwd:.4f} (device, CUDA graphs), Adam "
         f"{adam_ms:.3f}) plain_ms/step={plain_step_ms:.1f} (plain "
         f"trace_paths {plain_paths_ms:.1f})")
-    return launches, kernel_ms, plain_paths_ms, p_bound, gathers + fused
+    return (launches, kernel_ms, plain_paths_ms, p_bound, gathers + fused,
+            packs)
 
 
 def profile_step(step, step_ms: float, top: int = 10):
@@ -2724,14 +2730,17 @@ def update_steps_ms(sc, frames):
     ``frames`` on the Scene's recorded structure, each call followed by a
     synchronisation: the structure check, the animators and camera
     (local_values), the fields of every group the scene can move
-    (moved_fields), their staged copy, and each PACK_PARTS entry that
-    reads a field of those groups. Means over the frames."""
+    (moved_fields), their staged copy, the one pack launch of the
+    PACK_PARTS entries that read a field of those groups (what a frame's
+    table build launches), and each of those parts alone: a launch of
+    that part only, and its plain version. Means over the frames."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.scene import compile as C
     st, struct = sc._structure, sc._struct
     groups = tuple(g for g in C.MOVED_GROUPS if st.deps[g])
     moved = {k for g in groups for k in C.MOVED_GROUPS[g]}
     stt = ck._struct_tensors(struct, sc.device)
+    names = tuple(n for n, _, reads in ck.PACK_PARTS if moved & set(reads))
     rec = {}
 
     def timed(key, fn, *a):
@@ -2747,9 +2756,14 @@ def update_steps_ms(sc, frames):
         vals = timed("animators and camera", st.local_values, t, cam_trm)
         fields = timed("moved fields", st.moved_fields, groups, vals)
         timed("staged copy", C._staged, fields, sc.device)
-        for name, fn, reads in ck.PACK_PARTS:
-            if moved & set(reads):
-                timed(name, fn, sc.arrays, struct, stt)
+        if names:
+            timed(f"pack launch of {'+'.join(names)}", ck.pack_parts,
+                  names, sc.arrays, struct, stt)
+        for name, fn, _ in ck.PACK_PARTS:
+            if name in names:
+                timed(f"{name} launch", ck.pack_parts, (name,), sc.arrays,
+                      struct, stt)
+                timed(f"{name} plain", fn, sc.arrays, struct, stt)
     return {k: float(np.mean(v)) for k, v in rec.items()}
 
 
@@ -2776,14 +2790,14 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
     from quadray_tpu_torch.ops import cuda_kernel as ck
     tokens = J3_TRACE.split(",")
     sdef = j3_scene
-    launches = cull = 0
+    launches = cull = packs = 0
     results = {}
     for name in J3_SCENES:
         for run, mode in enumerate(modes):
             render = J3_RENDER[mode]
             sc = Scene(sdef(name), W, H, device=dev)
             render(sc, 0.0)      # first compile, kernel structure, capture
-            ck.launches = ck.cull_launches = 0
+            ck.launches = ck.cull_launches = ck.pack_launches = 0
             w0, w1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             frame_ms, frames = [], []
             with timed_render_calls(sc, mode) as rec:
@@ -2803,12 +2817,17 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
                 w1.record()
             torch.cuda.synchronize()
             launches += ck.launches
-            run_cull = ck.cull_launches
+            run_cull, run_pack = ck.cull_launches, ck.pack_launches
             cull += run_cull
+            packs += run_pack
             if not (ck.launches == len(rec["update"]) == len(rec["pack"])
                     == len(rec["kernel"]) == J3_FRAMES):
                 raise AssertionError(f"{label} {name} {mode}: {ck.launches} "
                                      f"launches, {len(rec['kernel'])} timed")
+            if not run_cull <= run_pack <= J3_FRAMES:
+                raise AssertionError(f"{label} {name} {mode}: {run_pack} "
+                                     f"pack launches ({run_cull} culling) "
+                                     f"in {J3_FRAMES} frames")
             kern = [a.elapsed_time(b) for a, b in rec["kernel"]]
             window = w0.elapsed_time(w1)
             upd, pack = np.array(rec["update"]), np.array(rec["pack"])
@@ -2823,7 +2842,7 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
                      full_compile=full_comp, full_pack=full_pack,
                      update_10=upd[:J3_FULL].mean(),
                      pack_10=pack[:J3_FULL].mean(),
-                     cull=run_cull)
+                     cull=run_cull, pack_launches=run_pack)
             results.setdefault(name, []).append(r)
             what = "kernel" if mode == "eager" else "frame graph"
             log(f"{label} {name} run {run + 1} ({mode}) {W}x{H} ({smi}): AVG "
@@ -2838,7 +2857,8 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
                 f" + table build {r['pack_10']:.3f} against a full "
                 f"compile_scene {r['full_compile']:.3f} + pack_scene "
                 f"{r['full_pack']:.3f} at the same times and cameras (host "
-                f"clock, mean of {J3_FULL}); culling-table kernel launches "
+                f"clock, mean of {J3_FULL}); pack launches "
+                f"{r['pack_launches']}, of which wrote culling tables "
                 f"{r['cull']}")
         if not extras:
             continue
@@ -2848,8 +2868,8 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
             f"{J3_FULL} frames and synchronised (host ms, mean): "
             + ", ".join(f"{k} {v:.4f}" for k, v in steps.items()))
     if cull == 0:
-        raise AssertionError("J3: the culling tables' kernels never ran")
-    return launches, cull, results
+        raise AssertionError("J3: no pack launch wrote a culling table")
+    return launches, cull, packs, results
 
 
 def phase_j4(dev):
@@ -2919,7 +2939,7 @@ def phase_j6(dev):
     bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
     same = lambda a, b: a.shape == b.shape and a.dtype == b.dtype and \
         torch.equal(bits(a), bits(b))
-    launches = n_cull = 0
+    launches = n_cull = n_pack = 0
     for name in J3_SCENES:
         sc = Scene(j3_scene(name), W, H, device=dev)
         repacked = {f: 0 for f in ck.PackedScene._fields}
@@ -2929,13 +2949,15 @@ def phase_j6(dev):
             for key in tokens[fi % len(tokens)].split("+"):
                 if fi and key in KEY_ACTIONS:
                     sc.update_action(t, KEY_ACTIONS[key])
-            ck.launches = ck.cull_launches = 0
+            ck.launches = ck.cull_launches = ck.pack_launches = 0
             frame = sc.render(t)
-            if ck.launches != 1:
+            if ck.launches != 1 or ck.pack_launches > 1:
                 raise AssertionError(f"J6 {name} frame {fi}: "
-                                     f"{ck.launches} launches")
+                                     f"{ck.launches} launches, "
+                                     f"{ck.pack_launches} pack launches")
             launches += ck.launches
             n_cull += ck.cull_launches
+            n_pack += ck.pack_launches
             arr = sc.arrays
             full = full_compile(sc, t, sc.camera.trm()
                                 if sc.camera is not None else None)
@@ -2980,7 +3002,7 @@ def phase_j6(dev):
             raise AssertionError(f"J6 {name}: {fails}")
         del sc
         torch.cuda.empty_cache()
-    return launches, n_cull
+    return launches, n_cull, n_pack
 
 
 def cull_inputs(dev):
@@ -3001,24 +3023,19 @@ def cull_inputs(dev):
                 ck.scene_struct(sc)
 
 
-def cull_work(struct, sc) -> tuple:
-    """The culling tables' bytes (each input read once, each output
-    written once) and operations, counted over what this scene's data
-    needs: pad rows and unbounded surfaces take no sphere arithmetic (their
-    bits are set), and only plane rows whose materials continue have
-    halfspaces. A sqrt a bounded sphere. Shadow masks: 9 a (light,
-    receiver) for the receiver's segment, 3 a (light, blocker) for the
-    light-to-blocker vector, 3 a (receiver, blocker) for the summed radii
-    squared, 20 a (light, receiver, blocker) for the capsule test.
-    Continuation masks: 10 a plane row for its normal, 21 a (plane row,
+def cull_work(struct, sc) -> dict:
+    """The operations of each culling table, counted over what this
+    scene's data needs: pad rows and unbounded surfaces take no sphere
+    arithmetic (their bits are set), and only plane rows whose materials
+    continue have halfspaces. bsph_t: a sqrt a bounded sphere. shad_msk: 9
+    a (light, receiver) for the receiver's segment, 3 a (light, blocker)
+    for the light-to-blocker vector, 3 a (receiver, blocker) for the
+    summed radii squared, 20 a (light, receiver, blocker) for the capsule
+    test. cont_msk: 10 a plane row for its normal, 21 a (plane row,
     target) for the signed distance and the slack, 3 a (plane row,
     continuing side, target) for the side's selects."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
-    NS, nl, nm = struct.ns, struct.nl, struct.nm
-    NW = -(-NS // 32)
-    nsl = -(-NS // 128) * 128
-    n_in = NS * (8 + 16 + 4 + 36 + 12 + 4 + 8) + nl * 12 + nm * 4 + 4
-    n_out = 4 * nsl * 4 + NS * max(1, nl * NW) * 4 + NS * 2 * NW * 4
+    nl = struct.nl
     nb = sum(1 for b in struct.bnd if b > 0)
     planes = [struct.perm[r] for g in struct.groups if g.is_plane
               for r in range(g.start, g.start + g.count)]
@@ -3030,54 +3047,112 @@ def cull_work(struct, sc) -> tuple:
     can_rfl = ((pm & ck.PROP_REFLECT) != 0) | (fres & can_trn)
     sides = int((can_rfl | can_trn).sum())
     rows = int((can_rfl | can_trn).any(axis=1).sum())
-    ops = (nb + nl * nb * (9 + 3) + 3 * nb * nb + 20 * nl * nb * nb
-           + 10 * rows + 21 * rows * nb + 3 * sides * nb)
-    return n_in + n_out, ops
+    return {"bsph_t": nb,
+            "shad_msk": nl * nb * (9 + 3) + 3 * nb * nb + 20 * nl * nb * nb,
+            "cont_msk": 10 * rows + 21 * rows * nb + 3 * sides * nb}
+
+
+def pack_work(struct, sc, names) -> tuple:
+    """The bytes and operations of one pack launch of ``names``: each
+    field and structure tensor its parts read, read once, each table
+    written once; the culling tables' operations (cull_work), none for
+    the copies."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    plan = ck.pack_plan(names, struct, sc.l_pos.shape[0],
+                        sc.tex_data.shape[0])
+    n_in = sum(getattr(sc, k).numel() * 4 for k, *_ in plan.fields)
+    n_in += struct.ns * (8 + 8 * ("sp_i" in plan.names))   # perm, blk, ncl
+    n_out = sum(int(np.prod(shape)) * 4 for shape, _ in plan.shapes.values())
+    ops = cull_work(struct, sc)
+    return n_in + n_out, sum(ops[n] for n in plan.names if n in ops)
+
+
+def host_ms(fn, reps: int) -> float:
+    """The host's ms a call of fn(): reps calls back to back on the host
+    clock, without a synchronisation between them (the card runs behind),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / reps
+
+
+# the parts a J3 frame of demo01 or demo02 re-packs: their spheres and
+# lights move (s_pos, s_inv, s_fwd, s_bsph, l_pos)
+K_MOVED = ("sp_f", "cl_f", "lg_f", "bsph_t", "shad_msk", "cont_msk")
 
 
 def phase_k(dev):
-    """The culling tables' kernels (csrc/cull.cu) against their plain
-    versions on the card: K1 bsph_t, shad_msk and cont_msk of every case
-    of cull_inputs bitwise; K2 on demo02 at a J3 frame (106 surfaces,
-    three lights, the scene whose tables J3 re-packs most), the three
-    kernels' device ms against the plain versions' (CUDA graphs of 20
-    calls), each call's ms with the host's launch work (CUDA events),
-    and the bound."""
+    """The scene pack's kernel (csrc/pack.cu) against the plain parts
+    (PACK_PARTS) on the card: K1 the launch of every part, of K_MOVED and
+    of the training step's seven on every case of cull_inputs, each table
+    bitwise, one launch each; K2 on demo02 at a J3 frame (128 rows, three
+    lights, the scene whose tables J3 re-packs most), for the three
+    culling tables, K_MOVED and a whole pack: the launch's device ms
+    against the plain parts' (CUDA graphs of 20 calls), a call's host ms
+    (host_ms) and its ms with the host's launch work (CUDA events), and
+    the bound (pack_work)."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
-    fails, n, err = [], 0, 0.0
+    subsets = {"every part": ck.PART_NAMES, "J3's moved parts": K_MOVED,
+               "the training step's seven": ck.PART_NAMES[:7]}
+    fails, n, err, cases = [], 0, 0.0, 0
     for label, sc, struct in cull_inputs(dev):
+        cases += 1
         stt = ck._struct_tensors(struct, dev)
-        for name in ck.CULL_PARTS:
-            a = ck.cull_table(name, sc, struct, stt)
-            b = ck.CULL_PLAIN[name](sc, struct, stt)
-            n += 1
-            if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
-                fails.append(f"{label} {name}")
-            elif a.dtype == torch.float32:
-                fin = torch.isfinite(b)
-                err = max(err, float((a[fin] - b[fin]).abs().max()))
-    log(f"K1 culling tables, kernel vs plain on the card: {n} tables of "
-        f"{len(SCENES)} golden scenes and {len(J3_SCENES)} x 10 J3 frames, "
-        f"bitwise: {'yes' if not fails else fails}")
+        want = {name: fn(sc, struct, stt) for name, fn, _ in ck.PACK_PARTS}
+        for what, names in subsets.items():
+            before = ck.pack_launches
+            got = ck.pack_parts(names, sc, struct, stt)
+            if ck.pack_launches != before + 1:
+                fails.append(f"{label} {what}: "
+                             f"{ck.pack_launches - before} launches")
+            for name in names:
+                a, b = got[name], want[name]
+                n += 1
+                if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+                    fails.append(f"{label} {what} {name}")
+                elif a.dtype == torch.float32:
+                    fin = torch.isfinite(b)
+                    if bool(fin.any()):
+                        err = max(err, float((a[fin] - b[fin]).abs().max()))
+    log(f"K1 scene pack, one launch vs the plain parts on the card: {cases} "
+        f"cases ({len(SCENES)} golden scenes, {len(J3_SCENES)} x 10 J3 "
+        f"frames) x 3 launches ({', '.join(subsets)}), {n} tables, one "
+        f"launch each, bitwise: {'yes' if not fails else fails}")
     if fails:
         raise AssertionError(f"K1: {fails}")
     label, sc, struct = [c for c in cull_inputs(dev)
                          if c[0] == "demo02 frame 10"][0]
     stt = ck._struct_tensors(struct, dev)
-    kern = lambda: [ck.cull_table(k, sc, struct, stt) for k in ck.CULL_PARTS]
-    plain = lambda: [ck.CULL_PLAIN[k](sc, struct, stt)
-                     for k in ck.CULL_PARTS]
-    ms, plain_ms = graph_ms(kern, 20), graph_ms(plain, 20)
-    call_ms, plain_call_ms = cuda_ms(kern, 20), cuda_ms(plain, 20)
-    nbytes, ops = cull_work(struct, sc)
-    bound, by = bound_ms(nbytes, ops)
-    log(f"K2 {label} (NS={struct.ns}, {struct.nl} lights): the three "
-        f"kernels {ms:.4f} ms device (CUDA graph), {call_ms:.4f} ms a call "
-        f"with the host's launch work; plain {plain_ms:.4f} / "
-        f"{plain_call_ms:.4f} ms; bound {bound:.6f} ms ({by}: {nbytes} B, "
-        f"{ops} operations)")
-    return err, ms, plain_ms, bound, by
+    rows = {}
+    for what, names in (("culling tables", ck.CULL_PARTS),
+                        ("J3's moved parts", K_MOVED),
+                        ("whole pack", ck.PART_NAMES)):
+        def kern(names=names):
+            return ck.pack_parts(names, sc, struct, stt)
+
+        def plain(names=names):
+            return [fn(sc, struct, stt) for name, fn, _ in ck.PACK_PARTS
+                    if name in names]
+        ms, plain_ms = graph_ms(kern, 20), graph_ms(plain, 20)
+        call_ms, plain_call_ms = cuda_ms(kern, 20), cuda_ms(plain, 20)
+        host, plain_host = host_ms(kern, 200), host_ms(plain, 20)
+        nbytes, ops = pack_work(struct, sc, names)
+        bound, by = bound_ms(nbytes, ops)
+        rows[what] = dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms,
+                          host_ms=host, bound_ms=bound, bound_by=by)
+        log(f"K2 {label} (NS={struct.ns}, {struct.nl} lights), {what} "
+            f"({'+'.join(names)}): one launch {ms:.4f} ms device (CUDA "
+            f"graph), {call_ms:.4f} ms a call with the host's launch work, "
+            f"{host:.4f} ms of host work a call; plain {plain_ms:.4f} / "
+            f"{plain_call_ms:.4f} / {plain_host:.4f} ms; bound "
+            f"{bound:.6f} ms ({by}: {nbytes} B, {ops} operations)")
+    return err, rows
 
 
 # ---------------------------------------------------------------------------
@@ -3742,8 +3817,8 @@ def phase_o4(dev, smi):
     from quadray_tpu_torch.models.scenes.loader import load_scene
     from quadray_tpu_torch.ops import cuda_kernel as ck
     out = {}
-    _, _, j3 = phase_j3(dev, smi, modes=O_ABBA, label="O4 J3",
-                        extras=False)
+    _, _, _, j3 = phase_j3(dev, smi, modes=O_ABBA, label="O4 J3",
+                           extras=False)
     for name, runs in j3.items():
         for key in ("ms", "update", "pack", "rest", "kernel", "busy"):
             out[f"J3 {name} {key}"] = abba_summary(
@@ -4114,7 +4189,7 @@ def main():
         f"python {sys.version.split()[0]}")
     from quadray_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.load_libraries("whitted", "conformance", "cull", "replay")
+    _build.load_libraries("whitted", "conformance", "pack", "replay")
     log(f"kernel build (parallel nvcc) and load: "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = os.path.join(_build.BUILD_DIR, "whitted.ptxas.txt")
@@ -4159,14 +4234,12 @@ def main():
         log(f"ptxas conformance: {len(regs)} kernels, {min(regs)}-"
             f"{max(regs)} registers, stack frames {stack}, spill stores "
             f"{spill}")
-    ptxas = os.path.join(_build.BUILD_DIR, "cull.ptxas.txt")
+    ptxas = os.path.join(_build.BUILD_DIR, "pack.ptxas.txt")
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
-            text = fh.read()
-        regs = re.findall(r"Used (\d+) registers", text)
-        spill = sorted(set(re.findall(r"(\d+) bytes spill stores", text)))
-        log(f"ptxas cull: {len(regs)} kernels, registers {regs}, spill "
-            f"stores {spill}")
+            for line in fh:
+                if any(k in line for k in ("registers", "spill")):
+                    log(f"ptxas pack: {line.strip()}")
     ptxas = os.path.join(_build.BUILD_DIR, "replay.ptxas.txt")
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
@@ -4203,7 +4276,8 @@ def main():
         t0 = time.perf_counter()
         d_err = phase_d1(dev)
         phase_d2(dev)
-        d_launches, d_ms, d_plain, d_bound, d_gathers = phase_d3(dev)
+        d_launches, d_ms, d_plain, d_bound, d_gathers, d_packs = \
+            phase_d3(dev)
         d4 = phase_d4(dev)
         d5_err, d5 = phase_d5(dev, smi)
         log(f"phase D ok ({time.perf_counter() - t0:.1f} s)")
@@ -4269,19 +4343,20 @@ def main():
         t0 = time.perf_counter()
         j1 = phase_j1()
         j2 = phase_j2(dev)
-        j3_launches, j3_cull, _ = phase_j3(dev, smi)
+        j3_launches, j3_cull, j3_pack, _ = phase_j3(dev, smi)
         phase_j4(dev)
         phase_j5(dev)
-        j6_launches, j6_cull = phase_j6(dev)
+        j6_launches, j6_cull, j6_pack = phase_j6(dev)
         j_whitted = j1 + j2["whitted"] + j3_launches + j6_launches
         log(f"J launches: whitted {j_whitted} (J1 {j1}, J2 {j2['whitted']}, "
             f"J3 {j3_launches}, J6 {j6_launches}), pt {j2['pt']} (J2), "
-            f"culling tables {j3_cull + j6_cull} (J3 {j3_cull}, J6 "
-            f"{j6_cull})")
+            f"pack {j3_pack + j6_pack} (J3 {j3_pack}, J6 {j6_pack}), of "
+            f"which wrote culling tables {j3_cull + j6_cull} (J3 {j3_cull}, "
+            f"J6 {j6_cull})")
         log(f"phase J ok ({time.perf_counter() - t0:.1f} s)")
 
     if only in (None, "K"):
-        k_err, k_ms, k_plain, k_bound, k_by = phase("K", phase_k, dev)
+        k_err, k_rows = phase("K", phase_k, dev)
 
     if only in (None, "L"):
         t0 = time.perf_counter()
@@ -4354,11 +4429,16 @@ def main():
         "whitted_pt's heavy entry is one test13 800x480 depth-10 pass, "
         "culled (ms) and unculled (unculled_ms), kernel alone, with its "
         "bound and the plain version's share of nearest tests culled; "
-        "cull_tables ms/plain_ms are the three culling tables of demo02 "
-        "at a J3 frame (K2, CUDA graphs), launches the main path's in J3 "
-        "and J6 (the frames whose spheres or lights moved), max_abs_err "
-        "K1's over bsph_t (every table bitwise); no PyTorch call builds "
-        "them, so library_ms is null; replay_forward and replay_backward "
+        "pack ms/plain_ms/bound_ms are a whole pack (the ten tables) of "
+        "demo02 at a J3 frame in one launch against the plain parts (K2, "
+        "CUDA graphs; its moved_parts and culling_tables entries the "
+        "launches of J3's moved parts and of the three culling tables "
+        "alone), launches the main path's in J3 and J6 (the frames whose "
+        "spheres or lights moved, and each J6 scene's first) and D3's (one "
+        "a step, graph replays counted as their capture's), max_abs_err "
+        "K1's over the float tables (every table bitwise); no PyTorch call "
+        "packs the scene, so library_ms is null; replay_forward and "
+        "replay_backward "
         "ms/plain_ms/bound_ms are the fused replay on test01's 800x480 "
         "K=8 records (R1, CUDA graphs; backward without its row sums), "
         "launches D3's and L2's counted runs, max_abs_err R1's largest "
@@ -4491,17 +4571,26 @@ def main():
         "launches": g_launches, "max_abs_err": g_err,
         "ms": g_sum[0], "plain_ms": g_sum[1], "bound_ms": g_bound,
         "bound_by": "bytes", "library_ms": g_sum[2]}, {
-        "name": "cull_tables", "route": "cuda",
-        "design": "one launch a table (bsph_t, shad_msk, cont_msk), a "
-                  "thread an output word of 32 surfaces",
-        "source": "quadray_tpu_torch/csrc/cull.cu",
-        "replaces": "quadray_tpu/ops/pallas_kernel.py:346",
-        "note": "the JAX package builds these tables with jnp in its "
-                "pack_scene (pallas_kernel.py:346-435), not in a Pallas "
-                "kernel",
-        "launches": j3_cull + j6_cull, "max_abs_err": k_err,
-        "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
-        "bound_by": k_by, "library_ms": None}, {
+        "name": "pack", "route": "cuda",
+        "design": "one launch for any subset of the ten tables, each part "
+                  "a contiguous range of 128-thread blocks: a thread an "
+                  "element of the copies, a column of bsph_t, an output "
+                  "word of 32 surfaces of shad_msk and cont_msk, whose "
+                  "blocks first stage the permuted rows' spheres in "
+                  "shared memory (1,024 rows a tile)",
+        "source": "quadray_tpu_torch/csrc/pack.cu",
+        "replaces": "quadray_tpu/ops/pallas_kernel.py:300",
+        "note": "the JAX pack_scene under _pack_jit (pallas_kernel.py:"
+                "300-435, :2143), one XLA executable, not a Pallas kernel",
+        "launches": j3_pack + j6_pack + d_packs,
+        "culling_launches": j3_cull + j6_cull, "max_abs_err": k_err,
+        "ms": k_rows["whole pack"]["ms"],
+        "plain_ms": k_rows["whole pack"]["plain_ms"],
+        "bound_ms": k_rows["whole pack"]["bound_ms"],
+        "bound_by": k_rows["whole pack"]["bound_by"], "library_ms": None,
+        "host_ms": k_rows["whole pack"]["host_ms"],
+        "moved_parts": k_rows["J3's moved parts"],
+        "culling_tables": k_rows["culling tables"]}, {
         "name": "replay_forward", "route": "cuda",
         "design": replay_fwd_design,
         "source": "quadray_tpu_torch/csrc/replay.cu",

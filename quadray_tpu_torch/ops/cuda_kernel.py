@@ -3,9 +3,11 @@
 The counterpart of the host half of ``quadray_tpu.ops.pallas_kernel``:
 the static scene structure (``KernelStruct``/``scene_struct``, which
 permutes surfaces into contiguous classes with shadow blockers first), the
-packed scene tables the kernel reads (``pack_scene``, one part a table;
-``_get_packed`` re-packs only the parts whose fields are new), the launch
-wrapper ``trace_rays_cuda`` with ``render_cuda`` around it, the
+packed scene tables the kernel reads (``pack_scene``, one part a table,
+on the card any subset of the parts in one launch of ``csrc/pack.cu``,
+``pack_parts``; ``_get_packed`` re-packs only the parts whose fields are
+new), the launch wrapper ``trace_rays_cuda`` with ``render_cuda`` around
+it, the
 path-record wrappers ``trace_paths`` / ``trace_paths_with_struct``
 (counterparts of ``pallas_kernel.py:2296, 2475``) that trace-replay
 training calls, and the path-tracing wrappers ``trace_pt_cuda`` /
@@ -25,9 +27,9 @@ takes the structure at run time (surface kind, singularity and clip count
 from ``sp_i``, material property bits and texture addressing from
 ``mat_i``), so one build serves every scene. Bounding-sphere culling
 reads the tables ``bsph_t``/``shad_msk``/``cont_msk`` (bitwise the JAX
-package's; on the card one launch each of ``csrc/cull.cu``,
-``cull_table``) and is switched per launch by ``cull_gates``, the one
-predicate that the wrappers and the plain tracer both call.
+package's; on the card written with the other parts by the pack's one
+launch) and is switched per launch by ``cull_gates``, the one predicate
+that the wrappers and the plain tracer both call.
 
 Each wrapper on CPU tensors runs its plain version
 (``ops.trace.trace_rays`` / ``trace_paths`` / ``trace_rays_emit`` /
@@ -39,7 +41,6 @@ from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
-from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -642,76 +643,15 @@ def _cont_msk_plain(sc: SceneArrays, struct: KernelStruct,
     return torch.cat(sides, dim=1).contiguous()
 
 
-# the culling tables' kernels (csrc/cull.cu), in its table order, and
-# their plain versions
+# the culling tables, in PackedScene order, and their plain versions
 CULL_PARTS = ("bsph_t", "shad_msk", "cont_msk")
 CULL_PLAIN = {"bsph_t": _bsph_t_plain, "shad_msk": _shad_msk_plain,
               "cont_msk": _cont_msk_plain}
-# launches of the culling tables' kernels
-cull_launches = 0
-
-
-def _cull_lib():
-    from quadray_tpu_torch.ops._build import load_library
-    lib = load_library("cull")
-    if lib.cull_launch.argtypes is None:
-        lib.cull_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
-                                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        lib.cull_launch.restype = ctypes.c_int
-    return lib
-
-
-def cull_table(name: str, sc: SceneArrays, struct: KernelStruct,
-               stt) -> torch.Tensor:
-    """One culling table (``name`` in CULL_PARTS) of the permuted rows:
-    one launch of its kernel in csrc/cull.cu on a CUDA scene, bitwise its
-    plain version (CULL_PLAIN), which a CPU scene takes."""
-    global cull_launches
-    dev = sc.s_bsph.device
-    if dev.type == "cpu":
-        return CULL_PLAIN[name](sc, struct, stt)
-    if dev.type != "cuda":
-        raise ValueError(f"cull_table: unsupported device {dev}")
-    NS, NM, nl = struct.ns, struct.nm, struct.nl
-    NW = -(-NS // 32)
-    table = CULL_PARTS.index(name)
-    if table == 1 and nl == 0:
-        return torch.zeros((NS, 1), dtype=I32, device=dev)
-    args = [("perm", stt.perm, torch.long, (NS,)),
-            ("s_bsph", sc.s_bsph, F32, (NS, 4)),
-            ("s_bnd", sc.s_bnd, I32, (NS,))]
-    if table == 1:
-        args.append(("l_pos", sc.l_pos, F32, (sc.l_pos.shape[0], 3)))
-    if table == 2:
-        args += [("s_inv", sc.s_inv, F32, (NS, 3, 3)),
-                 ("s_pos", sc.s_pos, F32, (NS, 3)),
-                 ("s_kind", sc.s_kind, I32, (NS,)),
-                 ("s_mat", sc.s_mat, I32, (NS, 2)),
-                 ("m_props", sc.m_props, I32, (NM,)),
-                 ("use_fresnel", sc.use_fresnel, F32, ())]
-    for a, t, dtype, shape in args:
-        _check(a, t, dtype, shape, dev)
-    ptr = {a: t.data_ptr() for a, t, _, _ in args}
-    out = (torch.empty((4, 1, -(-NS // LANES) * LANES), dtype=F32,
-                       device=dev) if table == 0 else
-           torch.empty((NS, nl * NW if table == 1 else 2 * NW), dtype=I32,
-                       device=dev))
-    lib = _cull_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cull_launch(
-            table, ptr["perm"], ptr["s_bsph"], ptr["s_bnd"],
-            ptr.get("l_pos"), ptr.get("s_inv"), ptr.get("s_pos"),
-            ptr.get("s_kind"), ptr.get("s_mat"), ptr.get("m_props"),
-            ptr.get("use_fresnel"), out.data_ptr(), NS, nl, stream)
-    if err != 0:
-        raise RuntimeError(f"cull kernel launch failed: CUDA error {err}")
-    cull_launches += 1
-    return out
-
 
 _SPHERES = ("s_bsph", "s_bnd")
-# (table, its packer, the SceneArrays fields it reads), in PackedScene order
+# (table, its plain version, the SceneArrays fields it reads), in
+# PackedScene order, which is csrc/pack.cu's part order; on the card
+# pack_parts writes any subset of them in one launch
 PACK_PARTS = (
     ("sp_f", _pack_sp_f, ("s_pos", "s_inv", "s_sci", "s_scjh", "s_sciw",
                           "s_cmin", "s_cmax", "s_fwd", "s_bsph", "s_emis")),
@@ -725,11 +665,199 @@ PACK_PARTS = (
                           "l_on")),
     ("misc", _pack_misc, ("amb_col", "use_gamma", "use_fresnel")),
     ("tex_pk", _pack_tex_pk, ("tex_data",)),
-    ("bsph_t", partial(cull_table, "bsph_t"), _SPHERES),
-    ("shad_msk", partial(cull_table, "shad_msk"), _SPHERES + ("l_pos",)),
-    ("cont_msk", partial(cull_table, "cont_msk"), _SPHERES + (
+    ("bsph_t", _bsph_t_plain, _SPHERES),
+    ("shad_msk", _shad_msk_plain, _SPHERES + ("l_pos",)),
+    ("cont_msk", _cont_msk_plain, _SPHERES + (
         "s_inv", "s_pos", "use_fresnel", "s_kind", "m_props", "s_mat")),
 )
+PART_NAMES = tuple(name for name, _, _ in PACK_PARTS)
+_PART_FIELDS = {name: fields for name, _, fields in PACK_PARTS}
+_PART_PLAIN = {name: fn for name, fn, _ in PACK_PARTS}
+# launches of csrc/pack.cu (pack_launch), and those of them that wrote a
+# culling table
+pack_launches = 0
+cull_launches = 0
+
+# csrc/pack.cu PackArgs: the pointers, in its order, then the outputs, the
+# parts' block ranges and thread counts, and the shapes
+_PACK_STRUCT = ("perm", "blk", "ncl")
+# each SceneArrays field the pack reads: its type and shape, in the
+# dimensions ns (surface rows), nc (clip width), nm (materials), nlr
+# (light rows) and ntex (texels)
+_PACK_FIELDS = {
+    "s_pos": (F32, ("ns", 3)), "s_inv": (F32, ("ns", 3, 3)),
+    "s_sci": (F32, ("ns", 3)), "s_scjh": (F32, ("ns", 3)),
+    "s_sciw": (F32, ("ns",)), "s_cmin": (F32, ("ns", 3)),
+    "s_cmax": (F32, ("ns", 3)), "s_fwd": (F32, ("ns", 3, 3)),
+    "s_bsph": (F32, ("ns", 4)), "s_emis": (F32, ("ns", 2, 3)),
+    "s_kind": (I32, ("ns",)), "s_mat": (I32, ("ns", 2)),
+    "s_sing": (I32, ("ns",)), "s_bnd": (I32, ("ns",)),
+    "c_ref": (I32, ("ns", "nc")), "c_op": (I32, ("ns", "nc")),
+    "c_side": (F32, ("ns", "nc")),
+    "m_col": (F32, ("nm", 3)), "m_dff": (F32, ("nm",)),
+    "m_spc": (F32, ("nm",)), "m_pow": (F32, ("nm",)),
+    "m_rfl": (F32, ("nm",)), "m_trn": (F32, ("nm",)),
+    "m_rfr": (F32, ("nm",)), "m_ext": (F32, ("nm",)),
+    "m_tex_scl": (F32, ("nm", 2)), "m_tex_off": (F32, ("nm", 2)),
+    "m_props": (I32, ("nm",)),
+    "l_pos": (F32, ("nlr", 3)), "l_col": (F32, ("nlr", 3)),
+    "l_cnt": (F32, ("nlr",)), "l_lnr": (F32, ("nlr",)),
+    "l_qdr": (F32, ("nlr",)), "l_on": (F32, ("nlr",)),
+    "amb_col": (F32, (3,)), "use_gamma": (F32, ()),
+    "use_fresnel": (F32, ()), "tex_data": (F32, ("ntex", 3)),
+}
+_PACK_SHAPES = ("ns", "nc", "nm", "nlr", "nl", "ntex", "nsl", "nw")
+_PACK_POINTERS = _PACK_STRUCT + tuple(_PACK_FIELDS)
+PACK_THREADS = 128    # csrc/pack.cu THREADS
+_N_PARTS = len(PART_NAMES)
+_Pointers = ctypes.c_void_p * _N_PARTS
+
+
+class _PackArgs(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_void_p) for k in _PACK_POINTERS]
+                + [("out", _Pointers),
+                   ("start", ctypes.c_int * (_N_PARTS + 1)),
+                   ("count", ctypes.c_int * _N_PARTS)]
+                + [(k, ctypes.c_int) for k in _PACK_SHAPES])
+
+
+class PackPlan(NamedTuple):
+    """One launch's layout (``pack_plan``): the parts, their tables'
+    shapes and types, the threads and blocks of each part, and the fields
+    it reads."""
+    names: tuple     # the parts, in PART_NAMES order
+    shapes: dict     # name -> (shape, dtype) of its table
+    count: tuple     # threads of each of the ten parts (0: not written)
+    start: tuple     # block ranges: part p's are [start[p], start[p + 1])
+    fields: tuple    # (field, its slot in _PACK_POINTERS, dtype, shape)
+    #                  the launch reads
+    tail: tuple      # PackArgs' start, count and shapes, as ctypes takes
+    #                  them
+
+
+_PLANS: dict = {}
+
+
+def pack_plan(names, struct: KernelStruct, nlr: int, ntex: int) -> PackPlan:
+    """The layout of one launch of ``names`` for the structure's shapes,
+    ``nlr`` light rows and ``ntex`` texels: each part's table shape, a
+    thread an element (sp_f, sp_i, cl_f, mat_f, lg_f, misc, tex_pk), a
+    column (bsph_t) or an output word (shad_msk, cont_msk), and its blocks
+    of PACK_THREADS, contiguous and in PART_NAMES order."""
+    unknown = set(names) - set(PART_NAMES)
+    if unknown:
+        raise ValueError(f"pack: no part named {sorted(unknown)}")
+    names = tuple(n for n in PART_NAMES if n in names)
+    key = (names, struct.ns, struct.nc, struct.nm, struct.nl,
+           struct.tex_rows, nlr, ntex)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    ns, nc, nm, nl = struct.ns, struct.nc, struct.nm, struct.nl
+    nw, nsl = -(-ns // 32), -(-ns // LANES) * LANES
+    dims = dict(ns=ns, nc=nc, nm=nm, nlr=nlr, nl=nl, ntex=ntex, nsl=nsl,
+                nw=nw)
+    if not 0 <= nl <= nlr or ntex > struct.tex_rows * LANES:
+        raise ValueError(f"pack: {nl} active lights of {nlr} rows, {ntex} "
+                         f"texels for {struct.tex_rows} rows of {LANES}")
+    table = {"sp_f": ((ns, PF), F32, ns * PF),
+             "sp_i": ((ns, 8), I32, ns * 8),
+             "cl_f": ((ns, nc * CF), F32, ns * nc * CF),
+             "mat_f": ((nm, MF), F32, nm * MF),
+             "lg_f": ((nlr, LF), F32, nlr * LF),
+             "misc": ((8,), F32, 8),
+             "tex_pk": ((struct.tex_rows, LANES), I32,
+                        struct.tex_rows * LANES),
+             "bsph_t": ((4, 1, nsl), F32, nsl),
+             "shad_msk": ((ns, max(1, nl * nw)), I32, ns * max(1, nl * nw)),
+             "cont_msk": ((ns, 2 * nw), I32, ns * 2 * nw)}
+    count = tuple(table[n][2] if n in names else 0 for n in PART_NAMES)
+    start = [0]
+    for c in count:
+        start.append(start[-1] + -(-c // PACK_THREADS))
+    read = dict.fromkeys(k for n in names for k in _PART_FIELDS[n])
+    fields = tuple((k, _PACK_POINTERS.index(k), _PACK_FIELDS[k][0], tuple(
+        dims[d] if isinstance(d, str) else d for d in _PACK_FIELDS[k][1]))
+        for k in read)
+    tail = ((ctypes.c_int * (_N_PARTS + 1))(*start),
+            (ctypes.c_int * _N_PARTS)(*count),
+            *(dims[k] for k in _PACK_SHAPES))
+    plan = PackPlan(names, {n: table[n][:2] for n in names}, count,
+                    tuple(start), fields, tail)
+    _PLANS[key] = plan
+    return plan
+
+
+def _pack_lib():
+    from quadray_tpu_torch.ops._build import load_library
+    lib = load_library("pack")
+    if lib.pack_launch.argtypes is None:
+        lib.pack_launch.argtypes = [ctypes.POINTER(_PackArgs),
+                                    ctypes.c_void_p]
+        lib.pack_launch.restype = ctypes.c_int
+    return lib
+
+
+def pack_args(plan: PackPlan, sc: SceneArrays, stt, dev) -> tuple:
+    """csrc/pack.cu's PackArgs for ``plan`` on the scene's fields, each
+    checked (device, type, shape, contiguity), and the structure's tensors
+    (``_struct_tensors``' for the structure, on ``dev``); and the tables
+    it writes, allocated with torch.empty on ``dev``."""
+    if stt.perm.device != dev:
+        raise ValueError(f"pack: the structure's tensors are on "
+                         f"{stt.perm.device}, the launch on {dev}")
+    ptrs = [None] * len(_PACK_POINTERS)
+    ptrs[:3] = stt.perm.data_ptr(), stt.blk.data_ptr(), stt.ncl.data_ptr()
+    for k, slot, dtype, shape in plan.fields:
+        t = getattr(sc, k)
+        if t.dtype != dtype or t.shape != shape or t.device != dev \
+                or not t.is_contiguous():
+            _check(k, t, dtype, shape, dev)
+        ptrs[slot] = t.data_ptr()
+    tables = {n: torch.empty(shape, dtype=dtype, device=dev)
+              for n, (shape, dtype) in plan.shapes.items()}
+    out = _Pointers(*(tables[n].data_ptr() if n in tables else None
+                      for n in PART_NAMES))
+    return _PackArgs(*ptrs, out, *plan.tail), tables
+
+
+def pack_parts(names, sc: SceneArrays, struct: KernelStruct,
+               stt) -> dict:
+    """The tables ``names`` (of PART_NAMES) by name. On a CUDA scene one
+    launch of csrc/pack.cu writes all of them, bitwise their plain
+    versions (PACK_PARTS), on the current stream without a wait (a CUDA
+    graph may capture it); a CPU scene takes the plain versions. The
+    device is that of the first field the first part reads."""
+    global pack_launches, cull_launches
+    if not names:
+        return {}
+    dev = getattr(sc, _PART_FIELDS[names[0]][0]).device
+    if dev.type == "cpu":
+        return {n: _PART_PLAIN[n](sc, struct, stt) for n in names}
+    if dev.type != "cuda":
+        raise ValueError(f"pack: unsupported device {dev}")
+    plan = pack_plan(names, struct, sc.l_pos.shape[0],
+                     sc.tex_data.shape[0])
+    args, tables = pack_args(plan, sc, stt, dev)
+    lib = _pack_lib()
+    with torch.cuda.device(dev):
+        err = lib.pack_launch(ctypes.byref(args),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pack kernel launch failed: CUDA error {err}")
+    pack_launches += 1
+    cull_launches += any(n in CULL_PARTS for n in plan.names)
+    return tables
+
+
+def cull_table(name: str, sc: SceneArrays, struct: KernelStruct,
+               stt) -> torch.Tensor:
+    """One culling table (``name`` in CULL_PARTS) of the permuted rows:
+    one launch of csrc/pack.cu on a CUDA scene, bitwise its plain version
+    (CULL_PLAIN), which a CPU scene takes."""
+    if name not in CULL_PARTS:
+        raise ValueError(f"cull_table: {name} is not a culling table")
+    return pack_parts((name,), sc, struct, stt)[name]
 
 
 def _assemble(parts: dict, stt, cull: bool) -> PackedScene:
@@ -740,18 +868,23 @@ def _assemble(parts: dict, stt, cull: bool) -> PackedScene:
                      else stt.no_cull))
 
 
+def _part_names(cull: bool) -> tuple:
+    return PART_NAMES if cull else PART_NAMES[:-len(CULL_PARTS)]
+
+
 def pack_scene(sc: SceneArrays, struct: KernelStruct,
                cull: bool = True) -> PackedScene:
     """The tables the Whitted kernel reads, on the scene's device; rows
     permuted by ``struct.perm`` (bitwise the JAX package's pack_scene for
-    the tables both have), every part packed afresh. ``cull`` False
-    leaves the culling tables zero, for launches that do not cull
-    (``cull_gates``). The kernels are f32 only: a scene with another float
-    type (the fp64 tier's) raises ValueError, never a silent down-cast."""
+    the tables both have), every part packed afresh: on the card one
+    launch of csrc/pack.cu (``pack_parts``). ``cull`` False leaves the
+    culling tables zero, for launches that do not cull (``cull_gates``).
+    The kernels are f32 only: a scene with another float type (the fp64
+    tier's) raises ValueError, never a silent down-cast."""
     _check_f32(sc)
     stt = _struct_tensors(struct, sc.device)
-    return _assemble({name: fn(sc, struct, stt) for name, fn, _ in PACK_PARTS
-                      if cull or name not in CULL_PARTS}, stt, cull)
+    return _assemble(pack_parts(_part_names(cull), sc, struct, stt), stt,
+                     cull)
 
 
 class _PackCache:
@@ -759,12 +892,16 @@ class _PackCache:
     form): a part is re-packed only when the structure, or a field it
     reads, is a new object, and kept otherwise, so a frame of the
     incremental update re-packs only the tables its moved fields feed (a
-    camera-only frame none). Each part's cache is LRU-bounded, as
+    camera-only frame none). The stale parts are written together, by one
+    ``pack_parts`` call (``one_launch``: one launch on the card), or each
+    by its own function. Each part's cache is LRU-bounded, as
     ``_SceneCache`` is."""
 
-    def __init__(self, parts: tuple = PACK_PARTS, maxlen: int = 8):
+    def __init__(self, parts: tuple = PACK_PARTS, maxlen: int = 8,
+                 one_launch: bool = True):
         self._def = parts
         self._maxlen = maxlen
+        self._one_launch = one_launch
         self._parts = {name: OrderedDict() for name, _, _ in parts}
 
     def tables(self, sc: SceneArrays, struct: KernelStruct,
@@ -773,21 +910,28 @@ class _PackCache:
         ``cull``), and the structure's tensors."""
         _check_f32(sc)
         stt = _struct_tensors(struct, sc.device)
-        out = {}
+        out, stale = {}, []
         for name, fn, fields in self._def:
             if not cull and name in CULL_PARTS:
                 continue
-            cache = self._parts[name]
             leaves = tuple(getattr(sc, k) for k in fields)
             key = (id(struct),) + tuple(map(id, leaves))
-            ent = cache.get(key)
-            if ent is not None and ent[0] is struct and all(
-                    a is b for a, b in zip(ent[1], leaves)):
-                cache.move_to_end(key)
+            # the entry holds the structure and the leaves its key names,
+            # so no other object can have their ids: a hit is identity
+            ent = self._parts[name].get(key)
+            if ent is not None:
+                self._parts[name].move_to_end(key)
                 out[name] = ent[2]
-                continue
-            out[name] = fn(sc, struct, stt)
-            cache[key] = (struct, leaves, out[name])
+            else:
+                out[name] = None
+                stale.append((name, fn, key, leaves))
+        new = (pack_parts(tuple(s[0] for s in stale), sc, struct, stt)
+               if self._one_launch else
+               {name: fn(sc, struct, stt) for name, fn, _, _ in stale})
+        for name, _, key, leaves in stale:
+            cache = self._parts[name]
+            cache[key] = (struct, leaves, new[name])
+            out[name] = new[name]
             while len(cache) > self._maxlen:
                 cache.popitem(last=False)
         return out, stt
@@ -800,11 +944,10 @@ class _PackCache:
 
 _get_packed = _PackCache()
 # the plain tracer's culling tables (ops/trace.py Cull): their plain
-# versions on every device, so that no kernel of csrc/cull.cu is shared by
+# versions on every device, so that no kernel of csrc/pack.cu is shared by
 # a kernel under test and the plain tracer it is held against
 _get_cull_plain = _PackCache(tuple(
-    (name, CULL_PLAIN[name], fields) for name, _, fields in PACK_PARTS
-    if name in CULL_PARTS))
+    part for part in PACK_PARTS if part[0] in CULL_PARTS), one_launch=False)
 
 # kernel launches by trace_rays_cuda, by the path-record wrappers, by
 # trace_pt_cuda and by the two rounds; a run that must have gone through a

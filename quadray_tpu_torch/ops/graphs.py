@@ -76,7 +76,8 @@ I32 = torch.int32
 # (module, attribute)
 COUNTERS = {k: (ck, k) for k in ("launches", "paths_launches",
                                  "pt_launches", "emit_launches",
-                                 "resume_launches", "cull_launches")}
+                                 "resume_launches", "pack_launches",
+                                 "cull_launches")}
 COUNTERS.update(gather_launches=(rg, "launches"),
                 gather_backward_launches=(rg, "backward_launches"),
                 replay_launches=(rp, "launches"),
