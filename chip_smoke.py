@@ -14,11 +14,13 @@
     python3 chip_smoke.py --only O   # kernel build + a CUDA graph a frame
     python3 chip_smoke.py --only P   # kernel build + a CUDA graph a step
     python3 chip_smoke.py --only R   # kernel build + the fused replay
+    python3 chip_smoke.py --only U   # kernel build + the update's launch
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points), the conformance kernels, the scene pack's kernel
-(csrc/pack.cu) and replay's kernels (csrc/replay.cu: the fused replay and
-the row gathers) with parallel nvcc processes, then:
+(csrc/pack.cu), replay's kernels (csrc/replay.cu: the fused replay and
+the row gathers) and the scene update's kernel (csrc/update.cu) with
+parallel nvcc processes, then:
   A. kernel vs its plain PyTorch version (ops/trace.py), both on the card,
      at 200x120 on seven scenes chosen for their features and at the main
      path's 800x480 on two; max abs diff of linear colors <= 1e-5;
@@ -137,18 +139,23 @@ the row gathers) with parallel nvcc processes, then:
      of the trace through CameraController; J3 the interactive frame's
      cost, demo01-03 and test13 at 800x480 with a camera action each
      frame, two runs of 60 frames through Scene.render (one replay of the
-     frame program's graph a frame): AVG FPS, and in the same loop
-     ms/frame split into the update (the incremental update's numeric
-     pass), the table build (the parts of the pack whose fields moved) and
-     the rest, the frame graph's device ms (CUDA events) and the card's
-     share of the window it kept busy; beside the update and the table build,
+     interactive program's graph a frame: the update, the pack and the
+     frame): AVG FPS, and in the same loop ms/frame split into the update
+     (the host's part: the check, the animators, the camera, sin and cos,
+     the pinned write), the table build (none on the host) and the rest,
+     the frame graph's device ms (CUDA events) and the card's share of
+     the window it kept busy, update launches, inputs staged and capture
+     ms; beside the update and the table build,
      a full compile_scene and pack_scene at 10 of the same frames' times
      and cameras; J4 float64 rays and a float64 scene raise ValueError
      before any launch; J5 plot_fresnel on the card against -c; J6 the
      incremental update held at every frame of J3's trace (61 frames a
      scene, demo01-03 and test13 at 800x480, through Scene.render): every
      SceneArrays field bitwise compile_scene's, every packed table,
-     culled and unculled, bitwise pack_scene's, and the frame
+     culled and unculled, bitwise pack_scene's, the interactive
+     program's field and table buffers bitwise those, one replay a frame
+     launching the update, the Whitted kernel and (where surfaces or
+     lights move) the pack once each and staging nothing, and the frame
      uint8-equal to render_cuda's on the plain compile.
   K. the scene pack's kernel (csrc/pack.cu pack_launch, one launch for
      any subset of the ten tables, which every pack on the card makes;
@@ -205,8 +212,8 @@ the row gathers) with parallel nvcc processes, then:
      prefix; M3 each scene's marginal ms/frame beside phase B's
      render_cuda ms/frame and main_path_ms_per_frame (printed, not held).
   O. one CUDA graph a frame and a pass (quadray_tpu_torch/ops/graphs.py:
-     Scene.render replays the scene's frame program, render_pt_pass and
-     render_pt_cuda a pass program a pass): O1 the 21 golden scenes
+     Scene.render replays the scene's interactive program (phase U),
+     render_pt_pass and render_pt_cuda a pass program a pass): O1 the 21 golden scenes
      through Scene.render, the capture frame and a replayed one
      uint8-equal to render_cuda + to_frame, one launch each, the capture
      ms; O2 J3's trace on demo01-03 and test13, every frame uint8-equal
@@ -232,6 +239,21 @@ the row gathers) with parallel nvcc processes, then:
      graphed, a b b a, calls of 10 steps, on 1 and 4 blocks, and one-step
      calls of each route under torch.profiler: host launch calls, device
      ops and ms, busy share.
+  U. the scene update as one launch (csrc/update.cu update_launch,
+     ops/update.py; the counterpart of the JAX engine's _update_jit) and
+     the interactive frame as one CUDA graph (ops/graphs.py
+     InteractiveProgram: the copy of the moving nodes' values from pinned
+     memory, the update, the pack of the tables its fields feed, the
+     Whitted frame): U1 the launch bitwise its plain version
+     (SceneStructure.moved_fields) on the 21 golden scenes and at every
+     frame of J3's trace on demo01-03 and test13, every group at once and
+     each alone, one launch each; U2 the program's frames uint8-equal to
+     render_cuda on the plain compile (J6, which runs Scene.render; with
+     --only U, J6 again under this label); U4 the launch's device ms
+     (CUDA graphs), host ms, the plain version's ms and the bound on J3's
+     scenes. This route's split, launches, inputs staged and capture ms
+     are J3's, its profiler window O5's graphed frame; the parent
+     commit's route is measured against it by scripts/ab_interactive.py.
   R. the fused replay (csrc/replay.cu replay_forward_launch and
      replay_backward_launch, ops/replay.py replay_color_fused, whose
      plain version is replay_plain): R1 on the path-record kernel's own
@@ -2622,28 +2644,32 @@ def eager_render_pt(sc, w, h, seeds, spp, cfg, struct=None):
     return (acc / float(max(spp, 1))).reshape(h, w, 3), seeds
 
 
-# J3's two ways to render a frame: eager_render, or Scene.render, which
-# replays the scene's frame program (ops/graphs.py)
+# J3's ways to render a frame: eager_render, or Scene.render, which
+# replays the scene's interactive program (ops/graphs.py: the update, the
+# pack and the frame in one graph)
 J3_RENDER = {"eager": eager_render, "graph": lambda sc, t: sc.render(t)}
 
 
 @contextlib.contextmanager
 def timed_render_calls(sc, mode: str = "graph"):
-    """Time the calls a frame makes, in place, on ``sc``: the host clock
-    around sc.update (the incremental update) and around ck._get_packed
-    (the tables whose fields moved), and a CUDA event pair around the
-    device work: in "eager" mode around the Whitted kernel's launch
-    (recorded after the launch inputs are ready and after
-    trace_rays_cuda returns), in "graph" mode around the frame program's
-    launch (FrameProgram.launch: the replay of the whole frame's graph).
-    No synchronisation is added. Yields a dict of per-call lists: update
-    and pack (host ms), kernel (event pairs)."""
+    """Time the calls a frame makes, in place, on ``sc``. "eager": the
+    host clock around sc.update (the incremental update) and around
+    ck._get_packed (the tables whose fields moved), and a CUDA event pair
+    around the Whitted kernel's launch (recorded after the launch inputs
+    are ready and after trace_rays_cuda returns). "graph": the host clock around the interactive program's
+    host update (InteractiveProgram.stage_values: the structure's check,
+    the animators, the camera and its sin and cos, the pinned write), no
+    table build on the host (0), and the event pair around its launch
+    (the replay of the graph that updates, packs and renders). No
+    synchronisation is added. Yields a dict of per-call lists: update and
+    pack (host ms), kernel (event pairs)."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops import graphs
     rec = {"update": [], "pack": [], "kernel": []}
     saved = {k: getattr(ck, k) for k in ("_get_packed", "_launch_inputs",
                                          "trace_rays_cuda")}
-    launch = graphs.FrameProgram.launch
+    launch = graphs.InteractiveProgram.launch
+    stage = graphs.InteractiveProgram.stage_values
 
     def host_timed(key, fn):
         def call(*a, **k):
@@ -2672,21 +2698,26 @@ def timed_render_calls(sc, mode: str = "graph"):
         start = event()
         launch(prog)
         rec["kernel"].append([start, event()])
+        rec["pack"].append(0.0)
 
-    sc.update = host_timed("update", sc.update)
-    ck._get_packed = host_timed("pack", saved["_get_packed"])
-    if mode == "eager":
+    if mode == "graph":
+        graphs.InteractiveProgram.stage_values = host_timed("update", stage)
+        graphs.InteractiveProgram.launch = replay
+    else:
+        sc.update = host_timed("update", sc.update)
+        ck._get_packed = host_timed("pack", saved["_get_packed"])
         ck._launch_inputs = launch_inputs
         ck.trace_rays_cuda = trace
-    else:
-        graphs.FrameProgram.launch = replay
     try:
         yield rec
     finally:
-        del sc.update
+        if mode == "graph":
+            graphs.InteractiveProgram.stage_values = stage
+            graphs.InteractiveProgram.launch = launch
+        else:
+            del sc.update
         for k, v in saved.items():
             setattr(ck, k, v)
-        graphs.FrameProgram.launch = launch
 
 
 def j3_scene(name):
@@ -2729,15 +2760,18 @@ def update_steps_ms(sc, frames):
     part it can re-pack, called directly at each (t, cam_trm) of
     ``frames`` on the Scene's recorded structure, each call followed by a
     synchronisation: the structure check, the animators and camera
-    (local_values), the fields of every group the scene can move
-    (moved_fields), their staged copy, the one pack launch of the
+    (local_values), their sin and cos (local_inputs), the update's launch
+    for every group the scene can move (ops.update.moved_fields, its
+    pinned copy included), the plain version (moved_fields) and its
+    staged copy, the one pack launch of the
     PACK_PARTS entries that read a field of those groups (what a frame's
     table build launches), and each of those parts alone: a launch of
     that part only, and its plain version. Means over the frames."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import update as upd
     from quadray_tpu_torch.scene import compile as C
     st, struct = sc._structure, sc._struct
-    groups = tuple(g for g in C.MOVED_GROUPS if st.deps[g])
+    groups = st.moving
     moved = {k for g in groups for k in C.MOVED_GROUPS[g]}
     stt = ck._struct_tensors(struct, sc.device)
     names = tuple(n for n, _, reads in ck.PACK_PARTS if moved & set(reads))
@@ -2754,8 +2788,12 @@ def update_steps_ms(sc, frames):
     for t, cam_trm in frames:
         timed("check", st.check)
         vals = timed("animators and camera", st.local_values, t, cam_trm)
-        fields = timed("moved fields", st.moved_fields, groups, vals)
-        timed("staged copy", C._staged, fields, sc.device)
+        inp = timed("sin and cos (local_inputs)", st.local_inputs, vals)
+        timed("update launch (pinned copy, launch)", upd.moved_fields, st,
+              groups, inp)
+        fields = timed("moved fields (plain)", st.moved_fields, groups,
+                       vals)
+        timed("staged copy (plain)", C._staged, fields, sc.device)
         if names:
             timed(f"pack launch of {'+'.join(names)}", ck.pack_parts,
                   names, sc.arrays, struct, stt)
@@ -2773,14 +2811,16 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
     camera action, every frame the incremental update (the numeric pass
     and the tables its moved fields feed). Per scene a run of J3_FRAMES
     frames for each of ``modes``, each on a new Scene, as render_cli's
-    loop runs them: "graph" Scene.render (one replay of the frame
-    program), "eager" eager_render. AVG FPS on the host clock, and in the
-    same loop and frames (timed_render_calls) ms/frame split into the
-    update, the table build, and the rest (the launch or the replay,
-    to_frame, the wait for the card and the copy to the host); the
-    device ms of the kernel (eager) or of the frame's whole graph (graph)
-    from CUDA events, and the card's share of the window (an event pair
-    around the loop) that it kept the card busy. With ``extras``, beside
+    loop runs them: "graph" Scene.render (one replay of the interactive
+    program: the update, the pack and the frame), "eager" eager_render. AVG FPS on the
+    host clock, and in the same loop and frames (timed_render_calls)
+    ms/frame split into the update, the table build, and the rest (the
+    launch or the replay, to_frame, the wait for the card and the copy to
+    the host); the device ms of the kernel (eager) or of the frame's whole
+    graph (graph) from CUDA events, and the card's share of the
+    window (an event pair around the loop) that it kept the card busy;
+    the update's launches, the inputs a program staged (Inputs.copies)
+    and its warm-up and capture ms. With ``extras``, beside
     the update and the table build, the host ms of a full compile_scene
     and pack_scene (the path before the incremental update) at 10 of the
     same frames' times and cameras, and the update's steps and pack parts
@@ -2788,6 +2828,7 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
     from quadray_tpu_torch import Scene
     from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
     from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import update as ud
     tokens = J3_TRACE.split(",")
     sdef = j3_scene
     launches = cull = packs = 0
@@ -2797,7 +2838,10 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
             render = J3_RENDER[mode]
             sc = Scene(sdef(name), W, H, device=dev)
             render(sc, 0.0)      # first compile, kernel structure, capture
+            prog = sc._interactive_prog if mode == "graph" else None
+            copies0 = prog.inputs.copies if prog is not None else 0
             ck.launches = ck.cull_launches = ck.pack_launches = 0
+            ud.launches = 0
             w0, w1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             frame_ms, frames = [], []
             with timed_render_calls(sc, mode) as rec:
@@ -2818,6 +2862,7 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
             torch.cuda.synchronize()
             launches += ck.launches
             run_cull, run_pack = ck.cull_launches, ck.pack_launches
+            run_upd = ud.launches
             cull += run_cull
             packs += run_pack
             if not (ck.launches == len(rec["update"]) == len(rec["pack"])
@@ -2842,7 +2887,16 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
                      full_compile=full_comp, full_pack=full_pack,
                      update_10=upd[:J3_FULL].mean(),
                      pack_10=pack[:J3_FULL].mean(),
-                     cull=run_cull, pack_launches=run_pack)
+                     cull=run_cull, pack_launches=run_pack,
+                     update_launches=run_upd,
+                     copies=(prog.inputs.copies - copies0
+                             if prog is not None else float("nan")),
+                     capture_ms=(prog.replay.ms if prog is not None
+                                 else float("nan")),
+                     warmup_ms=(prog.replay.warmup_ms if prog is not None
+                                else float("nan")),
+                     replay_counts=(prog.replay.counts if prog is not None
+                                    else {}))
             results.setdefault(name, []).append(r)
             what = "kernel" if mode == "eager" else "frame graph"
             log(f"{label} {name} run {run + 1} ({mode}) {W}x{H} ({smi}): AVG "
@@ -2859,7 +2913,11 @@ def phase_j3(dev, smi, modes=("graph",) * J3_RUNS, label="J3",
                 f"{r['full_pack']:.3f} at the same times and cameras (host "
                 f"clock, mean of {J3_FULL}); pack launches "
                 f"{r['pack_launches']}, of which wrote culling tables "
-                f"{r['cull']}")
+                f"{r['cull']}; update launches {run_upd}; inputs staged "
+                f"into the program {r['copies']}; the program's warm-up "
+                f"and capture {r['capture_ms']:.1f} ms (warm-up's host "
+                f"work {r['warmup_ms']:.1f}), its graph's launches "
+                f"{r['replay_counts']}")
         if not extras:
             continue
         steps = update_steps_ms(sc, frames)
@@ -2917,7 +2975,7 @@ def phase_j5(dev):
         raise AssertionError("J5: plot_fresnel on the card differs")
 
 
-def phase_j6(dev):
+def phase_j6(dev, label="J6"):
     """J3's trace at 800x480 on demo01-03 and test13 through
     Scene.render, the incremental update held at every frame (the first
     one, the structure pass, and J3_FRAMES more): every SceneArrays field
@@ -2927,19 +2985,29 @@ def phase_j6(dev):
     plain versions (CULL_PLAIN) on the plain compile, the scene's kernel
     structure equal to scene_struct's of the plain compile, and the frame
     uint8-equal to
-    render_cuda's on the plain compile. One Whitted launch a frame on the
-    main path (the count set to 0 before each Scene.render and read
-    after). Counts, per packed table, the frames that re-packed it."""
+    render_cuda's on the plain compile. Scene.render is the interactive
+    program's (ops/graphs.py InteractiveProgram): after the first frame
+    one replay a frame, which launches the update once, the Whitted
+    kernel once and the pack once where the scene's surfaces or lights
+    can move (none where only the camera can), every launch counted from
+    the graph (the counts set to 0 before each Scene.render and read
+    after), and stages no input; the program's field buffers and table
+    buffers bitwise the plain compile's fields and a full pack_scene of
+    them. The first frame: the structure pass (whose update launch is
+    held against compile_scene), the fixed tables' pack, and the
+    program's warm-up. Counts, per packed table, the frames that
+    re-packed the scene's eager arrays (Scene.arrays after the frame)."""
     from quadray_tpu_torch import Scene
     from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
     from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import update as upd
     from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
-    from quadray_tpu_torch.scene.compile import FIELDS, MOVED_GROUPS
+    from quadray_tpu_torch.scene.compile import FIELDS
     tokens = J3_TRACE.split(",")
     bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
     same = lambda a, b: a.shape == b.shape and a.dtype == b.dtype and \
         torch.equal(bits(a), bits(b))
-    launches = n_cull = n_pack = 0
+    launches = n_cull = n_pack = n_upd = 0
     for name in J3_SCENES:
         sc = Scene(j3_scene(name), W, H, device=dev)
         repacked = {f: 0 for f in ck.PackedScene._fields}
@@ -2949,15 +3017,26 @@ def phase_j6(dev):
             for key in tokens[fi % len(tokens)].split("+"):
                 if fi and key in KEY_ACTIONS:
                     sc.update_action(t, KEY_ACTIONS[key])
+            prog = sc._interactive_prog
+            copies = prog.inputs.copies if prog is not None else 0
             ck.launches = ck.cull_launches = ck.pack_launches = 0
+            upd.launches = 0
             frame = sc.render(t)
-            if ck.launches != 1 or ck.pack_launches > 1:
-                raise AssertionError(f"J6 {name} frame {fi}: "
-                                     f"{ck.launches} launches, "
-                                     f"{ck.pack_launches} pack launches")
+            prog = sc._interactive_prog
+            # the first frame: the structure pass's update launch and the
+            # warm-up's, the fixed tables' pack and the warm-up's (if any)
+            want = (1, 1, int(bool(prog.parts))) if fi else (
+                1, 2, 1 + int(bool(prog.parts)))
+            got = (ck.launches, upd.launches, ck.pack_launches)
+            if got != want or prog.inputs.copies != copies:
+                raise AssertionError(
+                    f"{label} {name} frame {fi}: whitted, update and pack "
+                    f"launches {got} (want {want}), inputs staged "
+                    f"{prog.inputs.copies - copies}")
             launches += ck.launches
             n_cull += ck.cull_launches
             n_pack += ck.pack_launches
+            n_upd += upd.launches
             arr = sc.arrays
             full = full_compile(sc, t, sc.camera.trm()
                                 if sc.camera is not None else None)
@@ -2965,6 +3044,12 @@ def phase_j6(dev):
                 fails.append("kernel structure")
             bad = [k for k in FIELDS if not same(getattr(arr, k),
                                                  getattr(full, k))]
+            bad += [f"program's {k}" for k, v in prog.fields.items()
+                    if not same(v, getattr(full, k))]
+            tables = ck.pack_scene(full, sc._struct)
+            bad += [f"program's {f}" for f in ck.PackedScene._fields
+                    if not same(prog.inputs.buf[f], getattr(tables, f))]
+            del tables
             for cull in (True, False):
                 got = ck._get_packed(arr, sc._struct, cull)
                 want = ck.pack_scene(full, sc._struct, cull)
@@ -2989,8 +3074,12 @@ def phase_j6(dev):
             if bad:
                 fails.append(f"frame {fi}: {bad}")
             del lin, full
-        moved = [g for g in MOVED_GROUPS if sc._structure.deps[g]]
-        log(f"J6 {name} {W}x{H}: {J3_FRAMES + 1} frames through J3's trace, "
+        moved = list(sc._structure.moving)
+        log(f"{label} {name} {W}x{H}: {J3_FRAMES + 1} frames through J3's "
+            f"trace (the interactive program: after the first frame one "
+            f"replay a frame, update, Whitted and pack launches "
+            f"{prog.replay.counts}, no input staged; its fields and tables "
+            f"bitwise the plain compile's and pack_scene's), "
             f"every field of the incremental update bitwise compile_scene's,"
             f" every packed table (culled and unculled) bitwise pack_scene's"
             f", the culling tables their plain versions' and every frame "
@@ -2999,10 +3088,10 @@ def phase_j6(dev):
             f"can move: {moved}; frames that re-packed each table after the "
             f"first: {repacked}")
         if fails:
-            raise AssertionError(f"J6 {name}: {fails}")
-        del sc
+            raise AssertionError(f"{label} {name}: {fails}")
+        del sc, prog
         torch.cuda.empty_cache()
-    return launches, n_cull, n_pack
+    return launches, n_cull, n_pack, n_upd
 
 
 def cull_inputs(dev):
@@ -3153,6 +3242,169 @@ def phase_k(dev):
             f"{plain_call_ms:.4f} / {plain_host:.4f} ms; bound "
             f"{bound:.6f} ms ({by}: {nbytes} B, {ops} operations)")
     return err, rows
+
+
+# ---------------------------------------------------------------------------
+# phase U: the scene update as one launch, the interactive frame as one graph
+# ---------------------------------------------------------------------------
+
+# the J3 frame at which U4 times the launch, and its CUDA graph's launches
+U_FRAME = 10
+U_REPS = 20
+
+
+def update_work(st, groups) -> tuple:
+    """The bytes and operations that the fields of ``groups`` need, the
+    least an update launch of them could do: read once, the staged rows
+    and the plan's rows (``par``, ``src``) of the nodes those groups'
+    world matrices are composed from (``SceneStructure.need``), the
+    level starts, the static local matrices of those nodes and the static
+    world matrices of their unmoved parents and of the groups' unmoved
+    nodes, each unique row once; for surfaces the surface and box
+    references and the boxes, for lights the light references; the
+    fields written once. A float operation each multiply and add: 64
+    multiply-adds a composed world matrix, 81 more where it builds its
+    local matrix from staged values, a surface's inverse (53) and a
+    bounded surface's sphere (209)."""
+    from quadray_tpu_torch.ops import update as upd
+    from quadray_tpu_torch.scene.compile import SRC_STATIC
+    need = np.unique(np.concatenate([st.need[g] for g in groups]))
+    own = need[st.src[need] != SRC_STATIC]
+    composed = set(need.tolist())
+    refs = set(st.parent[need].tolist())
+    for g in groups:
+        refs |= set(st.nodes[g].tolist())
+    w_rows = len(refs - composed)
+    l_rows = need.size - own.size
+    n_in = (own.size * upd.IN_W * 4 + need.size * 2 * 4
+            + st.plan["lv_start"].size * 4 + (w_rows + l_rows) * 64)
+    ops = 2 * (64 * need.size + 81 * own.size)
+    if "surf" in groups:
+        n_surf, n_box = st.nodes["surf"].size, st.bnd.size
+        n_in += n_surf * 2 * 4 + n_box * (3 + 24) * 4
+        ops += 53 * n_surf + 209 * n_box
+    if "light" in groups:
+        n_in += st.nodes["light"].size * 4
+    n_out = sum(int(np.prod(s)) * 4
+                for s in upd.field_shapes(st, groups).values())
+    return n_in + n_out, ops
+
+
+def trace_scene(name, dev, frames):
+    """A Scene of ``name`` at 800x480 taken through J3's trace: yields
+    (frame, time, the camera's transform, the scene) before each frame's
+    update, the frame's camera action taken."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
+    tokens = J3_TRACE.split(",")
+    sc = Scene(j3_scene(name), W, H, device=dev)
+    sc.update(0.0)
+    for fi in range(frames + 1):
+        t = frame_time(fi)
+        for key in tokens[fi % len(tokens)].split("+"):
+            if fi and key in KEY_ACTIONS:
+                sc.update_action(t, KEY_ACTIONS[key])
+        yield fi, t, sc.camera.trm() if sc.camera is not None else None, sc
+        sc.update(t)
+
+
+def phase_u1(dev):
+    """The scene update's kernel (csrc/update.cu update_launch) against
+    its plain version (SceneStructure.moved_fields) on the card: each
+    golden scene's structure at t = 0 (structure_pass already held its
+    launch against compile_scene) and every frame of J3's trace on
+    demo01-03 and test13 at the values Scene.render takes there, every
+    group at once and each alone, one launch each, bitwise. Returns the
+    largest absolute difference over the finite elements (0 where
+    bitwise) and the launches."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import update as upd
+    from quadray_tpu_torch.scene.compile import MOVED_GROUPS
+    sets = (tuple(MOVED_GROUPS),) + tuple((g,) for g in MOVED_GROUPS)
+    fails, err, n = [], 0.0, [0, 0]
+
+    def check(label, st, vals):
+        nonlocal err
+        inp = st.local_inputs(vals)
+        for groups in sets:
+            before = upd.launches
+            got = upd.moved_fields(st, groups, inp)
+            if upd.launches != before + 1:
+                fails.append(f"{label} {groups}: "
+                             f"{upd.launches - before} launches")
+            n[0] += 1
+            for k, v in st.moved_fields(groups, vals).items():
+                a, b = got[k].cpu(), torch.from_numpy(v)
+                n[1] += 1
+                if a.shape != b.shape or not torch.equal(
+                        a.view(torch.int32), b.view(torch.int32)):
+                    fails.append(f"{label} {groups} {k}")
+                fin = torch.isfinite(b) & torch.isfinite(a)
+                if bool(fin.any()):
+                    err = max(err, float((a[fin] - b[fin]).abs().max()))
+
+    for name in SCENES:
+        sc = Scene(load_scene(name), W, H, device=dev)
+        sc.update(0.0)
+        check(name, sc._structure, sc._structure.local_values(0.0, None))
+        del sc
+    for name in J3_SCENES:
+        for fi, t, cam, sc in trace_scene(name, dev, J3_FRAMES):
+            check(f"{name} frame {fi}", sc._structure,
+                  sc._structure.local_values(t, cam))
+    log(f"U1 scene update, one launch vs the plain version (moved_fields) "
+        f"on the card: {len(SCENES)} golden scenes at t=0 and "
+        f"{len(J3_SCENES)} x {J3_FRAMES + 1} frames of J3's trace, every "
+        f"group at once and each alone: {n[0]} launches, {n[1]} fields, one "
+        f"launch each, bitwise: {'yes' if not fails else fails[:20]}; "
+        f"max_abs_err {err:.3e}")
+    if fails:
+        raise AssertionError(f"U1: {fails[:20]}")
+    return err, n[0]
+
+
+def phase_u4(dev, smi):
+    """The update's launch on J3's scenes at frame U_FRAME of its trace,
+    for the groups the interactive program rewrites: device ms (CUDA
+    graphs of U_REPS launches), the eager launch's host ms a call (the
+    staged values' pinned copy and the launch, ops.update.moved_fields),
+    the plain version's host ms (moved_fields, numpy) and with its staged
+    copy, the bound (update_work). Returns the rows by scene."""
+    from quadray_tpu_torch.ops import update as upd
+    from quadray_tpu_torch.scene import compile as C
+    rows = {}
+    for name in J3_SCENES:
+        for fi, t, cam, sc in trace_scene(name, dev, U_FRAME):
+            if fi == U_FRAME:
+                break
+        st = sc._structure
+        groups = st.moving
+        vals = st.local_values(t, cam)
+        inp = st.local_inputs(vals)
+        local = torch.from_numpy(inp).to(dev)
+        scratch = torch.empty((st.tables.nq, 16), device=dev)
+        outs = {k: torch.empty(s, device=dev)
+                for k, s in upd.field_shapes(st, groups).items()}
+        ms = graph_ms(lambda: upd.launch(st, local, outs, scratch), U_REPS)
+        call = host_ms(lambda: upd.moved_fields(st, groups, inp), 200)
+        plain = host_ms(lambda: st.moved_fields(groups, vals), 50)
+        staged = host_ms(lambda: C._staged(st.moved_fields(groups, vals),
+                                           dev), 50)
+        nbytes, ops = update_work(st, groups)
+        bound, by = bound_ms(nbytes, ops)
+        rows[name] = dict(ms=ms, host_ms=call, plain_ms=plain,
+                          plain_staged_ms=staged, bound_ms=bound,
+                          bound_by=by, groups=groups)
+        log(f"U4 {name} frame {U_FRAME} ({smi}), groups {groups}, "
+            f"{st.tables.nq} scratch rows in "
+            f"{st.tables.lv_start.shape[0] - 1} levels, NS={st.ns}: one "
+            f"launch {ms:.4f} ms device (CUDA graph), {call:.4f} ms of host "
+            f"work a call (pinned copy and launch); plain version "
+            f"{plain:.4f} ms host, {staged:.4f} ms with its staged copy; "
+            f"bound {bound:.6f} ms ({by}: {nbytes} B, {ops} operations)")
+        del sc
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3609,7 +3861,7 @@ def eager_pt_frame(acc, samples, use_gamma, w=W, h=H):
 
 def phase_o1(dev):
     """The golden scenes through Scene.render: the first frame (the
-    frame program's warm-up, then its capture) and a replayed one, each
+    interactive program's warm-up, then its capture) and a replayed one, each
     uint8-equal to render_cuda + to_frame, one Whitted launch each (the
     count set to 0 before and read after). Returns the capture ms
     (warm-up and capture, set-up) by scene."""
@@ -3628,34 +3880,46 @@ def phase_o1(dev):
         want = to_frame(ck.render_cuda(sc.arrays, W, H, sc.pfm.fsaa,
                                        sc._cfg(), sc._struct),
                         sc.arrays.use_gamma).cpu().numpy()
-        replay = sc._frame_prog.replay
+        prog = sc._interactive_prog
+        replay = prog.replay
         same = [np.array_equal(f, want) for f in frames]
         capture[n] = replay.ms
+        # the interactive program's graph: the update, the pack of the
+        # tables its moving fields feed (none where only the camera
+        # moves) and the Whitted launch
+        counts = {"launches": 1, "update_launches": 1}
+        if prog.parts:
+            counts["pack_launches"] = 1
+            if set(prog.parts) & set(ck.CULL_PARTS):
+                counts["cull_launches"] = 1
         log(f"O1 {n}: capture frame, replayed frame uint8-equal to "
             f"render_cuda + to_frame: {same}; launches {launches}; "
-            f"warm-up + capture {replay.ms:.1f} ms; the graph's launches "
+            f"warm-up + capture {replay.ms:.1f} ms (warm-up's host work "
+            f"{replay.warmup_ms:.1f}); the graph's launches "
             f"{replay.counts}")
         if not all(same) or launches != 2 or not isinstance(
-                replay, graphs.Replay) or replay.counts != {"launches": 1}:
+                replay, graphs.Replay) or replay.counts != counts:
             fails.append(n)
         del sc
     if fails:
         raise AssertionError(f"O1: graphed frames differ or miscounted: "
                              f"{fails}")
     v = sorted(capture.values())
-    log(f"O1 capture (set-up, host ms, warm-up and capture of a frame "
-        f"program) over the {len(v)} scenes: min {v[0]:.1f}, median "
+    log(f"O1 capture (set-up, host ms, warm-up and capture of an "
+        f"interactive program) over the {len(v)} scenes: min {v[0]:.1f}, "
+        f"median "
         f"{v[len(v) // 2]:.1f}, max {v[-1]:.1f}")
     return capture
 
 
 def phase_o2(dev):
     """J3's trace on demo01-03 and test13 through Scene.render (one
-    replay a frame after the first), every frame uint8-equal to
-    render_cuda + to_frame on the frame's arrays, one Whitted launch a
-    frame; every frame returned kept as it was to the end; the inputs
-    the frame program copied a frame (none where nothing moved). Then
-    fsaa 2 (a new key, so a new capture) on demo02 for three frames."""
+    replay of the interactive program a frame after the first), every
+    frame uint8-equal to render_cuda + to_frame on the frame's arrays,
+    one Whitted launch a frame; every frame returned kept as it was to
+    the end; no input staged into the program (its update and pack write
+    its buffers inside the graph). Then fsaa 2 (a new key, so a new
+    capture) on demo02 for three frames."""
     from quadray_tpu_torch import Scene
     from quadray_tpu_torch.apps.render_cli import KEY_ACTIONS, frame_time
     from quadray_tpu_torch.ops import cuda_kernel as ck
@@ -3675,13 +3939,13 @@ def phase_o2(dev):
             for key in tokens[fi % len(tokens)].split("+"):
                 if fi and key in KEY_ACTIONS:
                     sc.update_action(t, KEY_ACTIONS[key])
-            n0 = sc._frame_prog.inputs.copies if fi else 0
+            n0 = sc._interactive_prog.inputs.copies if fi else 0
             ck.launches = 0
             frame = sc.render(t)
             if ck.launches != 1:
                 raise AssertionError(f"O2 {name} frame {fi}: {ck.launches} "
                                      "launches")
-            copies.append(sc._frame_prog.inputs.copies - n0)
+            copies.append(sc._interactive_prog.inputs.copies - n0)
             if not np.array_equal(frame, eager(sc)):
                 bad.append(fi)
             kept.append((frame, frame.copy()))
@@ -3690,11 +3954,11 @@ def phase_o2(dev):
         fsaa = []
         if name == "demo02":
             sc.pfm.set_fsaa(2)
-            prog = sc._frame_prog
+            prog = sc._interactive_prog
             for fi in range(J3_FRAMES + 1, J3_FRAMES + 4):
                 fsaa.append(np.array_equal(sc.render(frame_time(fi)),
                                            eager(sc)))
-            fsaa.append(sc._frame_prog is not prog)
+            fsaa.append(sc._interactive_prog is not prog)
         log(f"O2 {name} {W}x{H}: {J3_FRAMES + 1} frames of J3's trace "
             f"graphed, uint8-equal to render_cuda + to_frame: "
             f"{'all' if not bad else f'not at {bad}'}; returned frames "
@@ -3703,9 +3967,10 @@ def phase_o2(dev):
             f"copied none: {copies[1:].count(0)})"
             + (f"; fsaa 2, a new program, three frames equal: {fsaa}"
                if fsaa else ""))
-        if bad or changed or not all(fsaa):
+        if bad or changed or not all(fsaa) or any(copies):
             raise AssertionError(f"O2 {name}: frames {bad}, changed "
-                                 f"{changed}, fsaa {fsaa}")
+                                 f"{changed}, fsaa {fsaa}, inputs staged "
+                                 f"{copies}")
         del sc, kept
         torch.cuda.empty_cache()
 
@@ -3794,15 +4059,17 @@ def phase_o3(dev):
     return capture
 
 
-def abba_summary(label, rows):
-    """rows: [(mode, value)] in a b b a order; logs each mode's mean."""
+def abba_summary(label, rows, base: str = "eager"):
+    """rows: [(mode, value)] in a b b a order; logs each mode's mean and
+    graph's over ``base``'s."""
     by = {}
     for mode, v in rows:
         by.setdefault(mode, []).append(v)
     log(f"{label}: " + ", ".join(f"{m} {' / '.join(f'{x:.4f}' for x in v)}"
                                  f" (mean {np.mean(v):.4f})"
                                  for m, v in by.items())
-        + f"; graph / eager {np.mean(by['graph']) / np.mean(by['eager']):.3f}")
+        + f"; graph / {base} "
+        f"{np.mean(by['graph']) / np.mean(by[base]):.3f}")
     return {m: float(np.mean(v)) for m, v in by.items()}
 
 
@@ -4163,7 +4430,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
-                             "L", "M", "N", "O", "P", "R"],
+                             "L", "M", "N", "O", "P", "R", "U"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
@@ -4173,7 +4440,9 @@ def main():
                     "tables' kernels), L (the parallel layer), M (the "
                     "port's bench), N (the main path's Whitted kernel), O (one "
                     "CUDA graph a frame and a pass), P (one CUDA graph a "
-                    "training step) or R (the fused replay)")
+                    "training step), R (the fused replay) or U (the scene "
+                    "update as one launch, the interactive frame as one "
+                    "CUDA graph)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -4189,7 +4458,8 @@ def main():
         f"python {sys.version.split()[0]}")
     from quadray_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.load_libraries("whitted", "conformance", "pack", "replay")
+    _build.load_libraries("whitted", "conformance", "pack", "replay",
+                          "update")
     log(f"kernel build (parallel nvcc) and load: "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = os.path.join(_build.BUILD_DIR, "whitted.ptxas.txt")
@@ -4240,6 +4510,12 @@ def main():
             for line in fh:
                 if any(k in line for k in ("registers", "spill")):
                     log(f"ptxas pack: {line.strip()}")
+    ptxas = os.path.join(_build.BUILD_DIR, "update.ptxas.txt")
+    if os.path.exists(ptxas):
+        with open(ptxas) as fh:
+            for line in fh:
+                if any(k in line for k in ("registers", "spill")):
+                    log(f"ptxas update: {line.strip()}")
     ptxas = os.path.join(_build.BUILD_DIR, "replay.ptxas.txt")
     if os.path.exists(ptxas):
         with open(ptxas) as fh:
@@ -4343,17 +4619,30 @@ def main():
         t0 = time.perf_counter()
         j1 = phase_j1()
         j2 = phase_j2(dev)
-        j3_launches, j3_cull, j3_pack, _ = phase_j3(dev, smi)
+        j3_launches, j3_cull, j3_pack, j3 = phase_j3(dev, smi)
+        j3_upd = sum(r["update_launches"] for runs in j3.values()
+                     for r in runs)
         phase_j4(dev)
         phase_j5(dev)
-        j6_launches, j6_cull, j6_pack = phase_j6(dev)
+        j6_launches, j6_cull, j6_pack, j6_upd = phase_j6(dev)
         j_whitted = j1 + j2["whitted"] + j3_launches + j6_launches
         log(f"J launches: whitted {j_whitted} (J1 {j1}, J2 {j2['whitted']}, "
             f"J3 {j3_launches}, J6 {j6_launches}), pt {j2['pt']} (J2), "
             f"pack {j3_pack + j6_pack} (J3 {j3_pack}, J6 {j6_pack}), of "
             f"which wrote culling tables {j3_cull + j6_cull} (J3 {j3_cull}, "
-            f"J6 {j6_cull})")
+            f"J6 {j6_cull}), update {j3_upd + j6_upd} (J3 {j3_upd}, J6 "
+            f"{j6_upd})")
         log(f"phase J ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "U"):
+        t0 = time.perf_counter()
+        u_err, u_launches = phase_u1(dev)
+        if only:
+            phase_j6(dev, "U2")
+        else:
+            log("U2: J6 above (Scene.render is the interactive program)")
+        u4 = phase_u4(dev, smi)
+        log(f"phase U ok ({time.perf_counter() - t0:.1f} s)")
 
     if only in (None, "K"):
         k_err, k_rows = phase("K", phase_k, dev)
@@ -4450,7 +4739,14 @@ def main():
         "index_add_), launches the row sums' in D3's and L2's counted "
         "runs (forward_launches the gather forward's, 0 on the main path), "
         "max_abs_err D5's (every word bitwise), d5_per_segment D5's "
-        "per-segment gather and backward")
+        "per-segment gather and backward; update ms/plain_ms/bound_ms are "
+        "one launch of demo02's three groups at frame 10 of J3's trace "
+        "(U4, CUDA graphs) against the plain version's host ms "
+        "(moved_fields, numpy; scenes: each J3 scene's), launches the main "
+        "path's in J3 and J6 (one a frame, replays counted as their "
+        "capture's, with each Scene's structure pass and warm-up), "
+        "checked_launches U1's, max_abs_err U1's (every field bitwise); no "
+        "PyTorch call computes the update, so library_ms is null")
     culled = ("on: warp reach masks (origin box + direction cone or "
               "endpoint capsule per warp, __ballot_sync over the bounding "
               "spheres), lsort and cont masks where cull_gates say so")
@@ -4634,7 +4930,30 @@ def main():
         "bound_by": r["bounds"]["row_sums"][1],
         "library_ms": r["ms"]["library_row_sums"],
         "d5_per_segment": {"forward_ms": d5["test01"][0],
-                           "backward_ms": d5["test01"][1]}}]}))
+                           "backward_ms": d5["test01"][1]}}, {
+        "name": "update", "route": "cuda",
+        "design": "one block of 256 threads: the world matrices of the "
+                  "nodes that can move composed level by level from the "
+                  "root into scratch rows (a thread a node, a barrier "
+                  "between levels; each product the plain version's "
+                  "float64 multiply-add chain rounded to f32), then a "
+                  "thread a surface row, light row or the camera; sin and "
+                  "cos of the angles staged from the host; in the "
+                  "interactive frame's CUDA graph after the copy of those "
+                  "values from pinned memory, before the pack",
+        "source": "quadray_tpu_torch/csrc/update.cu",
+        "replaces": "quadray_tpu/engine.py:195",
+        "note": "the JAX engine's _update_jit over _compile_scene_impl "
+                "(quadray_tpu/scene/compile.py:635), one XLA executable, "
+                "not a Pallas kernel",
+        "launches": j3_upd + j6_upd, "checked_launches": u_launches,
+        "max_abs_err": u_err,
+        "ms": u4["demo02"]["ms"], "plain_ms": u4["demo02"]["plain_ms"],
+        "bound_ms": u4["demo02"]["bound_ms"],
+        "bound_by": u4["demo02"]["bound_by"], "library_ms": None,
+        "host_ms": u4["demo02"]["host_ms"],
+        "scenes": {n: {k: v for k, v in r.items() if k != "groups"}
+                   for n, r in u4.items()}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

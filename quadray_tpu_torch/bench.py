@@ -26,7 +26,7 @@ the scene's tables and queries the kernel's occupancy):
     t(64) / 64 where it is not in (0, t(64)) (bench.py:128-135); beside it
     the median, least and most of the REPS' own marginals, and
     ``main_path_ms_per_frame``: ``Scene(...).render(0.0)`` (on the card
-    one replay of the scene's frame program, ``ops/graphs.py``), the
+    one replay of the scene's interactive program, ``ops/graphs.py``), the
     uint8 frame on the host, host clock, median of 10 calls after one
     (the first captures).
   bench_pt: test18, depth 10; ``render_pt_cuda`` (a replay of its pass

@@ -8,10 +8,11 @@ path tracing, fsaa/depth options, frame save and state dump. A Scene
 renders on its ``device`` (the card unless the caller names the CPU): on
 a CUDA device through the hand-written kernels (``ops.cuda_kernel``), on
 the CPU through their plain versions (``ops.trace``, ``ops.pt``). There
-is no fallback between the two. On a CUDA device ``render`` and
-``render_pt_pass`` replay one CUDA graph a frame and a pass
-(``ops.graphs``: the scene's frame and pass programs, which live and die
-with it); ``render_linear`` stays eager. Interactive camera actions
+is no fallback between the two. On a CUDA device ``render`` replays one
+CUDA graph a Whitted frame, the scene update and the pack included (the
+interactive program), and ``render_pt_pass`` one a pass (``ops.graphs``:
+the scene's programs, which live and die with it); ``update`` and
+``render_linear`` stay eager. Interactive camera actions
 (``update_action``, ``CameraController``) move the scene's camera between
 frames, as RooT's hotkeys do (``apps.render_cli``).
 """
@@ -158,6 +159,9 @@ class Scene:
         self._struct = None
         self.camera: Optional[CameraController] = None
         self._time = 0.0
+        # the camera's transform at the last update or interactive frame
+        # (the controller's, or None): the arrays are at (_time, _cam_trm)
+        self._cam_trm = None
         self.frame = np.zeros((height, width, 3), np.uint8)
         # progressive path-tracer state (pseed/ptr planes analog,
         # engine.cpp:2875-2899, 3670-3700)
@@ -165,10 +169,10 @@ class Scene:
         self._pt_acc = None
         self._pt_samples = 0
         self._pt_seeds = None
-        # the frame and pass programs (ops.graphs), each for the key of
-        # its last call; a new key replaces it
-        self._frame_prog = None
+        # the interactive and pass programs (ops.graphs), each for the key
+        # of its last call; a new key replaces it
         self._pass_prog = None
+        self._interactive_prog = None
 
     def update(self, t: float = 0.0) -> SceneArrays:
         """The scene's arrays at time t, incrementally (the JAX engine's
@@ -177,13 +181,28 @@ class Scene:
         (``structure_pass``: the hierarchy walk and the relation compile,
         and every field no transform moves, on the device); every update
         then runs the numeric pass alone (``numeric_pass``: the animators
-        and the camera on the host, the transform-dependent fields batched,
-        one staged copy), bitwise ``compile_scene``'s. Later frames keep
+        and the camera on the host, the transform-dependent fields on a
+        card in one launch of the scene update's kernel, on the CPU by its
+        plain version), bitwise ``compile_scene``'s. Later frames keep
         the first frame's padded shapes and kernel structure. Once a
         camera action has been taken, the camera's transform is the
         controller's, and the controller's clock advances to t. A
         hierarchy that changed after its structure was recorded raises
         ValueError."""
+        cam_trm = self._cam_trm = self._record(t)
+        self._arrays = numeric_pass(self._structure, t, cam_trm)
+        if self._struct is None and self.device.type == "cuda":
+            from quadray_tpu_torch.ops.cuda_kernel import scene_struct
+            self._struct = scene_struct(self._arrays)
+        if self.camera is not None:
+            self.camera.advance(t)
+        return self._arrays
+
+    def _record(self, t: float):
+        """An update's first steps: the device checked, the time set, the
+        structure recorded where there is none (and a replaced sdef
+        refused); returns the camera's transform (the controller's, or
+        None)."""
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Scene device {self.device}: CUDA is not "
                                "available")
@@ -200,13 +219,7 @@ class Scene:
         elif self._structure.root is not self.sdef.root:
             raise ValueError("Scene.sdef was replaced after its structure "
                              "was recorded: make a new Scene")
-        self._arrays = numeric_pass(self._structure, t, cam_trm)
-        if self._struct is None and self.device.type == "cuda":
-            from quadray_tpu_torch.ops.cuda_kernel import scene_struct
-            self._struct = scene_struct(self._arrays)
-        if self.camera is not None:
-            self.camera.advance(t)
-        return self._arrays
+        return cam_trm
 
     def update_action(self, t: float, action: int):
         """Interactive camera action (rt_Scene::update + update_action,
@@ -224,8 +237,19 @@ class Scene:
 
     @property
     def arrays(self) -> SceneArrays:
+        """The scene's arrays at the last update's or interactive frame's
+        time and camera; before any, ``update`` at the scene's time. An
+        interactive frame hands out none of its program's buffers: the
+        first read after it runs the numeric pass at that frame's time and
+        camera (on a card one update launch where a group moved since the
+        last pass), which neither advances the controller's clock nor
+        reads a camera action taken since the frame."""
         if self._arrays is None:
-            self.update(self._time)
+            if self._structure is None:
+                self.update(self._time)
+            else:
+                self._arrays = numeric_pass(self._structure, self._time,
+                                            self._cam_trm)
         return self._arrays
 
     def set_pton(self, on: bool) -> bool:
@@ -315,31 +339,47 @@ class Scene:
     def render(self, t: Optional[float] = None) -> np.ndarray:
         """Render a frame at time t; returns (H, W, 3) uint8: one
         path-traced pass while path tracing is on, else the Whitted frame.
-        On a CUDA device one replay of the scene's frame program
-        (``render_program``), on the CPU the plain tracer
-        (``render_linear``, then ``to_frame``)."""
-        if t is not None or self._arrays is None:
-            self.update(t if t is not None else self._time)
+        On a CUDA device the Whitted frame, update included, is one replay
+        of the scene's interactive program (``render_interactive``); on
+        the CPU the update, then the plain tracer (``render_linear``, then
+        ``to_frame``)."""
+        if self.device.type == "cuda" and not self.pt_on:
+            return self.render_interactive(t)
+        if t is not None:
+            self.update(t)
         if self.pt_on:
             return self.render_pt_pass()
-        if self.device.type == "cuda":
-            return self.render_program()
         img = self.render_linear()
         self.frame = to_frame(img, self.arrays.use_gamma).cpu().numpy()
         return self.frame
 
-    def render_program(self, t: Optional[float] = None) -> np.ndarray:
-        """The Whitted frame at time t through the scene's frame program
-        (``ops.graphs.FrameProgram``, one for the scene's structure, size,
-        fsaa and depth): on a CUDA device one replay of its CUDA graph
-        (ray generation, the kernel, the AA mean, ``to_frame`` and the
-        copy into pinned host memory), which is what ``render`` runs
-        there; on the CPU the same body called eagerly, which the tests
-        hold to ``render``. The returned array is the caller's: a later
-        frame never writes it."""
-        if t is not None or self._arrays is None:
-            self.update(t if t is not None else self._time)
-        self.frame = self._frame_program().run(self.arrays)
+    def render_interactive(self, t: Optional[float] = None) -> np.ndarray:
+        """The Whitted frame at time t, the scene update included, through
+        the scene's interactive program (``ops.graphs.InteractiveProgram``,
+        one for the scene's structure, size, fsaa and depth): on the host
+        the structure's check, the animators, the camera and its sin and
+        cos, written into the program's pinned buffer; on a CUDA device
+        then one replay of its CUDA graph (the copy of those values, the
+        update launch, the pack launch of the tables the moving fields
+        feed, ray generation, the Whitted launch, the AA mean,
+        ``to_frame`` and the copy into pinned host memory), which is what
+        ``render`` runs there; on the CPU the same body called eagerly,
+        which the tests hold to ``render``. t None draws the scene at the
+        last update's or frame's time and camera, as ``render`` draws its
+        arrays (a camera action taken since shows at the next t), and
+        records the structure at the scene's time where there is none.
+        The returned array is the caller's: a later frame never writes
+        it. The program's field buffers are never handed out: after the
+        frame ``arrays`` recomputes the scene's arrays at the frame's time
+        and camera."""
+        fresh = t is not None or self._structure is None
+        if fresh:
+            self._cam_trm = self._record(self._time if t is None else t)
+        self.frame = self._interactive_program().run_at(self._time,
+                                                         self._cam_trm)
+        self._arrays = None
+        if fresh and self.camera is not None:
+            self.camera.advance(self._time)
         return self.frame
 
     def render_linear(self, t: Optional[float] = None) -> torch.Tensor:
@@ -348,8 +388,8 @@ class Scene:
         (``render_cuda``, issued op by op) on a CUDA device, the plain
         ``render`` on the CPU. (The JAX engine's ``render_linear`` always
         takes its jnp tracer.)"""
-        if t is not None or self._arrays is None:
-            self.update(t if t is not None else self._time)
+        if t is not None:
+            self.update(t)
         cfg = self._cfg()
         if self.device.type == "cuda":
             from quadray_tpu_torch.ops.cuda_kernel import render_cuda
@@ -369,17 +409,21 @@ class Scene:
             self._struct = scene_struct(self.arrays)
         return self._struct
 
-    def _frame_program(self):
-        """The frame program for the scene's present key (``frame_key``),
-        replacing one made for another."""
-        from quadray_tpu_torch.ops.graphs import FrameProgram, frame_key
+    def _interactive_program(self):
+        """The interactive program for the scene's present key
+        (``interactive_key``), replacing one made for another."""
+        from quadray_tpu_torch.ops.graphs import (InteractiveProgram,
+                                                  interactive_key)
         struct, cfg, fsaa = self._kernel_struct(), self._cfg(), self.pfm.fsaa
-        key = frame_key(struct, self.width, self.height, fsaa, cfg)
-        if self._frame_prog is None or self._frame_prog.key != key:
-            self._frame_prog = None      # its graph's memory goes first
-            self._frame_prog = FrameProgram(struct, self.width, self.height,
-                                            fsaa, cfg, self.device)
-        return self._frame_prog
+        key = interactive_key(self._structure, struct, self.width,
+                              self.height, fsaa, cfg)
+        if self._interactive_prog is None or \
+                self._interactive_prog.key != key:
+            self._interactive_prog = None   # its graph's memory goes first
+            self._interactive_prog = InteractiveProgram(
+                self._structure, struct, self.width, self.height, fsaa, cfg,
+                self.device)
+        return self._interactive_prog
 
     def _pass_program(self):
         """The pass program for the scene's present key (``pass_key``),
@@ -403,7 +447,7 @@ class Scene:
         self._shapes = None
         self._structure = None
         self._struct = None
-        self._frame_prog = self._pass_prog = None
+        self._pass_prog = self._interactive_prog = None
 
     def print_state(self, log=print):
         """State dump for reproduction (print_state analog,

@@ -19,8 +19,8 @@ the driver ``trace_rays_rounds`` (the counterpart of
 ``trace_rays_pallas_rounds``, ``_trace_rounds_impl`` and
 ``_trace_wavefront_impl``, ``pallas_kernel.py:2756, 2614, 2647``).
 ``launch_whitted`` and ``launch_pt`` are the Whitted and PT launches on
-given packed tables, which the frame and pass programs of ``ops.graphs``
-capture in CUDA graphs on their own copies of the tables.
+given packed tables, which the interactive and pass programs of
+``ops.graphs`` capture in CUDA graphs on their own copies of the tables.
 
 Where the TPU kernel is compiled per scene structure, the CUDA kernel
 takes the structure at run time (surface kind, singularity and clip count
@@ -798,11 +798,13 @@ def _pack_lib():
     return lib
 
 
-def pack_args(plan: PackPlan, sc: SceneArrays, stt, dev) -> tuple:
+def pack_args(plan: PackPlan, sc: SceneArrays, stt, dev,
+              out: dict = None) -> tuple:
     """csrc/pack.cu's PackArgs for ``plan`` on the scene's fields, each
     checked (device, type, shape, contiguity), and the structure's tensors
     (``_struct_tensors``' for the structure, on ``dev``); and the tables
-    it writes, allocated with torch.empty on ``dev``."""
+    it writes: ``out``'s (checked), or allocated with torch.empty on
+    ``dev``."""
     if stt.perm.device != dev:
         raise ValueError(f"pack: the structure's tensors are on "
                          f"{stt.perm.device}, the launch on {dev}")
@@ -815,30 +817,42 @@ def pack_args(plan: PackPlan, sc: SceneArrays, stt, dev) -> tuple:
             _check(k, t, dtype, shape, dev)
         ptrs[slot] = t.data_ptr()
     tables = {n: torch.empty(shape, dtype=dtype, device=dev)
+              if out is None else out[n]
               for n, (shape, dtype) in plan.shapes.items()}
-    out = _Pointers(*(tables[n].data_ptr() if n in tables else None
+    if out is not None:
+        for n, (shape, dtype) in plan.shapes.items():
+            _check(n, tables[n], dtype, shape, dev)
+    ptr_out = _Pointers(*(tables[n].data_ptr() if n in tables else None
                       for n in PART_NAMES))
-    return _PackArgs(*ptrs, out, *plan.tail), tables
+    return _PackArgs(*ptrs, ptr_out, *plan.tail), tables
 
 
 def pack_parts(names, sc: SceneArrays, struct: KernelStruct,
-               stt) -> dict:
-    """The tables ``names`` (of PART_NAMES) by name. On a CUDA scene one
-    launch of csrc/pack.cu writes all of them, bitwise their plain
-    versions (PACK_PARTS), on the current stream without a wait (a CUDA
-    graph may capture it); a CPU scene takes the plain versions. The
-    device is that of the first field the first part reads."""
+               stt, out: dict = None) -> dict:
+    """The tables ``names`` (of PART_NAMES) by name, new tensors or, where
+    ``out`` is given, its tables written in place (the interactive
+    frame's program's). On a CUDA scene one launch of csrc/pack.cu writes
+    all of them, bitwise their plain versions (PACK_PARTS), on the current
+    stream without a wait (a CUDA graph may capture it); a CPU scene takes
+    the plain versions. The device is that of the first field the first
+    part reads."""
     global pack_launches, cull_launches
     if not names:
         return {}
     dev = getattr(sc, _PART_FIELDS[names[0]][0]).device
     if dev.type == "cpu":
-        return {n: _PART_PLAIN[n](sc, struct, stt) for n in names}
+        tables = {n: _PART_PLAIN[n](sc, struct, stt) for n in names}
+        if out is None:
+            return tables
+        for n, t in tables.items():
+            _check(n, out[n], t.dtype, tuple(t.shape), dev)
+            out[n].copy_(t)
+        return {n: out[n] for n in names}
     if dev.type != "cuda":
         raise ValueError(f"pack: unsupported device {dev}")
     plan = pack_plan(names, struct, sc.l_pos.shape[0],
                      sc.tex_data.shape[0])
-    args, tables = pack_args(plan, sc, stt, dev)
+    args, tables = pack_args(plan, sc, stt, dev, out)
     lib = _pack_lib()
     with torch.cuda.device(dev):
         err = lib.pack_launch(ctypes.byref(args),
@@ -1087,8 +1101,8 @@ def _check_coop():
 
 def launch_whitted(sc: SceneArrays, struct: KernelStruct, ps: PackedScene,
                    org, dirs, t_min, cfg: TraceConfig) -> torch.Tensor:
-    """``trace_rays_cuda`` on the packed tables ``ps`` (the scene's, or a
-    frame program's copies of them: ``ops.graphs``): one Whitted launch on
+    """``trace_rays_cuda`` on the packed tables ``ps`` (the scene's, or
+    the interactive program's own: ``ops.graphs``): one Whitted launch on
     the current stream, which reads sc for its shapes and device only.
     CPU rays take the plain tracer, which reads sc and not ps."""
     global launches

@@ -15,11 +15,15 @@ warm-up, whose result stands) and is then captured into a
 On the CPU the body is simply called, with the plain tracers in the
 kernels' place.
 
-- ``FrameProgram`` (one a ``Scene``): camera rays, the Whitted launch on
-  the program's copies of the packed tables
+- ``InteractiveProgram`` (one a ``Scene``): the interactive Whitted
+  frame, update included: the copy of the moving nodes' values from the
+  program's pinned buffer, the scene update's launch (``ops.update``)
+  into the program's field buffers, one pack launch into its table
+  buffers, camera rays, the Whitted launch
   (``ops.cuda_kernel.launch_whitted``), clamp, ``resolve_aa``,
-  ``to_frame`` and a non-blocking copy into a pinned host buffer.
-  ``Scene.render`` replays it on a CUDA device.
+  ``to_frame`` and a non-blocking copy into a pinned host buffer. The
+  counterpart of the JAX engine's update, pack and render executables
+  called back to back; ``Scene.render`` replays it on a CUDA device.
 - ``PassProgram`` (one a ``Scene``, and the last few of
   ``render_pt_cuda``: ``pt_program``): ``pt_camera_rays``, the PT launch
   (``launch_pt``) and the running sum, in place in the program's sum and
@@ -31,21 +35,25 @@ kernels' place.
 
 Hazards, and what is done about each:
 - a capture bakes in pointers, while the incremental update hands a moved
-  field, and the pack by parts a re-packed table, as a new tensor:
-  ``Inputs.stage`` copies, device to device on the current stream, each
-  input whose source is a new object, and nothing in a frame that moved
-  nothing;
+  field, and the pack by parts a re-packed table, as a new tensor: the
+  interactive program updates and packs into its own buffers inside the
+  graph, and stages nothing; the pass and step programs' ``Inputs.stage``
+  copies, device to device on the current stream, each input whose
+  source is a new object, and nothing in a call that moved nothing;
+- the interactive program's values are written into pinned host memory
+  that its graph copies from: the host writes them only after the
+  previous frame's wait;
 - a capture freezes what the launches read from Python: the scene
   structure, the frame's size, fsaa, the TraceConfig, the culling gates
   and ``COOP_MAX_LIVE``, ``EMIT_OWN_MIN_KEPT`` and ``WHOLE_OWN_MAX_RAYS``.
-  They are the program's key (``frame_key``, ``pass_key``): a change of
+  They are the program's key (``interactive_key``, ``pass_key``): a change of
   any of them makes a new program. The mean's divisor changes every call,
   so it runs outside the graph, as today's op;
 - a replay does not pass through the launch wrappers, so it adds to their
   counters (``ops.cuda_kernel.launches``, ``pt_launches``, ...,
   ``ops.row_gather.launches``, ``backward_launches``, ``ops.replay
-  .launches``, ``backward_launches``) what its capture
-  recorded;
+  .launches``, ``backward_launches``, ``ops.update.launches``) what its
+  capture recorded;
 - a frame returned to the caller is a copy of the pinned buffer, which
   the next frame overwrites.
 
@@ -55,6 +63,7 @@ launches.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import OrderedDict
 from typing import NamedTuple, Optional
@@ -65,6 +74,7 @@ import torch
 from quadray_tpu_torch.ops import cuda_kernel as ck
 from quadray_tpu_torch.ops import replay as rp
 from quadray_tpu_torch.ops import row_gather as rg
+from quadray_tpu_torch.ops import update as upd
 from quadray_tpu_torch.ops.pt import pt_camera_rays
 from quadray_tpu_torch.ops.rays import camera_rays, resolve_aa
 from quadray_tpu_torch.ops.trace import TraceConfig, to_frame
@@ -81,7 +91,8 @@ COUNTERS = {k: (ck, k) for k in ("launches", "paths_launches",
 COUNTERS.update(gather_launches=(rg, "launches"),
                 gather_backward_launches=(rg, "backward_launches"),
                 replay_launches=(rp, "launches"),
-                replay_backward_launches=(rp, "backward_launches"))
+                replay_backward_launches=(rp, "backward_launches"),
+                update_launches=(upd, "launches"))
 CAMERA = ("cam_pos", "cam_hor", "cam_ver", "cam_nrm", "cam_pov")
 # render_pt_cuda's pass programs kept, the most recently used
 PT_PROGRAMS = 4
@@ -101,10 +112,13 @@ class Replay:
     """A body captured in a CUDA graph (``capture``): a call replays the
     graph on the current stream and adds to the launch counters what the
     capture recorded (``counts``). ``ms``: host ms of the warm-up and the
-    capture, the program's set-up."""
+    capture, the program's set-up; ``warmup_ms`` the warm-up's part (its
+    host work: the launches' enqueue and their first-call work)."""
 
-    def __init__(self, graph, counts: dict, ms: float):
+    def __init__(self, graph, counts: dict, ms: float,
+                 warmup_ms: float = float("nan")):
         self.graph, self.counts, self.ms = graph, counts, ms
+        self.warmup_ms = warmup_ms
 
     def __call__(self):
         self.graph.replay()
@@ -135,6 +149,7 @@ def capture(body, device: torch.device):
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
             body()
+            t1 = time.perf_counter()
             cur.wait_stream(side)
             before = {k: getattr(*c) for k, c in COUNTERS.items()}
             try:
@@ -149,7 +164,7 @@ def capture(body, device: torch.device):
                 for k, v in before.items():
                     setattr(*COUNTERS[k], v)
     return Replay(graph, {k: n for k, n in counts.items() if n},
-                  (time.perf_counter() - t0) * 1e3)
+                  (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3)
 
 
 class Inputs:
@@ -191,16 +206,6 @@ class Inputs:
         return Camera(*(self.buf[k] for k in CAMERA))
 
 
-def frame_key(struct: ck.KernelStruct, width: int, height: int, fsaa: int,
-              cfg: TraceConfig) -> tuple:
-    """What a frame's capture freezes: the structure (by identity; the
-    program holds it), the frame, the config, the Whitted gates and the
-    module settings the launch reads."""
-    return (id(struct), width, height, fsaa, cfg,
-            ck.cull_gates(struct, cfg).flags, ck.COOP_MAX_LIVE,
-            ck.EMIT_OWN_MIN_KEPT, ck.WHOLE_OWN_MAX_RAYS)
-
-
 def pass_key(struct: ck.KernelStruct, width: int, height: int,
              cfg: TraceConfig) -> tuple:
     """What a PT pass's capture freezes: the structure, the frame, the
@@ -226,15 +231,6 @@ class _Program:
         self.host = _host_frame(width, height, self.device)
         self._sc = None
 
-    def _stage_scene(self, sc, ps: ck.PackedScene):
-        """The camera, use_gamma and the packed tables; sc stays for the
-        launches' shape checks and for the plain tracers on the CPU."""
-        for k in CAMERA + ("use_gamma",):
-            self.inputs.stage(k, getattr(sc, k))
-        for f in ck.PackedScene._fields:
-            self.inputs.stage(f, getattr(ps, f))
-        self._sc = sc
-
     def _send(self, img):
         """to_frame, then the copy into the pinned host frame."""
         self.host.copy_(to_frame(img, self.inputs.buf["use_gamma"]),
@@ -247,22 +243,87 @@ class _Program:
         return self.host.numpy().copy()
 
 
-class FrameProgram(_Program):
-    """A Whitted frame with fixed inputs, for one (structure, W, H, fsaa,
-    TraceConfig, device) and the module settings of ``frame_key``:
-    ``run`` stages the frame's inputs, then runs the body (the first time,
-    and captures it) or replays it, and returns the uint8 frame."""
+def interactive_key(st, struct: ck.KernelStruct, width: int, height: int,
+                    fsaa: int, cfg: TraceConfig) -> tuple:
+    """What an interactive frame's capture freezes: the kernel structure
+    (by identity; the program holds it), the frame, the config, the
+    Whitted gates, the module settings the launch reads, and last the
+    scene structure (``SceneStructure``, by identity), whose plan and
+    tables the update launch reads."""
+    return (id(struct), width, height, fsaa, cfg,
+            ck.cull_gates(struct, cfg).flags, ck.COOP_MAX_LIVE,
+            ck.EMIT_OWN_MIN_KEPT, ck.WHOLE_OWN_MAX_RAYS, id(st))
 
-    def __init__(self, struct: ck.KernelStruct, width: int, height: int,
+
+class InteractiveProgram(_Program):
+    """The interactive Whitted frame, update to frame, with fixed inputs,
+    for one scene structure, (W, H, fsaa, TraceConfig, device) and the
+    module settings of ``interactive_key``: the counterpart of the JAX
+    engine's update, pack and render executables called back to back. Its
+    body, captured in one CUDA graph: the copy of the moving nodes' values
+    (``SceneStructure.local_inputs``) from the program's pinned buffer,
+    the scene update's launch into the program's field buffers
+    (``ops.update.launch``), one pack launch of the tables those fields
+    feed into the program's table buffers (``ck.pack_parts``), camera
+    rays, the Whitted launch (``ck.launch_whitted``), clamp,
+    ``resolve_aa``, ``to_frame`` and the copy into the pinned host frame.
+    ``run_at`` evaluates the animators and the camera on the host, writes
+    their values into the pinned buffer and runs the body (the first
+    time, and captures it) or replays it.
+
+    The groups that can move (``SceneStructure.moving``) are rewritten
+    at every replay, whether or not their transforms changed: the launch
+    is deterministic, so an unmoved group's bits are the last frame's,
+    and a graph that branched on the host's keys would need one capture a
+    subset. The other fields, and the tables no moving field feeds, are
+    the structure's last frame's, fixed. The program's buffers are never
+    handed out: the engine marks its arrays stale after a frame
+    (``Scene.render_interactive``)."""
+
+    def __init__(self, st, struct: ck.KernelStruct, width: int, height: int,
                  fsaa: int, cfg: TraceConfig, device):
-        super().__init__(frame_key(struct, width, height, fsaa, cfg),
-                         struct, width, height, cfg, device)
+        super().__init__(interactive_key(st, struct, width, height, fsaa,
+                                         cfg), struct, width, height, cfg,
+                         device)
         self.fsaa = fsaa
         self.replay = None
+        self.st = st
+        self.fields = {k: torch.empty(s, dtype=F32, device=self.device)
+                       for k, s in upd.field_shapes(st, st.moving).items()}
+        self.parts = tuple(n for n, _, reads in ck.PACK_PARTS
+                           if set(reads) & set(self.fields))
+        nd = st.tables.nd
+        self.local = torch.empty((nd, upd.IN_W), dtype=F32,
+                                 device=self.device)
+        self.values = torch.zeros((nd, upd.IN_W), dtype=F32,
+                                  pin_memory=self.device.type == "cuda")
+        self.scratch = torch.empty((st.tables.nq, 16), dtype=F32,
+                                   device=self.device)
+        self._sc = dataclasses.replace(st.last, **self.fields)
+        self.stt = ck._struct_tensors(struct, self.device)
+        fixed = ck._get_packed(st.last, struct)
+        for k in CAMERA + ("use_gamma",):
+            self.inputs.own(k, getattr(self._sc, k))
+        for f in ck.PackedScene._fields:
+            t = getattr(fixed, f)
+            self.inputs.own(f, torch.empty_like(t) if f in self.parts
+                            else t)
 
-    def stage(self, sc):
-        # the tables render_cuda's launch takes (trace_rays_cuda)
-        self._stage_scene(sc, ck._get_packed(sc, self.struct))
+    def run_at(self, time: float, cam_trm) -> np.ndarray:
+        """The frame at (time, cam_trm); raises ValueError where the
+        hierarchy differs from the one recorded. The pinned values are
+        written here, after the previous frame's wait (``_fetch``
+        synchronises the stream a frame), so the copy of the frame before
+        has read them."""
+        self.stage_values(time, cam_trm)
+        self.launch()
+        return self._fetch()
+
+    def stage_values(self, time: float, cam_trm):
+        st = self.st
+        st.check()
+        self.values.numpy()[...] = st.local_inputs(
+            st.local_values(time, cam_trm))
 
     def launch(self):
         if self.replay is None:
@@ -270,20 +331,32 @@ class FrameProgram(_Program):
         else:
             self.replay()
 
-    def run(self, sc) -> np.ndarray:
-        self.stage(sc)
-        self.launch()
-        return self._fetch()
-
     def _body(self):
+        # the update and the pack into the program's buffers
+        self.local.copy_(self.values, non_blocking=True)
+        upd.launch(self.st, self.local, self.fields, self.scratch)
+        ck.pack_parts(self.parts, self._sc, self.struct, self.stt,
+                      out={p: self.inputs.buf[p] for p in self.parts})
         # render_cuda, then to_frame, on the buffers
         cam, w, h = self.inputs.camera(), self.width, self.height
         org, dirs = camera_rays(cam.cam_pos, cam.cam_hor, cam.cam_ver,
                                 cam.cam_nrm, cam.cam_pov, w, h, self.fsaa)
         t_min = cam.cam_pov.expand(dirs.shape[0])
-        cols = ck.launch_whitted(self._sc, self.struct, self.inputs.tables(),
-                                 org, dirs, t_min, self.cfg)
+        cols = ck.launch_whitted(self._traced(), self.struct,
+                                 self.inputs.tables(), org, dirs, t_min,
+                                 self.cfg)
         self._send(resolve_aa(torch.clamp(cols, 0.0, 1.0), w, h, self.fsaa))
+
+    def _traced(self):
+        """The SceneArrays the Whitted launch is given: the kernel reads
+        its shapes, the plain tracer on the CPU the scene itself. The
+        plain tracer's culling tables are cached by the identity of the
+        fields they read (ck._get_cull_plain), which the update writes in
+        place: on the CPU it gets them as new tensors."""
+        if self.device.type == "cuda":
+            return self._sc
+        return dataclasses.replace(self._sc, **{
+            k: v.clone() for k, v in self.fields.items()})
 
 
 class PassProgram(_Program):
@@ -306,11 +379,18 @@ class PassProgram(_Program):
         self.replay = self.frame_replay = None
 
     def stage(self, sc, acc: Optional[torch.Tensor], seeds: torch.Tensor):
-        """The scene's inputs, the seeds, and the running sum. acc None is
-        a run from a zero sum (``render_pt_cuda``), which takes the
-        caller's seeds by value: the caller may write them in place
-        between calls."""
-        self._stage_scene(sc, ck.pt_tables(sc, self.struct, self.cfg))
+        """The scene's inputs (the camera, use_gamma and PT's packed
+        tables; sc stays for the launch's shape checks and for the plain
+        tracer on the CPU), the seeds, and the running sum. acc None is a
+        run from a zero sum (``render_pt_cuda``), which takes the caller's
+        seeds by value: the caller may write them in place between
+        calls."""
+        for k in CAMERA + ("use_gamma",):
+            self.inputs.stage(k, getattr(sc, k))
+        ps = ck.pt_tables(sc, self.struct, self.cfg)
+        for f in ck.PackedScene._fields:
+            self.inputs.stage(f, getattr(ps, f))
+        self._sc = sc
         if acc is None:
             self.inputs.own("acc", self.inputs.buf["acc"].zero_())
             self.inputs.own("seeds", self.inputs.buf["seeds"].copy_(seeds))

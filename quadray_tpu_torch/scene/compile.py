@@ -16,10 +16,13 @@ The incremental update (the counterpart of the JAX engine's jitted
 per-frame pass) splits ``compile_scene`` in two: ``structure_pass`` walks
 the hierarchy once and keeps every time-invariant field on the device;
 ``numeric_pass`` evaluates the animators and the camera on the host each
-frame, recomputes only the transform-dependent fields (``MOVED_FIELDS``)
-batched over nodes, and moves them to the device in one staged copy.
-Every element goes through the scalar code's f32/f64 operations in the
-same order, so its fields are ``compile_scene``'s bit for bit.
+frame and recomputes only the transform-dependent fields
+(``MOVED_FIELDS``): on a card in one launch of the scene update's kernel
+(``ops.update``, ``csrc/update.cu``) from the moving nodes' values staged
+in one copy, on the CPU through its plain version batched over nodes in
+numpy (``SceneStructure.moved_fields``). Every element goes through the
+scalar code's f32/f64 operations in the same order, so its fields are
+``compile_scene``'s bit for bit.
 
 f32 agreement with the JAX compiler: its small matmuls run as a chain of
 fused multiply-adds from a zero accumulator, which ``_mm`` reproduces
@@ -822,17 +825,26 @@ def _trm_values(trm: S.Transform3D) -> tuple:
 _DEG2RAD = np.float32(math.pi / 180.0)
 
 
-def transform_matrices(vals) -> np.ndarray:
-    """``transform_matrix`` of B transforms at once, from rows of
-    ``_trm_values``: (B, 4, 4) f32, each matrix bitwise
-    ``transform_matrix``'s. sin and cos are torch's on a contiguous
-    float64 tensor, whose every element gets the bits of the scalar
-    code's 0-d call."""
+def transform_inputs(vals) -> np.ndarray:
+    """What a local matrix is built from, for B transforms given as rows
+    of ``_trm_values``: (B, 12) f32 rows of the scale, the position, and
+    the cos and sin of the rotation's three angles. sin and cos are
+    torch's on a contiguous float64 tensor, whose every element gets the
+    bits of the scalar code's 0-d call. The scene update's kernel
+    (csrc/update.cu) takes these rows: the card's sin and cos are not
+    correctly rounded."""
     v = np.array(vals, np.float64).reshape(-1, 9).astype(np.float32)
-    B = v.shape[0]
     ang = torch.from_numpy((v[:, 3:6] * _DEG2RAD).astype(np.float64))
     c = torch.cos(ang).float().numpy()
     s = torch.sin(ang).float().numpy()
+    return np.concatenate([v[:, 0:3], v[:, 6:9], c, s], axis=1)
+
+
+def local_matrices(inp: np.ndarray) -> np.ndarray:
+    """(B, 4, 4) f32 local matrices from ``transform_inputs``' rows:
+    Rz . Ry . Rx . Scl, each product ``_bmm``'s, and the position."""
+    B = inp.shape[0]
+    c, s = inp[:, 6:9], inp[:, 9:12]
     rx, ry, rz = (np.zeros((B, 3, 3), np.float32) for _ in range(3))
     rx[:, 0, 0] = ry[:, 1, 1] = rz[:, 2, 2] = 1.0
     rx[:, 1, 1], rx[:, 1, 2] = c[:, 0], -s[:, 0]
@@ -842,12 +854,19 @@ def transform_matrices(vals) -> np.ndarray:
     rz[:, 0, 0], rz[:, 0, 1] = c[:, 2], -s[:, 2]
     rz[:, 1, 0], rz[:, 1, 1] = s[:, 2], c[:, 2]
     scl = np.zeros((B, 3, 3), np.float32)
-    scl[:, 0, 0], scl[:, 1, 1], scl[:, 2, 2] = v[:, 0], v[:, 1], v[:, 2]
+    scl[:, 0, 0], scl[:, 1, 1], scl[:, 2, 2] = inp[:, 0], inp[:, 1], inp[:, 2]
     m = np.zeros((B, 4, 4), np.float32)
     m[:, :3, :3] = _bmm(_bmm(_bmm(rz, ry), rx), scl)
-    m[:, :3, 3] = v[:, 6:9]
+    m[:, :3, 3] = inp[:, 3:6]
     m[:, 3, 3] = 1.0
     return m
+
+
+def transform_matrices(vals) -> np.ndarray:
+    """``transform_matrix`` of B transforms at once, from rows of
+    ``_trm_values``: (B, 4, 4) f32, each matrix bitwise
+    ``transform_matrix``'s."""
+    return local_matrices(transform_inputs(vals))
 
 
 def _inv3_batch(m: np.ndarray) -> np.ndarray:
@@ -983,6 +1002,8 @@ class SceneStructure:
             chain = sorted({int(a) for i in ids for a in up(i) if moved[a]})
             self.need[g] = np.array(chain, np.int64)
             self.deps[g] = [a for a in chain if self.src[a] != SRC_STATIC]
+        # the groups a frame can move: those the interactive frame rewrites
+        self.moving = tuple(g for g in MOVED_GROUPS if self.deps[g])
         self.ns = sc0.s_pos.shape[0]
         self.nl = sc0.l_pos.shape[0]
         self.shapes = dict(ns=self.ns, nc=sc0.c_op.shape[1], nl=self.nl)
@@ -1006,8 +1027,43 @@ class SceneStructure:
                                 np.float32).reshape(-1, 3)
         self.box_corners = np.array([k for _, k in boxes],
                                     np.float32).reshape(-1, 8, 3)
+        self._plan_update()
         self.keys: Dict[str, bytes] = {}
         self.last: Optional[SceneArrays] = None
+        # the plan on the structure's device (ops.update.update_tables),
+        # made by structure_pass
+        self.tables = None
+
+    def _plan_update(self):
+        """The scene update's kernel's view of the node table: every node
+        that can move under a group (``need``) as a scratch row, ordered
+        by level (``lv_start``: each level's rows); each row's parent and
+        local matrix (``par``, ``src``) and each surface's, light's and
+        the camera's world matrix as a reference: a scratch row (>= 0) or
+        -(node + 1) for a row of ``W_static``/``L_static``; a row of
+        ``src`` >= 0 is the node's row of ``local_inputs``; ``box`` each
+        surface's row of ``box_ctr``/``box_corners``, or -1."""
+        need = np.unique(np.concatenate([self.need[g] for g in self.need]))
+        need = need[np.argsort(self.level[need], kind="stable")]
+        slot = {int(n): q for q, n in enumerate(need)}
+        dyn = {n: r for r, n in enumerate(self.dyn)}
+
+        def ref(n):
+            return slot.get(int(n), -int(n) - 1)
+
+        i32 = lambda v: np.array(v, np.int32).reshape(-1)
+        self.plan = dict(
+            lv_start=i32(np.searchsorted(self.level[need], np.unique(
+                self.level[need])).tolist() + [need.size]),
+            par=i32([ref(self.parent[n]) for n in need]),
+            src=i32([dyn.get(int(n), -int(n) - 1) for n in need]),
+            surf=i32([ref(n) for n in self.nodes["surf"]]),
+            light=i32([ref(n) for n in self.nodes["light"]]),
+            cam=ref(self.nodes["cam"][0]))
+        box = np.full(self.nodes["surf"].size, -1, np.int32)
+        box[self.bnd] = np.arange(self.bnd.size)
+        self.plan["box"] = box
+        self.n_scratch = need.size
 
     def check(self):
         """Raise ValueError where the hierarchy is no longer the one this
@@ -1048,19 +1104,31 @@ class SceneStructure:
         return {g: np.array([vals[d] for d in self.deps[g]],
                             np.float64).tobytes() for g in MOVED_GROUPS}
 
+    def local_inputs(self, vals) -> np.ndarray:
+        """``transform_inputs`` of every moving node (``dyn``, in order)
+        from ``local_values``' dict: (len(dyn), 12) f32."""
+        return transform_inputs([vals[i] for i in self.dyn])
+
     def moved_fields(self, groups, vals) -> Dict[str, np.ndarray]:
         """The fields of ``groups`` on the host (f32 numpy), from the
-        moving nodes' local transforms ``vals``: local matrices in one
-        batch, world matrices composed level by level, then the surfaces'
-        inverses and bounding spheres in one batch each."""
+        moving nodes' local transforms ``vals``: the plain version of the
+        scene update's kernel (``fields_from_inputs``)."""
+        return self.fields_from_inputs(groups, self.local_inputs(vals))
+
+    def fields_from_inputs(self, groups, inp: np.ndarray
+                           ) -> Dict[str, np.ndarray]:
+        """The fields of ``groups`` (f32 numpy) from ``local_inputs``'
+        rows: local matrices in one batch, world matrices composed level
+        by level, then the surfaces' inverses and bounding spheres in one
+        batch each."""
         W = self.W_static
         need = np.unique(np.concatenate([self.need[g] for g in groups]))
         if need.size:
             W = W.copy()
             L = self.L_static.copy()
             own = need[self.src[need] != SRC_STATIC]
-            L[own] = transform_matrices(
-                [vals[int(i)] for i in own])
+            row = {n: r for r, n in enumerate(self.dyn)}
+            L[own] = local_matrices(inp[[row[int(i)] for i in own]])
             for lv in np.unique(self.level[need]):
                 ids = need[self.level[need] == lv]
                 W[ids] = _bmm(W[self.parent[ids]], L[ids])
@@ -1124,25 +1192,40 @@ def structure_pass(scene: S.SceneDef, time: float = 0.0, cam_index: int = 0,
     ``compile_scene`` at (time, cam_trm) on the host for the fields that no
     transform moves (slots, clip programs, untied surfaces, cull
     eligibility, materials, the texture atlas, emission, lights' colours,
-    the padded NS/NC/NL), which go to ``device`` once; and a walk that
-    records the node table ``numeric_pass`` composes. The batched pass is
-    held against that compile at once: a field that differs by a bit
-    raises RuntimeError."""
+    the padded NS/NC/NL), which go to ``device`` once; a walk that records
+    the node table ``numeric_pass`` composes; and that table's plan on the
+    device (``ops.update.update_tables``). The pass's fields (on a card the
+    scene update's launch, on the CPU its plain version) are held against
+    that compile at once: a field that differs by a bit raises
+    RuntimeError."""
+    from quadray_tpu_torch.ops import update
     sc0 = compile_scene(scene, time, cam_index, cam_trm=cam_trm,
                         device="cpu")
     st = SceneStructure(scene, cam_index, device, sc0)
+    st.tables = update.update_tables(st, st.device)
     vals = st.local_values(time, cam_trm)
-    moved = st.moved_fields(tuple(MOVED_GROUPS), vals)
+    moved = _moved(st, tuple(MOVED_GROUPS), vals)
     bad = [k for k in MOVED_FIELDS
-           if not _bits_equal(torch.from_numpy(moved[k]), getattr(sc0, k))]
+           if not _bits_equal(moved[k].cpu(), getattr(sc0, k))]
     if bad:
         raise RuntimeError(f"structure_pass: the batched numeric pass "
                            f"differs from compile_scene in {bad}")
     st.keys = st.group_keys(vals)
     fixed = {k: getattr(sc0, k).to(st.device) for k in FIELDS
              if k not in MOVED_FIELDS}
-    st.last = SceneArrays(**fixed, **_staged(moved, st.device))
+    st.last = SceneArrays(**fixed, **moved)
     return st
+
+
+def _moved(st: SceneStructure, groups, vals) -> Dict[str, torch.Tensor]:
+    """The fields of ``groups`` as new tensors on the structure's device:
+    on a card one launch of the scene update's kernel (``ops.update``) on
+    the moving nodes' values, staged in one pinned copy; on the CPU the
+    plain version (``moved_fields``) in one staged copy."""
+    if st.device.type == "cuda":
+        from quadray_tpu_torch.ops import update
+        return update.moved_fields(st, groups, st.local_inputs(vals))
+    return _staged(st.moved_fields(groups, vals), st.device)
 
 
 def numeric_pass(st: SceneStructure, time: float = 0.0,
@@ -1151,17 +1234,17 @@ def numeric_pass(st: SceneStructure, time: float = 0.0,
     ``compile_scene`` at (time, cam_trm), bit for bit, on the structure's
     device. Evaluates the animators and the camera slot on the host, and
     recomputes a group of ``MOVED_GROUPS`` only where a transform it
-    depends on changed since the last frame; the recomputed fields go to
-    the device in one staged copy, and every other field is the last
-    frame's tensor, the same object. A frame that moves nothing returns
-    the last frame's SceneArrays itself. Raises ValueError where the
-    hierarchy differs from the one recorded."""
+    depends on changed since the last frame (``_moved``: on a card one
+    launch of the scene update's kernel); the recomputed fields are new
+    tensors, and every other field is the last frame's tensor, the same
+    object. A frame that moves nothing returns the last frame's
+    SceneArrays itself. Raises ValueError where the hierarchy differs from
+    the one recorded."""
     st.check()
     vals = st.local_values(time, cam_trm)
     keys = st.group_keys(vals)
     groups = tuple(g for g in MOVED_GROUPS if keys[g] != st.keys[g])
     if groups:
-        moved = _staged(st.moved_fields(groups, vals), st.device)
-        st.last = dataclasses.replace(st.last, **moved)
+        st.last = dataclasses.replace(st.last, **_moved(st, groups, vals))
         st.keys = keys
     return st.last

@@ -1,10 +1,10 @@
 """One CUDA graph a frame and a path-traced pass (``ops/graphs.py``): the
-frame and pass programs against the eager paths they replace.
+interactive and pass programs against the eager paths they replace.
 
 On the CPU a program's body is called each time (``capture`` returns it),
-with the plain tracers in the kernels' place; the staging of its inputs,
-its key, the returned frames' ownership and the pass program's in-place
-sum and seeds are the same code as on the card. Held bitwise to
+with the plain tracers in the kernels' place; the interactive program's
+buffers, its key, the returned frames' ownership, the pass program's
+staging and its in-place sum and seeds are the same code as on the card. Held bitwise to
 ``Scene.render`` (``render_linear`` + ``to_frame``), ``render_pt_pass``
 (``pt_passes``) and ``render_pt_cuda``, and, as a whole, to the JAX
 engine. A stand-in for the plain tracer, a cheap function of everything
@@ -12,7 +12,7 @@ it is given, stands in where J3's 61-frame trace on test13 or demo02's
 animation would take minutes: on the CPU the body's tracer reads the frame's
 SceneArrays, as the eager path's does, so what is held there is every
 input beside the tracer's scene (the camera, the rays, the AA mean,
-to_frame, use_gamma) and the staged tables, held bitwise to a fresh
+to_frame, use_gamma) and the program's tables, held bitwise to a fresh
 ``pack_scene`` at every frame.
 
 JAX is imported inside the two tests that use it, so the card's cases
@@ -87,9 +87,11 @@ def _stand_in_tracer(monkeypatch):
 
 
 def _assert_staged(sc):
-    """The frame program's buffers hold the frame's camera, use_gamma and
-    a fresh pack_scene of its arrays, bit for bit."""
-    prog, arr = sc._frame_prog, sc.arrays
+    """The interactive program's buffers hold the frame's camera,
+    use_gamma and a fresh pack_scene of its arrays (the scene's arrays
+    after the frame), bit for bit, and it staged no input."""
+    prog, arr = sc._interactive_prog, sc.arrays
+    assert prog.inputs.copies == 0
     buf = prog.inputs.buf
     for k in G.CAMERA + ("use_gamma",):
         assert _same(buf[k], getattr(arr, k)), k
@@ -107,15 +109,16 @@ def _j3_pair(name, fsaa):
 @pytest.mark.parametrize("fsaa", [1, 2])
 def test_frame_program_matches_render_on_j3_trace(fsaa):
     """test01 with the plain tracer: one pass through J3's actions (the
-    first frame and one frame each), the program's frames bitwise
-    Scene.render's, and every frame it returned still as it was."""
+    first frame and one frame each), the interactive program's frames
+    bitwise Scene.render's, and every frame it returned still as it
+    was."""
     eager, prog = _j3_pair("test01", fsaa)
     got = []
     for fi in range(len(J3_TRACE) + 1):
         _act(eager, fi)
         _act(prog, fi)
         want = eager.render(frame_time(fi))
-        frame = prog.render_program(frame_time(fi))
+        frame = prog.render_interactive(frame_time(fi))
         assert frame.shape == (H, W, 3) and frame.dtype == np.uint8
         assert np.array_equal(frame, want), fi
         got.append((frame, want))
@@ -127,9 +130,9 @@ def test_frame_program_matches_render_on_j3_trace(fsaa):
 @pytest.mark.parametrize("name", ["test01", "test13"])
 def test_frame_program_stages_j3_trace(monkeypatch, name, fsaa):
     """J3's whole trace (60 frames after the first): at every frame the
-    program's frame bitwise Scene.render's, its buffers the frame's
-    camera and a fresh pack; a frame whose camera and scene did not move
-    ("." on a scene without animators) copies nothing."""
+    interactive program's frame bitwise Scene.render's, its buffers the
+    frame's camera and a fresh pack, nothing staged; a frame whose camera
+    and scene did not move ("." on a scene without animators) too."""
     calls = _stand_in_tracer(monkeypatch)
     eager, prog = _j3_pair(name, fsaa)
     still = 0
@@ -137,12 +140,10 @@ def test_frame_program_stages_j3_trace(monkeypatch, name, fsaa):
         _act(eager, fi)
         _act(prog, fi)
         want = eager.render(frame_time(fi))
-        copies = prog._frame_prog.inputs.copies if fi else 0
-        frame = prog.render_program(frame_time(fi))
+        frame = prog.render_interactive(frame_time(fi))
         assert np.array_equal(frame, want), fi
         _assert_staged(prog)
         if fi and J3_TRACE[fi % len(J3_TRACE)] == ".":
-            assert prog._frame_prog.inputs.copies == copies, fi
             still += 1
     assert still == J3_FRAMES // len(J3_TRACE)
     assert len(calls) == 2 * (J3_FRAMES + 1)
@@ -152,34 +153,37 @@ def test_frame_program_stages_j3_trace(monkeypatch, name, fsaa):
 def test_frame_program_stages_animation(monkeypatch, fsaa):
     """demo02's animation (its surfaces and lights move with t): the
     moved pack parts reach the buffers, frame by frame, and the frames are
-    Scene.render's; a repeated frame copies nothing."""
+    Scene.render's; a repeated frame is the same frame."""
     _stand_in_tracer(monkeypatch)
     eager, prog = _j3_pair("demo02", fsaa)
     moved, frames, last = set(), [], None
     for t in (0.0, 33.3, 66.7, 1000.0):
-        frame = prog.render_program(t)
+        frame = prog.render_interactive(t)
         assert np.array_equal(frame, eager.render(t)), t
         _assert_staged(prog)
-        buf = prog._frame_prog.inputs.buf
+        buf = prog._interactive_prog.inputs.buf
         if last is not None:
             moved |= {k for k in buf if not _same(buf[k], last[k])}
         last = {k: v.clone() for k, v in buf.items()}
         frames.append(frame)
     assert {"sp_f", "lg_f", "bsph_t", "shad_msk"} <= moved, moved
     assert not np.array_equal(frames[0], frames[-1])
-    n = prog._frame_prog.inputs.copies
-    assert np.array_equal(prog.render_program(1000.0), frames[-1])
-    assert prog._frame_prog.inputs.copies == n
+    assert np.array_equal(prog.render_interactive(1000.0), frames[-1])
+    _assert_staged(prog)
 
 
 def test_frame_with_nothing_moved_copies_nothing():
+    """The interactive program owns every input it reads (the camera and
+    use_gamma are its field buffers or the structure's, the tables its
+    own or the structure's pack): it stages none, and a repeated frame is
+    the same frame, a new array."""
     sc = Scene(load_scene("test01"), 16, 10, device="cpu")
-    a = sc.render_program(0.0)
-    prog = sc._frame_prog
-    n = prog.inputs.copies
-    assert n == len(G.CAMERA) + 1 + len(ck.PackedScene._fields)
-    b = sc.render_program(0.0)
-    assert sc._frame_prog is prog and prog.inputs.copies == n
+    a = sc.render_interactive(0.0)
+    prog = sc._interactive_prog
+    assert set(prog.inputs.buf) == set(G.CAMERA) | {"use_gamma"} | set(
+        ck.PackedScene._fields)
+    b = sc.render_interactive(0.0)
+    assert sc._interactive_prog is prog and prog.inputs.copies == 0
     assert np.array_equal(a, b) and a is not b
 
 
@@ -187,12 +191,12 @@ def test_returned_frame_is_the_callers():
     """A frame returned earlier is unchanged after later ones, and the
     pinned buffer is never handed out."""
     sc = Scene(load_scene("test01"), 32, 20, device="cpu")
-    first = sc.render_program(0.0)
+    first = sc.render_interactive(0.0)
     kept = first.copy()
     sc.update_action(100.0, KEY_ACTIONS["left"])
-    second = sc.render_program(100.0)
+    second = sc.render_interactive(100.0)
     assert np.array_equal(first, kept) and not np.array_equal(first, second)
-    assert not np.shares_memory(second, sc._frame_prog.host.numpy())
+    assert not np.shares_memory(second, sc._interactive_prog.host.numpy())
 
 
 def _recorded_captures(monkeypatch):
@@ -235,13 +239,13 @@ def test_a_new_key_makes_a_new_capture(monkeypatch, change):
     eager path renders; without one, frames replay."""
     rec = _recorded_captures(monkeypatch)
     sc = Scene(load_scene("test01"), 16, 10, device="cpu")
-    sc.render_program(0.0)
-    sc.render_program(0.0)
+    sc.render_interactive(0.0)
+    sc.render_interactive(0.0)
     assert rec == {"captures": 1, "replays": 1}
     CHANGES[change](sc, monkeypatch)
-    frame = sc.render_program(0.0)
+    frame = sc.render_interactive(0.0)
     assert rec == {"captures": 2, "replays": 1}
-    assert np.array_equal(sc.render_program(0.0), frame)
+    assert np.array_equal(sc.render_interactive(0.0), frame)
     assert rec == {"captures": 2, "replays": 2}
     assert np.array_equal(frame, sc.render(0.0))
 
@@ -364,13 +368,15 @@ def test_pt_program_matches_render_pt_cuda():
 
 
 def test_frame_program_matches_jax_engine():
-    """The slice as a whole: test01's frame through the frame program
-    against the JAX engine's, with test_torch_engine's tolerance."""
+    """The slice as a whole: test01's frame through the interactive
+    program against the JAX engine's, with test_torch_engine's
+    tolerance."""
     from quadray_tpu.engine import Scene as JScene
     from quadray_tpu.models.scenes.loader import load_scene as jload
     w, h = 48, 32
     a = JScene(jload("test01"), w, h).render(0.0)
-    b = Scene(load_scene("test01"), w, h, device="cpu").render_program(0.0)
+    b = Scene(load_scene("test01"), w, h,
+              device="cpu").render_interactive(0.0)
     d = np.abs(a.astype(np.int32) - b.astype(np.int32)).max(-1)
     assert d.max() <= 1 and (d > 0).mean() <= 0.005
 
@@ -405,9 +411,9 @@ def _eager_frame(sc):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["test13", "demo02"])
 def test_graphed_render_matches_eager_on_card(dev, name):
-    """J3's trace at 200x120: Scene.render replays one graph a frame (one
-    Whitted launch counted), uint8-equal to render_linear + to_frame, and
-    every frame it returned kept."""
+    """J3's trace at 200x120: Scene.render replays one graph a frame (the
+    interactive program's: one Whitted launch counted), uint8-equal to
+    render_linear + to_frame, and every frame it returned kept."""
     sc = Scene(_sdef(name), 200, 120, device=dev)
     got = []
     for fi in range(J3_FRAMES + 1):
@@ -418,7 +424,7 @@ def test_graphed_render_matches_eager_on_card(dev, name):
         want = _eager_frame(sc)
         assert np.array_equal(frame, want), fi
         got.append((frame, want))
-    assert isinstance(sc._frame_prog.replay, G.Replay)
+    assert isinstance(sc._interactive_prog.replay, G.Replay)
     assert all(np.array_equal(f, w) for f, w in got)
 
 
