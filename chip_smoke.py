@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only N   # kernel build + the main path's kernel
     python3 chip_smoke.py --only O   # kernel build + a CUDA graph a frame
     python3 chip_smoke.py --only P   # kernel build + a CUDA graph a step
+    python3 chip_smoke.py --only Q   # kernel build + the all-surface step
     python3 chip_smoke.py --only R   # kernel build + the fused replay
     python3 chip_smoke.py --only U   # kernel build + the update's launch
 
@@ -179,8 +180,9 @@ parallel nvcc processes, then:
      counted make_train_scan_fast steps on 4 blocks (the loss falls, one
      paths launch a block a step), ms/step on 1 and 4 blocks; L3 the
      multi-process worker (python -m quadray_tpu_torch.dryrun): two gloo
-     ranks on cuda:0, the frame bitwise render_cuda's and the params equal
-     across ranks, then a world-size-1 NCCL group, then NCCL asked for
+     ranks on cuda:0, the frame bitwise render_cuda's, the fast step
+     bitwise the in-process 2-block step and the params equal across
+     ranks, then a world-size-1 NCCL group, then NCCL asked for
      two ranks on one card (its refusal logged); L4 dryrun_multichip(8) on
      the card, render_sharded_cuda ms/frame on test13 over 1, 2, 4 and 8
      blocks beside render_cuda's, and scaling_report over the card's
@@ -239,6 +241,27 @@ parallel nvcc processes, then:
      graphed, a b b a, calls of 10 steps, on 1 and 4 blocks, and one-step
      calls of each route under torch.profiler: host launch calls, device
      ops and ms, busy share.
+  Q. the all-surface training step (parallel/train.py make_train_step,
+     the counterpart of the JAX make_train_step's jitted step_fn; plain
+     PyTorch autograd over the bounces, no hand-written kernel) as one
+     CUDA graph, on the two golden scenes where a material both reflects
+     and transmits, which the fast steps refuse (test17, test18), every
+     differentiable field, TraceConfig(max_segments=8, stack=4): Q1
+     test17 at 64x40, one graphed step on the card against the eager
+     step on the CPU from the same arrays, loss within 1e-4 relative,
+     params within 1e-4; Q2 test17 and test18 at 800x480 on 1 and 4
+     blocks of cuda:0, from one state: 3 eager one-step calls chained, a
+     graphed call of 3 steps (warm-up, capture, replays) bitwise the
+     chain, then two graphed one-step calls and (the program dropped) an
+     eager one, each bitwise the chain's first step; ms/step in that
+     order (a b b a), the capture's ms, the graph's pool and the peak
+     memory, and on test17 1 block a profiler window of each route (host
+     launch calls, device ops and ms, busy share, top ops); Q3
+     BASELINE.json config 5's frame, 1920x1080: make_train_step on test17
+     over the fewest blocks of cuda:0 whose memory at Q2's peak a ray
+     fits in 85% of the card (doubled while the eager step does not fit)
+     and make_train_scan_fast on demo03 at K=8 on one block, 2 steps each
+     graphed bitwise eager, ms/step, pool and peak.
   U. the scene update as one launch (csrc/update.cu update_launch,
      ops/update.py; the counterpart of the JAX engine's _update_jit) and
      the interactive frame as one CUDA graph (ops/graphs.py
@@ -713,13 +736,14 @@ def train_cfg():
     return TraceConfig(max_segments=8, stack=4)
 
 
-def train_task(dev):
+def train_task(dev, name: str = "test01", w: int = W, h: int = H):
     """bench_train's configuration: test01 at 800x480, the clean scene's
-    kernel render (clipped) as the target, surfaces moved by +0.05."""
+    kernel render (clipped) as the target, surfaces moved by +0.05 (on
+    another scene and frame for phase Q; on the CPU the plain render)."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
-    sc = compiled("test01", dev)
+    sc = compiled(name, dev)
     cfg = train_cfg()
-    org, dirs, tmin = primary(sc, W, H)
+    org, dirs, tmin = primary(sc, w, h)
     target = torch.clamp(ck.trace_rays_cuda(sc, org, dirs, tmin,
                                             cfg), 0.0, 1.0)
     sc_p = dataclasses.replace(sc, s_pos=sc.s_pos + 0.05)
@@ -2479,6 +2503,22 @@ P_BLOCKS = (1, 4)
 P_PROFILED = 3
 O_CHECKPOINT = 32
 O_PROFILED = 10
+# phase Q: the all-surface step (make_train_step) on the two golden scenes
+# where a material both reflects and transmits (the fast steps refuse
+# them), every differentiable field: Q1 one step on the card against the
+# CPU at this frame, within tests/test_torch_step_graph.py's bounds; Q2
+# steps graphed against eager on these block counts of cuda:0 at 800x480;
+# Q3 BASELINE.json config 5's frame on the fewest blocks whose memory,
+# at Q2's peak a ray, fits in this share of the card, and the trace-replay
+# scan on demo03
+Q_SCENES = ("test17", "test18")
+Q1_W, Q1_H = 64, 40
+Q_LOSS_RTOL, Q_PARAM_ATOL = 1e-4, 1e-4
+Q_BLOCKS = (1, 4)
+Q_STEPS = 3
+Q3_W, Q3_H = 1920, 1080
+Q3_MEMORY = 0.85
+Q3_STEPS = 2
 
 
 @contextlib.contextmanager
@@ -3692,7 +3732,9 @@ def phase_l3(dev):
         log(f"L3 {backend} world {world} on {[ln['device'] for ln in lines]}"
             f": frame digests {frames} (render_cuda {want}), params/first "
             f"moment digests {params}, losses "
-            f"{[ln['loss'] for ln in lines]}, all_reduce "
+            f"{[ln['loss'] for ln in lines]}, the step bitwise the "
+            f"in-process {world}-block step "
+            f"{[ln['bitwise_in_process'] for ln in lines]}, all_reduce "
             f"{lines[0]['all_reduce']}, refused differing scenes: "
             f"{[ln['refused'] is not None for ln in lines]} "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -4118,12 +4160,14 @@ def phase_o4(dev, smi):
     return out
 
 
-def profile_window(label, fn, n: int, smi, prefix: str = "O5"):
+def profile_window(label, fn, n: int, smi, prefix: str = "O5",
+                   top: int = 0):
     """fn(i) for i < n under torch.profiler after one unprofiled call:
     the host's launch calls (the CUDA API calls that queue work), the
     device's kernels, memsets and copies, their device ms, and the card's
     busy share of the window (the union of their intervals over the host
-    clock around the n calls and a synchronize)."""
+    clock around the n calls and a synchronize); with ``top``, that many
+    device ops by device time (names cut to 60 characters)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(-1)
@@ -4164,6 +4208,14 @@ def profile_window(label, fn, n: int, smi, prefix: str = "O5"):
         f"kernels, memsets and copies a call {r['device_ops']:.1f}, device "
         f"{r['device_ms']:.4f} ms a call; card busy {100 * r['busy']:.2f}% "
         "of the window")
+    if top:
+        by = {}
+        for e in dev_ev:
+            t, c = by.get(e.name, (0.0, 0))
+            by[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
+        log(f"{prefix} {label}: top device ops a call: " + "; ".join(
+            f"{k[:60]} {t / 1e3 / n:.4f} ms x{c / n:.0f}" for k, (t, c) in
+            sorted(by.items(), key=lambda kv: -kv[1][0])[:top]))
     return r
 
 
@@ -4323,6 +4375,258 @@ def phase_p2(dev, smi, fns, task):
     return out
 
 
+def release_memory(dev):
+    """Drops what earlier work left cached on the card (render_pt_cuda's
+    pass programs, unreachable programs and their graphs' pools, the
+    allocator's cache) and starts a new peak."""
+    import gc
+    from quadray_tpu_torch.ops import graphs
+    graphs._PT_PROGRAMS.clear()
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def same_bits(a, b) -> dict:
+    """Two runs' (params, AdamState, losses): which of loss, params, mu
+    and nu are bitwise equal."""
+    bits = lambda t: t.contiguous().view(torch.int32)
+    (pa, oa, la), (pb, ob, lb) = a, b
+    same = {"loss": torch.equal(bits(la), bits(lb))}
+    for what, x, y in (("params", pa, pb), ("mu", oa.mu, ob.mu),
+                       ("nu", oa.nu, ob.nu)):
+        same[what] = all(torch.equal(bits(x[k]), bits(y[k])) for k in x)
+    return same
+
+
+def timed_run(run_fn, sc, target, steps: int, chained: bool = False):
+    """run_fn ``steps`` steps from sc's every differentiable field and a
+    fresh Adam state, in one call or (``chained``) a one-step call a step,
+    each from the last one's params and state: ((params, state, losses),
+    ms a step, CUDA events around the calls; with ``chained`` the first
+    call's result too)."""
+    from quadray_tpu_torch.parallel import train as tr
+    p0 = tr.extract_params(sc)
+    out = []
+
+    def run():
+        if not chained:
+            out.append(run_fn(p0, tr.adam_init(p0), sc, target, steps))
+            return
+        p, o = p0, tr.adam_init(p0)
+        for _ in range(steps):
+            out.append(run_fn(p, o, sc, target, 1))
+            p, o = out[-1][:2]
+
+    ms = cuda_ms(run, 1, warmup=0) / steps
+    if not chained:
+        return out[0], ms
+    return out[-1][:2] + (torch.cat([r[2] for r in out]),), ms, out[0]
+
+
+def gib(n: int) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def phase_q1(dev):
+    """One all-surface step on the card (the graph route) against the same
+    step on the CPU (eager), test17 at Q1_W x Q1_H from the same arrays:
+    the loss within Q_LOSS_RTOL, every field's params within
+    Q_PARAM_ATOL."""
+    from quadray_tpu_torch.parallel import train as tr
+    from quadray_tpu_torch.parallel.render import replica
+    cpu = torch.device("cpu")
+    sc, target, _ = train_task(cpu, "test17", Q1_W, Q1_H)
+    runs = {}
+    for d, eager in ((cpu, True), (dev, False)):
+        step_fn, opt_init = tr.make_train_step(
+            Q1_W, Q1_H, cfg=train_cfg(), lr=TRAIN_LR, eager=eager)
+        s = replica(sc, d)
+        if step_fn.run.route(s) != ("eager" if eager else "graph"):
+            raise AssertionError(f"Q1: the {d} step took the "
+                                 f"{step_fn.run.route(s)} route")
+        p0 = tr.extract_params(s)
+        runs[eager] = step_fn(p0, opt_init(p0), s, target.to(d))
+    (pc, _, lc), (pg, _, lg) = runs[True], runs[False]
+    rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    worst = max(float((pg[k].cpu() - pc[k]).abs().max()) for k in pc)
+    log(f"Q1 test17 {Q1_W}x{Q1_H} every field, one make_train_step step: "
+        f"the card's graphed loss {float(lg):.8e} against the CPU's "
+        f"{float(lc):.8e} (relative {rel:.2e}, bound {Q_LOSS_RTOL}); params "
+        f"off by at most {worst:.2e} (bound {Q_PARAM_ATOL})")
+    if not (rel <= Q_LOSS_RTOL and worst <= Q_PARAM_ATOL):
+        raise AssertionError("Q1: the card's step off the CPU's")
+
+
+def phase_q2(dev, smi):
+    """The all-surface step at 800x480 on each of Q_SCENES and Q_BLOCKS
+    blocks of cuda:0, every field, each run from the scene's params and a
+    fresh state: eager, Q_STEPS one-step calls chained; the graph route,
+    a call of Q_STEPS steps (the warm-up, the capture, replays), bitwise
+    the chain's last; two one-step graphed calls and, the program
+    dropped, one eager, each bitwise the chain's first step (two eager
+    steps from one state, and graphed ones); ms/step in that order (a b b
+    a), the capture's ms, the graph's pool and the peak memory; on the
+    first scene and 1 block a profiler window of each route. Returns the
+    first scene's 1-block peak allocated bytes a ray."""
+    from quadray_tpu_torch.parallel import train as tr
+    per_ray = None
+    for name in Q_SCENES:
+        sc, target, _ = train_task(dev, name)
+        for b in Q_BLOCKS:
+            mesh = None if b == 1 else card_mesh(dev, b)
+            fns = {mode: tr.make_train_step(W, H, cfg=train_cfg(),
+                                            lr=TRAIN_LR, mesh=mesh,
+                                            eager=mode == "eager")[0].run
+                   for mode in ("eager", "graph")}
+            for mode, fn in fns.items():
+                if fn.route(sc) != mode:
+                    raise AssertionError(f"Q2 {name} {b} blocks: the {mode} "
+                                         f"run took the {fn.route(sc)} route")
+            profiled = per_ray is None
+            release_memory(dev)
+            e_last, ms_e1, e_first = timed_run(fns["eager"], sc, target,
+                                               Q_STEPS, chained=True)
+            peak_e = torch.cuda.max_memory_allocated(dev)
+            release_memory(dev)
+            res0 = torch.cuda.memory_reserved(dev)
+            g1, ms_g1 = timed_run(fns["graph"], sc, target, Q_STEPS)
+            prog = next(iter(fns["graph"].programs.values()))
+            pool = torch.cuda.memory_reserved(dev) - res0
+            peak_g = torch.cuda.max_memory_allocated(dev)
+            g2, ms_g2 = timed_run(fns["graph"], sc, target, 1)
+            g3, ms_g3 = timed_run(fns["graph"], sc, target, 1)
+            capture, warmup = prog.replay.ms, prog.replay.warmup_ms
+            counts = prog.replay.counts
+            p0 = tr.extract_params(sc)
+
+            def one(fn):
+                state = [p0, tr.adam_init(p0)]
+
+                def step(i):
+                    p, o, _ = fn(*state, sc, target, 1)
+                    state[:] = [p, o]
+                return step
+
+            if profiled:
+                profile_window(
+                    f"one all-surface step a call, {name} {W}x{H} every "
+                    "field, 1 block, graph", one(fns["graph"]), 1, smi,
+                    prefix="Q2", top=8)
+            del prog
+            fns["graph"] = None
+            release_memory(dev)
+            e2, ms_e2 = timed_run(fns["eager"], sc, target, 1)
+            if profiled:
+                profile_window(
+                    f"one all-surface step a call, {name} {W}x{H} every "
+                    "field, 1 block, eager", one(fns["eager"]), 1, smi,
+                    prefix="Q2", top=8)
+                per_ray = peak_g / (W * H)
+            same = {f"graph {Q_STEPS} steps": same_bits(g1, e_last),
+                    "graph 1 step": same_bits(g2, e_first),
+                    "graph 1 step again": same_bits(g3, e_first),
+                    "eager 1 step again": same_bits(e2, e_first)}
+            losses = [float(x) for x in g1[2]]
+            log(f"Q2 {name} {W}x{H} every field, {b} block(s), from one "
+                f"state ({smi}): bitwise the eager chain {same}; losses "
+                + " ".join(f"{x:.6e}" for x in losses)
+                + f"; the graph's first call {ms_g1 * Q_STEPS:.1f} ms, of "
+                f"which warm-up and capture {capture:.1f} (warm-up "
+                f"{warmup:.1f}); counted launches {counts}; the graph's "
+                f"pool (reserved) {gib(pool)}; peak allocated eager "
+                f"{gib(peak_e)}, graph {gib(peak_g)}")
+            if not all(all(v.values()) for v in same.values()):
+                raise AssertionError(f"Q2 {name} {b} blocks: runs differ: "
+                                     f"{same}")
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"Q2 {name}: losses {losses}")
+            abba_summary(f"Q2 ms/step {name} {W}x{H}, {b} block(s) ({smi})",
+                         list(zip(O_ABBA, (ms_e1, ms_g2, ms_g3, ms_e2))))
+            del fns, e_last, e_first, e2, g1, g2, g3
+            release_memory(dev)
+    return per_ray
+
+
+def q3_pair(label, make, sc, target, steps: int, smi):
+    """``steps`` steps of make(eager) from sc's params, eager then graphed
+    (the program's first call: warm-up, capture, replays), bitwise; then
+    a one-step graphed call for the graph's ms/step; the pool and the
+    peak memory; the program dropped after."""
+    dev = sc.device
+    release_memory(dev)
+    e, ms_e = timed_run(make(True), sc, target, steps)
+    peak_e = torch.cuda.max_memory_allocated(dev)
+    release_memory(dev)
+    res0 = torch.cuda.memory_reserved(dev)
+    graph = make(False)
+    if graph.route(sc) != "graph":
+        raise AssertionError(f"Q3 {label}: graph route not taken")
+    g, ms_g1 = timed_run(graph, sc, target, steps)
+    pool = torch.cuda.memory_reserved(dev) - res0
+    peak_g = torch.cuda.max_memory_allocated(dev)
+    _, ms_g = timed_run(graph, sc, target, 1)
+    capture = next(iter(graph.programs.values())).replay.ms
+    del graph
+    release_memory(dev)
+    same = same_bits(g, e)
+    log(f"Q3 {label}, {steps} steps from one state ({smi}): graphed "
+        f"bitwise eager {same}; ms/step eager {ms_e:.2f}, graphed "
+        f"{ms_g:.2f} (the first call {ms_g1 * steps:.1f} ms, of which "
+        f"warm-up and capture {capture:.1f}); the graph's pool "
+        f"{gib(pool)}; peak allocated eager {gib(peak_e)}, graph "
+        f"{gib(peak_g)}; losses " + " ".join(f"{float(x):.6e}"
+                                            for x in e[2]))
+    if not all(same.values()):
+        raise AssertionError(f"Q3 {label}: graphed steps off the eager ones")
+    if not bool(torch.isfinite(e[2]).all()):
+        raise AssertionError(f"Q3 {label}: losses {e[2]}")
+
+
+def phase_q3(dev, smi, per_ray: float):
+    """BASELINE.json config 5's frame (1920x1080, every field): the
+    all-surface step on test17 over the fewest of 1, 2, 4, ... blocks of
+    cuda:0 whose peak memory, at Q2's peak a ray (``per_ray`` bytes),
+    fits in Q3_MEMORY of the card (doubled while the eager step does not
+    fit), then make_train_scan_fast on demo03 (152 surfaces) at K=8 on
+    one block: Q3_STEPS steps each, graphed bitwise eager."""
+    from quadray_tpu_torch.parallel import train as tr
+    total = torch.cuda.get_device_properties(dev).total_memory
+    rays = Q3_W * Q3_H
+    blocks = 1
+    while per_ray * rays / blocks > Q3_MEMORY * total:
+        blocks *= 2
+    log(f"Q3: Q2's peak {per_ray / 1e3:.1f} kB a ray predicts "
+        f"{gib(per_ray * rays / blocks)} on {blocks} block(s) of a "
+        f"{gib(total)} card")
+    sc, target, _ = train_task(dev, "test17", Q3_W, Q3_H)
+    while True:
+        make = lambda eager: tr.make_train_step(
+            Q3_W, Q3_H, cfg=train_cfg(), lr=TRAIN_LR,
+            mesh=card_mesh(dev, blocks), eager=eager)[0].run
+        try:
+            q3_pair(f"make_train_step test17 {Q3_W}x{Q3_H} every field, "
+                    f"{blocks} block(s)", make, sc, target, Q3_STEPS, smi)
+            break
+        except torch.cuda.OutOfMemoryError:
+            if blocks >= 64:
+                raise
+        # (the next q3_pair releases what the failed step left)
+        log(f"Q3 test17: the eager step on {blocks} block(s) does not fit; "
+            "doubling them")
+        blocks *= 2
+    del sc, target
+    sc, target, _ = train_task(dev, "demo03", Q3_W, Q3_H)
+    q3_pair(f"make_train_scan_fast demo03 {Q3_W}x{Q3_H} K={K_PATHS} every "
+            "field, 1 block",
+            lambda eager: tr.make_train_scan_fast(
+                sc, Q3_W, Q3_H, cfg=train_cfg(), lr=TRAIN_LR,
+                k_paths=K_PATHS, eager=eager)[0], sc, target, Q3_STEPS, smi)
+    del sc, target
+    release_memory(dev)
+
+
 def phase_m1(dev):
     """The bench's cells in this process, each driven with its launch
     count set to 0 just before and read just after."""
@@ -4430,7 +4734,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
-                             "L", "M", "N", "O", "P", "R", "U"],
+                             "L", "M", "N", "O", "P", "Q", "R", "U"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
@@ -4440,7 +4744,9 @@ def main():
                     "tables' kernels), L (the parallel layer), M (the "
                     "port's bench), N (the main path's Whitted kernel), O (one "
                     "CUDA graph a frame and a pass), P (one CUDA graph a "
-                    "training step), R (the fused replay) or U (the scene "
+                    "training step), Q (the all-surface training step as "
+                    "one CUDA graph, at 800x480 and 1920x1080), R (the "
+                    "fused replay) or U (the scene "
                     "update as one launch, the interactive frame as one "
                     "CUDA graph)")
     args = ap.parse_args()
@@ -4681,6 +4987,16 @@ def main():
         del fns, task
         torch.cuda.empty_cache()
         log(f"phase P ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "Q"):
+        t0 = time.perf_counter()
+        release_memory(dev)
+        log(f"Q: on the card before the phase: allocated "
+            f"{gib(torch.cuda.memory_allocated(dev))}, reserved "
+            f"{gib(torch.cuda.memory_reserved(dev))}")
+        phase_q1(dev)
+        phase_q3(dev, smi, phase_q2(dev, smi))
+        log(f"phase Q ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
 

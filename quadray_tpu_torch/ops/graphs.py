@@ -30,8 +30,9 @@ kernels' place.
   seeds; and a frame body for the mean. ``Scene.render_pt_pass`` and
   ``render_pt_cuda`` replay it once a pass.
 - ``parallel.train.StepProgram`` (a training step: the re-pack, the paths
-  launch, replay with its row gathers, the loss's gradients and Adam)
-  takes ``capture``, ``Replay`` and ``Inputs`` from here.
+  launch, replay with its row gathers, or the all-surface tracer's
+  bounces; the loss's gradients and Adam) takes ``capture``, ``Replay``
+  and ``Inputs`` from here.
 
 Hazards, and what is done about each:
 - a capture bakes in pointers, while the incremental update hands a moved
@@ -127,7 +128,7 @@ class Replay:
             setattr(mod, attr, getattr(mod, attr) + n)
 
 
-def capture(body, device: torch.device):
+def capture(body, device: torch.device, release: bool = False):
     """Runs ``body`` once and returns what runs it again. On a CUDA
     device: the warm-up on a side stream, which also does the kernels'
     first-call work (the PT kernel's occupancy query) and whose results
@@ -136,8 +137,12 @@ def capture(body, device: torch.device):
     capture's. The capture is on the same side stream, begun and ended
     directly: ``torch.cuda.graph`` would also synchronise the card, run
     Python's garbage collector and empty the allocator's cache at every
-    capture, a frame's set-up that grows with the process's heap. On the
-    CPU, body itself."""
+    capture, a frame's set-up that grows with the process's heap. With
+    ``release`` (a training step, whose warm-up frees its saved
+    activations) the warm-up is waited for and the allocator's cache
+    emptied before the capture: the graph's own pool cannot take blocks
+    cached outside it, and two steps' activations may not fit on the
+    card. On the CPU, body itself."""
     if device.type != "cuda":
         body()
         return body
@@ -150,6 +155,9 @@ def capture(body, device: torch.device):
         with torch.cuda.stream(side):
             body()
             t1 = time.perf_counter()
+            if release:
+                side.synchronize()
+                torch.cuda.empty_cache()
             cur.wait_stream(side)
             before = {k: getattr(*c) for k, c in COUNTERS.items()}
             try:

@@ -260,7 +260,11 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     roots = torch.stack([root_a, root_b], dim=-1)       # (N, NS, 2)
 
     side_pl = torch.where(d_l[..., 2] < 0.0, 1, -1).to(I32)
-    side_q = torch.tensor([1, -1], dtype=I32, device=dev).expand(roots.shape)
+    # constants are made on the device, never copied from the host, so
+    # that a CUDA graph can hold a bounce: a root pair's slots 0 and 1,
+    # their sides +1 and -1
+    slot = torch.arange(2, dtype=I32, device=dev)
+    side_q = (1 - 2 * slot).expand(roots.shape)
     side_r = torch.where(is_plane[..., None], side_pl[..., None], side_q)
 
     p_r = o_l[:, :, None, :] + roots[..., None] * d_l[:, :, None, :]
@@ -296,15 +300,13 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
 
     # gradient at the (possibly adjusted) hit point (plane: +K)
     g_r = torch.where(is_plane[..., None, None],
-                      torch.tensor([0.0, 0.0, 1.0], dtype=ELEMENT,
-                                   device=dev),
+                      (torch.arange(3, device=dev) == 2).to(ELEMENT),
                       sci[:, :, None, :] * p_r - scjh[:, :, None, :])
 
     # validity: strict t window; planes use the division-free window
     in_win = (roots > t_min[:, None, None]) & (roots < t_max[:, None, None])
-    slot0 = torch.tensor([True, False], device=dev)
-    valid = torch.where(is_plane[..., None] & slot0, win_pl[..., None],
-                        in_win)
+    valid = torch.where(is_plane[..., None] & (slot == 0),
+                        win_pl[..., None], in_win)
     valid &= torch.isfinite(roots) & (roots < BIG)
     valid &= sc.s_kind[None, :, None] > 0              # padding
     # axis clips in the canonical frame (tracer.cpp:1883-1927)
@@ -1170,8 +1172,8 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
 
     # push the refraction branch where both continue
     push = go_rfl & go_trn & (st["sp"] < D) & push_ok
-    slot = torch.where(push, st["sp"], D).long()
-    oh = torch.nn.functional.one_hot(slot, D + 1)[:, :D].bool()   # (N, D)
+    slot = torch.where(push, st["sp"], D)
+    oh = slot[:, None] == torch.arange(D, dtype=I32, device=act.device)
 
     def put(stk, val):
         if stk.dim() == 3:

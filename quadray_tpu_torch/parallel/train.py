@@ -16,7 +16,10 @@ ignore (the params dict names the fields that train):
     the JAX ``lax.scan`` of S steps in one executable; the losses stay on
     the device.
   * ``make_train_step``: the all-surface autodiff path through
-    ``ops.trace.trace_rays_diff`` (plain PyTorch, any device).
+    ``ops.trace.trace_rays_diff`` (plain PyTorch, any device), the
+    counterpart of the JAX ``make_train_step``'s jitted ``step_fn``: the
+    only route for a scene where a material both reflects and transmits
+    (``struct.can_push``), which the fast steps refuse.
 
 Every step runs over a mesh (``parallel.mesh.RayMesh``); ``mesh=None``
 is one block on the scene's device, built at call time. The rays are
@@ -29,19 +32,18 @@ the world size: the JAX ``pmean`` over the ray axis, a mean of per-shard
 means, padding included. One Adam update follows, the same on every
 rank.
 
-The mesh's layout picks the route a fast step takes (``step_route``):
+The mesh's layout picks the route a step takes (``step_route``):
   * "graph": one process, every block on the scene's device. The step is
     a ``StepProgram``: captured once into a CUDA graph (``ops.graphs
     .capture``) and replayed once a step, the counterpart of the JAX
-    scan's one executable; on the CPU its body is called, with the plain
-    versions in the kernels' place.
+    step's or scan's one executable; on the CPU its body is called, with
+    the plain versions in the kernels' place.
   * "eager": blocks on several devices, or a process group (the
-    all-reduce crosses the host or NCCL), and ``make_train_step``, whose
-    plain tracer uploads constants from the host (``ops/trace.py``
-    ``intersect``): every op of every step is queued from Python.
-``eager=True`` asks the fast steps for the eager route on any layout (to
-compare the two). The routes give the same bits. A capture or a replay
-that fails raises; nothing falls back to eager launches.
+    all-reduce crosses the host or NCCL): every op of every step is
+    queued from Python.
+``eager=True`` asks for the eager route on any layout (to compare the
+two). The routes give the same bits. A capture or a replay that fails
+raises; nothing falls back to eager launches.
 
 Parameters are a dict of tensors keyed by ``SceneArrays`` field. The
 optimizer state is ``AdamState``, optax's ``(count, mu, nu)``; each step
@@ -63,6 +65,7 @@ import numpy as np
 import torch
 
 from quadray_tpu_torch.ops import cuda_kernel as ck
+from quadray_tpu_torch.ops import trace
 from quadray_tpu_torch.ops.graphs import Inputs, capture
 from quadray_tpu_torch.ops.replay import replay_color_fused
 from quadray_tpu_torch.ops.trace import TraceConfig, clip, trace_rays_diff
@@ -81,8 +84,10 @@ DIFFERENTIABLE_FIELDS = (
 # optax.adam's defaults
 BETAS = (0.9, 0.999)
 EPS = 1e-8
-# the step programs a run keeps, the most recently used (each holds its
-# graph's memory pool: the saved activations of a step)
+# the step programs a trace-replay run keeps, the most recently used (each
+# holds its graph's memory pool: the saved activations of a step, 0.5 GB
+# at 800x480); an all-surface run keeps one, whose pool holds every
+# bounce's activations of a block (10 GB at 800x480 on test17)
 STEP_PROGRAMS = 2
 # a step's rays, target and weights (_sharded_primary), as a program
 # stages them
@@ -263,16 +268,20 @@ def _mesh_step(loss_of, params: Params, opt_state: AdamState, lr: float,
 class StepProgram:
     """A training step with fixed inputs, for one ``StepKey``: the
     counterpart of the body of the JAX scan's ``one_step``
-    (``quadray_tpu/parallel/train.py:193-206``). Its body is
-    ``_step_body`` on the program's own buffers: the params and Adam's
-    state (``FlatState``, updated in place), the scene's other fields and
-    the rays, target and weights (``ops.graphs.Inputs``, staged by
-    identity); the re-pack, the paths launch (its work queue zeroed by a
-    ``cudaMemsetAsync`` in the launch), the fused replay's forward, the
-    loss, ``autograd.grad`` with the fused backward and its row sums, the
-    mean over the blocks and Adam. ``run`` stages a call's inputs, then
-    runs the body (the first time, on a side stream, and captures it:
-    ``capture``) or replays it, once a step, and copies each step's loss
+    (``quadray_tpu/parallel/train.py:193-206``) or of the JAX
+    ``make_train_step``'s ``step_fn`` (:258). Its body is ``_step_body``
+    on the program's own buffers: the params and Adam's state
+    (``FlatState``, updated in place), the scene's other fields and the
+    rays, target and weights (``ops.graphs.Inputs``, staged by identity);
+    each block's loss (trace-replay: the re-pack, the paths launch, its
+    work queue zeroed by a ``cudaMemsetAsync`` in the launch, and the
+    fused replay's forward; all-surface: the plain tracer's bounces) and
+    ``autograd.grad`` (the fused backward and its row sums; autograd's
+    backward of the bounces), the mean over the blocks and Adam. ``run``
+    stages a call's inputs, then runs the body (the first time, on a side
+    stream, and captures it: ``capture``, the allocator's cache emptied
+    between the two, so that the graph's pool can take what the first
+    step freed) or replays it, once a step, and copies each step's loss
     out of the program's loss scalar; it returns copies of the
     buffers."""
 
@@ -308,7 +317,8 @@ class StepProgram:
         losses = self.loss.new_empty((steps,))
         for i in range(steps):
             if self.replay is None:
-                self.replay = capture(self._body, self.device)
+                self.replay = capture(self._body, self.device,
+                                      release=True)
             else:
                 self.replay()
             losses[i].copy_(self.loss)
@@ -321,7 +331,7 @@ class StepProgram:
 
 
 def step_route(mesh: Optional[RayMesh], device) -> str:
-    """The route of a fast step over ``mesh`` (None: one block on
+    """The route of a step over ``mesh`` (None: one block on
     ``device``, the scene's): "graph" in one process with every block on
     ``device`` (a ``StepProgram``), else "eager"."""
     device = torch.device(device)
@@ -332,9 +342,9 @@ def step_route(mesh: Optional[RayMesh], device) -> str:
 
 
 class StepKey(NamedTuple):
-    """What a step's capture freezes: the loss's own (``_FastLoss.key``),
-    the frame, lr, each trained field's (name, shape, dtype), the blocks'
-    devices and the device."""
+    """What a step's capture freezes: the loss's own (``_FastLoss.key``,
+    ``_DiffLoss.key``), the frame, lr, each trained field's (name, shape,
+    dtype), the blocks' devices and the device."""
     loss: tuple
     width: int
     height: int
@@ -357,8 +367,9 @@ class _Run:
     opt_state, losses (steps,)): ``steps`` steps from the rays padded once,
     on the route the mesh's layout picks (``step_route``), or eager;
     every rank must hold the same scene (``check_replicas``). The graph
-    route keeps a ``StepProgram`` a key, the STEP_PROGRAMS most recently
-    used (``programs``)."""
+    route keeps a ``StepProgram`` a key, the loss's ``keep`` most recently
+    used (``programs``); a new program drops the oldest before its
+    capture."""
 
     def __init__(self, loss_of, width: int, height: int, fsaa: int,
                  lr: float, mesh: Optional[RayMesh], eager: bool):
@@ -382,14 +393,14 @@ class _Run:
                     self.loss_of, params, opt_state, self.lr, sc, rays, m)
                 losses.append(loss)
             return params, opt_state, torch.stack(losses)
-        key = step_key(self.loss_of.key(), self.width, self.height,
+        key = step_key(self.loss_of.key(sc), self.width, self.height,
                        self.fsaa, self.lr, params, m, sc.device)
         prog = self.programs.get(key)
         if prog is None:
+            while len(self.programs) >= self.loss_of.keep:
+                self.programs.popitem(last=False)
             prog = self.programs[key] = StepProgram(
                 self.loss_of, self.lr, m, params, sc.device)
-            while len(self.programs) > STEP_PROGRAMS:
-                self.programs.popitem(last=False)
         self.programs.move_to_end(key)
         return prog.run(params, opt_state, sc, rays, steps)
 
@@ -407,8 +418,10 @@ def _one_step(run_fn: _Run):
 class _FastLoss:
     """The trace-replay loss (``_loss_fast``) of one structure, config and
     K, and what a captured step freezes of it (``key``): the structure
-    (by identity: the loss holds it), the config, K and what the paths
-    launch reads from Python, its gates and EMIT_OWN_MIN_KEPT."""
+    (by identity: the loss holds it, and with it the scene's shapes), the
+    config, K and what the paths launch reads from Python, its gates and
+    EMIT_OWN_MIN_KEPT."""
+    keep = STEP_PROGRAMS
 
     def __init__(self, struct, cfg: TraceConfig, k_paths: int):
         self.struct, self.cfg, self.k_paths = struct, cfg, k_paths
@@ -417,10 +430,30 @@ class _FastLoss:
         return _loss_fast(p, s, self.struct, org, dirs, t_min, target, w,
                           self.cfg, self.k_paths)
 
-    def key(self) -> tuple:
+    def key(self, sc: SceneArrays) -> tuple:
         gates = ck.cull_gates(self.struct, self.cfg._replace(cull=False))
         return (id(self.struct), self.cfg, self.k_paths, gates.flags,
                 ck.EMIT_OWN_MIN_KEPT)
+
+
+class _DiffLoss:
+    """The all-surface loss (``loss_fn``) of one config, and what a
+    captured step freezes of it (``key``): the config, the plain tracer's
+    element type and every scene field's shape and dtype (the bounce's
+    loops run over the surfaces, lights and clip slots). One program is
+    kept (``keep``): its pool is a block's saved activations."""
+    keep = 1
+
+    def __init__(self, cfg: TraceConfig):
+        self.cfg = cfg
+
+    def __call__(self, p, s, org, dirs, t_min, target, w):
+        return loss_fn(p, s, org, dirs, t_min, target, w, self.cfg)
+
+    def key(self, sc: SceneArrays) -> tuple:
+        return (self.cfg, trace.ELEMENT, tuple(
+            (tuple(t.shape), t.dtype) for t in (getattr(sc, k)
+                                                 for k in FIELDS)))
 
 
 def _paths_struct(sc0: SceneArrays):
@@ -467,17 +500,21 @@ def make_train_scan_fast(sc0: SceneArrays, width: int, height: int,
 
 def make_train_step(width: int, height: int,
                     cfg: TraceConfig = TraceConfig(max_segments=8, stack=4),
-                    fsaa: int = 1, lr: float = 1e-2, mesh: RayMesh = None):
+                    fsaa: int = 1, lr: float = 1e-2, mesh: RayMesh = None,
+                    eager: bool = False):
     """Train step through the all-surface differentiable tracer
-    (``trace_rays_diff``). Returns (step_fn, opt_init); step_fn(params,
-    opt_state, sc, target_flat) -> (params, opt_state, loss). Always the
-    eager route: the plain tracer's ``intersect`` uploads small constant
-    tables from the host (``torch.tensor(..., device=...)``), which a
-    capture cannot hold."""
-    return _one_step(_Run(
-        lambda p, s, org, dirs, t_min, target, w: loss_fn(
-            p, s, org, dirs, t_min, target, w, cfg),
-        width, height, fsaa, lr, mesh, eager=True)), adam_init
+    (``trace_rays_diff``), any scene, two-branch ones included. Returns
+    (step_fn, opt_init); step_fn(params, opt_state, sc, target_flat) ->
+    (params, opt_state, loss). The mesh's layout picks the route, as for
+    the fast steps; on the graph route a step is one replay of a CUDA
+    graph of every bounce's ops and their backward, whose pool holds a
+    block's saved activations (on an H100 about 27 kB a ray at cfg (8, 4)
+    on test17 and test18, 8 surfaces): more blocks of one device take
+    less memory, and change the loss to the mean of the blocks' means, as
+    JAX's pmean does. ``eager`` asks for the eager route. ``step_fn.run``
+    is its run_fn."""
+    return _one_step(_Run(_DiffLoss(cfg), width, height, fsaa, lr, mesh,
+                          eager)), adam_init
 
 
 # ---------------------------------------------------------------------------

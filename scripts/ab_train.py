@@ -23,7 +23,13 @@ worker's JSON line, then the means of each side.
 --routes measures this checkout alone, in one process: the same task on
 the eager route (make_train_scan_fast(..., eager=True)) against the graph
 route (one CUDA graph a step), a b b a per round, on 1 and 4 blocks, then
-each route's one-block step under torch.profiler.
+each route's one-block step under torch.profiler; then the all-surface
+make_train_step on test17 (the same configuration; a material there both
+reflects and transmits, which the fast steps refuse), eager against
+graphed, a b b a per round, on 1 and 4 blocks, each call with a step
+function of its own and the allocator's cache emptied after it (a
+1-block graph's pool and an eager step's memory may not fit on the card
+together).
 
 Needs a CUDA card; exits with code 2 without one.
 """
@@ -63,8 +69,9 @@ def step_ms(run_fn, params, opt, sc, target, steps: int) -> float:
     return t0.elapsed_time(t1) / steps
 
 
-def task(dev):
-    """bench_train's task: (the moved scene, the target, TraceConfig)."""
+def task(dev, name: str = "test01"):
+    """bench_train's task (on another scene: the same configuration):
+    (the moved scene, the target, TraceConfig)."""
     from quadray_tpu_torch.models.scenes.loader import load_scene
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops.rays import camera_rays
@@ -72,7 +79,7 @@ def task(dev):
     from quadray_tpu_torch.scene import schema as S
     from quadray_tpu_torch.scene.compile import compile_scene
     cfg = TraceConfig(max_segments=8, stack=4)
-    sd = load_scene("test01")
+    sd = load_scene(name)
     sc = compile_scene(S.SceneDef(root=sd.root, opts=S.OPTS_FULL & ~sd.opts),
                        device=dev)
     org, dirs = camera_rays(sc.cam_pos, sc.cam_hor, sc.cam_ver, sc.cam_nrm,
@@ -154,6 +161,23 @@ def routes(rounds: int, steps: int, smi: str):
                 for k, v in profiled(fn, p, opt_init(p), sc,
                                      target).items():
                     res[f"{k}_{mode}"] = [v]
+    del fns
+    sc, target, cfg = task(dev, "test17")
+    for blocks in (1, 4):
+        mesh = None if blocks == 1 else ray_mesh([dev] * blocks)
+        p = tr.extract_params(sc)
+        for _ in range(rounds):
+            for mode in ("eager", "graph", "graph", "eager"):
+                step_fn, opt_init = tr.make_train_step(
+                    W, H, cfg=cfg, lr=LR, mesh=mesh, eager=mode == "eager")
+                assert step_fn.run.route(sc) == mode
+                ms = step_ms(step_fn.run, p, opt_init(p), sc, target, steps)
+                del step_fn
+                torch.cuda.empty_cache()
+                print(f"all-surface test17 {blocks} block(s) {mode}: "
+                      f"{ms:.3f} ms/step", flush=True)
+                res.setdefault(f"all_surface_ms_per_step_{blocks}_{mode}",
+                               []).append(ms)
     print(json.dumps({"device": smi, "root": REPO, "steps": steps,
                       "mean": {k: float(np.mean(v)) for k, v in res.items()},
                       "runs": res}))

@@ -157,9 +157,9 @@ def _recorded_captures(monkeypatch):
     rec = {"captures": 0, "replays": 0}
     real = ttrain.capture
 
-    def capture(body, device):
+    def capture(body, device, **kw):
         rec["captures"] += 1
-        run = real(body, device)
+        run = real(body, device, **kw)
 
         def replay():
             rec["replays"] += 1
@@ -225,15 +225,15 @@ def test_each_key_field_makes_a_new_program(task, monkeypatch, change):
 
 def test_routes_follow_the_layout(task):
     """One process with every block on the scene's device: the graph
-    route; blocks on other devices or a process group, and the all-surface
-    make_train_step: eager."""
+    route, for the all-surface make_train_step too; blocks on other
+    devices or a process group: eager."""
     cpu, card = CPU, torch.device("cuda", 0)
     assert ttrain.step_route(None, cpu) == "graph"
     assert ttrain.step_route(RayMesh((cpu,) * 4), cpu) == "graph"
     assert ttrain.step_route(RayMesh((cpu, card)), cpu) == "eager"
     assert ttrain.step_route(RayMesh((cpu,), group=object()), cpu) == "eager"
     step_fn, _ = ttrain.make_train_step(W, H, cfg=CFG, lr=LR)
-    assert step_fn.run.route(task["sc"]) == "eager"
+    assert step_fn.run.route(task["sc"]) == "graph"
     fast, _ = ttrain.make_train_step_fast(task["sc"], W, H, cfg=CFG)
     assert fast.run.route(task["sc"]) == "graph"
 
