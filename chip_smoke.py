@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only P   # kernel build + a CUDA graph a step
     python3 chip_smoke.py --only Q   # kernel build + the all-surface step
     python3 chip_smoke.py --only R   # kernel build + the fused replay
+    python3 chip_smoke.py --only S   # kernel build + the all-surface gather
     python3 chip_smoke.py --only U   # kernel build + the update's launch
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
@@ -241,9 +242,19 @@ parallel nvcc processes, then:
      graphed, a b b a, calls of 10 steps, on 1 and 4 blocks, and one-step
      calls of each route under torch.profiler: host launch calls, device
      ops and ms, busy share.
+  S. the all-surface step's row gather (ops/trace.py Gathered over
+     ops/row_gather.py RowGather, csrc/replay.cu row_gather_launch and
+     row_gather_backward_launch) at the route's own shapes: the row ids
+     of each of the 8 bounces of trace_rays_diff on test17 and test18 at
+     800x480 (the step's moved scene), a seeded gradient: forward bitwise
+     gather_plain and backward bitwise row_sum_plain, two launches each;
+     device ms of a step's gathers (CUDA graphs) beside the bound, the
+     plain versions' ms and index_select + index_put_ with accumulate
+     (what autograd ran for the lookups before the gather).
   Q. the all-surface training step (parallel/train.py make_train_step,
-     the counterpart of the JAX make_train_step's jitted step_fn; plain
-     PyTorch autograd over the bounces, no hand-written kernel) as one
+     the counterpart of the JAX make_train_step's jitted step_fn; PyTorch
+     autograd over the bounces, each bounce's table reads one row gather,
+     phase S) as one
      CUDA graph, on the two golden scenes where a material both reflects
      and transmits, which the fast steps refuse (test17, test18), every
      differentiable field, TraceConfig(max_segments=8, stack=4): Q1
@@ -256,7 +267,14 @@ parallel nvcc processes, then:
      eager one, each bitwise the chain's first step; ms/step in that
      order (a b b a), the capture's ms, the graph's pool and the peak
      memory, and on test17 1 block a profiler window of each route (host
-     launch calls, device ops and ms, busy share, top ops); Q3
+     launch calls, device ops and ms, busy share, top ops, the share of
+     PyTorch's indexing_backward kernels, under 5% of the graphed step)
+     and of the eager step with each bounce's lookups at their sites
+     (the route before the gather), the eager windows split by lookup
+     family (ops/trace.py's record_function ranges: tables, take, grab,
+     clip_refs; each family's backward by its autograd nodes' sequence
+     numbers); the gather's forward and backward counted over Q2, once a
+     bounce a block in each graph; Q3
      BASELINE.json config 5's frame, 1920x1080: make_train_step on test17
      over the fewest blocks of cuda:0 whose memory at Q2's peak a ray
      fits in 85% of the card (doubled while the eager step does not fit)
@@ -2519,6 +2537,11 @@ Q_STEPS = 3
 Q3_W, Q3_H = 1920, 1080
 Q3_MEMORY = 0.85
 Q3_STEPS = 2
+# the share of the graphed all-surface step's device time (test17, 800x480,
+# 1 block) that PyTorch's indexing_backward kernels may take
+Q_INDEX_SHARE = 0.05
+# ops/trace.py's record_function ranges, one a lookup family
+LOOKUP_RANGES = "lookup."
 
 
 @contextlib.contextmanager
@@ -4160,14 +4183,48 @@ def phase_o4(dev, smi):
     return out
 
 
+def lookup_families(events, n: int) -> dict:
+    """An eager window's device ms a call by lookup family (ops/trace.py's
+    record_function ranges "lookup.*"): the forward, the kernels launched
+    inside each range; the backward, the kernels of the autograd nodes
+    whose sequence numbers the ops inside the range took (RowGather's
+    backward node counted with the tables)."""
+    from torch.autograd import DeviceType
+    fam, seq = {}, {}
+
+    def walk(e, name):
+        for c in e.cpu_children:
+            if c.sequence_nr >= 0:
+                seq[c.sequence_nr] = name
+            walk(c, name)
+
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith(
+                LOOKUP_RANGES):
+            fam.setdefault(e.name, [0.0, 0.0])[0] += e.device_time_total
+            walk(e, e.name)
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith(
+                "autograd::engine::evaluate_function: "):
+            name = seq.get(e.sequence_nr)
+            if name is None and "RowGather" in e.name:
+                name = LOOKUP_RANGES + "tables"
+            if name is not None:
+                fam.setdefault(name, [0.0, 0.0])[1] += e.device_time_total
+    return {k: (f / 1e3 / n, b / 1e3 / n) for k, (f, b) in fam.items()}
+
+
 def profile_window(label, fn, n: int, smi, prefix: str = "O5",
-                   top: int = 0):
+                   top: int = 0, families: bool = False):
     """fn(i) for i < n under torch.profiler after one unprofiled call:
     the host's launch calls (the CUDA API calls that queue work), the
-    device's kernels, memsets and copies, their device ms, and the card's
-    busy share of the window (the union of their intervals over the host
-    clock around the n calls and a synchronize); with ``top``, that many
-    device ops by device time (names cut to 60 characters)."""
+    device's kernels, memsets and copies, their device ms, the share of
+    PyTorch's indexing_backward kernels in it, and the card's busy share
+    of the window (the union of their intervals over the host clock
+    around the n calls and a synchronize); with ``top``, that many device
+    ops by device time (names cut to 60 characters); with ``families``,
+    the device ms of each lookup family (``lookup_families``). The device
+    side of a record_function range is no device op."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(-1)
@@ -4180,7 +4237,9 @@ def profile_window(label, fn, n: int, smi, prefix: str = "O5",
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    dev_ev = [e for e in events if e.device_type != DeviceType.CPU]
+    dev_ev = [e for e in events if e.device_type != DeviceType.CPU
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith(LOOKUP_RANGES)]
     api = {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name.startswith((
@@ -4199,15 +4258,21 @@ def profile_window(label, fn, n: int, smi, prefix: str = "O5",
             "ms and "
             f"busy share not measured; host calls {api}")
         return None
+    index_ms = sum(e.time_range.end - e.time_range.start for e in dev_ev
+                   if "indexing_backward_kernel" in e.name) / 1e3
     r = dict(calls=sum(api.values()) / n, device_ops=len(dev_ev) / n,
-             device_ms=dev_ms / n, busy=busy / 1e3 / wall, wall=wall / n)
+             device_ms=dev_ms / n, busy=busy / 1e3 / wall, wall=wall / n,
+             index_backward_ms=index_ms / n,
+             index_backward_share=index_ms / dev_ms)
     log(f"{prefix} {label} ({smi}), {n} under torch.profiler: a "
         f"{r['wall']:.4f} "
         f"ms each on the host clock; host launch calls a call "
         f"{r['calls']:.1f} ({ {k: v / n for k, v in api.items()} }); device "
         f"kernels, memsets and copies a call {r['device_ops']:.1f}, device "
         f"{r['device_ms']:.4f} ms a call; card busy {100 * r['busy']:.2f}% "
-        "of the window")
+        f"of the window; PyTorch's indexing_backward kernels "
+        f"{r['index_backward_ms']:.4f} ms a call, "
+        f"{100 * r['index_backward_share']:.2f}% of the device time")
     if top:
         by = {}
         for e in dev_ev:
@@ -4216,6 +4281,16 @@ def profile_window(label, fn, n: int, smi, prefix: str = "O5",
         log(f"{prefix} {label}: top device ops a call: " + "; ".join(
             f"{k[:60]} {t / 1e3 / n:.4f} ms x{c / n:.0f}" for k, (t, c) in
             sorted(by.items(), key=lambda kv: -kv[1][0])[:top]))
+    if families:
+        fam = r["families"] = lookup_families(events, n)
+        total = sum(f + b for f, b in fam.values())
+        log(f"{prefix} {label}: lookup families a call, device ms forward "
+            "/ backward: " + "; ".join(
+                f"{k[len(LOOKUP_RANGES):]} {f:.4f} / {b:.4f} "
+                f"({100 * (f + b) / r['device_ms']:.2f}%)"
+                for k, (f, b) in sorted(fam.items()))
+            + f"; together {total:.4f} ms, "
+            f"{100 * total / r['device_ms']:.2f}% of the device time")
     return r
 
 
@@ -4429,6 +4504,135 @@ def gib(n: int) -> str:
     return f"{n / 2**30:.2f} GiB"
 
 
+def route_gathers(sc, rays, cfg) -> list:
+    """Each bounce's row-gather arguments (s_kind, s_mat, m_props, srf,
+    sidep) in trace_rays_diff on sc, recorded by a stand-in for RowGather
+    around a forward under no_grad."""
+    from quadray_tpu_torch.ops import row_gather as rg
+    from quadray_tpu_torch.ops.trace import trace_rays_diff
+    real, segs = rg.RowGather, []
+
+    class Stand:
+        @staticmethod
+        def apply(stab, mtab, *a):
+            segs.append(a)
+            return real.apply(stab, mtab, *a)
+
+    rg.RowGather = Stand
+    try:
+        with torch.no_grad():
+            trace_rays_diff(sc, *rays, cfg)
+    finally:
+        rg.RowGather = real
+    return segs
+
+
+def index_put_ms(stab, mtab, segs, grads) -> float:
+    """The backward autograd ran for the lookups before the gather: each
+    bounce's row gradients added into the tables by index_put_ with
+    accumulate (a sort, then each row summed serially), (NT, F) tables,
+    ms a step (CUDA events)."""
+    from quadray_tpu_torch.ops import row_gather as rg
+    midx = [rg.gather_plain(stab, mtab, *a)[1].long() for a in segs]
+    srf = [a[3].long() for a in segs]
+
+    def bwd():
+        for s_, m, (gs, gm) in zip(srf, midx, grads):
+            stab.new_zeros(stab.T.shape).index_put_((s_,), gs.T,
+                                                    accumulate=True)
+            mtab.new_zeros(mtab.T.shape).index_put_((m,), gm.T,
+                                                    accumulate=True)
+
+    return cuda_ms(bwd, 2)
+
+
+def phase_s(dev, smi):
+    """The row gather at the all-surface route's shapes: each bounce's
+    row ids of trace_rays_diff on Q's scenes at 800x480 (the step's moved
+    scene), a seeded gradient: the kernels bitwise gather_plain and
+    row_sum_plain, two launches each; a step's device ms (CUDA graphs)
+    beside the bound, the plain versions (CUDA events), index_select,
+    index_add_ and index_put_ with accumulate. Returns {scene: times}."""
+    from quadray_tpu_torch.ops import row_gather as rg
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cfg = train_cfg()
+    rs = np.random.RandomState(23)
+    out = {}
+    for name in Q_SCENES:
+        sc, _, rays = train_task(dev, name)
+        segs = route_gathers(sc, rays, cfg)
+        with torch.no_grad():
+            stab, mtab = rg.row_tables(sc)
+        ns, nm, n = stab.shape[1], mtab.shape[1], rays[1].shape[0]
+        grads = [tuple(torch.from_numpy(rs.standard_normal((f, n)).astype(
+            np.float32)).to(dev) for f in (rg.SURFACE_ROWS,
+                                           rg.MATERIAL_ROWS)) for _ in segs]
+        differ, hit, worst = 0, [], 0.0
+        for a, (gs, gm) in zip(segs, grads):
+            want = rg.gather_plain(stab, mtab, *a)
+            want_g = (rg.row_sum_plain(gs, a[3], ns),
+                      rg.row_sum_plain(gm, want[1], nm))
+            for _ in range(2):
+                got = rg._forward(stab, mtab, *a)
+                got_g = rg._backward(gs, gm, a[3], got[1], ns, nm)
+                torch.cuda.synchronize()
+                for x, y in zip(got + got_g, want + want_g):
+                    differ += int((bits(x) != bits(y)).sum())
+                    if x.dtype == torch.float32:
+                        worst = max(worst, float((x - y).abs().max()))
+            hit.append((int(torch.unique(a[3]).numel()),
+                        int(torch.unique(want[1]).numel())))
+        k_fwd, k_bwd = gather_ms(stab, mtab, segs, grads)
+        p_fwd, p_bwd, l_fwd, l_add = gather_others_ms(stab, mtab, segs,
+                                                      grads)
+        l_put = index_put_ms(stab, mtab, segs, grads)
+        bound = gather_bound(n, len(segs), ns, nm)
+        out[name] = dict(bounces=len(segs), rays=n, ms=k_fwd + k_bwd,
+                         forward_ms=k_fwd, backward_ms=k_bwd,
+                         plain_ms=p_fwd + p_bwd, library_ms=l_fwd + l_put,
+                         index_select_ms=l_fwd, index_put_ms=l_put,
+                         index_add_ms=l_add, bound_ms=bound[0],
+                         bound_by=bound[1], max_abs_err=worst)
+        log(f"S {name} {W}x{H}, {len(segs)} bounces of trace_rays_diff "
+            f"({ns} surface rows, {nm} material rows; distinct surfaces and "
+            f"materials a bounce {hit}): kernel vs plain, forward and "
+            f"backward, two launches each: {differ} words differ; ms a "
+            f"step ({smi}): kernel forward {k_fwd:.4f} backward "
+            f"{k_bwd:.4f}, plain {p_fwd:.3f} / {p_bwd:.3f}, index_select "
+            f"{l_fwd:.4f}, index_add_ {l_add:.4f}, index_put_ with "
+            f"accumulate {l_put:.4f}; bound {bound[0]:.4f} ({bound[1]})")
+        if differ or len(segs) != cfg.max_segments:
+            raise AssertionError(f"S {name}: {len(segs)} gathers, kernels "
+                                 f"off their plain versions in {differ} "
+                                 "words")
+        del sc, rays, segs, grads, stab, mtab
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def lookups_at_sites():
+    """make_train_step's loss with each bounce's table reads as lookups at
+    their sites (trace_rays_diff before the row gather: the plain
+    tracer's reads under autograd), for a profiler window of the route
+    the gather replaced."""
+    from quadray_tpu_torch.ops import trace
+    from quadray_tpu_torch.parallel import train as tr
+
+    def diff(sc, org, dirs, t_min, cfg):
+        if org.dim() == 1:
+            org = org[None, :].expand(dirs.shape[0], 3)
+        return trace._trace_chunk(sc, org, dirs, t_min, cfg, 0,
+                                  fixed=True)[0]
+
+    saved = tr.trace_rays_diff
+    tr.trace_rays_diff = diff
+    try:
+        yield
+    finally:
+        tr.trace_rays_diff = saved
+
+
 def phase_q1(dev):
     """One all-surface step on the card (the graph route) against the same
     step on the CPU (eager), test17 at Q1_W x Q1_H from the same arrays:
@@ -4468,10 +4672,17 @@ def phase_q2(dev, smi):
     dropped, one eager, each bitwise the chain's first step (two eager
     steps from one state, and graphed ones); ms/step in that order (a b b
     a), the capture's ms, the graph's pool and the peak memory; on the
-    first scene and 1 block a profiler window of each route. Returns the
-    first scene's 1-block peak allocated bytes a ray."""
+    first scene and 1 block a profiler window of each route (the graphed
+    step's indexing_backward share held under Q_INDEX_SHARE) and of the
+    eager step with its lookups at their sites, the eager windows split
+    by lookup family. The row gather's counters are set to 0 before and
+    read after: each graph records one forward and one backward launch a
+    bounce a block. Returns (the first scene's 1-block peak allocated
+    bytes a ray, the gather's launches over the phase)."""
+    from quadray_tpu_torch.ops import row_gather as rg
     from quadray_tpu_torch.parallel import train as tr
-    per_ray = None
+    per_ray, index_share = None, None
+    rg.launches = rg.backward_launches = 0
     for name in Q_SCENES:
         sc, target, _ = train_task(dev, name)
         for b in Q_BLOCKS:
@@ -4510,10 +4721,11 @@ def phase_q2(dev, smi):
                 return step
 
             if profiled:
-                profile_window(
+                r = profile_window(
                     f"one all-surface step a call, {name} {W}x{H} every "
                     "field, 1 block, graph", one(fns["graph"]), 1, smi,
                     prefix="Q2", top=8)
+                index_share = r and r["index_backward_share"]
             del prog
             fns["graph"] = None
             release_memory(dev)
@@ -4522,7 +4734,14 @@ def phase_q2(dev, smi):
                 profile_window(
                     f"one all-surface step a call, {name} {W}x{H} every "
                     "field, 1 block, eager", one(fns["eager"]), 1, smi,
-                    prefix="Q2", top=8)
+                    prefix="Q2", top=8, families=True)
+                with lookups_at_sites():
+                    profile_window(
+                        f"one all-surface step a call, {name} {W}x{H} "
+                        "every field, 1 block, eager, each lookup at its "
+                        "site (the route before the row gather)",
+                        one(fns["eager"]), 1, smi, prefix="Q2", top=8,
+                        families=True)
                 per_ray = peak_g / (W * H)
             same = {f"graph {Q_STEPS} steps": same_bits(g1, e_last),
                     "graph 1 step": same_bits(g2, e_first),
@@ -4542,11 +4761,27 @@ def phase_q2(dev, smi):
                                      f"{same}")
             if not all(np.isfinite(losses)):
                 raise AssertionError(f"Q2 {name}: losses {losses}")
+            gathers = train_cfg().max_segments * b
+            if counts != {"gather_launches": gathers,
+                          "gather_backward_launches": gathers}:
+                raise AssertionError(f"Q2 {name} {b} blocks: the graph "
+                                     f"recorded {counts}, not {gathers} "
+                                     "gathers and row sums")
             abba_summary(f"Q2 ms/step {name} {W}x{H}, {b} block(s) ({smi})",
                          list(zip(O_ABBA, (ms_e1, ms_g2, ms_g3, ms_e2))))
             del fns, e_last, e_first, e2, g1, g2, g3
             release_memory(dev)
-    return per_ray
+    launches = {"forward": rg.launches, "backward": rg.backward_launches}
+    log(f"Q2 the row gather's launches over the phase (eager steps and "
+        f"graph replays, counted as their capture's): {launches}")
+    if not (launches["forward"] and launches["backward"]):
+        raise AssertionError(f"Q2: the row gather never launched: "
+                             f"{launches}")
+    if index_share is None or index_share >= Q_INDEX_SHARE:
+        raise AssertionError(f"Q2: PyTorch's indexing_backward kernels "
+                             f"took {index_share} of the graphed step's "
+                             f"device time (limit {Q_INDEX_SHARE})")
+    return per_ray, launches
 
 
 def q3_pair(label, make, sc, target, steps: int, smi):
@@ -4734,7 +4969,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
-                             "L", "M", "N", "O", "P", "Q", "R", "U"],
+                             "L", "M", "N", "O", "P", "Q", "R", "S", "U"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
@@ -4746,7 +4981,8 @@ def main():
                     "CUDA graph a frame and a pass), P (one CUDA graph a "
                     "training step), Q (the all-surface training step as "
                     "one CUDA graph, at 800x480 and 1920x1080), R (the "
-                    "fused replay) or U (the scene "
+                    "fused replay), S (the all-surface step's row gather "
+                    "at its shapes) or U (the scene "
                     "update as one launch, the interactive frame as one "
                     "CUDA graph)")
     args = ap.parse_args()
@@ -4988,6 +5224,10 @@ def main():
         torch.cuda.empty_cache()
         log(f"phase P ok ({time.perf_counter() - t0:.1f} s)")
 
+    if only in (None, "S"):
+        release_memory(dev)
+        s_rows = phase("S", phase_s, dev, smi)
+
     if only in (None, "Q"):
         t0 = time.perf_counter()
         release_memory(dev)
@@ -4995,7 +5235,8 @@ def main():
             f"{gib(torch.cuda.memory_allocated(dev))}, reserved "
             f"{gib(torch.cuda.memory_reserved(dev))}")
         phase_q1(dev)
-        phase_q3(dev, smi, phase_q2(dev, smi))
+        per_ray, q_launches = phase_q2(dev, smi)
+        phase_q3(dev, smi, per_ray)
         log(f"phase Q ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
@@ -5053,9 +5294,14 @@ def main():
         "ms/plain_ms/bound_ms/library_ms are the row sums of the same "
         "step (R1: one call over all K x N entries; the library two "
         "index_add_), launches the row sums' in D3's and L2's counted "
-        "runs (forward_launches the gather forward's, 0 on the main path), "
-        "max_abs_err D5's (every word bitwise), d5_per_segment D5's "
-        "per-segment gather and backward; update ms/plain_ms/bound_ms are "
+        "runs and Q2's (forward_launches the gather forward's: 0 on the "
+        "trace-replay steps, one a bounce a block in make_train_step's), "
+        "max_abs_err D5's and S's (every word bitwise), d5_per_segment "
+        "D5's per-segment gather and backward, all_surface the all-surface "
+        "step's gathers: S's ms/plain_ms/bound_ms a step of 8 bounces at "
+        "800x480 on Q's scenes (forward and row sums, CUDA graphs), "
+        "library_ms index_select + index_put_ with accumulate (the lookups' "
+        "backward before the gather), Q2's launches; update ms/plain_ms/bound_ms are "
         "one launch of demo02's three groups at frame 10 of J3's trace "
         "(U4, CUDA graphs) against the plain version's host ms "
         "(moved_fields, numpy; scenes: each J3 scene's), launches the main "
@@ -5238,15 +5484,23 @@ def main():
         "replaces": "quadray_tpu/ops/replay.py:107-135",
         "note": "the JAX replay's one-hot row lookups (jnp contractions "
                 "in replay_color), not a Pallas kernel",
-        "launches": d_gathers[1] + l_gathers[1],
-        "forward_launches": d_gathers[0] + l_gathers[0],
-        "max_abs_err": d5_err,
+        "launches": d_gathers[1] + l_gathers[1] + q_launches["backward"],
+        "forward_launches": d_gathers[0] + l_gathers[0]
+        + q_launches["forward"],
+        "max_abs_err": max(d5_err, max(r["max_abs_err"]
+                                       for r in s_rows.values())),
         "ms": r["ms"]["row_sums"], "plain_ms": r["ms"]["plain_row_sums"],
         "bound_ms": r["bounds"]["row_sums"][0],
         "bound_by": r["bounds"]["row_sums"][1],
         "library_ms": r["ms"]["library_row_sums"],
         "d5_per_segment": {"forward_ms": d5["test01"][0],
-                           "backward_ms": d5["test01"][1]}}, {
+                           "backward_ms": d5["test01"][1]},
+        "all_surface": {"route": "make_train_step (ops/trace.py Gathered, "
+                                 "one gather a bounce)",
+                        "replaces": "quadray_tpu/ops/trace.py:388, "
+                                    "405-461, 514-569, 642 under "
+                                    "jax.value_and_grad",
+                        "launches": q_launches, "scenes": s_rows}}, {
         "name": "update", "route": "cuda",
         "design": "one block of 256 threads: the world matrices of the "
                   "nodes that can move composed level by level from the "

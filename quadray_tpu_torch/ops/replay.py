@@ -45,27 +45,13 @@ import torch
 
 from quadray_tpu_torch.ops import row_gather as rg
 from quadray_tpu_torch.ops.cuda_kernel import MAX_PATH_LIGHTS, _check
-from quadray_tpu_torch.ops.row_gather import RowGather
+from quadray_tpu_torch.ops.row_gather import RowGather, row_tables
 from quadray_tpu_torch.ops.trace import TraceConfig, _root, _safe_div, clip
 from quadray_tpu_torch.scene.compile import (
     SceneArrays, PROP_LIGHT, PROP_METAL, PROP_OPAQUE, PROP_REFLECT,
     PROP_REFRACT, PROP_DIFFUSE, PROP_SPECULAR, PROP_GAMMA, PROP_FRESNEL)
 
 F32 = torch.float32
-
-
-def row_tables(sc: SceneArrays):
-    """The tables replay gathers rows of: the surface table, transposed
-    (19, NS): pos 0-2, inv 3-11, sci 12-14, scjh 15-17, sciw 18; the
-    material table (10, NM): col 0-2, dff, spc, pow, rfl, trn, rfr, ext.
-    Both contiguous, differentiable in the scene's fields."""
-    ns = sc.s_pos.shape[0]
-    stab = torch.cat([sc.s_pos, sc.s_inv.reshape(ns, 9), sc.s_sci,
-                      sc.s_scjh, sc.s_sciw[:, None]], dim=1).T.contiguous()
-    mtab = torch.stack([
-        sc.m_col[:, 0], sc.m_col[:, 1], sc.m_col[:, 2], sc.m_dff,
-        sc.m_spc, sc.m_pow, sc.m_rfl, sc.m_trn, sc.m_rfr, sc.m_ext])
-    return stab, mtab
 
 
 def record_ids(rec):

@@ -1,11 +1,15 @@
-"""Replay's row gathers (``csrc/replay.cu``), their plain PyTorch versions
+"""The row gathers (``csrc/replay.cu``), their plain PyTorch versions
 and the ``torch.autograd.Function`` that joins them.
 
 The counterpart of the JAX replay's one-hot row lookups
-(``quadray_tpu/ops/replay.py:107-135``, ``_onehot``/``_rows``/``_irow``).
-Once a path segment, ``replay_color`` looks up each ray's row of the
-transposed surface table ``stab`` (19, NS) and material table ``mtab``
-(10, NM), and its surface kind and material property bits.
+(``quadray_tpu/ops/replay.py:107-135``, ``_onehot``/``_rows``/``_irow``)
+and of the JAX tracer's per-ray table lookups under ``value_and_grad``
+(``quadray_tpu/ops/trace.py:388, 405-461, 514-569, 642``), whose
+transpose XLA turns into a scatter-add. Once a path segment,
+``replay_color`` looks up each ray's row of the transposed surface table
+``stab`` (19, NS) and material table ``mtab`` (10, NM) (``row_tables``),
+and its surface kind and material property bits; once a bounce,
+``ops.trace.trace_rays_diff`` does the same at each ray's nearest hit.
 ``RowGather`` does the whole lookup of a segment: the forward is one
 kernel launch that writes the 29 float rows and the integer fields in
 (F, N) layout; the backward sums the gradient of the gathered rows into
@@ -37,6 +41,10 @@ SURFACE_ROWS, MATERIAL_ROWS = 19, 10
 WARP, TILES, WARPS = 32, 8, 4
 CHUNK = WARP * TILES * WARPS
 
+# the material table's rows by field (row_tables)
+MATERIAL_FIELDS = ("col_r", "col_g", "col_b", "dff", "spc", "pow", "rfl",
+                   "trn", "rfr", "ext")
+
 # calls of the forward kernel and of the backward's two kernels
 launches = 0
 backward_launches = 0
@@ -61,6 +69,21 @@ def _lib():
             getattr(lib, fn).argtypes = types
             getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def row_tables(sc):
+    """The tables the gathers read rows of: the surface table, transposed
+    (19, NS): pos 0-2, inv 3-11, sci 12-14, scjh 15-17, sciw 18; the
+    material table (10, NM): col 0-2, dff, spc, pow, rfl, trn, rfr, ext
+    (MATERIAL_FIELDS). Both contiguous, differentiable in the scene's
+    fields, in the scene's float type."""
+    ns = sc.s_pos.shape[0]
+    stab = torch.cat([sc.s_pos, sc.s_inv.reshape(ns, 9), sc.s_sci,
+                      sc.s_scjh, sc.s_sciw[:, None]], dim=1).T.contiguous()
+    mtab = torch.stack([
+        sc.m_col[:, 0], sc.m_col[:, 1], sc.m_col[:, 2], sc.m_dff,
+        sc.m_spc, sc.m_pow, sc.m_rfl, sc.m_trn, sc.m_rfr, sc.m_ext])
+    return stab, mtab
 
 
 def gather_plain(stab, mtab, s_kind, s_mat, m_props, srf, sidep):

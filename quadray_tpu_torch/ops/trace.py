@@ -55,6 +55,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from quadray_tpu_torch.scene.compile import (
     FIELDS, SceneArrays, PROP_LIGHT, PROP_METAL, PROP_OPAQUE, PROP_REFLECT,
@@ -184,7 +185,7 @@ def _root(num, den):
 def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
               origin_srf, origin_side, pass_thru,
               shadow: bool = False, origin_loc=None, reach=None,
-              per_surface: bool = False):
+              per_surface: bool = False, gather=None):
     """Nearest valid hit over all surfaces (see quadray_tpu.ops.trace).
 
     org/dirs (N,3); t_min/t_max (N,); origin_srf (N,) i32 (-1 none);
@@ -195,7 +196,10 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     Returns dict t, srf (-1 miss), side, x, p, n, hit, and with
     ``per_surface`` t_srf (N, NS), each surface's nearest valid root (BIG:
     none), the candidates the nearest fold picks from; with ``shadow``,
-    the (N,) bool any-hit over surfaces that block light.
+    the (N,) bool any-hit over surfaces that block light. ``gather``
+    (the differentiable route's ``Gathered``): the hit surface's inverse
+    transform comes from its gathered rows, returned as ``rows``, in
+    place of the lookup ``sc.s_inv[bs]``.
     """
     NS = sc.s_pos.shape[0]
     dev = org.device
@@ -319,13 +323,17 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     for j in range(sc.c_op.shape[1]):
         opj = sc.c_op[:, j]
         refj = torch.clamp(sc.c_ref[:, j], min=0).long()
-        relc = x_r - sc.s_pos[refj][None, :, None, :]
-        pc = _apply3(sc.s_inv[refj][None, :, None],
+        with record_function("lookup.clip_refs"):
+            r_pos, r_inv, r_kind, r_sci, r_scjh, r_sciw = (
+                t[refj] for t in (sc.s_pos, sc.s_inv, sc.s_kind, sc.s_sci,
+                                  sc.s_scjh, sc.s_sciw))
+        relc = x_r - r_pos[None, :, None, :]
+        pc = _apply3(r_inv[None, :, None],
                      relc[..., 0], relc[..., 1], relc[..., 2])
-        v = _eval_implicit(sc.s_kind[refj][None, :, None],
-                           sc.s_sci[refj][None, :, None, :],
-                           sc.s_scjh[refj][None, :, None, :],
-                           sc.s_sciw[refj][None, :, None], pc)
+        v = _eval_implicit(r_kind[None, :, None],
+                           r_sci[None, :, None, :],
+                           r_scjh[None, :, None, :],
+                           r_sciw[None, :, None], pc)
         keep = torch.where(sc.c_side[None, :, None, j] >= 0.0,
                            v <= 0.0, v >= 0.0)
         is_srf = (opj == CLIP_SURF)[None, :, None]
@@ -365,14 +373,23 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     bs = best // 2
     br = best % 2
     lanes = torch.arange(N, device=dev)
-    take = lambda arr: arr[lanes, bs, br]
-    side = take(side_r)
-    g = take(g_r)
-    n_w = _apply3t(sc.s_inv[bs], g[:, 0], g[:, 1], g[:, 2])
+    with record_function("lookup.take"):
+        side, g, x, p = (arr[lanes, bs, br] for arr in (side_r, g_r, x_r,
+                                                         p_r))
+    rows = None
+    if gather is None:
+        with record_function("lookup.tables"):
+            inv = sc.s_inv[bs]
+    else:
+        rows = gather(bs, side)
+        inv = rows.inv
+    n_w = _apply3t(inv, g[:, 0], g[:, 1], g[:, 2])
     n_w = n_w * side[:, None].to(ELEMENT)
     n_w = n_w * _rsqrt(torch.clamp(_dot3(n_w, n_w), min=1e-30))[:, None]
     out = dict(t=t, srf=torch.where(hit, bs.to(I32), -1), side=side,
-               x=take(x_r), p=take(p_r), n=n_w, hit=hit)
+               x=x, p=p, n=n_w, hit=hit)
+    if rows is not None:
+        out["rows"] = rows
     if per_surface:
         out["t_srf"] = t_cand.reshape(N, NS, 2).amin(dim=2)
     return out
@@ -709,11 +726,62 @@ def material_index(sc: SceneArrays, srf, side):
     return torch.where(side > 0, sc.s_mat[s, 0], sc.s_mat[s, 1]).long()
 
 
-def texture_color(sc: SceneArrays, midx, p_local):
+def _mat(sc: SceneArrays, midx, rows, name: str):
+    """Each ray's material field ``m_<name>`` ("props", "col", "dff",
+    ...): the lookup ``sc.m_<name>[midx]``, or with ``rows`` (a
+    ``Gathered``'s) the gathered row."""
+    if rows is not None:
+        return rows.mat[name]
+    with record_function("lookup.tables"):
+        return getattr(sc, "m_" + name)[midx]
+
+
+class Gathered:
+    """The differentiable route's reads of the trained float tables: each
+    bounce gathers its rays' rows of the surface and material tables
+    (``ops.row_gather.row_tables``, built once a trace) at their nearest
+    hits in one ``RowGather`` call, in place of a lookup at each site
+    (``sc.s_inv[bs]``, ``sc.m_dff[midx]``, ...), whose backward autograd
+    runs as ``index_put_`` with accumulate: a sort, then each table row's
+    gradients summed serially. The gather's backward sums them in the
+    kernel's fixed tree (``row_sum_plain``), with no atomics. A call
+    ``(bs, side)`` returns the rows: ``inv`` (N, 3, 3) the hit surface's
+    inverse transform, ``mat`` the material's fields by name, ``midx``
+    the side-picked material (``material_index``'s), for the lookups of
+    fields that do not train (the texture's)."""
+
+    def __init__(self, sc: SceneArrays):
+        from quadray_tpu_torch.ops import row_gather as rg
+        self.sc, self.gather = sc, rg.RowGather.apply
+        self.stab, self.mtab = rg.row_tables(sc)
+        self.names = rg.MATERIAL_FIELDS
+
+    def __call__(self, bs, side):
+        sc = self.sc
+        with record_function("lookup.tables"):
+            srows, midx, mrows, _, props = self.gather(
+                self.stab, self.mtab, sc.s_kind, sc.s_mat, sc.m_props,
+                bs.to(I32), side > 0)
+        n = bs.shape[0]
+        # s_inv's nine rows as (N, 3, 3), [n, j, i] = row 3 + 3j + i
+        inv = srows[3:12].reshape(3, 3, n).permute(2, 0, 1)
+        mat = dict(zip(self.names, mrows.unbind(0)), props=props,
+                   col=mrows[0:3].T)
+        return _Rows(inv, mat, midx.long())
+
+
+class _Rows(NamedTuple):
+    inv: torch.Tensor
+    mat: dict
+    midx: torch.Tensor
+
+
+def texture_color(sc: SceneArrays, midx, p_local, rows=None):
     """Texture fetch (MT_tex, tracer.cpp:2297-2321): integer mask/shift
     addressing over pow-2 dims; UV = local I,J; gamma decode x^2 when the
-    GAMMA prop is on (PAINT_COLX, tracer.cpp:664-673)."""
-    props = sc.m_props[midx]
+    GAMMA prop is on (PAINT_COLX, tracer.cpp:664-673). ``rows``: see
+    ``_mat``."""
+    props = _mat(sc, midx, rows, "props")
     base = sc.m_tex_base[midx]
     u = p_local[..., 0] - sc.m_tex_off[midx, 0]
     v = p_local[..., 1] - sc.m_tex_off[midx, 1]
@@ -726,7 +794,7 @@ def texture_color(sc: SceneArrays, midx, p_local):
     idx = torch.clamp(base, min=0) + (iy << sc.m_tex_xshift[midx]) + ix
     idx = torch.clamp(idx, 0, sc.tex_data.shape[0] - 1).long()
     col = torch.where((base >= 0)[..., None], sc.tex_data[idx],
-                      sc.m_col[midx])
+                      _mat(sc, midx, rows, "col"))
     gamma = ((props & PROP_GAMMA) != 0) & (sc.use_gamma > 0)
     return torch.where(gamma[..., None], col * col, col)
 
@@ -748,17 +816,17 @@ def count_work(stats, key: str, mask) -> None:
 
 
 def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
-          stats=None, cull=None, own=None):
+          stats=None, cull=None, own=None, rows=None):
     """Local color: ambient + per-light diffuse/specular with hard shadows
     (LT_reg..LT_end, tracer.cpp:2709-3180). Returns (col (N, 3), unlit
     (N,) i32): bit 16+l of ``unlit`` is set where active light l is not
     unoccluded-lit (the path record's light bits, pallas_kernel.py:1747),
     for the first 16 light rows. ``stats``: see ``count_work``; ``cull``,
     a ``Cull`` or None, masks each shadow pass (``own``: per ray, see
-    ``Cull.nearest``)."""
-    midx = material_index(sc, srf, side)
-    props = sc.m_props[midx]
-    tex = texture_color(sc, midx, p)
+    ``Cull.nearest``); ``rows``: see ``_mat``."""
+    midx = material_index(sc, srf, side) if rows is None else rows.midx
+    props = _mat(sc, midx, rows, "props")
+    tex = texture_color(sc, midx, p, rows)
     col = tex * sc.amb_col[None, :]
     zero_t = torch.zeros_like(x[:, 0])
     unlit = torch.zeros_like(srf)
@@ -782,7 +850,8 @@ def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
         attn = _rsqrt(torch.clamp(
             sc.l_cnt[li] + sc.l_lnr[li] * r + sc.l_qdr[li] * r2, min=1e-30))
         dfs = torch.where(hm & ((props & PROP_DIFFUSE) != 0),
-                          r_dot / r * attn * sc.m_dff[midx], 0.0)
+                          r_dot / r * attn * _mat(sc, midx, rows, "dff"),
+                          0.0)
         # specular: reflect L about n, dot with view ray
         rl = lvec - 2.0 * r_dot[:, None] * n
         sdot = _dot3(rl, ray_d)
@@ -791,8 +860,8 @@ def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
         spc_on = hm & (sdot > 0.0) & ((props & PROP_SPECULAR) != 0)
         cosr = clip(torch.where(spc_on, cosr, 1.0), 1e-6, 1.0)
         spc = torch.where(
-            spc_on, torch.exp(sc.m_pow[midx] * torch.log(cosr))
-            * sc.m_spc[midx], 0.0)
+            spc_on, torch.exp(_mat(sc, midx, rows, "pow") * torch.log(cosr))
+            * _mat(sc, midx, rows, "spc"), 0.0)
         lcol = sc.l_col[li][None, :]
         metal = (props & PROP_METAL) != 0
         contrib_metal = tex * lcol * (dfs + spc)[:, None]
@@ -840,14 +909,16 @@ def fresnel_schlick(dot, eta, sq):
     return r0 + (1.0 - r0) * x5
 
 
-def fresnel_terms(sc: SceneArrays, midx, d, n, schlick: bool = False):
+def fresnel_terms(sc: SceneArrays, midx, d, n, schlick: bool = False,
+                  rows=None):
     """Effective reflect/refract weights + refraction direction (TR
     section, tracer.cpp:3182-3424, and the RF-section reflectivity
-    Fresnel for opaque reflective materials, tracer.cpp:3671-3830)."""
-    props = sc.m_props[midx]
-    eta = sc.m_rfr[midx]
-    trn = sc.m_trn[midx]
-    rfl = sc.m_rfl[midx]
+    Fresnel for opaque reflective materials, tracer.cpp:3671-3830).
+    ``rows``: see ``_mat``."""
+    props = _mat(sc, midx, rows, "props")
+    eta = _mat(sc, midx, rows, "rfr")
+    trn = _mat(sc, midx, rows, "trn")
+    rfl = _mat(sc, midx, rows, "rfl")
 
     dlen = _rsqrt(torch.clamp(_dot3(d, d), min=1e-30))
     rhat = d * dlen[:, None]
@@ -878,7 +949,7 @@ def fresnel_terms(sc: SceneArrays, midx, d, n, schlick: bool = False):
     rf_on = (fres_prop & ((props & PROP_OPAQUE) != 0)
              & ((props & PROP_REFLECT) != 0))
     rcp = _safe_div(torch.ones_like(eta), eta, 0.0)     # mat_C_RCP
-    ext = sc.m_ext[midx]
+    ext = _mat(sc, midx, rows, "ext")
     f_metal = fresnel_metal_fast(dot, rcp, ext * ext)
     rs_o = _safe_div(ed + sq, ed - sq, 1.0)
     rp_o = _safe_div(dot + eta * sq, dot - eta * sq, 1.0)
@@ -957,24 +1028,32 @@ def trace_rays_diff(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
     """Differentiable variant of trace_rays (``quadray_tpu.ops.trace``
     :725): the same bounce run exactly cfg.max_segments times, unchunked,
     under autograd; gradients reach every float field of ``sc`` that
-    requires grad. The all-surface reference for the replay gradients."""
+    requires grad. The all-surface reference for the replay gradients.
+    Each bounce reads the trained float tables at its hits through one
+    row gather (``Gathered``; ``csrc/replay.cu`` on the card, f32 only),
+    so the colors are ``trace_rays``'s bit for bit and the tables'
+    gradients are summed in the gather kernel's fixed order."""
     N = dirs.shape[0]
     if org.dim() == 1:
         org = org[None, :].expand(N, 3)
     el = ELEMENT
+    if dirs.device.type != "cpu" and el != F32:
+        raise ValueError(f"trace_rays_diff: the row gather's kernels take "
+                         f"float32, the element type is {el}; the float64 "
+                         f"tier runs on the CPU")
     return _trace_chunk(sc, org.to(el), dirs.to(el), t_min.to(el), cfg,
-                        0, fixed=True)[0]
+                        0, fixed=True, gather=Gathered(sc))[0]
 
 
 def _trace_chunk(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig,
                  k_paths: int = 0, push: bool = True, fixed: bool = False,
-                 stats=None, cull=None, own=None):
+                 stats=None, cull=None, own=None, gather=None):
     """Returns (acc (N, 3), paths (k_paths, N) i32); ``push`` lets a lane
     push the transmission where both branches go on; ``fixed`` runs all
     cfg.max_segments bounces instead of stopping once every lane retired;
-    ``cull`` and ``own``: see ``_run``."""
+    ``cull``, ``own`` and ``gather``: see ``_run``."""
     st, paths = _run(sc, cfg, _fresh_state(org, dirs, t_min, cfg.stack),
-                     k_paths, push, fixed, stats, cull, own)
+                     k_paths, push, fixed, stats, cull, own, gather)
     return st["acc"], paths
 
 
@@ -1002,19 +1081,20 @@ def _fresh_state(org, dirs, t_min, D: int):
 
 def _run(sc: SceneArrays, cfg: TraceConfig, st, k_paths: int = 0,
          push: bool = True, fixed: bool = False, stats=None, cull=None,
-         own=None):
+         own=None, gather=None):
     """At most cfg.max_segments bounces from the loop state ``st``, whose
     rays are in the kernel's launch order (``cull``, a ``Cull`` or None,
     bundles them by it; ``own``, None or (the first bounce, the kept
     count): from that bounce on, each ray refines its bundle's masks that
-    keep more than that count by its own, ``Cull.nearest``); returns (the
-    state after them, paths (k_paths, N) i32)."""
+    keep more than that count by its own, ``Cull.nearest``; ``gather``, a
+    ``Gathered`` or None: the differentiable route's table reads);
+    returns (the state after them, paths (k_paths, N) i32)."""
     paths = torch.zeros((k_paths, st["org"].shape[0]), dtype=I32,
                         device=st["org"].device)
     it = 0
     while it < cfg.max_segments and (fixed or bool(st["active"].any())):
         st, rec = _bounce(sc, cfg, st, push, stats, cull,
-                          own[1] if own and it >= own[0] else None)
+                          own[1] if own and it >= own[0] else None, gather)
         if it < k_paths:
             paths[it] = rec
         it += 1
@@ -1131,13 +1211,14 @@ def trace_rays_resume(sc: SceneArrays, state, cols, cfg: TraceConfig,
 
 
 def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
-            stats=None, cull=None, own=None):
+            stats=None, cull=None, own=None, gather=None):
     """One bounce of the iterative Whitted loop (quadray_tpu.ops.trace
     _make_body): shade the nearest hit, continue with the reflection if
     it carries weight, else the refraction, pushing the refraction when
     both do (unless ``push_ok`` is False); lanes that cannot continue pop
     the branch stack. Returns the new state and the segment's path record
-    (see trace_paths). ``own``: per-ray masks (``Cull.nearest``)."""
+    (see trace_paths). ``own``: per-ray masks (``Cull.nearest``);
+    ``gather``: a ``Gathered`` (the differentiable route) or None."""
     N = st["org"].shape[0]
     D = cfg.stack
     act = st["active"]
@@ -1147,17 +1228,21 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
                   st["osrf"], st["oside"], st["thru"],
                   origin_loc=st["oloc"],
                   reach=None if cull is None else cull.nearest(st, act,
-                                                               stats, own))
+                                                               stats, own),
+                  gather=gather)
     hit = h["hit"] & act
+    rows = h.get("rows")
     local, unlit = shade(sc, cfg, h["x"], h["p"], h["n"], st["dir"],
-                         h["srf"], h["side"], hit, stats, cull, own)
-    midx = material_index(sc, h["srf"], h["side"])
+                         h["srf"], h["side"], hit, stats, cull, own, rows)
+    midx = (material_index(sc, h["srf"], h["side"]) if rows is None
+            else rows.midx)
     c_rfl, c_trn, refr_dir, _ = fresnel_terms(sc, midx, st["dir"], h["n"],
-                                              cfg.schlick)
+                                              cfg.schlick, rows)
     # local color weight uses the ORIGINAL material rfl/trn (TR_mix,
     # tracer.cpp:3566-3571), not the Fresnel-modulated values
     # jnp.maximum's gradient: one half at a tie with 0 (rfl + trn == 1)
-    local_w = 1.0 - sc.m_trn[midx] - sc.m_rfl[midx]
+    local_w = (1.0 - _mat(sc, midx, rows, "trn")
+               - _mat(sc, midx, rows, "rfl"))
     local_w = torch.maximum(local_w, torch.tensor(0.0, dtype=local_w.dtype))
     acc = st["acc"] + torch.where(hit[:, None],
                                   st["thr"] * local * local_w[:, None], 0.0)
@@ -1201,7 +1286,10 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
     can_pop = act & ~cont & (sp > 0)
     psp = torch.clamp(sp - 1, min=0).long()
     lanes = torch.arange(N, device=act.device)
-    grab = lambda stk: stk[lanes, psp]
+
+    def grab(stk):
+        with record_function("lookup.grab"):
+            return stk[lanes, psp]
 
     def sel(c, a_, b_):
         return torch.where(c[:, None] if a_.dim() == 2 else c, a_, b_)

@@ -2,6 +2,8 @@
 of its two routes in this checkout.
 
     python3 scripts/ab_train.py OTHER_ROOT [--rounds 2] [--steps 10]
+    python3 scripts/ab_train.py OTHER_ROOT --all-surface [--rounds 2] \
+        [--steps 3]
     python3 scripts/ab_train.py --routes [--rounds 2] [--steps 10]
 
 OTHER_ROOT is another checkout of this repository (quadray_tpu_torch/ and
@@ -19,6 +21,14 @@ ms/step on one block and on 4 blocks of the card (CUDA events around
 --steps one-step calls after 2), then one one-block step under
 torch.profiler: its kernel launches and their device time. Prints each
 worker's JSON line, then the means of each side.
+
+--all-surface has each worker measure the all-surface make_train_step
+instead, on test17 (the same configuration) at 800x480 on one block of
+the graph route: ms/step (CUDA events around --steps one-step calls
+after 2, the first the program's warm-up and capture), then one step
+under torch.profiler: its kernel launches, their device time and the
+part of it in PyTorch's indexing_backward kernels (the backward of
+table lookups by index_put_ with accumulate).
 
 --routes measures this checkout alone, in one process: the same task on
 the eager route (make_train_scan_fast(..., eager=True)) against the graph
@@ -109,13 +119,25 @@ def profiled(run_fn, params, opt, sc, target) -> dict:
     return {"kernel_launches": sum(e.count for e in kernels),
             "device_ms": sum(e.self_device_time_total
                              for e in kernels) / 1e3,
+            "index_backward_ms": sum(
+                e.self_device_time_total for e in kernels
+                if "indexing_backward_kernel" in e.key) / 1e3,
             "host_launch_calls": calls}
 
 
-def worker(root: str, steps: int):
+def worker(root: str, steps: int, all_surface: bool):
     from quadray_tpu_torch.parallel import train as tr
     from quadray_tpu_torch.parallel.mesh import ray_mesh
     dev = torch.device("cuda", 0)
+    if all_surface:
+        sc, target, cfg = task(dev, "test17")
+        step_fn, opt_init = tr.make_train_step(W, H, cfg=cfg, lr=LR)
+        p = tr.extract_params(sc)
+        out = {"root": root, "ms_per_step_1": step_ms(
+            step_fn.run, p, opt_init(p), sc, target, steps)}
+        out.update(profiled(step_fn.run, p, opt_init(p), sc, target))
+        print("RESULT " + json.dumps(out), flush=True)
+        return
     sc, target, cfg = task(dev)
     out = {"root": root}
     for blocks in (1, 4):
@@ -188,6 +210,8 @@ def main():
     ap.add_argument("other", nargs="?", help="the other checkout's root")
     ap.add_argument("--routes", action="store_true",
                     help="eager against graphed in this checkout")
+    ap.add_argument("--all-surface", action="store_true",
+                    help="time the all-surface make_train_step on test17")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
@@ -197,7 +221,7 @@ def main():
         sys.exit(2)
     if args.worker:
         sys.path.insert(0, args.worker)
-        worker(args.worker, args.steps)
+        worker(args.worker, args.steps, args.all_surface)
         return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -217,7 +241,9 @@ def main():
             root = sides[side]
             r = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker", root,
-                 "--steps", str(args.steps)], cwd=root, capture_output=True,
+                 "--steps", str(args.steps)]
+                + (["--all-surface"] if args.all_surface else []),
+                cwd=root, capture_output=True,
                 text=True, env=dict(os.environ, PYTHONPATH=root))
             line = [ln for ln in r.stdout.splitlines()
                     if ln.startswith("RESULT ")]
