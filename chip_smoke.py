@@ -16,13 +16,15 @@
     python3 chip_smoke.py --only Q   # kernel build + the all-surface step
     python3 chip_smoke.py --only R   # kernel build + the fused replay
     python3 chip_smoke.py --only S   # kernel build + the all-surface gather
+    python3 chip_smoke.py --only T   # kernel build + the fused all-surface
     python3 chip_smoke.py --only U   # kernel build + the update's launch
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points), the conformance kernels, the scene pack's kernel
 (csrc/pack.cu), replay's kernels (csrc/replay.cu: the fused replay and
-the row gathers) and the scene update's kernel (csrc/update.cu) with
-parallel nvcc processes, then:
+the row gathers), the scene update's kernel (csrc/update.cu) and the
+all-surface route's backward (csrc/diff.cu) with parallel nvcc processes,
+then:
   A. kernel vs its plain PyTorch version (ops/trace.py), both on the card,
      at 200x120 on seven scenes chosen for their features and at the main
      path's 800x480 on two; max abs diff of linear colors <= 1e-5;
@@ -250,11 +252,26 @@ parallel nvcc processes, then:
      gather_plain and backward bitwise row_sum_plain, two launches each;
      device ms of a step's gathers (CUDA graphs) beside the bound, the
      plain versions' ms and index_select + index_put_ with accumulate
-     (what autograd ran for the lookups before the gather).
+     (what autograd ran for the lookups before the gather). The step no
+     longer takes this route (phase T); trace_rays_diff is its reference.
+  T. the all-surface route in one forward and one backward launch
+     (ops/diff.py trace_rays_fused: csrc/whitted.cu whitted_tape_launch,
+     csrc/diff.cu diff_backward_launch, the row sums and the light sums
+     of csrc/replay.cu) on test15, test17 and test18 at 800x480 (the
+     step's moved scene), a seeded gradient of the colors: the tape
+     launch's colors bitwise the Whitted kernel's (unculled) and
+     forward_plain's, its tape bitwise forward_plain's; the backward's row
+     gradients and ids bitwise backward_rows_plain's and its light sums
+     bitwise replay._block_sums of the plain tiles; two launches each
+     bitwise; every field's gradient (kernels, then row sums) within
+     T_GRAD_RTOL of autograd's trace_rays_diff on the card; device ms of
+     the forward (with its pack launch) and of the backward launch with
+     the light sums, and of the row sums (CUDA graphs), beside the
+     bounds and the plain versions' ms (CUDA events).
   Q. the all-surface training step (parallel/train.py make_train_step,
-     the counterpart of the JAX make_train_step's jitted step_fn; PyTorch
-     autograd over the bounces, each bounce's table reads one row gather,
-     phase S) as one
+     the counterpart of the JAX make_train_step's jitted step_fn; the
+     fused route of phase T, one pack, tape, backward, row-sum and
+     light-sum launch a block) as one
      CUDA graph, on the two golden scenes where a material both reflects
      and transmits, which the fast steps refuse (test17, test18), every
      differentiable field, TraceConfig(max_segments=8, stack=4): Q1
@@ -267,14 +284,12 @@ parallel nvcc processes, then:
      eager one, each bitwise the chain's first step; ms/step in that
      order (a b b a), the capture's ms, the graph's pool and the peak
      memory, and on test17 1 block a profiler window of each route (host
-     launch calls, device ops and ms, busy share, top ops, the share of
-     PyTorch's indexing_backward kernels, under 5% of the graphed step)
-     and of the eager step with each bounce's lookups at their sites
-     (the route before the gather), the eager windows split by lookup
-     family (ops/trace.py's record_function ranges: tables, take, grab,
-     clip_refs; each family's backward by its autograd nodes' sequence
-     numbers); the gather's forward and backward counted over Q2, once a
-     bounce a block in each graph; Q3
+     launch calls, device ops and ms, busy share, top ops) and of the
+     eager step with trace_rays_diff in its place (the autograd route
+     before this one, its window split by lookup family: ops/trace.py's
+     record_function ranges); each graph records one pack, tape forward,
+     backward, row-sum and light-sum launch a block, and the fused
+     route's counters, set to 0 before the phase, are read after it; Q3
      BASELINE.json config 5's frame, 1920x1080: make_train_step on test17
      over the fewest blocks of cuda:0 whose memory at Q2's peak a ray
      fits in 85% of the card (doubled while the eager step does not fit)
@@ -2537,11 +2552,18 @@ Q_STEPS = 3
 Q3_W, Q3_H = 1920, 1080
 Q3_MEMORY = 0.85
 Q3_STEPS = 2
-# the share of the graphed all-surface step's device time (test17, 800x480,
-# 1 block) that PyTorch's indexing_backward kernels may take
-Q_INDEX_SHARE = 0.05
 # ops/trace.py's record_function ranges, one a lookup family
 LOOKUP_RANGES = "lookup."
+# phase T: the fused all-surface route's kernels on these scenes (two-plane
+# surfaces, apex-singular cylinders, a texture and metal; Fresnel glass in
+# a box; glass spheres) at 800x480; the gradients against autograd's
+# trace_rays_diff on the card within this share of each field's largest
+# (tests/test_torch_diff_fused.py's float32 bound: each route's own f32
+# rounding, amplified by chains of internal reflections; 1e-5 does not
+# hold at 800x480 on test15 or test18)
+T_SCENES = ("test15", "test17", "test18")
+T_GRAD_RTOL = 5e-5
+T_REPS = 5
 
 
 @contextlib.contextmanager
@@ -4610,27 +4632,158 @@ def phase_s(dev, smi):
     return out
 
 
+def diff_bounds(n: int, k: int, words: int, ns: int, nm: int, nl: int,
+                struct, stats, hits: int) -> dict:
+    """bound_ms of the fused all-surface route's parts on n rays of k
+    bounces, ``hits`` of the k n ray-bounces hits: the forward reads the
+    rays (28 bytes a ray), writes the colors (12) and the whole tape (12
+    floats and ``words`` words a ray a bounce) and does the surface tests
+    its walks need (``surface_ops`` of forward_plain's count) and each
+    hit's shading (R_SEG_OPS, R_LIGHT_OPS a light); the backward reads
+    the flags word of every ray-bounce, and the rest of the tape (12
+    floats, the texel and the light words) only of a hit, as replay's
+    bound counts a live segment's state, and the colors' gradient, writes
+    29 row gradients and 2 ids a ray a bounce and the light sums, and
+    recomputes and differentiates each hit (R_BWD_FACTOR times its
+    forward); the row sums read those and write the tables' gradients."""
+    kn = k * n
+    shade = hits * (R_SEG_OPS + nl * R_LIGHT_OPS)
+    return {"forward": bound_ms(40 * n + 4 * kn * (12 + words),
+                                surface_ops(struct, stats) + shade),
+            "backward": bound_ms(4 * kn + 4 * hits * (12 + words - 1)
+                                 + 12 * n + 124 * kn + 4 * (10 * nl + 3),
+                                 R_BWD_FACTOR * shade),
+            "row_sums": bound_ms(124 * kn + 4 * 29 * (ns + nm), 29 * kn)}
+
+
+def fused_grads(fn, sc, rays, g):
+    """{field: gradient of sum(g * fn(sc, *rays))} for every
+    differentiable field."""
+    from quadray_tpu_torch.parallel import train as tr
+    leaves = {k: getattr(sc, k).detach().clone().requires_grad_(True)
+              for k in tr.DIFFERENTIABLE_FIELDS}
+    cols = fn(dataclasses.replace(sc, **leaves), *rays, train_cfg())
+    (cols * g).sum().backward()
+    return {k: v.grad for k, v in leaves.items()}
+
+
+def phase_t(dev, smi):
+    """The fused all-surface route's kernels against their plain versions
+    and autograd's route on T_SCENES at 800x480 (the module docstring's
+    T). Returns {scene: numbers}."""
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import diff
+    from quadray_tpu_torch.ops import replay as rp
+    from quadray_tpu_torch.ops import row_gather as rg
+    from quadray_tpu_torch.ops.trace import trace_rays_diff
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cfg = train_cfg()
+    out = {}
+    for name in T_SCENES:
+        sc, _, rays = train_task(dev, name)
+        struct = ck.scene_struct(sc)
+        n, k = rays[1].shape[0], cfg.max_segments
+        stats = {}
+        cols, tf, ti = diff.forward_plain(sc, *rays, cfg, stats)
+        whitted = ck.trace_rays_cuda(sc, *rays, cfg._replace(cull=False))
+        T = diff.tables(sc)
+        g = torch.from_numpy(np.random.RandomState(29).standard_normal(
+            (n, 3)).astype(np.float32)).to(dev)
+        g_s, g_m, ids, tiles = diff.backward_rows_plain(g, T, tf, ti,
+                                                        cfg.stack)
+        g_la = rp._block_sums(tiles)
+        differ, worst = {}, 0.0
+        for _ in range(2):
+            c2, tf2, ti2 = diff.forward_kernel(sc, struct, *rays, cfg)
+            gs2, gm2, ids2, lpart = diff.backward_rows_kernel(
+                g, T, tf2, ti2, cfg.stack)
+            la2 = diff.light_sums_kernel(lpart)
+            torch.cuda.synchronize()
+            for what, x, y in (("colors", c2, cols),
+                               ("colors vs whitted", c2, whitted),
+                               ("tf", tf2, tf), ("ti", ti2, ti),
+                               ("g_s", gs2, g_s), ("g_m", gm2, g_m),
+                               ("ids", ids2, ids), ("lights", la2, g_la)):
+                differ[what] = differ.get(what, 0) + int(
+                    (bits(x) != bits(y)).sum())
+                if x.dtype == torch.float32:
+                    worst = max(worst, float((x - y).abs().max()))
+        got = fused_grads(diff.trace_rays_fused, sc, rays, g)
+        want = fused_grads(trace_rays_diff, sc, rays, g)
+        rel = {f: float((got[f] - want[f]).abs().max()
+                        / max(float(want[f].abs().max()), 1e-30))
+               for f in got}
+        torch.cuda.empty_cache()
+        fl = ti[:, 0]
+        hits = int(((fl & diff.HIT) != 0).sum())
+        nl, words = T.ltab.shape[0], ti.shape[1]
+        ns, nm = T.stab.shape[1], T.mtab.shape[1]
+        bounds = diff_bounds(n, k, words, ns, nm, nl, struct, stats, hits)
+        k_fwd = graph_ms(lambda: diff.forward_kernel(sc, struct, *rays, cfg),
+                         T_REPS)
+        k_bwd = graph_ms(lambda: diff.light_sums_kernel(
+            diff.backward_rows_kernel(g, T, tf, ti, cfg.stack)[3]), T_REPS)
+        k_rows = graph_ms(lambda: rg._backward(g_s, g_m, ids[0], ids[1], ns,
+                                               nm), T_REPS)
+        p_fwd = cuda_ms(lambda: diff.forward_plain(sc, *rays, cfg), 1)
+        p_bwd = cuda_ms(lambda: rp._block_sums(diff.backward_rows_plain(
+            g, T, tf, ti, cfg.stack)[3]), 1)
+        flags = {"push": int(((fl & diff.PUSH) != 0).sum()),
+                 "pop": int(((fl & diff.POP) != 0).sum()),
+                 "own": int(((fl & diff.OWN) != 0).sum()),
+                 "nudge": int(((fl & diff.NUDGE) != 0).sum()),
+                 "textured": int((((fl & diff.HIT) != 0)
+                                  & (ti[:, 1] >= 0)).sum())}
+        out[name] = dict(rays=n, bounces=k, hits=hits,
+                         hit_share=hits / (k * n), flags=flags,
+                         forward_ms=k_fwd, backward_ms=k_bwd,
+                         row_sums_ms=k_rows, plain_forward_ms=p_fwd,
+                         plain_backward_ms=p_bwd,
+                         bounds={p: {"bound_ms": b[0], "bound_by": b[1]}
+                                 for p, b in bounds.items()},
+                         max_abs_err=worst, grad_rel=max(rel.values()),
+                         tape_bytes=(tf.numel() + ti.numel()) * 4)
+        log(f"T {name} {W}x{H} K={k} ({ns} surfaces, {nl} lights; hits "
+            f"{hits} of {k * n} ray-bounces ({100 * hits / (k * n):.2f}%), "
+            f"{flags}; tape "
+            f"{(tf.numel() + ti.numel()) * 4 / n:.0f} B a ray): kernels vs "
+            f"plain, two launches each, words differing {differ}; largest "
+            f"absolute difference {worst:.3e}; gradients vs autograd's "
+            f"trace_rays_diff, of each field's largest: "
+            + " ".join(f"{f}={v:.1e}" for f, v in rel.items())
+            + f" (bound {T_GRAD_RTOL}); ms ({smi}): forward (pack + tape "
+            f"launch) {k_fwd:.4f}, backward (launch + light sums) "
+            f"{k_bwd:.4f}, row sums {k_rows:.4f}; plain forward "
+            f"{p_fwd:.2f}, plain backward (rows + light sums) {p_bwd:.2f}; "
+            f"bounds "
+            + " ".join(f"{p} {b[0]:.4f} ({b[1]})" for p, b in bounds.items()))
+        if any(differ.values()):
+            raise AssertionError(f"T {name}: kernels off their plain "
+                                 f"versions: {differ}")
+        bad = {f: v for f, v in rel.items() if not v <= T_GRAD_RTOL}
+        if bad:
+            raise AssertionError(f"T {name}: gradients off autograd's: "
+                                 f"{bad}")
+        del sc, rays, cols, tf, ti, whitted, T, g_s, g_m, ids, tiles, got
+        del want
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
-def lookups_at_sites():
-    """make_train_step's loss with each bounce's table reads as lookups at
-    their sites (trace_rays_diff before the row gather: the plain
-    tracer's reads under autograd), for a profiler window of the route
-    the gather replaced."""
-    from quadray_tpu_torch.ops import trace
+def autograd_route():
+    """make_train_step's loss through trace_rays_diff (autograd over the
+    plain tracer's bounces, each bounce's table reads one row gather): the
+    route before the fused one, for a profiler window."""
+    from quadray_tpu_torch.ops.trace import trace_rays_diff
     from quadray_tpu_torch.parallel import train as tr
 
-    def diff(sc, org, dirs, t_min, cfg):
-        if org.dim() == 1:
-            org = org[None, :].expand(dirs.shape[0], 3)
-        return trace._trace_chunk(sc, org, dirs, t_min, cfg, 0,
-                                  fixed=True)[0]
-
-    saved = tr.trace_rays_diff
-    tr.trace_rays_diff = diff
+    saved = tr.trace_rays_fused
+    tr.trace_rays_fused = trace_rays_diff
     try:
         yield
     finally:
-        tr.trace_rays_diff = saved
+        tr.trace_rays_fused = saved
 
 
 def phase_q1(dev):
@@ -4672,17 +4825,19 @@ def phase_q2(dev, smi):
     dropped, one eager, each bitwise the chain's first step (two eager
     steps from one state, and graphed ones); ms/step in that order (a b b
     a), the capture's ms, the graph's pool and the peak memory; on the
-    first scene and 1 block a profiler window of each route (the graphed
-    step's indexing_backward share held under Q_INDEX_SHARE) and of the
-    eager step with its lookups at their sites, the eager windows split
-    by lookup family. The row gather's counters are set to 0 before and
-    read after: each graph records one forward and one backward launch a
-    bounce a block. Returns (the first scene's 1-block peak allocated
-    bytes a ray, the gather's launches over the phase)."""
+    first scene and 1 block a profiler window of each route and of the
+    eager step through trace_rays_diff (the autograd route before this
+    one), that window split by lookup family. The fused route's and the
+    row gather's counters are set to 0 before and read after: each graph
+    records one pack, tape, backward, row-sum and light-sum launch a
+    block. Returns (the first scene's 1-block peak allocated bytes a
+    ray, the launches over the phase)."""
+    from quadray_tpu_torch.ops import diff
     from quadray_tpu_torch.ops import row_gather as rg
     from quadray_tpu_torch.parallel import train as tr
-    per_ray, index_share = None, None
+    per_ray = None
     rg.launches = rg.backward_launches = 0
+    diff.launches = diff.backward_launches = diff.light_sum_launches = 0
     for name in Q_SCENES:
         sc, target, _ = train_task(dev, name)
         for b in Q_BLOCKS:
@@ -4721,11 +4876,10 @@ def phase_q2(dev, smi):
                 return step
 
             if profiled:
-                r = profile_window(
+                profile_window(
                     f"one all-surface step a call, {name} {W}x{H} every "
                     "field, 1 block, graph", one(fns["graph"]), 1, smi,
                     prefix="Q2", top=8)
-                index_share = r and r["index_backward_share"]
             del prog
             fns["graph"] = None
             release_memory(dev)
@@ -4734,14 +4888,15 @@ def phase_q2(dev, smi):
                 profile_window(
                     f"one all-surface step a call, {name} {W}x{H} every "
                     "field, 1 block, eager", one(fns["eager"]), 1, smi,
-                    prefix="Q2", top=8, families=True)
-                with lookups_at_sites():
+                    prefix="Q2", top=8)
+                with autograd_route():
                     profile_window(
                         f"one all-surface step a call, {name} {W}x{H} "
-                        "every field, 1 block, eager, each lookup at its "
-                        "site (the route before the row gather)",
-                        one(fns["eager"]), 1, smi, prefix="Q2", top=8,
-                        families=True)
+                        "every field, 1 block, eager, through "
+                        "trace_rays_diff (the autograd route before the "
+                        "fused one)", one(fns["eager"]), 1, smi,
+                        prefix="Q2", top=8, families=True)
+                release_memory(dev)
                 per_ray = peak_g / (W * H)
             same = {f"graph {Q_STEPS} steps": same_bits(g1, e_last),
                     "graph 1 step": same_bits(g2, e_first),
@@ -4761,26 +4916,28 @@ def phase_q2(dev, smi):
                                      f"{same}")
             if not all(np.isfinite(losses)):
                 raise AssertionError(f"Q2 {name}: losses {losses}")
-            gathers = train_cfg().max_segments * b
-            if counts != {"gather_launches": gathers,
-                          "gather_backward_launches": gathers}:
+            want = {k: b for k in ("pack_launches", "diff_launches",
+                                   "diff_backward_launches",
+                                   "gather_backward_launches",
+                                   "light_sum_launches")}
+            if counts != want:
                 raise AssertionError(f"Q2 {name} {b} blocks: the graph "
-                                     f"recorded {counts}, not {gathers} "
-                                     "gathers and row sums")
+                                     f"recorded {counts}, not {want}")
             abba_summary(f"Q2 ms/step {name} {W}x{H}, {b} block(s) ({smi})",
                          list(zip(O_ABBA, (ms_e1, ms_g2, ms_g3, ms_e2))))
             del fns, e_last, e_first, e2, g1, g2, g3
             release_memory(dev)
-    launches = {"forward": rg.launches, "backward": rg.backward_launches}
-    log(f"Q2 the row gather's launches over the phase (eager steps and "
-        f"graph replays, counted as their capture's): {launches}")
-    if not (launches["forward"] and launches["backward"]):
-        raise AssertionError(f"Q2: the row gather never launched: "
-                             f"{launches}")
-    if index_share is None or index_share >= Q_INDEX_SHARE:
-        raise AssertionError(f"Q2: PyTorch's indexing_backward kernels "
-                             f"took {index_share} of the graphed step's "
-                             f"device time (limit {Q_INDEX_SHARE})")
+    launches = {"forward": rg.launches, "backward": rg.backward_launches,
+                "diff_forward": diff.launches,
+                "diff_backward": diff.backward_launches,
+                "light_sums": diff.light_sum_launches}
+    log(f"Q2 launches over the phase (eager steps and graph replays, "
+        f"counted as their capture's; the row gather's forward only in "
+        f"the autograd route's profiler window): {launches}")
+    if not (launches["diff_forward"] and launches["diff_backward"]
+            and launches["light_sums"] and launches["backward"]):
+        raise AssertionError(f"Q2: the fused route's kernels never "
+                             f"launched: {launches}")
     return per_ray, launches
 
 
@@ -4969,7 +5126,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
-                             "L", "M", "N", "O", "P", "Q", "R", "S", "U"],
+                             "L", "M", "N", "O", "P", "Q", "R", "S", "T",
+                             "U"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
@@ -4982,7 +5140,8 @@ def main():
                     "training step), Q (the all-surface training step as "
                     "one CUDA graph, at 800x480 and 1920x1080), R (the "
                     "fused replay), S (the all-surface step's row gather "
-                    "at its shapes) or U (the scene "
+                    "at its shapes), T (the fused all-surface route's "
+                    "kernels) or U (the scene "
                     "update as one launch, the interactive frame as one "
                     "CUDA graph)")
     args = ap.parse_args()
@@ -5001,7 +5160,7 @@ def main():
     from quadray_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.load_libraries("whitted", "conformance", "pack", "replay",
-                          "update")
+                          "update", "diff")
     log(f"kernel build (parallel nvcc) and load: "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = os.path.join(_build.BUILD_DIR, "whitted.ptxas.txt")
@@ -5065,6 +5224,24 @@ def main():
                 if any(k in line for k in ("Compiling entry", "registers",
                                            "spill")):
                     log(f"ptxas replay: {line.strip()}")
+    ptxas = os.path.join(_build.BUILD_DIR, "diff.ptxas.txt")
+    if os.path.exists(ptxas):
+        with open(ptxas) as fh:
+            for line in fh:
+                if any(k in line for k in ("Compiling entry", "registers",
+                                           "spill")):
+                    log(f"ptxas diff: {line.strip()}")
+    ptxas = os.path.join(_build.BUILD_DIR, "whitted.ptxas.txt")
+    if os.path.exists(ptxas):
+        with open(ptxas) as fh:
+            text = fh.read()
+        for chunk in text.split("Compiling entry function")[1:]:
+            if "tape_kernel" in chunk.split("\n")[0]:
+                log("ptxas tape_kernel (the all-surface forward): "
+                    + "; ".join(re.findall(
+                        r"\d+ bytes stack frame, \d+ bytes spill stores, "
+                        r"\d+ bytes spill loads|Used \d+ registers[^\n]*",
+                        chunk)))
     dev = torch.device("cuda", 0)
     only = args.only
 
@@ -5228,6 +5405,10 @@ def main():
         release_memory(dev)
         s_rows = phase("S", phase_s, dev, smi)
 
+    if only in (None, "T"):
+        release_memory(dev)
+        t_rows = phase("T", phase_t, dev, smi)
+
     if only in (None, "Q"):
         t0 = time.perf_counter()
         release_memory(dev)
@@ -5308,7 +5489,16 @@ def main():
         "path's in J3 and J6 (one a frame, replays counted as their "
         "capture's, with each Scene's structure pass and warm-up), "
         "checked_launches U1's, max_abs_err U1's (every field bitwise); no "
-        "PyTorch call computes the update, so library_ms is null")
+        "PyTorch call computes the update, so library_ms is null; "
+        "diff_forward ms/plain_ms/bound_ms are the fused all-surface "
+        "route's forward on test17 800x480 K=8 (T: the pack and the tape "
+        "launch, CUDA graphs, against forward_plain), diff_backward the "
+        "backward launch and its light sums (against backward_rows_plain "
+        "and replay._block_sums; the row sums are replay_gather's), "
+        "launches Q2's counted run, max_abs_err T's largest absolute "
+        "difference from the plain versions on T_SCENES (every word "
+        "bitwise), scenes T's rows; no single PyTorch call traces rays or "
+        "differentiates them, so library_ms is null")
     culled = ("on: warp reach masks (origin box + direction cone or "
               "endpoint capsule per warp, __ballot_sync over the bounding "
               "spheres), lsort and cont masks where cull_gates say so")
@@ -5495,8 +5685,9 @@ def main():
         "library_ms": r["ms"]["library_row_sums"],
         "d5_per_segment": {"forward_ms": d5["test01"][0],
                            "backward_ms": d5["test01"][1]},
-        "all_surface": {"route": "make_train_step (ops/trace.py Gathered, "
-                                 "one gather a bounce)",
+        "all_surface": {"route": "trace_rays_diff, the reference of "
+                                 "make_train_step's fused route (ops/"
+                                 "trace.py Gathered, one gather a bounce)",
                         "replaces": "quadray_tpu/ops/trace.py:388, "
                                     "405-461, 514-569, 642 under "
                                     "jax.value_and_grad",
@@ -5523,7 +5714,50 @@ def main():
         "bound_by": u4["demo02"]["bound_by"], "library_ms": None,
         "host_ms": u4["demo02"]["host_ms"],
         "scenes": {n: {k: v for k, v in r.items() if k != "groups"}
-                   for n, r in u4.items()}}]}))
+                   for n, r in u4.items()}}, {
+        "name": "diff_forward", "route": "cuda",
+        "design": "tape_kernel: the Whitted walk of whole_kernel (segment<> "
+                  "with TAPE), unculled, one thread a ray on ceil(n / 128) "
+                  "blocks, the branch stack in local memory; each bounce "
+                  "writes its entry state (12 floats) and its flags, texel "
+                  "and light bits (2 + ceil(NL / 32) words) in (K, F, N) "
+                  "layout, coalesced; after the pack of the step's tables "
+                  "(one csrc/pack.cu launch)",
+        "source": "quadray_tpu_torch/csrc/whitted.cu",
+        "replaces": "quadray_tpu/ops/trace.py:725",
+        "note": "the forward of the JAX trace_rays_diff inside "
+                "make_train_step's jitted step_fn (one XLA executable), "
+                "not a Pallas kernel",
+        "launches": q_launches["diff_forward"],
+        "max_abs_err": max(r["max_abs_err"] for r in t_rows.values()),
+        "ms": t_rows["test17"]["forward_ms"],
+        "plain_ms": t_rows["test17"]["plain_forward_ms"],
+        "bound_ms": t_rows["test17"]["bounds"]["forward"]["bound_ms"],
+        "bound_by": t_rows["test17"]["bounds"]["forward"]["bound_by"],
+        "library_ms": None, "scenes": t_rows}, {
+        "name": "diff_backward", "route": "cuda",
+        "design": "diff_bwd_kernel: a thread a ray, blocks of 128, the "
+                  "bounces in reverse from the tape, each hit recomputed "
+                  "for its picked surface and root and its hand-written "
+                  "adjoint taken; the branch stack's adjoints in local "
+                  "memory until the pushing bounce; 29 row gradients and 2 "
+                  "ids a ray a bounce to device memory (summed by "
+                  "replay_gather's row sums); the lights' and ambient's "
+                  "gradients an xor butterfly a bounce into the warp's "
+                  "accumulators, warps in order, then replay.cu's light "
+                  "sums in block and group order (no atomics)",
+        "source": "quadray_tpu_torch/csrc/diff.cu",
+        "replaces": "quadray_tpu/parallel/train.py:250",
+        "note": "the reverse pass of jax.value_and_grad over the JAX "
+                "trace_rays_diff, which XLA derives, not a Pallas kernel",
+        "launches": q_launches["diff_backward"],
+        "light_sum_launches": q_launches["light_sums"],
+        "max_abs_err": max(r["max_abs_err"] for r in t_rows.values()),
+        "ms": t_rows["test17"]["backward_ms"],
+        "plain_ms": t_rows["test17"]["plain_backward_ms"],
+        "bound_ms": t_rows["test17"]["bounds"]["backward"]["bound_ms"],
+        "bound_by": t_rows["test17"]["bounds"]["backward"]["bound_by"],
+        "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

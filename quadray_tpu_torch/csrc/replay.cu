@@ -1246,6 +1246,29 @@ extern "C" int replay_forward_launch(
   return (int)cudaGetLastError();
 }
 
+// The light sums: g_la (nla,) from the partials lpart (blocks, nla) of the
+// backward blocks, added in block order, LGROUP blocks a group, through
+// lgroup (ceil(blocks / LGROUP), nla), then the groups in group order
+// (light_group_kernel, light_sum_kernel); the fused replay's backward and
+// the differentiable route's (csrc/diff.cu) end with them. Returns the
+// CUDA error of the launches.
+extern "C" int replay_light_sums_launch(const float* lpart, float* lgroup,
+                                        float* g_la, int blocks, int nla,
+                                        void* stream) {
+  if (blocks < 0 || nla <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int groups = (blocks + LGROUP - 1) / LGROUP;
+  if (groups > 0) {
+    light_group_kernel<<<(groups * nla + 127) / 128, 128, 0, st>>>(
+        lpart, lgroup, blocks, nla);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  light_sum_kernel<<<(nla + 127) / 128, 128, 0, st>>>(lgroup, g_la, groups,
+                                                      nla);
+  return (int)cudaGetLastError();
+}
+
 // The fused backward: g_s (19, k n) and g_m (10, k n) the row gradients of
 // each segment's rays (summed per row by row_gather_backward_launch), and
 // g_la (10 nl + 3,) the lights' (ltab's layout) and the ambient's
@@ -1275,15 +1298,6 @@ extern "C" int replay_backward_launch(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int used = k > 0 ? blocks : 0;
-  const int groups = (used + LGROUP - 1) / LGROUP;
-  if (groups > 0) {
-    light_group_kernel<<<(groups * nla + 127) / 128, 128, 0, st>>>(
-        lpart, lgroup, used, nla);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  light_sum_kernel<<<(nla + 127) / 128, 128, 0, st>>>(lgroup, g_la, groups,
-                                                      nla);
-  return (int)cudaGetLastError();
+  return replay_light_sums_launch(lpart, lgroup, g_la, k > 0 ? blocks : 0,
+                                  nla, stream);
 }

@@ -243,6 +243,13 @@ namespace {
 constexpr int PF = 44, SI = 8, CF = 22, MF = 14, LF = 10, MI = 5;
 constexpr int MAX_STACK = 16;
 constexpr int SLOT = 15;   // values per branch-stack slot
+// the differentiable route's tape (ops/diff.py): entry-state floats a
+// bounce, and the flags word's bits
+constexpr int TAPE_F = 12;
+constexpr unsigned T_SRF = 0xFFFFu, T_HIT = 1u << 16, T_SIDE = 1u << 17,
+                   T_OWN = 1u << 18, T_NUDGE = 1u << 19, T_PUSH = 1u << 22,
+                   T_POP = 1u << 23, T_ACTIVE = 1u << 28;
+constexpr int T_KIND_SHIFT = 20, T_SLOT_SHIFT = 24;
 
 // sp_i columns
 constexpr int SI_KIND = 0, SI_MO = 1, SI_MI = 2, SI_BLK = 3, SI_SING = 4,
@@ -360,6 +367,7 @@ struct Hit {
   float wx, wy, wz;  // world hit
   float nx, ny, nz;  // unnormalized world normal, facing the ray
   float hx, hy, hz;  // local hit (texture UV, continuation local origin)
+  bool hm;           // the apex nudge moved the hit (the tape's NUDGE bit)
 };
 
 // One surface against one ray. SHADOW: returns true if it blocks the ray
@@ -423,6 +431,7 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
       best.ny = pf(10) * sf;
       best.nz = pf(11) * sf;
       best.hx = hx; best.hy = hy; best.hz = hz;
+      best.hm = false;
     }
     return false;
   }
@@ -475,14 +484,15 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   }
 
   float h[2][9];          // per slot: local hit, world hit, gradient
-  bool valid[2];
+  bool valid[2], nudged[2];
   const float roots[2] = {root_a, root_b};
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const float t = roots[k];
     float hx = lx + t * ex, hy = ly + t * ey, hz = lz + t * ez;
     float wx = r.ox + t * r.dx, wy = r.oy + t * r.dy, wz = r.oz + t * r.dz;
-    if (sing > 0 && dmask && (hx * hx + hy * hy + hz * hz < T_EPS)) {
+    nudged[k] = sing > 0 && dmask && (hx * hx + hy * hy + hz * hz < T_EPS);
+    if (nudged[k]) {
       const bool a_neg = a < 0.0f;
       const float ij_flip = (k == 1 && !a_neg) ? -1.0f : 1.0f;
       const float k_flip = (k == 0 && a_neg) ? -1.0f : 1.0f;
@@ -536,6 +546,7 @@ __device__ bool surface(const Tables& T, int s, const Ray& r, Hit& best) {
   best.ny = (pf(4) * gx + pf(7) * gy + pf(10) * gz) * sf;
   best.nz = (pf(5) * gx + pf(8) * gy + pf(11) * gz) * sf;
   best.hx = hk(0); best.hy = hk(1); best.hz = hk(2);
+  best.hm = pick_b ? nudged[1] : nudged[0];
   return false;
 }
 
@@ -548,6 +559,7 @@ __device__ __forceinline__ void no_hit(Hit& best) {
   best.wx = best.wy = best.wz = 0.0f;
   best.nx = best.ny = best.nz = 0.0f;
   best.hx = best.hy = best.hz = 0.0f;
+  best.hm = false;
 }
 
 // nearest hit over every surface (PT nodes)
@@ -977,11 +989,13 @@ __device__ bool occluded_own(const Tables& T, int gates, const Ray& r,
 }
 
 // material at a hit: properties, colour (texture through the packed atlas
-// and the decode LUT, then the gamma decode) and the material row
+// and the decode LUT, then the gamma decode) and the material row; texel,
+// where given, the atlas index read (-1: none)
 template <bool SM = false>
 __device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
                                             bool gamma_on, float mc[3],
-                                            const float*& M) {
+                                            const float*& M,
+                                            int* texel = nullptr) {
   M = T.mat_f + (size_t)hb.mat * MF;
   const int* Mi = T.mat_i + (size_t)hb.mat * MI;
   const int props = ldt<SM>(Mi, 0);
@@ -996,10 +1010,12 @@ __device__ __forceinline__ int hit_material(const Tables& T, const Hit& hb,
         __float2int_rz(floorf(u * (float)(xm + 1) / ldt<SM>(M, 10))) & xm;
     const int iy =
         __float2int_rz(floorf(v * (float)(ym + 1) / ldt<SM>(M, 11))) & ym;
-    const int texel = ldi(T.tex_pk, base + (iy << xs) + ix);
-    mc[0] = ldf(T.tex_lut, (texel >> 16) & 255);
-    mc[1] = ldf(T.tex_lut, (texel >> 8) & 255);
-    mc[2] = ldf(T.tex_lut, texel & 255);
+    const int at = base + (iy << xs) + ix;
+    if (texel) *texel = at;
+    const int tx = ldi(T.tex_pk, at);
+    mc[0] = ldf(T.tex_lut, (tx >> 16) & 255);
+    mc[1] = ldf(T.tex_lut, (tx >> 8) & 255);
+    mc[2] = ldf(T.tex_lut, tx & 255);
   }
   if (gamma_on && (props & PROP_GAMMA)) {
     // gamma decode x^2 (PAINT_COLX, tracer.cpp:664-673)
@@ -1066,15 +1082,29 @@ __device__ __forceinline__ void tail_load(const float* col, Ray& r,
 // where `per_ray`, if the warp's keeps more than cfg.own_min surfaces (the
 // two-round modes, whole_kernel and paths_kernel, culled). EMIT_PATHS: the
 // path-record kernel, which writes this segment's record to paths. SM:
-// the tables in the block's shared memory.
+// the tables in the block's shared memory. TAPE: the differentiable
+// route's forward (tape_kernel), which writes the segment's tape: the
+// entry state to tf[(it * TAPE_F + j) * n + i] and the words (flags,
+// texel, the lights' bits; ops/diff.py) to ti[(it * words + w) * n + i].
 template <bool CAN_PUSH, bool EMIT_PATHS, bool CULL, bool TAIL,
-          bool RAY = false, bool SM = false>
+          bool RAY = false, bool SM = false, bool TAPE = false>
 __device__ __forceinline__ void segment(
     const Tables& T, const Cfg& cfg, int it, int i, int n,
     int* __restrict__ paths, Ray& r, float thr[3], float acc[3], int& depth,
     int& sp, float (*stk)[SLOT], bool& active, int& seg, int owner,
-    bool per_ray = false) {
+    bool per_ray = false, float* __restrict__ tf = nullptr,
+    int* __restrict__ ti = nullptr, int words = 0) {
   const bool own = RAY && per_ray;
+  if (TAPE) {
+    const float st[TAPE_F] = {r.ox,   r.oy,   r.oz,   r.dx,   r.dy,   r.dz,
+                              thr[0], thr[1], thr[2], r.olx, r.oly, r.olz};
+    for (int j = 0; j < TAPE_F; ++j)
+      tf[((size_t)it * TAPE_F + j) * n + i] = st[j];
+    for (int w = 2; w < words; ++w) ti[((size_t)it * words + w) * n + i] = 0;
+  }
+  // the tape's flags word and texel (ops/diff.py FLAGS)
+  unsigned tflags = TAPE ? T_ACTIVE : 0u;
+  int texel = -1;
   const float amb[3] = {ldt<SM>(T.misc, 0), ldt<SM>(T.misc, 1),
                         ldt<SM>(T.misc, 2)};
   const bool gamma_on = ldt<SM>(T.misc, 3) > 0.0f;
@@ -1098,6 +1128,10 @@ __device__ __forceinline__ void segment(
   // unculled, a lane in the loop has a ray
   const bool hit = (!CULL || active) && hb.t < BIG;
   bool cont = false;
+  if (TAPE && hit)
+    tflags |= (unsigned)(hb.srf & T_SRF) | T_HIT |
+              (hb.side > 0 ? T_SIDE : 0u) | (r.osrf == hb.srf ? T_OWN : 0u) |
+              (hb.hm ? T_NUDGE : 0u);
   // path record (record_path, pallas_kernel.py:1871-1886): a miss keeps
   // side +1 and sets the bit of every active light (lit needs a hit)
   unsigned rec =
@@ -1118,7 +1152,8 @@ __device__ __forceinline__ void segment(
     nz = hb.nz * nn;
     rec = (unsigned)(hb.srf & 0xFFF) | (hb.side > 0 ? 1u << 12 : 0u) |
           (1u << 15);
-    props = hit_material<SM>(T, hb, gamma_on, mc, M);
+    props = hit_material<SM>(T, hb, gamma_on, mc, M,
+                             TAPE ? &texel : nullptr);
     m_dff = ldt<SM>(M, 3);
     m_spc = ldt<SM>(M, 4);
     m_pow = ldt<SM>(M, 5);
@@ -1168,6 +1203,8 @@ __device__ __forceinline__ void segment(
       rec |= unlit;
       continue;
     }
+    if (TAPE)
+      ti[((size_t)it * words + 2 + l / 32) * n + i] |= (int)(1u << (l % 32));
     // lit and unshadowed: attenuated diffuse + specular
     const float lvx = sr.dx, lvy = sr.dy, lvz = sr.dz;
     const float r2 = lvx * lvx + lvy * lvy + lvz * lvz;
@@ -1224,7 +1261,9 @@ __device__ __forceinline__ void segment(
         deep_ok && maxn(maxn(trn[0], trn[1]), trn[2]) > cfg.cutoff;
     cont = go_rfl || go_trn;
     if (cont) rec |= (go_rfl ? 1u : 2u) << 13;
+    if (TAPE && cont) tflags |= (go_rfl ? 1u : 2u) << T_KIND_SHIFT;
     if (CAN_PUSH && go_rfl && go_trn && sp < cfg.stack) {
+      if (TAPE) tflags |= T_PUSH | ((unsigned)sp << T_SLOT_SHIFT);
       // push the refraction branch (the tail: on the owner's stack)
       if (!TAIL || (int)(threadIdx.x & 31u) == owner) {
         float* slot = stk[sp];
@@ -1261,6 +1300,12 @@ __device__ __forceinline__ void segment(
   }
   if (CULL && !active) return;
   if (EMIT_PATHS) paths[(size_t)it * n + i] = (int)rec;
+  if (TAPE) {
+    if (!cont && CAN_PUSH && sp > 0)
+      tflags |= T_POP | ((unsigned)(sp - 1) << T_SLOT_SHIFT);
+    ti[((size_t)it * words) * n + i] = (int)tflags;
+    ti[((size_t)it * words + 1) * n + i] = texel;
+  }
   if (!cont) {
     if (!CAN_PUSH || sp == 0) {   // retired
       active = false;
@@ -1313,6 +1358,53 @@ __device__ __noinline__ void coop_tail(Tables T, Cfg cfg, float* cols,
     if (lane == owner)
       for (int c = 0; c < 3; ++c) cols[owner + (17 + c) * W_BLOCK] = acc[c];
   }
+}
+
+// The differentiable route's forward for ray i (tape_kernel; ops/diff.py
+// forward_kernel, whose plain version forward_plain is the plain tracer's
+// bounce with a tape): unculled (a parameter update moves surfaces away
+// from the bounding spheres compile_scene made), the branch stack in local
+// memory, every segment through segment<> with TAPE, so the colours are
+// whole_kernel's (trace_rays's) bit for bit; the segments after the one it
+// retired in record zeros.
+__device__ __forceinline__ void tape_ray(const float* __restrict__ rays,
+                                         float* __restrict__ out,
+                                         float* __restrict__ tf,
+                                         int* __restrict__ ti, int n,
+                                         int words, const Tables& T,
+                                         const Cfg& cfg, int i) {
+  Ray r;
+  r.ox = rays[i];
+  r.oy = rays[n + i];
+  r.oz = rays[2 * n + i];
+  r.dx = rays[3 * n + i];
+  r.dy = rays[4 * n + i];
+  r.dz = rays[5 * n + i];
+  r.tmn = rays[6 * n + i];
+  r.tmx = BIG;
+  r.osrf = -1;
+  r.oside = 1;
+  r.thru = false;
+  r.olx = r.oly = r.olz = 0.0f;
+  r.orow = -1;
+  float thr[3] = {1.0f, 1.0f, 1.0f};
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  int depth = 0, sp = 0, seg = cfg.max_segments;
+  float stk[MAX_STACK][SLOT];
+  bool active = true;
+  int it = 0;
+  for (; it < cfg.max_segments && active; ++it)
+    segment<true, false, false, false, false, false, true>(
+        T, cfg, it, i, n, nullptr, r, thr, acc, depth, sp, stk, active, seg,
+        0, false, tf, ti, words);
+  for (; it < cfg.max_segments; ++it) {
+    for (int j = 0; j < TAPE_F; ++j)
+      tf[((size_t)it * TAPE_F + j) * n + i] = 0.0f;
+    for (int w = 0; w < words; ++w) ti[((size_t)it * words + w) * n + i] = 0;
+  }
+  out[i] = acc[0];
+  out[n + i] = acc[1];
+  out[2 * n + i] = acc[2];
 }
 
 // The two rounds of two-round retirement (file header), single-branch
@@ -1697,6 +1789,15 @@ whole_kernel(const float* __restrict__ rays, float* __restrict__ out, int n,
   out[i] = acc[0];
   out[n + i] = acc[1];
   out[2 * n + i] = acc[2];
+}
+
+// The differentiable route's forward: a thread a ray (tape_ray).
+__global__ void __launch_bounds__(W_BLOCK)
+tape_kernel(const float* __restrict__ rays, float* __restrict__ out,
+            float* __restrict__ tf, int* __restrict__ ti, int n, int words,
+            Tables T, Cfg cfg) {
+  const int i = blockIdx.x * W_BLOCK + threadIdx.x;
+  if (i < n) tape_ray(rays, out, tf, ti, n, words, T, cfg, i);
 }
 
 // ---- path tracing (PT mode) -------------------------------------------
@@ -2160,6 +2261,25 @@ extern "C" int whitted_launch(
   const WholeKernel kern = kernels[can_push != 0][cull ? 1 + own : 0];
   kern<<<(unsigned)((n + W_BLOCK - 1) / W_BLOCK), W_BLOCK, 0,
          (cudaStream_t)stream>>>(rays, out, n, T, cfg);
+  return (int)cudaGetLastError();
+}
+
+// The differentiable route's forward: tape_kernel on ceil(n / W_BLOCK)
+// blocks. out: (3, n) f32 SoA colours; tf: (max_segments, 12, n) f32 and
+// ti: (max_segments, words, n) i32, the tape (ops/diff.py), every element
+// written; words: 2 + ceil(light rows / 32). Unculled, whatever the
+// tables' culling words hold.
+extern "C" int whitted_tape_launch(
+    const float* rays, float* out, float* tf, int* ti, SCENE_PARAMS, int n,
+    int ns, int nc, int nl, int words, int depth, int max_segments,
+    int stack, float cutoff, void* stream) {
+  if (n <= 0 || max_segments <= 0) return 0;
+  if (stack < 1 || stack > MAX_STACK || ns < 0 || words < 2 + (nl + 31) / 32)
+    return (int)cudaErrorInvalidValue;
+  const Tables T = SCENE_TABLES(ns, nc, nl);
+  const Cfg cfg{depth, max_segments, stack, cutoff, 0, 0, 0};
+  tape_kernel<<<(unsigned)((n + W_BLOCK - 1) / W_BLOCK), W_BLOCK, 0,
+                (cudaStream_t)stream>>>(rays, out, tf, ti, n, words, T, cfg);
   return (int)cudaGetLastError();
 }
 

@@ -53,8 +53,9 @@ Hazards, and what is done about each:
 - a replay does not pass through the launch wrappers, so it adds to their
   counters (``ops.cuda_kernel.launches``, ``pt_launches``, ...,
   ``ops.row_gather.launches``, ``backward_launches``, ``ops.replay
-  .launches``, ``backward_launches``, ``ops.update.launches``) what its
-  capture recorded;
+  .launches``, ``backward_launches``, ``ops.diff.launches``,
+  ``backward_launches``, ``light_sum_launches``, ``ops.update.launches``)
+  what its capture recorded;
 - a frame returned to the caller is a copy of the pinned buffer, which
   the next frame overwrites.
 
@@ -73,6 +74,7 @@ import numpy as np
 import torch
 
 from quadray_tpu_torch.ops import cuda_kernel as ck
+from quadray_tpu_torch.ops import diff as dff
 from quadray_tpu_torch.ops import replay as rp
 from quadray_tpu_torch.ops import row_gather as rg
 from quadray_tpu_torch.ops import update as upd
@@ -93,6 +95,9 @@ COUNTERS.update(gather_launches=(rg, "launches"),
                 gather_backward_launches=(rg, "backward_launches"),
                 replay_launches=(rp, "launches"),
                 replay_backward_launches=(rp, "backward_launches"),
+                diff_launches=(dff, "launches"),
+                diff_backward_launches=(dff, "backward_launches"),
+                light_sum_launches=(dff, "light_sum_launches"),
                 update_launches=(upd, "launches"))
 CAMERA = ("cam_pos", "cam_hor", "cam_ver", "cam_nrm", "cam_pov")
 # render_pt_cuda's pass programs kept, the most recently used

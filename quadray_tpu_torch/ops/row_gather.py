@@ -52,12 +52,14 @@ backward_launches = 0
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 # the C entry points' arguments, in csrc/replay.cu order (the library's
-# all: the fused replay's two are launched by ops/replay.py)
+# all: the fused replay's two are launched by ops/replay.py, the light
+# sums by ops/diff.py too)
 ARGTYPES = {
     "row_gather_launch": [_VOIDP] * 12 + [_INT] * 3 + [_VOIDP],
     "row_gather_backward_launch": [_VOIDP] * 8 + [_INT] * 3 + [_VOIDP],
     "replay_forward_launch": [_VOIDP] * 15 + [_INT] * 6 + [_VOIDP],
     "replay_backward_launch": [_VOIDP] * 18 + [_INT] * 5 + [_VOIDP],
+    "replay_light_sums_launch": [_VOIDP] * 3 + [_INT] * 2 + [_VOIDP],
 }
 
 

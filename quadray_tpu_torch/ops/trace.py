@@ -185,7 +185,7 @@ def _root(num, den):
 def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
               origin_srf, origin_side, pass_thru,
               shadow: bool = False, origin_loc=None, reach=None,
-              per_surface: bool = False, gather=None):
+              per_surface: bool = False, gather=None, tape: bool = False):
     """Nearest valid hit over all surfaces (see quadray_tpu.ops.trace).
 
     org/dirs (N,3); t_min/t_max (N,); origin_srf (N,) i32 (-1 none);
@@ -199,7 +199,9 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
     the (N,) bool any-hit over surfaces that block light. ``gather``
     (the differentiable route's ``Gathered``): the hit surface's inverse
     transform comes from its gathered rows, returned as ``rows``, in
-    place of the lookup ``sc.s_inv[bs]``.
+    place of the lookup ``sc.s_inv[bs]``. ``tape``: the nearest hit's
+    apex-nudge flag ``hm`` (N,) bool is returned too (the fused
+    differentiable route's tape, ``ops.diff``).
     """
     NS = sc.s_pos.shape[0]
     dev = org.device
@@ -390,6 +392,8 @@ def intersect(sc: SceneArrays, org, dirs, t_min, t_max,
                x=x, p=p, n=n_w, hit=hit)
     if rows is not None:
         out["rows"] = rows
+    if tape:
+        out["hm"] = hm[lanes, bs, br]
     if per_surface:
         out["t_srf"] = t_cand.reshape(N, NS, 2).amin(dim=2)
     return out
@@ -776,11 +780,12 @@ class _Rows(NamedTuple):
     midx: torch.Tensor
 
 
-def texture_color(sc: SceneArrays, midx, p_local, rows=None):
+def texture_color(sc: SceneArrays, midx, p_local, rows=None, tape=None):
     """Texture fetch (MT_tex, tracer.cpp:2297-2321): integer mask/shift
     addressing over pow-2 dims; UV = local I,J; gamma decode x^2 when the
     GAMMA prop is on (PAINT_COLX, tracer.cpp:664-673). ``rows``: see
-    ``_mat``."""
+    ``_mat``; ``tape``, a dict or None, gets the texel read as "texel"
+    (N,) i32, -1 where the material has no texture."""
     props = _mat(sc, midx, rows, "props")
     base = sc.m_tex_base[midx]
     u = p_local[..., 0] - sc.m_tex_off[midx, 0]
@@ -793,6 +798,8 @@ def texture_color(sc: SceneArrays, midx, p_local, rows=None):
     iy = iy & sc.m_tex_ymask[midx]
     idx = torch.clamp(base, min=0) + (iy << sc.m_tex_xshift[midx]) + ix
     idx = torch.clamp(idx, 0, sc.tex_data.shape[0] - 1).long()
+    if tape is not None:
+        tape["texel"] = torch.where(base >= 0, idx.to(I32), -1)
     col = torch.where((base >= 0)[..., None], sc.tex_data[idx],
                       _mat(sc, midx, rows, "col"))
     gamma = ((props & PROP_GAMMA) != 0) & (sc.use_gamma > 0)
@@ -816,17 +823,21 @@ def count_work(stats, key: str, mask) -> None:
 
 
 def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
-          stats=None, cull=None, own=None, rows=None):
+          stats=None, cull=None, own=None, rows=None, tape=None):
     """Local color: ambient + per-light diffuse/specular with hard shadows
     (LT_reg..LT_end, tracer.cpp:2709-3180). Returns (col (N, 3), unlit
     (N,) i32): bit 16+l of ``unlit`` is set where active light l is not
     unoccluded-lit (the path record's light bits, pallas_kernel.py:1747),
     for the first 16 light rows. ``stats``: see ``count_work``; ``cull``,
     a ``Cull`` or None, masks each shadow pass (``own``: per ray, see
-    ``Cull.nearest``); ``rows``: see ``_mat``."""
+    ``Cull.nearest``); ``rows``: see ``_mat``; ``tape``, a dict or None,
+    gets the texel read (``texture_color``) and, as "vis", each light
+    row's (N,) bool "lit and unshadowed" in a list."""
     midx = material_index(sc, srf, side) if rows is None else rows.midx
     props = _mat(sc, midx, rows, "props")
-    tex = texture_color(sc, midx, p, rows)
+    tex = texture_color(sc, midx, p, rows, tape)
+    if tape is not None:
+        tape["vis"] = []
     col = tex * sc.amb_col[None, :]
     zero_t = torch.zeros_like(x[:, 0])
     unlit = torch.zeros_like(srf)
@@ -841,6 +852,8 @@ def shade(sc: SceneArrays, cfg: TraceConfig, x, p, n, ray_d, srf, side, hit,
                         srf, side, torch.zeros_like(lit), shadow=True,
                         origin_loc=p, reach=reach)
         hm = lit & ~occ
+        if tape is not None:
+            tape["vis"].append(hm)
         count_work(stats, "shadow_open", hm)
         count_work(stats, "shadow_blocked", lit & occ)
         if li < 16:
@@ -1211,14 +1224,16 @@ def trace_rays_resume(sc: SceneArrays, state, cols, cfg: TraceConfig,
 
 
 def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
-            stats=None, cull=None, own=None, gather=None):
+            stats=None, cull=None, own=None, gather=None, tape=None):
     """One bounce of the iterative Whitted loop (quadray_tpu.ops.trace
     _make_body): shade the nearest hit, continue with the reflection if
     it carries weight, else the refraction, pushing the refraction when
     both do (unless ``push_ok`` is False); lanes that cannot continue pop
     the branch stack. Returns the new state and the segment's path record
     (see trace_paths). ``own``: per-ray masks (``Cull.nearest``);
-    ``gather``: a ``Gathered`` (the differentiable route) or None."""
+    ``gather``: a ``Gathered`` (the differentiable route) or None;
+    ``tape``: a list or None, which gets a dict of what the bounce decided
+    appended (``ops.diff``'s tape)."""
     N = st["org"].shape[0]
     D = cfg.stack
     act = st["active"]
@@ -1229,11 +1244,13 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
                   origin_loc=st["oloc"],
                   reach=None if cull is None else cull.nearest(st, act,
                                                                stats, own),
-                  gather=gather)
+                  gather=gather, tape=tape is not None)
     hit = h["hit"] & act
     rows = h.get("rows")
+    taped = None if tape is None else {}
     local, unlit = shade(sc, cfg, h["x"], h["p"], h["n"], st["dir"],
-                         h["srf"], h["side"], hit, stats, cull, own, rows)
+                         h["srf"], h["side"], hit, stats, cull, own, rows,
+                         taped)
     midx = (material_index(sc, h["srf"], h["side"]) if rows is None
             else rows.midx)
     c_rfl, c_trn, refr_dir, _ = fresnel_terms(sc, midx, st["dir"], h["n"],
@@ -1285,6 +1302,12 @@ def _bounce(sc: SceneArrays, cfg: TraceConfig, st, push_ok: bool = True,
     rec = torch.where(act, rec, 0)
     can_pop = act & ~cont & (sp > 0)
     psp = torch.clamp(sp - 1, min=0).long()
+    if tape is not None:
+        tape.append(dict(act=act, hit=hit, srf=h["srf"], side=h["side"],
+                         own=hit & (h["srf"] == st["osrf"]), hm=h["hm"],
+                         kind=kind, push=push, pop=can_pop,
+                         slot=torch.where(push, st["sp"], psp.to(I32)),
+                         **taped))
     lanes = torch.arange(N, device=act.device)
 
     def grab(stk):

@@ -15,11 +15,15 @@ ignore (the params dict names the fields that train):
   * ``make_train_scan_fast``: S such steps in one call, the counterpart of
     the JAX ``lax.scan`` of S steps in one executable; the losses stay on
     the device.
-  * ``make_train_step``: the all-surface autodiff path through
-    ``ops.trace.trace_rays_diff`` (plain PyTorch, any device), the
-    counterpart of the JAX ``make_train_step``'s jitted ``step_fn``: the
-    only route for a scene where a material both reflects and transmits
-    (``struct.can_push``), which the fast steps refuse.
+  * ``make_train_step``: the all-surface route, ``trace_rays_diff``'s
+    colors and gradients through ``ops.diff.trace_rays_fused``: the
+    Whitted kernel's walk with a tape forward, one backward launch with a
+    hand-written adjoint (on the CPU their plain versions, which follow
+    the element type); the counterpart of the JAX ``make_train_step``'s
+    jitted ``step_fn``, and the only route for a scene where a material
+    both reflects and transmits (``struct.can_push``), which the fast
+    steps refuse. ``ops.trace.trace_rays_diff``, autograd over the plain
+    tracer's bounces, stays as its reference.
 
 Every step runs over a mesh (``parallel.mesh.RayMesh``); ``mesh=None``
 is one block on the scene's device, built at call time. The rays are
@@ -66,9 +70,10 @@ import torch
 
 from quadray_tpu_torch.ops import cuda_kernel as ck
 from quadray_tpu_torch.ops import trace
+from quadray_tpu_torch.ops.diff import trace_rays_fused
 from quadray_tpu_torch.ops.graphs import Inputs, capture
 from quadray_tpu_torch.ops.replay import replay_color_fused
-from quadray_tpu_torch.ops.trace import TraceConfig, clip, trace_rays_diff
+from quadray_tpu_torch.ops.trace import TraceConfig, clip
 from quadray_tpu_torch.parallel.mesh import RayMesh
 from quadray_tpu_torch.parallel.render import (check_replicas, replica,
                                                sharded_rays)
@@ -86,8 +91,8 @@ BETAS = (0.9, 0.999)
 EPS = 1e-8
 # the step programs a trace-replay run keeps, the most recently used (each
 # holds its graph's memory pool: the saved activations of a step, 0.5 GB
-# at 800x480); an all-surface run keeps one, whose pool holds every
-# bounce's activations of a block (10 GB at 800x480 on test17)
+# at 800x480); an all-surface run keeps one, whose pool holds a block's
+# tape and row gradients
 STEP_PROGRAMS = 2
 # a step's rays, target and weights (_sharded_primary), as a program
 # stages them
@@ -115,9 +120,11 @@ def adam_init(params: Params) -> AdamState:
 def loss_fn(params: Params, sc: SceneArrays, org, dirs, t_min, target, w,
             cfg: TraceConfig):
     """Weighted mean squared pixel error (w masks rays out) through the
-    all-surface differentiable tracer."""
-    cols = trace_rays_diff(dataclasses.replace(sc, **params), org, dirs,
-                           t_min, cfg)
+    all-surface differentiable route (``ops.diff.trace_rays_fused``: one
+    forward launch and a hand-written adjoint's backward launch on the
+    card)."""
+    cols = trace_rays_fused(dataclasses.replace(sc, **params), org, dirs,
+                            t_min, cfg)
     return _weighted_mse(cols, target, w)
 
 
@@ -275,9 +282,10 @@ class StepProgram:
     rays, target and weights (``ops.graphs.Inputs``, staged by identity);
     each block's loss (trace-replay: the re-pack, the paths launch, its
     work queue zeroed by a ``cudaMemsetAsync`` in the launch, and the
-    fused replay's forward; all-surface: the plain tracer's bounces) and
-    ``autograd.grad`` (the fused backward and its row sums; autograd's
-    backward of the bounces), the mean over the blocks and Adam. ``run``
+    fused replay's forward; all-surface: the re-pack and the tape launch)
+    and ``autograd.grad`` (the fused backward and its row sums; the
+    all-surface backward launch, its row sums and light sums), the mean
+    over the blocks and Adam. ``run``
     stages a call's inputs, then runs the body (the first time, on a side
     stream, and captures it: ``capture``, the allocator's cache emptied
     between the two, so that the graph's pool can take what the first
@@ -439,9 +447,11 @@ class _FastLoss:
 class _DiffLoss:
     """The all-surface loss (``loss_fn``) of one config, and what a
     captured step freezes of it (``key``): the config, the plain tracer's
-    element type and every scene field's shape and dtype (the bounce's
-    loops run over the surfaces, lights and clip slots). One program is
-    kept (``keep``): its pool is a block's saved activations."""
+    element type, every scene field's shape and dtype and, on the card,
+    the scene's structure (the pack and the tape launch read its
+    permutation and counts; ``cuda_kernel._get_struct``, by the integer
+    tables' identity). One program is kept (``keep``): its pool is a
+    block's tape, 0.5 kB a ray at cfg (8, 4) with two lights."""
     keep = 1
 
     def __init__(self, cfg: TraceConfig):
@@ -451,9 +461,12 @@ class _DiffLoss:
         return loss_fn(p, s, org, dirs, t_min, target, w, self.cfg)
 
     def key(self, sc: SceneArrays) -> tuple:
+        # the KernelStruct the route finds on the card (none on the CPU)
+        struct = None if sc.device.type == "cpu" else ck._get_struct(sc)
         return (self.cfg, trace.ELEMENT, tuple(
             (tuple(t.shape), t.dtype) for t in (getattr(sc, k)
-                                                 for k in FIELDS)))
+                                                 for k in FIELDS)),
+                None if struct is None else id(struct))
 
 
 def _paths_struct(sc0: SceneArrays):
@@ -502,17 +515,18 @@ def make_train_step(width: int, height: int,
                     cfg: TraceConfig = TraceConfig(max_segments=8, stack=4),
                     fsaa: int = 1, lr: float = 1e-2, mesh: RayMesh = None,
                     eager: bool = False):
-    """Train step through the all-surface differentiable tracer
-    (``trace_rays_diff``), any scene, two-branch ones included. Returns
+    """Train step through the all-surface differentiable route (the
+    colors and gradients of ``trace_rays_diff``, by ``ops.diff.
+    trace_rays_fused``), any scene, two-branch ones included. Returns
     (step_fn, opt_init); step_fn(params, opt_state, sc, target_flat) ->
     (params, opt_state, loss). The mesh's layout picks the route, as for
-    the fast steps; on the graph route a step is one replay of a CUDA
-    graph of every bounce's ops and their backward, whose pool holds a
-    block's saved activations (on an H100 about 27 kB a ray at cfg (8, 4)
-    on test17 and test18, 8 surfaces): more blocks of one device take
-    less memory, and change the loss to the mean of the blocks' means, as
-    JAX's pmean does. ``eager`` asks for the eager route. ``step_fn.run``
-    is its run_fn."""
+    the fast steps; a block's loss is one pack launch and one tape launch
+    (the forward) and its gradient one backward launch, its row sums and
+    its light sums, on both routes; on the graph route a step is one
+    replay of a CUDA graph of them, the mean over the blocks and Adam,
+    whose pool holds a block's tape. More blocks of one device change the
+    loss to the mean of the blocks' means, as JAX's pmean does. ``eager``
+    asks for the eager route. ``step_fn.run`` is its run_fn."""
     return _one_step(_Run(_DiffLoss(cfg), width, height, fsaa, lr, mesh,
                           eager)), adam_init
 

@@ -25,9 +25,10 @@ worker's JSON line, then the means of each side.
 --all-surface has each worker measure the all-surface make_train_step
 instead, on test17 (the same configuration) at 800x480 on one block of
 the graph route: ms/step (CUDA events around --steps one-step calls
-after 2, the first the program's warm-up and capture), then one step
-under torch.profiler: its kernel launches, their device time and the
-part of it in PyTorch's indexing_backward kernels (the backward of
+after 2, the first the program's warm-up and capture) and the peak
+memory allocated over them (the scene and target included), then one
+step under torch.profiler: its kernel launches, their device time and
+the part of it in PyTorch's indexing_backward kernels (the backward of
 table lookups by index_put_ with accumulate).
 
 --routes measures this checkout alone, in one process: the same task on
@@ -133,8 +134,11 @@ def worker(root: str, steps: int, all_surface: bool):
         sc, target, cfg = task(dev, "test17")
         step_fn, opt_init = tr.make_train_step(W, H, cfg=cfg, lr=LR)
         p = tr.extract_params(sc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         out = {"root": root, "ms_per_step_1": step_ms(
             step_fn.run, p, opt_init(p), sc, target, steps)}
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         out.update(profiled(step_fn.run, p, opt_init(p), sc, target))
         print("RESULT " + json.dumps(out), flush=True)
         return

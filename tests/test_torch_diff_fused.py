@@ -1,0 +1,626 @@
+"""The all-surface route in one forward and one backward launch
+(``ops/diff.py``: ``csrc/whitted.cu`` ``tape_kernel`` and ``csrc/diff.cu``
+``diff_backward_launch``), the training step of ``make_train_step``.
+
+On the CPU, at 24x16 with ``TraceConfig(max_segments=8, stack=4)``, on
+test15 (two-plane surfaces, two apex-singular cylinders, a texture, metal,
+two lights; plus rays aimed at the cylinders' apexes), test17 and test18:
+the plain forward's colors bitwise ``trace_rays``'s; the hand-written
+adjoint's gradient of every differentiable field against autograd's over
+``trace_rays_diff``; each branch of the adjoint taken at least once; the
+JAX ``trace_rays_diff`` under ``jax.value_and_grad`` on test15; the
+kernels' per-ray code (``tape_ray``, ``back_bounce`` and what they call)
+built with g++ behind a shim, bitwise the plain versions; the step's
+launches. The ``cuda`` cases run on the card with
+    python -m pytest tests/test_torch_diff_fused.py --noconftest -q -m cuda
+(JAX is imported only inside the test that uses it).
+"""
+
+import ctypes
+import dataclasses
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from quadray_tpu_torch.models.scenes.loader import load_scene
+from quadray_tpu_torch.ops import cuda_kernel as ck
+from quadray_tpu_torch.ops import diff
+from quadray_tpu_torch.ops import replay as rp
+from quadray_tpu_torch.ops import trace
+from quadray_tpu_torch.ops.rays import camera_rays
+from quadray_tpu_torch.ops.trace import TraceConfig
+from quadray_tpu_torch.parallel import train as ttrain
+from quadray_tpu_torch.parallel.mesh import ray_mesh
+from quadray_tpu_torch.scene import schema as S
+from quadray_tpu_torch.scene.compile import FIELDS, compile_scene
+
+torch.set_num_threads(1)
+
+W, H = 24, 16
+CFG = TraceConfig(max_segments=8, stack=4)
+SCENES = ("test15", "test17", "test18")
+CPU = torch.device("cpu")
+BITS = lambda t: t.contiguous().view(torch.int32)
+# the adjoint against autograd over trace_rays_diff, of each field's
+# largest gradient: in float64 both are exact to rounding (measured
+# 1e-13 apart); in float32 each route's own rounding differs: 1.7e-6 on
+# test15, 1.5e-6 on test17 and, on test18, 3.8e-5 on s_sci, all of it one
+# ray's (a reflection, then five off the inside of the glass sphere, each
+# from the local origin of the one before), which each route puts 1e-3
+# of its own term off the float64 gradient, on either side. The row sums
+# are not the cause: the adjoint's are within 7e-8 of the exact sum of
+# its terms. GRAD_RTOL is not met there in float32.
+GRAD_RTOL = 1e-5
+GRAD_RTOL_F32 = 5e-5
+# tests/test_torch_diff_step.py's bounds against the JAX step: the loss,
+# and the gradient as optax's first moment (0.1 x) is held there
+LOSS_RTOL, MU_RTOL, MU_ATOL = 1e-4, 1e-4, 1e-8
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "quadray_tpu_torch", "csrc")
+
+
+def _compiled(name, device=CPU):
+    sd = load_scene(name)
+    return compile_scene(S.SceneDef(root=sd.root, opts=S.OPTS_FULL & ~sd.opts),
+                         device=device)
+
+
+def _rays(sc, w=W, h=H, apex=False):
+    """The camera rays (org (N, 3), dirs, t_min); with ``apex``, 16 more
+    rays a singular surface aimed at its apex (its s_pos) from the camera,
+    the first exactly and the others off by 1e-2 to 1e-6, t_min 0."""
+    org, dirs = camera_rays(sc.cam_pos, sc.cam_hor, sc.cam_ver, sc.cam_nrm,
+                            sc.cam_pov, w, h, 1)
+    n = dirs.shape[0]
+    org = org[None, :].expand(n, 3)
+    t_min = sc.cam_pov.expand(n)
+    if apex:
+        rs = np.random.RandomState(5)
+        extra = []
+        for s in torch.nonzero(sc.s_sing > 0)[:, 0].tolist():
+            for j in range(16):
+                off = rs.uniform(-1.0, 1.0, 3) * (
+                    0.0 if j == 0 else 10.0 ** -rs.randint(2, 7))
+                extra.append(sc.s_pos[s] + torch.from_numpy(
+                    off.astype(np.float32)) - sc.cam_pos)
+        d2 = torch.stack(extra)
+        org = torch.cat([org, sc.cam_pos.expand(d2.shape[0], 3)])
+        dirs = torch.cat([dirs, d2])
+        t_min = torch.cat([t_min, torch.zeros(d2.shape[0])])
+    return org.contiguous(), dirs.contiguous(), t_min.contiguous()
+
+
+_CASES = {}
+
+
+def _case(name):
+    """(scene, rays, forward_plain's colors, tf, ti), float32. On test15
+    its first light moves beside the camera, which lights the apexes the
+    extra rays hit, so that their colors depend on the nudged point."""
+    if name not in _CASES:
+        sc = _compiled(name)
+        if name == "test15":
+            lp = sc.l_pos.clone()
+            lp[0] = sc.cam_pos + torch.tensor([0.5, 0.0, 1.0])
+            sc = dataclasses.replace(sc, l_pos=lp)
+        rays = _rays(sc, apex=name == "test15")
+        _CASES[name] = (sc, rays) + diff.forward_plain(sc, *rays, CFG)
+    return _CASES[name]
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_forward_bitwise_trace_rays(name):
+    """The plain forward's colors are trace_rays's bit for bit; its tape
+    holds zeros after each ray retired."""
+    sc, rays, cols, tf, ti = _case(name)
+    assert torch.equal(BITS(cols), BITS(trace.trace_rays(sc, *rays, CFG)))
+    dead = (ti[:, 0] & diff.ACTIVE) == 0
+    assert bool(dead.any())
+    assert bool((ti.permute(1, 0, 2)[:, dead] == 0).all())
+    assert bool((tf.permute(1, 0, 2)[:, dead] == 0).all())
+
+
+def _grads(fn, sc, rays, el):
+    leaves = {k: getattr(sc, k).clone().requires_grad_(True)
+              for k in ttrain.DIFFERENTIABLE_FIELDS}
+    s2 = dataclasses.replace(sc, **leaves)
+    g = torch.from_numpy(np.random.RandomState(3).standard_normal(
+        (rays[1].shape[0], 3))).to(el)
+    cols = fn(s2, *rays, CFG)
+    (cols * g).sum().backward()
+    return cols.detach(), {k: v.grad for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("el", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", SCENES)
+def test_gradients_match_autograd(name, el):
+    """sum(g * colors)'s gradient of every differentiable field, the
+    plain adjoint against autograd over trace_rays_diff, within GRAD_RTOL
+    (float64) or GRAD_RTOL_F32 of that field's largest; the colors bit
+    for bit; no NaN. In float32 the camera rays only: test15's rays
+    jittered off the apexes graze the two planes, their gradients reach
+    1e6 (s_scjh) and each route's f32 rounding differs by percents
+    there; in float64 every ray, the nudged ones lit."""
+    sc, rays = _case(name)[:2]
+    if el == torch.float32:
+        rays = tuple(r[:W * H] for r in rays)
+    trace.set_element(el)
+    try:
+        sc = trace.scene_astype(sc, el)
+        rays = tuple(r.to(el) for r in rays)
+        want_c, want = _grads(trace.trace_rays_diff, sc, rays, el)
+        got_c, got = _grads(diff.trace_rays_fused, sc, rays, el)
+    finally:
+        trace.set_element(torch.float32)
+    assert torch.equal(got_c, want_c)
+    rtol = GRAD_RTOL if el == torch.float64 else GRAD_RTOL_F32
+    for k in ttrain.DIFFERENTIABLE_FIELDS:
+        assert not bool(torch.isnan(got[k]).any()), k
+        err = (got[k] - want[k]).abs().max()
+        assert err <= rtol * want[k].abs().max(), (k, float(err))
+
+
+def _stack_tops(ti):
+    """Each bounce's stack height after it, from the tape's push/pop."""
+    fl = ti[:, 0]
+    step = ((fl & diff.PUSH) != 0).to(torch.int32) - (
+        (fl & diff.POP) != 0).to(torch.int32)
+    return torch.cumsum(step, dim=0)
+
+
+def test_every_branch_is_taken():
+    """On these inputs the tapes hold, at least once each: the apex
+    nudge, a two-plane (kind 3) hit, total internal reflection, a push,
+    a pop, a full stack (cfg.stack branches pending), a hit on the origin
+    surface (its local origin reused) and a textured hit."""
+    seen = dict(nudge=0, kind3=0, tir=0, push=0, pop=0, full=0, own=0,
+                texture=0)
+    for name in SCENES:
+        sc, _, _, tf, ti = _case(name)
+        fl = ti[:, 0]
+        hit = (fl & diff.HIT) != 0
+        seen["nudge"] += int(((fl & diff.NUDGE) != 0).sum())
+        seen["push"] += int(((fl & diff.PUSH) != 0).sum())
+        seen["pop"] += int(((fl & diff.POP) != 0).sum())
+        seen["own"] += int(((fl & diff.OWN) != 0).sum())
+        seen["texture"] += int((hit & (ti[:, 1] >= 0)).sum())
+        seen["kind3"] += int((hit & (sc.s_kind[(fl & diff.SRF_BITS).long()]
+                                     == 3)).sum())
+        seen["full"] += int((_stack_tops(ti) == CFG.stack).sum())
+        T = diff.tables(sc)
+        for k in range(CFG.max_segments):
+            v = diff._recompute(T, tf[k], ti[k])
+            seen["tir"] += int((v.tir & hit[k]).sum())
+    assert all(n > 0 for n in seen.values()), seen
+
+
+def test_matches_jax_value_and_grad():
+    """One jax.value_and_grad of the JAX trace_rays_diff on test15 (the
+    step's weighted squared error against the clean render, the surfaces
+    moved by +0.05) against the port's route on the same arrays: the loss
+    and every field's gradient within tests/test_torch_diff_step.py's
+    bounds."""
+    import jax
+    import jax.numpy as jnp
+    from quadray_tpu.models.scenes.loader import load_scene as jload
+    from quadray_tpu.ops.rays import camera_rays as jrays
+    from quadray_tpu.ops.trace import TraceConfig as JConfig
+    from quadray_tpu.ops.trace import trace_rays_diff as jdiff
+    from quadray_tpu.scene import schema as JS
+    from quadray_tpu.scene.compile import compile_scene as jcompile
+    from quadray_tpu_torch.scene.compile import scene_arrays_from_numpy
+    sd = jload("test15")
+    j = jcompile(JS.SceneDef(root=sd.root, opts=JS.OPTS_FULL & ~sd.opts))
+    sc = scene_arrays_from_numpy({k: np.asarray(getattr(j, k))
+                                  for k in FIELDS}, device="cpu")
+    target = trace.clip(trace.render(sc, W, H, 1, CFG), 0.0, 1.0).reshape(
+        -1, 3)
+    j = j.replace(s_pos=j.s_pos + 0.05)
+    sc = dataclasses.replace(sc, s_pos=sc.s_pos + 0.05)
+    org1, jdirs = jrays(j.cam_pos, j.cam_hor, j.cam_ver, j.cam_nrm,
+                        j.cam_pov, W, H, 1)
+    n = jdirs.shape[0]
+    jorg = jnp.broadcast_to(org1[None, :], (n, 3))
+    jtmin = jnp.full((n,), j.cam_pov, jnp.float32)
+    tgt = jnp.asarray(target.numpy())
+    fields = ttrain.DIFFERENTIABLE_FIELDS
+
+    def jloss(params):
+        cols = jdiff(j.replace(**params), jorg, jdirs, jtmin,
+                     JConfig(max_segments=8, stack=4))
+        return jnp.sum((jnp.clip(cols, 0.0, 1.0) - tgt) ** 2) / (n * 3.0)
+
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(
+        {k: getattr(j, k) for k in fields})
+    leaves = {k: getattr(sc, k).clone().requires_grad_(True)
+              for k in fields}
+    cols = diff.trace_rays_fused(dataclasses.replace(sc, **leaves),
+                                 *_rays(sc), CFG)
+    loss = ttrain._weighted_mse(cols, target, torch.ones(n))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl),
+                               rtol=LOSS_RTOL)
+    for k in fields:
+        np.testing.assert_allclose(0.1 * leaves[k].grad.numpy(),
+                                   0.1 * np.asarray(jg[k]), rtol=MU_RTOL,
+                                   atol=MU_ATOL, err_msg=k)
+
+
+# ---- the kernels' per-ray code on the CPU ------------------------------------
+
+SHIM = r"""
+#include <math.h>
+#include <stddef.h>
+#include <stdlib.h>
+#include <string.h>
+#define __device__
+#define __forceinline__ inline
+#define __noinline__
+#define __restrict__
+#define __global__
+template <class T> static inline T __ldg(const T* p) { return *p; }
+static inline void __trap() { abort(); }
+// the plain versions' correctly rounded sqrt and rsqrt (ops/trace.py)
+static inline float __fsqrt_rn(float x) { return sqrtf(x); }
+static inline float __frsqrt_rn(float x) {
+  return (float)(1.0 / sqrt((double)x));
+}
+static inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
+static inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+static inline int __float2int_rz(float x) { return (int)x; }
+// exp and log are PyTorch's, as the card's expf/logf are PyTorch's there
+typedef float (*f2f)(float);
+static f2f exp_cb, log_cb;
+extern "C" void set_math(f2f e, f2f l) { exp_cb = e; log_cb = l; }
+static inline float shim_expf(float x) { return exp_cb(x); }
+static inline float shim_logf(float x) { return log_cb(x); }
+#define expf shim_expf
+#define logf shim_logf
+// the warp's collectives, which the culled walks use and the code built
+// here never reaches
+template <class T> static inline T __shfl_sync(unsigned, T v, int, int = 32) { return v; }
+template <class T> static inline T __shfl_xor_sync(unsigned, T v, int, int = 32) { return v; }
+template <class T> static inline T __shfl_up_sync(unsigned, T v, int, int = 32) { return v; }
+static inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+static inline bool __any_sync(unsigned, int p) { return p; }
+static inline unsigned __reduce_or_sync(unsigned, unsigned v) { return v; }
+static inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
+static inline int __popc(unsigned v) { return __builtin_popcount(v); }
+static inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
+static inline void __syncwarp(unsigned = 0xffffffffu) {}
+template <class T> static inline T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
+template <class T> static inline T atomicMax(T* p, T v) { T o = *p; if (v > o) *p = v; return o; }
+struct Dim3 { unsigned x, y, z; };
+static Dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
+"""
+# tape_kernel's grid, one thread after another
+FWD_HOST_LOOP = r"""
+extern "C" void tape_host(const float* rays, float* out, float* tf, int* ti,
+    const float* sp_f, const int* sp_i, const float* cl_f, const float* mat_f,
+    const int* mat_i, const float* lg_f, const float* misc, const int* tex_pk,
+    const float* tex_lut, const float* bsph, const int* shad, const int* cont,
+    int rows, int n, int ns, int nc, int nl, int words, int depth,
+    int max_segments, int stack, float cutoff) {
+  const Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
+                 bsph, shad, cont, ns, nc, nl, (rows + 31) / 32,
+                 (rows + 127) / 128 * 128};
+  const Cfg cfg{depth, max_segments, stack, cutoff, 0, 0, 0};
+  for (int i = 0; i < n; ++i) tape_ray(rays, out, tf, ti, n, words, T, cfg, i);
+}
+"""
+# diff_bwd_kernel's loop, one ray alone (its warp: itself); each bounce's
+# lights' and ambient's gradients kept, (k, n, 10 nl + 3)
+BWD_HOST_LOOP = r"""
+struct RayAdd {
+  float* acc;
+  void operator()(int at, const float* x, int count) {
+    for (int j = 0; j < count; ++j) acc[at + j] = x[j];
+  }
+};
+extern "C" void bwd_host(const float* stab, const float* mtab,
+    const float* ltab, const float* amb, const float* s_fwd, const float* tex,
+    const int* s_kind, const int* s_sing, const int* s_mat, const int* m_props,
+    int ug, int uf, const float* tf, const int* ti, const float* g_cols,
+    float* g_s, float* g_m, int* ids, float* lray, int n, int k, int words,
+    int ns, int nm, int nl, int nt) {
+  const Tabs t{stab, mtab, ltab, amb, s_kind, s_sing, s_mat, m_props, s_fwd,
+               tex, ns, nm, nl, nt};
+  for (int i = 0; i < n; ++i) {
+    Back bk;
+    back_init(bk);
+    for (int kk = k - 1; kk >= 0; --kk) {
+      const bool hit = (ti[(size_t)kk * words * n + i] & (1 << 16)) != 0;
+      RayAdd add{lray + ((size_t)kk * n + i) * (10 * nl + 3)};
+      back_bounce(bk, t, ug, uf, tf, ti, words, g_cols[3 * i],
+                  g_cols[3 * i + 1], g_cols[3 * i + 2], g_s, g_m, ids, i,
+                  true, hit, n, kk, k, add);
+    }
+  }
+}
+"""
+F2F = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
+_EXP = F2F(lambda x: torch.exp(torch.tensor([x], dtype=torch.float32)).item())
+_LOG = F2F(lambda x: torch.log(torch.tensor([x], dtype=torch.float32)).item())
+
+
+@pytest.fixture(scope="module")
+def rehearsal(tmp_path_factory):
+    """csrc/whitted.cu's device code up to its first __global__ (with
+    common.cuh; tape_ray and segment<> in TAPE mode) and csrc/diff.cu's
+    up to its first warp collective (back_bounce and what it calls), each
+    built with g++ behind a shim, -ffp-contract=off as nvcc's
+    --fmad=false."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the kernels' per-ray code on the CPU"
+    common = open(os.path.join(CSRC, "common.cuh")).read().replace(
+        "#pragma once", "").replace("#include <cuda_runtime.h>", "")
+    w = open(os.path.join(CSRC, "whitted.cu")).read()
+    w = w[w.index("namespace {"):w.index(
+        "// The two rounds of two-round retirement")]
+    d = open(os.path.join(CSRC, "diff.cu")).read()
+    d = d[d.index("namespace {"):d.index(
+        "// a warp's sum of x over its lanes")]
+    out = tmp_path_factory.mktemp("diff")
+    libs = []
+    for name, body in (("w", common + w + "}\n" + FWD_HOST_LOOP),
+                       ("d", d + "}\n" + BWD_HOST_LOOP)):
+        (out / f"{name}.cpp").write_text(SHIM + body)
+        subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-w",
+                        "-shared", "-fPIC", "-o", str(out / f"{name}.so"),
+                        str(out / f"{name}.cpp")], check=True)
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        lib.set_math(_EXP, _LOG)
+        libs.append(lib)
+    return libs
+
+
+def _p(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_kernel_code_bitwise_plain(rehearsal, name):
+    """tape_ray on every ray against forward_plain (colors, tf and ti),
+    on the scene packed unculled as the step packs it; back_bounce's
+    bounces in reverse against backward_rows_plain (g_s, g_m, ids), and
+    its lights' and ambient's gradients, each bounce's tile sums added
+    in the kernel's order, against its tiles: all bit for bit."""
+    wl, dl = rehearsal
+    sc, (org, dirs, t_min), cols, tf, ti = _case(name)
+    n, words = dirs.shape[0], ti.shape[1]
+    struct = ck.scene_struct(sc)
+    ps = ck.pack_scene(sc, struct, cull=False)   # alive while tabs point in
+    tabs = ck._scene_tables(sc, struct, ps, CPU)
+    rays = torch.cat([org.T, dirs.T, t_min[None]]).contiguous()
+    out, tf2, ti2 = torch.empty((3, n)), torch.empty_like(tf), \
+        torch.empty_like(ti)
+    wl.tape_host(_p(rays), _p(out), _p(tf2), _p(ti2),
+                 *(ctypes.c_void_p(p) for p in tabs[:12]), tabs[12], n,
+                 struct.n_real, struct.nc, struct.nl, words, CFG.depth,
+                 CFG.max_segments, CFG.stack, ctypes.c_float(CFG.cutoff))
+    assert torch.equal(BITS(out.T), BITS(cols))
+    assert torch.equal(BITS(tf2), BITS(tf))
+    assert torch.equal(ti2, ti)
+
+    T = diff.tables(sc)
+    g = torch.from_numpy(np.random.RandomState(1).standard_normal(
+        (n, 3)).astype(np.float32))
+    g_s, g_m, ids, tiles = diff.backward_rows_plain(g, T, tf, ti, CFG.stack)
+    k, nl = CFG.max_segments, T.ltab.shape[0]
+    gs2, gm2, ids2 = (torch.empty_like(x) for x in (g_s, g_m, ids))
+    lray = torch.zeros((k, n, diff.LIGHT_ROWS * nl + 3))
+    dl.bwd_host(*map(_p, (T.stab, T.mtab, T.ltab, T.amb, T.s_fwd.contiguous(),
+                          T.tex, T.s_kind, T.s_sing, T.s_mat, T.m_props)),
+                int(T.use_gamma > 0), int(T.use_fresnel > 0), _p(tf), _p(ti),
+                _p(g), _p(gs2), _p(gm2), _p(ids2), _p(lray), n, k, words,
+                T.stab.shape[1], T.mtab.shape[1], nl, T.tex.shape[0])
+    assert torch.equal(BITS(gs2), BITS(g_s))
+    assert torch.equal(BITS(gm2), BITS(g_m))
+    assert torch.equal(ids2, ids)
+    tiles2 = torch.zeros_like(tiles)
+    for kk in reversed(range(k)):
+        tiles2 = tiles2 + rp._tile_sums(lray[kk].T)
+    assert torch.equal(BITS(tiles2), BITS(tiles))
+
+
+def test_argtypes_match_the_c_entry_points():
+    """diff.ARGTYPES lists csrc/diff.cu's extern "C" functions, pointers
+    as c_void_p and ints as c_int, in its order (whitted_tape_launch is
+    held to cuda_kernel.ARGTYPES with the rest of csrc/whitted.cu by
+    tests/test_torch_paths_kernel.py)."""
+    src = open(os.path.join(CSRC, "diff.cu")).read()
+    found = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    assert {name for name, _ in found} == set(diff.ARGTYPES)
+    for name, params in found:
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                for p in params.split(",")]
+        assert diff.ARGTYPES[name] == want, name
+    assert "whitted_tape_launch" in ck.ARGTYPES
+
+
+def test_route_refusals():
+    """The route raises, before any work: rays or s_fwd that require grad
+    (not differentiated), a device other than the CPU and a card, and the
+    float64 element type off the CPU. (Schlick Fresnel and stacks past 16
+    are refused on the card only: test_card_refuses_what_the_kernels_lack.)"""
+    sc, rays = _case("test17")[:2]
+    org, dirs, t_min = rays
+    with pytest.raises(ValueError, match="require grad"):
+        diff.trace_rays_fused(sc, org.clone().requires_grad_(True), dirs,
+                              t_min, CFG)
+    with pytest.raises(ValueError, match="require grad"):
+        diff.trace_rays_fused(dataclasses.replace(
+            sc, s_fwd=sc.s_fwd.clone().requires_grad_(True)), *rays, CFG)
+    meta = tuple(r.to("meta") for r in rays)
+    with pytest.raises(ValueError, match="unsupported device"):
+        diff.trace_rays_fused(sc, *meta, CFG)
+    trace.set_element(torch.float64)
+    try:
+        with pytest.raises(ValueError, match="float64"):
+            diff.trace_rays_fused(sc, *(r.to("meta") for r in rays), CFG)
+    finally:
+        trace.set_element(torch.float32)
+
+
+@pytest.mark.parametrize("name", ("test17", "test18"))
+@pytest.mark.parametrize("what", ("schlick", "deep_stack"))
+def test_plain_route_takes_what_the_kernels_lack(name, what):
+    """On the CPU the plain versions take Schlick Fresnel and a stack past
+    the kernels' 16 slots: in float64 the colors bitwise trace_rays_diff's
+    and every field's gradient within GRAD_RTOL of autograd's (Schlick's
+    colors differ from the exact Fresnel's, so its branch is taken)."""
+    sc, rays = _case(name)[:2]
+    cfg = (CFG._replace(schlick=True) if what == "schlick"
+           else CFG._replace(stack=20))
+    trace.set_element(torch.float64)
+    try:
+        sc = trace.scene_astype(sc, torch.float64)
+        rays = tuple(r.to(torch.float64) for r in rays)
+        fused = lambda *a: diff.trace_rays_fused(*a[:-1], cfg)
+        plain = lambda *a: trace.trace_rays_diff(*a[:-1], cfg)
+        want_c, want = _grads(plain, sc, rays, torch.float64)
+        got_c, got = _grads(fused, sc, rays, torch.float64)
+        if what == "schlick":
+            assert not torch.equal(got_c, trace.trace_rays(sc, *rays, CFG))
+    finally:
+        trace.set_element(torch.float32)
+    assert torch.equal(got_c, want_c)
+    for k in ttrain.DIFFERENTIABLE_FIELDS:
+        err = (got[k] - want[k]).abs().max()
+        assert err <= GRAD_RTOL * want[k].abs().max(), (k, float(err))
+
+
+def test_stack_slots_count_the_tape():
+    """stack_slots, the plain backward's slots, is the tape's 4-bit slot
+    field wherever a bounce pushes or pops, on the three scenes; on a
+    tape of 20 pushes then 20 pops, slots 0..19 then 19..0 (past the
+    field's 16)."""
+    seen = 0
+    for name in SCENES:
+        ti = _case(name)[4]
+        fl = ti[:, 0]
+        moved = (fl & (diff.PUSH | diff.POP)) != 0
+        seen += int(moved.sum())
+        field = (fl >> diff.SLOT_SHIFT) & diff.SLOT_MASK
+        assert torch.equal(diff.stack_slots(ti)[moved], field[moved].long())
+    assert seen > 0
+    flags = torch.tensor([diff.PUSH] * 20 + [diff.POP] * 20, dtype=torch.int32)
+    ti = flags[:, None, None].expand(40, 3, 1).contiguous()
+    assert diff.stack_slots(ti)[:, 0].tolist() == list(range(20)) + list(
+        range(19, -1, -1))
+
+
+def test_step_runs_the_fused_route(monkeypatch):
+    """make_train_step on 1 and 2 CPU blocks: each block's loss runs the
+    plain forward once and its gradient the plain backward once (the
+    kernels' places on the card); trace_rays_diff's row gathers
+    (Gathered) never run."""
+    calls = {"forward": 0, "backward": 0}
+    real_f, real_b = diff.forward_plain, diff.backward_plain
+
+    def fwd(*a):
+        calls["forward"] += 1
+        return real_f(*a)
+
+    def bwd(*a):
+        calls["backward"] += 1
+        return real_b(*a)
+
+    def refuse(*a, **kw):
+        raise AssertionError("trace_rays_diff's gathers ran in the step")
+
+    monkeypatch.setattr(diff, "forward_plain", fwd)
+    monkeypatch.setattr(diff, "backward_plain", bwd)
+    monkeypatch.setattr(trace.Gathered, "__init__", refuse)
+    sc = _compiled("test17")
+    target = torch.zeros((W * H, 3))
+    for blocks in (1, 2):
+        calls.update(forward=0, backward=0)
+        step_fn, opt_init = ttrain.make_train_step(
+            W, H, cfg=CFG, mesh=ray_mesh([CPU] * blocks))
+        params = ttrain.extract_params(sc)
+        step_fn.run(params, opt_init(params), sc, target, 2)
+        assert calls == {"forward": 2 * blocks, "backward": 2 * blocks}
+
+
+# ---- on the card --------------------------------------------------------------
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCENES)
+def test_kernels_bitwise_plain_on_card(name):
+    """800x480 on the card: the tape launch's colors bitwise the Whitted
+    kernel's and forward_plain's, its tape bitwise forward_plain's; the
+    backward launch's row gradients and ids bitwise backward_rows_plain's
+    and the light sums bitwise replay._block_sums of its tiles; two
+    launches bitwise each other."""
+    dev = _card()
+    sc = _compiled(name, dev)
+    rays = _rays(sc, 800, 480)
+    struct = ck.scene_struct(sc)
+    cols, tf, ti = diff.forward_plain(sc, *rays, CFG)
+    want = ck.trace_rays_cuda(sc, *rays, CFG._replace(cull=False))
+    T = diff.tables(sc)
+    g = torch.from_numpy(np.random.RandomState(2).standard_normal(
+        (rays[1].shape[0], 3)).astype(np.float32)).to(dev)
+    g_s, g_m, ids, tiles = diff.backward_rows_plain(g, T, tf, ti, CFG.stack)
+    for _ in range(2):
+        c2, tf2, ti2 = diff.forward_kernel(sc, struct, *rays, CFG)
+        gs2, gm2, ids2, lpart = diff.backward_rows_kernel(g, T, tf, ti,
+                                                          CFG.stack)
+        la = diff.light_sums_kernel(lpart)
+        torch.cuda.synchronize()
+        assert torch.equal(BITS(c2), BITS(cols))
+        assert torch.equal(BITS(c2), BITS(want))
+        assert torch.equal(BITS(tf2), BITS(tf))
+        assert torch.equal(ti2, ti)
+        assert torch.equal(BITS(gs2), BITS(g_s))
+        assert torch.equal(BITS(gm2), BITS(g_m))
+        assert torch.equal(ids2, ids)
+        assert torch.equal(BITS(la), BITS(rp._block_sums(tiles)))
+
+
+@pytest.mark.cuda
+def test_card_refuses_what_the_kernels_lack():
+    """On the card the route raises, before any launch, for Schlick
+    Fresnel (the Whitted kernel has none) and a stack past the kernels'
+    16 slots."""
+    dev = _card()
+    sc = _compiled("test17", dev)
+    rays = _rays(sc, 8, 8)
+    before = diff.launches
+    with pytest.raises(NotImplementedError, match="Schlick"):
+        diff.trace_rays_fused(sc, *rays, CFG._replace(schlick=True))
+    with pytest.raises(ValueError, match="stack"):
+        diff.trace_rays_fused(sc, *rays, CFG._replace(stack=17))
+    assert diff.launches == before
+
+
+@pytest.mark.cuda
+def test_step_launches_the_fused_kernels_on_card():
+    """One eager make_train_step step on test17 at 96x64: one tape
+    forward, one backward, one row-sum call and one light-sum call, no
+    row gather (the autograd route's bounce reads)."""
+    from quadray_tpu_torch.ops import row_gather as rg
+    dev = _card()
+    sc = _compiled("test17", dev)
+    step_fn, opt_init = ttrain.make_train_step(96, 64, cfg=CFG, eager=True)
+    params = ttrain.extract_params(sc)
+    before = (diff.launches, diff.backward_launches, diff.light_sum_launches,
+              rg.launches, rg.backward_launches)
+    step_fn(params, opt_init(params), sc, torch.zeros((96 * 64, 3),
+                                                      device=dev))
+    torch.cuda.synchronize()
+    after = (diff.launches, diff.backward_launches, diff.light_sum_launches,
+             rg.launches, rg.backward_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 0, 1)

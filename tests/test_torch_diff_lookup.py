@@ -184,22 +184,26 @@ def _old_route(sc, org, dirs, t_min, cfg):
 def test_step_runs_no_index_on_trained_tables(name, monkeypatch):
     """One all-surface step (make_train_step's body: forward, backward,
     Adam) runs no aten.index and no index_put_ on a trained float table
-    with an index a ray; the old route's lookups, in the same step, are
-    counted (a slide back to indexing fails here)."""
+    with an index a ray: on its own route (ops/diff.py) and with
+    trace_rays_diff, the autograd route, in its place; the old route's
+    lookups, in the same step, are counted (a slide back to indexing
+    fails here)."""
     sc = _compiled(name)
     target = torch.zeros((W * H, 3))
     shapes = {tuple(getattr(sc, k).shape)
               for k in ttrain.DIFFERENTIABLE_FIELDS}
     counts = {}
-    for route in ("gather", "old"):
-        if route == "old":
-            monkeypatch.setattr(ttrain, "trace_rays_diff", _old_route)
+    for route in ("fused", "gather", "old"):
+        if route != "fused":
+            fn = trace_rays_diff if route == "gather" else _old_route
+            monkeypatch.setattr(ttrain, "trace_rays_fused", fn)
         step_fn, _ = ttrain.make_train_step(W, H, cfg=CFG,
                                             mesh=ray_mesh([CPU]))
         params = ttrain.extract_params(sc)
         with _TableIndexing(shapes, W * H) as mode:
             step_fn(params, ttrain.adam_init(params), sc, target)
         counts[route] = mode.hits
+    assert counts["fused"] == []
     assert counts["gather"] == []
     ops = {op for op, _ in counts["old"]}
     assert "aten.index.Tensor" in ops and len(ops) > 1, counts["old"]

@@ -4,7 +4,9 @@ program a step. The task: test17 (Fresnel glass: a material that both
 reflects and transmits, which the fast steps refuse) at 24x16,
 ``TraceConfig(max_segments=8, stack=4)``, every differentiable field, Adam
 lr 1e-2, the surfaces moved by +0.05, the clean scene's clipped render as
-the target. On the CPU the program's body runs where the card replays its
+the target. The step's route is ops/diff.py's (one forward and one
+backward launch with a hand-written adjoint; its plain versions on the
+CPU). On the CPU the program's body runs where the card replays its
 graph: held bitwise to the eager step on 1 and 2 blocks, and within
 tests/test_torch_parallel.py's bounds of the JAX step; the bounce builds
 no tensor from host data; each key field makes a new program. On the card:
@@ -23,7 +25,8 @@ import torch
 
 from quadray_tpu_torch.models.scenes.loader import load_scene
 from quadray_tpu_torch.ops import cuda_kernel as ck
-from quadray_tpu_torch.ops.trace import TraceConfig, clip, render
+from quadray_tpu_torch.ops.trace import TraceConfig, clip, render, \
+    trace_rays_diff
 from quadray_tpu_torch.parallel import train as ttrain
 from quadray_tpu_torch.parallel.mesh import ray_mesh
 from quadray_tpu_torch.scene import schema as S
@@ -147,11 +150,9 @@ def test_step_matches_the_jax_step():
                                    rtol=MU_RTOL, atol=MU_ATOL, err_msg=k)
 
 
-def test_bounce_builds_no_tensor_from_host_data(task, monkeypatch):
-    """The loss through trace_rays_diff and its backward (what a captured
-    step runs) call torch.tensor and torch.as_tensor only for the
-    zero-dim bounds of the clips (scalars to a device op, no copy), never
-    with a device: a CUDA graph cannot hold a host-to-device copy."""
+def _host_tensors(task, monkeypatch):
+    """The calls of torch.tensor and torch.as_tensor made by the loss
+    (``ttrain.loss_fn``) and its backward."""
     calls = []
     for name in ("tensor", "as_tensor"):
         real = getattr(torch, name)
@@ -170,10 +171,30 @@ def test_bounce_builds_no_tensor_from_host_data(task, monkeypatch):
                           t_min, target, w, CFG)
     torch.autograd.grad(loss, list(leaves.values()))
     monkeypatch.undo()
+    return calls
+
+
+def _assert_scalar_bounds_only(calls):
     assert calls
     for name, a, kw in calls:
         assert "device" not in kw, (name, a, kw)
         assert len(a) == 1 and isinstance(a[0], float), (name, a, kw)
+
+
+def test_bounce_builds_no_tensor_from_host_data(task, monkeypatch):
+    """The loss through the step's route (loss_fn: ops/diff.py, what a
+    captured step runs) and its backward call torch.tensor and
+    torch.as_tensor only for the zero-dim bounds of the clips (scalars to
+    a device op, no copy), never with a device: a CUDA graph cannot hold a
+    host-to-device copy."""
+    _assert_scalar_bounds_only(_host_tensors(task, monkeypatch))
+
+
+def test_autograd_route_builds_no_tensor_from_host_data(task, monkeypatch):
+    """The same of trace_rays_diff (the autograd route, the step's
+    reference) in the loss's place."""
+    monkeypatch.setattr(ttrain, "trace_rays_fused", trace_rays_diff)
+    _assert_scalar_bounds_only(_host_tensors(task, monkeypatch))
 
 
 def _recorded_captures(monkeypatch):
@@ -255,9 +276,10 @@ def test_graphed_steps_bitwise_eager_on_card(blocks):
     """test17 at 96x64, every differentiable field training: 3 graphed
     steps (the first the warm-up, then replays) against 3 eager ones from
     the same state, bit for bit, and two eager runs from that state bit
-    for bit, on 1 and 4 blocks of the card; the graph launches one row
-    gather and one row-sum call a bounce a block (each bounce's table
-    reads, ops/trace.py Gathered) and no other counted kernel."""
+    for bit, on 1 and 4 blocks of the card; the graph launches, a block,
+    one pack, one tape forward, one backward, one row-sum call and one
+    light-sum call (ops/diff.py), no row gather and no other counted
+    kernel."""
     dev = _card()
     w, h = 96, 64
     sc = _compiled(SCENE, dev)
@@ -275,10 +297,11 @@ def test_graphed_steps_bitwise_eager_on_card(blocks):
         torch.cuda.synchronize()
         if not eager:
             (prog,) = step_fn.run.programs.values()
-            gathers = CFG.max_segments * blocks
             assert prog.replay.counts == {
-                "gather_launches": gathers,
-                "gather_backward_launches": gathers}
+                "pack_launches": blocks, "diff_launches": blocks,
+                "diff_backward_launches": blocks,
+                "gather_backward_launches": blocks,
+                "light_sum_launches": blocks}
     _assert_bitwise(runs[0], runs[1])
     _assert_bitwise(runs[1], runs[2])
     assert bool(torch.isfinite(runs[0][2]).all())
