@@ -256,22 +256,31 @@ then:
      longer takes this route (phase T); trace_rays_diff is its reference.
   T. the all-surface route in one forward and one backward launch
      (ops/diff.py trace_rays_fused: csrc/whitted.cu whitted_tape_launch,
-     csrc/diff.cu diff_backward_launch, the row sums and the light sums
-     of csrc/replay.cu) on test15, test17 and test18 at 800x480 (the
-     step's moved scene), a seeded gradient of the colors: the tape
-     launch's colors bitwise the Whitted kernel's (unculled) and
-     forward_plain's, its tape bitwise forward_plain's; the backward's row
-     gradients and ids bitwise backward_rows_plain's and its light sums
-     bitwise replay._block_sums of the plain tiles; two launches each
-     bitwise; every field's gradient (kernels, then row sums) within
-     T_GRAD_RTOL of autograd's trace_rays_diff on the card; device ms of
-     the forward (with its pack launch) and of the backward launch with
-     the light sums, and of the row sums (CUDA graphs), beside the
-     bounds and the plain versions' ms (CUDA events).
+     csrc/diff.cu diff_backward_launch, which sums the table rows' and the
+     lights' gradients itself, and csrc/replay.cu's light sums) on test15,
+     test17 and test18 at 800x480 (the step's moved scene), a seeded
+     gradient of the colors: the tape launch's colors bitwise the Whitted
+     kernel's (unculled) and forward_plain's, its tape bitwise
+     forward_plain's; the backward's partials through the light sums
+     bitwise replay._block_sums of backward_rows_plain's tiles; the wide
+     mode forced (backward_kernel's threshold argument 0): its row
+     gradients and ids bitwise the plain wide mode's, its four gradients
+     through the row sums bitwise backward_plain's wide ones; two launches
+     each bitwise; every field's gradient within T_GRAD_RTOL of
+     autograd's trace_rays_diff on the card; then T_EXTRA, Schlick
+     Fresnel and a stack past 16 slots (T_DEEP) on test17 and test18, the
+     same checks but the wide mode's and the Whitted kernel's; device ms
+     of the forward (with its pack launch), of the backward launch and of
+     the light sums (CUDA graphs) beside the bounds (bytes and FP32
+     operations), the plain versions' ms (CUDA events), the backward's
+     blocks an SM; then T_SMEM_SCENE (demo03) at the step's cfg, whose
+     accumulators (79 KB a block) need the shared-memory opt-in past
+     48 KB: the tape launch and the backward launch with its light sums
+     bitwise their plain versions, two launches each.
   Q. the all-surface training step (parallel/train.py make_train_step,
      the counterpart of the JAX make_train_step's jitted step_fn; the
-     fused route of phase T, one pack, tape, backward, row-sum and
-     light-sum launch a block) as one
+     fused route of phase T, one pack, tape, backward and light-sum
+     launch a block, no row sums) as one
      CUDA graph, on the two golden scenes where a material both reflects
      and transmits, which the fast steps refuse (test17, test18), every
      differentiable field, TraceConfig(max_segments=8, stack=4): Q1
@@ -284,12 +293,16 @@ then:
      eager one, each bitwise the chain's first step; ms/step in that
      order (a b b a), the capture's ms, the graph's pool and the peak
      memory, and on test17 1 block a profiler window of each route (host
-     launch calls, device ops and ms, busy share, top ops) and of the
-     eager step with trace_rays_diff in its place (the autograd route
-     before this one, its window split by lookup family: ops/trace.py's
-     record_function ranges); each graph records one pack, tape forward,
-     backward, row-sum and light-sum launch a block, and the fused
-     route's counters, set to 0 before the phase, are read after it; Q3
+     launch calls, device ops and ms, busy share, top ops; each with the
+     profiler's warm-up step; the graphed one must list the fused
+     route's kernels) and of the eager step with trace_rays_diff in its
+     place (the autograd route before this one, its window split by
+     lookup family: ops/trace.py's record_function ranges); each graph
+     records one pack, tape forward, backward and light-sum launch a
+     block, and the fused route's counters, set to 0 before the phase,
+     are read after it (the row sums' stay 0); Q4 the step with Schlick
+     Fresnel on test17 and with T_DEEP's stack on test18, 800x480, 1 and
+     4 blocks, graphed bitwise eager, the same launches a graph; Q3
      BASELINE.json config 5's frame, 1920x1080: make_train_step on test17
      over the fewest blocks of cuda:0 whose memory at Q2's peak a ray
      fits in 85% of the card (doubled while the eager step does not fit)
@@ -2554,6 +2567,13 @@ Q3_MEMORY = 0.85
 Q3_STEPS = 2
 # ops/trace.py's record_function ranges, one a lookup family
 LOOKUP_RANGES = "lookup."
+# profile_window's warm-up calls: in whole runs of this script a profile
+# lost its first 31 to 45 device records, so the warm-up holds more than
+# that (the smallest window, O5's interactive frame, 33 records a call)
+PROFILE_WARMUP = 3
+# what Q2's graphed profiler window must list: the fused route's kernels
+Q2_WINDOW_KERNELS = ("tape_kernel", "diff_bwd_kernel", "light_group_kernel",
+                     "light_sum_kernel")
 # phase T: the fused all-surface route's kernels on these scenes (two-plane
 # surfaces, apex-singular cylinders, a texture and metal; Fresnel glass in
 # a box; glass spheres) at 800x480; the gradients against autograd's
@@ -2564,6 +2584,18 @@ LOOKUP_RANGES = "lookup."
 T_SCENES = ("test15", "test17", "test18")
 T_GRAD_RTOL = 5e-5
 T_REPS = 5
+# T's Schlick and deep-stack cases (t_cfg), each bitwise its plain version;
+# the deep stack: with no throughput cutoff each glass hit both reflects
+# and transmits, so test18's stacks pass the kernels' 16 local slots (its
+# scratch in device memory); its gradients against autograd's route at a
+# smaller frame (autograd keeps every one of 48 bounces)
+T_EXTRA = (("schlick", "test17"), ("schlick", "test18"), ("deep", "test17"),
+           ("deep", "test18"))
+T_DEEP = dict(depth=24, max_segments=48, stack=24, cutoff=0.0)
+T_DEEP_GRAD_W, T_DEEP_GRAD_H = 200, 120
+# T's scene whose backward accumulators (256 surfaces: 79 KB a block) pass
+# the 48 KB a launch gets without the opt-in, held bitwise at the step's cfg
+T_SMEM_SCENE = "demo03"
 
 
 @contextlib.contextmanager
@@ -4238,26 +4270,35 @@ def lookup_families(events, n: int) -> dict:
 
 def profile_window(label, fn, n: int, smi, prefix: str = "O5",
                    top: int = 0, families: bool = False):
-    """fn(i) for i < n under torch.profiler after one unprofiled call:
-    the host's launch calls (the CUDA API calls that queue work), the
-    device's kernels, memsets and copies, their device ms, the share of
-    PyTorch's indexing_backward kernels in it, and the card's busy share
-    of the window (the union of their intervals over the host clock
-    around the n calls and a synchronize); with ``top``, that many device
-    ops by device time (names cut to 60 characters); with ``families``,
-    the device ms of each lookup family (``lookup_families``). The device
-    side of a record_function range is no device op."""
+    """fn(i) for i < n under torch.profiler after PROFILE_WARMUP calls
+    fn(-1) that are the profile's warm-up steps (torch.profiler's
+    schedule: tracing on, nothing recorded): the host's launch calls (the
+    CUDA API calls that queue work), the device's kernels, memsets and
+    copies, their device ms, the share of PyTorch's indexing_backward
+    kernels in it, and the card's busy share of the window (the union of
+    their intervals over the host clock around the n calls and a
+    synchronize); where no call launches a graph, the launch calls with no
+    device record (each queues one device op); with ``top``, that many
+    device ops by device time (names cut to 60 characters); with
+    ``families``, the device ms of each lookup family
+    (``lookup_families``). The device side of a record_function range is
+    no device op."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn(-1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts, schedule=schedule(
+            wait=0, warmup=PROFILE_WARMUP, active=n, repeat=1)) as prof:
+        for _ in range(PROFILE_WARMUP):
+            fn(-1)
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         for i in range(n):
             fn(i)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+            if i == n - 1:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
     events = prof.events()
     dev_ev = [e for e in events if e.device_type != DeviceType.CPU
               and not getattr(e, "is_user_annotation", False)
@@ -4285,7 +4326,10 @@ def profile_window(label, fn, n: int, smi, prefix: str = "O5",
     r = dict(calls=sum(api.values()) / n, device_ops=len(dev_ev) / n,
              device_ms=dev_ms / n, busy=busy / 1e3 / wall, wall=wall / n,
              index_backward_ms=index_ms / n,
-             index_backward_share=index_ms / dev_ms)
+             index_backward_share=index_ms / dev_ms,
+             unrecorded=(None if api.get("cudaGraphLaunch") else
+                         sum(api.values()) - len(dev_ev)),
+             names={e.name for e in dev_ev})
     log(f"{prefix} {label} ({smi}), {n} under torch.profiler: a "
         f"{r['wall']:.4f} "
         f"ms each on the host clock; host launch calls a call "
@@ -4294,7 +4338,9 @@ def profile_window(label, fn, n: int, smi, prefix: str = "O5",
         f"{r['device_ms']:.4f} ms a call; card busy {100 * r['busy']:.2f}% "
         f"of the window; PyTorch's indexing_backward kernels "
         f"{r['index_backward_ms']:.4f} ms a call, "
-        f"{100 * r['index_backward_share']:.2f}% of the device time")
+        f"{100 * r['index_backward_share']:.2f}% of the device time"
+        + ("" if r["unrecorded"] is None else
+           f"; launch calls with no device record {r['unrecorded']}"))
     if top:
         by = {}
         for e in dev_ev:
@@ -4643,131 +4689,253 @@ def diff_bounds(n: int, k: int, words: int, ns: int, nm: int, nl: int,
     the flags word of every ray-bounce, and the rest of the tape (12
     floats, the texel and the light words) only of a hit, as replay's
     bound counts a live segment's state, and the colors' gradient, writes
-    29 row gradients and 2 ids a ray a bounce and the light sums, and
+    each block's partial of every table column (``diff.table_columns``),
     recomputes and differentiates each hit (R_BWD_FACTOR times its
-    forward); the row sums read those and write the tables' gradients."""
+    forward) and adds each hit's 29 row and 10 NL + 3 light and ambient
+    gradients into the sums once; the light sums read the partials and
+    write the tables' gradients (the two together, "backward", count
+    neither the partials' writes nor their reads: they are no input or
+    output of the pair); the wide mode's row sums read 29 row gradients
+    and 2 ids a ray a bounce, which its backward writes."""
+    from quadray_tpu_torch.ops import replay as rp
     kn = k * n
     shade = hits * (R_SEG_OPS + nl * R_LIGHT_OPS)
+    cols = 10 * nl + 3 + 19 * ns + 10 * nm
+    blocks = -(-n // (rp.BWD_WARPS * rp.WARP))
+    launch = (4 * kn + 4 * hits * (12 + words - 1) + 12 * n
+              + 4 * blocks * cols,
+              R_BWD_FACTOR * shade + hits * (29 + 10 * nl + 3))
+    sums = (4 * blocks * cols + 4 * cols, blocks * cols)
+    # the backward as phase T times it: the launch and the light sums, a
+    # function of the tape, g_cols and the tables to the tables' gradients;
+    # the partials pass between its two launches and are not counted
     return {"forward": bound_ms(40 * n + 4 * kn * (12 + words),
                                 surface_ops(struct, stats) + shade),
-            "backward": bound_ms(4 * kn + 4 * hits * (12 + words - 1)
-                                 + 12 * n + 124 * kn + 4 * (10 * nl + 3),
-                                 R_BWD_FACTOR * shade),
+            "backward": bound_ms(launch[0] + sums[0] - 8 * blocks * cols,
+                                 launch[1] + sums[1]),
+            "backward_launch": bound_ms(*launch),
+            "light_sums": bound_ms(*sums),
             "row_sums": bound_ms(124 * kn + 4 * 29 * (ns + nm), 29 * kn)}
 
 
-def fused_grads(fn, sc, rays, g):
-    """{field: gradient of sum(g * fn(sc, *rays))} for every
-    differentiable field."""
+def fused_grads(fn, sc, rays, g, cfg=None):
+    """{field: gradient of sum(g * fn(sc, *rays, cfg))} for every
+    differentiable field (cfg: train_cfg() by default)."""
     from quadray_tpu_torch.parallel import train as tr
     leaves = {k: getattr(sc, k).detach().clone().requires_grad_(True)
               for k in tr.DIFFERENTIABLE_FIELDS}
-    cols = fn(dataclasses.replace(sc, **leaves), *rays, train_cfg())
+    cols = fn(dataclasses.replace(sc, **leaves), *rays, cfg or train_cfg())
     (cols * g).sum().backward()
     return {k: v.grad for k, v in leaves.items()}
 
 
-def phase_t(dev, smi):
-    """The fused all-surface route's kernels against their plain versions
-    and autograd's route on T_SCENES at 800x480 (the module docstring's
-    T). Returns {scene: numbers}."""
+def t_cfg(what: str):
+    """Phase T's and Q4's TraceConfig by case: the step's (``default``),
+    with Schlick Fresnel, or T_DEEP's stack past the 16 local slots."""
+    from quadray_tpu_torch.ops.trace import TraceConfig
+    if what == "deep":
+        return TraceConfig(**T_DEEP)
+    return train_cfg()._replace(schlick=what == "schlick")
+
+
+def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
+    """Phase T on one scene and case (``t_cfg``) at 800x480: the kernels
+    against their plain versions, two launches each, bitwise (the forward,
+    and on the default case the Whitted kernel's colors; the backward's
+    partials through the light sums; with ``wide`` the forced wide mode,
+    its row gradients and ids and its four gradients through the row sums,
+    against its own plain version); the route's gradients against
+    autograd's trace_rays_diff (the deep case at T_DEEP_GRAD_W x
+    T_DEEP_GRAD_H; none for ``smem``, the step's cfg on a scene whose
+    accumulators need the opt-in past 48 KB of shared memory); device ms
+    beside the bounds and the plain versions' ms; the backward's blocks
+    an SM."""
     from quadray_tpu_torch.ops import cuda_kernel as ck
     from quadray_tpu_torch.ops import diff
     from quadray_tpu_torch.ops import replay as rp
     from quadray_tpu_torch.ops import row_gather as rg
     from quadray_tpu_torch.ops.trace import trace_rays_diff
     bits = lambda t: t.contiguous().view(torch.int32)
-    cfg = train_cfg()
-    out = {}
-    for name in T_SCENES:
-        sc, _, rays = train_task(dev, name)
-        struct = ck.scene_struct(sc)
-        n, k = rays[1].shape[0], cfg.max_segments
-        stats = {}
-        cols, tf, ti = diff.forward_plain(sc, *rays, cfg, stats)
-        whitted = ck.trace_rays_cuda(sc, *rays, cfg._replace(cull=False))
-        T = diff.tables(sc)
-        g = torch.from_numpy(np.random.RandomState(29).standard_normal(
-            (n, 3)).astype(np.float32)).to(dev)
-        g_s, g_m, ids, tiles = diff.backward_rows_plain(g, T, tf, ti,
-                                                        cfg.stack)
-        g_la = rp._block_sums(tiles)
-        differ, worst = {}, 0.0
-        for _ in range(2):
-            c2, tf2, ti2 = diff.forward_kernel(sc, struct, *rays, cfg)
-            gs2, gm2, ids2, lpart = diff.backward_rows_kernel(
-                g, T, tf2, ti2, cfg.stack)
-            la2 = diff.light_sums_kernel(lpart)
-            torch.cuda.synchronize()
-            for what, x, y in (("colors", c2, cols),
-                               ("colors vs whitted", c2, whitted),
-                               ("tf", tf2, tf), ("ti", ti2, ti),
-                               ("g_s", gs2, g_s), ("g_m", gm2, g_m),
-                               ("ids", ids2, ids), ("lights", la2, g_la)):
-                differ[what] = differ.get(what, 0) + int(
-                    (bits(x) != bits(y)).sum())
-                if x.dtype == torch.float32:
-                    worst = max(worst, float((x - y).abs().max()))
-        got = fused_grads(diff.trace_rays_fused, sc, rays, g)
-        want = fused_grads(trace_rays_diff, sc, rays, g)
+    cfg = t_cfg(what)
+    sc, _, rays = train_task(dev, name)
+    struct = ck.scene_struct(sc)
+    n, k = rays[1].shape[0], cfg.max_segments
+    stats = {}
+    cols, tf, ti = diff.forward_plain(sc, *rays, cfg, stats)
+    T = diff.tables(sc)
+    g = torch.from_numpy(np.random.RandomState(29).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    tiles = diff.backward_rows_plain(g, T, tf, ti, cfg.stack,
+                                     cfg.schlick)[3]
+    g_la = rp._block_sums(tiles)
+    del tiles
+    pairs = [("colors", lambda o: o[0], cols), ("tf", lambda o: o[1], tf),
+             ("ti", lambda o: o[2], ti), ("sums", lambda o: o[3], g_la)]
+    if what == "default":
+        pairs.append(("colors vs whitted", lambda o: o[0],
+                      ck.trace_rays_cuda(sc, *rays, cfg._replace(cull=False))))
+    if wide:
+        ws, wm, wids, wtiles = diff.backward_rows_plain(
+            g, T, tf, ti, cfg.stack, cfg.schlick, True)
+        want_w = diff.backward_plain(g, T, tf, ti, cfg.stack, cfg.schlick,
+                                     True)
+        pairs += [("wide g_s", lambda o: o[4][0], ws),
+                  ("wide g_m", lambda o: o[4][1], wm),
+                  ("wide ids", lambda o: o[4][2], wids),
+                  ("wide sums", lambda o: o[4][3], rp._block_sums(wtiles))]
+        pairs += [(f"wide {f}", lambda o, j=j: o[5][j], want_w[j])
+                  for j, f in enumerate(("stab", "mtab", "ltab", "amb"))]
+        del wtiles
+    rows_before = rg.backward_launches
+    differ, worst = {}, 0.0
+    for _ in range(2):
+        out = list(diff.forward_kernel(sc, struct, *rays, cfg))
+        out.append(diff.light_sums_kernel(diff.backward_rows_kernel(
+            g, T, out[1], out[2], cfg)[3]))
+        if wide:
+            w4 = diff.backward_rows_kernel(g, T, out[1], out[2], cfg, True)
+            out.append(w4[:3] + (diff.light_sums_kernel(w4[3]),))
+            out.append(diff.backward_kernel(g, T, out[1], out[2], cfg,
+                                            smem=0))
+        torch.cuda.synchronize()
+        for what_, get, y in pairs:
+            x = get(out)
+            differ[what_] = differ.get(what_, 0) + int(
+                (bits(x) != bits(y)).sum())
+            if x.dtype == torch.float32:
+                worst = max(worst, float((x - y).abs().max()))
+        del out
+    rows = rg.backward_launches - rows_before
+    rel = {}
+    if what != "smem":
+        if what == "deep":
+            sc_g, _, rays_g = train_task(dev, name, T_DEEP_GRAD_W,
+                                         T_DEEP_GRAD_H)
+            g_g = g[:rays_g[1].shape[0]].contiguous()
+        else:
+            sc_g, rays_g, g_g = sc, rays, g
+        got = fused_grads(diff.trace_rays_fused, sc_g, rays_g, g_g, cfg)
+        want = fused_grads(trace_rays_diff, sc_g, rays_g, g_g, cfg)
         rel = {f: float((got[f] - want[f]).abs().max()
                         / max(float(want[f].abs().max()), 1e-30))
                for f in got}
+        del got, want, sc_g, rays_g, g_g
         torch.cuda.empty_cache()
-        fl = ti[:, 0]
-        hits = int(((fl & diff.HIT) != 0).sum())
-        nl, words = T.ltab.shape[0], ti.shape[1]
-        ns, nm = T.stab.shape[1], T.mtab.shape[1]
-        bounds = diff_bounds(n, k, words, ns, nm, nl, struct, stats, hits)
-        k_fwd = graph_ms(lambda: diff.forward_kernel(sc, struct, *rays, cfg),
-                         T_REPS)
-        k_bwd = graph_ms(lambda: diff.light_sums_kernel(
-            diff.backward_rows_kernel(g, T, tf, ti, cfg.stack)[3]), T_REPS)
-        k_rows = graph_ms(lambda: rg._backward(g_s, g_m, ids[0], ids[1], ns,
-                                               nm), T_REPS)
-        p_fwd = cuda_ms(lambda: diff.forward_plain(sc, *rays, cfg), 1)
-        p_bwd = cuda_ms(lambda: rp._block_sums(diff.backward_rows_plain(
-            g, T, tf, ti, cfg.stack)[3]), 1)
-        flags = {"push": int(((fl & diff.PUSH) != 0).sum()),
-                 "pop": int(((fl & diff.POP) != 0).sum()),
-                 "own": int(((fl & diff.OWN) != 0).sum()),
-                 "nudge": int(((fl & diff.NUDGE) != 0).sum()),
-                 "textured": int((((fl & diff.HIT) != 0)
-                                  & (ti[:, 1] >= 0)).sum())}
-        out[name] = dict(rays=n, bounces=k, hits=hits,
-                         hit_share=hits / (k * n), flags=flags,
-                         forward_ms=k_fwd, backward_ms=k_bwd,
-                         row_sums_ms=k_rows, plain_forward_ms=p_fwd,
-                         plain_backward_ms=p_bwd,
-                         bounds={p: {"bound_ms": b[0], "bound_by": b[1]}
-                                 for p, b in bounds.items()},
-                         max_abs_err=worst, grad_rel=max(rel.values()),
-                         tape_bytes=(tf.numel() + ti.numel()) * 4)
-        log(f"T {name} {W}x{H} K={k} ({ns} surfaces, {nl} lights; hits "
-            f"{hits} of {k * n} ray-bounces ({100 * hits / (k * n):.2f}%), "
-            f"{flags}; tape "
-            f"{(tf.numel() + ti.numel()) * 4 / n:.0f} B a ray): kernels vs "
-            f"plain, two launches each, words differing {differ}; largest "
-            f"absolute difference {worst:.3e}; gradients vs autograd's "
-            f"trace_rays_diff, of each field's largest: "
-            + " ".join(f"{f}={v:.1e}" for f, v in rel.items())
-            + f" (bound {T_GRAD_RTOL}); ms ({smi}): forward (pack + tape "
-            f"launch) {k_fwd:.4f}, backward (launch + light sums) "
-            f"{k_bwd:.4f}, row sums {k_rows:.4f}; plain forward "
-            f"{p_fwd:.2f}, plain backward (rows + light sums) {p_bwd:.2f}; "
-            f"bounds "
-            + " ".join(f"{p} {b[0]:.4f} ({b[1]})" for p, b in bounds.items()))
-        if any(differ.values()):
-            raise AssertionError(f"T {name}: kernels off their plain "
-                                 f"versions: {differ}")
-        bad = {f: v for f, v in rel.items() if not v <= T_GRAD_RTOL}
-        if bad:
-            raise AssertionError(f"T {name}: gradients off autograd's: "
-                                 f"{bad}")
-        del sc, rays, cols, tf, ti, whitted, T, g_s, g_m, ids, tiles, got
-        del want
+    fl = ti[:, 0]
+    hits = int(((fl & diff.HIT) != 0).sum())
+    step = ((fl & diff.PUSH) != 0).int() - ((fl & diff.POP) != 0).int()
+    height = int(torch.cumsum(step, dim=0).max())
+    nl, words = T.ltab.shape[0], ti.shape[1]
+    ns, nm = T.stab.shape[1], T.mtab.shape[1]
+    bounds = diff_bounds(n, k, words, ns, nm, nl, struct, stats, hits)
+    k_fwd = graph_ms(lambda: diff.forward_kernel(sc, struct, *rays, cfg),
+                     T_REPS)
+    k_bwd = graph_ms(lambda: diff.light_sums_kernel(
+        diff.backward_rows_kernel(g, T, tf, ti, cfg)[3]), T_REPS)
+    k_launch = graph_ms(lambda: diff.backward_rows_kernel(g, T, tf, ti, cfg),
+                        T_REPS)
+    lpart = diff.backward_rows_kernel(g, T, tf, ti, cfg)[3]
+    k_sums = graph_ms(lambda: diff.light_sums_kernel(lpart), T_REPS)
+    del lpart
+    r = dict(case=what, scene=name, rays=n, bounces=k, hits=hits,
+             hit_share=hits / (k * n), height=height, forward_ms=k_fwd,
+             backward_ms=k_bwd, backward_launch_ms=k_launch,
+             light_sums_ms=k_sums,
+             blocks_per_sm=diff.backward_occupancy(cfg, diff.table_columns(T)),
+             bounds={p: {"bound_ms": b[0], "bound_by": b[1]}
+                     for p, b in bounds.items()},
+             max_abs_err=worst, grad_rel=max(rel.values(), default=None),
+             smem_bytes=4 * rp.BWD_WARPS * diff.table_columns(T),
+             tape_bytes=(tf.numel() + ti.numel()) * 4)
+    if wide:
+        rw = diff.backward_rows_kernel(g, T, tf, ti, cfg, True)
+        r["wide_backward_ms"] = graph_ms(lambda: diff.backward_kernel(
+            g, T, tf, ti, cfg, smem=0), T_REPS)
+        r["wide_row_sums_ms"] = graph_ms(lambda: rg._backward(
+            rw[0], rw[1], rw[2][0], rw[2][1], ns, nm), T_REPS)
+        r["wide_row_sum_launches"] = rows
+        del rw
+    if what == "default":
+        r["plain_forward_ms"] = cuda_ms(
+            lambda: diff.forward_plain(sc, *rays, cfg), 1)
+        r["plain_backward_ms"] = cuda_ms(lambda: rp._block_sums(
+            diff.backward_rows_plain(g, T, tf, ti, cfg.stack)[3]), 1)
+        r["flags"] = {"push": int(((fl & diff.PUSH) != 0).sum()),
+                      "pop": int(((fl & diff.POP) != 0).sum()),
+                      "own": int(((fl & diff.OWN) != 0).sum()),
+                      "nudge": int(((fl & diff.NUDGE) != 0).sum()),
+                      "textured": int((((fl & diff.HIT) != 0)
+                                       & (ti[:, 1] >= 0)).sum())}
+    gw, gh = (T_DEEP_GRAD_W, T_DEEP_GRAD_H) if what == "deep" else (W, H)
+    log(f"T {name} {what} {W}x{H} K={k} stack={cfg.stack} schlick="
+        f"{cfg.schlick} ({ns} surfaces, {nl} lights; hits {hits} of "
+        f"{k * n} ray-bounces ({100 * hits / (k * n):.2f}%), stack height "
+        f"up to {height}; tape {r['tape_bytes'] / n:.0f} B a ray"
+        + (f"; {r['flags']}" if "flags" in r else "")
+        + f"): kernels vs plain, two launches each"
+        + (", the wide mode forced too" if wide else "")
+        + f", words differing {differ}; largest absolute difference "
+        f"{worst:.3e}"
+        + (f"; gradients vs autograd's trace_rays_diff at {gw}x{gh}, of "
+           "each field's largest: "
+           + " ".join(f"{f}={v:.1e}" for f, v in rel.items())
+           + f" (bound {T_GRAD_RTOL})" if rel else "")
+        + f"; ms ({smi}): forward (pack "
+        f"+ tape launch) {k_fwd:.4f}, backward (launch + light sums) "
+        f"{k_bwd:.4f} "
+        f"(launch {k_launch:.4f}, light sums {k_sums:.4f}); the "
+        f"accumulators {r['smem_bytes']} B a block (past 48 KB: the "
+        f"opt-in {r['smem_bytes'] > 48 * 1024}), backward blocks an SM "
+        f"{r['blocks_per_sm']}"
+        + (f"; wide mode (launch, row sums, light sums) "
+           f"{r['wide_backward_ms']:.4f}, its row sums "
+           f"{r['wide_row_sums_ms']:.4f}, row-sum launches {rows}"
+           if wide else "")
+        + (f"; plain forward {r['plain_forward_ms']:.2f}, plain backward "
+           f"(rows + sums) {r['plain_backward_ms']:.2f}"
+           if what == "default" else "")
+        + "; bounds "
+        + " ".join(f"{p} {b[0]:.4f} ({b[1]})" for p, b in bounds.items()))
+    if any(differ.values()):
+        raise AssertionError(f"T {name} {what}: kernels off their plain "
+                             f"versions: {differ}")
+    if wide and rows != 2:
+        raise AssertionError(f"T {name}: the forced wide mode made {rows} "
+                             "row-sum launches, not 2")
+    if what == "deep" and name == "test18" and height <= 16:
+        raise AssertionError(f"T {name} deep: the stack reached {height}")
+    bad = {f: v for f, v in rel.items() if not v <= T_GRAD_RTOL}
+    if bad:
+        raise AssertionError(f"T {name} {what}: gradients off autograd's: "
+                             f"{bad}")
+    return r
+
+
+def phase_t(dev, smi):
+    """The fused all-surface route's kernels against their plain versions
+    and autograd's route (the module docstring's T): T_SCENES at the
+    step's cfg with the wide mode forced too, then T_EXTRA's Schlick and
+    deep-stack cases, then T_SMEM_SCENE's tables, whose accumulators take
+    the shared-memory opt-in past 48 KB (the backward launch and light
+    sums bitwise their plain version). Returns ({scene: the default
+    case's numbers, with "cases": the others'}, T_SMEM_SCENE's
+    numbers)."""
+    from quadray_tpu_torch.ops import diff
+    out = {}
+    for name in T_SCENES:
+        out[name] = t_case(dev, smi, name, "default", True)
         torch.cuda.empty_cache()
-    return out
+    for what, name in T_EXTRA:
+        out[name].setdefault("cases", {})[what] = t_case(dev, smi, name,
+                                                         what, False)
+        torch.cuda.empty_cache()
+    big = t_case(dev, smi, T_SMEM_SCENE, "smem", False)
+    torch.cuda.empty_cache()
+    if not big["smem_bytes"] > 48 * 1024 or big["smem_bytes"] > (
+            diff.ROWS_SMEM_BYTES):
+        raise AssertionError(f"T {T_SMEM_SCENE}: {big['smem_bytes']} B of "
+                             "accumulators, not past 48 KB inside a block")
+    return out, big
 
 
 @contextlib.contextmanager
@@ -4829,9 +4997,9 @@ def phase_q2(dev, smi):
     eager step through trace_rays_diff (the autograd route before this
     one), that window split by lookup family. The fused route's and the
     row gather's counters are set to 0 before and read after: each graph
-    records one pack, tape, backward, row-sum and light-sum launch a
-    block. Returns (the first scene's 1-block peak allocated bytes a
-    ray, the launches over the phase)."""
+    records one pack, tape, backward and light-sum launch a
+    block (none of the row sums). Returns (the first scene's 1-block
+    peak allocated bytes a ray, the launches over the phase)."""
     from quadray_tpu_torch.ops import diff
     from quadray_tpu_torch.ops import row_gather as rg
     from quadray_tpu_torch.parallel import train as tr
@@ -4876,10 +5044,7 @@ def phase_q2(dev, smi):
                 return step
 
             if profiled:
-                profile_window(
-                    f"one all-surface step a call, {name} {W}x{H} every "
-                    "field, 1 block, graph", one(fns["graph"]), 1, smi,
-                    prefix="Q2", top=8)
+                graph_window(name, one(fns["graph"]), smi)
             del prog
             fns["graph"] = None
             release_memory(dev)
@@ -4889,6 +5054,7 @@ def phase_q2(dev, smi):
                     f"one all-surface step a call, {name} {W}x{H} every "
                     "field, 1 block, eager", one(fns["eager"]), 1, smi,
                     prefix="Q2", top=8)
+                rows0 = (rg.launches, rg.backward_launches)
                 with autograd_route():
                     profile_window(
                         f"one all-surface step a call, {name} {W}x{H} "
@@ -4896,6 +5062,8 @@ def phase_q2(dev, smi):
                         "trace_rays_diff (the autograd route before the "
                         "fused one)", one(fns["eager"]), 1, smi,
                         prefix="Q2", top=8, families=True)
+                autograd_rows = (rg.launches - rows0[0],
+                                 rg.backward_launches - rows0[1])
                 release_memory(dev)
                 per_ray = peak_g / (W * H)
             same = {f"graph {Q_STEPS} steps": same_bits(g1, e_last),
@@ -4918,7 +5086,6 @@ def phase_q2(dev, smi):
                 raise AssertionError(f"Q2 {name}: losses {losses}")
             want = {k: b for k in ("pack_launches", "diff_launches",
                                    "diff_backward_launches",
-                                   "gather_backward_launches",
                                    "light_sum_launches")}
             if counts != want:
                 raise AssertionError(f"Q2 {name} {b} blocks: the graph "
@@ -4927,24 +5094,90 @@ def phase_q2(dev, smi):
                          list(zip(O_ABBA, (ms_e1, ms_g2, ms_g3, ms_e2))))
             del fns, e_last, e_first, e2, g1, g2, g3
             release_memory(dev)
-    launches = {"forward": rg.launches, "backward": rg.backward_launches,
+    launches = {"forward": rg.launches,
+                "backward": rg.backward_launches - autograd_rows[1],
+                "autograd_window_row_sums": autograd_rows[1],
                 "diff_forward": diff.launches,
                 "diff_backward": diff.backward_launches,
                 "light_sums": diff.light_sum_launches}
     log(f"Q2 launches over the phase (eager steps and graph replays, "
-        f"counted as their capture's; the row gather's forward only in "
-        f"the autograd route's profiler window): {launches}")
+        f"counted as their capture's; the row gather's forward and "
+        f"autograd_window_row_sums only in the autograd route's profiler "
+        f"window, backward the fused route's row sums): {launches}")
     if not (launches["diff_forward"] and launches["diff_backward"]
-            and launches["light_sums"] and launches["backward"]):
+            and launches["light_sums"]) or launches["backward"]:
         raise AssertionError(f"Q2: the fused route's kernels never "
-                             f"launched: {launches}")
+                             f"launched, or the row sums did: {launches}")
     return per_ray, launches
+
+
+def graph_window(name, fn, smi):
+    """Q2's profiler window of one graphed step (``profile_window``, once);
+    raises unless it lists Q2_WINDOW_KERNELS."""
+    r = profile_window(
+        f"one all-surface step a call, {name} {W}x{H} every field, 1 "
+        "block, graph", fn, 1, smi, prefix="Q2", top=12)
+    names = r["names"] if r else set()
+    missing = [k for k in Q2_WINDOW_KERNELS
+               if not any(k in x for x in names)]
+    if missing:
+        raise AssertionError(f"Q2: the graphed window lists no {missing}")
+
+
+def phase_q4(dev, smi):
+    """The all-surface step with Schlick Fresnel (test17) and with T_DEEP's
+    stack past 16 slots (test18) at 800x480, on Q_BLOCKS blocks: eager,
+    Q_STEPS one-step calls chained, and a graphed call of Q_STEPS steps,
+    bitwise; each graph records one pack, tape, backward and light-sum
+    launch a block and no row sums; ms/step, pool and peak."""
+    from quadray_tpu_torch.parallel import train as tr
+    for what, name in (("schlick", "test17"), ("deep", "test18")):
+        cfg = t_cfg(what)
+        sc, target, _ = train_task(dev, name)
+        for b in Q_BLOCKS:
+            mesh = None if b == 1 else card_mesh(dev, b)
+            fns = {mode: tr.make_train_step(W, H, cfg=cfg, lr=TRAIN_LR,
+                                            mesh=mesh,
+                                            eager=mode == "eager")[0].run
+                   for mode in ("eager", "graph")}
+            release_memory(dev)
+            e_last, ms_e, _ = timed_run(fns["eager"], sc, target, Q_STEPS,
+                                        chained=True)
+            release_memory(dev)
+            res0 = torch.cuda.memory_reserved(dev)
+            g1, ms_g1 = timed_run(fns["graph"], sc, target, Q_STEPS)
+            pool = torch.cuda.memory_reserved(dev) - res0
+            peak = torch.cuda.max_memory_allocated(dev)
+            _, ms_g = timed_run(fns["graph"], sc, target, 1)
+            prog = next(iter(fns["graph"].programs.values()))
+            counts = prog.replay.counts
+            same = same_bits(g1, e_last)
+            log(f"Q4 {name} {what} {W}x{H} (stack {cfg.stack}, "
+                f"max_segments {cfg.max_segments}, schlick {cfg.schlick}), "
+                f"{b} block(s) ({smi}): graphed {Q_STEPS} steps bitwise the "
+                f"eager chain {same}; ms/step eager {ms_e:.2f}, graphed "
+                f"{ms_g:.2f} (the first call {ms_g1 * Q_STEPS:.1f} ms); "
+                f"counted launches {counts}; pool {gib(pool)}, peak "
+                f"{gib(peak)}; losses "
+                + " ".join(f"{float(x):.6e}" for x in g1[2]))
+            want = {k: b for k in ("pack_launches", "diff_launches",
+                                   "diff_backward_launches",
+                                   "light_sum_launches")}
+            if not all(same.values()) or counts != want:
+                raise AssertionError(f"Q4 {name} {what} {b} blocks: {same}, "
+                                     f"{counts}")
+            if not bool(torch.isfinite(g1[2]).all()):
+                raise AssertionError(f"Q4 {name} {what}: losses {g1[2]}")
+            del fns, prog, e_last, g1
+            release_memory(dev)
+        del sc, target
 
 
 def q3_pair(label, make, sc, target, steps: int, smi):
     """``steps`` steps of make(eager) from sc's params, eager then graphed
     (the program's first call: warm-up, capture, replays), bitwise; then
-    a one-step graphed call for the graph's ms/step; the pool and the
+    a one-step graphed call for the graph's ms/step and a profiler window
+    of one graphed step (device ops and ms, busy share); the pool and the
     peak memory; the program dropped after."""
     dev = sc.device
     release_memory(dev)
@@ -4960,6 +5193,15 @@ def q3_pair(label, make, sc, target, steps: int, smi):
     peak_g = torch.cuda.max_memory_allocated(dev)
     _, ms_g = timed_run(graph, sc, target, 1)
     capture = next(iter(graph.programs.values())).replay.ms
+    from quadray_tpu_torch.parallel import train as tr
+    state = [tr.extract_params(sc)]
+    state.append(tr.adam_init(state[0]))
+
+    def step(i):
+        state[:] = graph(*state, sc, target, 1)[:2]
+
+    profile_window(f"one graphed step a call, {label}", step, 1, smi,
+                   prefix="Q3", top=6)
     del graph
     release_memory(dev)
     same = same_bits(g, e)
@@ -5236,8 +5478,10 @@ def main():
         with open(ptxas) as fh:
             text = fh.read()
         for chunk in text.split("Compiling entry function")[1:]:
-            if "tape_kernel" in chunk.split("\n")[0]:
-                log("ptxas tape_kernel (the all-surface forward): "
+            m = re.search(r"tape_kernelILi(\d+)E", chunk.split("\n")[0])
+            if m:
+                log(f"ptxas tape_kernel<{m.group(1)}> (the all-surface "
+                    "forward; 0: the stack in device memory): "
                     + "; ".join(re.findall(
                         r"\d+ bytes stack frame, \d+ bytes spill stores, "
                         r"\d+ bytes spill loads|Used \d+ registers[^\n]*",
@@ -5407,7 +5651,7 @@ def main():
 
     if only in (None, "T"):
         release_memory(dev)
-        t_rows = phase("T", phase_t, dev, smi)
+        t_rows, t_demo03 = phase("T", phase_t, dev, smi)
 
     if only in (None, "Q"):
         t0 = time.perf_counter()
@@ -5417,12 +5661,17 @@ def main():
             f"{gib(torch.cuda.memory_reserved(dev))}")
         phase_q1(dev)
         per_ray, q_launches = phase_q2(dev, smi)
+        phase_q4(dev, smi)
         phase_q3(dev, smi, per_ray)
         log(f"phase Q ok ({time.perf_counter() - t0:.1f} s)")
     if only:
         return
 
     from quadray_tpu_torch.ops.cuda_kernel import ROUNDS_K1 as k1
+    t_err = max([r["max_abs_err"] for r in t_rows.values()]
+                + [c["max_abs_err"] for r in t_rows.values()
+                   for c in r.get("cases", {}).values()]
+                + [t_demo03["max_abs_err"]])
     ms, plain = rows["test13"]
     times, _, bounds = f3["test13"]
     lib_cases = [n for n in g3 if n in LIBRARY]
@@ -5493,12 +5742,15 @@ def main():
         "diff_forward ms/plain_ms/bound_ms are the fused all-surface "
         "route's forward on test17 800x480 K=8 (T: the pack and the tape "
         "launch, CUDA graphs, against forward_plain), diff_backward the "
-        "backward launch and its light sums (against backward_rows_plain "
-        "and replay._block_sums; the row sums are replay_gather's), "
-        "launches Q2's counted run, max_abs_err T's largest absolute "
-        "difference from the plain versions on T_SCENES (every word "
-        "bitwise), scenes T's rows; no single PyTorch call traces rays or "
-        "differentiates them, so library_ms is null")
+        "backward launch and its light sums, which carry the table rows' "
+        "sums (against backward_rows_plain's tiles and "
+        "replay._block_sums; the forced wide mode's row sums are "
+        "replay_gather's), launches Q2's counted run, max_abs_err T's "
+        "largest absolute difference from the plain versions on "
+        "T_SCENES, T_EXTRA and T_SMEM_SCENE (every word bitwise), scenes "
+        "T's rows (the Schlick and deep-stack cases under cases); no "
+        "single PyTorch "
+        "call traces rays or differentiates them, so library_ms is null")
     culled = ("on: warp reach masks (origin box + direction cone or "
               "endpoint capsule per warp, __ballot_sync over the bounding "
               "spheres), lsort and cont masks where cull_gates say so")
@@ -5675,6 +5927,11 @@ def main():
         "note": "the JAX replay's one-hot row lookups (jnp contractions "
                 "in replay_color), not a Pallas kernel",
         "launches": d_gathers[1] + l_gathers[1] + q_launches["backward"],
+        "launches_by_path": {"replay (D3, L2)": d_gathers[1] + l_gathers[1],
+                             "all_surface (Q2)": q_launches["backward"],
+                             "all_surface forced wide (T, checks)": sum(
+                                 r.get("wide_row_sum_launches", 0)
+                                 for r in t_rows.values())},
         "forward_launches": d_gathers[0] + l_gathers[0]
         + q_launches["forward"],
         "max_abs_err": max(d5_err, max(r["max_abs_err"]
@@ -5716,9 +5973,12 @@ def main():
         "scenes": {n: {k: v for k, v in r.items() if k != "groups"}
                    for n, r in u4.items()}}, {
         "name": "diff_forward", "route": "cuda",
-        "design": "tape_kernel: the Whitted walk of whole_kernel (segment<> "
-                  "with TAPE), unculled, one thread a ray on ceil(n / 128) "
-                  "blocks, the branch stack in local memory; each bounce "
+        "design": "tape_kernel<CAP>: the Whitted walk of whole_kernel "
+                  "(segment<> with TAPE; exact or Schlick Fresnel), "
+                  "unculled, one thread a ray on ceil(n / 128) blocks, the "
+                  "branch stack's min(stack, K) slots in local memory (4, "
+                  "8 or 16) or past 16 in a device-memory scratch; each "
+                  "bounce "
                   "writes its entry state (12 floats) and its flags, texel "
                   "and light bits (2 + ceil(NL / 32) words) in (K, F, N) "
                   "layout, coalesced; after the pack of the step's tables "
@@ -5729,30 +5989,40 @@ def main():
                 "make_train_step's jitted step_fn (one XLA executable), "
                 "not a Pallas kernel",
         "launches": q_launches["diff_forward"],
-        "max_abs_err": max(r["max_abs_err"] for r in t_rows.values()),
+        "max_abs_err": t_err,
         "ms": t_rows["test17"]["forward_ms"],
         "plain_ms": t_rows["test17"]["plain_forward_ms"],
         "bound_ms": t_rows["test17"]["bounds"]["forward"]["bound_ms"],
         "bound_by": t_rows["test17"]["bounds"]["forward"]["bound_by"],
         "library_ms": None, "scenes": t_rows}, {
         "name": "diff_backward", "route": "cuda",
-        "design": "diff_bwd_kernel: a thread a ray, blocks of 128, the "
-                  "bounces in reverse from the tape, each hit recomputed "
-                  "for its picked surface and root and its hand-written "
-                  "adjoint taken; the branch stack's adjoints in local "
-                  "memory until the pushing bounce; 29 row gradients and 2 "
-                  "ids a ray a bounce to device memory (summed by "
-                  "replay_gather's row sums); the lights' and ambient's "
-                  "gradients an xor butterfly a bounce into the warp's "
-                  "accumulators, warps in order, then replay.cu's light "
-                  "sums in block and group order (no atomics)",
+        "design": "diff_bwd_kernel<CAP>: a thread a ray, blocks of 128, "
+                  "the bounces in reverse from the tape, each hit "
+                  "recomputed for its picked surface and root (exact or "
+                  "Schlick Fresnel) and its hand-written adjoint taken; "
+                  "the branch stack's adjoints (4, 8 or 16 local slots, "
+                  "past 16 a device-memory scratch) until the pushing "
+                  "bounce, each slot counted from the tape's pushes and "
+                  "pops; every table gradient summed in the kernel: for "
+                  "each row a live lane of a warp hit (and the lights and "
+                  "ambient), an xor butterfly a leaf and bounce, the "
+                  "leaves masked by the lanes' row ids, into the warp's "
+                  "shared-memory accumulators, warps in order, then "
+                  "replay.cu's light sums in block and group order (no "
+                  "atomics, no row gradients to device memory); tables "
+                  "whose accumulators pass 227 KB a block take the wide "
+                  "mode (the rows to device memory, replay_gather's row "
+                  "sums)",
         "source": "quadray_tpu_torch/csrc/diff.cu",
         "replaces": "quadray_tpu/parallel/train.py:250",
         "note": "the reverse pass of jax.value_and_grad over the JAX "
                 "trace_rays_diff, which XLA derives, not a Pallas kernel",
         "launches": q_launches["diff_backward"],
         "light_sum_launches": q_launches["light_sums"],
-        "max_abs_err": max(r["max_abs_err"] for r in t_rows.values()),
+        "row_sum_launches": q_launches["backward"],
+        "blocks_per_sm": {"test17": t_rows["test17"]["blocks_per_sm"],
+                          "demo03's tables": t_demo03["blocks_per_sm"]},
+        "max_abs_err": t_err,
         "ms": t_rows["test17"]["backward_ms"],
         "plain_ms": t_rows["test17"]["plain_backward_ms"],
         "bound_ms": t_rows["test17"]["bounds"]["backward"]["bound_ms"],

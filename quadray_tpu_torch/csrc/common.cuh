@@ -74,12 +74,16 @@ struct Fresnel {
 // normal n facing the ray: TR section with TIR, and the RF-section
 // reflectivity Fresnel of opaque reflective materials (tracer.cpp:
 // 3671-3830: the metal fast conductor formula, plain dielectric otherwise);
-// SM: the material row M is in shared memory
+// SM: the material row M is in shared memory; schlick: Schlick's F on the
+// transparency path (RT_FEAT_SCHLICK, tracer.cpp:3355-3381; ops/trace.py
+// fresnel_schlick's f32 operations and order), which only the
+// differentiable route's forward takes
 template <bool SM = false>
 __device__ __forceinline__ Fresnel fresnel(int props, const float* M,
                                            bool fres_scene, float dx,
                                            float dy, float dz, float nx,
-                                           float ny, float nz) {
+                                           float ny, float nz,
+                                           bool schlick = false) {
   const float m_rfl = ldt<SM>(M, 6), m_trn = ldt<SM>(M, 7),
               m_rfr = ldt<SM>(M, 8);
   const float m_ext = ldt<SM>(M, 9);
@@ -104,8 +108,15 @@ __device__ __forceinline__ Fresnel fresnel(int props, const float* M,
   const bool fres_on = fres_prop && !opaque;
   const float rs = sdiv(ed + sq, ed - sq, 1.0f);
   const float rp = sdiv(dot + eta * sq, dot - eta * sq, 1.0f);
-  float F = fres_on ? clampn(0.5f * (rs * rs + rp * rp), 0.0f, 1.0f)
-                    : 0.0f;
+  float F0 = 0.5f * (rs * rs + rp * rp);
+  if (schlick) {
+    const float x = eta > 1.0f ? 1.0f - sq : 1.0f + dot;
+    const float r = sdiv(eta - 1.0f, eta + 1.0f, 1.0f);
+    const float r0 = r * r;
+    const float xx = x * x;
+    F0 = r0 + (1.0f - r0) * (xx * xx * x);
+  }
+  float F = fres_on ? clampn(F0, 0.0f, 1.0f) : 0.0f;
   // TIR folds transparency into reflectivity only under Fresnel
   if (tir && fres_on) F = 1.0f;
   f.c_trn = tir ? 0.0f : m_trn * (1.0f - F);

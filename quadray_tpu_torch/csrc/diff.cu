@@ -21,23 +21,38 @@
 //                          local_w and the continuations, and their
 //                          adjoint is taken; a popped slot's adjoint waits
 //                          in the thread's stack until the bounce that
-//                          pushed it. It writes each bounce's 19 surface
-//                          and 10 material row gradients and row ids in
-//                          (F, K*N) layout, which csrc/replay.cu
-//                          row_gather_backward_launch sums per table row,
-//                          and each block's partial of the lights' and
-//                          ambient's gradients (a warp's xor butterfly a
-//                          bounce, the warps in order), which csrc/
-//                          replay.cu replay_light_sums_launch adds in
-//                          block and group order. No atomics: a step is
-//                          the same bits run after run.
+//                          pushed it. Each block's partial of the tables'
+//                          gradients: a warp's xor butterfly a bounce for
+//                          each table row a live lane of it hit (the
+//                          leaves masked by the lanes' row ids) and for
+//                          the lights and the ambient, into the warp's
+//                          accumulators in shared memory, the warps in
+//                          order; csrc/replay.cu replay_light_sums_launch
+//                          adds the partials in block and group order. No
+//                          atomics: a step is the same bits run after
+//                          run. Wide tables (the accumulators past the
+//                          shared memory a block may have; ops/diff.py
+//                          ROWS_SMEM_BYTES) take the second mode, which
+//                          writes each bounce's 19 surface and 10 material
+//                          row gradients and row ids in (F, K*N) layout
+//                          for csrc/replay.cu row_gather_backward_launch
+//                          to sum per table row, the lights and the
+//                          ambient as above.
 //
 // What bounds it on the H100: at 384,000 rays and 8 bounces it reads the
-// tape (15 words a ray a bounce with two lights, 184 MB) and writes 29
-// row-gradient floats and 2 ids a ray a bounce (381 MB); the arithmetic,
-// some 2,000 FP32 operations a hit, is about 5 GFLOP. Both are far below
-// a millisecond; the recompute's dependent chains and the divergence of
-// rays that stop at different bounces make it latency-bound.
+// flags word of every ray-bounce and the rest of the tape of a hit (test17:
+// 12.3 + 26.7 MB) and writes each block's partial (3,000 blocks x 215
+// floats); the arithmetic, some 2,000 FP32 operations a hit plus the row
+// butterflies, is about 5 GFLOP. Both are far below a millisecond; the
+// recompute's dependent chains and the divergence of rays that stop at
+// different bounces make it latency-bound. (The wide mode writes 29
+// row-gradient floats and 2 ids a ray a bounce, 381 MB, as before.)
+//
+// The branch stack's adjoints: CAP slots in local memory (4, 8 or 16: the
+// least that holds d = min(stack, K) slots, since a ray pushes at most
+// once a bounce), else (CAP 0) d slots a thread of a device-memory scratch.
+// Each bounce's slot is counted from the tape's pushes and pops
+// (ops/diff.py stack_slots), not read from its 4-bit field.
 //
 // f32 rules: built with --fmad=false, IEEE division (ops/_build.py
 // NVCC_FLAGS); sqrt and rsqrt are __fsqrt_rn/__frsqrt_rn (the plain
@@ -57,7 +72,6 @@ constexpr int BWD_THREADS = BWD_WARPS * WARP;  // the light sums' order
 constexpr int SF = 19, MF = 10;                // surface / material floats
 constexpr int LROW = 10;                       // a light's row
 constexpr int TAPE_F = 12;                     // a bounce's entry state
-constexpr int MAX_STACK = 16;
 constexpr unsigned T_SRF = 0xFFFFu, T_HIT = 1u << 16, T_SIDE = 1u << 17,
                    T_OWN = 1u << 18, T_NUDGE = 1u << 19, T_PUSH = 1u << 22,
                    T_POP = 1u << 23;
@@ -81,6 +95,7 @@ struct Tabs {
   const float* s_fwd;  // (ns, 9)
   const float* tex;    // (nt, 3)
   int ns, nm, nl, nt;
+  int schlick;         // Schlick's F (TraceConfig.schlick)
 };
 
 // torch.clamp(x, min=lo), torch.maximum / minimum: NaN propagates
@@ -163,6 +178,9 @@ struct Bnc {
   float den_rs, rs, es, den_rp, rp, s_f, fr0, fr, c_trn, c_rfl0, rcp, ext2;
   float t2m, c2, gg, x0, x1, den_a, fa, den_b, fb, vm, vp, f_rf, c_rfl;
   float lw0, lw, ddn, t2d;
+  // Schlick's F (fresnel_schlick)
+  bool big;
+  float xs, den_r, r, r0, xx, x4, x5;
 };
 
 // a light's term: ops/diff.py _light's locals
@@ -433,7 +451,19 @@ __device__ __forceinline__ void recompute(Bnc& v, const Tabs& t, bool ug,
   v.den_rp = v.dot - v.es;
   v.rp = sdiv(v.dot + v.es, v.den_rp, 1.0f);
   v.s_f = v.rs * v.rs + v.rp * v.rp;
-  v.fr0 = 0.5f * v.s_f;
+  if (t.schlick) {
+    v.big = v.eta > 1.0f;
+    v.xs = v.big ? 1.0f - v.sqk : 1.0f + v.dot;
+    v.den_r = v.eta + 1.0f;
+    v.r = sdiv(v.eta - 1.0f, v.den_r, 1.0f);
+    v.r0 = v.r * v.r;
+    v.xx = v.xs * v.xs;
+    v.x4 = v.xx * v.xx;
+    v.x5 = v.x4 * v.xs;
+    v.fr0 = v.r0 + (1.0f - v.r0) * v.x5;
+  } else {
+    v.fr0 = 0.5f * v.s_f;
+  }
   const float fr = v.fres ? clip(v.fr0, 0.0f, 1.0f) : 0.0f;
   v.fr = (v.tir && v.fres) ? 1.0f : fr;
   v.c_trn = v.tir ? 0.0f : v.m_trn * (1.0f - v.fr);
@@ -467,7 +497,8 @@ struct Grads {
 
 // ops/diff.py _adjoint, line for line. gn: the next state's gradient;
 // gsl: the pushed slot's (zero where nothing was pushed). Each light's
-// and the ambient's gradients go to add(offset, values, count).
+// and the ambient's gradients go to add(base, 1, 0, values, count): the
+// partials' columns base + j (add's form: column base + j stride + row).
 template <class Add>
 __device__ __forceinline__ void adjoint(const Bnc& v, const Tabs& t,
                                         unsigned flags,
@@ -522,7 +553,25 @@ __device__ __forceinline__ void adjoint(const Bnc& v, const Tabs& t,
   g_fr = g_fr - (v.tir ? 0.0f : g_ctrn * v.m_trn);
   const float g_fr0 =
       clip_grad(v.fr0, 0.0f, 1.0f, (v.fres && !v.tir) ? g_fr : 0.0f);
-  float g_sf = 0.5f * g_fr0;
+  float g_sf, g_eta_s = 0.0f, g_sqk_s = 0.0f, g_dot_s = 0.0f;
+  if (t.schlick) {
+    // fr0 = r0 + (1 - r0) x5, x5 = (xs^2)^2 xs, r0 = r^2,
+    // r = (eta - 1) / (eta + 1), xs = eta > 1 ? 1 - sqk : 1 + dot
+    g_sf = 0.0f;
+    const float g_x5 = g_fr0 * (1.0f - v.r0);
+    const float g_r0 = g_fr0 - g_fr0 * v.x5;
+    const float g_x4 = g_x5 * v.xs;
+    float g_xs = g_x5 * v.x4;
+    const float g_xx = 2.0f * g_x4 * v.xx;
+    g_xs = g_xs + 2.0f * g_xx * v.xs;
+    float gnr, gdr;
+    sdiv_grad(v.r, v.den_r, 2.0f * g_r0 * v.r, gnr, gdr);
+    g_eta_s = gnr + gdr;
+    g_sqk_s = -(v.big ? g_xs : 0.0f);
+    g_dot_s = v.big ? 0.0f : g_xs;
+  } else {
+    g_sf = 0.5f * g_fr0;
+  }
   const float g_vm = (v.metal ? g_frf : 0.0f) * sgn0(v.vm);
   g_sf = g_sf + -0.5f * ((v.metal ? 0.0f : g_frf) * sgn0(v.vp));
   const float g_fab = -0.5f * g_vm;
@@ -537,6 +586,7 @@ __device__ __forceinline__ void adjoint(const Bnc& v, const Tabs& t,
   const float grcp = 2.0f * ggg * v.rcp + gt2m * (2.0f * v.dot);
   const float g_ext = 2.0f * ggg * v.m_ext;
   float gdot = 2.0f * gc2 * v.dot + 2.0f * (gt2m * v.rcp);
+  if (t.schlick) gdot = gdot + g_dot_s;
   float g_unused, g_rfr;
   sdiv_grad(v.rcp, v.eta, grcp, g_unused, g_rfr);
   const float grs = 2.0f * g_sf * v.rs;
@@ -550,6 +600,10 @@ __device__ __forceinline__ void adjoint(const Bnc& v, const Tabs& t,
   const float ges = gnp - gdp;
   float geta = ges * v.sqk;
   gsqk = gsqk + ges * v.eta;
+  if (t.schlick) {
+    geta = geta + g_eta_s;
+    gsqk = gsqk + g_sqk_s;
+  }
   const float gqx = v.refracts ? grfx : 0.0f;
   const float gqy = v.refracts ? grfy : 0.0f;
   const float gqz = v.refracts ? grfz : 0.0f;
@@ -663,11 +717,11 @@ __device__ __forceinline__ void adjoint(const Bnc& v, const Tabs& t,
     gwz = gwz - glvz;
     const float gl[LROW] = {glvx, glvy, glvz, glcr,       glcg,
                             glcb, 0.0f, gden, gden * q.r, gden * q.r2};
-    add(l * LROW, gl, LROW);
+    add(l * LROW, 1, 0, gl, LROW);
   }
   {
     const float ga[3] = {gcr * v.mc_r, gcg * v.mc_g, gcb * v.mc_b};
-    add(t.nl * LROW, ga, 3);
+    add(t.nl * LROW, 1, 0, ga, 3);
   }
   gmr = gmr + gcr * __ldg(t.amb);
   gmg = gmg + gcg * __ldg(t.amb + 1);
@@ -854,30 +908,65 @@ __device__ __forceinline__ void adjoint(const Bnc& v, const Tabs& t,
 }
 
 // a ray's reverse pass between bounces: the next state's gradient and the
-// branch stack's slots' (ops/diff.py backward_rows_plain's gn, gs)
+// branch stack's slots' (ops/diff.py backward_rows_plain's gn, gs): CAP
+// slots in local memory, or (CAP 0) d slots at gs in device memory
+template <int CAP>
 struct Back {
   float gn[TAPE_F];
-  float gslot[MAX_STACK][TAPE_F];
+  float gs[CAP][TAPE_F];
+  __device__ __forceinline__ float* slot(int s) { return gs[s]; }
+  __device__ __forceinline__ int cap() const { return CAP; }
+  __device__ __forceinline__ void init(float*, int) {
+    for (int j = 0; j < TAPE_F; ++j) gn[j] = 0.0f;
+    for (int s = 0; s < CAP; ++s)
+      for (int j = 0; j < TAPE_F; ++j) gs[s][j] = 0.0f;
+  }
+};
+template <>
+struct Back<0> {
+  float gn[TAPE_F];
+  float* gs;
+  int d;
+  __device__ __forceinline__ float* slot(int s) { return gs + s * TAPE_F; }
+  __device__ __forceinline__ int cap() const { return d; }
+  __device__ __forceinline__ void init(float* deep, int slots) {
+    gs = deep;
+    d = slots;
+    for (int j = 0; j < TAPE_F; ++j) gn[j] = 0.0f;
+    for (int j = 0; j < d * TAPE_F; ++j) gs[j] = 0.0f;
+  }
 };
 
-__device__ __forceinline__ void back_init(Back& b) {
-  for (int j = 0; j < TAPE_F; ++j) b.gn[j] = 0.0f;
-  for (int s = 0; s < MAX_STACK; ++s)
-    for (int j = 0; j < TAPE_F; ++j) b.gslot[s][j] = 0.0f;
+// the stack's height after ray ii's last bounce: its pushes less its pops
+__device__ __forceinline__ int stack_height(const int* __restrict__ ti,
+                                            int words, int n, int ii,
+                                            int k_segs) {
+  int h = 0;
+  for (int k = 0; k < k_segs; ++k) {
+    const unsigned f = (unsigned)ti[(size_t)k * words * n + ii];
+    h += ((f & T_PUSH) != 0u ? 1 : 0) - ((f & T_POP) != 0u ? 1 : 0);
+  }
+  return h;
 }
 
 // bounce k of ray ii (ii = i, or the last ray for a lane past it, `in`
 // false): its recompute and adjoint where `any` (some lane of the warp
 // has a hit there; the others compute along and are masked, as the
-// plain version's torch.where is), its row gradients and ids written,
-// the stack and the next state's gradient moved on. add(offset, values,
-// count, live): the lights' and ambient's gradients.
-template <class Add>
+// plain version's torch.where is), the stack and the next state's
+// gradient moved on. h: the stack's height after the bounce, before it on
+// return; the pushed or popped slot is counted from it. The tables'
+// gradients go to add(base, stride, row, values, count) (value j to
+// column base + j stride + row of the partials): the lights' and
+// ambient's, and, unless `wide`, the surface row's (columns 10 nl + 3 +
+// j ns + s) and the material row's (10 nl + 3 + 19 ns + j nm + m); wide,
+// the row gradients and ids are written to g_s, g_m and ids.
+template <int CAP, class Add>
 __device__ __forceinline__ void back_bounce(
-    Back& bk, const Tabs& t, bool ug, bool uf, const float* __restrict__ tf,
-    const int* __restrict__ ti, int words, float gar, float gag, float gab,
-    float* __restrict__ g_s, float* __restrict__ g_m, int* __restrict__ ids,
-    int ii, bool in, bool any, int n, int k, int k_segs, Add& add) {
+    Back<CAP>& bk, int& h, const Tabs& t, bool ug, bool uf,
+    const float* __restrict__ tf, const int* __restrict__ ti, int words,
+    float gar, float gag, float gab, bool wide, float* __restrict__ g_s,
+    float* __restrict__ g_m, int* __restrict__ ids, int ii, bool in,
+    bool any, int n, int k, int k_segs, Add& add) {
   const size_t kn = (size_t)k_segs * n;
   const size_t at = (size_t)k * n + ii;
   const int* tw = ti + (size_t)k * words * n + ii;
@@ -885,9 +974,12 @@ __device__ __forceinline__ void back_bounce(
   const bool hit = (flags & T_HIT) != 0u;
   const bool push = (flags & T_PUSH) != 0u;
   const bool pop = (flags & T_POP) != 0u;
-  const int slot = (int)((flags >> T_SLOT_SHIFT) & 15u);
+  h -= (push ? 1 : 0) - (pop ? 1 : 0);
+  const int slot = push ? h : (pop ? h - 1 : 0);
+  if (slot < 0 || slot >= bk.cap()) __trap();
+  float* cur = bk.slot(slot);
   float gsl[TAPE_F];
-  for (int j = 0; j < TAPE_F; ++j) gsl[j] = push ? bk.gslot[slot][j] : 0.0f;
+  for (int j = 0; j < TAPE_F; ++j) gsl[j] = push ? cur[j] : 0.0f;
   Grads o;
   int s = 0, m = 0;
   if (any) {
@@ -900,44 +992,90 @@ __device__ __forceinline__ void back_bounce(
             add, o);
     s = v.bs;
     m = v.m;
+    if (!wide) {
+      const int base = LROW * t.nl + 3;
+      add(base, t.ns, s, o.s, SF);
+      add(base + SF * t.ns, t.nm, m, o.m, MF);
+    }
   } else {
     for (int j = 0; j < SF; ++j) o.s[j] = 0.0f;
     for (int j = 0; j < MF; ++j) o.m[j] = 0.0f;
     for (int j = 0; j < TAPE_F; ++j) o.st[j] = 0.0f;
   }
-  if (in) {
+  if (wide && in) {
     for (int j = 0; j < SF; ++j) g_s[j * kn + at] = hit ? o.s[j] : 0.0f;
     for (int j = 0; j < MF; ++j) g_m[j * kn + at] = hit ? o.m[j] : 0.0f;
     ids[at] = hit ? s : 0;
     ids[kn + at] = hit ? m : 0;
   }
   for (int j = 0; j < TAPE_F; ++j) {
-    const float cur = bk.gslot[slot][j];
-    bk.gslot[slot][j] = push ? 0.0f : (pop ? cur + bk.gn[j] : cur);
+    const float c = cur[j];
+    cur[j] = push ? 0.0f : (pop ? c + bk.gn[j] : c);
     bk.gn[j] = hit ? o.st[j] : (pop ? 0.0f : bk.gn[j]);
   }
 }
 
-// a warp's sum of x over its lanes (every lane gets it): the xor butterfly
-__device__ __forceinline__ float warp_sum(float x) {
+// The sums over a warp's lanes of V values y[0..V) a lane (V a power of
+// two, at most 32), each the xor butterfly's: x[p] + x[p ^ h] for h = 16,
+// 8, 4, 2, 1, the same tree for every value as a butterfly of that value
+// alone, so the same bits (replay.cu's tile sums, replay._tile_sums). A
+// step of the first log2 V keeps half of a lane's values (the upper half
+// where the lane has bit h) and trades the other half with lane p ^ h: V
+// / 2 + V / 4 + ... + 1 shuffles in all, where a butterfly a value takes
+// 5 V. Lane p returns the sum of value p * V / 32.
+template <int V>
+__device__ __forceinline__ float warp_sums(float (&y)[V], int lane) {
 #pragma unroll
-  for (int h = WARP / 2; h >= 1; h /= 2) x += __shfl_xor_sync(FULL, x, h);
-  return x;
+  for (int h = WARP / 2; h >= 1; h /= 2) {
+    const int n = V * h / (WARP / 2);   // values a lane holds before it
+    if (n >= 2) {
+      const bool up = (lane & h) != 0;
+#pragma unroll
+      for (int j = 0; j < n / 2; ++j) {
+        const float keep = up ? y[j + n / 2] : y[j];
+        const float send = up ? y[j] : y[j + n / 2];
+        y[j] = keep + __shfl_xor_sync(FULL, send, h);
+      }
+    } else {
+      y[0] = y[0] + __shfl_xor_sync(FULL, y[0], h);
+    }
+  }
+  return y[0];
 }
 
-// lacc: BWD_WARPS x nla floats of dynamic shared memory; a block's rays'
-// lights' and ambient's gradients: each bounce's warp butterfly (lane j
-// adds value j into its warp's accumulator), at the end the warps in order
+// a[v * stride] += the warp's sum of x[v] over the lanes where `mine`
+// (+0.0 elsewhere), v < count <= V, each added by the lane that holds it
+template <int V>
+__device__ __forceinline__ void warp_add(float* a, int stride,
+                                         const float* x, int count,
+                                         bool mine, int lane) {
+  float y[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) y[j] = (j < count && mine) ? x[j] : 0.0f;
+  const float s = warp_sums<V>(y, lane);
+  const int v = lane * V / WARP;
+  if (lane == v * (WARP / V) && v < count) a[v * stride] += s;
+}
+
+// acc: BWD_WARPS x nla floats of dynamic shared memory, nla = 10 nl + 3
+// (+ 19 ns + 10 nm unless `wide`); a block's rays' tables' gradients: each
+// bounce, for each row a live lane of the warp hit, the xor butterfly of
+// each leaf masked by the lanes' row ids (warp_add: the leaves together,
+// each sum added into the warp's accumulator by the lane that holds it;
+// the lights and the ambient are one row that every live lane holds), at
+// the end the warps in order into the block's partial.
+// deep (CAP 0): d slot adjoints a thread, (gridDim.x * 128, d, 12) f32.
+template <int CAP>
 __global__ void __launch_bounds__(BWD_THREADS)
     diff_bwd_kernel(Tabs t, const float* __restrict__ use_gamma,
                     const float* __restrict__ use_fresnel,
                     const float* __restrict__ tf, const int* __restrict__ ti,
-                    int words, const float* __restrict__ g_cols,
+                    int words, const float* __restrict__ g_cols, int wide,
                     float* __restrict__ g_s, float* __restrict__ g_m,
                     int* __restrict__ ids, float* __restrict__ lpart, int n,
-                    int k_segs) {
+                    int k_segs, float* __restrict__ deep, int d) {
   extern __shared__ float lacc[];
-  const int nla = LROW * t.nl + 3;
+  const int nla = LROW * t.nl + 3 + (wide ? 0 : SF * t.ns + MF * t.nm);
   for (int j = threadIdx.x; j < BWD_WARPS * nla; j += blockDim.x)
     lacc[j] = 0.0f;
   __syncthreads();
@@ -950,20 +1088,34 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const float gar = g_cols[(size_t)ii * 3 + 0];
   const float gag = g_cols[(size_t)ii * 3 + 1];
   const float gab = g_cols[(size_t)ii * 3 + 2];
-  Back bk;
-  back_init(bk);
+  Back<CAP> bk;
+  bk.init(CAP > 0 ? nullptr : deep + (size_t)i * d * TAPE_F, d);
+  int h = stack_height(ti, words, n, ii, k_segs);
   for (int k = k_segs - 1; k >= 0; --k) {
     const unsigned flags = (unsigned)ti[(size_t)k * words * n + ii];
     const bool live = in && (flags & T_HIT) != 0u;
     const bool any = __any_sync(FULL, live);
-    auto add = [&](int at, const float* x, int count) {
-      for (int j = 0; j < count; ++j) {
-        const float s = warp_sum(live ? x[j] : 0.0f);
-        if (lane == 0) acc[at + j] += s;
+    // every lane calls add (`any` is the warp's, so the warp is
+    // converged): the rows in the order of their first live lane, the
+    // leaves of each summed at once (warp_add; count is 3, 10 or 19)
+    auto add = [&](int base, int stride, int row, const float* x,
+                   int count) {
+      unsigned todo = __ballot_sync(FULL, live);
+      while (todo != 0u) {
+        const int r = __shfl_sync(FULL, row, __ffs(todo) - 1);
+        const bool mine = live && row == r;
+        todo &= ~__ballot_sync(FULL, mine);
+        float* a = acc + base + r;
+        if (count <= 4)
+          warp_add<4>(a, stride, x, count, mine, lane);
+        else if (count <= 16)
+          warp_add<16>(a, stride, x, count, mine, lane);
+        else
+          warp_add<32>(a, stride, x, count, mine, lane);
       }
     };
-    back_bounce(bk, t, ug, uf, tf, ti, words, gar, gag, gab, g_s, g_m, ids,
-                ii, in, any, n, k, k_segs, add);
+    back_bounce(bk, h, t, ug, uf, tf, ti, words, gar, gag, gab, wide != 0,
+                g_s, g_m, ids, ii, in, any, n, k, k_segs, add);
   }
   __syncthreads();
   for (int f = threadIdx.x; f < nla; f += blockDim.x) {
@@ -974,7 +1126,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
   }
 }
 
-// the light accumulators' bytes past the default 48 KB (over 306 lights)
+// the accumulators' bytes past the default 48 KB
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
@@ -982,36 +1134,72 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
+using BwdKernel = void (*)(Tabs, const float*, const float*, const float*,
+                           const int*, int, const float*, int, float*,
+                           float*, int*, float*, int, int, float*, int);
+
+// the instantiation for d slots: the least of 4, 8 and 16 local slots
+// that holds them, else the device-memory scratch
+BwdKernel bwd_kernel(int d) {
+  return d <= 4    ? diff_bwd_kernel<4>
+         : d <= 8  ? diff_bwd_kernel<8>
+         : d <= 16 ? diff_bwd_kernel<16>
+                   : diff_bwd_kernel<0>;
+}
+
 }  // namespace
 
 // The backward. Tables: stab (19, ns), mtab (10, nm), ltab (nl, 10), amb
 // (3,), s_fwd (ns, 9), tex (nt, 3) f32; s_kind, s_sing (ns,), s_mat (ns,
 // 2), m_props (nm,) i32; use_gamma, use_fresnel () f32. The tape: tf (k,
-// 12, n) f32, ti (k, words, n) i32; g_cols (n, 3). Out: g_s (19, k n), g_m
-// (10, k n) f32 and ids (2, k n) i32, each bounce's row gradients and row
-// ids (+0.0 and 0 where it has no hit); lpart (ceil(n / 128), 10 nl + 3)
-// each block's lights' and ambient's gradients (replay_light_sums_launch
-// adds them). Returns the CUDA error of the launch.
+// 12, n) f32, ti (k, words, n) i32; g_cols (n, 3); stack and schlick the
+// TraceConfig's. Out: lpart (ceil(n / 128), 10 nl + 3 + 19 ns + 10 nm),
+// each block's partial of the lights', the ambient's, stab's and mtab's
+// gradients in that order (replay_light_sums_launch adds them). With
+// `wide`: lpart (ceil(n / 128), 10 nl + 3), and g_s (19, k n), g_m (10, k
+// n) f32 and ids (2, k n) i32, each bounce's row gradients and row ids
+// (+0.0 and 0 where it has no hit); otherwise those three are not read.
+// deep: where d = min(stack, k) > 16, (ceil(n / 128) * 128, d, 12) f32 of
+// scratch, otherwise not read. Returns the CUDA error of the launch.
 extern "C" int diff_backward_launch(
     const float* stab, const float* mtab, const float* ltab, const float* amb,
     const float* s_fwd, const float* tex, const int* s_kind,
     const int* s_sing, const int* s_mat, const int* m_props,
     const float* use_gamma, const float* use_fresnel, const float* tf,
     const int* ti, const float* g_cols, float* g_s, float* g_m, int* ids,
-    float* lpart, int n, int k, int words, int ns, int nm, int nl, int nt,
-    void* stream) {
+    float* lpart, float* deep, int n, int k, int words, int ns, int nm,
+    int nl, int nt, int stack, int schlick, int wide, void* stream) {
   if (n <= 0 || k <= 0) return 0;
-  if (ns <= 0 || nm <= 0 || nl < 0 || nt <= 0 || words < 2 + (nl + 31) / 32)
+  if (ns <= 0 || nm <= 0 || nl < 0 || nt <= 0 || stack < 0 ||
+      words < 2 + (nl + 31) / 32)
     return (int)cudaErrorInvalidValue;
-  const Tabs t{stab,   mtab,  ltab,    amb,   s_kind, s_sing, s_mat,
-               m_props, s_fwd, tex,    ns,    nm,     nl,     nt};
-  const int nla = LROW * nl + 3;
+  const int d = stack < k ? stack : k;
+  if ((d > 16 && deep == nullptr) ||
+      (wide && (g_s == nullptr || g_m == nullptr || ids == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const Tabs t{stab,  mtab, ltab, amb, s_kind, s_sing, s_mat, m_props,
+               s_fwd, tex,  ns,   nm,  nl,     nt,     schlick};
+  const int nla = LROW * nl + 3 + (wide ? 0 : SF * ns + MF * nm);
   const size_t bytes = sizeof(float) * BWD_WARPS * nla;
-  cudaError_t err = allow_smem((const void*)diff_bwd_kernel, bytes);
+  const BwdKernel kern = bwd_kernel(d);
+  cudaError_t err = allow_smem((const void*)kern, bytes);
   if (err != cudaSuccess) return (int)err;
-  diff_bwd_kernel<<<(n + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, bytes,
-                    (cudaStream_t)stream>>>(t, use_gamma, use_fresnel, tf, ti,
-                                            words, g_cols, g_s, g_m, ids,
-                                            lpart, n, k);
+  kern<<<(n + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, bytes,
+         (cudaStream_t)stream>>>(t, use_gamma, use_fresnel, tf, ti, words,
+                                 g_cols, wide, g_s, g_m, ids, lpart, n, k,
+                                 deep, d);
   return (int)cudaGetLastError();
+}
+
+// The backward's blocks an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for a stack of
+// min(stack, k) slots and `bytes` of accumulators, into *blocks. Returns
+// the CUDA error.
+extern "C" int diff_backward_occupancy(int stack, int k, int bytes,
+                                       int* blocks) {
+  const BwdKernel kern = bwd_kernel(stack < k ? stack : k);
+  cudaError_t err = allow_smem((const void*)kern, (size_t)bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kern, BWD_THREADS, (size_t)bytes);
 }

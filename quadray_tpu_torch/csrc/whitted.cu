@@ -294,6 +294,9 @@ struct Cfg {
   // the rounds' per-ray masks refine a warp's mask that keeps more than
   // this many surfaces (nearest_own, occluded_own)
   int own_min;
+  // Schlick's F on the transparency path (TraceConfig.schlick): the TAPE
+  // mode's only (the other modes' wrappers refuse it)
+  int schlick;
 };
 
 constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
@@ -1240,7 +1243,7 @@ __device__ __forceinline__ void segment(
     }
 
     const Fresnel fr = fresnel<SM>(props, M, fres_scene, dx, dy, dz, nx,
-                                   ny, nz);
+                                   ny, nz, TAPE && cfg.schlick);
 
     // local weight from the ORIGINAL material rfl/trn (TR_mix,
     // tracer.cpp:3566-3571), not the Fresnel-modulated values
@@ -1263,7 +1266,7 @@ __device__ __forceinline__ void segment(
     if (cont) rec |= (go_rfl ? 1u : 2u) << 13;
     if (TAPE && cont) tflags |= (go_rfl ? 1u : 2u) << T_KIND_SHIFT;
     if (CAN_PUSH && go_rfl && go_trn && sp < cfg.stack) {
-      if (TAPE) tflags |= T_PUSH | ((unsigned)sp << T_SLOT_SHIFT);
+      if (TAPE) tflags |= T_PUSH | (((unsigned)sp & 15u) << T_SLOT_SHIFT);
       // push the refraction branch (the tail: on the owner's stack)
       if (!TAIL || (int)(threadIdx.x & 31u) == owner) {
         float* slot = stk[sp];
@@ -1302,7 +1305,7 @@ __device__ __forceinline__ void segment(
   if (EMIT_PATHS) paths[(size_t)it * n + i] = (int)rec;
   if (TAPE) {
     if (!cont && CAN_PUSH && sp > 0)
-      tflags |= T_POP | ((unsigned)(sp - 1) << T_SLOT_SHIFT);
+      tflags |= T_POP | (((unsigned)(sp - 1) & 15u) << T_SLOT_SHIFT);
     ti[((size_t)it * words) * n + i] = (int)tflags;
     ti[((size_t)it * words + 1) * n + i] = texel;
   }
@@ -1363,16 +1366,21 @@ __device__ __noinline__ void coop_tail(Tables T, Cfg cfg, float* cols,
 // The differentiable route's forward for ray i (tape_kernel; ops/diff.py
 // forward_kernel, whose plain version forward_plain is the plain tracer's
 // bounce with a tape): unculled (a parameter update moves surfaces away
-// from the bounding spheres compile_scene made), the branch stack in local
-// memory, every segment through segment<> with TAPE, so the colours are
-// whole_kernel's (trace_rays's) bit for bit; the segments after the one it
-// retired in record zeros.
+// from the bounding spheres compile_scene made), every segment through
+// segment<> with TAPE, so the colours are whole_kernel's (trace_rays's) bit
+// for bit; the segments after the one it retired in record zeros. The
+// branch stack: CAP slots in local memory (a ray pushes at most once a
+// segment, so min(stack, max_segments) <= CAP slots are ever held), or,
+// CAP 0, the ray's d slots of the device-memory scratch deep (n, d, SLOT).
+template <int CAP>
 __device__ __forceinline__ void tape_ray(const float* __restrict__ rays,
                                          float* __restrict__ out,
                                          float* __restrict__ tf,
                                          int* __restrict__ ti, int n,
                                          int words, const Tables& T,
-                                         const Cfg& cfg, int i) {
+                                         const Cfg& cfg, int i,
+                                         float* __restrict__ deep = nullptr,
+                                         int d = 0) {
   Ray r;
   r.ox = rays[i];
   r.oy = rays[n + i];
@@ -1390,7 +1398,10 @@ __device__ __forceinline__ void tape_ray(const float* __restrict__ rays,
   float thr[3] = {1.0f, 1.0f, 1.0f};
   float acc[3] = {0.0f, 0.0f, 0.0f};
   int depth = 0, sp = 0, seg = cfg.max_segments;
-  float stk[MAX_STACK][SLOT];
+  float local[CAP > 0 ? CAP : 1][SLOT];
+  float (*stk)[SLOT] =
+      CAP > 0 ? local
+              : reinterpret_cast<float (*)[SLOT]>(deep + (size_t)i * d * SLOT);
   bool active = true;
   int it = 0;
   for (; it < cfg.max_segments && active; ++it)
@@ -1791,13 +1802,14 @@ whole_kernel(const float* __restrict__ rays, float* __restrict__ out, int n,
   out[2 * n + i] = acc[2];
 }
 
-// The differentiable route's forward: a thread a ray (tape_ray).
+// The differentiable route's forward: a thread a ray (tape_ray<CAP>).
+template <int CAP>
 __global__ void __launch_bounds__(W_BLOCK)
 tape_kernel(const float* __restrict__ rays, float* __restrict__ out,
             float* __restrict__ tf, int* __restrict__ ti, int n, int words,
-            Tables T, Cfg cfg) {
+            Tables T, Cfg cfg, float* __restrict__ deep, int d) {
   const int i = blockIdx.x * W_BLOCK + threadIdx.x;
-  if (i < n) tape_ray(rays, out, tf, ti, n, words, T, cfg, i);
+  if (i < n) tape_ray<CAP>(rays, out, tf, ti, n, words, T, cfg, i, deep, d);
 }
 
 // ---- path tracing (PT mode) -------------------------------------------
@@ -2267,19 +2279,31 @@ extern "C" int whitted_launch(
 // The differentiable route's forward: tape_kernel on ceil(n / W_BLOCK)
 // blocks. out: (3, n) f32 SoA colours; tf: (max_segments, 12, n) f32 and
 // ti: (max_segments, words, n) i32, the tape (ops/diff.py), every element
-// written; words: 2 + ceil(light rows / 32). Unculled, whatever the
-// tables' culling words hold.
+// written; words: 2 + ceil(light rows / 32); schlick: Schlick's F. Unculled,
+// whatever the tables' culling words hold. The branch stack holds d =
+// min(stack, max_segments) slots: the instantiation of the least of 4, 8
+// and 16 local slots that holds them, else (d > 16) deep, a scratch of (n,
+// d, 15) f32 the caller allocates (ops/diff.py stack_scratch).
 extern "C" int whitted_tape_launch(
     const float* rays, float* out, float* tf, int* ti, SCENE_PARAMS, int n,
     int ns, int nc, int nl, int words, int depth, int max_segments,
-    int stack, float cutoff, void* stream) {
+    int stack, float cutoff, int schlick, float* deep, void* stream) {
   if (n <= 0 || max_segments <= 0) return 0;
-  if (stack < 1 || stack > MAX_STACK || ns < 0 || words < 2 + (nl + 31) / 32)
+  if (stack < 0 || ns < 0 || words < 2 + (nl + 31) / 32)
     return (int)cudaErrorInvalidValue;
+  const int d = stack < max_segments ? stack : max_segments;
+  if (d > 16 && deep == nullptr) return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, max_segments, stack, cutoff, 0, 0, 0};
-  tape_kernel<<<(unsigned)((n + W_BLOCK - 1) / W_BLOCK), W_BLOCK, 0,
-                (cudaStream_t)stream>>>(rays, out, tf, ti, n, words, T, cfg);
+  const Cfg cfg{depth, max_segments, stack, cutoff, 0, 0, 0, schlick};
+  using TapeKernel = void (*)(const float*, float*, float*, int*, int, int,
+                              Tables, Cfg, float*, int);
+  const TapeKernel kern = d <= 4    ? tape_kernel<4>
+                          : d <= 8  ? tape_kernel<8>
+                          : d <= 16 ? tape_kernel<16>
+                                    : tape_kernel<0>;
+  kern<<<(unsigned)((n + W_BLOCK - 1) / W_BLOCK), W_BLOCK, 0,
+         (cudaStream_t)stream>>>(rays, out, tf, ti, n, words, T, cfg, deep,
+                                 d);
   return (int)cudaGetLastError();
 }
 

@@ -990,7 +990,7 @@ ARGTYPES = {
     "whitted_resume_launch": ([_VOIDP] * 4 + _SCENE_ARGS + [_INT] * 6
                               + [ctypes.c_float, _INT, _VOIDP, _INT, _INT]),
     "whitted_tape_launch": ([_VOIDP] * 4 + _SCENE_ARGS + [_INT] * 8
-                            + [ctypes.c_float, _VOIDP]),
+                            + [ctypes.c_float, _INT, _VOIDP, _VOIDP]),
 }
 
 

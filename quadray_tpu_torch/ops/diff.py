@@ -18,10 +18,14 @@ card; it stays as the reference these are held against. Here:
     ray's bounces in reverse, recomputes the hit that the nearest fold
     picked from the saved state, for that one surface and root, and
     applies the adjoint written out by hand (``_adjoint``), through the
-    branch stack; its per-bounce row gradients are summed per table row by
-    the row gather's backward (``row_gather.row_sum_plain``'s order) and
-    the lights' and ambient's in ``replay``'s fixed order, with no
-    atomics, so a step is the same bits run after run.
+    branch stack; it sums the gradients of the table rows, the lights and
+    the ambient itself, each warp's 32 rays a bounce into its accumulators
+    (an xor butterfly per leaf and per row the warp hit), then in
+    ``replay``'s fixed order of warps, blocks and groups, with no atomics,
+    so a step is the same bits run after run. Tables whose accumulators do
+    not fit a block's shared memory (``rows_wide``) take the wide mode:
+    each bounce's row gradients to device memory, summed per table row by
+    the row gather's backward (``row_gather.row_sum_plain``'s order).
 
 The gradient reaches only the picked hit: the clip programs, the validity
 window and the shadow any-hit are masks, so the colors are a function of
@@ -36,10 +40,13 @@ ceil(NL / 32), N) i32: the flags word (HIT, SIDE, ... below), the texel
 the hit read (-1: none) and one bit a light row, lit and unshadowed. A
 bounce after the ray retired records zeros.
 
-The kernels take float32, exact Fresnel and stacks of 1 to 16 slots, and
-raise otherwise; the plain versions on the CPU also take float64, Schlick
-Fresnel (``cfg.schlick``) and any stack (their backward counts each
-bounce's slot from the pushes and pops before it).
+The kernels take float32 and raise otherwise (the plain versions on the
+CPU also take float64); both take exact and Schlick Fresnel
+(``cfg.schlick``) and any stack: a ray pushes at most once a bounce, so
+it holds at most d = min(stack, max_segments) slots, which the kernels
+keep in local memory up to 16 and past that in a device-memory scratch
+(``stack_scratch``); the backward counts each bounce's slot from the
+pushes and pops (``stack_slots``), not from the tape's 4-bit field.
 
 The adjoint splits ties as autograd does on ``trace_rays_diff``:
 ``torch.maximum``'s and ``clip``'s one half, ``torch.where``'s gradient
@@ -81,13 +88,21 @@ HIT, SIDE, OWN, NUDGE = 1 << 16, 1 << 17, 1 << 18, 1 << 19
 KIND_SHIFT = 20                     # 0 stop, 1 reflect, 2 transmit
 PUSH, POP = 1 << 22, 1 << 23
 SLOT_SHIFT = 24                     # the pushed or popped slot, 4 bits
-SLOT_MASK = 15                      # (the kernels' stacks hold at most 16)
+SLOT_MASK = 15                      # (stack_slots counts the slot itself)
 ACTIVE = 1 << 28
 LIGHT_ROWS = rp.LIGHT_ROWS
 SURFACE_ROWS, MATERIAL_ROWS = rg.SURFACE_ROWS, rg.MATERIAL_ROWS
 
+# slots a thread's branch stack holds in local memory (the kernels'
+# largest instantiation; more go to a device-memory scratch)
+LOCAL_SLOTS = 16
+SLOT_FLOATS = 15   # a forward slot (csrc/whitted.cu SLOT); the backward's 12
+# the shared memory a backward block may have (the H100's opt-in 227 KB):
+# tables whose accumulators need more take the wide mode (rows_wide)
+ROWS_SMEM_BYTES = 232448
+
 # calls of the forward (tape) and backward wrappers and of the light sums
-# (each launches its kernels; the backward's row sums count in
+# (each launches its kernels; the wide mode's row sums count in
 # row_gather.backward_launches)
 launches = 0
 backward_launches = 0
@@ -876,25 +891,55 @@ def stack_slots(ti):
     return torch.where(pushes, height, torch.where(pops, height - 1, 0))
 
 
+def rows_wide(T: Tables, smem: int = ROWS_SMEM_BYTES) -> bool:
+    """Whether the backward takes the wide mode: its BWD_WARPS warps'
+    accumulators of every column (``table_columns``) need more than
+    ``smem`` bytes of a block's shared memory."""
+    return 4 * rp.BWD_WARPS * table_columns(T) > smem
+
+
+def table_columns(T: Tables) -> int:
+    """The partials' columns: the lights' 10 NL and the ambient's 3, then
+    stab's 19 NS and mtab's 10 NM, each row-major."""
+    return (LIGHT_ROWS * T.ltab.shape[0] + 3 + SURFACE_ROWS * T.stab.shape[1]
+            + MATERIAL_ROWS * T.mtab.shape[1])
+
+
+def _row_tiles(g, ids, hit, rows: int):
+    """(F rows, ceil(N / 32)): for each table row r, the tile sums
+    (``replay._tile_sums``) of g (F, N) masked to the rays whose row is r
+    (+0.0 elsewhere), in (F, rows) row-major order."""
+    tiles = [rp._tile_sums(torch.where(hit & (ids == r), g, 0.0))
+             for r in range(rows)]
+    return torch.stack(tiles, dim=1).reshape(g.shape[0] * rows, -1)
+
+
 def backward_rows_plain(g_cols, T: Tables, tf, ti, stack: int,
-                        schlick: bool = False):
+                        schlick: bool = False, wide: bool = False):
     """The backward kernel's per-ray work: the bounces in reverse, each
     hit recomputed from the tape (``_recompute``, ``schlick`` its Fresnel)
     and its adjoint (``_adjoint``) taken; a popped slot's gradient kept
     until its push (the slots from ``stack_slots``, so any stack depth).
-    Returns each bounce's row gradients g_s (19, K N) and g_m (10, K N)
-    (+0.0 where the bounce has no hit), their row ids (2, K N) i32
-    (surface, material; 0 where no hit) and the lights' and ambient's
-    gradients (10 NL + 3, ceil(N / 32)) summed per tile of 32 rays
-    (``replay._tile_sums``), the tiles' sums added bounce after bounce."""
+    Returns (g_s, g_m, ids, tiles). tiles: the tables' gradients summed
+    per tile of 32 rays, the tiles' sums added bounce after bounce from
+    +0.0: columns ``table_columns`` (the lights', the ambient's, then
+    stab's and mtab's, each leaf masked to the rays that hit its row), or
+    with ``wide`` the lights' and ambient's 10 NL + 3 only, and then g_s
+    (19, K N) and g_m (10, K N) each bounce's row gradients (+0.0 where
+    the bounce has no hit) and ids (2, K N) i32 their row ids (surface,
+    material; 0 where no hit), which are None otherwise."""
     K, _, N = tf.shape
     dev, el = tf.device, tf.dtype
+    ns, nm = T.stab.shape[1], T.mtab.shape[1]
     nla = LIGHT_ROWS * T.ltab.shape[0] + 3
     g_acc = (g_cols[:, 0], g_cols[:, 1], g_cols[:, 2])
-    g_s = torch.empty((SURFACE_ROWS, K * N), dtype=el, device=dev)
-    g_m = torch.empty((MATERIAL_ROWS, K * N), dtype=el, device=dev)
-    ids = torch.empty((2, K * N), dtype=I32, device=dev)
-    tiles = torch.zeros((nla, -(-N // rp.WARP)), dtype=el, device=dev)
+    g_s = g_m = ids = None
+    if wide:
+        g_s = torch.empty((SURFACE_ROWS, K * N), dtype=el, device=dev)
+        g_m = torch.empty((MATERIAL_ROWS, K * N), dtype=el, device=dev)
+        ids = torch.empty((2, K * N), dtype=I32, device=dev)
+    cols = nla if wide else table_columns(T)
+    tiles = torch.zeros((cols, -(-N // rp.WARP)), dtype=el, device=dev)
     gn = torch.zeros((TAPE_ROWS, N), dtype=el, device=dev)
     gs = torch.zeros((N, max(stack, 1), TAPE_ROWS), dtype=el, device=dev)
     lanes = torch.arange(N, device=dev)
@@ -909,34 +954,51 @@ def backward_rows_plain(g_cols, T: Tables, tf, ti, stack: int,
         gsl = torch.where(push, cur, 0.0)
         v = _recompute(T, tf[k], tik, schlick)
         g_srow, g_mrow, g_light, g_in = _adjoint(v, T, tik, g_acc, gn, gsl)
-        at = slice(k * N, (k + 1) * N)
-        g_s[:, at] = torch.where(hit, torch.stack(g_srow), 0.0)
-        g_m[:, at] = torch.where(hit, torch.stack(g_mrow), 0.0)
-        ids[0, at] = torch.where(hit, v.bs.to(I32), 0)
-        ids[1, at] = torch.where(hit, v.m.to(I32), 0)
-        tiles = tiles + rp._tile_sums(torch.where(hit, torch.stack(g_light),
-                                                  0.0))
+        tile = rp._tile_sums(torch.where(hit, torch.stack(g_light), 0.0))
+        if wide:
+            at = slice(k * N, (k + 1) * N)
+            g_s[:, at] = torch.where(hit, torch.stack(g_srow), 0.0)
+            g_m[:, at] = torch.where(hit, torch.stack(g_mrow), 0.0)
+            ids[0, at] = torch.where(hit, v.bs.to(I32), 0)
+            ids[1, at] = torch.where(hit, v.m.to(I32), 0)
+        else:
+            tile = torch.cat([tile,
+                              _row_tiles(torch.stack(g_srow), v.bs, hit, ns),
+                              _row_tiles(torch.stack(g_mrow), v.m, hit, nm)])
+        tiles = tiles + tile
         gs[lanes, slot] = torch.where(push, 0.0, torch.where(
             pop, cur + gn, cur)).T
         gn = torch.where(hit, torch.stack(g_in), torch.where(pop, 0.0, gn))
     return g_s, g_m, ids, tiles
 
 
+def _split(g_la, T: Tables, wide_rows=None):
+    """The gradients (stab (19, NS), mtab (10, NM), ltab (NL, 10), amb
+    (3,)) from the summed columns g_la (``table_columns``, or the lights'
+    and ambient's only with ``wide_rows``, the row sums' (stab, mtab))."""
+    ns, nm, nl = T.stab.shape[1], T.mtab.shape[1], T.ltab.shape[0]
+    nla = LIGHT_ROWS * nl + 3
+    if wide_rows is None:
+        wide_rows = (g_la[nla:nla + SURFACE_ROWS * ns].view(SURFACE_ROWS, ns),
+                     g_la[nla + SURFACE_ROWS * ns:].view(MATERIAL_ROWS, nm))
+    return wide_rows + (g_la[:LIGHT_ROWS * nl].view(nl, LIGHT_ROWS),
+                        g_la[LIGHT_ROWS * nl:nla])
+
+
 def backward_plain(g_cols, T: Tables, tf, ti, stack: int,
-                   schlick: bool = False):
+                   schlick: bool = False, wide: bool = False):
     """The gradients (stab (19, NS), mtab (10, NM), ltab (NL, 10), amb
     (3,)) of sum(g_cols * colors), in the kernels' order:
-    ``backward_rows_plain``, the row gradients summed over all K x N
-    entries by ``row_gather.row_sum_plain``, the lights' and ambient's
-    tile sums by ``replay._block_sums``."""
+    ``backward_rows_plain``'s tiles summed by ``replay._block_sums``; with
+    ``wide`` (the wide mode's plain version) its row gradients summed over
+    all K x N entries by ``row_gather.row_sum_plain``."""
     g_s, g_m, ids, tiles = backward_rows_plain(g_cols, T, tf, ti, stack,
-                                               schlick)
-    nl = T.ltab.shape[0]
-    g_stab = rg.row_sum_plain(g_s, ids[0], T.stab.shape[1])
-    g_mtab = rg.row_sum_plain(g_m, ids[1], T.mtab.shape[1])
+                                               schlick, wide)
     g_la = rp._block_sums(tiles)
-    return (g_stab, g_mtab, g_la[:LIGHT_ROWS * nl].view(nl, LIGHT_ROWS),
-            g_la[LIGHT_ROWS * nl:])
+    if not wide:
+        return _split(g_la, T)
+    return _split(g_la, T, (rg.row_sum_plain(g_s, ids[0], T.stab.shape[1]),
+                            rg.row_sum_plain(g_m, ids[1], T.mtab.shape[1])))
 
 
 # ---------------------------------------------------------------------------
@@ -945,7 +1007,8 @@ def backward_plain(g_cols, T: Tables, tf, ti, stack: int,
 
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 # the C entry point's arguments, in csrc/diff.cu order
-ARGTYPES = {"diff_backward_launch": [_VOIDP] * 19 + [_INT] * 7 + [_VOIDP]}
+ARGTYPES = {"diff_backward_launch": [_VOIDP] * 20 + [_INT] * 10 + [_VOIDP],
+            "diff_backward_occupancy": [_INT] * 3 + [_VOIDP]}
 
 
 def _lib():
@@ -960,6 +1023,29 @@ def _lib():
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def stack_slots_held(cfg: TraceConfig) -> int:
+    """The most branch-stack slots a ray holds: it pushes at most once a
+    bounce."""
+    return min(cfg.stack, cfg.max_segments)
+
+
+def stack_scratch(threads: int, cfg: TraceConfig, floats: int, dev, what):
+    """The kernels' device-memory scratch for a stack past LOCAL_SLOTS
+    slots: (threads, d, floats) f32, from the caching allocator (a CUDA
+    graph's pool during a capture); None where the slots fit in local
+    memory. Raises MemoryError, with the size, where it cannot be had."""
+    d = stack_slots_held(cfg)
+    if d <= LOCAL_SLOTS:
+        return None
+    try:
+        return torch.empty((threads, d, floats), dtype=F32, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        raise MemoryError(
+            f"{what}: a branch stack of {d} slots needs "
+            f"{4 * threads * d * floats} B of scratch on {dev}, which cannot "
+            f"be had") from e
 
 
 def forward_kernel(sc: SceneArrays, struct, org, dirs, t_min,
@@ -979,11 +1065,13 @@ def forward_kernel(sc: SceneArrays, struct, org, dirs, t_min,
     out = torch.empty((3, n), dtype=F32, device=dev)
     tf = torch.empty((k, TAPE_ROWS, n), dtype=F32, device=dev)
     ti = torch.empty((k, words, n), dtype=I32, device=dev)
+    deep = stack_scratch(n, cfg, SLOT_FLOATS, dev, "diff forward")
     with torch.cuda.device(dev):
         err = ck._lib().whitted_tape_launch(
             rays.data_ptr(), out.data_ptr(), tf.data_ptr(), ti.data_ptr(),
             *tabs, n, struct.n_real, struct.nc, struct.nl, words, cfg.depth,
-            k, cfg.stack, cfg.cutoff, _stream(dev))
+            k, cfg.stack, cfg.cutoff, int(cfg.schlick),
+            None if deep is None else deep.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"diff forward (tape) launch failed: CUDA error "
                            f"{err}")
@@ -1007,10 +1095,14 @@ def _check_tables(T: Tables, dev):
     return ns, nm, nl
 
 
-def backward_rows_kernel(g_cols, T: Tables, tf, ti, stack: int):
-    """``diff_backward_launch``: backward_rows_plain's g_s, g_m and ids
-    bitwise, and the lights' and ambient's block partials (ceil(N / 128),
-    10 NL + 3)."""
+def backward_rows_kernel(g_cols, T: Tables, tf, ti, cfg: TraceConfig,
+                         wide: bool = False):
+    """``diff_backward_launch``: (g_s, g_m, ids, lpart), lpart each
+    block's partial (ceil(N / 128), columns) of the columns of
+    backward_rows_plain's tiles, which ``replay._block_sums`` of those
+    tiles equals bitwise once ``light_sums_kernel`` adds it; with
+    ``wide``, g_s, g_m and ids backward_rows_plain's bitwise, else None.
+    ``cfg``: its stack and Schlick Fresnel."""
     global backward_launches
     dev = g_cols.device
     if dev.type != "cuda":
@@ -1021,14 +1113,20 @@ def backward_rows_kernel(g_cols, T: Tables, tf, ti, stack: int):
     ck._check("g_cols", g_cols, F32, (n, 3), dev)
     ck._check("tf", tf, F32, (k, TAPE_ROWS, n), dev)
     ck._check("ti", ti, I32, (k, words, n), dev)
-    if not 1 <= stack <= ck.MAX_STACK:
-        raise ValueError(f"stack must be in 1..{ck.MAX_STACK}")
-    nla = LIGHT_ROWS * nl + 3
-    g_s = torch.empty((SURFACE_ROWS, k * n), dtype=F32, device=dev)
-    g_m = torch.empty((MATERIAL_ROWS, k * n), dtype=F32, device=dev)
-    ids = torch.empty((2, k * n), dtype=I32, device=dev)
-    lpart = torch.empty((-(-n // (rp.BWD_WARPS * rp.WARP)), nla),
-                        dtype=F32, device=dev)
+    if cfg.max_segments != k:
+        raise ValueError(f"the tape holds {k} bounces, cfg.max_segments "
+                         f"is {cfg.max_segments}")
+    cols = LIGHT_ROWS * nl + 3 if wide else table_columns(T)
+    blocks = -(-n // (rp.BWD_WARPS * rp.WARP))
+    g_s = g_m = ids = None
+    if wide:
+        g_s = torch.empty((SURFACE_ROWS, k * n), dtype=F32, device=dev)
+        g_m = torch.empty((MATERIAL_ROWS, k * n), dtype=F32, device=dev)
+        ids = torch.empty((2, k * n), dtype=I32, device=dev)
+    lpart = torch.empty((blocks, cols), dtype=F32, device=dev)
+    deep = stack_scratch(blocks * rp.BWD_WARPS * rp.WARP, cfg, TAPE_ROWS,
+                         dev, "diff backward")
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = _lib().diff_backward_launch(
             T.stab.data_ptr(), T.mtab.data_ptr(), T.ltab.data_ptr(),
@@ -1036,17 +1134,30 @@ def backward_rows_kernel(g_cols, T: Tables, tf, ti, stack: int):
             T.s_kind.data_ptr(), T.s_sing.data_ptr(), T.s_mat.data_ptr(),
             T.m_props.data_ptr(), T.use_gamma.data_ptr(),
             T.use_fresnel.data_ptr(), tf.data_ptr(), ti.data_ptr(),
-            g_cols.data_ptr(), g_s.data_ptr(), g_m.data_ptr(),
-            ids.data_ptr(), lpart.data_ptr(), n, k, words, ns, nm, nl,
-            T.tex.shape[0], _stream(dev))
+            g_cols.data_ptr(), ptr(g_s), ptr(g_m), ptr(ids),
+            lpart.data_ptr(), ptr(deep), n, k, words, ns, nm, nl,
+            T.tex.shape[0], cfg.stack, int(cfg.schlick), int(wide),
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"diff backward launch failed: CUDA error {err}")
     backward_launches += 1
     return g_s, g_m, ids, lpart
 
 
+def backward_occupancy(cfg: TraceConfig, columns: int) -> int:
+    """The backward kernel's blocks an SM holds at once, for cfg's stack
+    and ``columns`` of partials (``table_columns``, or 10 NL + 3 wide)."""
+    blocks = ctypes.c_int(0)
+    err = _lib().diff_backward_occupancy(
+        cfg.stack, cfg.max_segments, 4 * rp.BWD_WARPS * columns,
+        ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"diff backward occupancy: CUDA error {err}")
+    return blocks.value
+
+
 def light_sums_kernel(lpart):
-    """``replay_light_sums_launch``: the partials' sums (10 NL + 3,),
+    """``replay_light_sums_launch``: the partials' sums (columns,),
     bitwise ``replay._block_sums`` of the tiles they came from."""
     global light_sum_launches
     dev = lpart.device
@@ -1064,17 +1175,19 @@ def light_sums_kernel(lpart):
     return g_la
 
 
-def backward_kernel(g_cols, T: Tables, tf, ti, stack: int):
-    """backward_plain's outputs from the kernels: the backward launch, the
-    row sums (csrc/replay.cu row_gather_backward_launch) over all K x N
-    entries, the light sums."""
-    g_s, g_m, ids, lpart = backward_rows_kernel(g_cols, T, tf, ti, stack)
-    nl = T.ltab.shape[0]
-    g_stab, g_mtab = rg._backward(g_s, g_m, ids[0], ids[1],
-                                  T.stab.shape[1], T.mtab.shape[1])
-    g_la = light_sums_kernel(lpart)
-    return (g_stab, g_mtab, g_la[:LIGHT_ROWS * nl].view(nl, LIGHT_ROWS),
-            g_la[LIGHT_ROWS * nl:])
+def backward_kernel(g_cols, T: Tables, tf, ti, cfg: TraceConfig,
+                    smem: int = ROWS_SMEM_BYTES):
+    """backward_plain's outputs from the kernels (``wide`` = rows_wide(T,
+    smem), so ``smem`` 0 forces the wide mode): the backward launch and
+    the light sums, and in the wide mode between them the row sums (csrc/
+    replay.cu row_gather_backward_launch) over all K x N entries."""
+    wide = rows_wide(T, smem)
+    g_s, g_m, ids, lpart = backward_rows_kernel(g_cols, T, tf, ti, cfg, wide)
+    rows = None
+    if wide:
+        rows = rg._backward(g_s, g_m, ids[0], ids[1], T.stab.shape[1],
+                            T.mtab.shape[1])
+    return _split(light_sums_kernel(lpart), T, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1101,8 +1214,8 @@ class _Run(SimpleNamespace):
     def backward(self, g_cols, T: Tables, tf, ti):
         if self.plain:
             return backward_plain(g_cols, T, tf, ti, self.cfg.stack,
-                                  self.cfg.schlick)
-        return backward_kernel(g_cols, T, tf, ti, self.cfg.stack)
+                                  self.cfg.schlick, rows_wide(T))
+        return backward_kernel(g_cols, T, tf, ti, self.cfg)
 
 
 class TraceDiff(torch.autograd.Function):
@@ -1131,10 +1244,11 @@ def trace_rays_fused(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
     """``trace_rays_diff``'s colors and gradients: on CUDA tensors one
     forward launch (``forward_kernel``, on the scene's KernelStruct, found
     in ``cuda_kernel``'s cache by its integer tables' identity) and, in
-    the backward, one backward launch with its row sums and light sums
-    (``backward_kernel``), or a raise; on CPU tensors the plain versions
-    (``forward_plain``, ``backward_plain``), in the element type (the fp64
-    tier runs on the CPU), with Schlick Fresnel and any stack.
+    the backward, one backward launch and its light sums
+    (``backward_kernel``; wide tables also the row sums), or a raise; on
+    CPU tensors the plain versions (``forward_plain``, ``backward_plain``
+    in the same mode), in the element type (the fp64 tier runs on the
+    CPU). Either takes Schlick Fresnel and any stack.
     Differentiable in every field the tables hold; the rays, ``s_fwd`` and
     the texture atlas must not require grad (ValueError)."""
     dev = dirs.device
@@ -1145,12 +1259,6 @@ def trace_rays_fused(sc: SceneArrays, org, dirs, t_min, cfg: TraceConfig):
                          f"tier runs on the CPU")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"trace_rays_fused: unsupported device {dev}")
-    if not plain and cfg.schlick:
-        raise NotImplementedError("the fused route's kernels have no Schlick"
-                                  " Fresnel, as the Whitted kernel has none")
-    if not plain and not 1 <= cfg.stack <= ck.MAX_STACK:
-        raise ValueError(f"cfg.stack must be in 1..{ck.MAX_STACK} on the "
-                         f"card")
     if sc.s_pos.shape[0] > SRF_BITS + 1:
         raise ValueError(f"the tape holds at most {SRF_BITS + 1} surfaces")
     for name, t in [("org", org), ("dirs", dirs), ("t_min", t_min)] + [

@@ -10,8 +10,11 @@ adjoint's gradient of every differentiable field against autograd's over
 ``trace_rays_diff``; each branch of the adjoint taken at least once; the
 JAX ``trace_rays_diff`` under ``jax.value_and_grad`` on test15; the
 kernels' per-ray code (``tape_ray``, ``back_bounce`` and what they call)
-built with g++ behind a shim, bitwise the plain versions; the step's
-launches. The ``cuda`` cases run on the card with
+built with g++ behind a shim, bitwise the plain versions in both of the
+backward's modes (the table rows summed in its accumulators, or, wide,
+written out), with Schlick Fresnel and with a stack past 16 slots
+(DEEP_CFG on test18); the two row orders against each other and
+autograd; the step's launches. The ``cuda`` cases run on the card with
     python -m pytest tests/test_torch_diff_fused.py --noconftest -q -m cuda
 (JAX is imported only inside the test that uses it).
 """
@@ -54,9 +57,15 @@ BITS = lambda t: t.contiguous().view(torch.int32)
 # from the local origin of the one before), which each route puts 1e-3
 # of its own term off the float64 gradient, on either side. The row sums
 # are not the cause: the adjoint's are within 7e-8 of the exact sum of
-# its terms. GRAD_RTOL is not met there in float32.
+# its terms. GRAD_RTOL is not met there in float32. With Schlick Fresnel
+# test18's gap is 6.9e-5, autograd's own rounding of its sums over rays
+# (test_schlick_gradients_match_autograd_f32): GRAD_RTOL_F32 is not met.
 GRAD_RTOL = 1e-5
 GRAD_RTOL_F32 = 5e-5
+# a stack past the kernels' 16 local slots: with no throughput cutoff each
+# hit on test18's glass both reflects and transmits, so its rays' stacks
+# pass 16 slots (23 at 24x16; at the default cutoff they stop at 5)
+DEEP_CFG = TraceConfig(depth=24, max_segments=48, stack=24, cutoff=0.0)
 # tests/test_torch_diff_step.py's bounds against the JAX step: the loss,
 # and the gradient as optax's first moment (0.1 x) is held there
 LOSS_RTOL, MU_RTOL, MU_ATOL = 1e-4, 1e-4, 1e-8
@@ -130,7 +139,7 @@ def _grads(fn, sc, rays, el):
               for k in ttrain.DIFFERENTIABLE_FIELDS}
     s2 = dataclasses.replace(sc, **leaves)
     g = torch.from_numpy(np.random.RandomState(3).standard_normal(
-        (rays[1].shape[0], 3))).to(el)
+        (rays[1].shape[0], 3))).to(el).to(rays[1].device)
     cols = fn(s2, *rays, CFG)
     (cols * g).sum().backward()
     return cols.detach(), {k: v.grad for k, v in leaves.items()}
@@ -163,6 +172,31 @@ def test_gradients_match_autograd(name, el):
         assert not bool(torch.isnan(got[k]).any()), k
         err = (got[k] - want[k]).abs().max()
         assert err <= rtol * want[k].abs().max(), (k, float(err))
+
+
+def test_schlick_gradients_match_autograd_f32():
+    """test_gradients_match_autograd's float32 case with Schlick Fresnel
+    on test17 (test15 has no Fresnel): the colors bit for bit, every
+    field's gradient within GRAD_RTOL_F32 of autograd's. Not on test18,
+    where s_sci's gap is 6.9e-5 of its largest (scripts/grad_gap.py
+    --schlick): there the fused route is 1.5e-6 from the float64
+    gradient and autograd's 9.0e-6, and autograd's own per-ray terms (its
+    g one ray at a time) add up to 8.1e-6 less than its whole gradient,
+    so the gap is autograd's float32 rounding of its sums over rays; in
+    float64 the two are 6e-14 apart (test_plain_route_takes_what_the_
+    kernels_lack holds them to GRAD_RTOL)."""
+    sc, rays = _case("test17")[:2]
+    cfg = CFG._replace(schlick=True)
+    want_c, want = _grads(lambda *a: trace.trace_rays_diff(*a[:-1], cfg),
+                          sc, rays, torch.float32)
+    got_c, got = _grads(lambda *a: diff.trace_rays_fused(*a[:-1], cfg),
+                        sc, rays, torch.float32)
+    assert torch.equal(got_c, want_c)
+    assert not torch.equal(got_c, trace.trace_rays(sc, *rays, CFG))
+    for k in ttrain.DIFFERENTIABLE_FIELDS:
+        assert not bool(torch.isnan(got[k]).any()), k
+        err = (got[k] - want[k]).abs().max()
+        assert err <= GRAD_RTOL_F32 * want[k].abs().max(), (k, float(err))
 
 
 def _stack_tops(ti):
@@ -305,42 +339,71 @@ extern "C" void tape_host(const float* rays, float* out, float* tf, int* ti,
     const int* mat_i, const float* lg_f, const float* misc, const int* tex_pk,
     const float* tex_lut, const float* bsph, const int* shad, const int* cont,
     int rows, int n, int ns, int nc, int nl, int words, int depth,
-    int max_segments, int stack, float cutoff) {
+    int max_segments, int stack, float cutoff, int schlick, float* deep) {
   const Tables T{sp_f, sp_i, cl_f, mat_f, mat_i, lg_f, misc, tex_pk, tex_lut,
                  bsph, shad, cont, ns, nc, nl, (rows + 31) / 32,
                  (rows + 127) / 128 * 128};
-  const Cfg cfg{depth, max_segments, stack, cutoff, 0, 0, 0};
-  for (int i = 0; i < n; ++i) tape_ray(rays, out, tf, ti, n, words, T, cfg, i);
+  const Cfg cfg{depth, max_segments, stack, cutoff, 0, 0, 0, schlick};
+  const int d = stack < max_segments ? stack : max_segments;
+  for (int i = 0; i < n; ++i) {
+    if (d <= 4) tape_ray<4>(rays, out, tf, ti, n, words, T, cfg, i);
+    else if (d <= 8) tape_ray<8>(rays, out, tf, ti, n, words, T, cfg, i);
+    else if (d <= 16) tape_ray<16>(rays, out, tf, ti, n, words, T, cfg, i);
+    else tape_ray<0>(rays, out, tf, ti, n, words, T, cfg, i, deep, d);
+  }
 }
 """
 # diff_bwd_kernel's loop, one ray alone (its warp: itself); each bounce's
-# lights' and ambient's gradients kept, (k, n, 10 nl + 3)
+# values given to the kernel's add kept at their columns, (k, n, columns):
+# the ray's leaves, +0.0 in the columns of the rows it did not hit
 BWD_HOST_LOOP = r"""
 struct RayAdd {
   float* acc;
-  void operator()(int at, const float* x, int count) {
-    for (int j = 0; j < count; ++j) acc[at + j] = x[j];
+  void operator()(int base, int stride, int row, const float* x, int count) {
+    for (int j = 0; j < count; ++j) acc[base + j * stride + row] = x[j];
   }
 };
+template <int CAP>
+static void bwd_rays(const Tabs& t, int ug, int uf, const float* tf,
+    const int* ti, const float* g_cols, int wide, float* g_s, float* g_m,
+    int* ids, float* lray, int cols, float* deep, int d, int n, int k,
+    int words) {
+  for (int i = 0; i < n; ++i) {
+    Back<CAP> bk;
+    bk.init(deep, d);
+    int h = stack_height(ti, words, n, i, k);
+    for (int kk = k - 1; kk >= 0; --kk) {
+      const bool hit = (ti[(size_t)kk * words * n + i] & (1 << 16)) != 0;
+      RayAdd add{lray + ((size_t)kk * n + i) * cols};
+      back_bounce(bk, h, t, ug, uf, tf, ti, words, g_cols[3 * i],
+                  g_cols[3 * i + 1], g_cols[3 * i + 2], wide != 0, g_s, g_m,
+                  ids, i, true, hit, n, kk, k, add);
+    }
+  }
+}
 extern "C" void bwd_host(const float* stab, const float* mtab,
     const float* ltab, const float* amb, const float* s_fwd, const float* tex,
     const int* s_kind, const int* s_sing, const int* s_mat, const int* m_props,
     int ug, int uf, const float* tf, const int* ti, const float* g_cols,
-    float* g_s, float* g_m, int* ids, float* lray, int n, int k, int words,
-    int ns, int nm, int nl, int nt) {
+    float* g_s, float* g_m, int* ids, float* lray, float* deep, int n, int k,
+    int words, int ns, int nm, int nl, int nt, int stack, int schlick,
+    int wide) {
   const Tabs t{stab, mtab, ltab, amb, s_kind, s_sing, s_mat, m_props, s_fwd,
-               tex, ns, nm, nl, nt};
-  for (int i = 0; i < n; ++i) {
-    Back bk;
-    back_init(bk);
-    for (int kk = k - 1; kk >= 0; --kk) {
-      const bool hit = (ti[(size_t)kk * words * n + i] & (1 << 16)) != 0;
-      RayAdd add{lray + ((size_t)kk * n + i) * (10 * nl + 3)};
-      back_bounce(bk, t, ug, uf, tf, ti, words, g_cols[3 * i],
-                  g_cols[3 * i + 1], g_cols[3 * i + 2], g_s, g_m, ids, i,
-                  true, hit, n, kk, k, add);
-    }
-  }
+               tex, ns, nm, nl, nt, schlick};
+  const int d = stack < k ? stack : k;
+  const int cols = 10 * nl + 3 + (wide ? 0 : 19 * ns + 10 * nm);
+  if (d <= 4)
+    bwd_rays<4>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
+                deep, d, n, k, words);
+  else if (d <= 8)
+    bwd_rays<8>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
+                deep, d, n, k, words);
+  else if (d <= 16)
+    bwd_rays<16>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
+                 deep, d, n, k, words);
+  else
+    bwd_rays<0>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
+                deep, d, n, k, words);
 }
 """
 F2F = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
@@ -364,7 +427,7 @@ def rehearsal(tmp_path_factory):
         "// The two rounds of two-round retirement")]
     d = open(os.path.join(CSRC, "diff.cu")).read()
     d = d[d.index("namespace {"):d.index(
-        "// a warp's sum of x over its lanes")]
+        "// The sums over a warp's lanes")]
     out = tmp_path_factory.mktemp("diff")
     libs = []
     for name, body in (("w", common + w + "}\n" + FWD_HOST_LOOP),
@@ -383,26 +446,29 @@ def _p(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-@pytest.mark.parametrize("name", SCENES)
-def test_kernel_code_bitwise_plain(rehearsal, name):
-    """tape_ray on every ray against forward_plain (colors, tf and ti),
-    on the scene packed unculled as the step packs it; back_bounce's
-    bounces in reverse against backward_rows_plain (g_s, g_m, ids), and
-    its lights' and ambient's gradients, each bounce's tile sums added
-    in the kernel's order, against its tiles: all bit for bit."""
+def _rehearse(rehearsal, sc, rays, cfg, cols, tf, ti):
+    """tape_ray on every ray against forward_plain's cols, tf and ti, on
+    the scene packed unculled as the step packs it; back_bounce's bounces
+    in reverse against backward_rows_plain in both modes: its tiles, each
+    bounce's values given to the kernel's add summed per tile in the
+    kernel's order (the table rows' too, or, wide, its g_s, g_m and ids
+    written): all bit for bit."""
     wl, dl = rehearsal
-    sc, (org, dirs, t_min), cols, tf, ti = _case(name)
+    org, dirs, t_min = rays
     n, words = dirs.shape[0], ti.shape[1]
     struct = ck.scene_struct(sc)
     ps = ck.pack_scene(sc, struct, cull=False)   # alive while tabs point in
     tabs = ck._scene_tables(sc, struct, ps, CPU)
-    rays = torch.cat([org.T, dirs.T, t_min[None]]).contiguous()
+    rays_soa = torch.cat([org.T, dirs.T, t_min[None]]).contiguous()
     out, tf2, ti2 = torch.empty((3, n)), torch.empty_like(tf), \
         torch.empty_like(ti)
-    wl.tape_host(_p(rays), _p(out), _p(tf2), _p(ti2),
+    d = diff.stack_slots_held(cfg)
+    deep = torch.zeros((n, max(d, 1), diff.SLOT_FLOATS))
+    wl.tape_host(_p(rays_soa), _p(out), _p(tf2), _p(ti2),
                  *(ctypes.c_void_p(p) for p in tabs[:12]), tabs[12], n,
-                 struct.n_real, struct.nc, struct.nl, words, CFG.depth,
-                 CFG.max_segments, CFG.stack, ctypes.c_float(CFG.cutoff))
+                 struct.n_real, struct.nc, struct.nl, words, cfg.depth,
+                 cfg.max_segments, cfg.stack, ctypes.c_float(cfg.cutoff),
+                 int(cfg.schlick), _p(deep))
     assert torch.equal(BITS(out.T), BITS(cols))
     assert torch.equal(BITS(tf2), BITS(tf))
     assert torch.equal(ti2, ti)
@@ -410,22 +476,144 @@ def test_kernel_code_bitwise_plain(rehearsal, name):
     T = diff.tables(sc)
     g = torch.from_numpy(np.random.RandomState(1).standard_normal(
         (n, 3)).astype(np.float32))
-    g_s, g_m, ids, tiles = diff.backward_rows_plain(g, T, tf, ti, CFG.stack)
-    k, nl = CFG.max_segments, T.ltab.shape[0]
-    gs2, gm2, ids2 = (torch.empty_like(x) for x in (g_s, g_m, ids))
-    lray = torch.zeros((k, n, diff.LIGHT_ROWS * nl + 3))
-    dl.bwd_host(*map(_p, (T.stab, T.mtab, T.ltab, T.amb, T.s_fwd.contiguous(),
-                          T.tex, T.s_kind, T.s_sing, T.s_mat, T.m_props)),
-                int(T.use_gamma > 0), int(T.use_fresnel > 0), _p(tf), _p(ti),
-                _p(g), _p(gs2), _p(gm2), _p(ids2), _p(lray), n, k, words,
-                T.stab.shape[1], T.mtab.shape[1], nl, T.tex.shape[0])
-    assert torch.equal(BITS(gs2), BITS(g_s))
-    assert torch.equal(BITS(gm2), BITS(g_m))
-    assert torch.equal(ids2, ids)
-    tiles2 = torch.zeros_like(tiles)
-    for kk in reversed(range(k)):
-        tiles2 = tiles2 + rp._tile_sums(lray[kk].T)
-    assert torch.equal(BITS(tiles2), BITS(tiles))
+    k = cfg.max_segments
+    deep = torch.zeros((max(d, 1), diff.TAPE_ROWS))
+    for wide in (False, True):
+        g_s, g_m, ids, tiles = diff.backward_rows_plain(
+            g, T, tf, ti, cfg.stack, cfg.schlick, wide)
+        lray = torch.zeros((k, n, tiles.shape[0]))
+        if wide:
+            gs2, gm2, ids2 = (torch.empty_like(x) for x in (g_s, g_m, ids))
+        else:
+            gs2 = gm2 = ids2 = torch.empty(0)
+        dl.bwd_host(*map(_p, (T.stab, T.mtab, T.ltab, T.amb,
+                              T.s_fwd.contiguous(), T.tex, T.s_kind,
+                              T.s_sing, T.s_mat, T.m_props)),
+                    int(T.use_gamma > 0), int(T.use_fresnel > 0), _p(tf),
+                    _p(ti), _p(g), _p(gs2), _p(gm2), _p(ids2), _p(lray),
+                    _p(deep), n, k, words, T.stab.shape[1], T.mtab.shape[1],
+                    T.ltab.shape[0], T.tex.shape[0], cfg.stack,
+                    int(cfg.schlick), int(wide))
+        if wide:
+            assert torch.equal(BITS(gs2), BITS(g_s))
+            assert torch.equal(BITS(gm2), BITS(g_m))
+            assert torch.equal(ids2, ids)
+        tiles2 = torch.zeros_like(tiles)
+        for kk in reversed(range(k)):
+            tiles2 = tiles2 + rp._tile_sums(lray[kk].T)
+        assert torch.equal(BITS(tiles2), BITS(tiles)), wide
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_kernel_code_bitwise_plain(rehearsal, name):
+    """The kernels' per-ray code against the plain versions (``_rehearse``)
+    on the three scenes at cfg (8, 4)."""
+    sc, rays, cols, tf, ti = _case(name)
+    _rehearse(rehearsal, sc, rays, CFG, cols, tf, ti)
+
+
+@pytest.mark.parametrize("what, name", [("schlick", "test17"),
+                                        ("schlick", "test18"),
+                                        ("deep_stack", "test18")])
+def test_kernel_code_schlick_and_deep_stack_bitwise_plain(rehearsal, what,
+                                                          name):
+    """``_rehearse`` with Schlick Fresnel at cfg (8, 4) (its colors not
+    the exact Fresnel's) and with DEEP_CFG, whose stacks pass 16 slots
+    (the kernels' device-memory scratch; the tape's 4-bit slot field is
+    stack_slots modulo 16)."""
+    sc, rays = _case(name)[:2]
+    cfg = CFG._replace(schlick=True) if what == "schlick" else DEEP_CFG
+    cols, tf, ti = diff.forward_plain(sc, *rays, cfg)
+    if what == "schlick":
+        assert not torch.equal(cols, _case(name)[2])
+    else:
+        assert int(_stack_tops(ti).max()) > diff.LOCAL_SLOTS
+        fl = ti[:, 0]
+        moved = (fl & (diff.PUSH | diff.POP)) != 0
+        field = (fl >> diff.SLOT_SHIFT) & diff.SLOT_MASK
+        assert torch.equal(diff.stack_slots(ti)[moved] % 16,
+                           field[moved].long())
+    _rehearse(rehearsal, sc, rays, cfg, cols, tf, ti)
+
+
+@pytest.mark.parametrize("el", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", SCENES)
+def test_row_orders_agree(name, el, monkeypatch):
+    """The route's two plain modes: the table rows summed per tile, then
+    in replay's block order (the default; test_gradients_match_autograd
+    holds it to autograd), and, wide (forced), summed over all K x N
+    entries in row_sum_plain's order: every field's gradient within
+    GRAD_RTOL (float64) or GRAD_RTOL_F32 of that field's largest of the
+    other and of autograd's over trace_rays_diff, the colors and the
+    lights' fields bitwise. The camera rays only, as
+    test_gradients_match_autograd."""
+    sc, rays = _case(name)[:2]
+    rays = tuple(r[:W * H] for r in rays)
+    rtol = GRAD_RTOL if el == torch.float64 else GRAD_RTOL_F32
+    trace.set_element(el)
+    try:
+        sc = trace.scene_astype(sc, el)
+        rays = tuple(r.to(el) for r in rays)
+        _, want = _grads(trace.trace_rays_diff, sc, rays, el)
+        assert not diff.rows_wide(diff.tables(sc))
+        cols, tiled = _grads(diff.trace_rays_fused, sc, rays, el)
+        monkeypatch.setattr(diff, "rows_wide", lambda T, smem=0: True)
+        cols2, wide = _grads(diff.trace_rays_fused, sc, rays, el)
+    finally:
+        trace.set_element(torch.float32)
+    assert torch.equal(cols, cols2)
+    for k in ttrain.DIFFERENTIABLE_FIELDS:
+        if k.startswith("l_") or k == "amb_col":
+            assert torch.equal(tiled[k], wide[k]), k
+        for x, y in ((tiled[k], wide[k]), (wide[k], want[k])):
+            err = (x - y).abs().max()
+            assert err <= rtol * y.abs().max(), (k, float(err))
+
+
+def _warp_sums(x, v: int):
+    """csrc/diff.cu warp_sums<V> on a warp's 32 lanes, transliterated:
+    x (32, V) float32, each lane's values; returns the (32,) sums the
+    lanes return (lane p: value p * V / 32)."""
+    y = [list(row) for row in x]
+    h = 16
+    while h >= 1:
+        n = v * h // 16
+        if n >= 2:
+            new = []
+            for p in range(32):
+                up = (p & h) != 0
+                mine, peer = y[p], y[p ^ h]
+                row = list(mine)
+                for j in range(n // 2):
+                    keep = mine[j + n // 2] if up else mine[j]
+                    send = peer[j] if (p ^ h) & h else peer[j + n // 2]
+                    row[j] = np.float32(keep + send)
+                new.append(row)
+            y = new
+        else:
+            y = [[np.float32(y[p][0] + y[p ^ h][0])] + y[p][1:]
+                 for p in range(32)]
+        h //= 2
+    return np.array([y[p][0] for p in range(32)], dtype=np.float32)
+
+
+@pytest.mark.parametrize("v", [4, 16, 32])
+def test_warp_sums_are_the_butterflys_bits(v):
+    """The backward's warp_sums<V> (all of a row's leaves summed at once)
+    gives each value the xor butterfly's tree, so the bits of
+    replay._tile_sums of that value alone, on seeded values with signed
+    zeros, ties and a wide range; lane p returns value p * V / 32."""
+    rs = np.random.RandomState(v)
+    x = (rs.standard_normal((32, v)) * 10.0 ** rs.randint(-8, 8, (32, v))
+         ).astype(np.float32)
+    x[rs.rand(32, v) < 0.2] = 0.0
+    x[rs.rand(32, v) < 0.1] = -0.0
+    x[:, 0] = -x[::-1, 0]
+    got = _warp_sums(x, v)
+    want = rp._tile_sums(torch.from_numpy(x.T.copy()))[:, 0]
+    for p in range(32):
+        assert got[p].view(np.int32) == want[p * v // 32].numpy().view(
+            np.int32), p
 
 
 def test_argtypes_match_the_c_entry_points():
@@ -446,8 +634,7 @@ def test_argtypes_match_the_c_entry_points():
 def test_route_refusals():
     """The route raises, before any work: rays or s_fwd that require grad
     (not differentiated), a device other than the CPU and a card, and the
-    float64 element type off the CPU. (Schlick Fresnel and stacks past 16
-    are refused on the card only: test_card_refuses_what_the_kernels_lack.)"""
+    float64 element type off the CPU."""
     sc, rays = _case("test17")[:2]
     org, dirs, t_min = rays
     with pytest.raises(ValueError, match="require grad"):
@@ -470,10 +657,12 @@ def test_route_refusals():
 @pytest.mark.parametrize("name", ("test17", "test18"))
 @pytest.mark.parametrize("what", ("schlick", "deep_stack"))
 def test_plain_route_takes_what_the_kernels_lack(name, what):
-    """On the CPU the plain versions take Schlick Fresnel and a stack past
-    the kernels' 16 slots: in float64 the colors bitwise trace_rays_diff's
-    and every field's gradient within GRAD_RTOL of autograd's (Schlick's
-    colors differ from the exact Fresnel's, so its branch is taken)."""
+    """The plain versions take Schlick Fresnel and a stack of 20 (as the
+    kernels now do too: test_kernel_code_schlick_and_deep_stack_bitwise_
+    plain, test_card_takes_schlick_and_deep_stacks): in float64 the colors
+    bitwise trace_rays_diff's and every field's gradient within GRAD_RTOL
+    of autograd's (Schlick's colors differ from the exact Fresnel's, so
+    its branch is taken)."""
     sc, rays = _case(name)[:2]
     cfg = (CFG._replace(schlick=True) if what == "schlick"
            else CFG._replace(stack=20))
@@ -556,71 +745,118 @@ def _card():
     return torch.device("cuda", 0)
 
 
+def _card_case(name, dev, cfg, w=800, h=480):
+    """(scene, rays, forward_plain's outputs, Tables, a seeded g_cols) on
+    the card."""
+    sc = _compiled(name, dev)
+    rays = _rays(sc, w, h)
+    T = diff.tables(sc)
+    g = torch.from_numpy(np.random.RandomState(2).standard_normal(
+        (rays[1].shape[0], 3)).astype(np.float32)).to(dev)
+    return (sc, rays) + diff.forward_plain(sc, *rays, cfg) + (T, g)
+
+
+def _card_bitwise(sc, rays, cfg, cols, tf, ti, T, g, wide):
+    """Two launches of the tape forward and of the backward (``wide``: its
+    second mode) and light sums, bitwise forward_plain's and
+    backward_rows_plain's (its tiles through replay._block_sums)."""
+    struct = ck.scene_struct(sc)
+    g_s, g_m, ids, tiles = diff.backward_rows_plain(
+        g, T, tf, ti, cfg.stack, cfg.schlick, wide)
+    for _ in range(2):
+        c2, tf2, ti2 = diff.forward_kernel(sc, struct, *rays, cfg)
+        gs2, gm2, ids2, lpart = diff.backward_rows_kernel(g, T, tf, ti, cfg,
+                                                          wide)
+        la = diff.light_sums_kernel(lpart)
+        torch.cuda.synchronize()
+        assert torch.equal(BITS(c2), BITS(cols))
+        assert torch.equal(BITS(tf2), BITS(tf))
+        assert torch.equal(ti2, ti)
+        if wide:
+            assert torch.equal(BITS(gs2), BITS(g_s))
+            assert torch.equal(BITS(gm2), BITS(g_m))
+            assert torch.equal(ids2, ids)
+        else:
+            assert gs2 is None and gm2 is None and ids2 is None
+        assert torch.equal(BITS(la), BITS(rp._block_sums(tiles)))
+    return c2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SCENES)
 def test_kernels_bitwise_plain_on_card(name):
     """800x480 on the card: the tape launch's colors bitwise the Whitted
     kernel's and forward_plain's, its tape bitwise forward_plain's; the
-    backward launch's row gradients and ids bitwise backward_rows_plain's
-    and the light sums bitwise replay._block_sums of its tiles; two
-    launches bitwise each other."""
+    backward launch's partials, the table rows' among them, through the
+    light sums bitwise replay._block_sums of backward_rows_plain's tiles
+    (and in the wide mode its row gradients and ids); two launches bitwise
+    each other."""
     dev = _card()
-    sc = _compiled(name, dev)
-    rays = _rays(sc, 800, 480)
-    struct = ck.scene_struct(sc)
-    cols, tf, ti = diff.forward_plain(sc, *rays, CFG)
+    sc, rays, cols, tf, ti, T, g = _card_case(name, dev, CFG)
     want = ck.trace_rays_cuda(sc, *rays, CFG._replace(cull=False))
-    T = diff.tables(sc)
-    g = torch.from_numpy(np.random.RandomState(2).standard_normal(
-        (rays[1].shape[0], 3)).astype(np.float32)).to(dev)
-    g_s, g_m, ids, tiles = diff.backward_rows_plain(g, T, tf, ti, CFG.stack)
-    for _ in range(2):
-        c2, tf2, ti2 = diff.forward_kernel(sc, struct, *rays, CFG)
-        gs2, gm2, ids2, lpart = diff.backward_rows_kernel(g, T, tf, ti,
-                                                          CFG.stack)
-        la = diff.light_sums_kernel(lpart)
-        torch.cuda.synchronize()
-        assert torch.equal(BITS(c2), BITS(cols))
+    for wide in (False, True):
+        c2 = _card_bitwise(sc, rays, CFG, cols, tf, ti, T, g, wide)
         assert torch.equal(BITS(c2), BITS(want))
-        assert torch.equal(BITS(tf2), BITS(tf))
-        assert torch.equal(ti2, ti)
-        assert torch.equal(BITS(gs2), BITS(g_s))
-        assert torch.equal(BITS(gm2), BITS(g_m))
-        assert torch.equal(ids2, ids)
-        assert torch.equal(BITS(la), BITS(rp._block_sums(tiles)))
 
 
 @pytest.mark.cuda
-def test_card_refuses_what_the_kernels_lack():
-    """On the card the route raises, before any launch, for Schlick
-    Fresnel (the Whitted kernel has none) and a stack past the kernels'
-    16 slots."""
+@pytest.mark.parametrize("what, name", [("schlick", "test17"),
+                                        ("schlick", "test18"),
+                                        ("deep_stack", "test18")])
+def test_card_takes_schlick_and_deep_stacks(what, name):
+    """On the card the kernels take Schlick Fresnel and a stack past 16
+    slots (DEEP_CFG, its stacks past 16 at 200x120: the device-memory
+    scratch), each bitwise its plain version (``_card_bitwise``), which
+    the CPU tests hold to autograd's. (Before, the route raised on the
+    card for both.)"""
     dev = _card()
-    sc = _compiled("test17", dev)
-    rays = _rays(sc, 8, 8)
-    before = diff.launches
-    with pytest.raises(NotImplementedError, match="Schlick"):
-        diff.trace_rays_fused(sc, *rays, CFG._replace(schlick=True))
-    with pytest.raises(ValueError, match="stack"):
-        diff.trace_rays_fused(sc, *rays, CFG._replace(stack=17))
-    assert diff.launches == before
+    cfg = CFG._replace(schlick=True) if what == "schlick" else DEEP_CFG
+    w, h = (800, 480) if what == "schlick" else (200, 120)
+    sc, rays, cols, tf, ti, T, g = _card_case(name, dev, cfg, w, h)
+    if what == "deep_stack":
+        assert int(_stack_tops(ti).max()) > diff.LOCAL_SLOTS
+    _card_bitwise(sc, rays, cfg, cols, tf, ti, T, g, False)
+
+
+@pytest.mark.cuda
+def test_backward_past_48kb_bitwise_plain_on_card():
+    """demo03's tables (256 surfaces) need 79 KB of accumulators a block,
+    past the 48 KB a launch has without the shared-memory opt-in, and
+    inside a block's 227 KB (not the wide mode): at 200x120 the tape and
+    backward launches and the light sums bitwise their plain versions,
+    two launches each (``_card_bitwise``)."""
+    dev = _card()
+    sc, rays, cols, tf, ti, T, g = _card_case("demo03", dev, CFG, 200, 120)
+    assert 4 * rp.BWD_WARPS * diff.table_columns(T) > 48 * 1024
+    assert not diff.rows_wide(T)
+    _card_bitwise(sc, rays, CFG, cols, tf, ti, T, g, False)
 
 
 @pytest.mark.cuda
 def test_step_launches_the_fused_kernels_on_card():
     """One eager make_train_step step on test17 at 96x64: one tape
-    forward, one backward, one row-sum call and one light-sum call, no
-    row gather (the autograd route's bounce reads)."""
+    forward, one backward and one light-sum call, no row-sum call (the
+    tables fit the backward's accumulators) and no row gather (the
+    autograd route's bounce reads); with the tables forced wide, one
+    row-sum call more."""
     from quadray_tpu_torch.ops import row_gather as rg
     dev = _card()
     sc = _compiled("test17", dev)
-    step_fn, opt_init = ttrain.make_train_step(96, 64, cfg=CFG, eager=True)
-    params = ttrain.extract_params(sc)
-    before = (diff.launches, diff.backward_launches, diff.light_sum_launches,
-              rg.launches, rg.backward_launches)
-    step_fn(params, opt_init(params), sc, torch.zeros((96 * 64, 3),
-                                                      device=dev))
-    torch.cuda.synchronize()
-    after = (diff.launches, diff.backward_launches, diff.light_sum_launches,
-             rg.launches, rg.backward_launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 0, 1)
+    counters = lambda: (diff.launches, diff.backward_launches,
+                        diff.light_sum_launches, rg.launches,
+                        rg.backward_launches)
+    for wide, rows in ((False, 0), (True, 1)):
+        step_fn, opt_init = ttrain.make_train_step(96, 64, cfg=CFG,
+                                                   eager=True)
+        params = ttrain.extract_params(sc)
+        before = counters()
+        real = diff.rows_wide
+        diff.rows_wide = (lambda T, smem=0: True) if wide else real
+        try:
+            step_fn(params, opt_init(params), sc,
+                    torch.zeros((96 * 64, 3), device=dev))
+        finally:
+            diff.rows_wide = real
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counters(), before)) == (
+            1, 1, 1, 0, rows)

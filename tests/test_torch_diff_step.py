@@ -117,6 +117,17 @@ def test_step_matches_the_jax_step():
     (JAX's compile of test17): the loss, every field's params and optax's
     first moment (0.1 x the gradient) within tests/test_torch_parallel.py's
     bounds."""
+    _against_jax({})
+
+
+def test_schlick_step_matches_the_jax_step():
+    """test_step_matches_the_jax_step with Schlick Fresnel
+    (TraceConfig.schlick) on both sides, the same bounds."""
+    _against_jax({"schlick": True})
+
+
+def _against_jax(change: dict):
+    """One step of each make_train_step, cfg (8, 4) with ``change``."""
     import jax
     import jax.numpy as jnp
     from quadray_tpu.models.scenes.loader import load_scene as jload
@@ -132,12 +143,13 @@ def test_step_matches_the_jax_step():
         {k: np.asarray(getattr(jsc, k)) for k in FIELDS}, device="cpu"))
     jsc = jsc.replace(s_pos=jsc.s_pos + 0.05)
     step, opt_init = jtrain.make_train_step(
-        jmesh(jax.devices()[:1]), W, H, cfg=JConfig(max_segments=8, stack=4),
-        lr=LR)
+        jmesh(jax.devices()[:1]), W, H,
+        cfg=JConfig(max_segments=8, stack=4)._replace(**change), lr=LR)
     jp = jtrain.extract_params(jsc)
     jp, jstate, jloss = step(jp, opt_init(jp), jsc, jnp.asarray(
         target.numpy()))
-    step_fn, _ = ttrain.make_train_step(W, H, cfg=CFG, lr=LR)
+    step_fn, _ = ttrain.make_train_step(W, H, cfg=CFG._replace(**change),
+                                        lr=LR)
     assert step_fn.run.route(sc) == "graph"
     p0, o0 = _start(sc)
     params, state, loss = step_fn(p0, o0, sc, target)
@@ -277,9 +289,9 @@ def test_graphed_steps_bitwise_eager_on_card(blocks):
     steps (the first the warm-up, then replays) against 3 eager ones from
     the same state, bit for bit, and two eager runs from that state bit
     for bit, on 1 and 4 blocks of the card; the graph launches, a block,
-    one pack, one tape forward, one backward, one row-sum call and one
-    light-sum call (ops/diff.py), no row gather and no other counted
-    kernel."""
+    one pack, one tape forward, one backward and one light-sum call
+    (ops/diff.py), no row-sum call (the tables fit the backward's
+    accumulators), no row gather and no other counted kernel."""
     dev = _card()
     w, h = 96, 64
     sc = _compiled(SCENE, dev)
@@ -300,7 +312,6 @@ def test_graphed_steps_bitwise_eager_on_card(blocks):
             assert prog.replay.counts == {
                 "pack_launches": blocks, "diff_launches": blocks,
                 "diff_backward_launches": blocks,
-                "gather_backward_launches": blocks,
                 "light_sum_launches": blocks}
     _assert_bitwise(runs[0], runs[1])
     _assert_bitwise(runs[1], runs[2])
