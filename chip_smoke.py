@@ -18,6 +18,7 @@
     python3 chip_smoke.py --only S   # kernel build + the all-surface gather
     python3 chip_smoke.py --only T   # kernel build + the fused all-surface
     python3 chip_smoke.py --only U   # kernel build + the update's launch
+    python3 chip_smoke.py --only W   # kernel build + Schlick, deep stacks
 
 Builds the Whitted kernel (quadray_tpu_torch/csrc/whitted.cu, all five
 entry points), the conformance kernels, the scene pack's kernel
@@ -203,6 +204,18 @@ then:
      the masks; N2 each instantiation's ptxas line; N3 a frame launched
      alone against its share of a launch of 64 frames, kernel device ms
      (CUDA events), on test01, test13, demo02 and demo03.
+  W. the Whitted kernels at what the jnp tracer takes of TraceConfig:
+     whole_kernel with Schlick Fresnel on test17 and test18, unculled and
+     with culling forced (the gate's floor lowered, as H does); test18 at
+     W_DEEP (48 segments, a stack of 24, no cutoff: its stacks pass the
+     16 local slots) in the device-memory scratch, unculled and culled,
+     at 384,001 rays; each bitwise the plain trace_rays and two launches
+     bitwise; the W_DEEP frame through Scene.render (the interactive
+     program's capture and a replay uint8-equal to render_cuda +
+     to_frame) and render_sharded_cuda on 2 blocks (bitwise render_cuda);
+     the path records, emit and the rounds at a stack of 40 on test13
+     (single-branch: no stack read) bitwise their plain versions; each
+     case's kernel device ms (CUDA graphs) beside the default cfg's.
   M. the port's bench (quadray_tpu_torch/bench.py): M1 its cells in this
      process, each counted: test01's K-frame batches (K = 8 and 64) in
      one Whitted launch each, frames 0 and K-1 bitwise render_cuda's at
@@ -261,8 +274,11 @@ then:
      test17 and test18 at 800x480 (the step's moved scene), a seeded
      gradient of the colors: the tape launch's colors bitwise the Whitted
      kernel's (unculled) and forward_plain's, its tape bitwise
-     forward_plain's; the backward's partials through the light sums
-     bitwise replay._block_sums of backward_rows_plain's tiles; the wide
+     forward_plain's in every word of the tape's contract (diff.tape_read:
+     the flags word of every ray-bounce, the rest of a hit; the kernel
+     writes no other); the backward, run on the kernel's own tape, its
+     partials through the light sums bitwise replay._block_sums of
+     backward_rows_plain's tiles on forward_plain's; the wide
      mode forced (backward_kernel's threshold argument 0): its row
      gradients and ids bitwise the plain wide mode's, its four gradients
      through the row sums bitwise backward_plain's wide ones; two launches
@@ -273,7 +289,8 @@ then:
      of the forward (with its pack launch), of the backward launch and of
      the light sums (CUDA graphs) beside the bounds (bytes and FP32
      operations), the plain versions' ms (CUDA events), the backward's
-     blocks an SM; then T_SMEM_SCENE (demo03) at the step's cfg, whose
+     blocks an SM, the forward's warp-bounces and the share of their
+     lanes active and with a hit; then T_SMEM_SCENE (demo03) at the step's cfg, whose
      accumulators (79 KB a block) need the shared-memory opt-in past
      48 KB: the tape launch and the backward launch with its light sums
      bitwise their plain versions, two launches each.
@@ -456,6 +473,20 @@ N1_FRAMES = (4, 5)
 # (the bench's K_BIG; quadray_tpu_torch/bench.py), kernel alone
 PHASE_N3 = ("test01", "test13", "demo02", "demo03")
 N3_FRAMES, N3_REPS = 64, 5
+# phase W: what the Whitted modes take of TraceConfig as the jnp tracer
+# does: Schlick Fresnel on the scenes with Fresnel glass (whole_kernel,
+# unculled and with the gate's floor lowered to cull them); W_DEEP's
+# stacks past the 16 local slots (no throughput cutoff: every glass hit
+# both reflects and transmits, so test18's stacks reach 23 at 24x16) in
+# the device-memory scratch, through trace_rays_cuda, Scene.render's
+# interactive program and the sharded render on W_SHARDS blocks; and the
+# single-branch modes (path records, emit, resume) at a stack of W_STACK,
+# which they never read, on W_SINGLE; device ms (CUDA graphs) of W_REPS
+# launches beside the default cfg's
+W_SCHLICK = ("test17", "test18")
+W_DEEP = dict(depth=24, max_segments=48, stack=24, cutoff=0.0)
+W_DEEP_SCENE = "test18"
+W_STACK, W_SINGLE, W_SHARDS, W_REPS = 40, "test13", 2, 5
 # golden/ref_test18_pt64.bmp limits (tests/test_pt.py:43-53)
 PT_LIMITS = {"global_mean": 2.5, "block_mean": 3.5, "block_p95": 9.0,
              "block_max": 18.0}
@@ -3943,6 +3974,144 @@ def phase_n1(dev):
     return 0.0
 
 
+def phase_w(dev, smi):
+    """Phase W (W_SCHLICK, W_DEEP, W_STACK above): each kernel bitwise its
+    plain version on the card at 800x480, two launches bitwise, one launch
+    each counted; the interactive program's frames (capture and replay)
+    uint8-equal to render_cuda + to_frame; kernel ms beside the default
+    cfg's. Returns {case: {"ms", "default_ms", "instance"}}."""
+    from quadray_tpu_torch import Scene
+    from quadray_tpu_torch.models.scenes.loader import load_scene
+    from quadray_tpu_torch.ops import cuda_kernel as ck
+    from quadray_tpu_torch.ops import diff
+    from quadray_tpu_torch.ops.trace import (TraceConfig, to_frame,
+                                             trace_paths, trace_rays,
+                                             trace_rays_emit)
+    from quadray_tpu_torch.parallel.mesh import ray_mesh
+    from quadray_tpu_torch.parallel.render import render_sharded_cuda
+    out = {}
+
+    def whole(label, sc, rays, cfg, base):
+        struct = ck.scene_struct(sc)
+        inst = ck.whitted_instance(struct, cfg, rays[1].shape[0])
+        want = trace_rays(sc, *rays, cfg)
+        ck.launches = 0
+        got = [ck.trace_rays_cuda(sc, *rays, cfg) for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = ck.launches
+        nd = [int((_bits(g) != _bits(want)).any(1).sum()) for g in got]
+        ms = graph_ms(lambda: ck.trace_rays_cuda(sc, *rays, cfg), W_REPS)
+        ms0 = graph_ms(lambda: ck.trace_rays_cuda(sc, *rays, base), W_REPS)
+        differs = not torch.equal(_bits(want), _bits(trace_rays(
+            sc, *rays, base)))
+        out[label] = dict(ms=ms, default_ms=ms0, instance=inst)
+        log(f"W {label}: whole_kernel<CAN_PUSH={int(inst['can_push'])}, "
+            f"CULL={int(inst['cull'])}, OWN={int(inst['own'])}, DEEP="
+            f"{int(inst['deep'])}> rays={rays[1].shape[0]}, rays differing "
+            f"from the plain trace_rays {nd}, launches {launches}; "
+            f"colors differ from the default cfg's: {differs}; kernel ms "
+            f"({smi}) {ms:.4f} against the default cfg's {ms0:.4f} "
+            f"({ms / ms0:.2f}x)")
+        if any(nd) or launches != 2 or not differs:
+            raise AssertionError(f"W {label}: off its plain version "
+                                 f"({nd}), {launches} launches or the "
+                                 "default cfg's colors")
+        return got[0]
+
+    for name in W_SCHLICK:
+        sc = compiled(name, dev)
+        rays = primary(sc, W, H)
+        for gate in ("unculled", "culled"):
+            cull = gate == "culled"
+            base = TraceConfig(cull=cull)
+            with cull_every_scene():
+                whole(f"{name} schlick {gate}", sc, rays,
+                      base._replace(schlick=True), base)
+        del sc, rays
+        torch.cuda.empty_cache()
+    sc = compiled(W_DEEP_SCENE, dev)
+    deep = TraceConfig(**W_DEEP)
+    height = int(diff.stack_slots(diff.forward_plain(
+        sc, *primary(sc, W, H), deep)[2]).max()) + 1
+    log(f"W {W_DEEP_SCENE} {TraceConfig(**W_DEEP)}: the plain tracer's "
+        f"stacks reach {height} slots (local slots {ck.MAX_STACK})")
+    if height <= ck.MAX_STACK:
+        raise AssertionError(f"W: {W_DEEP_SCENE}'s stacks reach {height}")
+    for gate in ("unculled", "culled"):
+        cull = gate == "culled"
+        with cull_every_scene():
+            cfg = deep._replace(cull=cull)
+            rays = edge_rays(sc, W * H + 1)
+            whole(f"{W_DEEP_SCENE} deep {gate}", sc, rays, cfg,
+                  TraceConfig(cull=cull))
+    # the same config through the main path's entry points
+    sc_r = Scene(load_scene(W_DEEP_SCENE), W, H, device=dev)
+    sc_r._cfg = lambda: deep
+    ck.launches = 0
+    frames = [sc_r.render(0.0), sc_r.render(0.0)]
+    torch.cuda.synchronize()
+    launches = ck.launches
+    lin = ck.render_cuda(sc_r.arrays, W, H, sc_r.pfm.fsaa, deep, sc_r._struct)
+    want = to_frame(lin, sc_r.arrays.use_gamma).cpu().numpy()
+    replay = sc_r._interactive_prog.replay
+    same = [np.array_equal(f, want) for f in frames]
+    sharded = render_sharded_cuda(sc_r.arrays, W, H,
+                                  ray_mesh([dev] * W_SHARDS), 1, deep)
+    torch.cuda.synchronize()
+    same_sharded = torch.equal(_bits(sharded), _bits(lin))
+    log(f"W {W_DEEP_SCENE} deep through Scene.render (the interactive "
+        f"program's capture frame and a replay) uint8-equal to render_cuda "
+        f"+ to_frame: {same}, Whitted launches {launches}, the graph's "
+        f"launches {replay.counts}; render_sharded_cuda on {W_SHARDS} "
+        f"blocks bitwise render_cuda: {same_sharded}")
+    if not all(same) or launches != 2 or not same_sharded \
+            or replay.counts.get("launches") != 1:
+        raise AssertionError("W: the deep stack's frames differ through "
+                             "Scene.render or render_sharded_cuda")
+    del sc_r, lin, sharded
+    torch.cuda.empty_cache()
+    # the single-branch modes at a stack they never read
+    sc = compiled(W_SINGLE, dev)
+    rays = primary(sc, W, H)
+    cfg = TraceConfig(stack=W_STACK)
+    base = TraceConfig()
+    k = 8
+    ck.paths_launches = ck.emit_launches = ck.resume_launches = 0
+    cols_k, paths_k = ck.trace_paths(sc, *rays, cfg._replace(
+        max_segments=k), k)
+    cols_p, paths_p = trace_paths(sc, *rays, cfg._replace(max_segments=k), k)
+    ecols_k, state_k = ck.trace_rays_emit_cuda(sc, *rays, cfg, 4)
+    ecols_p, state_p = trace_rays_emit(sc, *rays, cfg, 4)
+    ecols_k = ecols_k.clone()
+    rounds = ck.trace_rays_rounds(sc, *rays, cfg, 4)
+    want = trace_rays(sc, *rays, cfg)
+    torch.cuda.synchronize()
+    nd = {"paths colors": int((_bits(cols_k) != _bits(cols_p)).sum()),
+          "paths records": int((paths_k != paths_p).sum()),
+          "emit colors": int((_bits(ecols_k) != _bits(ecols_p)).sum()),
+          "emit state": int((_bits(state_k) != _bits(state_p)).sum()),
+          "rounds colors": int((_bits(rounds) != _bits(want)).sum())}
+    counts = (ck.paths_launches, ck.emit_launches, ck.resume_launches)
+    times = {}
+    for what, fn in (("paths", lambda c: ck.trace_paths(
+            sc, *rays, c._replace(max_segments=k), k)),
+            ("rounds", lambda c: ck.trace_rays_rounds(sc, *rays, c, 4))):
+        times[what] = (graph_ms(lambda: fn(cfg), W_REPS),
+                       graph_ms(lambda: fn(base), W_REPS))
+        out[f"{W_SINGLE} stack {W_STACK} {what}"] = dict(
+            ms=times[what][0], default_ms=times[what][1], instance=None)
+    log(f"W {W_SINGLE} stack={W_STACK} (single-branch: no stack read): "
+        f"words differing from the plain versions {nd}; launches (paths, "
+        f"emit, resume) {counts}; ms ({smi}) paths {times['paths'][0]:.4f} "
+        f"against the default cfg's {times['paths'][1]:.4f}, rounds (emit "
+        f"+ compaction + resume) {times['rounds'][0]:.4f} against "
+        f"{times['rounds'][1]:.4f}")
+    if any(nd.values()) or counts != (1, 2, 1):
+        raise AssertionError(f"W {W_SINGLE} stack={W_STACK}: {nd}, "
+                             f"launches {counts}")
+    return out
+
+
 def phase_n3(dev):
     """A frame launched alone against its share of a launch of N3_FRAMES
     frames (the frames' rays one after another, as the bench's batches),
@@ -4682,10 +4851,11 @@ def diff_bounds(n: int, k: int, words: int, ns: int, nm: int, nl: int,
                 struct, stats, hits: int) -> dict:
     """bound_ms of the fused all-surface route's parts on n rays of k
     bounces, ``hits`` of the k n ray-bounces hits: the forward reads the
-    rays (28 bytes a ray), writes the colors (12) and the whole tape (12
-    floats and ``words`` words a ray a bounce) and does the surface tests
-    its walks need (``surface_ops`` of forward_plain's count) and each
-    hit's shading (R_SEG_OPS, R_LIGHT_OPS a light); the backward reads
+    rays (28 bytes a ray), writes the colors (12) and the tape's contract
+    (``diff.tape_read``: the flags word of every ray-bounce, the 12
+    floats, the texel and the light words of a hit) and does the surface
+    tests its walks need (``surface_ops`` of forward_plain's count) and
+    each hit's shading (R_SEG_OPS, R_LIGHT_OPS a light); the backward reads
     the flags word of every ray-bounce, and the rest of the tape (12
     floats, the texel and the light words) only of a hit, as replay's
     bound counts a live segment's state, and the colors' gradient, writes
@@ -4709,7 +4879,7 @@ def diff_bounds(n: int, k: int, words: int, ns: int, nm: int, nl: int,
     # the backward as phase T times it: the launch and the light sums, a
     # function of the tape, g_cols and the tables to the tables' gradients;
     # the partials pass between its two launches and are not counted
-    return {"forward": bound_ms(40 * n + 4 * kn * (12 + words),
+    return {"forward": bound_ms(40 * n + 4 * kn + 4 * hits * (12 + words - 1),
                                 surface_ops(struct, stats) + shade),
             "backward": bound_ms(launch[0] + sums[0] - 8 * blocks * cols,
                                  launch[1] + sums[1]),
@@ -4769,8 +4939,10 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
                                      cfg.schlick)[3]
     g_la = rp._block_sums(tiles)
     del tiles
-    pairs = [("colors", lambda o: o[0], cols), ("tf", lambda o: o[1], tf),
-             ("ti", lambda o: o[2], ti), ("sums", lambda o: o[3], g_la)]
+    # the tape is compared where its contract says the backward reads it
+    # (diff.tape_read; the kernel leaves the other words unwritten), and
+    # the backward runs on the kernel's own tape
+    pairs = [("colors", lambda o: o[0], cols), ("sums", lambda o: o[3], g_la)]
     if what == "default":
         pairs.append(("colors vs whitted", lambda o: o[0],
                       ck.trace_rays_cuda(sc, *rays, cfg._replace(cull=False))))
@@ -4798,6 +4970,8 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
             out.append(diff.backward_kernel(g, T, out[1], out[2], cfg,
                                             smem=0))
         torch.cuda.synchronize()
+        differ["tape"] = differ.get("tape", 0) + diff.tape_differs(
+            tf, ti, out[1], out[2])
         for what_, get, y in pairs:
             x = get(out)
             differ[what_] = differ.get(what_, 0) + int(
@@ -4823,6 +4997,14 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
         torch.cuda.empty_cache()
     fl = ti[:, 0]
     hits = int(((fl & diff.HIT) != 0).sum())
+    # the forward's warp-bounces: a warp runs bounce k while a lane of it
+    # is active; the share of its lanes that are, and that hit
+    pad = (-n) % 32
+    lanes = lambda m: torch.nn.functional.pad(m, (0, pad)).view(k, -1, 32)
+    act = lanes((fl & diff.ACTIVE) != 0)
+    runs = int(act.any(2).sum())
+    live_share = int(act.sum()) / (32 * runs)
+    hit_share_run = hits / (32 * runs)
     step = ((fl & diff.PUSH) != 0).int() - ((fl & diff.POP) != 0).int()
     height = int(torch.cumsum(step, dim=0).max())
     nl, words = T.ltab.shape[0], ti.shape[1]
@@ -4838,7 +5020,9 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
     k_sums = graph_ms(lambda: diff.light_sums_kernel(lpart), T_REPS)
     del lpart
     r = dict(case=what, scene=name, rays=n, bounces=k, hits=hits,
-             hit_share=hits / (k * n), height=height, forward_ms=k_fwd,
+             hit_share=hits / (k * n), height=height,
+             warp_bounces=runs, live_lane_share=live_share,
+             hit_lane_share=hit_share_run, forward_ms=k_fwd,
              backward_ms=k_bwd, backward_launch_ms=k_launch,
              light_sums_ms=k_sums,
              blocks_per_sm=diff.backward_occupancy(cfg, diff.table_columns(T)),
@@ -4846,7 +5030,9 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
                      for p, b in bounds.items()},
              max_abs_err=worst, grad_rel=max(rel.values(), default=None),
              smem_bytes=4 * rp.BWD_WARPS * diff.table_columns(T),
-             tape_bytes=(tf.numel() + ti.numel()) * 4)
+             tape_bytes=(tf.numel() + ti.numel()) * 4,
+             tape_written_bytes=4 * (k * n + hits * (12 + words - 1)),
+             forward_bound_share=bounds["forward"][0] / k_fwd)
     if wide:
         rw = diff.backward_rows_kernel(g, T, tf, ti, cfg, True)
         r["wide_backward_ms"] = graph_ms(lambda: diff.backward_kernel(
@@ -4870,7 +5056,11 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
     log(f"T {name} {what} {W}x{H} K={k} stack={cfg.stack} schlick="
         f"{cfg.schlick} ({ns} surfaces, {nl} lights; hits {hits} of "
         f"{k * n} ray-bounces ({100 * hits / (k * n):.2f}%), stack height "
-        f"up to {height}; tape {r['tape_bytes'] / n:.0f} B a ray"
+        f"up to {height}; tape {r['tape_bytes'] / n:.0f} B a ray "
+        f"allocated, {r['tape_written_bytes'] / n:.1f} written (the "
+        f"contract); the forward runs {runs} warp-bounces, "
+        f"{100 * live_share:.2f}% of their lanes active, "
+        f"{100 * hit_share_run:.2f}% with a hit"
         + (f"; {r['flags']}" if "flags" in r else "")
         + f"): kernels vs plain, two launches each"
         + (", the wide mode forced too" if wide else "")
@@ -4895,7 +5085,9 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
            f"(rows + sums) {r['plain_backward_ms']:.2f}"
            if what == "default" else "")
         + "; bounds "
-        + " ".join(f"{p} {b[0]:.4f} ({b[1]})" for p, b in bounds.items()))
+        + " ".join(f"{p} {b[0]:.4f} ({b[1]})" for p, b in bounds.items())
+        + f"; the forward at {100 * r['forward_bound_share']:.1f}% of its "
+        f"bound (set by {bounds['forward'][1]})")
     if any(differ.values()):
         raise AssertionError(f"T {name} {what}: kernels off their plain "
                              f"versions: {differ}")
@@ -5369,7 +5561,7 @@ def main():
     ap.add_argument("--only",
                     choices=["A", "D", "E", "F", "G", "H", "I", "J", "K",
                              "L", "M", "N", "O", "P", "Q", "R", "S", "T",
-                             "U"],
+                             "U", "W"],
                     default=None,
                     help="run only phase A (build + kernel vs plain), D "
                     "(training path), E (path tracer), F (two-round "
@@ -5383,9 +5575,10 @@ def main():
                     "one CUDA graph, at 800x480 and 1920x1080), R (the "
                     "fused replay), S (the all-surface step's row gather "
                     "at its shapes), T (the fused all-surface route's "
-                    "kernels) or U (the scene "
+                    "kernels), U (the scene "
                     "update as one launch, the interactive frame as one "
-                    "CUDA graph)")
+                    "CUDA graph) or W (the Whitted kernels with Schlick "
+                    "Fresnel and stacks past 16 slots)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -5416,10 +5609,12 @@ def main():
         with open(ptxas) as fh:
             text = fh.read()
         for chunk in text.split("Compiling entry function")[1:]:
-            m = re.search(r"paths_kernelILb(\d)ELb(\d)ELb(\d)E", chunk)
+            m = re.search(r"paths_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                          chunk)
             if m:
                 log(f"ptxas paths_kernel<CULL={m.group(1)}, SM={m.group(2)}"
-                    f", OWN={m.group(3)}> (path records): " + "; ".join(
+                    f", OWN={m.group(3)}, SCHLICK={m.group(4)}> (path "
+                    "records): " + "; ".join(
                         re.findall(
                             r"\d+ bytes stack frame, \d+ bytes spill "
                             r"stores, \d+ bytes spill loads|Used \d+ "
@@ -5429,10 +5624,12 @@ def main():
             "B a block (the tables of a scene that fits; D1 prints each "
             "scene's)")
         for chunk in text.split("Compiling entry function")[1:]:
-            m = re.search(r"whole_kernelILb(\d)ELb(\d)ELb(\d)E", chunk)
+            m = re.search(r"whole_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb"
+                          r"(\d)E", chunk)
             if m:
                 log(f"ptxas whole_kernel<CAN_PUSH={m.group(1)}, CULL="
-                    f"{m.group(2)}, OWN={m.group(3)}> (the main path): "
+                    f"{m.group(2)}, OWN={m.group(3)}, DEEP={m.group(4)}, "
+                    f"SCHLICK={m.group(5)}> (the main path): "
                     + "; ".join(re.findall(
                         r"\d+ bytes stack frame, \d+ bytes spill stores, "
                         r"\d+ bytes spill loads|Used \d+ registers[^\n]*",
@@ -5510,6 +5707,9 @@ def main():
         n_err = phase_n1(dev)
         n3 = phase_n3(dev)
         log(f"phase N ok ({time.perf_counter() - t0:.1f} s)")
+
+    if only in (None, "W"):
+        w_rows = phase("W", phase_w, dev, smi)
 
     if only in (None, "D"):
         t0 = time.perf_counter()
@@ -5824,11 +6024,17 @@ def main():
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/pallas_kernel.py:2201",
         "launches": launches + j_whitted + l_whitted,
+        "design_deep_stack": "past 16 slots (min(stack, max_segments)) "
+                             "on a scene that can push, the ray's slots "
+                             "in a device-memory scratch (n, d, 15) from "
+                             "the caching allocator; the cooperative tail "
+                             "works on its owner's slots there",
         "max_abs_err": max(max_err, n_err),
         "frame_alone_vs_share_of_64": {
             n: {"alone_ms": a, "share_ms": b} for n, (a, b) in n3.items()},
         "ms": ms, "plain_ms": plain, "bound_ms": w_bound[0],
-        "bound_by": w_bound[1], "library_ms": None}, {
+        "bound_by": w_bound[1], "library_ms": None,
+        "schlick_and_deep_stack": w_rows}, {
         "name": "whitted_paths", "route": "cuda", "culling": culled,
         "design": paths_design,
         "source": "quadray_tpu_torch/csrc/whitted.cu",
@@ -5978,11 +6184,12 @@ def main():
                   "unculled, one thread a ray on ceil(n / 128) blocks, the "
                   "branch stack's min(stack, K) slots in local memory (4, "
                   "8 or 16) or past 16 in a device-memory scratch; each "
-                  "bounce "
-                  "writes its entry state (12 floats) and its flags, texel "
-                  "and light bits (2 + ceil(NL / 32) words) in (K, F, N) "
-                  "layout, coalesced; after the pack of the step's tables "
-                  "(one csrc/pack.cu launch)",
+                  "bounce writes the tape's contract in (K, F, N) layout, "
+                  "coalesced, each word once: its flags word, and where it "
+                  "hits its entry state (12 floats, kept in registers "
+                  "until the hit is known), texel and light bits (2 + "
+                  "ceil(NL / 32) words, built in a register); after the "
+                  "pack of the step's tables (one csrc/pack.cu launch)",
         "source": "quadray_tpu_torch/csrc/whitted.cu",
         "replaces": "quadray_tpu/ops/trace.py:725",
         "note": "the forward of the JAX trace_rays_diff inside "

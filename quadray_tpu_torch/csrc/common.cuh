@@ -76,8 +76,9 @@ struct Fresnel {
 // 3671-3830: the metal fast conductor formula, plain dielectric otherwise);
 // SM: the material row M is in shared memory; schlick: Schlick's F on the
 // transparency path (RT_FEAT_SCHLICK, tracer.cpp:3355-3381; ops/trace.py
-// fresnel_schlick's f32 operations and order), which only the
-// differentiable route's forward takes
+// fresnel_schlick's f32 operations and order), which every Whitted mode
+// takes from TraceConfig.schlick and PT never does (its Fresnel does not
+// read the flag in the reference either)
 template <bool SM = false>
 __device__ __forceinline__ Fresnel fresnel(int props, const float* M,
                                            bool fres_scene, float dx,

@@ -237,14 +237,17 @@ __device__ __forceinline__ void light(Light& q, const Tabs& t, int l,
   q.term_b = v.metal ? q.mclc_b * q.tm : q.mclc_b * q.dfs + q.lcb * q.spc;
 }
 
-// light l lit and unshadowed at the bounce (its tape bit)
+// light l lit and unshadowed at the bounce (its tape bit; none where lw
+// is null: a bounce without a hit, whose light words the tape leaves
+// unwritten)
 __device__ __forceinline__ bool vis_bit(const int* __restrict__ lw, size_t n,
                                         int l) {
-  return ((unsigned)lw[(size_t)(l / 32) * n] >> (l % 32)) & 1u;
+  return lw != nullptr &&
+         (((unsigned)lw[(size_t)(l / 32) * n] >> (l % 32)) & 1u);
 }
 
 // ops/diff.py _recompute: the bounce of tape state st (12 floats) and
-// flags/texel, its light bits at lw (a word every n)
+// flags/texel, its light bits at lw (a word every n; null: none lit)
 __device__ __forceinline__ void recompute(Bnc& v, const Tabs& t, bool ug,
                                           bool uf, const float (&st)[TAPE_F],
                                           unsigned flags, int texel,
@@ -953,8 +956,12 @@ __device__ __forceinline__ int stack_height(const int* __restrict__ ti,
 // false): its recompute and adjoint where `any` (some lane of the warp
 // has a hit there; the others compute along and are masked, as the
 // plain version's torch.where is), the stack and the next state's
-// gradient moved on. h: the stack's height after the bounce, before it on
-// return; the pushed or popped slot is counted from it. The tables'
+// gradient moved on. The tape's contract (ops/diff.py tape_read): the
+// flags word of every bounce, the rest only of a hit, so a lane whose
+// bounce has no hit loads nothing else and computes along on zeros (the
+// entry state, texel 0, no light lit), whose results are masked away.
+// h: the stack's height after the bounce, before it on return; the
+// pushed or popped slot is counted from it. The tables'
 // gradients go to add(base, stride, row, values, count) (value j to
 // column base + j stride + row of the partials): the lights' and
 // ambient's, and, unless `wide`, the surface row's (columns 10 nl + 3 +
@@ -985,11 +992,11 @@ __device__ __forceinline__ void back_bounce(
   if (any) {
     float st[TAPE_F];
     const float* ts = tf + (size_t)k * TAPE_F * n + ii;
-    for (int j = 0; j < TAPE_F; ++j) st[j] = ts[(size_t)j * n];
+    for (int j = 0; j < TAPE_F; ++j) st[j] = hit ? ts[(size_t)j * n] : 0.0f;
+    const int* lw = hit ? tw + 2 * (size_t)n : nullptr;
     Bnc v;
-    recompute(v, t, ug, uf, st, flags, tw[n], tw + 2 * (size_t)n, n);
-    adjoint(v, t, flags, tw + 2 * (size_t)n, n, gar, gag, gab, bk.gn, gsl,
-            add, o);
+    recompute(v, t, ug, uf, st, flags, hit ? tw[n] : 0, lw, n);
+    adjoint(v, t, flags, lw, n, gar, gag, gab, bk.gn, gsl, add, o);
     s = v.bs;
     m = v.m;
     if (!wide) {

@@ -29,9 +29,11 @@
 //   * any-hit shadows with the per-side blocker bits;
 //   * shading: ambient, diffuse and specular lights with attenuation,
 //     textures through the packed u8 atlas and the decode LUT, gamma
-//     decode, exact and metal Fresnel with TIR, the branch stack of
-//     cfg.stack slots x 15 values, the cutoff/depth rules and the
-//     max_segments cap.
+//     decode, exact or Schlick (cfg.schlick, as the jnp tracer takes it;
+//     the Pallas kernel ignores the flag) and metal Fresnel with TIR, the
+//     branch stack of cfg.stack slots x 15 values (16 in local memory,
+//     past that in a device-memory scratch), the cutoff/depth rules and
+//     the max_segments cap.
 // Surface classes are a run-time switch on sp_i (kind, singularity, clip
 // count) where the TPU kernel recompiled per scene structure.
 //
@@ -198,7 +200,10 @@
 // more than cfg.own_min surfaces and the launch holds at most own_max
 // rays. A persistent grid on a work queue and the tables in shared memory
 // were measured against this on the H100 and lost on the scenes that
-// reach each walk by default (PERF.md, section 6).
+// reach each walk by default (PERF.md, section 6). A scene that can push
+// holds its branch stack in MAX_STACK local slots, or, where a ray may
+// hold more (min(stack, max_segments) > MAX_STACK), its slots in a
+// device-memory scratch the caller allocates (the DEEP instantiations).
 //
 // The cooperative tail (the culled whole-trace instantiations,
 // whitted_launch's coop_max). A ray is a serial chain of dependent
@@ -294,8 +299,8 @@ struct Cfg {
   // the rounds' per-ray masks refine a warp's mask that keeps more than
   // this many surfaces (nearest_own, occluded_own)
   int own_min;
-  // Schlick's F on the transparency path (TraceConfig.schlick): the TAPE
-  // mode's only (the other modes' wrappers refuse it)
+  // Schlick's F on the transparency path (TraceConfig.schlick), in every
+  // mode (the jnp tracer's; the Pallas kernel ignores the flag)
   int schlick;
 };
 
@@ -1086,11 +1091,18 @@ __device__ __forceinline__ void tail_load(const float* col, Ray& r,
 // two-round modes, whole_kernel and paths_kernel, culled). EMIT_PATHS: the
 // path-record kernel, which writes this segment's record to paths. SM:
 // the tables in the block's shared memory. TAPE: the differentiable
-// route's forward (tape_kernel), which writes the segment's tape: the
-// entry state to tf[(it * TAPE_F + j) * n + i] and the words (flags,
-// texel, the lights' bits; ops/diff.py) to ti[(it * words + w) * n + i].
+// route's forward (tape_kernel), which writes the segment's tape words
+// that the backward reads (ops/diff.py tape_read), each once: the flags
+// word to ti[(it * words) * n + i]; where the segment hits, also the
+// entry state (12 floats, still in r and thr when the hit is known) to
+// tf[(it * TAPE_F + j) * n + i], the texel and the lights' bits (built in
+// a register, a word of 32 lights at a time) to ti[(it * words + w) * n +
+// i]; a miss leaves them unwritten. SCHLICK: Schlick's F (cfg.schlick, a
+// template flag of the other modes' kernels, so that the exact Fresnel's
+// instantiations keep their code; TAPE reads cfg.schlick at run time).
 template <bool CAN_PUSH, bool EMIT_PATHS, bool CULL, bool TAIL,
-          bool RAY = false, bool SM = false, bool TAPE = false>
+          bool RAY = false, bool SM = false, bool TAPE = false,
+          bool SCHLICK = false>
 __device__ __forceinline__ void segment(
     const Tables& T, const Cfg& cfg, int it, int i, int n,
     int* __restrict__ paths, Ray& r, float thr[3], float acc[3], int& depth,
@@ -1098,16 +1110,11 @@ __device__ __forceinline__ void segment(
     bool per_ray = false, float* __restrict__ tf = nullptr,
     int* __restrict__ ti = nullptr, int words = 0) {
   const bool own = RAY && per_ray;
-  if (TAPE) {
-    const float st[TAPE_F] = {r.ox,   r.oy,   r.oz,   r.dx,   r.dy,   r.dz,
-                              thr[0], thr[1], thr[2], r.olx, r.oly, r.olz};
-    for (int j = 0; j < TAPE_F; ++j)
-      tf[((size_t)it * TAPE_F + j) * n + i] = st[j];
-    for (int w = 2; w < words; ++w) ti[((size_t)it * words + w) * n + i] = 0;
-  }
-  // the tape's flags word and texel (ops/diff.py FLAGS)
+  // the tape's flags word, texel and the lit lights' bits of the current
+  // word of 32 (ops/diff.py FLAGS)
   unsigned tflags = TAPE ? T_ACTIVE : 0u;
   int texel = -1;
+  unsigned lbits = 0u;
   const float amb[3] = {ldt<SM>(T.misc, 0), ldt<SM>(T.misc, 1),
                         ldt<SM>(T.misc, 2)};
   const bool gamma_on = ldt<SM>(T.misc, 3) > 0.0f;
@@ -1131,10 +1138,15 @@ __device__ __forceinline__ void segment(
   // unculled, a lane in the loop has a ray
   const bool hit = (!CULL || active) && hb.t < BIG;
   bool cont = false;
-  if (TAPE && hit)
+  if (TAPE && hit) {
     tflags |= (unsigned)(hb.srf & T_SRF) | T_HIT |
               (hb.side > 0 ? T_SIDE : 0u) | (r.osrf == hb.srf ? T_OWN : 0u) |
               (hb.hm ? T_NUDGE : 0u);
+    const float st[TAPE_F] = {r.ox,   r.oy,   r.oz,   r.dx,   r.dy,   r.dz,
+                              thr[0], thr[1], thr[2], r.olx, r.oly, r.olz};
+    for (int j = 0; j < TAPE_F; ++j)
+      tf[((size_t)it * TAPE_F + j) * n + i] = st[j];
+  }
   // path record (record_path, pallas_kernel.py:1871-1886): a miss keeps
   // side +1 and sets the bit of every active light (lit needs a hit)
   unsigned rec =
@@ -1165,6 +1177,10 @@ __device__ __forceinline__ void segment(
   // culled, every lane takes part in every light's shadow pass
   const int nl = CULL || hit ? T.nl : 0;
   for (int l = 0; l < nl; ++l) {
+    if (TAPE && l > 0 && (l & 31) == 0) {   // lights l - 32 .. l - 1 done
+      ti[((size_t)it * words + 1 + l / 32) * n + i] = (int)lbits;
+      lbits = 0u;
+    }
     const float* L = T.lg_f + (size_t)l * LF;
     const unsigned unlit = EMIT_PATHS ? 1u << (16 + l) : 0u;
     Ray sr;
@@ -1206,8 +1222,7 @@ __device__ __forceinline__ void segment(
       rec |= unlit;
       continue;
     }
-    if (TAPE)
-      ti[((size_t)it * words + 2 + l / 32) * n + i] |= (int)(1u << (l % 32));
+    if (TAPE) lbits |= 1u << (l & 31);
     // lit and unshadowed: attenuated diffuse + specular
     const float lvx = sr.dx, lvy = sr.dy, lvz = sr.dz;
     const float r2 = lvx * lvx + lvy * lvy + lvz * lvz;
@@ -1243,7 +1258,7 @@ __device__ __forceinline__ void segment(
     }
 
     const Fresnel fr = fresnel<SM>(props, M, fres_scene, dx, dy, dz, nx,
-                                   ny, nz, TAPE && cfg.schlick);
+                                   ny, nz, TAPE ? cfg.schlick != 0 : SCHLICK);
 
     // local weight from the ORIGINAL material rfl/trn (TR_mix,
     // tracer.cpp:3566-3571), not the Fresnel-modulated values
@@ -1307,7 +1322,14 @@ __device__ __forceinline__ void segment(
     if (!cont && CAN_PUSH && sp > 0)
       tflags |= T_POP | (((unsigned)(sp - 1) & 15u) << T_SLOT_SHIFT);
     ti[((size_t)it * words) * n + i] = (int)tflags;
-    ti[((size_t)it * words + 1) * n + i] = texel;
+    if (hit) {
+      ti[((size_t)it * words + 1) * n + i] = texel;
+      // the light loop's last word, then the words of no active light
+      for (int w = 2 + (nl > 0 ? (nl - 1) / 32 : 0); w < words; ++w) {
+        ti[((size_t)it * words + w) * n + i] = (int)lbits;
+        lbits = 0u;
+      }
+    }
   }
   if (!cont) {
     if (!CAN_PUSH || sp == 0) {   // retired
@@ -1340,14 +1362,21 @@ __device__ __forceinline__ void segment(
 // ascending lane order, each to its end, every lane running its segments.
 // Each lane's state is in its column of the warp's shared columns `cols`
 // (tail_save); a ray's colour sums go back to its column. Not inlined: the
-// warp calls it once, and the per-lane loop keeps its registers.
-template <bool CAN_PUSH>
+// warp calls it once, and the per-lane loop keeps its registers. stk: the
+// lane's own branch stack (local memory), whose owner's slots the pop
+// shuffles to every lane; DEEP, lane 0's in the device-memory scratch,
+// each lane's d = min(stack, max_segments) slots after the lane before's,
+// and every lane takes the owner's (the same address on every lane, so
+// the shuffle moves the value each lane already read).
+template <bool CAN_PUSH, bool DEEP, bool SCHLICK>
 __device__ __noinline__ void coop_tail(Tables T, Cfg cfg, float* cols,
                                        unsigned live, int it0,
                                        float (*stk)[SLOT]) {
   const int lane = (int)(threadIdx.x & 31u);
+  const int d = cfg.stack < cfg.max_segments ? cfg.stack : cfg.max_segments;
   for (; live; live &= live - 1u) {
     const int owner = __ffs(live) - 1;
+    float (*const ostk)[SLOT] = DEEP ? stk + (size_t)owner * d : stk;
     Ray r;
     float thr[3], acc[3];
     int depth, sp, seg;
@@ -1355,9 +1384,9 @@ __device__ __noinline__ void coop_tail(Tables T, Cfg cfg, float* cols,
     r.tmx = BIG;
     bool active = true;
     for (int it = it0; it < cfg.max_segments && active; ++it)
-      segment<CAN_PUSH, false, true, true>(T, cfg, it, 0, 0, nullptr, r, thr,
-                                           acc, depth, sp, stk, active, seg,
-                                           owner);
+      segment<CAN_PUSH, false, true, true, false, false, false, SCHLICK>(
+          T, cfg, it, 0, 0, nullptr, r, thr, acc, depth, sp, ostk, active,
+          seg, owner);
     if (lane == owner)
       for (int c = 0; c < 3; ++c) cols[owner + (17 + c) * W_BLOCK] = acc[c];
   }
@@ -1368,8 +1397,9 @@ __device__ __noinline__ void coop_tail(Tables T, Cfg cfg, float* cols,
 // bounce with a tape): unculled (a parameter update moves surfaces away
 // from the bounding spheres compile_scene made), every segment through
 // segment<> with TAPE, so the colours are whole_kernel's (trace_rays's) bit
-// for bit; the segments after the one it retired in record zeros. The
-// branch stack: CAP slots in local memory (a ray pushes at most once a
+// for bit; the segments after the one it retired in record a zero flags
+// word, and nothing else (the tape's contract, ops/diff.py tape_read).
+// The branch stack: CAP slots in local memory (a ray pushes at most once a
 // segment, so min(stack, max_segments) <= CAP slots are ever held), or,
 // CAP 0, the ray's d slots of the device-memory scratch deep (n, d, SLOT).
 template <int CAP>
@@ -1408,11 +1438,7 @@ __device__ __forceinline__ void tape_ray(const float* __restrict__ rays,
     segment<true, false, false, false, false, false, true>(
         T, cfg, it, i, n, nullptr, r, thr, acc, depth, sp, stk, active, seg,
         0, false, tf, ti, words);
-  for (; it < cfg.max_segments; ++it) {
-    for (int j = 0; j < TAPE_F; ++j)
-      tf[((size_t)it * TAPE_F + j) * n + i] = 0.0f;
-    for (int w = 0; w < words; ++w) ti[((size_t)it * words + w) * n + i] = 0;
-  }
+  for (; it < cfg.max_segments; ++it) ti[((size_t)it * words) * n + i] = 0;
   out[i] = acc[0];
   out[n + i] = acc[1];
   out[2 * n + i] = acc[2];
@@ -1420,7 +1446,7 @@ __device__ __forceinline__ void tape_ray(const float* __restrict__ rays,
 
 // The two rounds of two-round retirement (file header), single-branch
 // scenes only: one thread a ray, a grid of ceil(n / W_BLOCK) blocks.
-template <int ROUND, bool CULL, bool OWN = false>
+template <int ROUND, bool CULL, bool OWN, bool SCHLICK>
 __global__ void __launch_bounds__(W_BLOCK)
 whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
                float* __restrict__ state, const int* __restrict__ idx,
@@ -1496,7 +1522,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
   for (int it = 0; it < cfg.max_segments; ++it) {
     const bool per_ray = RAY && (ROUND == RESUME || it > 0);
     if (CULL ? !__any_sync(FULL_WARP, active) : !active) break;
-    segment<false, false, CULL, false, RAY>(
+    segment<false, false, CULL, false, RAY, false, false, SCHLICK>(
         T, cfg, it, i, n, nullptr, r, thr, acc, depth, sp, stk, active, seg,
         0, per_ray);
   }
@@ -1529,6 +1555,7 @@ whitted_kernel(const float* __restrict__ rays, float* __restrict__ out,
 // first resumed segment (orow -1), as in the dense mode. Lane 0 writes its
 // colours. With cfg.cull 0 the masks keep every real surface (and every
 // blocker), dealt out the same way. Single-branch scenes: no stack.
+template <bool SCHLICK>
 __global__ void __launch_bounds__(W_BLOCK)
 resume_sparse(const float* __restrict__ state, const int* __restrict__ idx,
               const int* __restrict__ count, float* __restrict__ out, int n,
@@ -1565,8 +1592,9 @@ resume_sparse(const float* __restrict__ state, const int* __restrict__ idx,
     int sp = 0, seg;
     bool active = true;
     for (int it = 0; it < cfg.max_segments && active; ++it)
-      segment<false, false, true, true>(T, cfg, it, 0, 0, nullptr, r, thr,
-                                        acc, depth, sp, stk, active, seg, 0);
+      segment<false, false, true, true, false, false, false, SCHLICK>(
+          T, cfg, it, 0, 0, nullptr, r, thr, acc, depth, sp, stk, active,
+          seg, 0);
     if (lane == 0) {
       out[i] = acc[0];
       out[n + i] = acc[1];
@@ -1675,7 +1703,7 @@ __device__ __forceinline__ int next_rays(int* queue) {
 // device-memory reads); unculled in shared memory no minimum (ptxas
 // takes 127: two blocks). Each was the fastest on the H100 (PERF.md,
 // section 6).
-template <bool CULL, bool SM, bool OWN>
+template <bool CULL, bool SM, bool OWN, bool SCHLICK>
 __global__ void __launch_bounds__(P_BLOCK, CULL ? 2 : SM ? 1 : 3)
 paths_kernel(const float* __restrict__ rays, float* __restrict__ out,
              int* __restrict__ paths, int n, Tables T, Cfg cfg, Staging st,
@@ -1711,7 +1739,7 @@ paths_kernel(const float* __restrict__ rays, float* __restrict__ out,
     // culled, every lane of the warp runs the loop while any has a ray
     for (int it = 0; it < cfg.max_segments; ++it) {
       if (CULL ? !__any_sync(FULL_WARP, active) : !active) break;
-      segment<false, true, CULL, false, OWN, SM>(
+      segment<false, true, CULL, false, OWN, SM, false, SCHLICK>(
           T, cfg, it, i, n, paths, r, thr, acc, depth, sp, stk, active, seg,
           0, OWN && it > 0);
     }
@@ -1738,12 +1766,17 @@ paths_kernel(const float* __restrict__ rays, float* __restrict__ out,
 // Culled, four blocks an SM (128 registers a thread): without the minimum
 // ptxas took 154-168 registers (three blocks), which lost; unculled, five
 // (96 registers): without it ptxas took 104-107 (four blocks), 5-10%
-// slower.
-template <bool CAN_PUSH, bool CULL, bool OWN>
+// slower. The branch stack (CAN_PUSH): MAX_STACK slots in local memory,
+// or, DEEP (min(stack, max_segments) > MAX_STACK), the ray's d slots of
+// the device-memory scratch deep (n, d, SLOT) the caller allocates (a ray
+// pushes at most once a segment, so it holds at most d). SCHLICK:
+// Schlick's F.
+template <bool CAN_PUSH, bool CULL, bool OWN, bool DEEP, bool SCHLICK>
 __global__ void __launch_bounds__(W_BLOCK, CULL ? 4 : 5)
 whole_kernel(const float* __restrict__ rays, float* __restrict__ out, int n,
-             Tables T, Cfg cfg) {
+             Tables T, Cfg cfg, float* __restrict__ deep) {
   static_assert(CULL || !OWN, "per-ray masks refine the warp's masks");
+  static_assert(CAN_PUSH || !DEEP, "a deep stack holds pushed branches");
   // culled, every lane of a warp runs the segment loop, with a ray or
   // without one (active false): the warp collectives need the whole warp
   const int i = blockIdx.x * W_BLOCK + threadIdx.x;
@@ -1769,7 +1802,12 @@ whole_kernel(const float* __restrict__ rays, float* __restrict__ out, int n,
   float thr[3] = {1.0f, 1.0f, 1.0f};
   float acc[3] = {0.0f, 0.0f, 0.0f};
   int depth = 0, sp = 0;
-  float stk[CAN_PUSH ? MAX_STACK : 1][SLOT];
+  float local[CAN_PUSH && !DEEP ? MAX_STACK : 1][SLOT];
+  const int d = cfg.stack < cfg.max_segments ? cfg.stack : cfg.max_segments;
+  // (a padding lane of a culled warp, i >= n, never pushes nor pops)
+  float (*stk)[SLOT] =
+      DEEP ? reinterpret_cast<float (*)[SLOT]>(deep + (size_t)i * d * SLOT)
+           : local;
   int seg = cfg.max_segments;   // the segment this ray retired in
   // the cooperative tail's columns: once at most cfg.sw of the warp's
   // lanes hold a ray, each lane saves its state in its column and the warp
@@ -1784,7 +1822,8 @@ whole_kernel(const float* __restrict__ rays, float* __restrict__ out, int n,
         const int lane = (int)(threadIdx.x & 31u);
         tail_save(cols + lane, r, thr, acc, depth, sp);
         __syncwarp();
-        coop_tail<CAN_PUSH>(T, cfg, cols, live, it, stk);
+        coop_tail<CAN_PUSH, DEEP, SCHLICK>(
+            T, cfg, cols, live, it, DEEP ? stk - (size_t)lane * d : stk);
         __syncwarp();
         for (int c = 0; c < 3; ++c) acc[c] = cols[lane + (17 + c) * W_BLOCK];
         break;
@@ -1792,7 +1831,7 @@ whole_kernel(const float* __restrict__ rays, float* __restrict__ out, int n,
     } else if (!active) {
       break;
     }
-    segment<CAN_PUSH, false, CULL, false, OWN>(
+    segment<CAN_PUSH, false, CULL, false, OWN, false, false, SCHLICK>(
         T, cfg, it, i, n, nullptr, r, thr, acc, depth, sp, stk, active, seg,
         0, OWN && it > 0);
   }
@@ -2155,9 +2194,10 @@ static bool fits(int ns, int cull) {
 }
 
 // the persistent grids' caches of resident_blocks, one for each kernel
-// (the path-record kernel's six, paths_kind)
-enum { RES_PT, RES_PT_CULL, RES_RESUME_SPARSE, RES_PATHS, RES_KERNELS =
-       RES_PATHS + 6 };
+// (resume_sparse's two and the path-record kernel's twelve, by SCHLICK
+// and paths_kind)
+enum { RES_PT, RES_PT_CULL, RES_RESUME_SPARSE, RES_PATHS =
+       RES_RESUME_SPARSE + 2, RES_KERNELS = RES_PATHS + 12 };
 
 // *blocks := the blocks of `kernel` (block threads, smem bytes of dynamic
 // shared memory, allowed to it above 48 KB; its cache `slot`) that the
@@ -2190,20 +2230,29 @@ static cudaError_t resident_blocks(const void* kernel, int block,
 }
 
 // whitted_kernel<ROUND, cull != 0> over n threads, culled with per-ray
-// masks where OWN
-template <int ROUND, bool OWN = false>
-static int launch(const float* rays, float* out, float* state,
-                  const int* idx, const int* count, int n, const Tables& T,
-                  const Cfg& cfg, void* stream) {
+// masks where OWN, Schlick's F where cfg.schlick
+template <int ROUND, bool OWN, bool SCHLICK>
+static int launch_as(const float* rays, float* out, float* state,
+                     const int* idx, const int* count, int n,
+                     const Tables& T, const Cfg& cfg, void* stream) {
   const dim3 block(W_BLOCK), grid((unsigned)((n + W_BLOCK - 1) / W_BLOCK));
   cudaStream_t s = (cudaStream_t)stream;
   if (cfg.cull)
-    whitted_kernel<ROUND, true, OWN><<<grid, block, 0, s>>>(
+    whitted_kernel<ROUND, true, OWN, SCHLICK><<<grid, block, 0, s>>>(
         rays, out, state, idx, count, n, T, cfg);
   else
-    whitted_kernel<ROUND, false><<<grid, block, 0, s>>>(
+    whitted_kernel<ROUND, false, false, SCHLICK><<<grid, block, 0, s>>>(
         rays, out, state, idx, count, n, T, cfg);
   return (int)cudaGetLastError();
+}
+template <int ROUND, bool OWN>
+static int launch(const float* rays, float* out, float* state,
+                  const int* idx, const int* count, int n, const Tables& T,
+                  const Cfg& cfg, void* stream) {
+  return cfg.schlick ? launch_as<ROUND, OWN, true>(rays, out, state, idx,
+                                                   count, n, T, cfg, stream)
+                     : launch_as<ROUND, OWN, false>(rays, out, state, idx,
+                                                    count, n, T, cfg, stream);
 }
 
 // The plan of a scene's tables in a block's shared memory (Staging; ns
@@ -2236,6 +2285,36 @@ using PathsKernel = void (*)(const float*, float*, int*, int, Tables, Cfg,
 static int paths_kind(bool cull, bool sm, bool own) {
   return cull ? 2 + 2 * own + sm : sm;
 }
+template <bool S>
+static PathsKernel paths_instance(int kind) {
+  static const PathsKernel kernels[6] = {
+      paths_kernel<false, false, false, S>,
+      paths_kernel<false, true, false, S>,
+      paths_kernel<true, false, false, S>,
+      paths_kernel<true, true, false, S>,
+      paths_kernel<true, false, true, S>,
+      paths_kernel<true, true, true, S>};
+  return kernels[kind];
+}
+
+// whole_kernel's instantiations: by the branch stack (0 none, 1 MAX_STACK
+// local slots, 2 the scratch), then the walk (0 unculled, 1 culled, 2
+// culled with per-ray masks)
+using WholeKernel = void (*)(const float*, float*, int, Tables, Cfg, float*);
+template <bool S>
+static WholeKernel whole_instance(int stack, int walk) {
+  static const WholeKernel kernels[3][3] = {
+      {whole_kernel<false, false, false, false, S>,
+       whole_kernel<false, true, false, false, S>,
+       whole_kernel<false, true, true, false, S>},
+      {whole_kernel<true, false, false, false, S>,
+       whole_kernel<true, true, false, false, S>,
+       whole_kernel<true, true, true, false, S>},
+      {whole_kernel<true, false, false, true, S>,
+       whole_kernel<true, true, false, true, S>,
+       whole_kernel<true, true, true, true, S>}};
+  return kernels[stack][walk];
+}
 
 // C entry point (bound with ctypes): launches on `stream` and returns the
 // cudaError_t of the launch; allocates nothing and does not synchronise.
@@ -2246,33 +2325,37 @@ static int paths_kind(bool cull, bool sm, bool own) {
 // own_max: culled, the per-ray masks after the camera segment refine a
 // warp's mask that keeps more than own_min surfaces, in a launch of at
 // most own_max rays (a batch of several frames keeps the card busy, and
-// there the refinement costs more than it saves). Launches whole_kernel
-// on ceil(n / W_BLOCK) blocks. coop_max, own_min and own_max come after
-// the stream, so that a caller of an entry point from before them passes
-// the arguments it reads.
+// there the refinement costs more than it saves); schlick: Schlick's F;
+// deep: where can_push and d = min(stack, max_segments) > MAX_STACK, a
+// scratch of (n, d, SLOT) f32 the caller allocates for the branch stacks
+// (ops/cuda_kernel.py whitted_scratch), otherwise not read. A scene that
+// cannot push reads no stack, so any stack >= 1 is taken. Launches
+// whole_kernel on ceil(n / W_BLOCK) blocks. coop_max, own_min, own_max,
+// schlick and deep come after the stream, so that a caller of an entry
+// point from before them passes the arguments it reads.
 extern "C" int whitted_launch(
     const float* rays, float* out, SCENE_PARAMS, int n, int ns, int nc,
     int nl, int depth, int max_segments, int stack, float cutoff,
     int can_push, int cull, void* stream, int coop_max, int own_min,
-    int own_max) {
+    int own_max, int schlick, float* deep) {
   if (n <= 0) return 0;
-  if (stack < 1 || stack > MAX_STACK || !fits(ns, cull) || coop_max < 0 ||
-      coop_max > 32 || own_min < 0)
+  const int d = stack < max_segments ? stack : max_segments;
+  const bool in_deep = can_push && d > MAX_STACK;
+  if (stack < 1 || !fits(ns, cull) || coop_max < 0 || coop_max > 32 ||
+      own_min < 0 || (in_deep && deep == nullptr))
     return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, max_segments, stack, cutoff, cull, coop_max, own_min};
+  const Cfg cfg{depth,    max_segments, stack,   cutoff,
+                cull,     coop_max,     own_min, schlick};
   // culled, per-ray masks after the camera segment where there is a
   // segment after it and more than own_min surfaces to refine, as EMIT
   const bool own = cull && max_segments > 1 && ns > own_min && n <= own_max;
-  using WholeKernel = void (*)(const float*, float*, int, Tables, Cfg);
-  static const WholeKernel kernels[2][3] = {
-      {whole_kernel<false, false, false>, whole_kernel<false, true, false>,
-       whole_kernel<false, true, true>},
-      {whole_kernel<true, false, false>, whole_kernel<true, true, false>,
-       whole_kernel<true, true, true>}};
-  const WholeKernel kern = kernels[can_push != 0][cull ? 1 + own : 0];
+  const int stack_kind = in_deep ? 2 : can_push != 0;
+  const int walk = cull ? 1 + own : 0;
+  const WholeKernel kern = schlick ? whole_instance<true>(stack_kind, walk)
+                                   : whole_instance<false>(stack_kind, walk);
   kern<<<(unsigned)((n + W_BLOCK - 1) / W_BLOCK), W_BLOCK, 0,
-         (cudaStream_t)stream>>>(rays, out, n, T, cfg);
+         (cudaStream_t)stream>>>(rays, out, n, T, cfg, deep);
   return (int)cudaGetLastError();
 }
 
@@ -2316,13 +2399,13 @@ extern "C" int whitted_tape_launch(
 // paths_kernel on the persistent grid (the blocks of the instantiation
 // that fit on the card at once, or fewer when n needs fewer): with the
 // tables in shared memory where paths_staging says they fit, else the
-// instantiation that reads them in device memory. queue, nm and own_min
-// come after the stream, so that a caller of an entry point from before
-// them passes the arguments it reads.
+// instantiation that reads them in device memory; schlick: Schlick's F.
+// queue, nm, own_min and schlick come after the stream, so that a caller
+// of an entry point from before them passes the arguments it reads.
 extern "C" int whitted_paths_launch(
     const float* rays, float* out, int* paths, SCENE_PARAMS, int n, int ns,
     int nc, int nl, int depth, int k, float cutoff, int cull,
-    void* stream, int* queue, int nm, int own_min) {
+    void* stream, int* queue, int nm, int own_min, int schlick) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return 0;
   if (k < 1 || nl < 0 || nl > 16 || !fits(ns, cull) || nc < 0 || nm < 0 ||
@@ -2331,7 +2414,7 @@ extern "C" int whitted_paths_launch(
   cudaError_t err = cudaMemsetAsync(queue, 0, sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, k, 1, cutoff, cull, 0, own_min};
+  const Cfg cfg{depth, k, 1, cutoff, cull, 0, own_min, schlick};
   Staging st{};
   const bool sm = paths_staging(ns, nc, nm, nl, st);
   // the bulk copies read from 16-byte boundaries
@@ -2343,14 +2426,11 @@ extern "C" int whitted_paths_launch(
   // segment after it and more than own_min surfaces to refine, as EMIT
   const bool own = cull && k > 1 && ns > own_min;
   const int kind = paths_kind(cull != 0, sm, own);
-  static const PathsKernel kernels[6] = {
-      paths_kernel<false, false, false>, paths_kernel<false, true, false>,
-      paths_kernel<true, false, false>,  paths_kernel<true, true, false>,
-      paths_kernel<true, false, true>,   paths_kernel<true, true, true>};
-  const PathsKernel kern = kernels[kind];
+  const PathsKernel kern = schlick ? paths_instance<true>(kind)
+                                   : paths_instance<false>(kind);
   int resident = 0;
   err = resident_blocks((const void*)kern, P_BLOCK, sm ? PATHS_SMEM : 0,
-                        RES_PATHS + kind, &resident);
+                        RES_PATHS + (schlick ? 6 : 0) + kind, &resident);
   if (err != cudaSuccess) return (int)err;
   const int need = (n + P_BLOCK - 1) / P_BLOCK;
   const int blocks = need < resident ? need : resident;
@@ -2364,25 +2444,26 @@ extern "C" int whitted_paths_launch(
 // resumable ray state of every ray (rows as in the file header), every
 // element written by the kernel. Culled, the camera segment takes the
 // warp's masks and the segments after it per-ray masks within a warp's
-// that keeps more than own_min (>= 0) surfaces (the OWN instantiation).
-// own_min comes after the stream, so that a caller of an entry point from
-// before it passes the arguments it reads.
+// that keeps more than own_min (>= 0) surfaces (the OWN instantiation);
+// schlick: Schlick's F. own_min and schlick come after the stream, so that
+// a caller of an entry point from before them passes the arguments it
+// reads.
 extern "C" int whitted_emit_launch(
     const float* rays, float* out, float* state, SCENE_PARAMS, int n,
     int ns, int nc, int nl, int depth, int k1, float cutoff, int cull,
-    void* stream, int own_min) {
+    void* stream, int own_min, int schlick) {
   if (n <= 0) return 0;
   if (k1 < 1 || !fits(ns, cull) || own_min < 0)
     return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, k1, 1, cutoff, cull, 0, own_min};
+  const Cfg cfg{depth, k1, 1, cutoff, cull, 0, own_min, schlick};
   // k1 = 1 has no segment after the camera's, and a scene of at most
   // own_min surfaces no mask to refine: the warp's masks alone
   return k1 > 1 && ns > own_min
              ? launch<EMIT, true>(rays, out, state, nullptr, nullptr, n, T,
                                   cfg, stream)
-             : launch<EMIT>(rays, out, state, nullptr, nullptr, n, T, cfg,
-                            stream);
+             : launch<EMIT, false>(rays, out, state, nullptr, nullptr, n, T,
+                                   cfg, stream);
 }
 
 // Round 2: resumes the rays idx[0..*count) of state (written by
@@ -2396,26 +2477,33 @@ extern "C" int whitted_emit_launch(
 // returns at once. 0: dense always; n: sparse always; 0 for a scene of
 // more real surfaces than the mask words hold (1024). The dense mode's
 // per-ray masks refine a warp's that keeps more than own_min (>= 0)
-// surfaces. warp_max and own_min come after the stream, so that a caller
-// of an entry point from before them passes the arguments it reads.
+// surfaces; schlick: Schlick's F. warp_max, own_min and schlick come after
+// the stream, so that a caller of an entry point from before them passes
+// the arguments it reads.
 extern "C" int whitted_resume_launch(
     const float* state, const int* idx, const int* count, float* out,
     SCENE_PARAMS, int n, int ns, int nc, int nl, int depth, int segments,
-    float cutoff, int cull, void* stream, int warp_max, int own_min) {
+    float cutoff, int cull, void* stream, int warp_max, int own_min,
+    int schlick) {
   if (n <= 0) return 0;
   if (segments < 1 || !fits(ns, cull) || warp_max < 0 || warp_max > n ||
       (warp_max > 0 && !fits(ns, 1)) || own_min < 0)
     return (int)cudaErrorInvalidValue;
   const Tables T = SCENE_TABLES(ns, nc, nl);
-  const Cfg cfg{depth, segments, 1, cutoff, cull, warp_max, own_min};
+  const Cfg cfg{depth,    segments, 1,       cutoff,
+                cull,     warp_max, own_min, schlick};
   if (warp_max > 0) {
+    using Sparse = void (*)(const float*, const int*, const int*, float*,
+                            int, Tables, Cfg);
+    const Sparse kern = schlick ? resume_sparse<true> : resume_sparse<false>;
     int resident = 0;
-    cudaError_t err = resident_blocks((const void*)resume_sparse, W_BLOCK,
-                                      0, RES_RESUME_SPARSE, &resident);
+    cudaError_t err = resident_blocks((const void*)kern, W_BLOCK, 0,
+                                      RES_RESUME_SPARSE + (schlick ? 1 : 0),
+                                      &resident);
     if (err != cudaSuccess) return (int)err;
     const int need = (warp_max + W_BLOCK / 32 - 1) / (W_BLOCK / 32);
     const int blocks = need < resident ? need : resident;
-    resume_sparse<<<(unsigned)blocks, W_BLOCK, 0, (cudaStream_t)stream>>>(
+    kern<<<(unsigned)blocks, W_BLOCK, 0, (cudaStream_t)stream>>>(
         state, idx, count, out, n, T, cfg);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }

@@ -59,7 +59,11 @@ F32 = torch.float32
 I32 = torch.int32
 BIG = 1e30
 LANES = 128       # texture atlas row width (texels)
-MAX_STACK = 16    # branch-stack slots the kernel holds per thread
+# branch-stack slots a thread holds in local memory; a deeper stack (min(
+# stack, max_segments) slots, since a ray pushes at most once a segment)
+# goes to a device-memory scratch (stack_scratch)
+MAX_STACK = 16
+SLOT = 15         # values a branch-stack slot holds (csrc/whitted.cu SLOT)
 MAX_PATH_LIGHTS = 16   # path records hold one bit per light in bits 16-31
 # the PT kernel packs a stack slot's depth into 10 bits and its surface's
 # original id into 20
@@ -253,13 +257,15 @@ def paths_staging(struct: KernelStruct):
 def whitted_instance(struct: KernelStruct, cfg, n: int) -> dict:
     """The instantiation of ``whole_kernel`` that ``whitted_launch`` runs
     for the scene, config and n rays (its own choice, mirrored): can_push,
-    cull (the gate's) and own (culled, per-ray masks after the camera
-    segment, in a launch of at most WHOLE_OWN_MAX_RAYS rays)."""
+    cull (the gate's), own (culled, per-ray masks after the camera
+    segment, in a launch of at most WHOLE_OWN_MAX_RAYS rays) and deep
+    (the branch stacks in a device-memory scratch: ``whitted_scratch``)."""
     cull = cull_gates(struct, cfg).flags != 0
     return dict(can_push=struct.can_push, cull=cull,
                 own=cull and cfg.max_segments > 1
                 and struct.n_real > EMIT_OWN_MIN_KEPT
-                and n <= WHOLE_OWN_MAX_RAYS)
+                and n <= WHOLE_OWN_MAX_RAYS,
+                deep=whitted_scratch(struct, cfg, n) is not None)
 
 
 class CullGates(NamedTuple):
@@ -979,16 +985,17 @@ _SCENE_ARGS = [_VOIDP] * 12 + [_INT]   # sp_f ... cont_msk, rows
 ARGTYPES = {
     "whitted_launch": ([_VOIDP] * 2 + _SCENE_ARGS + [_INT] * 7
                        + [ctypes.c_float, _INT, _INT, _VOIDP, _INT, _INT,
-                          _INT]),
+                          _INT, _INT, _VOIDP]),
     "whitted_paths_launch": ([_VOIDP] * 3 + _SCENE_ARGS + [_INT] * 6
                              + [ctypes.c_float, _INT, _VOIDP, _VOIDP, _INT,
-                                _INT]),
+                                _INT, _INT]),
     "whitted_pt_launch": ([_VOIDP] * 5 + _SCENE_ARGS + [_INT] * 5
                           + [_VOIDP, _INT]),
     "whitted_emit_launch": ([_VOIDP] * 3 + _SCENE_ARGS + [_INT] * 6
-                            + [ctypes.c_float, _INT, _VOIDP, _INT]),
+                            + [ctypes.c_float, _INT, _VOIDP, _INT, _INT]),
     "whitted_resume_launch": ([_VOIDP] * 4 + _SCENE_ARGS + [_INT] * 6
-                              + [ctypes.c_float, _INT, _VOIDP, _INT, _INT]),
+                              + [ctypes.c_float, _INT, _VOIDP, _INT, _INT,
+                                 _INT]),
     "whitted_tape_launch": ([_VOIDP] * 4 + _SCENE_ARGS + [_INT] * 8
                             + [ctypes.c_float, _INT, _VOIDP, _VOIDP]),
 }
@@ -1012,12 +1019,43 @@ def _check(name, t, dtype, shape, dev):
             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_whitted_cfg(cfg: TraceConfig):
-    """What the Whitted modes read of cfg beyond depth (PT reads depth)."""
-    if cfg.schlick:
-        raise NotImplementedError("the CUDA kernel has no Schlick Fresnel")
-    if not 1 <= cfg.stack <= MAX_STACK:
-        raise ValueError(f"cfg.stack must be in 1..{MAX_STACK}")
+def stack_slots_held(cfg: TraceConfig) -> int:
+    """The most branch-stack slots a ray holds: it pushes at most once a
+    segment."""
+    return min(cfg.stack, cfg.max_segments)
+
+
+def stack_scratch(threads: int, cfg: TraceConfig, floats: int, dev, what):
+    """A kernel's device-memory scratch for a stack past MAX_STACK slots:
+    (threads, d, floats) f32, d = ``stack_slots_held(cfg)``, from the
+    caching allocator (a CUDA graph's pool during a capture); None where
+    the slots fit in local memory. Raises MemoryError, with the size,
+    where it cannot be had."""
+    d = stack_slots_held(cfg)
+    if d <= MAX_STACK:
+        return None
+    try:
+        return torch.empty((threads, d, floats), dtype=F32, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        raise MemoryError(
+            f"{what}: a branch stack of {d} slots needs "
+            f"{4 * threads * d * floats} B of scratch on {dev}, which cannot "
+            f"be had") from e
+
+
+def whitted_scratch(struct: KernelStruct, cfg: TraceConfig, n: int):
+    """What the Whitted modes (whole traces, path records, emit, resume)
+    read of cfg's stack, as a pure function of the scene's structure: the
+    shape (n, d, SLOT) of the device-memory scratch ``whole_kernel``'s
+    branch stacks take for n rays where the scene can push and d =
+    ``stack_slots_held(cfg)`` passes MAX_STACK, else None (a scene that
+    cannot push reads no stack; MAX_STACK local slots hold the rest).
+    ValueError for a stack below 1. Exact and Schlick Fresnel
+    (cfg.schlick) are both taken, as the jnp tracer takes them."""
+    if cfg.stack < 1:
+        raise ValueError(f"cfg.stack must be >= 1, got {cfg.stack}")
+    d = stack_slots_held(cfg)
+    return (n, d, SLOT) if struct.can_push and d > MAX_STACK else None
 
 
 def _launch_inputs(fn: str, sc: SceneArrays, org, dirs, t_min,
@@ -1090,7 +1128,7 @@ def trace_rays_cuda(sc: SceneArrays, org, dirs, t_min,
     if dirs.device.type == "cpu":
         return trace_rays(sc, org, dirs, t_min, cfg)
     struct = struct or _get_struct(sc)
-    _check_whitted_cfg(cfg)
+    whitted_scratch(struct, cfg, 0)
     return launch_whitted(sc, struct, _get_packed(sc, struct), org, dirs,
                           t_min, cfg)
 
@@ -1105,16 +1143,21 @@ def launch_whitted(sc: SceneArrays, struct: KernelStruct, ps: PackedScene,
                    org, dirs, t_min, cfg: TraceConfig) -> torch.Tensor:
     """``trace_rays_cuda`` on the packed tables ``ps`` (the scene's, or
     the interactive program's own: ``ops.graphs``): one Whitted launch on
-    the current stream, which reads sc for its shapes and device only.
-    CPU rays take the plain tracer, which reads sc and not ps."""
+    the current stream, which reads sc for its shapes and device only; a
+    stack past MAX_STACK slots on a scene that can push takes a scratch
+    from the caching allocator (``whitted_scratch``; in a capture, the
+    graph's pool). CPU rays take the plain tracer, which reads sc and not
+    ps."""
     global launches
     _check_coop()
     if dirs.device.type == "cpu":
         return trace_rays(sc, org, dirs, t_min, cfg)
-    _check_whitted_cfg(cfg)
     rays, tables = _launch_inputs("trace_rays_cuda", sc, org, dirs, t_min,
                                   struct, ps)
     N, dev = dirs.shape[0], dirs.device
+    deep = None
+    if whitted_scratch(struct, cfg, N) is not None:
+        deep = stack_scratch(N, cfg, SLOT, dev, "trace_rays_cuda")
     out = torch.empty((3, N), dtype=F32, device=dev)
     if N == 0:
         return out.T
@@ -1127,7 +1170,8 @@ def launch_whitted(sc: SceneArrays, struct: KernelStruct, ps: PackedScene,
             cfg.depth, cfg.max_segments, cfg.stack,
             cfg.cutoff, int(struct.can_push),
             cull_gates(struct, cfg).flags, stream, COOP_MAX_LIVE,
-            EMIT_OWN_MIN_KEPT, WHOLE_OWN_MAX_RAYS)
+            EMIT_OWN_MIN_KEPT, WHOLE_OWN_MAX_RAYS, int(cfg.schlick),
+            None if deep is None else deep.data_ptr())
     if err != 0:
         raise RuntimeError(f"whitted kernel launch failed: CUDA error {err}")
     launches += 1
@@ -1170,7 +1214,7 @@ def _paths(sc, struct, pack, org, dirs, t_min, cfg, k_paths):
     with torch.no_grad():
         if dirs.device.type == "cpu":
             return _trace_paths_plain(sc, org, dirs, t_min, cfg, k_paths)
-        _check_whitted_cfg(cfg)
+        whitted_scratch(struct, cfg, 0)
         ps = pack(sc, struct)
         rays, tables = _launch_inputs("trace_paths", sc, org, dirs, t_min,
                                       struct, ps)
@@ -1188,7 +1232,7 @@ def _paths(sc, struct, pack, org, dirs, t_min, cfg, k_paths):
                 N, struct.n_real, struct.nc, struct.nl,
                 cfg.depth, k_paths, cfg.cutoff,
                 cull_gates(struct, cfg).flags, stream, queue.data_ptr(),
-                struct.nm, EMIT_OWN_MIN_KEPT)
+                struct.nm, EMIT_OWN_MIN_KEPT, int(cfg.schlick))
     if err != 0:
         raise RuntimeError(
             f"whitted paths kernel launch failed: CUDA error {err}")
@@ -1339,7 +1383,7 @@ def trace_rays_emit_cuda(sc: SceneArrays, org, dirs, t_min,
     if dirs.device.type == "cpu":
         return trace_rays_emit(sc, org, dirs, t_min, cfg, k1)
     struct = struct or _get_struct(sc)
-    _check_whitted_cfg(cfg)
+    whitted_scratch(struct, cfg, 0)
     check_rounds_struct(struct)
     if k1 < 1:
         raise ValueError(f"k1 must be >= 1, got {k1}")
@@ -1358,7 +1402,7 @@ def trace_rays_emit_cuda(sc: SceneArrays, org, dirs, t_min,
             rays.data_ptr(), out.data_ptr(), state.data_ptr(), *tables,
             N, struct.n_real, struct.nc, struct.nl, cfg.depth, k1,
             cfg.cutoff, cull_gates(struct, cfg).flags, stream,
-            EMIT_OWN_MIN_KEPT)
+            EMIT_OWN_MIN_KEPT, int(cfg.schlick))
     if err != 0:
         raise RuntimeError(f"whitted emit kernel launch failed: CUDA error "
                            f"{err}")
@@ -1423,7 +1467,7 @@ def trace_rays_resume_cuda(sc: SceneArrays, state, cols, idx, count,
     _check_own_min()
     if state.device.type == "cpu":
         return trace_rays_resume(sc, state, cols, cfg, k1)
-    _check_whitted_cfg(cfg)
+    whitted_scratch(struct, cfg, 0)
     check_rounds_struct(struct)
     segments = cfg.max_segments - k1
     if segments <= 0:
@@ -1446,7 +1490,7 @@ def trace_rays_resume_cuda(sc: SceneArrays, state, cols, idx, count,
             cols.data_ptr(), *tables, N, struct.n_real, struct.nc,
             struct.nl, cfg.depth, segments, cfg.cutoff,
             cull_gates(struct, cfg).flags, stream, warp_max,
-            RESUME_OWN_MIN_KEPT)
+            RESUME_OWN_MIN_KEPT, int(cfg.schlick))
     if err != 0:
         raise RuntimeError(f"whitted resume kernel launch failed: CUDA "
                            f"error {err}")

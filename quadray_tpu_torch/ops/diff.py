@@ -11,9 +11,9 @@ card; it stays as the reference these are held against. Here:
   * the forward is the Whitted kernel's unculled walk with a TAPE
     (``csrc/whitted.cu`` ``whitted_tape_launch``: a thread a ray, its f32
     chain ``trace_rays``'s, so the colors are ``trace_rays``'s bit for
-    bit); for each ray and bounce it records the entry state and what the
-    bounce decided (``forward_plain`` is its plain version, the plain
-    tracer's own bounce with a tape);
+    bit); for each ray and bounce it records what the bounce decided and,
+    where it hit, the entry state (``forward_plain`` is its plain version,
+    the plain tracer's own bounce with a tape);
   * the backward (``csrc/diff.cu`` ``diff_backward_launch``) runs each
     ray's bounces in reverse, recomputes the hit that the nearest fold
     picked from the saved state, for that one surface and root, and
@@ -37,8 +37,12 @@ two-plane determinant and the own-surface origin that replay omits.
 The tape of a ray's bounce k: ``tf`` (K, 12, N) the entry state (origin,
 direction, throughput, local origin on the origin surface), ``ti`` (K, 2 +
 ceil(NL / 32), N) i32: the flags word (HIT, SIDE, ... below), the texel
-the hit read (-1: none) and one bit a light row, lit and unshadowed. A
-bounce after the ray retired records zeros.
+the hit read (-1: none) and one bit a light row, lit and unshadowed. Its
+contract (``tape_read``): the flags word of every ray and bounce (0 after
+the ray retired), the rest only where the flags have HIT; the backward
+reads nothing else, and takes zeros for the rest of a bounce without a
+hit, so the kernel leaves those words unwritten (``forward_plain`` writes
+zeros there).
 
 The kernels take float32 and raise otherwise (the plain versions on the
 CPU also take float64); both take exact and Schlick Fresnel
@@ -94,9 +98,11 @@ LIGHT_ROWS = rp.LIGHT_ROWS
 SURFACE_ROWS, MATERIAL_ROWS = rg.SURFACE_ROWS, rg.MATERIAL_ROWS
 
 # slots a thread's branch stack holds in local memory (the kernels'
-# largest instantiation; more go to a device-memory scratch)
-LOCAL_SLOTS = 16
-SLOT_FLOATS = 15   # a forward slot (csrc/whitted.cu SLOT); the backward's 12
+# largest instantiation; more go to a device-memory scratch, which the
+# Whitted kernel shares: cuda_kernel.stack_scratch)
+LOCAL_SLOTS = ck.MAX_STACK
+SLOT_FLOATS = ck.SLOT   # a forward slot; the backward's 12
+stack_slots_held, stack_scratch = ck.stack_slots_held, ck.stack_scratch
 # the shared memory a backward block may have (the H100's opt-in 227 KB):
 # tables whose accumulators need more take the wide mode (rows_wide)
 ROWS_SMEM_BYTES = 232448
@@ -112,6 +118,31 @@ light_sum_launches = 0
 def tape_words(nl: int) -> int:
     """i32 words of a bounce's tape: flags, texel, the lights' bits."""
     return 2 + -(-nl // 32)
+
+
+def tape_read(ti):
+    """The tape's contract: the words the backward reads, from the flags
+    words of ``ti`` (K, W, N): masks (K, 12, N) of tf and (K, W, N) of
+    ti, the flags word of every ray and bounce, the rest only where the
+    flags have HIT. The forward kernel writes these words and no other."""
+    hit = (ti[:, 0] & HIT) != 0
+    mi = hit[:, None, :].expand(-1, ti.shape[1], -1).clone()
+    mi[:, 0] = True
+    return hit[:, None, :].expand(-1, TAPE_ROWS, -1), mi
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int64 if t.element_size() == 8
+                               else torch.int32)
+
+
+def tape_differs(tf, ti, tf2, ti2) -> int:
+    """The words of the contract (``tape_read`` of ti's flags) in which
+    the tape (tf2, ti2) is not bitwise (tf, ti); 0: the backward reads the
+    same tape from either."""
+    mf, mi = tape_read(ti)
+    return int(((_bits(tf) != _bits(tf2)) & mf).sum()
+               + ((ti != ti2) & mi).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -917,9 +948,11 @@ def _row_tiles(g, ids, hit, rows: int):
 def backward_rows_plain(g_cols, T: Tables, tf, ti, stack: int,
                         schlick: bool = False, wide: bool = False):
     """The backward kernel's per-ray work: the bounces in reverse, each
-    hit recomputed from the tape (``_recompute``, ``schlick`` its Fresnel)
-    and its adjoint (``_adjoint``) taken; a popped slot's gradient kept
-    until its push (the slots from ``stack_slots``, so any stack depth).
+    hit recomputed from the tape (``_recompute``, ``schlick`` its Fresnel;
+    only the words ``tape_read`` names are read, a bounce without a hit
+    on zeros) and its adjoint (``_adjoint``) taken; a popped slot's
+    gradient kept until its push (the slots from ``stack_slots``, so any
+    stack depth).
     Returns (g_s, g_m, ids, tiles). tiles: the tables' gradients summed
     per tile of 32 rays, the tiles' sums added bounce after bounce from
     +0.0: columns ``table_columns`` (the lights', the ambient's, then
@@ -946,13 +979,16 @@ def backward_rows_plain(g_cols, T: Tables, tf, ti, stack: int,
     pushes, pops = (ti[:, 0] & PUSH) != 0, (ti[:, 0] & POP) != 0
     slots = stack_slots(ti)
     for k in reversed(range(K)):
-        tik = ti[k]
-        flags = tik[0]
+        flags = ti[k, 0]
         hit = (flags & HIT) != 0
+        # the tape's contract (tape_read): a bounce without a hit has its
+        # flags alone, the rest read as zeros
+        tfk = torch.where(hit, tf[k], 0.0)
+        tik = torch.cat([flags[None], torch.where(hit, ti[k, 1:], 0)])
         push, pop, slot = pushes[k], pops[k], slots[k]
         cur = gs[lanes, slot].T
         gsl = torch.where(push, cur, 0.0)
-        v = _recompute(T, tf[k], tik, schlick)
+        v = _recompute(T, tfk, tik, schlick)
         g_srow, g_mrow, g_light, g_in = _adjoint(v, T, tik, g_acc, gn, gsl)
         tile = rp._tile_sums(torch.where(hit, torch.stack(g_light), 0.0))
         if wide:
@@ -1025,34 +1061,14 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def stack_slots_held(cfg: TraceConfig) -> int:
-    """The most branch-stack slots a ray holds: it pushes at most once a
-    bounce."""
-    return min(cfg.stack, cfg.max_segments)
-
-
-def stack_scratch(threads: int, cfg: TraceConfig, floats: int, dev, what):
-    """The kernels' device-memory scratch for a stack past LOCAL_SLOTS
-    slots: (threads, d, floats) f32, from the caching allocator (a CUDA
-    graph's pool during a capture); None where the slots fit in local
-    memory. Raises MemoryError, with the size, where it cannot be had."""
-    d = stack_slots_held(cfg)
-    if d <= LOCAL_SLOTS:
-        return None
-    try:
-        return torch.empty((threads, d, floats), dtype=F32, device=dev)
-    except torch.cuda.OutOfMemoryError as e:
-        raise MemoryError(
-            f"{what}: a branch stack of {d} slots needs "
-            f"{4 * threads * d * floats} B of scratch on {dev}, which cannot "
-            f"be had") from e
-
-
 def forward_kernel(sc: SceneArrays, struct, org, dirs, t_min,
                    cfg: TraceConfig):
     """forward_plain's outputs from ``whitted_tape_launch`` (csrc/
     whitted.cu) on the scene packed unculled from its current fields (one
-    launch of csrc/pack.cu): colors (N, 3), tf, ti."""
+    launch of csrc/pack.cu): colors (N, 3), tf, ti, the tape written as
+    its contract says (``tape_read``: the words it names are forward_
+    plain's bit for bit, the others are left as ``torch.empty`` gave
+    them)."""
     global launches
     dev = dirs.device
     if dev.type != "cuda":

@@ -21,8 +21,9 @@ whitted_emit_launch and whitted_resume_launch do (before per-ray masks
 and RESUME's two modes; the parent of that change times the warp's masks
 after EMIT's camera segment) is called with this checkout's arguments
 too: the cull flags, coop_max, the Whitted mode's own_min and own_max
-(before whole_kernel), the rounds' own_min and RESUME's warp_max come
-after the stream, and it ignores them. All are built with the port's
+(before whole_kernel), the rounds' own_min and RESUME's warp_max, and
+every mode's Schlick flag (0 here) and whole_kernel's stack scratch
+(none here) come after the stream, and it ignores them. All are built with the port's
 nvcc flags and loaded into one process; the ptxas lines
 (registers, stack frame, spills) of every build are printed, one line
 each for every template instantiation. For each
@@ -226,10 +227,12 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
                                                 stack=4)), cull=cull))
         last = [gates.flags, stream]
         if mode == "whitted":
-            last += list(opt)
+            # and Schlick's flag (0) and no stack scratch (the default
+            # stack of 10 holds in local slots)
+            last += list(opt) + [0, None]
         elif mode == "resume":
             last += [n if opt == "n" else min(int(opt), n),
-                     ck.RESUME_OWN_MIN_KEPT]
+                     ck.RESUME_OWN_MIN_KEPT, 0]
     if mode == "pt":
         from quadray_tpu_torch.ops.pt import init_seeds
         seeds = init_seeds(n, device=dev)
@@ -266,7 +269,7 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
             err = lib.whitted_emit_launch(
                 rays.data_ptr(), out.data_ptr(), state.data_ptr(), *tables,
                 n, struct.n_real, struct.nc, struct.nl, cfg.depth, k1,
-                cfg.cutoff, *last[:2], ck.EMIT_OWN_MIN_KEPT)
+                cfg.cutoff, *last[:2], ck.EMIT_OWN_MIN_KEPT, 0)
             assert err == 0, err
             return torch.cat([out.view(torch.int32), state.view(torch.int32)])
         if mode == "resume":
@@ -288,7 +291,7 @@ def launcher(lib, name: str, mode: str, dev, cull: bool, k1: int,
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
         paths = torch.empty((K_PATHS, n), dtype=torch.int32, device=dev)
         queue = torch.empty((1,), dtype=torch.int32, device=dev)
-        last += [queue.data_ptr(), struct.nm, ck.EMIT_OWN_MIN_KEPT]
+        last += [queue.data_ptr(), struct.nm, ck.EMIT_OWN_MIN_KEPT, 0]
 
         def run():
             err = lib.whitted_paths_launch(

@@ -142,7 +142,7 @@ def test_coop_fold_on_scene_candidates(name):
 
 def test_coop_max_live_is_in_range():
     assert 0 <= ck.COOP_MAX_LIVE <= WARP
-    assert ck.ARGTYPES["whitted_launch"][-1] is ck.ctypes.c_int
+    assert ck.ARGTYPES["whitted_launch"][-5] is ck.ctypes.c_int
 
 
 @pytest.mark.parametrize("bad", [-1, WARP + 1])
@@ -176,9 +176,10 @@ def test_coop_max_is_passed_to_the_launch(monkeypatch):
     ck.trace_rays_cuda(sc, meta(3), meta(64, 3), meta(64))
     (args,) = calls
     assert len(args) == len(ck.ARGTYPES["whitted_launch"])
-    # then the per-ray masks' floor and their most rays
-    assert args[-4:-2] == (1234, 7)
-    assert args[-5] == ck.cull_gates(ck.scene_struct(sc),
+    # then the per-ray masks' floor and their most rays, Schlick's flag
+    # and the stack scratch
+    assert args[-6:-4] == (1234, 7)
+    assert args[-7] == ck.cull_gates(ck.scene_struct(sc),
                                      TraceConfig()).flags != 0
     assert ck.launches == before + 1
 

@@ -134,6 +134,9 @@ def test_fast_path_grads_match_all_surface_grads_on_card(dev):
 
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    """The wrong element type, shape or device and a stack of 0 raise; a
+    stack past 16 slots and Schlick Fresnel, which the reference's jnp
+    tracer takes, are taken (bitwise the plain tracer)."""
     sc, org, dirs, tmin = _rays("test01", dev, 8, 4)
     with pytest.raises(ValueError):
         ck.trace_rays_cuda(sc, org, dirs.double(), tmin, TraceConfig())
@@ -142,9 +145,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         ck.trace_rays_cuda(sc.to("cpu"), org, dirs, tmin, TraceConfig())
     with pytest.raises(ValueError):
-        ck.trace_rays_cuda(sc, org, dirs, tmin, TraceConfig(stack=17))
-    with pytest.raises(NotImplementedError):
-        ck.trace_rays_cuda(sc, org, dirs, tmin, TraceConfig(schlick=True))
+        ck.trace_rays_cuda(sc, org, dirs, tmin, TraceConfig(stack=0))
+    for cfg in (TraceConfig(stack=17), TraceConfig(schlick=True)):
+        got = ck.trace_rays_cuda(sc, org, dirs, tmin, cfg)
+        want = trace_rays(sc, org, dirs, tmin, cfg)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _pt_rays(name, dev, w, h, emis_seed=None):

@@ -71,6 +71,9 @@ DEEP_CFG = TraceConfig(depth=24, max_segments=48, stack=24, cutoff=0.0)
 LOSS_RTOL, MU_RTOL, MU_ATOL = 1e-4, 1e-4, 1e-8
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "quadray_tpu_torch", "csrc")
+# a float NaN's bits, what the tests fill the words of a tape with that
+# its contract does not read
+NAN_BITS = int(np.float32(np.nan).view(np.int32))
 
 
 def _compiled(name, device=CPU):
@@ -353,13 +356,18 @@ extern "C" void tape_host(const float* rays, float* out, float* tf, int* ti,
   }
 }
 """
-# diff_bwd_kernel's loop, one ray alone (its warp: itself); each bounce's
-# values given to the kernel's add kept at their columns, (k, n, columns):
-# the ray's leaves, +0.0 in the columns of the rows it did not hit
+# diff_bwd_kernel's loop, one ray alone (its warp: itself, or, all_any,
+# a warp in which another lane hits at every bounce, so that a bounce
+# without a hit computes along and is masked); each bounce's values given
+# to the kernel's add by a lane with a hit kept at their columns, (k, n,
+# columns): the ray's leaves, +0.0 in the columns of the rows it did not
+# hit
 BWD_HOST_LOOP = r"""
 struct RayAdd {
   float* acc;
+  bool live;
   void operator()(int base, int stride, int row, const float* x, int count) {
+    if (!live) return;
     for (int j = 0; j < count; ++j) acc[base + j * stride + row] = x[j];
   }
 };
@@ -367,17 +375,17 @@ template <int CAP>
 static void bwd_rays(const Tabs& t, int ug, int uf, const float* tf,
     const int* ti, const float* g_cols, int wide, float* g_s, float* g_m,
     int* ids, float* lray, int cols, float* deep, int d, int n, int k,
-    int words) {
+    int words, int all_any) {
   for (int i = 0; i < n; ++i) {
     Back<CAP> bk;
     bk.init(deep, d);
     int h = stack_height(ti, words, n, i, k);
     for (int kk = k - 1; kk >= 0; --kk) {
       const bool hit = (ti[(size_t)kk * words * n + i] & (1 << 16)) != 0;
-      RayAdd add{lray + ((size_t)kk * n + i) * cols};
+      RayAdd add{lray + ((size_t)kk * n + i) * cols, hit};
       back_bounce(bk, h, t, ug, uf, tf, ti, words, g_cols[3 * i],
                   g_cols[3 * i + 1], g_cols[3 * i + 2], wide != 0, g_s, g_m,
-                  ids, i, true, hit, n, kk, k, add);
+                  ids, i, true, hit || all_any != 0, n, kk, k, add);
     }
   }
 }
@@ -387,23 +395,23 @@ extern "C" void bwd_host(const float* stab, const float* mtab,
     int ug, int uf, const float* tf, const int* ti, const float* g_cols,
     float* g_s, float* g_m, int* ids, float* lray, float* deep, int n, int k,
     int words, int ns, int nm, int nl, int nt, int stack, int schlick,
-    int wide) {
+    int wide, int all_any) {
   const Tabs t{stab, mtab, ltab, amb, s_kind, s_sing, s_mat, m_props, s_fwd,
                tex, ns, nm, nl, nt, schlick};
   const int d = stack < k ? stack : k;
   const int cols = 10 * nl + 3 + (wide ? 0 : 19 * ns + 10 * nm);
   if (d <= 4)
     bwd_rays<4>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
-                deep, d, n, k, words);
+                deep, d, n, k, words, all_any);
   else if (d <= 8)
     bwd_rays<8>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
-                deep, d, n, k, words);
+                deep, d, n, k, words, all_any);
   else if (d <= 16)
     bwd_rays<16>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
-                 deep, d, n, k, words);
+                 deep, d, n, k, words, all_any);
   else
     bwd_rays<0>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
-                deep, d, n, k, words);
+                deep, d, n, k, words, all_any);
 }
 """
 F2F = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
@@ -446,22 +454,30 @@ def _p(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _rehearse(rehearsal, sc, rays, cfg, cols, tf, ti):
-    """tape_ray on every ray against forward_plain's cols, tf and ti, on
-    the scene packed unculled as the step packs it; back_bounce's bounces
-    in reverse against backward_rows_plain in both modes: its tiles, each
-    bounce's values given to the kernel's add summed per tile in the
-    kernel's order (the table rows' too, or, wide, its g_s, g_m and ids
-    written): all bit for bit."""
-    wl, dl = rehearsal
+def _poisoned(tf, ti):
+    """(tf, ti) with every word the tape's contract does not read
+    (``diff.tape_read``) NaN (its bits in ti) and the unread texels
+    2**30."""
+    mf, mi = diff.tape_read(ti)
+    ti2 = torch.where(mi, ti, NAN_BITS)
+    ti2[:, 1] = torch.where(mi[:, 1], ti[:, 1], 2 ** 30)
+    return torch.where(mf, tf, float("nan")), ti2
+
+
+def _tape_host(rehearsal, sc, rays, cfg, like_tf, like_ti):
+    """tape_ray on every ray (tape_kernel's grid, one thread after
+    another) on the scene packed unculled as the step packs it, into a
+    tape filled with NaN's bits: (colors (3, n), tf, ti)."""
+    wl = rehearsal[0]
     org, dirs, t_min = rays
-    n, words = dirs.shape[0], ti.shape[1]
+    n, words = dirs.shape[0], like_ti.shape[1]
     struct = ck.scene_struct(sc)
     ps = ck.pack_scene(sc, struct, cull=False)   # alive while tabs point in
     tabs = ck._scene_tables(sc, struct, ps, CPU)
     rays_soa = torch.cat([org.T, dirs.T, t_min[None]]).contiguous()
-    out, tf2, ti2 = torch.empty((3, n)), torch.empty_like(tf), \
-        torch.empty_like(ti)
+    out = torch.empty((3, n))
+    tf2 = torch.full_like(like_tf, float("nan"))
+    ti2 = torch.full_like(like_ti, NAN_BITS)
     d = diff.stack_slots_held(cfg)
     deep = torch.zeros((n, max(d, 1), diff.SLOT_FLOATS))
     wl.tape_host(_p(rays_soa), _p(out), _p(tf2), _p(ti2),
@@ -469,39 +485,67 @@ def _rehearse(rehearsal, sc, rays, cfg, cols, tf, ti):
                  struct.n_real, struct.nc, struct.nl, words, cfg.depth,
                  cfg.max_segments, cfg.stack, ctypes.c_float(cfg.cutoff),
                  int(cfg.schlick), _p(deep))
-    assert torch.equal(BITS(out.T), BITS(cols))
-    assert torch.equal(BITS(tf2), BITS(tf))
-    assert torch.equal(ti2, ti)
+    return out, tf2, ti2
 
+
+def _bwd_host(rehearsal, sc, cfg, tf, ti, g, wide, all_any=False):
+    """back_bounce's bounces in reverse on the tape (tf, ti): (g_s, g_m,
+    ids, tiles) as backward_rows_plain returns them, each bounce's values
+    given to the kernel's add summed per tile in the kernel's order;
+    all_any: every bounce run as in a warp where another lane hits."""
+    dl = rehearsal[1]
     T = diff.tables(sc)
+    k, words, n = ti.shape
+    cols = diff.LIGHT_ROWS * T.ltab.shape[0] + 3 + (
+        0 if wide else diff.table_columns(T) - diff.LIGHT_ROWS
+        * T.ltab.shape[0] - 3)
+    lray = torch.zeros((k, n, cols))
+    if wide:
+        gs2 = torch.empty((diff.SURFACE_ROWS, k * n))
+        gm2 = torch.empty((diff.MATERIAL_ROWS, k * n))
+        ids2 = torch.empty((2, k * n), dtype=torch.int32)
+    else:
+        gs2 = gm2 = ids2 = torch.empty(0)
+    deep = torch.zeros((max(diff.stack_slots_held(cfg), 1), diff.TAPE_ROWS))
+    dl.bwd_host(*map(_p, (T.stab, T.mtab, T.ltab, T.amb,
+                          T.s_fwd.contiguous(), T.tex, T.s_kind,
+                          T.s_sing, T.s_mat, T.m_props)),
+                int(T.use_gamma > 0), int(T.use_fresnel > 0), _p(tf),
+                _p(ti), _p(g), _p(gs2), _p(gm2), _p(ids2), _p(lray),
+                _p(deep), n, k, words, T.stab.shape[1], T.mtab.shape[1],
+                T.ltab.shape[0], T.tex.shape[0], cfg.stack,
+                int(cfg.schlick), int(wide), int(all_any))
+    tiles = torch.zeros((cols, -(-n // rp.WARP)))
+    for kk in reversed(range(k)):
+        tiles = tiles + rp._tile_sums(lray[kk].T)
+    return (gs2, gm2, ids2, tiles) if wide else (None, None, None, tiles)
+
+
+def _rehearse(rehearsal, sc, rays, cfg, cols, tf, ti):
+    """tape_ray on every ray against forward_plain's cols, tf and ti, on
+    the scene packed unculled as the step packs it: the colors bit for
+    bit, the tape's words that its contract reads (``diff.tape_read``)
+    too, and no other word written; back_bounce's bounces in reverse
+    against backward_rows_plain in both modes: its tiles, each bounce's
+    values given to the kernel's add summed per tile in the kernel's
+    order (the table rows' too, or, wide, its g_s, g_m and ids written):
+    all bit for bit."""
+    out, tf2, ti2 = _tape_host(rehearsal, sc, rays, cfg, tf, ti)
+    assert torch.equal(BITS(out.T), BITS(cols))
+    assert diff.tape_differs(tf, ti, tf2, ti2) == 0
+    mf, mi = diff.tape_read(ti)
+    assert bool(torch.isnan(tf2[~mf]).all())
+    assert bool((ti2[~mi] == NAN_BITS).all())
+
     g = torch.from_numpy(np.random.RandomState(1).standard_normal(
-        (n, 3)).astype(np.float32))
-    k = cfg.max_segments
-    deep = torch.zeros((max(d, 1), diff.TAPE_ROWS))
+        (tf.shape[2], 3)).astype(np.float32))
     for wide in (False, True):
-        g_s, g_m, ids, tiles = diff.backward_rows_plain(
-            g, T, tf, ti, cfg.stack, cfg.schlick, wide)
-        lray = torch.zeros((k, n, tiles.shape[0]))
-        if wide:
-            gs2, gm2, ids2 = (torch.empty_like(x) for x in (g_s, g_m, ids))
-        else:
-            gs2 = gm2 = ids2 = torch.empty(0)
-        dl.bwd_host(*map(_p, (T.stab, T.mtab, T.ltab, T.amb,
-                              T.s_fwd.contiguous(), T.tex, T.s_kind,
-                              T.s_sing, T.s_mat, T.m_props)),
-                    int(T.use_gamma > 0), int(T.use_fresnel > 0), _p(tf),
-                    _p(ti), _p(g), _p(gs2), _p(gm2), _p(ids2), _p(lray),
-                    _p(deep), n, k, words, T.stab.shape[1], T.mtab.shape[1],
-                    T.ltab.shape[0], T.tex.shape[0], cfg.stack,
-                    int(cfg.schlick), int(wide))
-        if wide:
-            assert torch.equal(BITS(gs2), BITS(g_s))
-            assert torch.equal(BITS(gm2), BITS(g_m))
-            assert torch.equal(ids2, ids)
-        tiles2 = torch.zeros_like(tiles)
-        for kk in reversed(range(k)):
-            tiles2 = tiles2 + rp._tile_sums(lray[kk].T)
-        assert torch.equal(BITS(tiles2), BITS(tiles)), wide
+        want = diff.backward_rows_plain(g, diff.tables(sc), tf, ti, cfg.stack,
+                                        cfg.schlick, wide)
+        got = _bwd_host(rehearsal, sc, cfg, tf, ti, g, wide)
+        for x, y in zip(got, want):
+            if y is not None:
+                assert torch.equal(BITS(x), BITS(y)), wide
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -758,8 +802,9 @@ def _card_case(name, dev, cfg, w=800, h=480):
 
 def _card_bitwise(sc, rays, cfg, cols, tf, ti, T, g, wide):
     """Two launches of the tape forward and of the backward (``wide``: its
-    second mode) and light sums, bitwise forward_plain's and
-    backward_rows_plain's (its tiles through replay._block_sums)."""
+    second mode) and light sums, bitwise forward_plain's (the tape's words
+    that its contract reads, ``diff.tape_read``) and backward_rows_plain's
+    (its tiles through replay._block_sums)."""
     struct = ck.scene_struct(sc)
     g_s, g_m, ids, tiles = diff.backward_rows_plain(
         g, T, tf, ti, cfg.stack, cfg.schlick, wide)
@@ -770,8 +815,7 @@ def _card_bitwise(sc, rays, cfg, cols, tf, ti, T, g, wide):
         la = diff.light_sums_kernel(lpart)
         torch.cuda.synchronize()
         assert torch.equal(BITS(c2), BITS(cols))
-        assert torch.equal(BITS(tf2), BITS(tf))
-        assert torch.equal(ti2, ti)
+        assert diff.tape_differs(tf, ti, tf2, ti2) == 0
         if wide:
             assert torch.equal(BITS(gs2), BITS(g_s))
             assert torch.equal(BITS(gm2), BITS(g_m))
@@ -816,6 +860,67 @@ def test_card_takes_schlick_and_deep_stacks(what, name):
     if what == "deep_stack":
         assert int(_stack_tops(ti).max()) > diff.LOCAL_SLOTS
     _card_bitwise(sc, rays, cfg, cols, tf, ti, T, g, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what, name", [("schlick", "test17"),
+                                        ("schlick", "test18"),
+                                        ("deep_stack", "test18")])
+@pytest.mark.parametrize("gate", ["unculled", "culled"])
+def test_whitted_kernel_takes_schlick_and_deep_stacks_on_card(
+        what, name, gate, monkeypatch):
+    """The main path's Whitted kernel takes what the step's kernels take:
+    trace_rays_cuda with Schlick Fresnel at 200x120, and with DEEP_CFG's
+    stack (past 16 slots, in the device-memory scratch) at 200x120 plus
+    one ray (a ragged warp), unculled and culled (the gate's floor
+    lowered to cull the scene), bitwise the plain trace_rays, two
+    launches bitwise, one launch each."""
+    dev = _card()
+    if gate == "culled":
+        monkeypatch.setattr(ck, "CULL_MIN_SURFACES", 1)
+    cfg = (TraceConfig(schlick=True) if what == "schlick"
+           else DEEP_CFG)._replace(cull=gate == "culled")
+    sc = _compiled(name, dev)
+    org, dirs, t_min = _rays(sc, 200, 120)
+    if what == "deep_stack":
+        dirs, t_min = torch.cat([dirs, dirs[:1]]), torch.cat([t_min,
+                                                              t_min[:1]])
+        org = org[:1].expand(dirs.shape[0], 3).contiguous()
+    struct = ck.scene_struct(sc)
+    inst = ck.whitted_instance(struct, cfg, dirs.shape[0])
+    assert inst["cull"] == (gate == "culled")
+    assert inst["deep"] == (what == "deep_stack")
+    want = trace.trace_rays(sc, org, dirs, t_min, cfg)
+    before = ck.launches
+    got = [ck.trace_rays_cuda(sc, org, dirs, t_min, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ck.launches == before + 2
+    for x in got:
+        assert torch.equal(BITS(x), BITS(want))
+    assert not torch.equal(want, trace.trace_rays(
+        sc, org, dirs, t_min, TraceConfig(cull=cfg.cull)))
+
+
+@pytest.mark.cuda
+def test_single_branch_modes_take_any_stack_on_card():
+    """The path records, emit and the two rounds on test13 (single-branch:
+    they read no stack) at a stack of 40, bitwise their plain versions at
+    200x120."""
+    dev = _card()
+    sc = _compiled("test13", dev)
+    rays = _rays(sc, 200, 120)
+    cfg = TraceConfig(stack=40)
+    pk = ck.trace_paths(sc, *rays, cfg._replace(max_segments=8), 8)
+    pp = trace.trace_paths(sc, *rays, cfg._replace(max_segments=8), 8)
+    ek = ck.trace_rays_emit_cuda(sc, *rays, cfg, 4)
+    ek = (ek[0].clone(), ek[1])
+    ep = trace.trace_rays_emit(sc, *rays, cfg, 4)
+    rk = ck.trace_rays_rounds(sc, *rays, cfg, 4)
+    torch.cuda.synchronize()
+    for x, y in ((pk[0], pp[0]), (ek[0], ep[0]), (ek[1], ep[1]),
+                 (rk, trace.trace_rays(sc, *rays, cfg))):
+        assert torch.equal(BITS(x), BITS(y))
+    assert torch.equal(pk[1], pp[1])
 
 
 @pytest.mark.cuda

@@ -205,7 +205,8 @@ def test_paths_launch_arguments(walk, monkeypatch):
     device and the stream stood in for (meta tensors take the launch
     path): the bound argument count; after the stream, the work queue (a
     one-int32 scratch tensor of the wrapper's, zeroed by the launch), the
-    material rows and the per-ray masks' floor; the culling gates (none
+    material rows, the per-ray masks' floor and Schlick's flag (0); the
+    culling gates (none
     for trace_paths_with_struct); one launch counted."""
     sc = _scene("test13")
     struct = ck.scene_struct(sc)
@@ -235,8 +236,8 @@ def test_paths_launch_arguments(walk, monkeypatch):
         flags = 0
     (args,) = calls
     assert len(args) == len(ck.ARGTYPES["whitted_paths_launch"])
-    assert args[-5:-3] == (flags, 1234)
-    assert args[-2:] == (struct.nm, ck.EMIT_OWN_MIN_KEPT)
+    assert args[-6:-4] == (flags, 1234)
+    assert args[-3:] == (struct.nm, ck.EMIT_OWN_MIN_KEPT, 0)
     queue = [k for a, k in scratch if a == ((1,),)]
     assert len(queue) == 1 and queue[0]["dtype"] == torch.int32
     assert tuple(paths.shape) == (K, 64) and tuple(cols.shape) == (64, 3)

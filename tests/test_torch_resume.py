@@ -236,8 +236,8 @@ def test_resume_warp_max(monkeypatch):
         with pytest.raises(ValueError):
             ck._check_own_min()
         monkeypatch.undo()
-    assert ck.ARGTYPES["whitted_resume_launch"][-2:] == [ck.ctypes.c_int] * 2
-    assert ck.ARGTYPES["whitted_emit_launch"][-1] is ck.ctypes.c_int
+    assert ck.ARGTYPES["whitted_resume_launch"][-3:] == [ck.ctypes.c_int] * 3
+    assert ck.ARGTYPES["whitted_emit_launch"][-2:] == [ck.ctypes.c_int] * 2
 
 
 @contextlib.contextmanager
@@ -268,7 +268,8 @@ def test_warp_max_is_passed_to_the_launch(warp_max, monkeypatch):
     """The ctypes calls of trace_rays_rounds on meta tensors: emit gets
     EMIT_OWN_MIN_KEPT after the stream, resume its warp_max
     (RESUME_WARP_MAX, None its default, at most the ray count) and
-    RESUME_OWN_MIN_KEPT, each call with its bound argument count and one
+    RESUME_OWN_MIN_KEPT, each then Schlick's flag (0), each call with its
+    bound argument count and one
     launch counted; a negative switch raises before any launch."""
     sc = _scene("test13")
     calls = []
@@ -285,8 +286,8 @@ def test_warp_max_is_passed_to_the_launch(warp_max, monkeypatch):
         assert (e, r) == ("emit", "resume")
         assert len(ea) == len(ck.ARGTYPES["whitted_emit_launch"])
         assert len(ra) == len(ck.ARGTYPES["whitted_resume_launch"])
-        assert ea[-2:] == (1234, 17)
-        assert ra[-3:] == (1234, 64 if warp_max is None else warp_max, 5)
+        assert ea[-3:] == (1234, 17, 0)
+        assert ra[-4:] == (1234, 64 if warp_max is None else warp_max, 5, 0)
         assert (ck.emit_launches, ck.resume_launches) == (before[0] + 1,
                                                            before[1] + 1)
         for name in ("RESUME_WARP_MAX", "EMIT_OWN_MIN_KEPT",

@@ -118,8 +118,9 @@ def test_whitted_launch_arguments(cull, monkeypatch):
     """The ctypes call of trace_rays_cuda, with the library, the device
     and the stream stood in for (meta tensors take the launch path): the
     bound argument count; after the stream, coop_max, the per-ray masks'
-    floor and their most rays; the culling gates; no scratch but the
-    output; one launch counted."""
+    floor and their most rays, Schlick's flag (0) and no stack scratch
+    (test13 cannot push); the culling gates; no scratch but the output;
+    one launch counted."""
     sc = _scene("test13")
     struct = ck.scene_struct(sc)
     calls, scratch = [], []
@@ -144,8 +145,8 @@ def test_whitted_launch_arguments(cull, monkeypatch):
     assert len(args) == len(ck.ARGTYPES["whitted_launch"])
     flags = ck.cull_gates(struct, cfg).flags
     assert (flags != 0) == cull
-    assert args[-5:] == (flags, 1234, ck.COOP_MAX_LIVE, ck.EMIT_OWN_MIN_KEPT,
-                         ck.WHOLE_OWN_MAX_RAYS)
+    assert args[-7:] == (flags, 1234, ck.COOP_MAX_LIVE, ck.EMIT_OWN_MIN_KEPT,
+                         ck.WHOLE_OWN_MAX_RAYS, 0, None)
     assert [a for a, k in scratch] == [((3, 64),)]
     assert tuple(cols.shape) == (64, 3)
     assert ck.launches == before + 1
@@ -155,14 +156,16 @@ def test_argtypes_match_the_c_entry_point():
     """ARGTYPES["whitted_launch"] against its extern "C" signature in
     csrc/whitted.cu (the scene tables' macro expanded): a pointer for each
     pointer parameter and the stream, an int for each int, a float for
-    each float; coop_max, own_min and own_max after the stream."""
+    each float; coop_max, own_min, own_max, schlick and deep after the
+    stream."""
     src = _source()
     scene = re.search(r"#define SCENE_PARAMS\s*\\\s*((?:[^\n]*\\\n)*[^\n]*)",
                       src).group(1).replace("\\\n", " ")
     params = re.search(r'extern "C" int whitted_launch\(([^)]*)\)',
                        src).group(1)
     names = [p.split()[-1].lstrip("*") for p in params.split(",")]
-    assert names[-4:] == ["stream", "coop_max", "own_min", "own_max"]
+    assert names[-6:] == ["stream", "coop_max", "own_min", "own_max",
+                          "schlick", "deep"]
     params = params.replace("SCENE_PARAMS", scene)
     kinds = ["p" if "*" in p else "f" if "float" in p else "i"
              for p in params.split(",")]
