@@ -3304,6 +3304,20 @@ def pack_work(struct, sc, names) -> tuple:
     return n_in + n_out, sum(ops[n] for n in plan.names if n in ops)
 
 
+def empty_launch(dev) -> None:
+    """One launch of csrc/launch_floor.cu's empty kernel on ``dev``'s
+    current stream: a launch's latency, the floor of a launch-bound kernel
+    (the pack, the update)."""
+    import ctypes
+    from quadray_tpu_torch.ops import _build
+    lib = _build.load_library("launch_floor")
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    err = lib.empty_launch(torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty launch failed: CUDA error {err}")
+
+
 def host_ms(fn, reps: int) -> float:
     """The host's ms a call of fn(): reps calls back to back on the host
     clock, without a synchronisation between them (the card runs behind),
@@ -3367,6 +3381,9 @@ def phase_k(dev):
                          if c[0] == "demo02 frame 10"][0]
     stt = ck._struct_tensors(struct, dev)
     rows = {}
+    # a launch's latency, the floor of a one-launch pack (an empty kernel,
+    # timed the same way beside it)
+    empty = graph_ms(lambda: empty_launch(dev), 20)
     for what, names in (("culling tables", ck.CULL_PARTS),
                         ("J3's moved parts", K_MOVED),
                         ("whole pack", ck.PART_NAMES)):
@@ -3382,10 +3399,12 @@ def phase_k(dev):
         nbytes, ops = pack_work(struct, sc, names)
         bound, by = bound_ms(nbytes, ops)
         rows[what] = dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms,
-                          host_ms=host, bound_ms=bound, bound_by=by)
+                          host_ms=host, bound_ms=bound, bound_by=by,
+                          empty_ms=empty)
         log(f"K2 {label} (NS={struct.ns}, {struct.nl} lights), {what} "
             f"({'+'.join(names)}): one launch {ms:.4f} ms device (CUDA "
-            f"graph), {call_ms:.4f} ms a call with the host's launch work, "
+            f"graph; an empty launch {empty:.4f}, a launch's latency), "
+            f"{call_ms:.4f} ms a call with the host's launch work, "
             f"{host:.4f} ms of host work a call; plain {plain_ms:.4f} / "
             f"{plain_call_ms:.4f} / {plain_host:.4f} ms; bound "
             f"{bound:.6f} ms ({by}: {nbytes} B, {ops} operations)")
@@ -3535,6 +3554,7 @@ def phase_u4(dev, smi):
         outs = {k: torch.empty(s, device=dev)
                 for k, s in upd.field_shapes(st, groups).items()}
         ms = graph_ms(lambda: upd.launch(st, local, outs, scratch), U_REPS)
+        empty = graph_ms(lambda: empty_launch(dev), U_REPS)
         call = host_ms(lambda: upd.moved_fields(st, groups, inp), 200)
         plain = host_ms(lambda: st.moved_fields(groups, vals), 50)
         staged = host_ms(lambda: C._staged(st.moved_fields(groups, vals),
@@ -3543,11 +3563,13 @@ def phase_u4(dev, smi):
         bound, by = bound_ms(nbytes, ops)
         rows[name] = dict(ms=ms, host_ms=call, plain_ms=plain,
                           plain_staged_ms=staged, bound_ms=bound,
-                          bound_by=by, groups=groups)
+                          bound_by=by, groups=groups, empty_ms=empty)
         log(f"U4 {name} frame {U_FRAME} ({smi}), groups {groups}, "
             f"{st.tables.nq} scratch rows in "
             f"{st.tables.lv_start.shape[0] - 1} levels, NS={st.ns}: one "
-            f"launch {ms:.4f} ms device (CUDA graph), {call:.4f} ms of host "
+            f"launch {ms:.4f} ms device (CUDA graph; an empty launch "
+            f"{empty:.4f} beside it, a launch's latency), {call:.4f} ms of "
+            f"host "
             f"work a call (pinned copy and launch); plain version "
             f"{plain:.4f} ms host, {staged:.4f} ms with its staged copy; "
             f"bound {bound:.6f} ms ({by}: {nbytes} B, {ops} operations)")
@@ -5005,6 +5027,16 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
     runs = int(act.any(2).sum())
     live_share = int(act.sum()) / (32 * runs)
     hit_share_run = hits / (32 * runs)
+    # the backward's warp-bounces: a warp runs its bounces from its last
+    # live one down (diff.warp_bounces), computes a bounce where a lane of
+    # it hits; its live lanes are those that hit
+    warps = -(-n // 32)
+    bwd_runs = int(diff.warp_bounces(ti).sum())
+    bwd_hit_runs = int(lanes((fl & diff.HIT) != 0).any(2).sum())
+    bwd = dict(warp_bounces_run=bwd_runs, warp_bounces_possible=k * warps,
+               warp_bounces_with_hit=bwd_hit_runs,
+               live_lane_share=hits / max(32 * bwd_hit_runs, 1),
+               run_lane_share=hits / max(32 * bwd_runs, 1))
     step = ((fl & diff.PUSH) != 0).int() - ((fl & diff.POP) != 0).int()
     height = int(torch.cumsum(step, dim=0).max())
     nl, words = T.ltab.shape[0], ti.shape[1]
@@ -5022,7 +5054,8 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
     r = dict(case=what, scene=name, rays=n, bounces=k, hits=hits,
              hit_share=hits / (k * n), height=height,
              warp_bounces=runs, live_lane_share=live_share,
-             hit_lane_share=hit_share_run, forward_ms=k_fwd,
+             hit_lane_share=hit_share_run, backward_lanes=bwd,
+             forward_ms=k_fwd,
              backward_ms=k_bwd, backward_launch_ms=k_launch,
              light_sums_ms=k_sums,
              blocks_per_sm=diff.backward_occupancy(cfg, diff.table_columns(T)),
@@ -5060,7 +5093,11 @@ def t_case(dev, smi, name: str, what: str, wide: bool) -> dict:
         f"allocated, {r['tape_written_bytes'] / n:.1f} written (the "
         f"contract); the forward runs {runs} warp-bounces, "
         f"{100 * live_share:.2f}% of their lanes active, "
-        f"{100 * hit_share_run:.2f}% with a hit"
+        f"{100 * hit_share_run:.2f}% with a hit; the backward runs "
+        f"{bwd_runs} of {k * warps} warp-bounces (from each warp's last "
+        f"live bounce), {bwd_hit_runs} with a hit, "
+        f"{100 * bwd['live_lane_share']:.2f}% of their lanes live "
+        f"({100 * bwd['run_lane_share']:.2f}% of the run ones')"
         + (f"; {r['flags']}" if "flags" in r else "")
         + f"): kernels vs plain, two launches each"
         + (", the wide mode forced too" if wide else "")
@@ -5595,7 +5632,7 @@ def main():
     from quadray_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.load_libraries("whitted", "conformance", "pack", "replay",
-                          "update", "diff")
+                          "update", "diff", "launch_floor")
     log(f"kernel build (parallel nvcc) and load: "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = os.path.join(_build.BUILD_DIR, "whitted.ptxas.txt")
@@ -6095,6 +6132,7 @@ def main():
         "bound_ms": k_rows["whole pack"]["bound_ms"],
         "bound_by": k_rows["whole pack"]["bound_by"], "library_ms": None,
         "host_ms": k_rows["whole pack"]["host_ms"],
+        "launch_floor_ms": k_rows["whole pack"]["empty_ms"],
         "moved_parts": k_rows["J3's moved parts"],
         "culling_tables": k_rows["culling tables"]}, {
         "name": "replay_forward", "route": "cuda",
@@ -6176,6 +6214,7 @@ def main():
         "bound_ms": u4["demo02"]["bound_ms"],
         "bound_by": u4["demo02"]["bound_by"], "library_ms": None,
         "host_ms": u4["demo02"]["host_ms"],
+        "launch_floor_ms": u4["demo02"]["empty_ms"],
         "scenes": {n: {k: v for k, v in r.items() if k != "groups"}
                    for n, r in u4.items()}}, {
         "name": "diff_forward", "route": "cuda",
@@ -6208,9 +6247,11 @@ def main():
                   "recomputed for its picked surface and root (exact or "
                   "Schlick Fresnel) and its hand-written adjoint taken; "
                   "the branch stack's adjoints (4, 8 or 16 local slots, "
-                  "past 16 a device-memory scratch) until the pushing "
-                  "bounce, each slot counted from the tape's pushes and "
-                  "pops; every table gradient summed in the kernel: for "
+                  "past 16 a slot-major device-memory scratch, never "
+                  "zeroed) until the pushing bounce, each slot counted "
+                  "from the tape's pushes and pops and touched only at a "
+                  "push or a pop; each warp starts at its lanes' last live "
+                  "bounce; every table gradient summed in the kernel: for "
                   "each row a live lane of a warp hit (and the lights and "
                   "ambient), an xor butterfly a leaf and bounce, the "
                   "leaves masked by the lanes' row ids, into the warp's "

@@ -43,16 +43,37 @@
 // flags word of every ray-bounce and the rest of the tape of a hit (test17:
 // 12.3 + 26.7 MB) and writes each block's partial (3,000 blocks x 215
 // floats); the arithmetic, some 2,000 FP32 operations a hit plus the row
-// butterflies, is about 5 GFLOP. Both are far below a millisecond; the
-// recompute's dependent chains and the divergence of rays that stop at
-// different bounces make it latency-bound. (The wide mode writes 29
-// row-gradient floats and 2 ids a ray a bounce, 381 MB, as before.)
+// butterflies, is about 5 GFLOP. Both are far below a millisecond: it is
+// bound by latency, the recompute's dependent chains at the registers
+// the adjoint's live values take (three blocks an SM), and by the
+// warp-bounces it runs: of the K x warps only 9-20% have a lane with a
+// hit on test15, test17 and test18 at 800x480 (chip_smoke.py T),
+// and a bounce without one still cost a flags load and the branch
+// stack's words, every lane. (The wide mode writes 29 row-gradient
+// floats and 2 ids a ray a bounce, 381 MB, as before.) What the design
+// does about it:
+//   * the branch stack is off the every-bounce path: a slot is read only
+//     where a bounce pushes and written only where one pops (2-5% of
+//     ray-bounces each on test17 and test18, none on test15), nothing is
+//     zeroed, and which slots hold a value follows from the stack's
+//     heights (Slots); past 16 slots the scratch is slot-major, so a
+//     warp's lanes touch 128 contiguous bytes a float;
+//   * a warp starts at its lanes' last live bounce (a hit, a push or a
+//     pop: ray_scan, read with the stack's height from the flags words
+//     the pass reads anyway) and skips the bounces after it, which would
+//     change nothing (skipped_bounces), so a warp runs no bounce after its
+//     last live one.
+// On an H100 (scripts/ab_diff.py) the two take the backward to 0.69-0.79x
+// of a design that walked every bounce and touched the stack each time
+// (the deep stack, 24 slots: 0.18-0.20x), at 4.4-4.7% of its byte bound;
+// what bounds it now is the recompute's latency at three blocks an SM.
 //
 // The branch stack's adjoints: CAP slots in local memory (4, 8 or 16: the
 // least that holds d = min(stack, K) slots, since a ray pushes at most
-// once a bounce), else (CAP 0) d slots a thread of a device-memory scratch.
-// Each bounce's slot is counted from the tape's pushes and pops
-// (ops/diff.py stack_slots), not read from its 4-bit field.
+// once a bounce), else (CAP 0) d slots a thread of a device-memory
+// scratch, (d, 12, threads). Each bounce's slot is counted from the tape's
+// pushes and pops (ops/diff.py stack_slots), not read from its 4-bit
+// field.
 //
 // f32 rules: built with --fmad=false, IEEE division (ops/_build.py
 // NVCC_FLAGS); sqrt and rsqrt are __fsqrt_rn/__frsqrt_rn (the plain
@@ -910,46 +931,105 @@ __device__ __forceinline__ void adjoint(const Bnc& v, const Tabs& t,
   for (int j = 0; j < TAPE_F; ++j) out.st[j] = gst[j];
 }
 
-// a ray's reverse pass between bounces: the next state's gradient and the
-// branch stack's slots' (ops/diff.py backward_rows_plain's gn, gs): CAP
-// slots in local memory, or (CAP 0) d slots at gs in device memory
+// The branch stack's slot adjoints (ops/diff.py backward_rows_plain's gs,
+// there zeroed and touched every bounce): CAP slots in local memory, or
+// (CAP 0) d slots in a device-memory scratch laid out slot-major, (d, 12,
+// threads), so a warp's 32 lanes touch 128 contiguous bytes a float. Not
+// zeroed: a slot is read or written only where a bounce pushes or pops,
+// and whether it holds a value follows from the stack's heights alone.
+// In reverse a pop fills the slot at the height after it (the stack's new
+// top) and a push takes the top slot away, so the slots at or above the
+// height h are empty (+0.0 in the plain version: cleared by their push, or
+// never filled) and a slot below h holds a value exactly where its pop
+// came after the lowest height so far, lo (the height after the last
+// bounce at the start): slots below lo were pending when the ray ended
+// and have seen no pop yet. So the touched bits are the interval [lo, h):
+// a push reads its slot only where slot >= lo and takes +0.0 otherwise,
+// and a pop, whose slot is always untouched, writes 0.0f + gn (the plain
+// version's +0.0 + gn, so -0.0 becomes +0.0). Any stack depth takes one
+// integer for its bits.
 template <int CAP>
-struct Back {
-  float gn[TAPE_F];
-  float gs[CAP][TAPE_F];
-  __device__ __forceinline__ float* slot(int s) { return gs[s]; }
+struct Slots {
+  float v[CAP][TAPE_F];
   __device__ __forceinline__ int cap() const { return CAP; }
-  __device__ __forceinline__ void init(float*, int) {
-    for (int j = 0; j < TAPE_F; ++j) gn[j] = 0.0f;
-    for (int s = 0; s < CAP; ++s)
-      for (int j = 0; j < TAPE_F; ++j) gs[s][j] = 0.0f;
-  }
+  __device__ __forceinline__ void init(float*, int, size_t, int) {}
+  __device__ __forceinline__ float ld(int s, int j) const { return v[s][j]; }
+  __device__ __forceinline__ void st(int s, int j, float x) { v[s][j] = x; }
 };
 template <>
-struct Back<0> {
-  float gn[TAPE_F];
-  float* gs;
+struct Slots<0> {
+  float* p;       // thread i's first word: deep + i
+  size_t stride;  // the scratch's threads
   int d;
-  __device__ __forceinline__ float* slot(int s) { return gs + s * TAPE_F; }
   __device__ __forceinline__ int cap() const { return d; }
-  __device__ __forceinline__ void init(float* deep, int slots) {
-    gs = deep;
+  __device__ __forceinline__ void init(float* deep, int i, size_t threads,
+                                       int slots) {
+    p = deep + i;
+    stride = threads;
     d = slots;
-    for (int j = 0; j < TAPE_F; ++j) gn[j] = 0.0f;
-    for (int j = 0; j < d * TAPE_F; ++j) gs[j] = 0.0f;
+  }
+  __device__ __forceinline__ float ld(int s, int j) const {
+    return p[((size_t)s * TAPE_F + j) * stride];
+  }
+  __device__ __forceinline__ void st(int s, int j, float x) {
+    p[((size_t)s * TAPE_F + j) * stride] = x;
   }
 };
 
-// the stack's height after ray ii's last bounce: its pushes less its pops
-__device__ __forceinline__ int stack_height(const int* __restrict__ ti,
-                                            int words, int n, int ii,
-                                            int k_segs) {
+// a ray's reverse pass between bounces: the next state's gradient, the
+// stack's slots, its height h (after the bounce about to be run) and the
+// lowest height so far, lo
+template <int CAP>
+struct Back {
+  float gn[TAPE_F];
+  Slots<CAP> sl;
+  int h, lo;
+  // thread i of `threads` (the CAP 0 scratch's), d slots, the height
+  // after the ray's last bounce
+  __device__ __forceinline__ void init(float* deep, int i, size_t threads,
+                                       int d, int height) {
+    for (int j = 0; j < TAPE_F; ++j) gn[j] = 0.0f;
+    sl.init(deep, i, threads, d);
+    h = height;
+    lo = height;
+  }
+};
+
+// Ray ii's tape read once ahead of its reverse pass (its flags word of
+// every bounce): the stack's height after its last bounce, its pushes less
+// its pops, and in `last` its last live bounce, the last whose flags have
+// a hit, a push or a pop (a pop can come without a hit), -1 if none.
+__device__ __forceinline__ int ray_scan(const int* __restrict__ ti,
+                                        int words, int n, int ii,
+                                        int k_segs, int& last) {
   int h = 0;
+  last = -1;
   for (int k = 0; k < k_segs; ++k) {
     const unsigned f = (unsigned)ti[(size_t)k * words * n + ii];
     h += ((f & T_PUSH) != 0u ? 1 : 0) - ((f & T_POP) != 0u ? 1 : 0);
+    if ((f & (T_HIT | T_PUSH | T_POP)) != 0u) last = k;
   }
   return h;
+}
+
+// The bounces a warp skips, top + 1 to K - 1 for ray i (top: the warp's
+// last live bounce): none of its lanes hits, pushes or pops there, so
+// back_bounce would leave gn, every slot and every accumulator as it found
+// them (no hit: no adjoint and no add; no push or pop: no slot and gn
+// kept). Their only words are the wide mode's, +0.0 row gradients and 0
+// ids for a bounce without a hit, which this writes.
+__device__ __forceinline__ void skipped_bounces(float* __restrict__ g_s,
+                                                float* __restrict__ g_m,
+                                                int* __restrict__ ids, int n,
+                                                int k_segs, int top, int i) {
+  const size_t kn = (size_t)k_segs * n;
+  for (int k = top + 1; k < k_segs; ++k) {
+    const size_t at = (size_t)k * n + i;
+    for (int j = 0; j < SF; ++j) g_s[j * kn + at] = 0.0f;
+    for (int j = 0; j < MF; ++j) g_m[j * kn + at] = 0.0f;
+    ids[at] = 0;
+    ids[kn + at] = 0;
+  }
 }
 
 // bounce k of ray ii (ii = i, or the last ray for a lane past it, `in`
@@ -960,7 +1040,7 @@ __device__ __forceinline__ int stack_height(const int* __restrict__ ti,
 // flags word of every bounce, the rest only of a hit, so a lane whose
 // bounce has no hit loads nothing else and computes along on zeros (the
 // entry state, texel 0, no light lit), whose results are masked away.
-// h: the stack's height after the bounce, before it on return; the
+// bk.h: the stack's height after the bounce, before it on return; the
 // pushed or popped slot is counted from it. The tables'
 // gradients go to add(base, stride, row, values, count) (value j to
 // column base + j stride + row of the partials): the lights' and
@@ -969,7 +1049,7 @@ __device__ __forceinline__ int stack_height(const int* __restrict__ ti,
 // the row gradients and ids are written to g_s, g_m and ids.
 template <int CAP, class Add>
 __device__ __forceinline__ void back_bounce(
-    Back<CAP>& bk, int& h, const Tabs& t, bool ug, bool uf,
+    Back<CAP>& bk, const Tabs& t, bool ug, bool uf,
     const float* __restrict__ tf, const int* __restrict__ ti, int words,
     float gar, float gag, float gab, bool wide, float* __restrict__ g_s,
     float* __restrict__ g_m, int* __restrict__ ids, int ii, bool in,
@@ -981,12 +1061,23 @@ __device__ __forceinline__ void back_bounce(
   const bool hit = (flags & T_HIT) != 0u;
   const bool push = (flags & T_PUSH) != 0u;
   const bool pop = (flags & T_POP) != 0u;
-  h -= (push ? 1 : 0) - (pop ? 1 : 0);
-  const int slot = push ? h : (pop ? h - 1 : 0);
-  if (slot < 0 || slot >= bk.cap()) __trap();
-  float* cur = bk.slot(slot);
+  // a push takes the top slot away (the one this bounce filled), a pop
+  // fills the slot at the height after the bounce (see Slots)
+  const int after = bk.h;
+  bk.h -= (push ? 1 : 0) - (pop ? 1 : 0);
   float gsl[TAPE_F];
-  for (int j = 0; j < TAPE_F; ++j) gsl[j] = push ? cur[j] : 0.0f;
+  for (int j = 0; j < TAPE_F; ++j) gsl[j] = 0.0f;
+  if (push) {
+    const int s = bk.h;
+    if (s < 0 || s >= bk.sl.cap()) __trap();
+    if (s >= bk.lo)
+      for (int j = 0; j < TAPE_F; ++j) gsl[j] = bk.sl.ld(s, j);
+    bk.lo = s < bk.lo ? s : bk.lo;
+  }
+  if (pop) {
+    if (after < 0 || after >= bk.sl.cap()) __trap();
+    for (int j = 0; j < TAPE_F; ++j) bk.sl.st(after, j, 0.0f + bk.gn[j]);
+  }
   Grads o;
   int s = 0, m = 0;
   if (any) {
@@ -1015,11 +1106,8 @@ __device__ __forceinline__ void back_bounce(
     ids[at] = hit ? s : 0;
     ids[kn + at] = hit ? m : 0;
   }
-  for (int j = 0; j < TAPE_F; ++j) {
-    const float c = cur[j];
-    cur[j] = push ? 0.0f : (pop ? c + bk.gn[j] : c);
+  for (int j = 0; j < TAPE_F; ++j)
     bk.gn[j] = hit ? o.st[j] : (pop ? 0.0f : bk.gn[j]);
-  }
 }
 
 // The sums over a warp's lanes of V values y[0..V) a lane (V a power of
@@ -1071,7 +1159,8 @@ __device__ __forceinline__ void warp_add(float* a, int stride,
 // each sum added into the warp's accumulator by the lane that holds it;
 // the lights and the ambient are one row that every live lane holds), at
 // the end the warps in order into the block's partial.
-// deep (CAP 0): d slot adjoints a thread, (gridDim.x * 128, d, 12) f32.
+// deep (CAP 0): d slot adjoints a thread, slot-major (d, 12, gridDim.x *
+// 128) f32, never zeroed (Slots).
 template <int CAP>
 __global__ void __launch_bounds__(BWD_THREADS)
     diff_bwd_kernel(Tabs t, const float* __restrict__ use_gamma,
@@ -1095,10 +1184,15 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const float gar = g_cols[(size_t)ii * 3 + 0];
   const float gag = g_cols[(size_t)ii * 3 + 1];
   const float gab = g_cols[(size_t)ii * 3 + 2];
+  int last;
+  const int height = ray_scan(ti, words, n, ii, k_segs, last);
   Back<CAP> bk;
-  bk.init(CAP > 0 ? nullptr : deep + (size_t)i * d * TAPE_F, d);
-  int h = stack_height(ti, words, n, ii, k_segs);
-  for (int k = k_segs - 1; k >= 0; --k) {
+  bk.init(deep, i, (size_t)gridDim.x * BWD_THREADS, d, height);
+  // the warp starts at its last live bounce (none: no bounce at all, and
+  // still its share of the block's partial below)
+  const int top = __reduce_max_sync(FULL, in ? last : -1);
+  if (wide && in) skipped_bounces(g_s, g_m, ids, n, k_segs, top, i);
+  for (int k = top; k >= 0; --k) {
     const unsigned flags = (unsigned)ti[(size_t)k * words * n + ii];
     const bool live = in && (flags & T_HIT) != 0u;
     const bool any = __any_sync(FULL, live);
@@ -1121,7 +1215,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
           warp_add<32>(a, stride, x, count, mine, lane);
       }
     };
-    back_bounce(bk, h, t, ug, uf, tf, ti, words, gar, gag, gab, wide != 0,
+    back_bounce(bk, t, ug, uf, tf, ti, words, gar, gag, gab, wide != 0,
                 g_s, g_m, ids, ii, in, any, n, k, k_segs, add);
   }
   __syncthreads();
@@ -1166,8 +1260,9 @@ BwdKernel bwd_kernel(int d) {
 // `wide`: lpart (ceil(n / 128), 10 nl + 3), and g_s (19, k n), g_m (10, k
 // n) f32 and ids (2, k n) i32, each bounce's row gradients and row ids
 // (+0.0 and 0 where it has no hit); otherwise those three are not read.
-// deep: where d = min(stack, k) > 16, (ceil(n / 128) * 128, d, 12) f32 of
-// scratch, otherwise not read. Returns the CUDA error of the launch.
+// deep: where d = min(stack, k) > 16, (d, 12, ceil(n / 128) * 128) f32 of
+// scratch, slot-major, uninitialised (its words are written before they
+// are read), otherwise not read. Returns the CUDA error of the launch.
 extern "C" int diff_backward_launch(
     const float* stab, const float* mtab, const float* ltab, const float* amb,
     const float* s_fwd, const float* tex, const int* s_kind,

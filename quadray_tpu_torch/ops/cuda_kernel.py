@@ -1025,17 +1025,20 @@ def stack_slots_held(cfg: TraceConfig) -> int:
     return min(cfg.stack, cfg.max_segments)
 
 
-def stack_scratch(threads: int, cfg: TraceConfig, floats: int, dev, what):
+def stack_scratch(threads: int, cfg: TraceConfig, floats: int, dev, what,
+                  slot_major: bool = False):
     """A kernel's device-memory scratch for a stack past MAX_STACK slots:
-    (threads, d, floats) f32, d = ``stack_slots_held(cfg)``, from the
-    caching allocator (a CUDA graph's pool during a capture); None where
-    the slots fit in local memory. Raises MemoryError, with the size,
-    where it cannot be had."""
+    (threads, d, floats) f32, or with ``slot_major`` (d, floats, threads)
+    (the all-surface backward's: a warp's lanes on adjacent words), d =
+    ``stack_slots_held(cfg)``, uninitialised, from the caching allocator (a
+    CUDA graph's pool during a capture); None where the slots fit in local
+    memory. Raises MemoryError, with the size, where it cannot be had."""
     d = stack_slots_held(cfg)
     if d <= MAX_STACK:
         return None
+    shape = (d, floats, threads) if slot_major else (threads, d, floats)
     try:
-        return torch.empty((threads, d, floats), dtype=F32, device=dev)
+        return torch.empty(shape, dtype=F32, device=dev)
     except torch.cuda.OutOfMemoryError as e:
         raise MemoryError(
             f"{what}: a branch stack of {d} slots needs "

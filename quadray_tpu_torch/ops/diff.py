@@ -49,8 +49,12 @@ CPU also take float64); both take exact and Schlick Fresnel
 (``cfg.schlick``) and any stack: a ray pushes at most once a bounce, so
 it holds at most d = min(stack, max_segments) slots, which the kernels
 keep in local memory up to 16 and past that in a device-memory scratch
-(``stack_scratch``); the backward counts each bounce's slot from the
-pushes and pops (``stack_slots``), not from the tape's 4-bit field.
+(``stack_scratch``, slot-major for the backward); the backward counts each
+bounce's slot from the pushes and pops (``stack_slots``), not from the
+tape's 4-bit field, touches a slot only where a bounce pushes or pops
+(the plain version zeroes them and touches one every bounce: the same
+bits), and starts each warp of 32 rays at its last live bounce
+(``last_live``, ``warp_bounces``).
 
 The adjoint splits ties as autograd does on ``trace_rays_diff``:
 ``torch.maximum``'s and ``clip``'s one half, ``torch.where``'s gradient
@@ -922,6 +926,26 @@ def stack_slots(ti):
     return torch.where(pushes, height, torch.where(pops, height - 1, 0))
 
 
+def last_live(ti):
+    """Each ray's last live bounce (N,) int64: the last whose flags have a
+    hit, a push or a pop (a pop can come without a hit), -1 where none.
+    After it a ray's reverse pass changes nothing (no adjoint, no slot, the
+    next state's gradient kept), so ``diff_bwd_kernel``'s warp starts at
+    its lanes' largest (``warp_bounces``)."""
+    live = (ti[:, 0] & (HIT | PUSH | POP)) != 0
+    ks = torch.arange(ti.shape[0], device=ti.device)[:, None]
+    return torch.where(live, ks, -1).amax(dim=0)
+
+
+def warp_bounces(ti):
+    """The bounces each warp of 32 consecutive rays runs in the backward
+    kernel (ceil(N / 32),) int64: one more than its lanes' largest
+    ``last_live`` (0: the warp runs none)."""
+    last = torch.nn.functional.pad(last_live(ti), (0, -ti.shape[2] % rp.WARP),
+                                   value=-1)
+    return last.view(-1, rp.WARP).amax(dim=1) + 1
+
+
 def rows_wide(T: Tables, smem: int = ROWS_SMEM_BYTES) -> bool:
     """Whether the backward takes the wide mode: its BWD_WARPS warps'
     accumulators of every column (``table_columns``) need more than
@@ -1141,7 +1165,7 @@ def backward_rows_kernel(g_cols, T: Tables, tf, ti, cfg: TraceConfig,
         ids = torch.empty((2, k * n), dtype=I32, device=dev)
     lpart = torch.empty((blocks, cols), dtype=F32, device=dev)
     deep = stack_scratch(blocks * rp.BWD_WARPS * rp.WARP, cfg, TAPE_ROWS,
-                         dev, "diff backward")
+                         dev, "diff backward", slot_major=True)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = _lib().diff_backward_launch(

@@ -3,7 +3,7 @@
 forward).
 
     python3 scripts/ab_diff.py OTHER.cu [OTHER.cu ...] [--scenes test17 ...]
-        [--rounds 3] [--reps 5]
+        [--rounds 3] [--reps 5] [--cfg default deep schlick]
     python3 scripts/ab_diff.py --forward OTHER_whitted.cu [...]
         [--cfg default deep schlick]
 
@@ -13,11 +13,21 @@ or with --forward of csrc/whitted.cu (whitted_tape_launch, the same
 arguments), for example the parent commit's, unpacked with git archive
 into a directory that .gitignore lists, or a variant written there. Every
 version is built with the port's nvcc flags (ptxas lines printed) and
-loaded into one process. Cases: chip_smoke.py T's, the step's moved scene
+loaded into one process (the builds run as parallel nvcc processes; each
+kernel's ptxas lines are printed by entry function). Cases: chip_smoke.py
+T's, the step's moved scene
 at 800x480 with TraceConfig(max_segments=8, stack=4) (--cfg: also T's
 Schlick and deep-stack configs, chip_smoke.py t_cfg), a seeded colour
 gradient. The backward: the tape from this checkout's tape launch; every
-version's partials must equal this checkout's bitwise. The forward: every
+version's partials must equal this checkout's bitwise. With --ordered
+this checkout's backward is also timed (o) on the tape with its rays in
+a stable order by hit mask (each ray's mask over K <= 10 bounces; past
+10, 32 x min(last hit + 1, 31) + min(hits, 31)), the tape and g_cols
+permuted beforehand: what the backward would take were its warps to
+take the rays in that order, with a tape as coalesced as the ray
+order's, so a ceiling on what ordering the rays could win; beside it
+torch.sort(key, stable=True) of the keys and the warp-bounces with a hit
+in either order. The forward: every
 version's colours bitwise this checkout's and its tape in every word of
 the tape's contract (ops/diff.py tape_read; a version from before the
 contract writes the others too). Then this checkout's (b) and each OTHER
@@ -43,7 +53,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
-from ab_pack import build  # noqa: E402
+from ab_pack import build_many  # noqa: E402
+
+
+def order_keys(ti):
+    """Each ray's key from the tape's flags: its hit mask over K <= 10
+    bounces, past 10 32 x min(last hit + 1, 31) + min(hits, 31)."""
+    from quadray_tpu_torch.ops import diff
+    hit = (ti[:, 0] & diff.HIT) != 0
+    ks = torch.arange(hit.shape[0], device=ti.device)[:, None]
+    if hit.shape[0] <= 10:
+        return (hit.int() << ks.int()).sum(0).int()
+    last = torch.where(hit, ks, -1).amax(0)
+    return ((last + 1).clamp(max=31) * 32
+            + hit.int().sum(0).clamp(max=31)).int()
 
 
 def main():
@@ -58,6 +81,9 @@ def main():
     ap.add_argument("--cfg", nargs="+", default=["default"],
                     choices=["default", "schlick", "deep"],
                     help="chip_smoke.py t_cfg's configs to run each scene at")
+    ap.add_argument("--ordered", action="store_true",
+                    help="also time the backward on the tape with its rays "
+                    "ordered by hit mask (the ceiling of ordering them)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_diff.py needs a CUDA card")
@@ -69,8 +95,8 @@ def main():
     mod, argtypes = (ck, ck.ARGTYPES) if args.forward else (diff,
                                                            diff.ARGTYPES)
     libs = {"b": mod._lib()}
-    for j, src in enumerate(args.others):
-        lib = build(src, "whitted" if args.forward else "diff")
+    built = build_many(args.others, "whitted" if args.forward else "diff")
+    for j, lib in enumerate(built):
         for fn, types in argtypes.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = types
@@ -120,13 +146,35 @@ def main():
                     finally:
                         mod._lib = real
             del want, got
-            order = list(libs)
-            times = {k: [] for k in libs}
+            runs = {k: (lambda k=k: run(k)) for k in libs}
+            case = f"{name} {what}"
+            if args.ordered and not args.forward:
+                keys = order_keys(ti)
+                perm = torch.sort(keys, stable=True)[1]
+                tfo = tf[:, :, perm].contiguous()
+                tio = ti[:, :, perm].contiguous()
+                go = g[perm].contiguous()
+                runs["o"] = lambda: diff.light_sums_kernel(
+                    diff.backward_rows_kernel(go, T, tfo, tio, cfg)[3])
+
+                def hit(t):
+                    h = torch.nn.functional.pad((t[:, 0] & diff.HIT) != 0,
+                                                (0, -t.shape[2] % 32))
+                    return int(h.view(t.shape[0], -1, 32).any(2).sum())
+                ordered = {
+                    "keys": int(torch.unique(keys).numel()),
+                    "torch_sort_ms": cs.graph_ms(
+                        lambda: torch.sort(keys, stable=True), args.reps),
+                    "warp_bounces_with_hit": [hit(ti), hit(tio)],
+                    "warp_bounces_run": [int(diff.warp_bounces(ti).sum()),
+                                         int(diff.warp_bounces(tio).sum())]}
+                print(f"{case}: rays ordered by hit mask {ordered}",
+                      flush=True)
+            order = list(runs)
+            times = {k: [] for k in runs}
             for r in range(args.rounds):
                 for key in (order if r % 2 == 0 else order[::-1]):
-                    times[key].append(cs.graph_ms(lambda: run(key),
-                                                  args.reps))
-            case = f"{name} {what}"
+                    times[key].append(cs.graph_ms(runs[key], args.reps))
             out[case] = {k: {"ms": float(np.mean(v)), "runs": v,
                              "blocks_per_sm": occ.get(k)}
                          for k, v in times.items()}

@@ -38,22 +38,37 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 
-def build(src: str, entry: str) -> ctypes.CDLL:
+def build_many(srcs, entry: str) -> list:
+    """Build each source with the port's nvcc flags, their nvcc processes
+    started together, and load it; prints each kernel's ptxas lines with
+    its entry function."""
     from quadray_tpu_torch.ops import _build
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    out = os.path.join(_build.BUILD_DIR, f"lib{entry}_other_{digest}.so")
-    if not os.path.exists(out):
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
-                               "-v", "-I", _build.CSRC, "-o", out, src],
-                              capture_output=True, text=True)
+    outs, procs = [], []
+    for src in srcs:
+        with open(src, "rb") as fh:
+            digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+        out = os.path.join(_build.BUILD_DIR, f"lib{entry}_other_{digest}.so")
+        if not os.path.exists(out) and out not in outs:
+            procs.append((src, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                 _build.CSRC, "-o", out, src], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        outs.append(out)
+    for src, proc in procs:
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {src}:\n{proc.stderr}")
-        for line in proc.stderr.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {os.path.basename(src)}: {line.strip()}")
-    return ctypes.CDLL(out)
+            raise RuntimeError(f"nvcc failed building {src}:\n{err}")
+        for line in err.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill")):
+                print(f"ptxas {src}: {line.strip()}",
+                      flush=True)
+    return [ctypes.CDLL(out) for out in outs]
+
+
+def build(src: str, entry: str) -> ctypes.CDLL:
+    return build_many([src], entry)[0]
 
 
 def pack_with(lib):

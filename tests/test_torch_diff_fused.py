@@ -356,12 +356,18 @@ extern "C" void tape_host(const float* rays, float* out, float* tf, int* ti,
   }
 }
 """
-# diff_bwd_kernel's loop, one ray alone (its warp: itself, or, all_any,
-# a warp in which another lane hits at every bounce, so that a bounce
-# without a hit computes along and is masked); each bounce's values given
-# to the kernel's add by a lane with a hit kept at their columns, (k, n,
-# columns): the ray's leaves, +0.0 in the columns of the rows it did not
-# hit
+# diff_bwd_kernel's warps, one lane after another: every lane of a warp of
+# 32 rays starts at the warp's last live bounce (ray_scan's, their
+# maximum; none: no bounce), writes the wide mode's words of the bounces it
+# skips (skipped_bounces) and computes a bounce where any lane of the warp
+# hits (all_any: every bounce of every ray, as in a warp in which another
+# lane hits at every bounce, so that a bounce without a hit computes along
+# and is masked); runs[w]: the bounces warp w ran. Each lane's branch stack
+# starts as NaN's bits (Back's words are never zeroed: a slot is written
+# before it is read), the CAP 0 scratch is the caller's. Each bounce's
+# values given to the kernel's add by a lane with a hit kept at their
+# columns, (k, n, columns): the ray's leaves, +0.0 in the columns of the
+# rows it did not hit.
 BWD_HOST_LOOP = r"""
 struct RayAdd {
   float* acc;
@@ -375,17 +381,34 @@ template <int CAP>
 static void bwd_rays(const Tabs& t, int ug, int uf, const float* tf,
     const int* ti, const float* g_cols, int wide, float* g_s, float* g_m,
     int* ids, float* lray, int cols, float* deep, int d, int n, int k,
-    int words, int all_any) {
-  for (int i = 0; i < n; ++i) {
-    Back<CAP> bk;
-    bk.init(deep, d);
-    int h = stack_height(ti, words, n, i, k);
-    for (int kk = k - 1; kk >= 0; --kk) {
-      const bool hit = (ti[(size_t)kk * words * n + i] & (1 << 16)) != 0;
-      RayAdd add{lray + ((size_t)kk * n + i) * cols, hit};
-      back_bounce(bk, h, t, ug, uf, tf, ti, words, g_cols[3 * i],
-                  g_cols[3 * i + 1], g_cols[3 * i + 2], wide != 0, g_s, g_m,
-                  ids, i, true, hit || all_any != 0, n, kk, k, add);
+    int words, int all_any, int* runs) {
+  const size_t threads = (size_t)(n + 127) / 128 * 128;
+  const auto hit = [&](int kk, int i) {
+    return (ti[(size_t)kk * words * n + i] & (1 << 16)) != 0;
+  };
+  for (int w = 0; w < (n + 31) / 32; ++w) {
+    const int lanes = n - 32 * w < 32 ? n - 32 * w : 32;
+    int height[32], top = all_any ? k - 1 : -1;
+    for (int l = 0; l < lanes; ++l) {
+      int last;
+      height[l] = ray_scan(ti, words, n, 32 * w + l, k, last);
+      top = last > top ? last : top;
+    }
+    runs[w] = top + 1;
+    for (int l = 0; l < lanes; ++l) {
+      const int i = 32 * w + l;
+      Back<CAP> bk;
+      memset((void*)&bk, 0xff, sizeof bk);
+      bk.init(deep, i, threads, d, height[l]);
+      if (wide) skipped_bounces(g_s, g_m, ids, n, k, top, i);
+      for (int kk = top; kk >= 0; --kk) {
+        bool any = all_any != 0;
+        for (int l2 = 0; l2 < lanes; ++l2) any = any || hit(kk, 32 * w + l2);
+        RayAdd add{lray + ((size_t)kk * n + i) * cols, hit(kk, i)};
+        back_bounce(bk, t, ug, uf, tf, ti, words, g_cols[3 * i],
+                    g_cols[3 * i + 1], g_cols[3 * i + 2], wide != 0, g_s,
+                    g_m, ids, i, true, any, n, kk, k, add);
+      }
     }
   }
 }
@@ -395,23 +418,23 @@ extern "C" void bwd_host(const float* stab, const float* mtab,
     int ug, int uf, const float* tf, const int* ti, const float* g_cols,
     float* g_s, float* g_m, int* ids, float* lray, float* deep, int n, int k,
     int words, int ns, int nm, int nl, int nt, int stack, int schlick,
-    int wide, int all_any) {
+    int wide, int all_any, int* runs) {
   const Tabs t{stab, mtab, ltab, amb, s_kind, s_sing, s_mat, m_props, s_fwd,
                tex, ns, nm, nl, nt, schlick};
   const int d = stack < k ? stack : k;
   const int cols = 10 * nl + 3 + (wide ? 0 : 19 * ns + 10 * nm);
   if (d <= 4)
     bwd_rays<4>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
-                deep, d, n, k, words, all_any);
+                deep, d, n, k, words, all_any, runs);
   else if (d <= 8)
     bwd_rays<8>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
-                deep, d, n, k, words, all_any);
+                deep, d, n, k, words, all_any, runs);
   else if (d <= 16)
     bwd_rays<16>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
-                 deep, d, n, k, words, all_any);
+                 deep, d, n, k, words, all_any, runs);
   else
     bwd_rays<0>(t, ug, uf, tf, ti, g_cols, wide, g_s, g_m, ids, lray, cols,
-                deep, d, n, k, words, all_any);
+                deep, d, n, k, words, all_any, runs);
 }
 """
 F2F = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
@@ -488,11 +511,17 @@ def _tape_host(rehearsal, sc, rays, cfg, like_tf, like_ti):
     return out, tf2, ti2
 
 
-def _bwd_host(rehearsal, sc, cfg, tf, ti, g, wide, all_any=False):
-    """back_bounce's bounces in reverse on the tape (tf, ti): (g_s, g_m,
-    ids, tiles) as backward_rows_plain returns them, each bounce's values
-    given to the kernel's add summed per tile in the kernel's order;
-    all_any: every bounce run as in a warp where another lane hits."""
+def _bwd_host(rehearsal, sc, cfg, tf, ti, g, wide, all_any=False,
+              runs=None):
+    """diff_bwd_kernel's warps on the tape (tf, ti), lane after lane (each
+    warp from its last live bounce, a bounce computed where a lane of the
+    warp hits; all_any: every bounce run as in a warp where another lane
+    hits): (g_s, g_m, ids, tiles) as backward_rows_plain returns them, each
+    bounce's values given to the kernel's add summed per tile in the
+    kernel's order. The stack's scratch (slot-major, past 16 slots) and
+    the wide mode's outputs start as NaN (ids 2**30): the kernel writes
+    each word it reads and each it returns. ``runs``: a list, extended by
+    the bounces each warp ran."""
     dl = rehearsal[1]
     T = diff.tables(sc)
     k, words, n = ti.shape
@@ -501,12 +530,15 @@ def _bwd_host(rehearsal, sc, cfg, tf, ti, g, wide, all_any=False):
         * T.ltab.shape[0] - 3)
     lray = torch.zeros((k, n, cols))
     if wide:
-        gs2 = torch.empty((diff.SURFACE_ROWS, k * n))
-        gm2 = torch.empty((diff.MATERIAL_ROWS, k * n))
-        ids2 = torch.empty((2, k * n), dtype=torch.int32)
+        gs2 = torch.full((diff.SURFACE_ROWS, k * n), float("nan"))
+        gm2 = torch.full((diff.MATERIAL_ROWS, k * n), float("nan"))
+        ids2 = torch.full((2, k * n), 2 ** 30, dtype=torch.int32)
     else:
         gs2 = gm2 = ids2 = torch.empty(0)
-    deep = torch.zeros((max(diff.stack_slots_held(cfg), 1), diff.TAPE_ROWS))
+    threads = -(-n // 128) * 128
+    deep = torch.full((max(diff.stack_slots_held(cfg), 1), diff.TAPE_ROWS,
+                       threads), float("nan"))
+    warp_runs = torch.zeros(-(-n // rp.WARP), dtype=torch.int32)
     dl.bwd_host(*map(_p, (T.stab, T.mtab, T.ltab, T.amb,
                           T.s_fwd.contiguous(), T.tex, T.s_kind,
                           T.s_sing, T.s_mat, T.m_props)),
@@ -514,7 +546,9 @@ def _bwd_host(rehearsal, sc, cfg, tf, ti, g, wide, all_any=False):
                 _p(ti), _p(g), _p(gs2), _p(gm2), _p(ids2), _p(lray),
                 _p(deep), n, k, words, T.stab.shape[1], T.mtab.shape[1],
                 T.ltab.shape[0], T.tex.shape[0], cfg.stack,
-                int(cfg.schlick), int(wide), int(all_any))
+                int(cfg.schlick), int(wide), int(all_any), _p(warp_runs))
+    if runs is not None:
+        runs.extend(warp_runs.tolist())
     tiles = torch.zeros((cols, -(-n // rp.WARP)))
     for kk in reversed(range(k)):
         tiles = tiles + rp._tile_sums(lray[kk].T)
@@ -726,6 +760,187 @@ def test_plain_route_takes_what_the_kernels_lack(name, what):
     for k in ttrain.DIFFERENTIABLE_FIELDS:
         err = (got[k] - want[k]).abs().max()
         assert err <= GRAD_RTOL * want[k].abs().max(), (k, float(err))
+
+
+def _touched_bits_check(ti, d: int) -> int:
+    """Each ray's bounces in reverse with a literal touched bit a slot (set
+    by a pop, cleared by a push, all clear at the start), against
+    diff_bwd_kernel's rule (``Slots``): a push's slot is touched exactly
+    where it is at or above lo, the lowest stack height so far, and a pop
+    never finds its slot touched. Returns the pushes that found their slot
+    untouched (pending at the ray's end, or never popped)."""
+    k, _, n = ti.shape
+    fl = ti[:, 0]
+    push, pop = (fl & diff.PUSH) != 0, (fl & diff.POP) != 0
+    slots = diff.stack_slots(ti)
+    bits = torch.zeros((n, max(d, 1)), dtype=torch.bool)
+    lanes = torch.arange(n)
+    h = (push.long() - pop.long()).sum(0)
+    lo = h.clone()
+    untouched = 0
+    for kk in reversed(range(k)):
+        s = slots[kk]
+        assert not bool((bits[lanes, s] & pop[kk]).any())
+        u = push[kk]
+        assert torch.equal(bits[lanes, s][u], (s >= lo)[u])
+        untouched += int((u & ~bits[lanes, s]).sum())
+        bits[lanes, s] = torch.where(pop[kk], True, torch.where(
+            u, False, bits[lanes, s]))
+        h = h - u.long() + pop[kk].long()
+        lo = torch.minimum(lo, h)
+    return untouched
+
+
+def _synthetic_tape(events, like, seed):
+    """A tape (tf, ti) whose ray j's bounces follow the string events[j]:
+    'h' a hit, 'u' a hit that pushes, 'O' a hit that pops, 'o' a pop
+    without a hit, '.' nothing. Each hit's entry state, texel and light
+    words are a real hit bounce of the tape ``like`` (tf, ti), drawn with
+    the seed, its push and pop bits and slot field set from the events, so
+    the backward recomputes and differentiates real hits along a stack of
+    any shape (the forward made neither this ray nor its colour)."""
+    ltf, lti = like
+    src = torch.nonzero((lti[:, 0] & diff.HIT) != 0)
+    rs = np.random.RandomState(seed)
+    k, n, words = len(events[0]), len(events), lti.shape[1]
+    tf = torch.zeros((k, diff.TAPE_ROWS, n))
+    ti = torch.zeros((k, words, n), dtype=torch.int32)
+    ti[:, 1] = -1
+    keep = ~(diff.PUSH | diff.POP | (diff.SLOT_MASK << diff.SLOT_SHIFT))
+    for j, ev in enumerate(events):
+        h = 0
+        for kk, e in enumerate(ev):
+            if e == ".":
+                continue
+            if e == "o":
+                h -= 1
+                ti[kk, 0, j] = (diff.ACTIVE | diff.POP
+                                | ((h & diff.SLOT_MASK) << diff.SLOT_SHIFT))
+                continue
+            k0, i0 = src[rs.randint(len(src))].tolist()
+            tf[kk, :, j] = ltf[k0, :, i0]
+            ti[kk, :, j] = lti[k0, :, i0]
+            fl = int(ti[kk, 0, j]) & keep
+            if e == "u":
+                fl |= diff.PUSH | ((h & diff.SLOT_MASK) << diff.SLOT_SHIFT)
+                h += 1
+            elif e == "O":
+                h -= 1
+                fl |= diff.POP | ((h & diff.SLOT_MASK) << diff.SLOT_SHIFT)
+            ti[kk, 0, j] = fl
+            assert 0 <= h
+    return tf, ti
+
+
+def _random_events(rs, k: int, stack: int, rays: int, climb: float = 0.5):
+    """``rays`` seeded event strings of k bounces (``_synthetic_tape``'s)
+    that keep the stack between 0 and ``stack`` slots: pushes more likely
+    than pops for the first ``climb`` of the bounces, then fewer, so some
+    stacks run deep and some rays end with slots pending."""
+    out = []
+    for _ in range(rays):
+        h, ev = 0, []
+        for kk in range(k):
+            up = 0.55 if kk < climb * k else 0.15
+            r = rs.rand()
+            if r < up and h < stack:
+                ev.append("u")
+                h += 1
+            elif r < up + 0.3 and h > 0:
+                ev.append("oO"[rs.randint(2)])
+                h -= 1
+            else:
+                ev.append("h.."[rs.randint(3)])
+        out.append("".join(ev))
+    return out
+
+
+@pytest.mark.parametrize("k, stack", [(12, 4), (24, 20), (140, 70)])
+def test_stack_slots_touched_only_at_push_or_pop(rehearsal, k, stack):
+    """(a) The backward kernel's branch stack (``Slots``, ``back_bounce``
+    built with g++) reads a slot only at a push and writes it only at a
+    pop, starts from NaN's bits in every slot (local slots, and past 16
+    the slot-major scratch, never zeroed) and is bitwise
+    backward_rows_plain (whose slots are zeroed and touched every bounce)
+    in both modes, on seeded rays of real test17 hits whose stacks take
+    every shape: pops on untouched slots, slots popped and pushed again,
+    slots pending at the end (a push that reads +0.0), pops without a hit,
+    and a stack of 70 slots (past a 64-bit mask: the touched bits are the
+    interval from the lowest height so far to the height, one integer).
+    The literal touched bits agree with that rule on these tapes and on
+    the three scenes' and test18's DEEP_CFG tapes."""
+    sc, rays, _, tf, ti = _case("test17")
+    rs = np.random.RandomState(k)
+    events = _random_events(rs, k, stack, 64)
+    down = min(stack, k - stack)                     # to the top and back
+    events.append("u" * stack + "o" * down + "." * (k - stack - down))
+    events.append("uOuOuoh" + "." * (k - 7))          # a slot used twice
+    stf, sti = _poisoned(*_synthetic_tape(events, (tf, ti), k))
+    cfg = TraceConfig(max_segments=k, stack=stack)
+    d = diff.stack_slots_held(cfg)
+    assert _touched_bits_check(sti, d) > 0
+    assert int(_stack_tops(sti).max()) == stack
+    assert int((_stack_tops(sti)[-1] > 0).sum()) > 0
+    for name in SCENES:
+        _touched_bits_check(_case(name)[4], CFG.stack)
+    if k == 12:
+        sc18, rays18 = _case("test18")[:2]
+        _, _, dti = diff.forward_plain(sc18, *rays18, DEEP_CFG)
+        assert int(_stack_tops(dti).max()) > diff.LOCAL_SLOTS
+        _touched_bits_check(dti, diff.stack_slots_held(DEEP_CFG))
+    g = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (sti.shape[2], 3)).astype(np.float32))
+    T = diff.tables(sc)
+    for wide in (False, True):
+        want = diff.backward_rows_plain(g, T, stf, sti, stack, False, wide)
+        got = _bwd_host(rehearsal, sc, cfg, stf, sti, g, wide)
+        for x, y in zip(got, want):
+            if y is not None:
+                assert torch.equal(BITS(x), BITS(y)), wide
+
+
+def test_warp_starts_at_its_last_live_bounce(rehearsal):
+    """(b) Each warp of the backward kernel's rehearsal runs its bounces
+    from its lanes' last live bounce down (``diff.warp_bounces``; a
+    warp with none runs no bounce) and is bitwise backward_rows_plain in
+    both modes (the wide mode's words of the skipped bounces written +0.0
+    and 0 over NaN), on a tape of three warps: one with no hit or pop at
+    all, one whose last live bounce is one lane's pop without a hit after
+    every hit of the warp (were it skipped, its slot would never be
+    written and the push below it would read NaN), and one whose rays stop
+    early. On the three scenes' tapes too, each warp runs
+    ``diff.warp_bounces``' bounces, fewer than K x warps in all
+    (test_kernel_code_bitwise_plain holds their bits)."""
+    sc, rays, _, tf, ti = _case("test17")
+    k = 12
+    quiet = ["." * k] * 32
+    late = ["uhh.h" + "." * (k - 5)] * 31 + ["uh.h" + "." * (k - 9)
+                                            + "o...."]
+    early = ["huOh" + "." * (k - 4), "uuOoh" + "." * (k - 5)] * 16
+    events = quiet + late + early
+    stf, sti = _poisoned(*_synthetic_tape(events, (tf, ti), 3))
+    fl = sti[:, 0]
+    assert not bool(((fl[:, 32:64] & diff.HIT) != 0)[k - 5:].any())
+    assert diff.warp_bounces(sti).tolist() == [0, k - 4, 5]
+    g = torch.from_numpy(np.random.RandomState(5).standard_normal(
+        (sti.shape[2], 3)).astype(np.float32))
+    T = diff.tables(sc)
+    cfg = TraceConfig(max_segments=k, stack=4)
+    for wide in (False, True):
+        want = diff.backward_rows_plain(g, T, stf, sti, 4, False, wide)
+        runs = []
+        got = _bwd_host(rehearsal, sc, cfg, stf, sti, g, wide, runs=runs)
+        assert runs == diff.warp_bounces(sti).tolist()
+        for x, y in zip(got, want):
+            if y is not None:
+                assert torch.equal(BITS(x), BITS(y)), wide
+    for name in SCENES:
+        sc2, _, _, tf2, ti2 = _case(name)
+        runs = []
+        _bwd_host(rehearsal, sc2, CFG, tf2, ti2,
+                  torch.ones((tf2.shape[2], 3)), False, runs=runs)
+        assert runs == diff.warp_bounces(ti2).tolist()
+        assert sum(runs) < CFG.max_segments * len(runs)
 
 
 def test_stack_slots_count_the_tape():
